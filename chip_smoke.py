@@ -1,19 +1,27 @@
 """Smoke run of the PyTorch port on one Hopper card: ``python3 chip_smoke.py``.
 
-Drives the port's serving path, MHIM-selfattn ``forward_test`` through the
-``Scorer`` and the eval-mode ``forward_teacher``, at the flagship width
-(``config/mhim_c16.yaml``, input_dim 1024, inner_dim 512, 8 heads, 256
-landmarks) on bags of 10,240 instances, with random weights from a seeded
-``torch.Generator``. Phases, each of which fails the run:
+Drives the port's paths at the flagship width (``config/mhim_c16.yaml``,
+input_dim 1024, inner_dim 512, 8 heads, 256 landmarks, 2 TransLayers) on
+bags of 10,240 instances at batch 4, with random weights from a seeded
+``torch.Generator``: the MHIM-selfattn serving path (``forward_test``
+through the ``Scorer``, the eval-mode ``forward_teacher``), the MHIM train
+step, and the MHIM-attn serving path. Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
-2. build: ``nvcc`` builds every kernel from ``mhim_mil_torch/csrc``;
-3. kernels: K1 and K2 against their plain versions in fp32 at the flagship
-   shape (full and ragged masks) and a small odd shape, with times, bounds
-   and a library yardstick;
-4. slice: the kernel path against the plain path on the whole model in fp32,
-   then the scorer's requests under the default bf16 policy, with the
-   launch counts of the kernels on those runs.
+2. build: ``nvcc`` builds every kernel from ``mhim_mil_torch/csrc``, all at once;
+3. kernels: K1, K2 and K4 against their plain versions in fp32 at the
+   flagship shapes (full and ragged masks) and a small odd shape, and K3's
+   outputs and q/k/v gradients at the student's shape against autograd
+   through the plain attention, with times, bounds and library yardsticks;
+4. serving: the selfattn kernel path against the plain path on the whole
+   model in fp32, then the scorer's requests under the default bf16 policy;
+5. train: one flagship train step on the kernel path against the plain path
+   in fp32 from the same weights and draws, then steps under bf16;
+6. attn: MHIM-attn ``forward_test`` on the kernel path against the plain
+   path in fp32, then the scorer's requests under bf16.
+
+Phases 4-6 each reset the launch counts before their main-path runs and
+read them after; the kernels' launches are the sums of those readings.
 
 The line before the last lists the kernels as JSON; the last line is the
 run's JSON verdict. Any failure exits nonzero before it.
@@ -57,6 +65,40 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 10):
+    """Device time of one call of ``fn``: the summed durations of the kernels
+    and copies it puts on the card (``torch.profiler``), mean of ``iters``
+    calls after a warm-up. Unlike :func:`time_ms` it leaves out the gaps in
+    which the card waits for the host to launch the next kernel. None when
+    the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
+    return us / iters / 1e3 if us > 0 else None
+
+
+def timed(r: dict, kern, plain, lib=None):
+    """Fill ``r`` with the CUDA-event medians ``ms``, ``plain_ms``,
+    ``library_ms`` and the device times ``device_ms``, ``plain_device_ms``,
+    ``library_device_ms`` of the kernel path, the plain version and the
+    library call (None where there is no library call)."""
+    for key, fn in (("", kern), ("plain_", plain), ("library_", lib)):
+        r[f"{key}ms"] = time_ms(fn) if fn is not None else None
+        r[f"{key}device_ms"] = device_ms(fn) if fn is not None else None
+
+
+def fmt_ms(r: dict, key: str) -> str:
+    dev = r[f"{key}device_ms"]
+    return f"{r[f'{key}ms']:.4f} ms (device {'not measured' if dev is None else f'{dev:.4f} ms'})"
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
@@ -142,7 +184,7 @@ def bounds(name, o, h, m, dh):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels(gen) -> dict:
+def phase_nystrom_kernels(gen) -> dict:
     import torch.nn.functional as F
 
     from mhim_mil_torch.ops import flash_nystrom as fn
@@ -191,91 +233,211 @@ def phase_kernels(gen) -> dict:
         for kid, (kern, plain, lib) in timings.items():
             bound_ms, bound_by = bounds(kid, o, h, m, dh)
             r = report[kid]
-            r.update(ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(lib),
-                     bound_ms=bound_ms, bound_by=bound_by)
-            log(f"{kid} [{label}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"library {r['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            timed(r, kern, plain, lib)
+            r.update(bound_ms=bound_ms, bound_by=bound_by)
+            log(f"{kid} [{label}]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, "
+                f"library {fmt_ms(r, 'library_')}, bound {bound_ms:.4f} ms ({bound_by})")
         del o
         torch.cuda.empty_cache()
     return report
 
 
-# ---- phase 4: the slice --------------------------------------------------------
+def k4_bounds(x, mask):
+    """K4's least time: the valid rows of x read once (masked rows are
+    skipped), logits and mask read, pooled and attn written; 2 FLOPs per
+    valid element of x."""
+    b, n, d = x.shape
+    n_valid = int(mask.sum())
+    nbytes = n_valid * d * x.element_size() + b * n * (F32 + 1) + b * d * F32 + b * n * F32
+    t_ops, t_bytes = 2 * n_valid * d / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def launches():
+def phase_k4(gen) -> dict:
+    """K4 against its plain version: the flagship's (4, 10,240, 512) with a
+    full mask, ragged with a fake bag (fp32 and bf16 x), and a small odd
+    shape; garbage (NaN) at masked instances. Timed at the full mask."""
+    import torch.nn.functional as F
+
+    from mhim_mil_torch.ops import abmil_pool
+
+    r = {"max_abs_err": 0.0}
+    for label, b, n, d, ragged, dtype in (
+        ("flagship full", 4, 10240, 512, False, torch.float32),
+        ("flagship ragged", 4, 10240, 512, True, torch.float32),
+        ("flagship ragged bf16", 4, 10240, 512, True, torch.bfloat16),
+        ("small odd", 3, 100, 100, True, torch.float32),
+    ):
+        x = torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
+        logits = 3 * torch.randn(b, n, device="cuda", generator=gen)
+        lengths = torch.full((b,), n, device="cuda")
+        if ragged:
+            lengths = torch.randint(n // 2, n + 1, (b,), device="cuda", generator=gen)
+            lengths[2] = 0  # a fake bag
+        mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
+        x = torch.where(mask[..., None], x, torch.tensor(float("nan"), dtype=dtype, device="cuda"))
+        pooled, attn = abmil_pool.fused_abmil_pool(x, logits, mask)
+        torch.cuda.synchronize()
+        want_pooled, want_attn = abmil_pool.abmil_pool_plain(x, logits, mask)
+        e_p = check_close(f"K4 pooled [{label}]", pooled, want_pooled, 1e-5, 1e-5)
+        e_a = check_close(f"K4 attn [{label}]", attn, want_attn, 1e-5, 1e-6)
+        if ragged and not (torch.all(pooled[2] == 0) and torch.all(attn[2] == 0)):
+            fail(f"K4 [{label}]: the fake bag does not pool to zero")
+        r["max_abs_err"] = max(r["max_abs_err"], e_p, e_a)
+        log(f"K4 [{label}] B={b} N={n} D={d} {dtype} valid={lengths.tolist()}: pooled max|d| {e_p:.3e}, "
+            f"attn max|d| {e_a:.3e}; tolerances rtol 1e-5, atol 1e-5 (pooled) / 1e-6 (attn)")
+        if label == "flagship ragged bf16":
+            log(f"K4 [{label}]: kernel {time_ms(lambda: abmil_pool.fused_abmil_pool(x, logits, mask)):.4f} ms, "
+                f"bound {k4_bounds(x, mask)[0]:.4f} ms")
+        if label != "flagship full":
+            continue
+        q = torch.ones(b, 1, 1, 1, device="cuda")
+        k, v, am = logits[:, None, :, None], x[:, None], mask[:, None, None, :]
+        try:
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=1.0)
+            got_lib = lib()[:, 0, 0]
+            r["library"] = "scaled_dot_product_attention(ones[B,1,1,1], logits[B,1,N,1], x[B,1,N,D], mask)"
+        except RuntimeError as e:  # no backend takes these shapes: softmax + bmm instead
+            log(f"K4 library yardstick: scaled_dot_product_attention refused ({e}); softmax + bmm instead")
+            lib = lambda: torch.bmm(torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)[:, None], x)
+            got_lib = lib()[:, 0]
+            r["library"] = "softmax + bmm"
+        check_close("K4 library yardstick", got_lib, want_pooled, 1e-4, 1e-5)
+        bound_ms, bound_by = k4_bounds(x, mask)
+        timed(r, lambda: abmil_pool.fused_abmil_pool(x, logits, mask),
+              lambda: abmil_pool.abmil_pool_plain(x, logits, mask), lib)
+        r.update(bound_ms=bound_ms, bound_by=bound_by)
+        log(f"K4 [{label}]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, library "
+            f"{fmt_ms(r, 'library_')} ({r['library']}), bound {bound_ms:.4f} ms ({bound_by})")
+    return {"K4": r}
+
+
+def k3_bounds(lengths, h, n, m, dh, iters=6):
+    """K3's least time for forward + backward: the products of the masked
+    Nystrom attention per (bag, head) over its valid tokens nv — sim1, sim3,
+    attn3@V, attn1@mid (4·nv·m·dh FMAs), sim2 and pinv@attn3V (2·m²·dh),
+    the pseudo-inverse's 4 m×m products per iteration (4·iters·m³), the cls
+    row (m·nv + m²) — once forward and three times more backward (the
+    recompute and the two products of each gradient), in fp32. Bytes: q, k,
+    v and both cotangents read, out, attn and the three gradients written."""
+    fmas = sum(4 * nv * m * dh + 2 * m * m * dh + 4 * iters * m ** 3 + m * nv + m * m
+               for nv in lengths) * h
+    flops = 2 * 4 * fmas
+    b = len(lengths)
+    nbytes = (3 + 1 + 1 + 3) * b * h * n * dh * F32 + 2 * b * h * n * F32
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_k3(gen) -> dict:
+    """K3 at the student's shape (B=4, H=8, N=1,027 tokens, ragged): out,
+    attn and the q/k/v gradients under random cotangents against autograd
+    through the plain nystrom_attention, with the times of forward +
+    backward."""
+    from mhim_mil_torch.ops import flash_nystrom as fn
+    from mhim_mil_torch.ops.nystrom import nystrom_attention
+
+    b, h, n, dh, m = 4, 8, 1027, 64, 256
+    q, k, v, co = (torch.randn(b, h, n, dh, device="cuda", generator=gen) for _ in range(4))
+    q = q * dh ** -0.5
+    ca = torch.randn(b, h, n, device="cuda", generator=gen)
+    lengths = torch.randint(600, n + 1, (b,), device="cuda", generator=gen)
+    lengths[0] = n
+    mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
+
+    def run(f):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        out, attn = f(qq, kk, vv)
+        return (out.detach(), attn.detach(), *torch.autograd.grad((out, attn), (qq, kk, vv), (co, ca)))
+
+    kern = lambda: run(lambda *t: fn.flash_nystrom(*t, mask, m))
+    plain = lambda: run(lambda *t: nystrom_attention(*t, mask, m, return_attn=True))
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    errs = [check_close("K3 out", got[0], want[0], 1e-4, 1e-5)]
+    for name, g, w in zip(("attn", "dq", "dk", "dv"), got[1:], want[1:]):
+        errs.append(check_rel(f"K3 {name}", g, w, 1e-4))
+    bound_ms, bound_by = k3_bounds(lengths.tolist(), h, n, m, dh)
+    r = {"max_abs_err": max(errs), "bound_ms": bound_ms, "bound_by": bound_by}
+    timed(r, kern, plain)
+    log(f"K3 [student] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: out max|d| {errs[0]:.3e}, "
+        f"attn/dq/dk/dv max|d| {', '.join(f'{e:.3e}' for e in errs[1:])} (tolerances: out rtol 1e-4 "
+        f"atol 1e-5, the rest max|d| <= 1e-4 max|ref|); forward+backward {fmt_ms(r, '')}, plain "
+        f"{fmt_ms(r, 'plain_')}, bound {bound_ms:.4f} ms ({bound_by}); no library call computes it")
+    return {"K3": r}
+
+
+# ---- phases 4-6: the main paths ---------------------------------------------------
+
+
+KERNELS = ("K1", "K2", "K3", "K3b", "K4")  # K3b: K3's backward
+
+
+def launches() -> dict:
+    from mhim_mil_torch.ops import abmil_pool
     from mhim_mil_torch.ops import flash_nystrom as fn
 
-    return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches}
+    return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches, "K3": fn.FlashNystrom.forward_calls,
+            "K3b": fn.FlashNystrom.backward_calls, "K4": abmil_pool.fused_abmil_pool.launches}
 
 
 def reset_launches():
+    from mhim_mil_torch.ops import abmil_pool
     from mhim_mil_torch.ops import flash_nystrom as fn
 
-    fn.pass_a.launches = 0
-    fn.pass_b.launches = 0
+    fn.pass_a.launches = fn.pass_b.launches = 0
+    fn.FlashNystrom.forward_calls = fn.FlashNystrom.backward_calls = 0
+    abmil_pool.fused_abmil_pool.launches = 0
 
 
-def phase_slice(gen) -> dict:
-    from mhim_mil_torch.config import load_config
-    from mhim_mil_torch.models import build_model
-    from mhim_mil_torch.utils.serving import Scorer
-
-    cfg = load_config(["-c", "config/mhim_c16.yaml"], input_dim=1024)
-    model_k, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    model_p, _ = build_model(cfg.replace(use_flash_attn=False), device="cuda",
-                             generator=torch.Generator().manual_seed(1))
-    model_p.load_state_dict(model_k.state_dict())
-    log(f"slice: MHIM-selfattn input_dim {cfg.input_dim} inner_dim {cfg.inner_dim} "
-        f"heads {cfg.n_heads}, {sum(p.numel() for p in model_k.parameters())} params, "
-        f"compute_dtype {cfg.compute_dtype}")
-
-    b, n = 4, 10240
-    feats = torch.randn(b, n, cfg.input_dim, device="cuda", generator=gen)
-    lengths = torch.tensor([10240, 10240, 8000, 6000], device="cuda")
-    mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
-
-    # fp32: the kernel path against the plain path on the same weights
-    counted = {"K1": 0, "K2": 0}
-    reset_launches()
-    logits_k = model_k.forward_test(feats, mask)["logits"]
-    cls_k, score_k = model_k.forward_teacher(feats, mask)
-    torch.cuda.synchronize()
+def expect_launches(label: str, **want) -> dict:
+    """The launches since the last reset; fails unless they are ``want`` (0 elsewhere)."""
     seen = launches()
-    if seen != {"K1": 4, "K2": 4}:
-        fail(f"forward_test + forward_teacher launched {seen}, want 2 + 2 of each")
-    for kid in counted:
-        counted[kid] += seen[kid]
-    reset_launches()
-    logits_p = model_p.forward_test(feats, mask)["logits"]
-    cls_p, score_p = model_p.forward_teacher(feats, mask)
-    torch.cuda.synchronize()
-    if launches() != {"K1": 0, "K2": 0}:
-        fail(f"the plain path launched kernels: {launches()}")
-    tol = 1e-3  # fp32 both ways; sums in another order over 10,241 tokens, through the pinv
-    for name, got, want in (("logits", logits_k, logits_p), ("cls_feat", cls_k, cls_p),
-                            ("score", score_k, score_p)):
+    want = {kid: want.get(kid, 0) for kid in KERNELS}
+    if seen != want:
+        fail(f"{label} launched {seen}, want {want}")
+    return seen
+
+
+def compare_models(label: str, pairs, tol: float):
+    for name, got, want in pairs:
         err = (got - want).abs().max().item()
         scale = max(1.0, want.abs().max().item())
-        log(f"slice fp32 {name} {tuple(got.shape)}: kernel vs plain max|d| {err:.3e} "
+        log(f"{label} fp32 {name} {tuple(got.shape)}: kernel vs plain max|d| {err:.3e} "
             f"(tolerance {tol} * max(1, max|ref|) = {tol * scale:.3e})")
         if not torch.isfinite(got).all() or err > tol * scale:
-            fail(f"slice fp32 {name} disagrees")
+            fail(f"{label} fp32 {name} disagrees")
 
-    # bf16 serving: the scorer's requests
-    scorer = Scorer(cfg, model_k, device="cuda")
-    ragged = torch.randn(6000, cfg.input_dim, device="cuda", generator=gen)
-    requests = [
-        ("batch 4 x 10240", feats.cpu().numpy(), mask.cpu().numpy(), 4),
-        ("batch 1 x 10240", feats[:1].cpu().numpy(), None, 1),
-        ("ragged 6000 (bucket 10240)", ragged.cpu().numpy(), None, 1),
-    ]
+
+def flagship_models(gen_seed: int, **kw):
+    """The kernel-path and plain-path models of ``config/mhim_c16.yaml`` at
+    input_dim 1024 on the same random weights."""
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.models import build_model
+
+    cfg = load_config(["-c", "config/mhim_c16.yaml"], input_dim=1024, **kw)
+    model_k, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(gen_seed))
+    model_p, _ = build_model(cfg.replace(use_flash_attn=False), device="cuda",
+                             generator=torch.Generator().manual_seed(gen_seed + 1))
+    model_p.load_state_dict(model_k.state_dict())
+    log(f"model: MHIM-{cfg.baseline} input_dim {cfg.input_dim} inner_dim {cfg.inner_dim} heads "
+        f"{cfg.n_heads}, {sum(p.numel() for p in model_k.parameters())} params, compute_dtype "
+        f"{cfg.compute_dtype}")
+    return cfg, model_k, model_p
+
+
+def serve(label: str, cfg, model, requests, kernel_launches: dict, ref_logits=None) -> dict:
+    """Time the scorer's requests (bf16 policy), SERVING_REPEATS of each after
+    one warm-up; fails unless each request launched ``kernel_launches``."""
+    from mhim_mil_torch.utils.serving import Scorer
+
+    scorer = Scorer(cfg, model, device="cuda")
     for _, f, mk, _ in requests:  # warm-up: library handles, allocator
         scorer.score(f, mk)
     torch.cuda.synchronize()
     reset_launches()
-    serving = []
-    for label, f, mk, bags in requests:
+    rows = []
+    for name, f, mk, bags in requests:
         times, out = [], None
         for _ in range(SERVING_REPEATS):
             t0 = time.perf_counter()
@@ -284,47 +446,199 @@ def phase_slice(gen) -> dict:
         ms = statistics.median(times)
         want_shape = (bags, cfg.n_classes) if f.ndim == 3 else (cfg.n_classes,)
         if out.shape != want_shape or not all(math.isfinite(x) for x in out.ravel()):
-            fail(f"scorer [{label}] gave {out.shape} {out}")
-        serving.append({"request": label, "ms": ms, "slides_per_s": bags / ms * 1e3})
-        log(f"serving [{label}]: {ms:.2f} ms per request (median of {SERVING_REPEATS}, host clock, "
+            fail(f"{label} scorer [{name}] gave {out.shape} {out}")
+        rows.append({"request": f"{label} {name}", "ms": ms, "slides_per_s": bags / ms * 1e3})
+        log(f"serving {label} [{name}]: {ms:.2f} ms per request (median of {SERVING_REPEATS}, host clock, "
             f"H2D of the features included), {bags / ms * 1e3:.2f} slides/s")
-        if label.startswith("batch 4"):
-            err = abs(out - logits_k.cpu().numpy()).max()
-            log(f"serving bf16 vs fp32 kernel-path logits: max|d| {err:.3e} (tolerance 0.1)")
+        if ref_logits is not None and name.startswith("batch 4"):
+            err = abs(out - ref_logits.cpu().numpy()).max()
+            log(f"serving {label} bf16 vs fp32 kernel-path logits: max|d| {err:.3e} (tolerance 0.1)")
             if err > 0.1:
-                fail("bf16 serving logits drift from the fp32 logits")
-    seen = launches()
-    want = {kid: 2 * SERVING_REPEATS * len(requests) for kid in seen}
-    if seen != want:
-        fail(f"scorer launched {seen}, want {want}")
-    for kid in counted:
-        counted[kid] += seen[kid]
-    log(f"launches on the main path: {counted}")
-    return {"launches": counted, "serving": serving}
+                fail(f"{label}: bf16 serving logits drift from the fp32 logits")
+    n_req = SERVING_REPEATS * len(requests)
+    return {"launches": expect_launches(f"{label} scorer", **{k: v * n_req for k, v in kernel_launches.items()}),
+            "serving": rows}
+
+
+def flagship_batch(gen, input_dim: int):
+    b, n = 4, 10240
+    feats = torch.randn(b, n, input_dim, device="cuda", generator=gen)
+    lengths = torch.tensor([10240, 10240, 8000, 6000], device="cuda")
+    return feats, torch.arange(n, device="cuda")[None] < lengths[:, None]
+
+
+def phase_serving(gen) -> dict:
+    """Phase 4: MHIM-selfattn, the kernel path against the plain path in
+    fp32 (forward_test + the eval teacher), then the scorer under bf16."""
+    cfg, model_k, model_p = flagship_models(0)
+    feats, mask = flagship_batch(gen, cfg.input_dim)
+    reset_launches()
+    logits_k = model_k.forward_test(feats, mask)["logits"]
+    cls_k, score_k = model_k.forward_teacher(feats, mask)
+    torch.cuda.synchronize()
+    counted = expect_launches("forward_test + forward_teacher", K1=4, K2=4)
+    reset_launches()
+    logits_p = model_p.forward_test(feats, mask)["logits"]
+    cls_p, score_p = model_p.forward_teacher(feats, mask)
+    torch.cuda.synchronize()
+    expect_launches("the plain path")
+    # fp32 both ways; sums in another order over 10,241 tokens, through the pinv
+    compare_models("serving", (("logits", logits_k, logits_p), ("cls_feat", cls_k, cls_p),
+                               ("score", score_k, score_p)), 1e-3)
+    ragged = torch.randn(6000, cfg.input_dim, device="cuda", generator=gen)
+    requests = [
+        ("batch 4 x 10240", feats.cpu().numpy(), mask.cpu().numpy(), 4),
+        ("batch 1 x 10240", feats[:1].cpu().numpy(), None, 1),
+        ("ragged 6000 (bucket 10240)", ragged.cpu().numpy(), None, 1),
+    ]
+    sv = serve("selfattn", cfg, model_k, requests, {"K1": 2, "K2": 2}, logits_k)
+    return {"launches": [counted, sv["launches"]], "serving": sv["serving"]}
+
+
+TRAIN_STEPS = 10  # timed bf16 steps, after 2 warm-up steps
+
+
+def phase_train(gen) -> dict:
+    """Phase 5: the flagship train step. One fp32 step on the kernel path
+    against the plain path from the same weights, batch and generator seed
+    (so the same dropout, mining and merge draws), then bf16 steps."""
+    from mhim_mil_torch.engine.steps import make_mhim_train_step
+    from mhim_mil_torch.engine.train_state import create_mhim_state
+
+    cfg, model_k, model_p = flagship_models(2, compute_dtype="float32")
+    feats, mask = flagship_batch(gen, cfg.input_dim)
+    b = feats.shape[0]
+    batch = {"feats": feats, "mask": mask, "bag_valid": torch.ones(b, dtype=torch.bool, device="cuda"),
+             "target": torch.randint(0, cfg.n_classes, (b,), device="cuda", generator=gen)}
+    spe = 8
+    state_k = create_mhim_state(cfg, model_k, spe, seed=0, device="cuda")
+    state_p = create_mhim_state(cfg, model_p, spe, seed=0, device="cuda")
+    lr = float(state_k.optimizer.lr_schedule(0))
+    reset_launches()
+    m_k = make_mhim_train_step(cfg, spe, device="cuda")(state_k, batch)
+    torch.cuda.synchronize()
+    counted = expect_launches("one fp32 train step", K1=4, K2=4, K3=2, K3b=2)
+    reset_launches()
+    m_p = make_mhim_train_step(cfg.replace(use_flash_attn=False), spe, device="cuda")(state_p, batch)
+    torch.cuda.synchronize()
+    expect_launches("the plain-path train step")
+    log("train fp32 metrics, kernel path: " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_k.items()))
+    log("train fp32 metrics, plain path:  " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_p.items()))
+    for key in ("keep_num", "patch_num"):
+        if float(m_k[key]) != float(m_p[key]):
+            fail(f"train: {key} differs between the paths: the mining took other instances")
+    d_loss = abs(float(m_k["loss"]) - float(m_p["loss"]))
+    log(f"train fp32 loss: kernel vs plain |d| {d_loss:.3e} (tolerance 1e-4 * |loss|)")
+    if not math.isfinite(float(m_k["loss"])) or d_loss > 1e-4 * abs(float(m_p["loss"])):
+        fail("train: the loss disagrees")
+    # The gradients are the kernels' real test; Adam's first step moves each
+    # parameter by about lr·sign(g), so a gradient entry near zero may move
+    # the two paths' parameters apart by up to 2·lr, and the teacher by
+    # (1 − mm) times that.
+    g_err = max(((pk.grad - pp.grad).abs().max() / pp.grad.abs().max().clamp_min(1e-30)).item()
+                for pk, pp in zip(model_k.parameters(), model_p.parameters()))
+    p_err = max((pk - pp).abs().max().item() for pk, pp in zip(model_k.parameters(), model_p.parameters()))
+    t_err = max((tk - tp).abs().max().item()
+                for tk, tp in zip(state_k.teacher.parameters(), state_p.teacher.parameters()))
+    q_err = (model_k.merge.global_q_mm - model_p.merge.global_q_mm).abs().max().item()
+    log(f"train fp32 kernel vs plain: gradients max|d|/max|ref| {g_err:.3e} (tolerance 1e-3), params max|d| "
+        f"{p_err:.3e} (tolerance 2·lr = {2 * lr:.3e}), teacher max|d| {t_err:.3e} (tolerance "
+        f"{2 * lr * (1 - cfg.mm) + 1e-7:.3e}), global_q max|d| {q_err:.3e} (tolerance 1e-6)")
+    if g_err > 1e-3 or p_err > 2 * lr or t_err > 2 * lr * (1 - cfg.mm) + 1e-7 or q_err > 1e-6:
+        fail("train: the kernel path's update disagrees with the plain path's")
+
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    step16 = make_mhim_train_step(cfg16, spe, device="cuda")
+    before = [p.detach().clone() for p in model_k.parameters()]
+    reset_launches()
+    for _ in range(2):
+        step16(state_k, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step16(state_k, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    n = TRAIN_STEPS + 2
+    counted_16 = expect_launches("the bf16 train steps", K1=4 * n, K2=4 * n, K3=2 * n, K3b=2 * n)
+    moved = sum(not torch.equal(p, q) for p, q in zip(model_k.parameters(), before))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    log(f"train bf16: {TRAIN_STEPS} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"{moved}/{len(before)} parameter tensors moved; {ms:.2f} ms per step (median, host clock, "
+        f"synchronised; min {min(times):.2f}, max {max(times):.2f}), {b / ms * 1e3:.1f} bags/s; "
+        f"peak memory {peak_gb:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses) or moved != len(before):
+        fail("train bf16: a loss is not finite or a parameter did not move")
+    return {"launches": [counted, counted_16],
+            "train": {"ms_per_step": ms, "bags_per_s": b / ms * 1e3, "peak_gib": peak_gb}}
+
+
+def phase_attn(gen) -> dict:
+    """Phase 6: MHIM-attn, the kernel path (K4) against the plain path in
+    fp32, then the scorer under bf16: K4 once per request."""
+    cfg, model_k, model_p = flagship_models(4, baseline="attn")
+    feats, mask = flagship_batch(gen, cfg.input_dim)
+    reset_launches()
+    logits_k = model_k.forward_test(feats, mask)["logits"]
+    cls_k, score_k = model_k.forward_teacher(feats, mask)
+    torch.cuda.synchronize()
+    counted = expect_launches("MHIM-attn forward_test + forward_teacher", K4=2)
+    reset_launches()
+    logits_p = model_p.forward_test(feats, mask)["logits"]
+    cls_p, score_p = model_p.forward_teacher(feats, mask)
+    torch.cuda.synchronize()
+    expect_launches("the MHIM-attn plain path")
+    compare_models("attn", (("logits", logits_k, logits_p), ("cls_feat", cls_k, cls_p),
+                            ("score", score_k, score_p)), 1e-4)
+    requests = [
+        ("batch 4 x 10240", feats.cpu().numpy(), mask.cpu().numpy(), 4),
+        ("batch 1 x 10240", feats[:1].cpu().numpy(), None, 1),
+    ]
+    sv = serve("attn", cfg, model_k, requests, {"K4": 1}, logits_k)
+    return {"launches": [counted, sv["launches"]], "serving": sv["serving"]}
 
 
 def main():
     phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    report = phase_kernels(gen)
-    sl = phase_slice(gen)
+    report = phase_nystrom_kernels(gen)
+    report.update(phase_k4(gen))
+    report.update(phase_k3(gen))
+    counted = {kid: 0 for kid in KERNELS}
+    for phase in (phase_serving, phase_train, phase_attn):
+        for seen in phase(gen)["launches"]:
+            for kid in KERNELS:
+                counted[kid] += seen[kid]
+    log(f"launches on the main paths: {counted}")
     meta = {
-        "K1": ("flash_nystrom_pass_a", "mhim_mil_tpu/ops/pallas_nystrom.py:45"),
-        "K2": ("flash_nystrom_pass_b", "mhim_mil_tpu/ops/pallas_nystrom.py:85"),
+        "K1": ("flash_nystrom_pass_a", "mhim_mil_torch/csrc/flash_nystrom.cu",
+               "mhim_mil_tpu/ops/pallas_nystrom.py:45"),
+        "K2": ("flash_nystrom_pass_b", "mhim_mil_torch/csrc/flash_nystrom.cu",
+               "mhim_mil_tpu/ops/pallas_nystrom.py:85"),
+        "K3": ("flash_nystrom (FlashNystrom: K1 + K2 forward, recompute backward)",
+               "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
+        "K4": ("abmil_pool", "mhim_mil_torch/csrc/abmil_pool.cu", "mhim_mil_tpu/ops/pallas_abmil.py:42"),
     }
     kernels = []
-    for kid, (name, replaces) in meta.items():
+    for kid, (name, source, replaces) in meta.items():
         r = report[kid]
-        if sl["launches"][kid] < 1:
-            fail(f"{kid} was not launched on the main path")
-        kernels.append({
-            "name": name, "id": kid, "status": "ported", "route": "cuda",
-            "source": "mhim_mil_torch/csrc/flash_nystrom.cu", "replaces": replaces,
-            "launches": sl["launches"][kid], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        if counted[kid] < 1 or (kid == "K3" and counted["K3b"] < 1):
+            fail(f"{kid} was not launched on the main paths")
+        row = {
+            "name": name, "id": kid, "status": "ported", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counted[kid], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-        })
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"], "library_device_ms": r["library_device_ms"],
+        }
+        if kid == "K3":
+            row["backward_launches"] = counted["K3b"]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

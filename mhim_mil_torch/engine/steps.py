@@ -1,36 +1,152 @@
-"""Precision policy and the MHIM eval step (port of ``cast_compute`` in
-``mhim_mil_tpu/engine/steps.py`` and ``make_mhim_eval_step`` in ``models/mhim.py``)."""
+"""Precision policy, the teacher EMA and the MHIM train and eval steps (port
+of ``cast_compute`` and ``ema_update`` in ``mhim_mil_tpu/engine/steps.py`` and
+of ``make_mhim_train_step`` / ``make_mhim_eval_step`` in ``models/mhim.py``)."""
 
 from __future__ import annotations
 
-import copy
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.profiler import record_function
+
+from ..utils.platform import resolve_device
+from ..utils.schedules import cosine_schedule
+from .losses import build_criterion
+from .train_state import MHIMTrainState
+
+Tensor = torch.Tensor
 
 
 def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if getattr(cfg, "compute_dtype", "float32") == "bfloat16" else torch.float32
 
 
-def cast_compute(cfg, model: nn.Module, batch: Dict[str, torch.Tensor]) -> Tuple[nn.Module, Dict]:
-    """Mixed-precision policy: under ``compute_dtype="bfloat16"``, a bf16 copy
-    of the model's floating-point weights and bf16 features; fp32 otherwise
-    (the model and batch come back as they are). The attention kernels still
-    take q/k/v in fp32, and softmax statistics and the pseudo-inverse run in
-    fp32 whatever the policy."""
+def cast_compute(cfg, model: nn.Module) -> Dict[str, Tensor]:
+    """Mixed-precision policy (``steps.py:25-35``): under
+    ``compute_dtype="bfloat16"``, the bf16 casts of the model's fp32
+    parameters, by name, for :func:`apply_cast`; empty under fp32. The casts
+    are differentiable, so gradients reach the fp32 master weights (and the
+    optimizer state stays fp32). Every op then runs in bf16, LayerNorm and
+    softmax included, as under JAX's cast of the whole param tree; softmax
+    statistics, the pseudo-inverse, the attention kernels and the losses run
+    in fp32 whatever the policy. Buffers are not cast."""
     dtype = compute_dtype(cfg)
-    if dtype != torch.float32:
-        model = copy.deepcopy(model).to(dtype)
-    return model, _cast_batch(dtype, batch)
+    if dtype == torch.float32:
+        return {}
+    return {n: p.to(dtype) for n, p in model.named_parameters() if p.dtype == torch.float32}
 
 
-def _cast_batch(dtype: torch.dtype, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+class _Method(nn.Module):
+    """Calls one method of the wrapped module, so that ``functional_call``
+    can run methods other than ``forward``."""
+
+    def __init__(self, model: nn.Module, method: str):
+        super().__init__()
+        self.model, self.method = model, method
+
+    def forward(self, *args, **kwargs):
+        return getattr(self.model, self.method)(*args, **kwargs)
+
+
+def apply_cast(model: nn.Module, params: Dict[str, Tensor], method: str, *args, **kwargs):
+    """``model.<method>(*args, **kwargs)`` with ``params`` (from
+    :func:`cast_compute`) in place of the module's own parameters."""
+    if not params:
+        return getattr(model, method)(*args, **kwargs)
+    return functional_call(_Method(model, method), {f"model.{n}": p for n, p in params.items()},
+                           args, kwargs)
+
+
+def _cast_batch(dtype: torch.dtype, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
     return {k: (v.to(dtype) if k == "feats" else v) for k, v in batch.items()}
 
 
-def make_mhim_eval_step(cfg, model: nn.Module) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
+@torch.no_grad()
+def ema_update(teacher: nn.Module, student: nn.Module, mm) -> None:
+    """Teacher EMA over the parameters, ``t ← mm·t + (1−mm)·s`` (reference
+    base_engine.py:155-167). Buffers are left alone: the Merge module's
+    ``global_q_mm`` has its own EMA in the student's forward."""
+    for t, s in zip(teacher.parameters(), student.parameters()):
+        t.copy_(t * mm + s.to(t.dtype) * (1.0 - mm))
+
+
+def make_mhim_train_step(
+    cfg, steps_per_epoch: int, device: Optional[Union[str, torch.device]] = None,
+) -> Callable[..., Dict[str, Tensor]]:
+    """The MHIM train step (``mhim.py:349-489`` without ``ablate``), run on
+    ``device`` (CUDA unless ``"cpu"`` is asked for). ``step(state, batch,
+    draws=None)`` runs, in order:
+
+    - the teacher's ``forward_teacher`` in training mode, under no_grad;
+    - the scheduled high-mining ratio ``mrh`` (cosine, with ``mrh_sche``);
+    - the student's training pass;
+    - ``main_alpha``·criterion + ``aux_alpha``·``soft_target_ce``;
+    - backward and the optimizer step at the pre-update step count;
+    - the teacher EMA at ``mm`` (or its cosine schedule with ``mm_sche``).
+
+    The four stages run under ``record_function`` ranges (``mhim.teacher``,
+    ``mhim.student``, ``mhim.backward``, ``mhim.update``) that a profiler
+    reads. It updates ``state`` (an ``MHIMTrainState``) in place and returns the
+    metrics of ``mhim.py:428-437`` with ``loss`` and ``mm``, as 0-d tensors.
+    ``batch`` holds ``feats``, ``mask``, ``target`` and optionally
+    ``bag_valid`` on the device. Random numbers come from ``state.gen``,
+    except the student's mining and merge draws where ``draws`` gives them
+    (see ``MHIM.forward``).
+    """
+    device = resolve_device(device)
+    if cfg.model != "mhim":
+        raise NotImplementedError(f"model={cfg.model!r}: only the mhim train step is ported")
+    criterion = build_criterion(cfg)
+    dtype = compute_dtype(cfg)
+    total_steps = max(cfg.num_epoch * steps_per_epoch, 1)
+    mrh_sche = cosine_schedule(cfg.mask_ratio_h, 0.0, total_steps) if cfg.mrh_sche else None
+    mm_sche = cosine_schedule(cfg.mm, 1.0, total_steps) if cfg.mm_sche else None
+
+    def train_step(state: MHIMTrainState, batch: Dict[str, Tensor],
+                   draws: Optional[Dict[str, object]] = None) -> Dict[str, Tensor]:
+        if batch["feats"].device.type != device.type:
+            raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
+        student, teacher, gen = state.model, state.teacher, state.gen
+        batch_c = _cast_batch(dtype, batch)
+        feats, mask = batch_c["feats"], batch["mask"].bool()
+
+        # The reference's EMA teacher mines with its dropouts on
+        # (model_ema.train(), base_engine.py:37-38).
+        with record_function("mhim.teacher"):
+            cls_tea, attn = apply_cast(teacher, cast_compute(cfg, teacher), "forward_teacher",
+                                       feats, mask, training=True, gen=gen)
+        cls_tea = None if cfg.aux_alpha == 0.0 else cls_tea
+        mrh = mrh_sche(state.step) if mrh_sche is not None else None
+        with record_function("mhim.student"):
+            out = apply_cast(student, cast_compute(cfg, student), "forward", feats, mask, attn, cls_tea, mrh,
+                             training=True, gen=gen, draws=draws)
+            main = criterion(out["logits"], batch)
+            loss = cfg.main_alpha * main + cfg.aux_alpha * out["aux_loss"]
+        with record_function("mhim.backward"):
+            state.optimizer.zero_grad()
+            loss.backward()
+        with record_function("mhim.update"):
+            state.optimizer.step(state.step)
+            mm = mm_sche(state.step) if mm_sche is not None else cfg.mm
+            ema_update(teacher, student, mm)
+        state.step += 1
+        return {
+            "loss": loss.detach(),
+            "mm": torch.as_tensor(mm, dtype=torch.float32),
+            "main_loss": main.detach(),
+            "aux_loss": out["aux_loss"].detach(),
+            "patch_num": out["patch_num"].float().mean(),
+            "keep_num": out["keep_num"].float().mean(),
+            # the padded fraction of the bucket (mhim.py:433-436)
+            "pad_ratio": 1.0 - mask.float().mean(),
+        }
+
+    return train_step
+
+
+def make_mhim_eval_step(cfg, model: nn.Module) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
     """Inference through ``forward_test`` under the config's precision policy
     (reference common_mil.py:56-63). The step takes ``{"feats", "mask"}`` on
     the model's device and returns fp32 ``{"logits"}``.
@@ -38,14 +154,14 @@ def make_mhim_eval_step(cfg, model: nn.Module) -> Callable[[Dict[str, torch.Tens
     Under bf16 the weights are cast once, when the step is made: the step
     then serves the weights the model held at that time.
     """
-    model_c, _ = cast_compute(cfg, model, {})
-    model_c.eval()
     dtype = compute_dtype(cfg)
+    with torch.no_grad():
+        params = cast_compute(cfg, model)
 
     @torch.inference_mode()
-    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def eval_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         batch = _cast_batch(dtype, batch)
-        out = model_c.forward_test(batch["feats"], batch["mask"])
+        out = apply_cast(model, params, "forward_test", batch["feats"], batch["mask"])
         return {"logits": out["logits"].float()}
 
     return eval_step

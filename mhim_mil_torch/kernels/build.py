@@ -53,6 +53,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             P,  # stream
         ],
     },
+    "abmil_pool": {
+        "abmil_pool_chunk": [],
+        "abmil_pool": [
+            P, I64, I64, I32,  # x, its batch and token strides, x is bf16
+            P, P,  # logits, mask
+            P, P, P,  # scratch: part_m, part_s, part_acc
+            P, P,  # pooled, stats
+            I32, I32, I32,  # B, N, D
+            P,  # stream
+        ],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,15 +1,45 @@
-"""MHIM ``selfattn`` baseline encoder (port of ``mhim_mil_tpu/models/baselines.py``).
+"""MHIM baseline encoders ``selfattn`` (SAttention) and ``attn`` (DAttention)
+(port of ``mhim_mil_tpu/models/baselines.py``).
 
-Reference: modules/mhim_modules/baseline.py:222-288 (SAttention).
+Reference: modules/mhim_modules/baseline.py:8-110 (DAttention) and
+:222-288 (SAttention). Each takes embedded ``(x[B,N,D], mask[B,N])`` and
+returns a dict with the bag feature ``cls_feat`` and, on request, the mining
+attention and the pseudo-score ingredients.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from .layers import GatedAttentionPool, TanhAttentionPool
 from .positional import PPEG
 from .transformer import TransLayer
+
+
+class DAttentionBaseline(nn.Module):
+    """ABMIL attention pooling over the embedded features, attention width
+    128, one branch, no biases (port of ``baselines.py:19-43``). Its pool is
+    ``attention`` so that the weights are named as in the reference
+    (``online_encoder.attention.attention.{0,2}``)."""
+
+    def __init__(self, dim: int = 512, act: str = "gelu", gated: bool = False,
+                 use_flash: bool = True):
+        super().__init__()
+        pool = GatedAttentionPool if gated else TanhAttentionPool
+        self.attention = pool(dim, attn_dim=128, act=act, use_bias=False, use_flash=use_flash)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
+                training: bool = False, gen: Optional[torch.Generator] = None,
+                no_norm: bool = False):
+        pooled, attn = self.attention(x, mask, training, gen, no_norm)
+        out = {"cls_feat": pooled[:, 0]}
+        if return_attn:
+            out["attn"] = attn[:, 0]  # [B,N], softmaxed (raw with no_norm)
+            out["act"] = x  # the pre-pool activations, for the pseudo-score
+        return out
 
 
 class SAttentionBaseline(nn.Module):
@@ -29,7 +59,9 @@ class SAttentionBaseline(nn.Module):
         self.layer2 = TransLayer(dim, heads, use_flash)
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
+                training: bool = False, gen: Optional[torch.Generator] = None):
+        """``training`` turns the attention dropouts on, with masks from ``gen``."""
         b = x.shape[0]
         mask = mask.bool()
         x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
@@ -37,16 +69,16 @@ class SAttentionBaseline(nn.Module):
 
         attns, scored1 = [], None
         if return_attn:
-            x, a, _, scored1 = self.layer1(x, full_mask, need_attn=True)
+            x, a, _, scored1 = self.layer1(x, full_mask, True, training, gen)
             attns.append(a[:, :, 1:])  # drop the cls column
         else:
-            x = self.layer1(x, full_mask)
+            x = self.layer1(x, full_mask, False, training, gen)
         x = torch.cat([x[:, :1], self.pos_embedding(x[:, 1:], mask)], dim=1)
         if return_attn and 1 in self.attn_layers:
-            x, a, *_ = self.layer2(x, full_mask, need_attn=True)
+            x, a, *_ = self.layer2(x, full_mask, True, training, gen)
             attns.append(a[:, :, 1:])
         else:
-            x = self.layer2(x, full_mask)
+            x = self.layer2(x, full_mask, False, training, gen)
 
         out = {"cls_feat": self.norm(x[:, 0])}  # LayerNorm is per token
         if return_attn:

@@ -2,13 +2,18 @@
 
 Initialisation follows the reference's ``initialize_weights``: xavier-normal
 linear and convolution weights, zero biases, unit LayerNorm. Weights come
-from an explicit ``torch.Generator``.
+from an explicit ``torch.Generator``, and so does every dropout mask.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+
+from ..ops.abmil_pool import fused_abmil_pool
+from ..ops.masked import masked_softmax
 
 
 def dense(in_features: int, out_features: int, use_bias: bool = True) -> nn.Linear:
@@ -28,23 +33,100 @@ def get_act(name: str) -> nn.Module:
     }[name]()
 
 
+class Dropout(nn.Module):
+    """Dropout as flax applies it: keep each entry with probability ``1 - p``
+    and scale the kept ones by ``1/(1-p)``. The keep-mask comes from the
+    ``torch.Generator`` the caller passes (the train step owns it), never from
+    torch's global generator; it is drawn only when ``training``."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not training or self.p == 0.0:
+            return x
+        if gen is None:
+            raise ValueError("dropout in training mode needs a torch.Generator")
+        keep = 1.0 - self.p
+        kept = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class FeatureEmbed(nn.Sequential):
     """Instance-feature MLP: Linear(input→inner) + act + dropout. Index 0 is the
     linear layer, so the weights are named ``feature.0.*`` as in the reference."""
 
     def __init__(self, input_dim: int, inner_dim: int = 512, act: str = "relu",
                  dropout: float = 0.25):
-        layers = [dense(input_dim, inner_dim), get_act(act)]
-        if dropout > 0:
-            layers.append(nn.Dropout(dropout))
-        super().__init__(*layers)
+        super().__init__(dense(input_dim, inner_dim), get_act(act), Dropout(dropout))
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self[2](self[1](self[0](x)), training, gen)
+
+
+def _pool(pool: nn.Module, x, logits, mask, training, no_norm):
+    """The end of both attention pools: ``logits[B,N,K]`` to ``(pooled[B,K,D],
+    attn[B,K,N])``. K4 on no-grad paths (not training, one branch, use_flash);
+    the differentiable masked softmax and weighted sum otherwise."""
+    logits = logits.transpose(-1, -2)  # [B,K,N]
+    if pool.use_flash and not training and not no_norm and pool.n_branches == 1:
+        pooled, attn = fused_abmil_pool(x, logits[:, 0], mask)
+        return pooled[:, None].to(x.dtype), attn[:, None, :].to(x.dtype)
+    attn = masked_softmax(logits, mask[:, None, :])
+    pooled = torch.einsum("bkn,bnd->bkd", attn, x)
+    return pooled, (logits if no_norm else attn)
+
+
+class TanhAttentionPool(nn.Module):
+    """ABMIL attention pooling ``A = w2·act(w1·x)``, masked softmax over the
+    instances, weighted sum (port of ``layers.py:66-114``). ``attention`` is
+    the reference's ``Sequential(Linear, act, Linear)``. Returns
+    ``(pooled[B,K,D], attn[B,K,N])``, attn softmaxed (raw with ``no_norm``)."""
+
+    def __init__(self, dim: int, attn_dim: int = 128, n_branches: int = 1, act: str = "tanh",
+                 use_bias: bool = True, dropout: float = 0.0, use_flash: bool = True):
+        super().__init__()
+        self.n_branches, self.use_flash = n_branches, use_flash
+        self.attention = nn.Sequential(dense(dim, attn_dim, use_bias), get_act(act),
+                                       dense(attn_dim, n_branches, use_bias))
+        self.drop = Dropout(dropout)
+
+    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None,
+                no_norm: bool = False):
+        a = self.drop(self.attention[1](self.attention[0](x)), training, gen)
+        return _pool(self, x, self.attention[2](a), mask.bool(), training, no_norm)
+
+
+class GatedAttentionPool(nn.Module):
+    """Gated ABMIL attention ``A = w_c·(act(w_a·x) ⊙ σ(w_b·x))`` (port of
+    ``layers.py:117-163``), with the reference's ``attention_a``/``_b``/``_c``
+    names."""
+
+    def __init__(self, dim: int, attn_dim: int = 128, n_branches: int = 1, act: str = "tanh",
+                 use_bias: bool = True, dropout: float = 0.0, use_flash: bool = True):
+        super().__init__()
+        self.n_branches, self.use_flash = n_branches, use_flash
+        self.attention_a = nn.Sequential(dense(dim, attn_dim, use_bias), get_act(act))
+        self.attention_b = nn.Sequential(dense(dim, attn_dim, use_bias), nn.Sigmoid())
+        self.attention_c = dense(attn_dim, n_branches, use_bias)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None,
+                no_norm: bool = False):
+        a = self.drop(self.attention_a(x), training, gen)
+        g = self.drop(self.attention_b(x), training, gen)
+        return _pool(self, x, self.attention_c(a * g), mask.bool(), training, no_norm)
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Reference initialisation, drawn from ``generator`` in module order:
     xavier-normal weights and zero biases for linear and convolution layers,
-    unit LayerNorms, and N(0, 1) for a ``cls_token``."""
+    unit LayerNorms, N(0, 1) for a ``cls_token``, and a module's own
+    ``reset_buffers``."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             nn.init.xavier_normal_(mod.weight, generator=generator)
@@ -56,4 +138,6 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         cls = getattr(mod, "cls_token", None)
         if isinstance(cls, nn.Parameter):
             cls.normal_(0.0, 1.0, generator=generator)
+        if hasattr(mod, "reset_buffers"):  # Merge's global queries
+            mod.reset_buffers(generator)
     return model

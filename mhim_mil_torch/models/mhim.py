@@ -1,18 +1,29 @@
-"""MHIM inference (port of the inference half of ``mhim_mil_tpu/models/mhim.py``).
+"""MHIM, masked hard-instance-mining teacher/student MIL (port of
+``mhim_mil_tpu/models/mhim.py``).
 
-Reference: modules/mhim.py:181-272. This slice ports the ``selfattn``
-baseline's no-gradient passes: ``forward_teacher`` in eval mode and
-``forward_test``. The training pass (mining, Merge, the losses) is not ported
-yet.
+Reference: modules/mhim.py:12-378. Ported: the ``selfattn`` and ``attn``
+baselines with the teacher pass (eval and training mode), the student
+training pass (layered mining, compaction, Merge, the consistency loss) and
+``forward_test``. Masking never changes a shape that depends on the data:
+the removal set is a boolean mask, and the kept tokens are compacted into
+static slices. Every random draw of the student pass (the three mining
+stages, the merge split) is an argument or comes from the caller's
+generator, as do the dropout masks.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 from torch import nn
 
-from .baselines import SAttentionBaseline
+from ..engine.losses import soft_target_ce
+from ..ops.masked import compact
+from ..ops.masking import MaskSchedule, layered_mask
+from .baselines import DAttentionBaseline, SAttentionBaseline
 from .layers import FeatureEmbed, dense
+from .merge import Merge
 
 
 def _cam_score(features: torch.Tensor, weight: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -24,40 +35,165 @@ def _cam_score(features: torch.Tensor, weight: torch.Tensor, mask: torch.Tensor)
     return torch.where(mask, score, 0.0)
 
 
+def _uniform(shape, gen: Optional[torch.Generator], device) -> torch.Tensor:
+    if gen is None:
+        raise ValueError("the training pass needs a torch.Generator or injected draws")
+    return torch.rand(shape, generator=gen, device=device)
+
+
 class MHIM(nn.Module):
-    """MHIM with the ``selfattn`` baseline (SAttention encoder + linear predictor)."""
+    """MHIM with the ``selfattn`` (SAttention) or ``attn`` (DAttention)
+    baseline encoder, a linear predictor and, with ``merge_enable``, the
+    Merge module. The knobs are those of ``mhim.py:55-86``."""
 
     def __init__(self, input_dim: int = 1024, mlp_dim: int = 512, n_classes: int = 2,
-                 dropout: float = 0.25, act: str = "relu", heads: int = 8,
-                 attn2score: bool = True, attn_layer: int = 0, use_flash: bool = True):
+                 dropout: float = 0.25, act: str = "relu", baseline: str = "selfattn",
+                 heads: int = 8, da_act: str = "gelu", mask_ratio: float = 0.0,
+                 mask_ratio_l: float = 0.0, mask_ratio_h: float = 0.0, mask_ratio_hr: float = 1.0,
+                 msa_fusion: str = "vote", attn_layer: int = 0, attn2score: bool = True,
+                 temp_t: float = 1.0, temp_s: float = 1.0, merge_enable: bool = True,
+                 merge_k: int = 1, merge_mm: float = 0.9998, merge_ratio: float = 0.2,
+                 merge_test: bool = False, use_flash: bool = True):
         super().__init__()
+        self.baseline = baseline
+        self.sched = MaskSchedule(mask_ratio, mask_ratio_l, mask_ratio_h, mask_ratio_hr, msa_fusion)
         self.attn2score, self.attn_layer = attn2score, attn_layer
+        self.temp_t, self.temp_s = temp_t, temp_s
+        self.merge_enable, self.merge_k, self.merge_ratio = merge_enable, merge_k, merge_ratio
+        self.merge_test = merge_test
         self.feature = FeatureEmbed(input_dim, mlp_dim, act, dropout)
-        # attn2score mining reads only layer 1's attention and scored values
-        need = (0,) if (attn2score and attn_layer == 0) else (0, 1)
-        self.online_encoder = SAttentionBaseline(mlp_dim, heads, use_flash, attn_layers=need)
+        if baseline == "selfattn":
+            # attn2score mining reads only layer 1's attention and scored values
+            need = (0,) if (attn2score and attn_layer == 0) else (0, 1)
+            self.online_encoder = SAttentionBaseline(mlp_dim, heads, use_flash, attn_layers=need)
+        elif baseline == "attn":
+            self.online_encoder = DAttentionBaseline(mlp_dim, da_act, use_flash=use_flash)
+        else:
+            raise NotImplementedError(f"baseline {baseline!r} is not ported")
         self.predictor = dense(mlp_dim, n_classes)
+        if merge_enable:
+            self.merge = Merge(mlp_dim, k=merge_k, g_q_mm=merge_mm, merge_ratio=merge_ratio)
+
+    # ---- teacher ------------------------------------------------------------
 
     @torch.no_grad()
-    def forward_teacher(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False):
-        """Teacher pass over the full bag: ``(cls_feat[B,D], mining score[B,N])``.
-        Only the eval mode (no dropout) is ported."""
-        if training:
-            raise NotImplementedError("the training-mode teacher (dropout on) comes with the train step")
+    def forward_teacher(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
+                        gen: Optional[torch.Generator] = None):
+        """Teacher pass over the full bag (reference mhim.py:181-227):
+        ``(cls_feat[B,D], mining score[B,N])``. The train step runs it with
+        ``training=True``: the reference's EMA teacher mines with its
+        dropouts on, and their masks come from ``gen``."""
         mask = mask.bool()
-        out = self.online_encoder(self.feature(feats), mask, return_attn=True)
-        if self.attn2score:
-            return out["cls_feat"], _cam_score(out["scored_act"], self.predictor.weight, mask)
-        return out["cls_feat"], out["attns"][self.attn_layer]
+        out = self.online_encoder(self.feature(feats, training, gen), mask, True, training, gen)
+        if not self.attn2score:
+            return out["cls_feat"], (out["attns"][self.attn_layer] if "attns" in out else out["attn"])
+        if self.baseline == "selfattn":
+            feats_w = out["scored_act"]  # layer 1's to_out(v ⊙ attn)
+        else:
+            feats_w = out["act"] * out["attn"][..., None]
+        return out["cls_feat"], _cam_score(feats_w, self.predictor.weight, mask)
+
+    # ---- student ------------------------------------------------------------
+
+    def static_survivors(self, n: int) -> int:
+        """Static bound on the instances that survive mining (mhim.py:202-207).
+        The stages compose by union, so the guaranteed removal is the largest
+        always-firing stage; the scheduled high stage guarantees nothing
+        (−1 absorbs the float32 rounding of the per-bag counts)."""
+        guar = 0
+        if self.sched.mask_ratio > 0:
+            guar = max(guar, int(n * self.sched.mask_ratio) - 1)
+        if self.sched.mask_ratio_l > 0:
+            guar = max(guar, int(n * self.sched.mask_ratio_l) - 1)
+        return n - max(guar, 0)
+
+    def merge_len(self, v_static: int) -> int:
+        """Static slice of the kept tokens after Merge (mhim.py:223; +1 absorbs
+        the float32 rounding of the per-bag keep counts)."""
+        return max(1, min(int(v_static * self.merge_ratio) + 1, v_static))
+
+    def forward(self, feats: torch.Tensor, mask: torch.Tensor, attn: Optional[torch.Tensor] = None,
+                teacher_cls_feat: Optional[torch.Tensor] = None, mask_ratio_h_now=None,
+                training: bool = True, gen: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, object]] = None) -> Dict[str, torch.Tensor]:
+        """Student training pass (reference mhim.py:318-378, JAX mhim.py:166-267):
+        mask hard instances by the teacher's ``attn``, compact the survivors,
+        embed, merge, encode, predict, and pay the consistency loss against
+        the teacher's feature.
+
+        ``draws`` may hold the uniform draws ``"mask"`` (three ``[B,N]``
+        tensors or None, for the random, low and high stages) and
+        ``"merge"`` (``[B, v_static]``); a draw that is not given comes from
+        ``gen``."""
+        mask = mask.bool()
+        b, n, _ = feats.shape
+        draws = draws or {}
+
+        if attn is not None:
+            u = draws.get("mask")
+            if u is None:
+                on = self.sched.stages(mask_ratio_h_now is not None)
+                u = [_uniform(mask.shape, gen, mask.device) if s else None for s in on]
+            visible = mask & ~layered_mask(u, attn, mask, self.sched, mask_ratio_h_now)
+            v_static = self.static_survivors(n)
+        else:
+            visible, v_static = mask, n
+
+        if v_static < n:
+            feats_v, vis, _ = compact(feats, visible, out_len=v_static)
+        else:
+            feats_v, vis = feats, visible
+        x = self.feature(feats_v, training, gen)
+
+        if self.merge_enable:
+            u_merge = draws.get("merge")
+            if training and u_merge is None:
+                u_merge = _uniform(vis.shape, gen, vis.device)
+            keep_sel, merged = self.merge(x, vis, training, gen, u_merge)
+            ones = vis.new_ones((b, self.merge_k))
+            if training:
+                x_c, new_valid, _ = compact(x, keep_sel, out_len=self.merge_len(v_static))
+                x, valid = torch.cat([x_c, merged], dim=1), torch.cat([new_valid, ones], dim=1)
+            else:
+                # Eval-mode Merge keeps every visible token (merge.py:178-203).
+                x, valid = torch.cat([x, merged], dim=1), torch.cat([vis, ones], dim=1)
+        else:
+            valid = vis
+
+        cls_feat = self.online_encoder(x, valid, False, training, gen)["cls_feat"]
+        logits = self.predictor(cls_feat)
+        aux_loss = logits.new_zeros((), dtype=torch.float32)
+        if teacher_cls_feat is not None:
+            # Fake zero-padded bags (mask all False) contribute nothing.
+            aux_loss = soft_target_ce(cls_feat, teacher_cls_feat.detach(), self.temp_t, self.temp_s,
+                                      weights=mask.any(dim=-1))
+        return {
+            "logits": logits,
+            "aux_loss": aux_loss,
+            "patch_num": mask.sum(dim=-1),
+            "keep_num": valid.sum(dim=-1),
+        }
+
+    # ---- inference ----------------------------------------------------------
 
     @torch.no_grad()
     def forward_test(self, feats: torch.Tensor, mask: torch.Tensor,
                      return_attn: bool = False, no_norm: bool = False):
         """Inference pass (reference mhim.py:229-272): ``{"logits"[, "attn"]}``."""
-        if no_norm:
-            raise NotImplementedError("no_norm attention is not ported yet")
-        out = self.online_encoder(self.feature(feats), mask.bool(), return_attn=return_attn)
+        if no_norm and self.baseline == "selfattn":
+            raise NotImplementedError("no_norm Nystrom attention is not ported yet")
+        x = self.feature(feats)
+        mask = mask.bool()
+        if self.merge_enable and self.merge_test:
+            _, merged = self.merge(x, mask)
+            x = torch.cat([x, merged], dim=1)
+            mask = torch.cat([mask, mask.new_ones((x.shape[0], self.merge_k))], dim=1)
+        if self.baseline == "attn":
+            out = self.online_encoder(x, mask, return_attn, no_norm=no_norm)
+        else:
+            out = self.online_encoder(x, mask, return_attn)
         res = {"logits": self.predictor(out["cls_feat"])}
         if return_attn:
             res["attn"] = out["attn"]
         return res
+

@@ -1,6 +1,7 @@
 """Model factory (port of ``mhim_mil_tpu/models/registry.py``).
 
-Only ``model=mhim`` with ``baseline=selfattn`` is ported; anything else raises.
+Only ``model=mhim`` with the ``selfattn`` or ``attn`` baseline is ported;
+anything else raises.
 """
 
 from __future__ import annotations
@@ -21,25 +22,37 @@ def build_model(
 ) -> Tuple[MHIM, str]:
     """Build ``(model, family)`` on ``device`` (CUDA unless ``"cpu"`` is asked
     for), in eval mode, with weights drawn from ``generator`` (default: a CPU
-    generator seeded with ``cfg.seed``). ``cfg.use_flash_attn=False`` selects
-    the materialising reference attention instead of the kernels."""
+    generator seeded with ``cfg.seed``); with ``merge_enable`` it holds the
+    Merge module. ``cfg.use_flash_attn=False`` selects the plain attention and
+    pooling instead of the kernels."""
     device = resolve_device(device)
-    if cfg.model != "mhim" or cfg.baseline != "selfattn" or (cfg.pos or "ppeg") != "ppeg":
+    if cfg.model != "mhim" or cfg.baseline not in ("selfattn", "attn") or (cfg.pos or "ppeg") != "ppeg":
         raise NotImplementedError(
             f"model={cfg.model!r} baseline={cfg.baseline!r} pos={cfg.pos!r}: "
-            "only mhim/selfattn with ppeg is ported"
+            "only mhim with the selfattn (ppeg) or attn baseline is ported"
         )
-    if cfg.merge_enable and cfg.merge_test:
-        raise NotImplementedError("merge_test needs the Merge module, which is not ported yet")
     model = MHIM(
         input_dim=cfg.input_dim,
         mlp_dim=cfg.inner_dim,
         n_classes=cfg.n_classes,
         dropout=cfg.dropout,
         act=cfg.act,
+        baseline=cfg.baseline,
         heads=cfg.n_heads,
-        attn2score=cfg.attn2score,
+        da_act=cfg.da_act,
+        mask_ratio=cfg.mask_ratio,
+        mask_ratio_l=cfg.mask_ratio_l,
+        mask_ratio_h=cfg.mask_ratio_h,
+        mask_ratio_hr=cfg.mask_ratio_hr,
+        msa_fusion=cfg.msa_fusion,
         attn_layer=cfg.attn_layer,
+        attn2score=cfg.attn2score,
+        temp_t=cfg.temp_t,
+        merge_enable=cfg.merge_enable,
+        merge_k=cfg.merge_k,
+        merge_mm=cfg.merge_mm,
+        merge_ratio=cfg.merge_ratio,
+        merge_test=cfg.merge_test,
         use_flash=cfg.use_flash_attn is not False,
     )
     if generator is None:

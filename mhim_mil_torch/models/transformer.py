@@ -7,12 +7,14 @@ original PyTorch repo (``to_qkv``, ``to_out.0``, ``res_conv``, ``norm``).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from ..ops.flash_nystrom import flash_nystrom_infer
+from ..ops.flash_nystrom import flash_nystrom, flash_nystrom_infer
 from ..ops.nystrom import nystrom_attention
-from .layers import dense
+from .layers import Dropout, dense
 
 
 class _DepthwiseResConv(nn.Conv2d):
@@ -33,9 +35,13 @@ class _DepthwiseResConv(nn.Conv2d):
 class NystromMSA(nn.Module):
     """Multi-head Nystrom self-attention with the depthwise-conv value residual.
 
-    ``use_flash`` runs the attention through :func:`flash_nystrom_infer`
-    (the CUDA kernels on the card, their plain versions on the CPU); otherwise
-    through the materialising reference :func:`nystrom_attention`.
+    ``use_flash`` runs the attention through the kernels: K3
+    (:func:`flash_nystrom`) when a gradient is wanted, :func:`flash_nystrom_infer`
+    (K1 + K2) otherwise; each runs its plain versions on the CPU. Without
+    ``use_flash`` it runs the materialising reference :func:`nystrom_attention`.
+    ``to_out`` is a one-layer ``Sequential`` so that its weights keep the
+    reference's name ``to_out.0``; the dropout after it (p=0.1, as in the JAX
+    package) applies to the attention output only, never to the scored values.
     """
 
     def __init__(self, dim: int = 512, heads: int = 8, dim_head: int = 64,
@@ -46,10 +52,12 @@ class NystromMSA(nn.Module):
         self.use_flash = use_flash
         inner = heads * dim_head
         self.to_qkv = dense(dim, inner * 3, use_bias=False)
-        self.to_out = nn.Sequential(dense(inner, dim), nn.Dropout(0.1))
+        self.to_out = nn.Sequential(dense(inner, dim))
+        self.drop = Dropout(0.1)
         self.res_conv = _DepthwiseResConv(heads)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
+                training: bool = False, gen: Optional[torch.Generator] = None):
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
         inner = h * dh
@@ -60,17 +68,17 @@ class NystromMSA(nn.Module):
         q = qkv[:, :, 0] * dh ** -0.5  # [B,N,H,dh]
         k, v = qkv[:, :, 1], qkv[:, :, 2]  # strided views, no copy
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B,H,N,dh] views
-        if self.use_flash:
-            out, attn = flash_nystrom_infer(
-                qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations
-            )
-        else:
+        if not self.use_flash:
             out, attn = nystrom_attention(
                 qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations,
                 return_attn=return_attn,
             )
+        elif torch.is_grad_enabled() and qkv.requires_grad:
+            out, attn = flash_nystrom(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations)
+        else:
+            out, attn = flash_nystrom_infer(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations)
         out = out.transpose(1, 2).reshape(b, n, inner).to(x.dtype) + self.res_conv(v)
-        out = torch.where(mask[..., None], self.to_out(out), 0)
+        out = torch.where(mask[..., None], self.drop(self.to_out(out), training, gen), 0)
         if not return_attn:
             return out
         # Pseudo-score ingredients: the cls-attention-weighted values of the
@@ -90,9 +98,10 @@ class TransLayer(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.attn = NystromMSA(dim, heads, dim // heads, dim // 2, use_flash=use_flash)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, need_attn: bool = False):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, need_attn: bool = False,
+                training: bool = False, gen: Optional[torch.Generator] = None):
         normed = self.norm(x)
         if need_attn:
-            z, attn, v, scored = self.attn(normed, mask, return_attn=True)
+            z, attn, v, scored = self.attn(normed, mask, True, training, gen)
             return x + z, attn, v, scored
-        return x + self.attn(normed, mask)
+        return x + self.attn(normed, mask, False, training, gen)

@@ -16,6 +16,13 @@ of device memory:
 ``csrc/flash_nystrom.cu`` on CUDA tensors and run ``pass_a_plain`` /
 ``pass_b_plain`` on CPU tensors. Each keeps in ``.launches`` the number of
 times it launched its kernel.
+
+**K3** :func:`flash_nystrom` is the differentiable form (the port of the
+custom VJP at ``pallas_nystrom.py:249-304``): its forward is
+:func:`flash_nystrom_infer`, its backward recomputes through the plain
+:func:`ops.nystrom.nystrom_attention` in fp32 and differentiates that, as
+the JAX package's backward does (there it is XLA, not a kernel). Its counts
+are ``FlashNystrom.forward_calls`` and ``FlashNystrom.backward_calls``.
 """
 
 from __future__ import annotations
@@ -25,8 +32,9 @@ from typing import Tuple
 import torch
 
 from ..kernels import load_library
+from ..kernels.launch import check as _check, on_cpu as _on_cpu, raise_on as _raise_on
 from .masked import NEG_INF, masked_softmax
-from .nystrom import _landmark_mean, moore_penrose_pinv
+from .nystrom import _landmark_mean, moore_penrose_pinv, nystrom_attention
 
 Tensor = torch.Tensor
 
@@ -59,30 +67,6 @@ def pass_b_plain(
     sim3 = ql @ k.transpose(-1, -2)  # [B,H,m,N]
     cls = (torch.exp(sim3 - m3[..., None]) * rp[..., None]).sum(dim=-2)
     return out, torch.where(mask[:, None, :], cls, 0.0)
-
-
-def _check(name: str, t: Tensor, shape, device, contiguous: bool = False, dtype=torch.float32):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{name}: want {dtype} {tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-        )
-    if contiguous and not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name} must have a unit stride on its last axis")
-
-
-def _on_cpu(*ts: Tensor) -> bool:
-    if all(t.device.type == "cpu" for t in ts):
-        return True
-    if all(t.device.type == "cuda" for t in ts):
-        return False
-    raise ValueError(f"tensors on mixed or unsupported devices: {sorted({str(t.device) for t in ts})}")
-
-
-def _raise_on(err: int, fn: str):
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA error {err} at launch")
 
 
 def pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -170,13 +154,67 @@ def flash_nystrom_infer(
     with a unit last stride; values at masked tokens are ignored),
     ``mask[B,N]``. Runs in fp32 whatever the input dtype and returns
     ``(out[B,H,N,dh], cls_attn[B,H,N])`` in fp32.
+
+    The kernels' outputs carry no graph, so on CUDA this raises when grad
+    mode is on and q, k or v require grad: use :func:`flash_nystrom` there.
     """
+    if (torch.is_grad_enabled() and q.device.type == "cuda"
+            and any(t.requires_grad for t in (q, k, v))):
+        raise RuntimeError("flash_nystrom_infer has no gradient; call flash_nystrom under grad")
     mask = mask.bool().contiguous()
     q, k, v = (t.float() for t in (q, k, v))
     q_l, k_l, lm_mask, pinv = landmarks(q, k, mask, num_landmarks, pinv_iters)
     attn3v, m3, s3 = pass_a(q_l, k, v, mask)
     mid, rp = pass_b_operands(q, k_l, mask, lm_mask, pinv, attn3v, s3)
     return pass_b(q, k, mask, k_l, lm_mask, mid, q_l, rp, m3)
+
+
+class FlashNystrom(torch.autograd.Function):
+    """K3: the forward is :func:`flash_nystrom_infer` (K1 + K2 on the card);
+    the backward recomputes :func:`nystrom_attention` in fp32 from the saved
+    q, k, v and differentiates it, as the JAX custom VJP does
+    (``pallas_nystrom.py:273-301``). ``forward_calls`` and
+    ``backward_calls`` count the calls of each."""
+
+    forward_calls = 0
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, num_landmarks, pinv_iters):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.num_landmarks, ctx.pinv_iters = num_landmarks, pinv_iters
+        # An unused output (the student never reads attn) gets a None
+        # cotangent, and the backward then leaves its products out.
+        ctx.set_materialize_grads(False)
+        with torch.no_grad():
+            out, attn = flash_nystrom_infer(q, k, v, mask, num_landmarks, pinv_iters)
+        FlashNystrom.forward_calls += 1
+        return out, attn
+
+    @staticmethod
+    def backward(ctx, d_out, d_attn):
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+            out, attn = nystrom_attention(qf, kf, vf, mask, ctx.num_landmarks, ctx.pinv_iters,
+                                          return_attn=d_attn is not None)
+            # A missing cotangent counts as zeros: leave its output out.
+            outs, cots = [out], [d_out.float() if d_out is not None else torch.zeros_like(out)]
+            if d_attn is not None:
+                outs.append(attn)
+                cots.append(d_attn.float())
+            dq, dk, dv = torch.autograd.grad(outs, (qf, kf, vf), cots)
+        FlashNystrom.backward_calls += 1
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+def flash_nystrom(
+    q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6,
+) -> Tuple[Tensor, Tensor]:
+    """Differentiable masked Nystrom attention (K3): the fused forward of
+    :func:`flash_nystrom_infer` with gradients for q, k and v by recompute.
+    Same arguments and fp32 outputs as :func:`flash_nystrom_infer`."""
+    return FlashNystrom.apply(q, k, v, mask.bool(), num_landmarks, pinv_iters)
 
 
 def landmarks(q: Tensor, k: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6):

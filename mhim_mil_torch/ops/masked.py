@@ -1,10 +1,14 @@
 """Masked primitives for ragged MIL bags (port of ``mhim_mil_tpu/ops/masked.py``).
 
 Bags are fixed-shape, length-bucketed ``(x[B, N, D], mask[B, N])`` with the
-padding at the end; ``mask`` marks valid instances.
+padding at the end; ``mask`` marks valid instances. Counts that depend on the
+data stay tensors and selections are boolean masks, so no shape depends on
+the data.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,7 +26,59 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> t
     """
     out_dtype = logits.dtype
     x = torch.where(mask, logits.float(), NEG_INF)
-    mx = x.amax(dim=dim, keepdim=True)
+    mx = x.amax(dim=dim, keepdim=True).detach()
     unnorm = (torch.exp(x - mx) * mask).to(out_dtype)
     denom = unnorm.sum(dim=dim, keepdim=True, dtype=torch.float32)
     return (unnorm / denom.clamp_min(1e-30)).to(out_dtype)
+
+
+def topk_mask(scores: torch.Tensor, valid: torch.Tensor, k, largest: bool = True) -> torch.Tensor:
+    """Boolean mask of the top-``k`` valid positions of ``scores`` on the last axis.
+
+    ``k`` is an int or an integer tensor broadcastable to the leading axes.
+    One sort finds the k-th score; positions strictly beyond it are in, and
+    ties at the threshold are admitted in index order by a cumulative count,
+    as in the JAX package (``masked.py:103-137``).
+    """
+    s = scores.float()
+    key = torch.where(valid, -s if largest else s, -NEG_INF)
+    skey = torch.sort(key, dim=-1).values  # ascending: best first
+    lead = key.shape[:-1]
+    k = torch.as_tensor(k, device=key.device)
+    if 0 < k.dim() < len(lead):
+        k = k[..., None]
+    k = torch.broadcast_to(k, lead).long()
+    idx = (k - 1).clamp(0, key.shape[-1] - 1)
+    thr = torch.gather(skey, -1, idx[..., None])
+    below = (key < thr) & valid
+    ties = (key == thr) & valid
+    n_below = below.sum(dim=-1, keepdim=True)
+    tie_rank = torch.cumsum(ties.int(), dim=-1)  # 1-based
+    sel = below | (ties & (tie_rank <= (k[..., None] - n_below)))
+    return sel & (k[..., None] > 0)
+
+
+def random_subset_mask(u: torch.Tensor, pool: torch.Tensor, k) -> torch.Tensor:
+    """Choose ``k`` of the True positions of ``pool`` uniformly: the top ``k``
+    of the uniform draw ``u`` (shape of ``pool``) over the pool. The draw is an
+    argument, so a test can hand in the JAX package's own uniforms."""
+    if u.shape != pool.shape:
+        raise ValueError(f"draw of shape {tuple(u.shape)} for a pool of shape {tuple(pool.shape)}")
+    return topk_mask(u, pool, k, largest=True)
+
+
+def compact(x: torch.Tensor, keep: torch.Tensor, out_len: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Move the kept instances of ``x[B, N, D]`` to the front, in index order.
+
+    Returns ``(x_sorted, new_valid, perm)``: ``x_sorted[b, :n_keep_b]`` are
+    bag b's kept instances and ``new_valid[b, i] = i < n_keep_b``. ``out_len``
+    truncates to a static prefix; the caller guarantees every ``n_keep_b`` fits.
+    """
+    keep = keep.bool()
+    perm = torch.sort((~keep).to(torch.uint8), dim=-1, stable=True).indices
+    if out_len is not None and out_len < keep.shape[-1]:
+        perm = perm[..., :out_len]
+    x_sorted = torch.gather(x, -2, perm[..., None].expand(*perm.shape, x.shape[-1]))
+    n_keep = keep.sum(dim=-1, keepdim=True)
+    new_valid = torch.arange(perm.shape[-1], device=x.device)[None, :] < n_keep
+    return x_sorted, new_valid, perm

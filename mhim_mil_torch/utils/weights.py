@@ -1,5 +1,6 @@
 """Flax parameter tree → the port's ``state_dict`` (the reverse of
-``import_mhim_selfattn`` in ``mhim_mil_tpu/utils/torch_import.py``).
+``import_mhim_selfattn``, ``import_mhim_attn`` and ``import_merge`` in
+``mhim_mil_tpu/utils/torch_import.py``).
 
 The port keeps the original PyTorch repo's names, so the JAX package's
 importer maps a port ``state_dict`` straight back onto the flax tree:
@@ -11,14 +12,10 @@ flax ``Dense.kernel [in,out]`` ↔ torch ``Linear.weight [out,in]``, LayerNorm
 
 from __future__ import annotations
 
-import warnings
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
-
-_USED = ("feature", "online_encoder", "predictor")
-
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
@@ -64,22 +61,41 @@ def sattention_state(sd: Dict, prefix: str, p: Mapping):
     _layernorm(sd, f"{prefix}norm", p["norm"])
 
 
-def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` of the port's MHIM-selfattn from the JAX package's
-    ``params`` (a nested mapping of arrays).
+def dattention_state(sd: Dict, prefix: str, p: Mapping):
+    """A ``DAttentionBaseline``'s flax params into ``sd`` under ``prefix``
+    (the reference's ``attention.attention.{0,2}``, as ``import_mhim_attn`` reads them)."""
+    _linear(sd, f"{prefix}attention.attention.0", p["attention"]["attn_a"])
+    _linear(sd, f"{prefix}attention.attention.2", p["attention"]["attn_c"])
 
-    The ``merge`` subtree is skipped, with a warning, and the Merge module's
-    ``global_q`` buffer (which lives outside ``params``) is not read:
-    ``forward_test`` does not use them while ``merge_test`` is off.
-    """
-    skipped = sorted(set(params) - set(_USED))
-    if skipped:
-        warnings.warn(
-            f"state_dict_from_flax: skipped {skipped}; the Merge module and its "
-            "global_q buffer are not ported (forward_test does not use them)"
-        )
+
+def merge_state(sd: Dict, prefix: str, p: Mapping, buffers: Mapping):
+    """A ``Merge``'s flax params and its ``global_q`` buffer into ``sd``
+    under ``prefix``, by the names ``import_merge`` reads."""
+    _layernorm(sd, f"{prefix}norm", p["norm"])
+    _linear(sd, f"{prefix}attn.to_kv", p["attn"]["to_kv"])
+    _linear(sd, f"{prefix}attn.to_q", p["attn"]["to_q"])
+    _linear(sd, f"{prefix}attn.to_out.0", p["attn"]["to_out"])
+    sd[f"{prefix}global_q_mm"] = _t(buffers["global_q"])
+
+
+def state_dict_from_flax(params: Mapping, buffers: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's MHIM (``selfattn`` or ``attn``
+    baseline, told apart by the encoder's params) from the JAX package's
+    ``params`` and, when they hold a ``merge`` subtree, its ``buffers``
+    collection (``model_state["buffers"]``, which carries ``global_q``)."""
+    unknown = sorted(set(params) - {"feature", "online_encoder", "predictor", "merge"})
+    if unknown:
+        raise ValueError(f"state_dict_from_flax: unknown subtrees {unknown}")
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "feature.0", params["feature"]["proj"])
-    sattention_state(sd, "online_encoder.", params["online_encoder"])
+    enc = params["online_encoder"]
+    if "attention" in enc:
+        dattention_state(sd, "online_encoder.", enc)
+    else:
+        sattention_state(sd, "online_encoder.", enc)
     _linear(sd, "predictor", params["predictor"])
+    if "merge" in params:
+        if buffers is None or "merge" not in buffers:
+            raise ValueError("the merge params need buffers['merge']['global_q']")
+        merge_state(sd, "merge.", params["merge"], buffers["merge"])
     return sd

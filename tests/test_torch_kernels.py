@@ -1,4 +1,4 @@
-"""K1 and K2 against their plain versions on a Hopper card.
+"""K1, K2, K3 and K4 against their plain versions on a Hopper card.
 
 Marked ``cuda``: skips without a card of capability 9.0. This file imports no
 JAX, so it runs on the card's machine, from the root of the repo:
@@ -8,7 +8,9 @@ JAX, so it runs on the card's machine, from the root of the repo:
 import pytest
 import torch
 
+from mhim_mil_torch.ops import abmil_pool
 from mhim_mil_torch.ops import flash_nystrom as fn
+from mhim_mil_torch.ops.nystrom import nystrom_attention
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -44,3 +46,66 @@ def test_kernels_match_plain_versions_on_the_card(hopper, n, dh, m, ragged):
     torch.cuda.synchronize()
     torch.testing.assert_close(got_out, want_out, rtol=RTOL, atol=ATOL)
     assert (got_cls - want_cls).abs().max() <= 1e-4 * want_cls.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,dtype", [(4, 1000, 512, torch.float32), (3, 100, 32, torch.float32),
+                                         (2, 333, 100, torch.bfloat16)])
+def test_abmil_pool_matches_its_plain_version_on_the_card(hopper, b, n, d, dtype):
+    """K4 against abmil_pool_plain: ragged bags, a fake bag (pooled and attn
+    zero, nothing NaN) and garbage at masked instances; rtol 1e-5 atol 1e-5,
+    attn atol 1e-6, as the JAX package's kernel test holds its kernel."""
+    gen = torch.Generator(device=hopper).manual_seed(1)
+    x = torch.randn(b, n, d, device=hopper, generator=gen).to(dtype)
+    logits = 3 * torch.randn(b, n, device=hopper, generator=gen)
+    lengths = torch.tensor([n, n // 2 + 1, 0, n - 7][:b], device=hopper)
+    mask = torch.arange(n, device=hopper)[None] < lengths[:, None]
+    x = torch.where(mask[..., None], x, torch.tensor(float("nan"), dtype=dtype, device=hopper))
+    before = abmil_pool.fused_abmil_pool.launches
+    pooled, attn = abmil_pool.fused_abmil_pool(x, logits, mask)
+    torch.cuda.synchronize()
+    assert abmil_pool.fused_abmil_pool.launches == before + 1
+    want_pooled, want_attn = abmil_pool.abmil_pool_plain(x, logits, mask)
+    torch.testing.assert_close(pooled, want_pooled, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(attn, want_attn, rtol=1e-5, atol=1e-6)
+    if b > 2:
+        assert torch.all(pooled[2] == 0) and torch.all(attn[2] == 0)
+
+
+@pytest.mark.cuda
+def test_flash_nystrom_gradients_on_the_card(hopper):
+    """K3 (forward K1 + K2, backward by recompute) against autograd through
+    the plain nystrom_attention, at a student-like ragged shape: out and attn
+    at rtol 1e-4 atol 1e-5, q/k/v gradients at rtol 1e-4 atol 1e-5."""
+    gen = torch.Generator(device=hopper).manual_seed(2)
+    b, h, n, dh, m = 2, 4, 300, 64, 32
+    q, k, v = (torch.randn(b, h, n, dh, device=hopper, generator=gen) for _ in range(3))
+    q = q * dh ** -0.5
+    mask = torch.arange(n, device=hopper)[None] < torch.tensor([[n], [200]], device=hopper)
+    co = torch.randn(b, h, n, dh, device=hopper, generator=gen)
+    ca = torch.randn(b, h, n, device=hopper, generator=gen)
+
+    def run(fn):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out, attn = fn(qq, kk, vv)
+        ((out * co).sum() + (attn * ca).sum()).backward()
+        return out.detach(), attn.detach(), qq.grad, kk.grad, vv.grad
+
+    calls = (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls)
+    got = run(lambda *t: fn.flash_nystrom(*t, mask, m))
+    assert (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls) == (calls[0] + 1, calls[1] + 1)
+    want = run(lambda *t: nystrom_attention(*t, mask, m, return_attn=True))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_flash_nystrom_infer_refuses_to_drop_the_graph(hopper):
+    """The kernels' outputs carry no graph: under grad, with q/k/v that need
+    one, the no-grad entry raises instead of cutting the gradient silently."""
+    q, k, v = (torch.randn(1, 2, 40, 32, device=hopper, requires_grad=True) for _ in range(3))
+    mask = torch.ones(1, 40, dtype=torch.bool, device=hopper)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fn.flash_nystrom_infer(q, k, v, mask, 8)
+    with torch.no_grad():
+        fn.flash_nystrom_infer(q, k, v, mask, 8)

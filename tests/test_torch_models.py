@@ -1,13 +1,13 @@
 """The port's MHIM-selfattn modules against the JAX package on the same weights.
 
-The JAX params are initialised by flax, converted with
-``state_dict_from_flax`` (or its per-module helpers) and loaded into the port;
+The JAX params (and the Merge module's ``global_q`` buffer) are initialised
+by flax, converted with ``state_dict_from_flax`` (or its per-module helpers)
+and loaded into the port;
 both frameworks then run the same numpy inputs in fp32 on the CPU, with ragged
 masks and one fake bag whose mask is all False. Small widths: input_dim 16,
 inner_dim 32, 2 heads, 16 landmarks. Tolerance rtol 1e-4, atol 1e-5.
 """
 
-import warnings
 from functools import partial
 
 import jax
@@ -22,7 +22,7 @@ from mhim_mil_tpu.models.baselines import SAttentionBaseline as JSAttention
 from mhim_mil_tpu.models.mhim import MHIM as JMHIM
 from mhim_mil_tpu.models.positional import PPEG as JPPEG
 from mhim_mil_tpu.models.transformer import TransLayer as JTransLayer
-from mhim_mil_tpu.utils.torch_import import import_mhim_selfattn
+from mhim_mil_tpu.utils.torch_import import import_merge, import_mhim_attn, import_mhim_selfattn
 from mhim_mil_torch.config import load_config
 from mhim_mil_torch.models import build_model
 from mhim_mil_torch.models.baselines import SAttentionBaseline
@@ -61,42 +61,67 @@ def _flat(tree):
     return {jax.tree_util.keystr(p): np.asarray(x) for p, x in leaves}
 
 
+def _jax_init(baseline, seed=0):
+    """A flax MHIM (flagship preset, small widths) and its variables, made by
+    the training pass as ``create_mhim_state`` makes them, so that they hold
+    the Merge module's params and its ``global_q`` buffer."""
+    jcfg = j_load_config(["-c", "config/mhim_c16.yaml"], **{**CFG, "baseline": baseline})
+    jmodel, _ = j_build_model(jcfg)
+    feats, mask = _bags(seed, N, IN_DIM)
+    init = jax.jit(partial(jmodel.init, training=True))
+    rngs = {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(1), "mask": jax.random.PRNGKey(2)}
+    variables = init(rngs, jnp.asarray(feats), jnp.asarray(mask), jnp.zeros(mask.shape, jnp.float32))
+    return jmodel, _np_tree(variables["params"]), _np_tree(variables["buffers"])
+
+
 @pytest.fixture(scope="module")
 def mhim_pair():
-    """A flax MHIM (flagship preset, small widths) with its params, and the
-    port's MHIM carrying the same weights. The params are initialised through
-    forward_test, which leaves out the Merge module; a stand-in ``merge``
-    subtree takes its place, as the converter must skip it."""
-    jcfg = j_load_config(["-c", "config/mhim_c16.yaml"], **CFG)
-    jmodel, _ = j_build_model(jcfg)
-    feats, mask = _bags(0, N, IN_DIM)
-    init = jax.jit(partial(jmodel.init, method=JMHIM.forward_test))
-    variables = init(jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(mask))
-    params = {**_np_tree(variables["params"]), "merge": {"norm": {"scale": np.ones(DIM)}}}
+    """A flax MHIM-selfattn with its params, and the port's MHIM carrying the
+    same weights, global_q included."""
+    jmodel, params, buffers = _jax_init("selfattn")
     cfg = load_config(["-c", "config/mhim_c16.yaml"], **CFG)
     model, family = build_model(cfg, device="cpu")
     assert family == "mhim"
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        model.load_state_dict(weights.state_dict_from_flax(params))
+    model.load_state_dict(weights.state_dict_from_flax(params, buffers))
     return jmodel, params, model, cfg
 
 
-def test_state_dict_round_trips_through_the_jax_importer(mhim_pair):
-    _, params, model, _ = mhim_pair
-    with pytest.warns(UserWarning, match="merge"):
-        sd = weights.state_dict_from_flax(params)
+def _check_round_trip(baseline):
+    """The converter carries every param and the Merge buffer into the port's
+    state_dict, by the original repo's names, and the JAX package's importers
+    (import_mhim_selfattn / import_mhim_attn + import_merge) map the port's
+    state_dict back onto the same flax trees."""
+    _, params, buffers = _jax_init(baseline, seed=1)
+    model, _ = build_model(load_config(["-c", "config/mhim_c16.yaml"], **{**CFG, "baseline": baseline}),
+                           device="cpu")
+    sd = weights.state_dict_from_flax(params, buffers)
     assert set(sd) == set(model.state_dict())
     for name, t in model.state_dict().items():
         assert tuple(t.shape) == tuple(sd[name].shape), name
-    assert tuple(sd["online_encoder.layer1.attn.res_conv.weight"].shape) == (HEADS, 1, 33, 1)
-    assert tuple(sd["online_encoder.pos_embedding.proj.weight"].shape) == (DIM, 1, 7, 7)
-    back = import_mhim_selfattn({k: v.numpy() for k, v in model.state_dict().items()})
-    want = _flat({k: v for k, v in params.items() if k != "merge"})
-    got = _flat(back)
-    assert sorted(got) == sorted(want)
-    for k in want:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    model.load_state_dict(sd)
+    if baseline == "selfattn":
+        assert tuple(sd["online_encoder.layer1.attn.res_conv.weight"].shape) == (HEADS, 1, 33, 1)
+        assert tuple(sd["online_encoder.pos_embedding.proj.weight"].shape) == (DIM, 1, 7, 7)
+    else:
+        assert tuple(sd["online_encoder.attention.attention.0.weight"].shape) == (128, DIM)
+    assert tuple(sd["merge.global_q_mm"].shape) == (1, 1, DIM)
+    port_sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    back = (import_mhim_selfattn if baseline == "selfattn" else import_mhim_attn)(port_sd)
+    back["merge"], back_buffers = import_merge(port_sd)
+    for got, want in ((_flat(back), _flat(params)), (_flat(back_buffers), _flat(buffers["merge"]))):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with pytest.raises(ValueError, match="global_q"):
+        weights.state_dict_from_flax(params)
+
+
+def test_state_dict_round_trips_through_the_jax_importer():
+    _check_round_trip("selfattn")
+
+
+def test_attn_state_dict_round_trips_through_the_jax_importer():
+    _check_round_trip("attn")
 
 
 def test_ppeg_matches_jax():
@@ -186,13 +211,10 @@ def test_forward_teacher_matches_jax(mhim_pair):
 
 def test_unported_configurations_raise():
     cfg = load_config([], **CFG)
-    for kw in ({"baseline": "attn"}, {"model": "abmil"}, {"pos": "sincos"},
-               {"merge_enable": True, "merge_test": True}):
+    for kw in ({"baseline": "dsmil"}, {"model": "abmil"}, {"model": "mhim_pure"}, {"pos": "sincos"}):
         with pytest.raises(NotImplementedError):
             build_model(cfg.replace(**kw), device="cpu")
     model, _ = build_model(cfg, device="cpu")
     x, mask = torch.zeros(1, 8, IN_DIM), torch.ones(1, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        model.forward_teacher(x, mask, training=True)
     with pytest.raises(NotImplementedError):
         model.forward_test(x, mask, no_norm=True)

@@ -10,7 +10,6 @@ at different places.
 import os
 import subprocess
 import sys
-import warnings
 from functools import partial
 
 import jax
@@ -23,7 +22,7 @@ import torch
 from mhim_mil_tpu.config import load_config as j_load_config
 from mhim_mil_tpu.engine.train_state import MILTrainState
 from mhim_mil_tpu.models import build_model as j_build_model
-from mhim_mil_tpu.models.mhim import MHIM as JMHIM, make_mhim_eval_step as j_make_eval_step
+from mhim_mil_tpu.models.mhim import make_mhim_eval_step as j_make_eval_step
 from mhim_mil_torch.config import load_config
 from mhim_mil_torch.engine.steps import make_mhim_eval_step
 from mhim_mil_torch.models import build_model
@@ -42,12 +41,11 @@ def pair():
     jcfg = j_load_config(["-c", "config/mhim_c16.yaml"], **CFG)
     jmodel, _ = j_build_model(jcfg)
     x = jnp.zeros((1, 8, IN_DIM))
-    init = jax.jit(partial(jmodel.init, method=JMHIM.forward_test))
-    variables = init(jax.random.PRNGKey(7), x, jnp.ones((1, 8), bool))
+    init = jax.jit(partial(jmodel.init, training=True))
+    rngs = {"params": jax.random.PRNGKey(7), "dropout": jax.random.PRNGKey(1), "mask": jax.random.PRNGKey(2)}
+    variables = init(rngs, x, jnp.ones((1, 8), bool), jnp.zeros((1, 8), jnp.float32))
     params = jax.tree.map(np.asarray, variables["params"])
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        sd = state_dict_from_flax(params)
+    sd = state_dict_from_flax(params, jax.tree.map(np.asarray, variables["buffers"]))
 
     def port(**kw):
         cfg = load_config(["-c", "config/mhim_c16.yaml"], **CFG, **kw)
