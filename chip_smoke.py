@@ -317,16 +317,20 @@ def k3_bounds(lengths, h, n, m, dh, iters=6):
     Nystrom attention per (bag, head) over its valid tokens nv — sim1, sim3,
     attn3@V, attn1@mid (4·nv·m·dh FMAs), sim2 and pinv@attn3V (2·m²·dh),
     the pseudo-inverse's 4 m×m products per iteration (4·iters·m³), the cls
-    row (m·nv + m²) — once forward and three times more backward (the
-    recompute and the two products of each gradient), in fp32. Bytes: q, k,
-    v and both cotangents read, out, attn and the three gradients written."""
+    row (m·nv + m²) — once forward and twice more backward (the two products
+    of each gradient), in fp32. The recompute of the forward in K3's
+    backward is this design's choice, not work the function needs, so it is
+    not in the bound; the third return value is the time it adds. Bytes: q,
+    k, v and both cotangents read, out, attn and the three gradients
+    written."""
     fmas = sum(4 * nv * m * dh + 2 * m * m * dh + 4 * iters * m ** 3 + m * nv + m * m
                for nv in lengths) * h
-    flops = 2 * 4 * fmas
+    flops = 2 * 3 * fmas
     b = len(lengths)
     nbytes = (3 + 1 + 1 + 3) * b * h * n * dh * F32 + 2 * b * h * n * F32
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    recompute_ms = 2 * fmas / PEAK_FP32_FLOPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), recompute_ms
 
 
 def phase_k3(gen) -> dict:
@@ -357,13 +361,15 @@ def phase_k3(gen) -> dict:
     errs = [check_close("K3 out", got[0], want[0], 1e-4, 1e-5)]
     for name, g, w in zip(("attn", "dq", "dk", "dv"), got[1:], want[1:]):
         errs.append(check_rel(f"K3 {name}", g, w, 1e-4))
-    bound_ms, bound_by = k3_bounds(lengths.tolist(), h, n, m, dh)
+    bound_ms, bound_by, recompute_ms = k3_bounds(lengths.tolist(), h, n, m, dh)
     r = {"max_abs_err": max(errs), "bound_ms": bound_ms, "bound_by": bound_by}
     timed(r, kern, plain)
     log(f"K3 [student] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: out max|d| {errs[0]:.3e}, "
         f"attn/dq/dk/dv max|d| {', '.join(f'{e:.3e}' for e in errs[1:])} (tolerances: out rtol 1e-4 "
-        f"atol 1e-5, the rest max|d| <= 1e-4 max|ref|); forward+backward {fmt_ms(r, '')}, plain "
-        f"{fmt_ms(r, 'plain_')}, bound {bound_ms:.4f} ms ({bound_by}); no library call computes it")
+        f"atol 1e-5, the rest max|d| <= 1e-4 max|ref|; the backward differentiates the plain "
+        f"attention, so the gradients check only the autograd.Function's wiring); forward+backward "
+        f"{fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, bound {bound_ms:.4f} ms ({bound_by}), plus "
+        f"{recompute_ms:.4f} ms for this design's recompute of the forward; no library call computes it")
     return {"K3": r}
 
 
@@ -637,7 +643,7 @@ def main():
             "plain_device_ms": r["plain_device_ms"], "library_device_ms": r["library_device_ms"],
         }
         if kid == "K3":
-            row["backward_launches"] = counted["K3b"]
+            row["backward_calls"] = counted["K3b"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -68,8 +68,7 @@ def ema_update(teacher: nn.Module, student: nn.Module, mm) -> None:
     """Teacher EMA over the parameters, ``t ← mm·t + (1−mm)·s`` (reference
     base_engine.py:155-167). Buffers are left alone: the Merge module's
     ``global_q_mm`` has its own EMA in the student's forward."""
-    for t, s in zip(teacher.parameters(), student.parameters()):
-        t.copy_(t * mm + s.to(t.dtype) * (1.0 - mm))
+    torch._foreach_lerp_(list(teacher.parameters()), list(student.parameters()), float(1.0 - mm))
 
 
 def make_mhim_train_step(

@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import GatedAttentionPool, TanhAttentionPool
+from .layers import TanhAttentionPool
 from .positional import PPEG
 from .transformer import TransLayer
 
@@ -25,11 +25,9 @@ class DAttentionBaseline(nn.Module):
     ``attention`` so that the weights are named as in the reference
     (``online_encoder.attention.attention.{0,2}``)."""
 
-    def __init__(self, dim: int = 512, act: str = "gelu", gated: bool = False,
-                 use_flash: bool = True):
+    def __init__(self, dim: int = 512, act: str = "gelu", use_flash: bool = True):
         super().__init__()
-        pool = GatedAttentionPool if gated else TanhAttentionPool
-        self.attention = pool(dim, attn_dim=128, act=act, use_bias=False, use_flash=use_flash)
+        self.attention = TanhAttentionPool(dim, attn_dim=128, act=act, use_bias=False, use_flash=use_flash)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
                 training: bool = False, gen: Optional[torch.Generator] = None,
