@@ -5,22 +5,30 @@ input_dim 1024, inner_dim 512, 8 heads, 256 landmarks, 2 TransLayers) on
 bags of 10,240 instances at batch 4, with random weights from a seeded
 ``torch.Generator``: the MHIM-selfattn serving path (``forward_test``
 through the ``Scorer``, the eval-mode ``forward_teacher``), the MHIM train
-step, and the MHIM-attn serving path. Phases, each of which fails the run:
+step, and the MHIM-attn serving path; then the 2D-Mamba survival model of
+the README (``config/feat_surv.yaml``, ``--model 2dmamba``, ``surv_blca``:
+input 1024, width 128, one layer, 16 states, the 275 × 381 BLCA grid) on
+its eval step and its scorer. Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
 2. build: ``nvcc`` builds every kernel from ``mhim_mil_torch/csrc``, all at once;
 3. kernels: K1, K2 and K4 against their plain versions in fp32 at the
    flagship shapes (full and ragged masks) and a small odd shape, and K3's
    outputs and q/k/v gradients at the student's shape against autograd
-   through the plain attention, with times, bounds and library yardsticks;
+   through the plain attention, and K5 against its plain version at the
+   BLCA grid, the serving raster grid and a ragged 5 × 11 grid, with
+   times, bounds and library yardsticks;
 4. serving: the selfattn kernel path against the plain path on the whole
    model in fp32, then the scorer's requests under the default bf16 policy;
 5. train: one flagship train step on the kernel path against the plain path
    in fp32 from the same weights and draws, then steps under bf16;
 6. attn: MHIM-attn ``forward_test`` on the kernel path against the plain
-   path in fp32, then the scorer's requests under bf16.
+   path in fp32, then the scorer's requests under bf16;
+7. 2dmamba: the eval step on one 20,000-instance bag on the BLCA grid, the
+   kernel path (K5) against the plain path in fp32 and bf16 against fp32,
+   then the scorer's requests on the raster grid under bf16.
 
-Phases 4-6 each reset the launch counts before their main-path runs and
+Phases 4-7 each reset the launch counts before their main-path runs and
 read them after; the kernels' launches are the sums of those readings.
 
 The line before the last lists the kernels as JSON; the last line is the
@@ -40,6 +48,10 @@ import torch
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# exponentials per second on the special-function units: 16 per SM and
+# clock (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0), 132 SMs, 1.98 GHz boost clock (H100 SXM)
+PEAK_EXP = 132 * 16 * 1.98e9
 F32 = 4
 SERVING_REPEATS = 20  # requests of each kind timed; the median has 10 samples beyond it
 
@@ -86,14 +98,15 @@ def device_ms(fn, iters: int = 10):
     return us / iters / 1e3 if us > 0 else None
 
 
-def timed(r: dict, kern, plain, lib=None):
+def timed(r: dict, kern, plain, lib=None, plain_iters: int = 20):
     """Fill ``r`` with the CUDA-event medians ``ms``, ``plain_ms``,
     ``library_ms`` and the device times ``device_ms``, ``plain_device_ms``,
     ``library_device_ms`` of the kernel path, the plain version and the
-    library call (None where there is no library call)."""
-    for key, fn in (("", kern), ("plain_", plain), ("library_", lib)):
-        r[f"{key}ms"] = time_ms(fn) if fn is not None else None
-        r[f"{key}device_ms"] = device_ms(fn) if fn is not None else None
+    library call (None where there is no library call). A slow plain
+    version gets ``plain_iters`` event timings (and half as many profiled)."""
+    for key, fn, iters in (("", kern, 20), ("plain_", plain, plain_iters), ("library_", lib, 20)):
+        r[f"{key}ms"] = time_ms(fn, iters) if fn is not None else None
+        r[f"{key}device_ms"] = device_ms(fn, max(1, iters // 2)) if fn is not None else None
 
 
 def fmt_ms(r: dict, key: str) -> str:
@@ -373,27 +386,81 @@ def phase_k3(gen) -> dict:
     return {"K3": r}
 
 
-# ---- phases 4-6: the main paths ---------------------------------------------------
+def k5_bounds(x, a_log):
+    """K5's least time: x and Δ read and y written (fp32) once per
+    (cell, channel), B and C once per cell; the exponentials ā, one per
+    (cell, channel, state), on the special-function units; 8 FLOPs per
+    (cell, channel, state) on the fp32 pipes (Δ·a, b̄x, the two recurrences'
+    FMAs, the contraction with C). Returns the bound, what sets it and the
+    three times."""
+    bs, h, w, ed = x.shape
+    n = a_log.shape[-1]
+    cells = bs * h * w
+    nbytes = 2 * cells * ed * x.element_size() + cells * ed * F32 + 2 * cells * n * x.element_size()
+    lanes = cells * ed * n
+    t = {"bytes": nbytes / PEAK_BYTES * 1e3, "exp": lanes / PEAK_EXP * 1e3,
+         "fma": 8 * lanes / PEAK_FP32_FLOPS * 1e3}
+    return max(t.values()), ("bytes" if t["bytes"] >= max(t["exp"], t["fma"]) else "operations"), t
 
 
-KERNELS = ("K1", "K2", "K3", "K3b", "K4")  # K3b: K3's backward
+def phase_k5(gen) -> dict:
+    """K5 against scan2d_plain at rtol 1e-4 atol 1e-5 (the JAX package's
+    ``pallas_hw_check.py:159``) on the BLCA grid at batch 1, the serving
+    raster grid at batch 4 and a ragged 5 × 11 grid; timed at the first two,
+    the plain version at BLCA only."""
+    from mhim_mil_torch.ops import scan2d
+    from mhim_mil_torch.utils.time_scan2d import operands
+
+    r = {"max_abs_err": 0.0}
+    for label, bs, h, w in (("BLCA", 1, 275, 381), ("serving", 4, 101, 102), ("ragged", 1, 5, 11)):
+        ops = operands(bs, h, w, torch.float32, gen)
+        got = scan2d.selective_scan_2d_fused(*ops)
+        torch.cuda.synchronize()
+        want = scan2d.scan2d_plain(*ops)
+        err = check_close(f"K5 [{label}]", got, want, 1e-4, 1e-5)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        bound_ms, bound_by, parts = k5_bounds(ops[0], ops[2])
+        log(f"K5 [{label}] Bs={bs} H={h} W={w} ED=256 N=16 fp32: max|d| {err:.3e} (rtol 1e-4, atol 1e-5); "
+            f"bound {bound_ms:.4f} ms ({bound_by}: bytes {parts['bytes']:.4f}, exponentials "
+            f"{parts['exp']:.4f}, fp32 FLOPs {parts['fma']:.4f} ms)")
+        kern = lambda: scan2d.selective_scan_2d_fused(*ops)
+        if label == "serving":
+            r_s = {}
+            timed(r_s, kern, None)
+            log(f"K5 [{label}]: kernel {fmt_ms(r_s, '')}, bound {bound_ms:.4f} ms ({bound_by})")
+        elif label == "BLCA":
+            timed(r, kern, lambda: scan2d.scan2d_plain(*ops), plain_iters=4)
+            r.update(bound_ms=bound_ms, bound_by=bound_by)
+            log(f"K5 [{label}]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, bound {bound_ms:.4f} ms "
+                f"({bound_by}); no library call computes a 2D selective scan")
+        del ops, got, want
+        torch.cuda.empty_cache()
+    return {"K5": r}
+
+
+# ---- phases 4-7: the main paths ---------------------------------------------------
+
+
+KERNELS = ("K1", "K2", "K3", "K3b", "K4", "K5")  # K3b: K3's backward
 
 
 def launches() -> dict:
-    from mhim_mil_torch.ops import abmil_pool
+    from mhim_mil_torch.ops import abmil_pool, scan2d
     from mhim_mil_torch.ops import flash_nystrom as fn
 
     return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches, "K3": fn.FlashNystrom.forward_calls,
-            "K3b": fn.FlashNystrom.backward_calls, "K4": abmil_pool.fused_abmil_pool.launches}
+            "K3b": fn.FlashNystrom.backward_calls, "K4": abmil_pool.fused_abmil_pool.launches,
+            "K5": scan2d.selective_scan_2d_fused.launches}
 
 
 def reset_launches():
-    from mhim_mil_torch.ops import abmil_pool
+    from mhim_mil_torch.ops import abmil_pool, scan2d
     from mhim_mil_torch.ops import flash_nystrom as fn
 
     fn.pass_a.launches = fn.pass_b.launches = 0
     fn.FlashNystrom.forward_calls = fn.FlashNystrom.backward_calls = 0
     abmil_pool.fused_abmil_pool.launches = 0
+    scan2d.selective_scan_2d_fused.launches = 0
 
 
 def expect_launches(label: str, **want) -> dict:
@@ -432,12 +499,13 @@ def flagship_models(gen_seed: int, **kw):
     return cfg, model_k, model_p
 
 
-def serve(label: str, cfg, model, requests, kernel_launches: dict, ref_logits=None) -> dict:
+def serve(label: str, cfg, model, requests, kernel_launches: dict, ref_logits=None,
+          family: str = "mhim") -> dict:
     """Time the scorer's requests (bf16 policy), SERVING_REPEATS of each after
     one warm-up; fails unless each request launched ``kernel_launches``."""
     from mhim_mil_torch.utils.serving import Scorer
 
-    scorer = Scorer(cfg, model, device="cuda")
+    scorer = Scorer(cfg, model, device="cuda", family=family)
     for _, f, mk, _ in requests:  # warm-up: library handles, allocator
         scorer.score(f, mk)
     torch.cuda.synchronize()
@@ -608,6 +676,73 @@ def phase_attn(gen) -> dict:
     return {"launches": [counted, sv["launches"]], "serving": sv["serving"]}
 
 
+def phase_mamba(gen) -> dict:
+    """Phase 7: ``2dmamba`` on ``feat_surv.yaml`` + ``surv_blca``. The eval
+    step with ``pos`` on one bag of 20,000 instances at distinct random
+    cells of the 275 × 381 grid, padded with 480 masked slots: the kernel
+    path against the plain path in fp32 (one K5 launch per call), bf16
+    against fp32; then the scorer (raster grid 101 × 102) under bf16."""
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.engine.steps import make_eval_step
+    from mhim_mil_torch.models import build_model
+
+    cfg = load_config(["-c", "config/feat_surv.yaml"], model="2dmamba", datasets="surv_blca", input_dim=1024)
+    model_k, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(6))
+    model_p, _ = build_model(cfg.replace(use_flash_attn=False), device="cuda",
+                             generator=torch.Generator().manual_seed(7))
+    model_p.load_state_dict(model_k.state_dict())
+    h, w = cfg.mamba_2d_max_h, cfg.mamba_2d_max_w
+    log(f"model: 2dmamba input_dim {cfg.input_dim} dim {cfg.mambamil_dim} layers {cfg.mambamil_layer} "
+        f"d_state {cfg.mambamil_state_dim}, {cfg.n_classes} classes ({cfg.loss}), grid {h} x {w}, "
+        f"{sum(p.numel() for p in model_k.parameters())} params, compute_dtype {cfg.compute_dtype}")
+
+    n_inst, n_slots = 20000, 20480
+    cells = torch.randperm(h * w, device="cuda", generator=gen)[:n_inst]
+    pos = torch.zeros(1, n_slots, 2, dtype=torch.long, device="cuda")
+    pos[0, :n_inst, 0], pos[0, :n_inst, 1] = cells % w, cells // w
+    batch = {"feats": torch.randn(1, n_slots, cfg.input_dim, device="cuda", generator=gen),
+             "mask": torch.arange(n_slots, device="cuda")[None] < n_inst, "pos": pos}
+    cfg32 = cfg.replace(compute_dtype="float32")
+    step_k = make_eval_step(cfg32, model_k, family)
+    reset_launches()
+    logits_k = step_k(batch)["logits"]
+    torch.cuda.synchronize()
+    counted = [expect_launches("2dmamba eval step", K5=1)]
+    reset_launches()
+    logits_p = make_eval_step(cfg32, model_p, family)(batch)["logits"]
+    torch.cuda.synchronize()
+    expect_launches("the 2dmamba plain path")
+    compare_models("2dmamba eval", (("logits", logits_k, logits_p),), 1e-4)
+    step16 = make_eval_step(cfg, model_k, family)
+    reset_launches()
+    logits_16 = step16(batch)["logits"]
+    torch.cuda.synchronize()
+    counted.append(expect_launches("2dmamba bf16 eval step", K5=1))
+    err = (logits_16 - logits_k).abs().max().item()
+    log(f"2dmamba eval bf16 vs fp32 kernel-path logits {tuple(logits_16.shape)}: max|d| {err:.3e} (tolerance 0.1)")
+    if not torch.isfinite(logits_16).all() or err > 0.1:
+        fail("2dmamba: bf16 eval logits drift from the fp32 logits")
+    times = []
+    for _ in range(SERVING_REPEATS):
+        t0 = time.perf_counter()
+        step16(batch)["logits"].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    eval_ms = statistics.median(times)
+    log(f"2dmamba eval bf16, one bag of {n_inst} on the {h} x {w} grid: {eval_ms:.2f} ms per call (median of "
+        f"{SERVING_REPEATS}, host clock, features already on the card)")
+
+    feats, mask = flagship_batch(gen, cfg.input_dim)
+    ref = make_eval_step(cfg32, model_k, family)({"feats": feats, "mask": mask})["logits"]
+    ragged = torch.randn(6000, cfg.input_dim, device="cuda", generator=gen)
+    requests = [
+        ("batch 4 x 10240", feats.cpu().numpy(), mask.cpu().numpy(), 4),
+        ("batch 1 x 10240", feats[:1].cpu().numpy(), None, 1),
+        ("ragged 6000 (bucket 10240)", ragged.cpu().numpy(), None, 1),
+    ]
+    sv = serve("2dmamba", cfg, model_k, requests, {"K5": 1}, ref, family=family)
+    return {"launches": counted + [sv["launches"]], "serving": sv["serving"], "eval_ms": eval_ms}
+
+
 def main():
     phase_device()
     phase_build()
@@ -615,8 +750,9 @@ def main():
     report = phase_nystrom_kernels(gen)
     report.update(phase_k4(gen))
     report.update(phase_k3(gen))
+    report.update(phase_k5(gen))
     counted = {kid: 0 for kid in KERNELS}
-    for phase in (phase_serving, phase_train, phase_attn):
+    for phase in (phase_serving, phase_train, phase_attn, phase_mamba):
         for seen in phase(gen)["launches"]:
             for kid in KERNELS:
                 counted[kid] += seen[kid]
@@ -629,6 +765,7 @@ def main():
         "K3": ("flash_nystrom (FlashNystrom: K1 + K2 forward, recompute backward)",
                "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
         "K4": ("abmil_pool", "mhim_mil_torch/csrc/abmil_pool.cu", "mhim_mil_tpu/ops/pallas_abmil.py:42"),
+        "K5": ("scan2d", "mhim_mil_torch/csrc/scan2d.cu", "mhim_mil_tpu/ops/pallas_scan2d.py:56"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():

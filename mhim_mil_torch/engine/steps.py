@@ -1,6 +1,7 @@
-"""Precision policy, the teacher EMA and the MHIM train and eval steps (port
-of ``cast_compute`` and ``ema_update`` in ``mhim_mil_tpu/engine/steps.py`` and
-of ``make_mhim_train_step`` / ``make_mhim_eval_step`` in ``models/mhim.py``)."""
+"""Precision policy, the teacher EMA, the MHIM train and eval steps and the
+generic eval step (port of ``cast_compute``, ``ema_update`` and
+``make_eval_step`` in ``mhim_mil_tpu/engine/steps.py`` and of
+``make_mhim_train_step`` / ``make_mhim_eval_step`` in ``models/mhim.py``)."""
 
 from __future__ import annotations
 
@@ -161,6 +162,28 @@ def make_mhim_eval_step(cfg, model: nn.Module) -> Callable[[Dict[str, Tensor]], 
     def eval_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         batch = _cast_batch(dtype, batch)
         out = apply_cast(model, params, "forward_test", batch["feats"], batch["mask"])
+        return {"logits": out["logits"].float()}
+
+    return eval_step
+
+
+def make_eval_step(cfg, model: nn.Module, family: str) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
+    """Inference through the model's ``forward`` (``steps.py:166-190``) under
+    the config's precision policy, weights cast once as in
+    :func:`make_mhim_eval_step`. The step takes ``{"feats", "mask"}`` on the
+    model's device, and for the ``mamba2d`` family the grid coordinates
+    ``"pos"`` when the batch holds them; it returns fp32 ``{"logits"}``."""
+    dtype = compute_dtype(cfg)
+    with torch.no_grad():
+        params = cast_compute(cfg, model)
+
+    @torch.inference_mode()
+    def eval_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        batch = _cast_batch(dtype, batch)
+        args = (batch["feats"], batch["mask"])
+        if family == "mamba2d" and "pos" in batch:
+            args = args + (batch["pos"],)
+        out = apply_cast(model, params, "forward", *args, training=False)
         return {"logits": out["logits"].float()}
 
     return eval_step

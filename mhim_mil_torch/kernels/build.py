@@ -64,6 +64,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             P,  # stream
         ],
     },
+    "scan2d": {
+        "scan2d_max_width": [],
+        "scan2d": [
+            P, P,  # x, delta
+            P, I64, P, I64,  # B, C and their cell strides
+            I32,  # x, delta, B and C are bf16
+            P, P,  # A_log, D
+            P,  # y
+            I32, I32, I32, I32, I32,  # Bs, H, W, ED, N
+            P,  # stream
+        ],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -124,11 +124,14 @@ class GatedAttentionPool(nn.Module):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Reference initialisation, drawn from ``generator`` in module order:
-    xavier-normal weights and zero biases for linear and convolution layers,
-    unit LayerNorms, N(0, 1) for a ``cls_token``, and a module's own
-    ``reset_buffers``."""
+    a module's own ``init_own`` where it has one (the Mamba modules, whose
+    initialisers the JAX package sets apart), else xavier-normal weights and
+    zero biases for linear and convolution layers, unit LayerNorms, N(0, 1)
+    for a ``cls_token``, and a module's own ``reset_buffers``."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+        if hasattr(mod, "init_own"):
+            mod.init_own(generator)
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
             nn.init.xavier_normal_(mod.weight, generator=generator)
             if mod.bias is not None:
                 mod.bias.zero_()

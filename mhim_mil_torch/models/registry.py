@@ -1,7 +1,7 @@
 """Model factory (port of ``mhim_mil_tpu/models/registry.py``).
 
-Only ``model=mhim`` with the ``selfattn`` or ``attn`` baseline is ported;
-anything else raises.
+Ported: ``model=mhim`` with the ``selfattn`` or ``attn`` baseline (family
+``mhim``) and ``2dmamba`` (family ``mamba2d``); anything else raises.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import torch
 
 from ..utils.platform import resolve_device
 from .layers import init_weights
+from .mamba import MambaMIL2D
 from .mhim import MHIM
 
 
@@ -19,17 +20,35 @@ def build_model(
     cfg,
     device: Optional[Union[str, torch.device]] = None,
     generator: Optional[torch.Generator] = None,
-) -> Tuple[MHIM, str]:
+) -> Tuple[torch.nn.Module, str]:
     """Build ``(model, family)`` on ``device`` (CUDA unless ``"cpu"`` is asked
     for), in eval mode, with weights drawn from ``generator`` (default: a CPU
     generator seeded with ``cfg.seed``); with ``merge_enable`` it holds the
-    Merge module. ``cfg.use_flash_attn=False`` selects the plain attention and
-    pooling instead of the kernels."""
+    Merge module. ``cfg.use_flash_attn=False`` selects the plain attention,
+    pooling and 2D scan instead of the kernels."""
     device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    if cfg.model == "2dmamba":
+        model = MambaMIL2D(
+            input_dim=cfg.input_dim,
+            n_classes=cfg.n_classes,
+            dim=cfg.mambamil_dim,
+            n_layers=cfg.mambamil_layer,
+            d_state=cfg.mambamil_state_dim,
+            dropout=cfg.dropout,
+            max_w=cfg.mamba_2d_max_w or cfg.mamba_2d_max_hw,
+            max_h=cfg.mamba_2d_max_h or cfg.mamba_2d_max_hw,
+            pad_token_mode=cfg.mamba_2d_pad_token,
+            pos_emb_type=cfg.mamba_2d_pos_emb_type or "none",
+            pos_emb_dropout=cfg.pos_emb_dropout,
+            use_flash=cfg.use_flash_attn is not False,
+        )
+        return init_weights(model, generator).to(device).eval(), "mamba2d"
     if cfg.model != "mhim" or cfg.baseline not in ("selfattn", "attn") or (cfg.pos or "ppeg") != "ppeg":
         raise NotImplementedError(
             f"model={cfg.model!r} baseline={cfg.baseline!r} pos={cfg.pos!r}: "
-            "only mhim with the selfattn (ppeg) or attn baseline is ported"
+            "only 2dmamba, and mhim with the selfattn (ppeg) or attn baseline, are ported"
         )
     model = MHIM(
         input_dim=cfg.input_dim,
@@ -55,7 +74,5 @@ def build_model(
         merge_test=cfg.merge_test,
         use_flash=cfg.use_flash_attn is not False,
     )
-    if generator is None:
-        generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)
     return model.to(device).eval(), "mhim"

@@ -1,0 +1,85 @@
+"""Fused separable 2D selective scan (port of ``mhim_mil_tpu/ops/pallas_scan2d.py``).
+
+**K5** :func:`selective_scan_2d_fused`: Ā = exp(Δ·(−exp(A_log))), the
+horizontal scan of B̄x along each row, the vertical step against the row
+above and the contraction with C, in one kernel (``csrc/scan2d.cu``) that
+keeps Ā, B̄x, u and h out of device memory. It launches the kernel on CUDA
+tensors and runs :func:`scan2d_plain` on CPU tensors;
+``selective_scan_2d_fused.launches`` counts the launches. No gradient: the
+training path keeps the differentiable plain scan, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import load_library
+from ..kernels.launch import check, on_cpu, raise_on
+from .scan import selective_scan_2d
+
+Tensor = torch.Tensor
+STATES = (2, 4, 8, 16)  # the state sizes the kernel is built for
+
+
+def scan2d_plain(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Tensor) -> Tensor:
+    """K5's function: the separable :func:`selective_scan_2d` with
+    ``A = −exp(A_log)`` taken in fp32. fp32 ``y + D·x`` out."""
+    return selective_scan_2d(x, delta, -torch.exp(A_log.float()), B, C, D)
+
+
+def _cell_stride(t: Tensor, h: int, w: int):
+    """``t[Bs, H, W, N]`` and the stride between its cells: a view whose
+    cells are evenly spaced (a slice of a wider last axis) is kept, any
+    other layout copied."""
+    cs = t.stride(2)
+    if t.stride(-1) != 1 or t.stride(1) != w * cs or t.stride(0) != h * w * cs:
+        t = t.contiguous()
+        cs = t.stride(2)
+    return t, cs
+
+
+def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor,
+                            D: Tensor) -> Tensor:
+    """The separable 2D selective scan in the JAX layout: ``x``, ``delta``
+    (post-softplus) ``[Bs, H, W, ED]``, ``A_log`` ``[ED, N]``, ``B``, ``C``
+    ``[Bs, H, W, N]``, ``D`` ``[ED]``. ``x``, ``delta``, ``B`` and ``C`` are
+    all fp32 or all bf16 (read in that type, computed in fp32). Returns fp32
+    ``y[Bs, H, W, ED]`` with ``D·x`` added."""
+    if on_cpu(x, delta, A_log, B, C, D):
+        return scan2d_plain(x, delta, A_log, B, C, D)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, delta, A_log, B, C, D)):
+        raise RuntimeError("selective_scan_2d_fused has no gradient; use the plain scan under grad")
+    bs, h, w, ed = x.shape
+    n = A_log.shape[-1]
+    dev, dtype = x.device, x.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {dtype}")
+    if n not in STATES:
+        raise ValueError(f"state size {n}: the kernel is built for {STATES}")
+    lib = load_library("scan2d")
+    if not 1 <= w <= lib.scan2d_max_width() or h < 1:
+        raise ValueError(f"grid {h} x {w}: the kernel takes 1 <= W <= {lib.scan2d_max_width()} and H >= 1")
+    x, delta = x.contiguous(), delta.contiguous()
+    B, b_cs = _cell_stride(B, h, w)
+    C, c_cs = _cell_stride(C, h, w)
+    A_log = A_log.detach().float().contiguous()
+    D = D.detach().float().contiguous()
+    check("x", x, (bs, h, w, ed), dev, dtype=dtype)
+    check("delta", delta, (bs, h, w, ed), dev, dtype=dtype)
+    check("B", B, (bs, h, w, n), dev, dtype=dtype)
+    check("C", C, (bs, h, w, n), dev, dtype=dtype)
+    check("A_log", A_log, (ed, n), dev)
+    check("D", D, (ed,), dev)
+    y = torch.empty((bs, h, w, ed), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        err = lib.scan2d(
+            x.data_ptr(), delta.data_ptr(), B.data_ptr(), b_cs, C.data_ptr(), c_cs,
+            int(dtype == torch.bfloat16), A_log.data_ptr(), D.data_ptr(), y.data_ptr(),
+            bs, h, w, ed, n, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    raise_on(err, "scan2d")
+    selective_scan_2d_fused.launches += 1
+    return y
+
+
+selective_scan_2d_fused.launches = 0

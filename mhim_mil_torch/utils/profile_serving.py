@@ -1,13 +1,15 @@
 """Where a scorer request's time goes on the card.
 
-``python -m mhim_mil_torch.utils.profile_serving [--batch 4]``
+``python -m mhim_mil_torch.utils.profile_serving [--model mhim|2dmamba] [--batch 4]``
 
-Builds MHIM-selfattn from ``config/mhim_c16.yaml`` at input_dim 1024 with
-random weights (seed 0), warms the scorer up, then profiles 5 requests of
-``--batch`` bags of 10,240 instances with ``torch.profiler``. Prints the host-clock time per request, the
-device time summed over kernels per request and its share of the wall time
-(the device's busy share), and the 20 kernels that take the most device
-time. Needs a CUDA card.
+Builds the model with random weights (seed 0): MHIM-selfattn from
+``config/mhim_c16.yaml``, or the 2D-Mamba survival model from
+``config/feat_surv.yaml`` with the ``surv_blca`` grid, both at input_dim
+1024. Warms the scorer up, then profiles 5 requests of ``--batch`` bags of
+10,240 instances with ``torch.profiler``. Prints the host-clock time per
+request, the device time summed over kernels per request and its share of
+the wall time (the device's busy share), and the 20 kernels that take the
+most device time. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -23,18 +25,25 @@ from ..config import load_config
 from ..models import build_model
 from .serving import Scorer
 
+CONFIGS = {
+    "mhim": (["-c", "config/mhim_c16.yaml"], {}),
+    "2dmamba": (["-c", "config/feat_surv.yaml"], {"model": "2dmamba", "datasets": "surv_blca"}),
+}
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=sorted(CONFIGS), default="mhim")
     ap.add_argument("--batch", type=int, default=4)
     args = ap.parse_args(argv)
     n, requests = 10240, 5
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
-    cfg = load_config(["-c", "config/mhim_c16.yaml"], input_dim=1024)
-    model, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    scorer = Scorer(cfg, model, device="cuda")
+    argv_cfg, kw = CONFIGS[args.model]
+    cfg = load_config(argv_cfg, input_dim=1024, **kw)
+    model, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    scorer = Scorer(cfg, model, device="cuda", family=family)
     gen = torch.Generator().manual_seed(1)
     feats = torch.randn(args.batch, n, cfg.input_dim, generator=gen).numpy()
     for _ in range(2):
@@ -48,7 +57,7 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3 / requests
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels) / requests
-    print(f"{torch.cuda.get_device_name(0)}; batch {args.batch} x {n}, "
+    print(f"{torch.cuda.get_device_name(0)}; {args.model}, batch {args.batch} x {n}, "
           f"bf16 policy: {wall_ms:.2f} ms per request (host clock, under the profiler), "
           f"device busy {device_us / 1e3:.2f} ms per request = {100 * device_us / 1e3 / wall_ms:.1f}% "
           f"of the wall time")

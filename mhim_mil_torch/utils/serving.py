@@ -4,11 +4,14 @@
 A request is one bag ``[N, D]`` or a batch ``[B, N, D]`` with an optional
 ``[B, N]`` validity mask. It is padded at the end, masked, into the smallest
 instance bucket that holds it, as the training pipeline's length bucketing
-does, and scored by the MHIM eval step. Note that the bags of one request
-are not independent: the Nystrom pseudo-inverse takes its initial scale over
-the whole batch, so a bag's logits depend on the bags it is batched with
-(as in the JAX package and the reference). No export bundle yet: the scorer
-runs the model module in this process.
+does, and scored by the eval step of the model's family: ``forward_test``
+for ``mhim``, the model's forward on ``(feats, mask)`` for any other
+family (``mamba2d`` then lays the bag on a row-major grid, with no
+coordinates), as ``_infer_fn`` in the JAX package does. Note that the bags
+of one MHIM request are not independent: the Nystrom pseudo-inverse takes
+its initial scale over the whole batch, so a bag's logits depend on the
+bags it is batched with (as in the JAX package and the reference). No
+export bundle yet: the scorer runs the model module in this process.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..engine.steps import make_mhim_eval_step
+from ..engine.steps import make_eval_step, make_mhim_eval_step
 from .platform import resolve_device
 
 DEFAULT_BUCKETS = (1024, 4096, 10240)
@@ -27,18 +30,22 @@ ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
 class Scorer:
-    """Scores bags with ``model`` under ``cfg``'s precision policy on ``device``
-    (CUDA unless ``"cpu"`` is asked for; the model must already be there)."""
+    """Scores bags with ``model`` of ``family`` (as ``build_model`` returns
+    it) under ``cfg``'s precision policy on ``device`` (CUDA unless ``"cpu"``
+    is asked for; the model must already be there)."""
 
     def __init__(self, cfg, model: torch.nn.Module, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, family: str = "mhim"):
         self.device = resolve_device(device)
         param_dev = next(model.parameters()).device
         if param_dev.type != self.device.type:
             raise ValueError(f"model is on {param_dev}, scorer on {self.device}")
         self.buckets = sorted(int(n) for n in buckets)
         self.input_dim = int(cfg.input_dim)
-        self._step = make_mhim_eval_step(cfg, model)
+        if family == "mhim":
+            self._step = make_mhim_eval_step(cfg, model)
+        else:
+            self._step = make_eval_step(cfg, model, family)
 
     def bucket_for(self, n: int) -> int:
         for bn in self.buckets:

@@ -1,6 +1,7 @@
-"""Flax parameter tree → the port's ``state_dict`` (the reverse of
+"""Flax parameter tree → the port's ``state_dict`` (for MHIM the reverse of
 ``import_mhim_selfattn``, ``import_mhim_attn`` and ``import_merge`` in
-``mhim_mil_tpu/utils/torch_import.py``).
+``mhim_mil_tpu/utils/torch_import.py``; for ``2dmamba``, which has no
+importer there, :func:`mamba2d_state_from_flax`).
 
 The port keeps the original PyTorch repo's names, so the JAX package's
 importer maps a port ``state_dict`` straight back onto the flax tree:
@@ -98,4 +99,43 @@ def state_dict_from_flax(params: Mapping, buffers: Optional[Mapping] = None) -> 
         if buffers is None or "merge" not in buffers:
             raise ValueError("the merge params need buffers['merge']['global_q']")
         merge_state(sd, "merge.", params["merge"], buffers["merge"])
+    return sd
+
+
+def _rmsnorm(sd: Dict, prefix: str, p: Mapping):
+    sd[f"{prefix}.weight"] = _t(p["weight"])
+
+
+def mamba2d_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``MambaMIL2D`` from the JAX
+    package's ``MambaMIL2D`` params: ``_fc1``, ``pos_embs`` and
+    ``pad_token`` where the model has them, ``layer{i}/norm`` and
+    ``layer{i}/mixer`` (``in_proj``, ``conv1d``, ``x_proj``, the three inner
+    RMSNorms, ``dt_proj``, ``A_log``, ``D``, ``out_proj``) as
+    ``layers.{i}.*``, ``norm``, ``attn_0`` / ``attn_1`` as
+    ``attention.0`` / ``attention.2``, and ``classifier``. The flax 1D conv
+    kernel ``[k, 1, C]`` becomes the torch weight ``[C, 1, k]``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "_fc1", params["_fc1"])
+    if "pos_embs" in params:
+        _linear(sd, "pos_embs", params["pos_embs"])
+    if "pad_token" in params:
+        sd["pad_token"] = _t(params["pad_token"])
+    layers = sorted((k for k in params if k.startswith("layer")), key=lambda k: int(k[5:]))
+    for i, name in enumerate(layers):
+        pre, p = f"layers.{i}", params[name]
+        _rmsnorm(sd, f"{pre}.norm", p["norm"])
+        m = p["mixer"]
+        for lin in ("in_proj", "x_proj", "dt_proj", "out_proj"):
+            _linear(sd, f"{pre}.mixer.{lin}", m[lin])
+        sd[f"{pre}.mixer.conv1d.weight"] = _t(m["conv1d"]["kernel"]).permute(2, 1, 0).contiguous()
+        sd[f"{pre}.mixer.conv1d.bias"] = _t(m["conv1d"]["bias"])
+        for norm in ("dt_layernorm", "B_layernorm", "C_layernorm"):
+            _rmsnorm(sd, f"{pre}.mixer.{norm}", m[norm])
+        sd[f"{pre}.mixer.A_log"] = _t(m["A_log"])
+        sd[f"{pre}.mixer.D"] = _t(m["D"])
+    _layernorm(sd, "norm", params["norm"])
+    _linear(sd, "attention.0", params["attn_0"])
+    _linear(sd, "attention.2", params["attn_1"])
+    _linear(sd, "classifier", params["classifier"])
     return sd

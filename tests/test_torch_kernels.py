@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K4 against their plain versions on a Hopper card.
+"""K1, K2, K3, K4 and K5 against their plain versions on a Hopper card.
 
 Marked ``cuda``: skips without a card of capability 9.0. This file imports no
 JAX, so it runs on the card's machine, from the root of the repo:
@@ -8,7 +8,7 @@ JAX, so it runs on the card's machine, from the root of the repo:
 import pytest
 import torch
 
-from mhim_mil_torch.ops import abmil_pool
+from mhim_mil_torch.ops import abmil_pool, scan2d
 from mhim_mil_torch.ops import flash_nystrom as fn
 from mhim_mil_torch.ops.nystrom import nystrom_attention
 
@@ -109,3 +109,43 @@ def test_flash_nystrom_infer_refuses_to_drop_the_graph(hopper):
         fn.flash_nystrom_infer(q, k, v, mask, 8)
     with torch.no_grad():
         fn.flash_nystrom_infer(q, k, v, mask, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,h,w,ed,n,dtype", [
+    (2, 6, 8, 8, 4, torch.float32),  # test_pallas_scan2d.py's shape
+    (1, 5, 11, 64, 16, torch.float32),  # ragged: one warp, 11 columns
+    (2, 9, 102, 64, 16, torch.float32),  # the serving raster width
+    (1, 4, 700, 16, 16, torch.float32),  # two column chunks with the carried prefix
+    (2, 7, 381, 32, 16, torch.bfloat16),  # the BLCA width, bf16 read in registers
+])
+def test_scan2d_matches_its_plain_version_on_the_card(hopper, bs, h, w, ed, n, dtype):
+    """K5 against scan2d_plain on the same card inputs (Δ = 0.1·softplus(normal),
+    A_log = log(1..N), as pallas_hw_check.py draws them), rtol 1e-4 atol 1e-5;
+    B and C as strided slices of one x_proj-like output."""
+    gen = torch.Generator(device=hopper).manual_seed(3)
+    x = torch.randn(bs, h, w, ed, device=hopper, generator=gen).to(dtype)
+    delta = (0.1 * torch.nn.functional.softplus(torch.randn(bs, h, w, ed, device=hopper, generator=gen))).to(dtype)
+    bc = torch.randn(bs, h, w, 3 + 2 * n, device=hopper, generator=gen).to(dtype)
+    B, C = bc[..., 3:3 + n], bc[..., 3 + n:]
+    a_log = torch.log(torch.arange(1, n + 1, device=hopper, dtype=torch.float32)).expand(ed, n)
+    D = torch.randn(ed, device=hopper, generator=gen)
+    before = scan2d.selective_scan_2d_fused.launches
+    got = scan2d.selective_scan_2d_fused(x, delta, a_log, B, C, D)
+    torch.cuda.synchronize()
+    assert scan2d.selective_scan_2d_fused.launches == before + 1
+    torch.testing.assert_close(got, scan2d.scan2d_plain(x, delta, a_log, B, C, D), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_scan2d_refuses_grad_and_wide_rows(hopper):
+    """K5 has no gradient, and rows wider than its two chunks raise."""
+    x = torch.randn(1, 2, 8, 16, device=hopper, requires_grad=True)
+    delta = torch.full_like(x, 0.05).detach()
+    bc = torch.randn(1, 2, 8, 4, device=hopper)
+    a_log, D = torch.zeros(16, 4, device=hopper), torch.ones(16, device=hopper)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        scan2d.selective_scan_2d_fused(x, delta, a_log, bc, bc, D)
+    wide = torch.zeros(1, 1, 1025, 16, device=hopper)
+    with pytest.raises(ValueError, match="W <= 1024"):
+        scan2d.selective_scan_2d_fused(wide, wide, a_log, wide[..., :4], wide[..., :4], D)

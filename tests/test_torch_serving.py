@@ -159,6 +159,7 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mhim_mil_tpu'))\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 15, mods\n"
+        "assert {'mhim_mil_torch.ops.scan', 'mhim_mil_torch.ops.scan2d', 'mhim_mil_torch.models.mamba'} <= set(mods)\n"
         "print(len(mods))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
