@@ -16,7 +16,8 @@ its eval step and its scorer. Phases, each of which fails the run:
    flagship shapes (full and ragged masks) and a small odd shape, and K3's
    outputs and q/k/v gradients at the student's shape against autograd
    through the plain attention, and K5 against its plain version at the
-   BLCA grid, the serving raster grid and a ragged 5 × 11 grid, with
+   BLCA grid, the serving raster grid and a ragged 5 × 11 grid (and rows
+   of 1,500, 2,100 and 4,200 columns), and K6 against ``x + 1``, with
    times, bounds and library yardsticks;
 4. serving: the selfattn kernel path against the plain path on the whole
    model in fp32, then the scorer's requests under the default bf16 policy;
@@ -26,10 +27,19 @@ its eval step and its scorer. Phases, each of which fails the run:
    path in fp32, then the scorer's requests under bf16;
 7. 2dmamba: the eval step on one 20,000-instance bag on the BLCA grid, the
    kernel path (K5) against the plain path in fp32 and bf16 against fp32,
-   then the scorer's requests on the raster grid under bf16.
+   then the scorer's requests on the raster grid under bf16;
+8. driver: ``mhim_mil_torch.main.main`` with ``use_flash_attn`` on auto, so
+   the kernel gate builds and launches K6 in its probe and runs the kernel
+   check: two folds of the flagship on synthetic bags of 5,120-10,240
+   instances in the 10,240 bucket, two epochs each, with the student and
+   EMA bests final-tested; the ``script_mode test`` reload of those bests;
+   then one fold of the 2dmamba survival model, training on the plain scan
+   and evaluating through K5.
 
-Phases 4-7 each reset the launch counts before their main-path runs and
-read them after; the kernels' launches are the sums of those readings.
+Phase 3 also holds K6, the gate's probe, against its plain version, and K5
+on rows wider than 1,024 columns. Phases 4-8 each reset the launch counts
+before their main-path runs and read them after; the kernels' launches are
+the sums of those readings, plus the K6 launches of the gate's probe.
 
 The line before the last lists the kernels as JSON; the last line is the
 run's JSON verdict. Any failure exits nonzero before it.
@@ -39,9 +49,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -435,32 +447,72 @@ def phase_k5(gen) -> dict:
                 f"({bound_by}); no library call computes a 2D selective scan")
         del ops, got, want
         torch.cuda.empty_cache()
+    # rows wider than 1,024 columns: h beyond the register chunks in shared
+    # memory (1,500, 2,100) or in the wrapper's global scratch (4,200)
+    for w in (1500, 2100, 4200):
+        ops = operands(1, 64, w, torch.float32, gen)
+        got = scan2d.selective_scan_2d_fused(*ops)
+        torch.cuda.synchronize()
+        err = check_close(f"K5 [wide {w}]", got, scan2d.scan2d_plain(*ops), 1e-4, 1e-5)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r_w = {}
+        timed(r_w, lambda: scan2d.selective_scan_2d_fused(*ops), None)
+        bound_ms, bound_by, _ = k5_bounds(ops[0], ops[2])
+        log(f"K5 [wide {w}] Bs=1 H=64 W={w} ED=256 N=16 fp32: max|d| {err:.3e} (rtol 1e-4, atol 1e-5); "
+            f"kernel {fmt_ms(r_w, '')}, bound {bound_ms:.4f} ms ({bound_by})")
+        del ops, got
+        torch.cuda.empty_cache()
     return {"K5": r}
+
+
+def phase_k6(gen) -> dict:
+    """K6, the gate's probe, against probe_plain, exactly (max|d| 0), on the
+    gate's ones(8, 128) and on random values; timed on ones(8, 128) beside
+    ``torch.add(x, 1.0)``. Bound: the 4 KiB read and the 4 KiB written."""
+    from mhim_mil_torch.ops import probe
+
+    r = {"max_abs_err": 0.0}
+    x = torch.ones(8, 128, device="cuda")
+    for label, t in (("ones", x), ("random", torch.randn(8, 128, device="cuda", generator=gen))):
+        got = probe.probe(t)
+        torch.cuda.synchronize()
+        err = (got - probe.probe_plain(t)).abs().max().item()
+        if err != 0.0 or not torch.isfinite(got).all():
+            fail(f"K6 [{label}]: max|d| {err} against x + 1 (tolerance 0)")
+        log(f"K6 [{label}] [8, 128] fp32: max|d| {err} against probe_plain (tolerance 0)")
+    nbytes, ops = 2 * x.numel() * F32, x.numel()
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+    r.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    timed(r, lambda: probe.probe(x), lambda: probe.probe_plain(x), lambda: torch.add(x, 1.0))
+    log(f"K6 [ones]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, library (torch.add) "
+        f"{fmt_ms(r, 'library_')}, bound {r['bound_ms']:.3e} ms ({r['bound_by']}: {nbytes} bytes)")
+    return {"K6": r}
 
 
 # ---- phases 4-7: the main paths ---------------------------------------------------
 
 
-KERNELS = ("K1", "K2", "K3", "K3b", "K4", "K5")  # K3b: K3's backward
+KERNELS = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6")  # K3b: K3's backward
 
 
 def launches() -> dict:
-    from mhim_mil_torch.ops import abmil_pool, scan2d
+    from mhim_mil_torch.ops import abmil_pool, probe, scan2d
     from mhim_mil_torch.ops import flash_nystrom as fn
 
     return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches, "K3": fn.FlashNystrom.forward_calls,
             "K3b": fn.FlashNystrom.backward_calls, "K4": abmil_pool.fused_abmil_pool.launches,
-            "K5": scan2d.selective_scan_2d_fused.launches}
+            "K5": scan2d.selective_scan_2d_fused.launches, "K6": probe.probe.launches}
 
 
 def reset_launches():
-    from mhim_mil_torch.ops import abmil_pool, scan2d
+    from mhim_mil_torch.ops import abmil_pool, probe, scan2d
     from mhim_mil_torch.ops import flash_nystrom as fn
 
     fn.pass_a.launches = fn.pass_b.launches = 0
     fn.FlashNystrom.forward_calls = fn.FlashNystrom.backward_calls = 0
     abmil_pool.fused_abmil_pool.launches = 0
     scan2d.selective_scan_2d_fused.launches = 0
+    probe.probe.launches = 0
 
 
 def expect_launches(label: str, **want) -> dict:
@@ -743,6 +795,93 @@ def phase_mamba(gen) -> dict:
     return {"launches": counted + [sv["launches"]], "serving": sv["serving"], "eval_ms": eval_ms}
 
 
+DRIVER_ARGS = ["-c", "config/mhim_c16.yaml", "--datasets", "synth", "--input_dim", "1024", "--synth_bag_size",
+               "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24", "--cv_fold", "2",
+               "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50"]
+MAMBA_ARGS = ["-c", "config/feat_surv.yaml", "--model", "2dmamba", "--datasets", "surv_synth", "--input_dim", "1024",
+              "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--cv_fold", "1",
+              "--num_epoch", "1", "--use_flash_attn", "true"]
+
+
+def drive(label: str, argv) -> tuple:
+    """One run of the port's command line from zero launch counts: its
+    results, its launches and its host seconds."""
+    from mhim_mil_torch.main import main as cli
+
+    log(f"driver [{label}]: python3 -m mhim_mil_torch.main {' '.join(argv)}")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = cli(argv)
+    torch.cuda.synchronize()
+    return res, launches(), time.perf_counter() - t0
+
+
+def log_folds(label: str, res: dict):
+    for f in res["folds"]:
+        t = f["timing"]
+        rate = t["train_steps"] / t["train_seconds"] if t["train_seconds"] else float("nan")
+        log(f"driver [{label}] fold {f['fold']}: {t['seconds']:.2f} s wall, {t['train_steps']} train steps in "
+            f"{t['train_seconds']:.2f} s ({rate:.2f} steps/s, host clock, meters read once an epoch), "
+            f"eval {t['eval_seconds']:.2f} s; best epoch {f['best_epoch']}, test "
+            + ", ".join(f"{k} {v:.4f}" for k, v in f["test"].items() if isinstance(v, float)))
+
+
+def finite_rows(label: str, res: dict, rows, key: str):
+    for f in res["folds"]:
+        for row in rows:
+            vals = [f.get(row, {}).get(k, float("nan")) for k in ((key, "acc") if key == "auc" else (key,))]
+            if not all(math.isfinite(v) for v in vals):
+                fail(f"driver [{label}] fold {f['fold']}: no finite {row} row: {f.get(row)}")
+
+
+def phase_driver() -> dict:
+    """Phase 8: the k-fold driver through its command line, the kernel gate
+    on auto in the first run; then the reload of the bests; then 2dmamba
+    survival with the kernels named explicitly (one gate per script)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
+        out = os.path.join(tmp, "mhim")
+        torch.cuda.reset_peak_memory_stats()
+        res, seen, secs = drive("flagship", DRIVER_ARGS + ["--output_path", out])
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        gate = res["kernel_gate"]
+        log(f"driver [flagship] kernel gate: {gate['outcome']} in {gate['seconds']:.2f} s, K6 launched "
+            f"{gate['probe_launches']} time(s) in its probe; {gate['detail']}")
+        if gate["outcome"] != "enabled" or gate["probe_launches"] < 1:
+            fail(f"driver: the kernel gate gave {gate}")
+        log_folds("flagship", res)
+        log(f"driver [flagship] launches {seen}; {secs:.2f} s in all (host clock, data made, gate and "
+            f"checkpoints included); peak device memory {peak_gb:.2f} GiB")
+        for kid in ("K1", "K2", "K3", "K3b"):
+            if seen[kid] < 1:
+                fail(f"driver [flagship]: {kid} was not launched")
+        finite_rows("flagship", res, ("test", "test_ema"), "auc")
+        if not (res.get("summary") and res.get("summary_ema")):
+            fail("driver [flagship]: no summary or summary_ema")
+        for k in range(2):
+            for name in (f"fold_{k}_model_best.ckpt", f"fold_{k}_ema_model_best.ckpt"):
+                if not os.path.exists(os.path.join(out, name)):
+                    fail(f"driver [flagship]: {name} was not written")
+
+        res2, seen2, secs2 = drive("reload", DRIVER_ARGS + ["--use_flash_attn", "true", "--script_mode", "test",
+                                                         "--model_path", out, "--output_path", ""])
+        for f1, f2 in zip(res["folds"], res2["folds"]):
+            d = max(abs(f1["test"][k] - f2["test"][k]) for k in ("auc", "acc"))
+            log(f"driver [reload] fold {f1['fold']}: test auc {f2['test']['auc']:.6f}, acc {f2['test']['acc']:.6f}; "
+                f"max|d| {d:.3e} against the training run's (tolerance 1e-6)")
+            if not d <= 1e-6:
+                fail("driver [reload]: the reloaded best does not reproduce the test row")
+        log(f"driver [reload] launches {seen2}; {secs2:.2f} s")
+
+        res3, seen3, secs3 = drive("2dmamba", MAMBA_ARGS + ["--output_path", os.path.join(tmp, "mamba")])
+        log_folds("2dmamba", res3)
+        finite_rows("2dmamba", res3, ("test",), "cindex")
+        if seen3["K5"] < 1:
+            fail("driver [2dmamba]: K5 was not launched")
+        log(f"driver [2dmamba] launches {seen3}; {secs3:.2f} s; c-index {res3['summary']['cindex']['mean']:.4f}")
+        probes = {"K6": gate["probe_launches"] + res3["kernel_gate"]["probe_launches"]}
+    return {"launches": [seen, seen2, seen3, probes], "seconds": secs + secs2 + secs3}
+
+
 def main():
     phase_device()
     phase_build()
@@ -751,11 +890,12 @@ def main():
     report.update(phase_k4(gen))
     report.update(phase_k3(gen))
     report.update(phase_k5(gen))
+    report.update(phase_k6(gen))
     counted = {kid: 0 for kid in KERNELS}
-    for phase in (phase_serving, phase_train, phase_attn, phase_mamba):
+    for phase in (phase_serving, phase_train, phase_attn, phase_mamba, lambda g: phase_driver()):
         for seen in phase(gen)["launches"]:
-            for kid in KERNELS:
-                counted[kid] += seen[kid]
+            for kid, n in seen.items():
+                counted[kid] += n
     log(f"launches on the main paths: {counted}")
     meta = {
         "K1": ("flash_nystrom_pass_a", "mhim_mil_torch/csrc/flash_nystrom.cu",
@@ -766,6 +906,7 @@ def main():
                "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
         "K4": ("abmil_pool", "mhim_mil_torch/csrc/abmil_pool.cu", "mhim_mil_tpu/ops/pallas_abmil.py:42"),
         "K5": ("scan2d", "mhim_mil_torch/csrc/scan2d.cu", "mhim_mil_tpu/ops/pallas_scan2d.py:56"),
+        "K6": ("probe", "mhim_mil_torch/csrc/probe.cu", "mhim_mil_tpu/utils/pallas_gate.py:37"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():

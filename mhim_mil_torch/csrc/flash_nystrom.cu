@@ -327,6 +327,9 @@ extern "C" int flash_nystrom_pass_a(
   } else if (DH == 32) {
     pass_a_kernel<32><<<grid, THREADS, 0, st>>>(ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh,
                                                  v_sn, mask, attn3v, m3, s3, H, N, M);
+  } else if (DH == 16) {
+    pass_a_kernel<16><<<grid, THREADS, 0, st>>>(ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh,
+                                                 v_sn, mask, attn3v, m3, s3, H, N, M);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -347,6 +350,10 @@ extern "C" int flash_nystrom_pass_b(
                                                  o_sb, o_sh, o_sn, cls, H, N, M);
   } else if (DH == 32) {
     pass_b_kernel<32><<<grid, THREADS, 0, st>>>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn,
+                                                 mask, kl, lm_mask, mid, ql, rp, m3, out,
+                                                 o_sb, o_sh, o_sn, cls, H, N, M);
+  } else if (DH == 16) {
+    pass_b_kernel<16><<<grid, THREADS, 0, st>>>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn,
                                                  mask, kl, lm_mask, mid, ql, rp, m3, out,
                                                  o_sb, o_sh, o_sn, cls, H, N, M);
   } else {

@@ -24,8 +24,13 @@
 // order, so the row loop lives inside a block: one block per (bag, channel),
 // one thread per column (at most MAX_THREADS; wider rows are walked in K
 // chunks of the block's width, the scan carried from one chunk into the
-// next). A thread keeps its columns' h[N] in registers, so the vertical
-// step never leaves the thread. Each row is one block-wide inclusive scan
+// next). For rows of up to MAX_CHUNKS chunks a thread keeps its columns'
+// h[N] in registers, so the vertical step never leaves the thread. Wider
+// rows take scan2d_wide_kernel: each thread walks ceil(W / 512) columns,
+// the first MAX_CHUNKS with h in registers and the rest with h in dynamic
+// shared memory where it fits the block, else in a global scratch buffer
+// that the caller allocates (scan2d_scratch says how large); either way
+// laid out [chunk, n, thread], so each thread owns its entries. Each row is one block-wide inclusive scan
 // of the (ā, b̄x) pairs for all N states at once: __shfl_up_sync within a
 // warp, then each thread folds the totals of the warps before it (and the
 // carry of the previous chunk) from shared memory, double-buffered so that
@@ -41,7 +46,7 @@ namespace {
 
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
-constexpr int MAX_CHUNKS = 2;  // W ≤ MAX_CHUNKS · MAX_THREADS
+constexpr int MAX_CHUNKS = 2;  // chunks whose h lives in registers
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -136,6 +141,141 @@ scan2d_kernel(const T* __restrict__ x, const T* __restrict__ delta,
   }
 }
 
+// Rows wider than MAX_CHUNKS · MAX_THREADS: the body of scan2d_kernel with
+// a runtime number of chunks nk. Chunks k < MAX_CHUNKS keep h in registers;
+// the h of chunk k ≥ MAX_CHUNKS is hx[((k − MAX_CHUNKS)·N + n)·nt + tid], in
+// dynamic shared memory, or in hx_global at this block's offset when the
+// caller passes one. blockDim.x = MAX_THREADS.
+template <typename T, int N>
+__global__ void __launch_bounds__(MAX_THREADS)
+scan2d_wide_kernel(const T* __restrict__ x, const T* __restrict__ delta,
+                   const T* __restrict__ Bm, int64_t b_cs, const T* __restrict__ Cm, int64_t c_cs,
+                   const float* __restrict__ A_log, const float* __restrict__ Dv,
+                   float* __restrict__ y, int H, int W, int ED, float* __restrict__ hx_global) {
+  extern __shared__ float hx_shared[];
+  __shared__ float tot_a[2][MAX_WARPS][N], tot_b[2][MAX_WARPS][N];
+  __shared__ float carry[2][N];
+  __shared__ float a_neg[N];
+  const int e = blockIdx.x, bag = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nt = blockDim.x;
+  const int nk = (W + nt - 1) / nt;
+  const int64_t nx = (int64_t)(nk - MAX_CHUNKS) * N * nt;
+  float* hx = hx_global ? hx_global + ((int64_t)bag * ED + e) * nx : hx_shared;
+  for (int64_t i = tid; i < nx; i += nt) hx[i] = 0.f;  // this thread's own entries
+  if (tid < N) a_neg[tid] = -expf(A_log[(int64_t)e * N + tid]);
+  __syncthreads();
+  const float d_skip = Dv[e];
+
+  float hr[MAX_CHUNKS][N];
+#pragma unroll
+  for (int k = 0; k < MAX_CHUNKS; ++k)
+#pragma unroll
+    for (int n = 0; n < N; ++n) hr[k][n] = 0.f;
+
+  int buf = 0;
+  for (int r = 0; r < H; ++r) {
+    for (int k = 0; k < nk; ++k) {
+      const int c = k * nt + tid;
+      const bool in = c < W;
+      const int64_t cell = ((int64_t)bag * H + r) * W + c;
+      float* hk = hx + (int64_t)(k - MAX_CHUNKS) * N * nt + tid;  // used for k >= MAX_CHUNKS
+      float h[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) h[n] = k == 0 ? hr[0][n] : k == 1 ? hr[1][n] : hk[n * nt];
+      float xv = 0.f, dt = 0.f;
+      if (in) {
+        xv = to_f32(x[cell * ED + e]);
+        dt = to_f32(delta[cell * ED + e]);
+      }
+      const float dtx = dt * xv;
+      float abar[N], pa[N], pb[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        abar[n] = in ? expf(dt * a_neg[n]) : 1.f;
+        pa[n] = abar[n];
+        pb[n] = in ? dtx * to_f32(Bm[cell * b_cs + n]) : 0.f;
+      }
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const float ua = __shfl_up_sync(0xffffffffu, pa[n], off);
+          const float ub = __shfl_up_sync(0xffffffffu, pb[n], off);
+          if (lane >= off) {
+            pb[n] = fmaf(pa[n], ub, pb[n]);
+            pa[n] *= ua;
+          }
+        }
+      }
+      if (lane == 31) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          tot_a[buf][warp][n] = pa[n];
+          tot_b[buf][warp][n] = pb[n];
+        }
+      }
+      __syncthreads();
+      float v[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) v[n] = k > 0 ? carry[buf ^ 1][n] : 0.f;
+      for (int w = 0; w < warp; ++w) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) v[n] = fmaf(tot_a[buf][w][n], v[n], tot_b[buf][w][n]);
+      }
+      float acc = d_skip * xv;
+      const bool last = in && (c == W - 1 || tid == nt - 1);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float u = fmaf(pa[n], v[n], pb[n]);
+        h[n] = fmaf(abar[n], h[n], u);
+        if (in) acc = fmaf(h[n], to_f32(Cm[cell * c_cs + n]), acc);
+        if (last) carry[buf][n] = u;
+      }
+      if (in) y[cell * ED + e] = acc;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        if (k == 0) hr[0][n] = h[n];
+        else if (k == 1) hr[1][n] = h[n];
+        else hk[n * nt] = h[n];
+      }
+      buf ^= 1;
+    }
+  }
+}
+
+// Bytes of dynamic shared memory a block of the wide kernel can take on the
+// current device, or −1 on a CUDA error.
+template <int N>
+int64_t wide_shared_room() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, scan2d_wide_kernel<float, N>) != cudaSuccess)
+    return -1;
+  return (int64_t)optin - (int64_t)attr.sharedSizeBytes;
+}
+
+// Floats of h per (bag, channel) beyond the register chunks of a row W wide.
+int64_t wide_floats(int W, int N) {
+  const int nk = (W + MAX_THREADS - 1) / MAX_THREADS;
+  return nk > MAX_CHUNKS ? (int64_t)(nk - MAX_CHUNKS) * N * MAX_THREADS : 0;
+}
+
+template <typename T, int N>
+int launch_wide(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
+                int64_t c_cs, const float* A_log, const float* Dv, float* y, float* scratch, int Bs,
+                int H, int W, int ED, cudaStream_t st) {
+  const size_t smem = scratch ? 0 : (size_t)wide_floats(W, N) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      scan2d_wide_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  scan2d_wide_kernel<T, N><<<dim3(ED, Bs), MAX_THREADS, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(delta), static_cast<const T*>(Bm), b_cs,
+      static_cast<const T*>(Cm), c_cs, A_log, Dv, y, H, W, ED, scratch);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int N, int K>
 int launch(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
            int64_t c_cs, const float* A_log, const float* Dv, float* y, int Bs, int H, int W,
@@ -149,41 +289,60 @@ int launch(const void* x, const void* delta, const void* Bm, int64_t b_cs, const
 
 template <typename T, int N>
 int by_chunks(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
-              int64_t c_cs, const float* A_log, const float* Dv, float* y, int Bs, int H, int W,
-              int ED, cudaStream_t st) {
+              int64_t c_cs, const float* A_log, const float* Dv, float* y, float* scratch, int Bs,
+              int H, int W, int ED, cudaStream_t st) {
   if (W <= MAX_THREADS)
     return launch<T, N, 1>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs, H, W, ED, st);
-  return launch<T, N, MAX_CHUNKS>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs, H, W, ED, st);
+  if (W <= MAX_CHUNKS * MAX_THREADS)
+    return launch<T, N, MAX_CHUNKS>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs, H, W, ED, st);
+  return launch_wide<T, N>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, st);
 }
 
 template <typename T>
 int by_state(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
-             int64_t c_cs, const float* A_log, const float* Dv, float* y, int Bs, int H, int W,
-             int ED, int N, cudaStream_t st) {
+             int64_t c_cs, const float* A_log, const float* Dv, float* y, float* scratch, int Bs,
+             int H, int W, int ED, int N, cudaStream_t st) {
   switch (N) {
-    case 2: return by_chunks<T, 2>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs, H, W, ED, st);
-    case 4: return by_chunks<T, 4>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs, H, W, ED, st);
-    case 8: return by_chunks<T, 8>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs, H, W, ED, st);
-    case 16: return by_chunks<T, 16>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs, H, W, ED, st);
+    case 2: return by_chunks<T, 2>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, st);
+    case 4: return by_chunks<T, 4>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, st);
+    case 8: return by_chunks<T, 8>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, st);
+    case 16: return by_chunks<T, 16>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-extern "C" int scan2d_max_width() { return MAX_CHUNKS * MAX_THREADS; }
+// Floats of global scratch per (bag, channel) that scan2d needs for rows W
+// wide at state size N: 0 when h fits in registers (W ≤ 1,024) or in the
+// block's shared memory on the current device; −1 on a bad N or a CUDA error.
+extern "C" int scan2d_scratch(int W, int N) {
+  int64_t room;
+  switch (N) {
+    case 2: room = wide_shared_room<2>(); break;
+    case 4: room = wide_shared_room<4>(); break;
+    case 8: room = wide_shared_room<8>(); break;
+    case 16: room = wide_shared_room<16>(); break;
+    default: return -1;
+  }
+  if (room < 0) return -1;
+  const int64_t floats = wide_floats(W, N);
+  return floats * (int64_t)sizeof(float) <= room ? 0 : (int)floats;
+}
 
 // x, delta[Bs, H, W, ED] contiguous; B[Bs, H, W, N] and C with a cell
 // stride of b_cs / c_cs elements and a unit stride along N; all four fp32
 // (bf16 = 0) or bf16 (1). A_log[ED, N] and D[ED] fp32, contiguous. Writes
-// y[Bs, H, W, ED] fp32. N ∈ {2, 4, 8, 16}, W ≤ scan2d_max_width().
+// y[Bs, H, W, ED] fp32. N ∈ {2, 4, 8, 16}, any W ≥ 1. scratch is null, or
+// Bs · ED · scan2d_scratch(W, N) fp32 on the card for the wide path's h.
 extern "C" int scan2d(const void* x, const void* delta, const void* Bm, int64_t b_cs,
                       const void* Cm, int64_t c_cs, int bf16, const float* A_log,
-                      const float* Dv, float* y, int Bs, int H, int W, int ED, int N,
-                      void* stream) {
+                      const float* Dv, float* y, float* scratch, int Bs, int H, int W, int ED,
+                      int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (W < 1 || W > MAX_CHUNKS * MAX_THREADS || H < 1) return (int)cudaErrorInvalidValue;
+  if (W < 1 || H < 1) return (int)cudaErrorInvalidValue;
   if (bf16)
-    return by_state<__nv_bfloat16>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs, H, W, ED, N, st);
-  return by_state<float>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs, H, W, ED, N, st);
+    return by_state<__nv_bfloat16>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W,
+                                   ED, N, st);
+  return by_state<float>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, N, st);
 }

@@ -67,6 +67,13 @@ def nll_surv_loss(logits: Tensor, y_bin: Tensor, censorship: Tensor, alpha: floa
     return _wmean(loss[:, 0], weights)
 
 
+def surv_risk(logits: Tensor) -> Tensor:
+    """Risk score for the c-index, ``−Σ cumprod(1 − sigmoid(logits))``
+    (reference engines/base_engine.py:636-649). fp32."""
+    s = torch.cumprod(1.0 - torch.sigmoid(logits.float()), dim=1)
+    return -s.sum(dim=1)
+
+
 def build_criterion(cfg) -> Callable[[Tensor, Dict[str, Tensor]], Tensor]:
     """``fn(logits, batch) -> scalar`` keyed by ``cfg.loss`` (reference train_utils.py:41-48)."""
     if cfg.loss == "ce":

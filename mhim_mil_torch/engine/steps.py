@@ -1,7 +1,8 @@
 """Precision policy, the teacher EMA, the MHIM train and eval steps and the
-generic eval step (port of ``cast_compute``, ``ema_update`` and
-``make_eval_step`` in ``mhim_mil_tpu/engine/steps.py`` and of
-``make_mhim_train_step`` / ``make_mhim_eval_step`` in ``models/mhim.py``)."""
+generic train and eval steps (port of ``cast_compute``, ``ema_update``,
+``grad_norm_metrics``, ``make_train_step`` and ``make_eval_step`` in
+``mhim_mil_tpu/engine/steps.py`` and of ``make_mhim_train_step`` /
+``make_mhim_eval_step`` in ``models/mhim.py``)."""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from torch.profiler import record_function
 from ..utils.platform import resolve_device
 from ..utils.schedules import cosine_schedule
 from .losses import build_criterion
-from .train_state import MHIMTrainState
+from .train_state import TrainState
 
 Tensor = torch.Tensor
 
@@ -72,6 +73,19 @@ def ema_update(teacher: nn.Module, student: nn.Module, mm) -> None:
     torch._foreach_lerp_(list(teacher.parameters()), list(student.parameters()), float(1.0 - mm))
 
 
+def grad_norm_metrics(cfg, model: nn.Module) -> Dict[str, Tensor]:
+    """Under ``wandb_watch``, the global norm of the raw gradients of each
+    top-level module, ``grad_norm/<module>`` (``steps.py:155-163``), as 0-d
+    device tensors; empty otherwise."""
+    if not getattr(cfg, "wandb_watch", False):
+        return {}
+    groups: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            groups.setdefault(name.split(".")[0], []).append(torch.linalg.vector_norm(p.grad.float()))
+    return {f"grad_norm/{k}": torch.linalg.vector_norm(torch.stack(v)) for k, v in groups.items()}
+
+
 def make_mhim_train_step(
     cfg, steps_per_epoch: int, device: Optional[Union[str, torch.device]] = None,
 ) -> Callable[..., Dict[str, Tensor]]:
@@ -88,7 +102,7 @@ def make_mhim_train_step(
 
     The four stages run under ``record_function`` ranges (``mhim.teacher``,
     ``mhim.student``, ``mhim.backward``, ``mhim.update``) that a profiler
-    reads. It updates ``state`` (an ``MHIMTrainState``) in place and returns the
+    reads. It updates ``state`` (a ``TrainState``) in place and returns the
     metrics of ``mhim.py:428-437`` with ``loss`` and ``mm``, as 0-d tensors.
     ``batch`` holds ``feats``, ``mask``, ``target`` and optionally
     ``bag_valid`` on the device. Random numbers come from ``state.gen``,
@@ -104,7 +118,7 @@ def make_mhim_train_step(
     mrh_sche = cosine_schedule(cfg.mask_ratio_h, 0.0, total_steps) if cfg.mrh_sche else None
     mm_sche = cosine_schedule(cfg.mm, 1.0, total_steps) if cfg.mm_sche else None
 
-    def train_step(state: MHIMTrainState, batch: Dict[str, Tensor],
+    def train_step(state: TrainState, batch: Dict[str, Tensor],
                    draws: Optional[Dict[str, object]] = None) -> Dict[str, Tensor]:
         if batch["feats"].device.type != device.type:
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
@@ -127,6 +141,7 @@ def make_mhim_train_step(
         with record_function("mhim.backward"):
             state.optimizer.zero_grad()
             loss.backward()
+        grad_norms = grad_norm_metrics(cfg, student)
         with record_function("mhim.update"):
             state.optimizer.step(state.step)
             mm = mm_sche(state.step) if mm_sche is not None else cfg.mm
@@ -141,6 +156,59 @@ def make_mhim_train_step(
             "keep_num": out["keep_num"].float().mean(),
             # the padded fraction of the bucket (mhim.py:433-436)
             "pad_ratio": 1.0 - mask.float().mean(),
+            **grad_norms,
+        }
+
+    return train_step
+
+
+def make_train_step(
+    cfg, family: str, steps_per_epoch: int, device: Optional[Union[str, torch.device]] = None,
+) -> Callable[[TrainState, Dict[str, Tensor]], Dict[str, Tensor]]:
+    """The generic train step (``steps.py:38-137``) for the ``mamba2d``
+    family, run on ``device`` (CUDA unless ``"cpu"`` is asked for).
+    ``step(state, batch)`` runs the model's training forward on ``feats``,
+    ``mask`` and, when the batch has them, the grid coordinates ``pos``;
+    pays ``main_alpha``·criterion + ``aux_alpha``·``aux_loss`` (when the
+    model returns one); steps the optimizer at the pre-update step count; and
+    under ``model_ema`` moves ``state.teacher`` by the EMA at
+    ``model_ema_decay``. It trains through the plain 2D scan: the model
+    takes it whenever ``training`` is set, since K5 has no gradient. It
+    updates ``state`` in place and returns ``loss``, ``main_loss``,
+    ``aux_loss``, ``pad_ratio`` and, under ``wandb_watch``, the
+    ``grad_norm/<module>`` meters, as 0-d tensors."""
+    device = resolve_device(device)
+    if family != "mamba2d":
+        raise NotImplementedError(f"family={family!r}: the generic train step is ported for mamba2d only")
+    criterion = build_criterion(cfg)
+    dtype = compute_dtype(cfg)
+
+    def train_step(state: TrainState, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        if batch["feats"].device.type != device.type:
+            raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
+        model = state.model
+        feats = _cast_batch(dtype, batch)["feats"]
+        args = (feats, batch["mask"]) + ((batch["pos"],) if "pos" in batch else ())
+        with record_function("train.forward"):
+            out = apply_cast(model, cast_compute(cfg, model), "forward", *args, training=True, gen=state.gen)
+            main = criterion(out["logits"], batch)
+            aux = out.get("aux_loss", torch.zeros((), device=main.device))
+            loss = cfg.main_alpha * main + cfg.aux_alpha * aux
+        with record_function("train.backward"):
+            state.optimizer.zero_grad()
+            loss.backward()
+        grad_norms = grad_norm_metrics(cfg, model)
+        with record_function("train.update"):
+            state.optimizer.step(state.step)
+            if state.teacher is not None:
+                ema_update(state.teacher, model, cfg.model_ema_decay)
+        state.step += 1
+        return {
+            "loss": loss.detach(),
+            "main_loss": main.detach(),
+            "aux_loss": aux.detach(),
+            "pad_ratio": 1.0 - batch["mask"].float().mean(),
+            **grad_norms,
         }
 
     return train_step

@@ -1,4 +1,4 @@
-"""The MHIM train state and the optimizer factory (port of
+"""The train states and the optimizer factory (port of
 ``mhim_mil_tpu/engine/train_state.py`` and ``create_mhim_state`` in
 ``models/mhim.py``).
 
@@ -69,6 +69,12 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> dict:
+        return self.opt.state_dict()
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.opt.load_state_dict(sd)
+
 
 def make_optimizer(cfg, params: Iterable[torch.nn.Parameter], lr_schedule: Schedule) -> Optimizer:
     """Optimizer factory (reference train_utils.py:58-69)."""
@@ -76,23 +82,25 @@ def make_optimizer(cfg, params: Iterable[torch.nn.Parameter], lr_schedule: Sched
 
 
 @dataclasses.dataclass
-class MHIMTrainState:
-    """What the MHIM train step carries from one step to the next: the step
-    count, the student (fp32 master weights and the Merge ``global_q_mm``
-    buffer), the EMA teacher, the optimizer and the step's own generator,
-    which draws every random number of a step (mining, merge split,
-    dropout) on the model's device."""
+class TrainState:
+    """What a train step carries from one step to the next: the step count,
+    the student (fp32 master weights and, for MHIM, the Merge
+    ``global_q_mm`` buffer), the EMA teacher (always for MHIM; for the
+    generic step only under ``model_ema``, else None), the optimizer and the
+    step's own generator, which draws every random number of a step
+    (mining, merge split, dropout) on the model's device."""
 
     step: int
     model: nn.Module
-    teacher: nn.Module
+    teacher: Optional[nn.Module]
     optimizer: Optimizer
     gen: torch.Generator
 
 
+
 def create_mhim_state(cfg, model: nn.Module, steps_per_epoch: int, seed: Optional[int] = None,
                       teacher: Optional[nn.Module] = None,
-                      device: Optional[Union[str, torch.device]] = None) -> MHIMTrainState:
+                      device: Optional[Union[str, torch.device]] = None) -> TrainState:
     """The train state of ``model`` on ``device`` (CUDA unless ``"cpu"`` is
     asked for; the model must already be there). The teacher starts as a
     copy of the student unless one is given (a pretrained ``--teacher_init``);
@@ -105,4 +113,19 @@ def create_mhim_state(cfg, model: nn.Module, steps_per_epoch: int, seed: Optiona
     teacher.requires_grad_(False)
     optimizer = make_optimizer(cfg, model.parameters(), make_lr_schedule(cfg, steps_per_epoch))
     gen = torch.Generator(device=device).manual_seed(cfg.seed if seed is None else seed)
-    return MHIMTrainState(0, model, teacher, optimizer, gen)
+    return TrainState(0, model, teacher, optimizer, gen)
+
+
+def create_train_state(cfg, model: nn.Module, steps_per_epoch: int, seed: Optional[int] = None,
+                       device: Optional[Union[str, torch.device]] = None) -> TrainState:
+    """The generic train state (``train_state.py:68-99``) of ``model`` on
+    ``device``: an EMA teacher, a copy of the student that takes no
+    gradient, only under ``cfg.model_ema``; the generator seeded with
+    ``seed`` (default ``cfg.seed``)."""
+    device = resolve_device(device)
+    if next(model.parameters()).device.type != device.type:
+        raise ValueError(f"model is on {next(model.parameters()).device}, the state on {device}")
+    teacher = copy.deepcopy(model).requires_grad_(False) if cfg.model_ema else None
+    optimizer = make_optimizer(cfg, model.parameters(), make_lr_schedule(cfg, steps_per_epoch))
+    gen = torch.Generator(device=device).manual_seed(cfg.seed if seed is None else seed)
+    return TrainState(0, model, teacher, optimizer, gen)

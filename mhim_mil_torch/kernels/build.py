@@ -65,16 +65,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         ],
     },
     "scan2d": {
-        "scan2d_max_width": [],
+        "scan2d_scratch": [I32, I32],  # W, N
         "scan2d": [
             P, P,  # x, delta
             P, I64, P, I64,  # B, C and their cell strides
             I32,  # x, delta, B and C are bf16
             P, P,  # A_log, D
             P,  # y
+            P,  # scratch for the h of wide rows, or null
             I32, I32, I32, I32, I32,  # Bs, H, W, ED, N
             P,  # stream
         ],
+    },
+    "probe": {
+        "probe": [P, P, I64, P],  # x, o, n, stream
     },
 }
 

@@ -44,7 +44,10 @@ def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, 
     (post-softplus) ``[Bs, H, W, ED]``, ``A_log`` ``[ED, N]``, ``B``, ``C``
     ``[Bs, H, W, N]``, ``D`` ``[ED]``. ``x``, ``delta``, ``B`` and ``C`` are
     all fp32 or all bf16 (read in that type, computed in fp32). Returns fp32
-    ``y[Bs, H, W, ED]`` with ``D·x`` added."""
+    ``y[Bs, H, W, ED]`` with ``D·x`` added. Any grid: rows wider than
+    1,024 columns keep the h of their columns beyond the first 1,024 in
+    shared memory, or in a scratch buffer allocated here where that does not
+    fit (about 4,000 columns at N = 16)."""
     if on_cpu(x, delta, A_log, B, C, D):
         return scan2d_plain(x, delta, A_log, B, C, D)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, delta, A_log, B, C, D)):
@@ -56,9 +59,15 @@ def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, 
         raise ValueError(f"x must be float32 or bfloat16, got {dtype}")
     if n not in STATES:
         raise ValueError(f"state size {n}: the kernel is built for {STATES}")
+    if w < 1 or h < 1:
+        raise ValueError(f"grid {h} x {w}: the kernel takes H, W >= 1")
     lib = load_library("scan2d")
-    if not 1 <= w <= lib.scan2d_max_width() or h < 1:
-        raise ValueError(f"grid {h} x {w}: the kernel takes 1 <= W <= {lib.scan2d_max_width()} and H >= 1")
+    with torch.cuda.device(dev):
+        per_block = lib.scan2d_scratch(w, n)
+    if per_block < 0:
+        raise RuntimeError(f"scan2d_scratch({w}, {n}) failed")
+    # rows wider than 1,024 columns whose h does not fit a block's shared memory
+    scratch = torch.empty(bs * ed * per_block, device=dev, dtype=torch.float32) if per_block else None
     x, delta = x.contiguous(), delta.contiguous()
     B, b_cs = _cell_stride(B, h, w)
     C, c_cs = _cell_stride(C, h, w)
@@ -75,6 +84,7 @@ def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, 
         err = lib.scan2d(
             x.data_ptr(), delta.data_ptr(), B.data_ptr(), b_cs, C.data_ptr(), c_cs,
             int(dtype == torch.bfloat16), A_log.data_ptr(), D.data_ptr(), y.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             bs, h, w, ed, n, torch.cuda.current_stream(dev).cuda_stream,
         )
     raise_on(err, "scan2d")

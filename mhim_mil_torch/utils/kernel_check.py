@@ -1,0 +1,192 @@
+"""Every kernel of the port against its plain version on the card (the
+counterpart of ``tools/pallas_hw_check.py``):
+
+    python3 -m mhim_mil_torch.utils.kernel_check [--small] [--only NAME,...]
+
+The checks, shapes and tolerances are those of ``pallas_hw_check.py``, plus
+the gate's probe:
+
+- ``flash_nystrom_infer`` (K1 + K2) against ``nystrom_attention``: 1 × 8 ×
+  4,096, dh 64, 256 landmarks, 80% of the tokens valid; out and attn at
+  rtol 1e-4, atol 1e-5;
+- ``flash_nystrom_vjp`` (K3): the q/k/v gradients of out·co + attn·ca
+  against autograd through ``nystrom_attention``: 1 × 8 × 2,048, dh 64, 128
+  landmarks, 90% valid; rtol 1e-4, atol 1e-5;
+- ``fused_abmil_pool`` (K4) against the masked softmax pooling: 4 × 10,240
+  × 512, bags from half to full; pooled at rtol 1e-5, atol 1e-5, attn at
+  rtol 1e-5, atol 1e-6;
+- ``selective_scan_2d`` (K5) against the plain separable scan: 1 × 64 × 64,
+  ED 64, N 16; rtol 1e-4, atol 1e-5;
+- ``probe`` (K6) against ``probe_plain`` on ``ones(8, 128)``: exact.
+
+``--small`` takes ``pallas_hw_check.py``'s small shapes. Inputs are numpy
+draws from fixed seeds, computed in fp32 with TF32 off. A check passes only
+if its kernel was launched. The script prints one JSON line and exits 1 on
+any failure, and 2 without a CUDA card of capability 9.0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+
+def _cuda(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    return (got - want).abs().max().item()
+
+
+def check_nystrom_infer(small: bool) -> dict:
+    from ..ops import flash_nystrom as fn
+    from ..ops.nystrom import nystrom_attention
+
+    rng = np.random.default_rng(0)
+    b, h, n, dh, m = (1, 2, 256, 32, 16) if small else (1, 8, 4096, 64, 256)
+    q, k, v = (_cuda(rng.normal(size=(b, h, n, dh))) for _ in range(3))
+    mask = torch.as_tensor(np.arange(n)[None] < int(n * 0.8), device="cuda")
+    want_out, want_attn = nystrom_attention(q, k, v, mask, m, return_attn=True)
+    launched = (fn.pass_a.launches, fn.pass_b.launches)
+    got_out, got_attn = fn.flash_nystrom_infer(q, k, v, mask, m)
+    torch.cuda.synchronize()
+    if (fn.pass_a.launches, fn.pass_b.launches) != (launched[0] + 1, launched[1] + 1):
+        raise AssertionError("K1 and K2 were not launched once each")
+    return {"max_abs_err": max(_close(got_out, want_out, 1e-4, 1e-5), _close(got_attn, want_attn, 1e-4, 1e-5))}
+
+
+def check_nystrom_vjp(small: bool) -> dict:
+    from ..ops import flash_nystrom as fn
+    from ..ops.nystrom import nystrom_attention
+
+    rng = np.random.default_rng(2)
+    b, h, n, dh, m = (1, 2, 128, 16, 8) if small else (1, 8, 2048, 64, 128)
+    q, k, v = (_cuda(rng.normal(size=(b, h, n, dh))) for _ in range(3))
+    mask = torch.as_tensor(np.arange(n)[None] < int(n * 0.9), device="cuda")
+    co = _cuda(rng.normal(size=(b, h, n, dh)))
+    ca = _cuda(rng.normal(size=(b, h, n)))
+
+    def grads(f):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out, attn = f(qq, kk, vv)
+        return torch.autograd.grad((out * co).sum() + (attn * ca).sum(), (qq, kk, vv))
+
+    calls = fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls
+    got = grads(lambda *t: fn.flash_nystrom(*t, mask, m))
+    torch.cuda.synchronize()
+    if (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls) != (calls[0] + 1, calls[1] + 1):
+        raise AssertionError("K3 did not run its forward and backward once each")
+    want = grads(lambda *t: nystrom_attention(*t, mask, m, return_attn=True))
+    return {"max_abs_err": max(_close(g, w, 1e-4, 1e-5) for g, w in zip(got, want))}
+
+
+def check_abmil(small: bool) -> dict:
+    from ..ops import abmil_pool
+    from ..ops.masked import masked_softmax
+
+    rng = np.random.default_rng(1)
+    b, n, d = (2, 256, 32) if small else (4, 10240, 512)
+    x = _cuda(rng.normal(size=(b, n, d)))
+    logits = _cuda(rng.normal(size=(b, n)) * 3)
+    mask = torch.as_tensor(np.arange(n)[None] < np.linspace(n // 2, n, b, dtype=int)[:, None], device="cuda")
+    attn_want = masked_softmax(logits, mask)
+    pooled_want = torch.einsum("bn,bnd->bd", attn_want, torch.where(mask[..., None], x, 0.0))
+    launched = abmil_pool.fused_abmil_pool.launches
+    pooled, attn = abmil_pool.fused_abmil_pool(x, logits, mask)
+    torch.cuda.synchronize()
+    if abmil_pool.fused_abmil_pool.launches != launched + 1:
+        raise AssertionError("K4 was not launched")
+    return {"max_abs_err": max(_close(pooled, pooled_want, 1e-5, 1e-5), _close(attn, attn_want, 1e-5, 1e-6))}
+
+
+def check_scan2d(small: bool) -> dict:
+    from ..ops import scan2d
+    from ..ops.scan import selective_scan_2d
+
+    rng = np.random.default_rng(3)
+    bs, h, w, ed, n = (1, 6, 8, 8, 4) if small else (1, 64, 64, 64, 16)
+    x = _cuda(rng.normal(size=(bs, h, w, ed)))
+    delta = _cuda(np.log1p(np.exp(rng.normal(size=(bs, h, w, ed)))) * 0.1)
+    a_log = _cuda(np.log(np.tile(np.arange(1, n + 1, dtype=np.float32), (ed, 1))))
+    B = _cuda(rng.normal(size=(bs, h, w, n)))
+    C = _cuda(rng.normal(size=(bs, h, w, n)))
+    D = _cuda(rng.normal(size=(ed,)))
+    want = selective_scan_2d(x, delta, -torch.exp(a_log), B, C, D)
+    launched = scan2d.selective_scan_2d_fused.launches
+    got = scan2d.selective_scan_2d_fused(x, delta, a_log, B, C, D)
+    torch.cuda.synchronize()
+    if scan2d.selective_scan_2d_fused.launches != launched + 1:
+        raise AssertionError("K5 was not launched")
+    return {"max_abs_err": _close(got, want, 1e-4, 1e-5)}
+
+
+def check_probe(small: bool) -> dict:
+    from ..ops import probe
+
+    x = torch.ones(8, 128, device="cuda")
+    launched = probe.probe.launches
+    got = probe.probe(x)
+    torch.cuda.synchronize()
+    if probe.probe.launches != launched + 1:
+        raise AssertionError("K6 was not launched")
+    err = (got - probe.probe_plain(x)).abs().max().item()
+    if err != 0.0 or got[0, 0].item() != 2.0:
+        raise AssertionError(f"probe: max|d| {err} against x + 1")
+    return {"max_abs_err": err}
+
+
+CHECKS = {
+    "flash_nystrom_infer": check_nystrom_infer,
+    "flash_nystrom_vjp": check_nystrom_vjp,
+    "fused_abmil_pool": check_abmil,
+    "selective_scan_2d": check_scan2d,
+    "probe": check_probe,
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="the port's kernels against their plain versions on the card")
+    ap.add_argument("--small", action="store_true", help="the small shapes of pallas_hw_check.py --small")
+    ap.add_argument("--only", default=None, help="comma-separated subset of " + ",".join(CHECKS))
+    args = ap.parse_args(argv)
+    selected = args.only.split(",") if args.only else list(CHECKS)
+    unknown = [s for s in selected if s not in CHECKS]
+    if unknown or not selected:
+        print(json.dumps({"kernel_check": {}, "ok": False, "error": f"unknown checks {unknown}"}))
+        return 1
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) != (9, 0):
+        why = ("no CUDA device" if not torch.cuda.is_available()
+               else f"compute capability {torch.cuda.get_device_capability(0)}, the kernels are built for sm_90a")
+        print(json.dumps({"kernel_check": {}, "ok": False, "error": f"needs an H100: {why}"}))
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ..kernels import build_all
+
+    build_all()
+    results, failed = {}, []
+    for name in selected:
+        t0 = time.perf_counter()
+        try:
+            res = {"status": "PASS", **CHECKS[name](args.small)}
+        except Exception:
+            traceback.print_exc()
+            res = {"status": "FAIL"}
+            failed.append(name)
+        res["seconds"] = time.perf_counter() - t0
+        results[name] = res
+    print(json.dumps({"kernel_check": results, "device": torch.cuda.get_device_name(0),
+                      "small": args.small, "ok": not failed}))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

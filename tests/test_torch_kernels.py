@@ -1,4 +1,4 @@
-"""K1, K2, K3, K4 and K5 against their plain versions on a Hopper card.
+"""K1-K6 against their plain versions on a Hopper card, and the kernel check.
 
 Marked ``cuda``: skips without a card of capability 9.0. This file imports no
 JAX, so it runs on the card's machine, from the root of the repo:
@@ -8,7 +8,11 @@ JAX, so it runs on the card's machine, from the root of the repo:
 import pytest
 import torch
 
-from mhim_mil_torch.ops import abmil_pool, scan2d
+import os
+import subprocess
+import sys
+
+from mhim_mil_torch.ops import abmil_pool, probe, scan2d
 from mhim_mil_torch.ops import flash_nystrom as fn
 from mhim_mil_torch.ops.nystrom import nystrom_attention
 
@@ -138,14 +142,63 @@ def test_scan2d_matches_its_plain_version_on_the_card(hopper, bs, h, w, ed, n, d
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w,n", [(1500, 16), (2100, 16), (4200, 16), (1500, 4)])
+def test_scan2d_takes_wide_rows(hopper, w, n):
+    """Rows wider than 1,024 columns against scan2d_plain, rtol 1e-4 atol
+    1e-5: the h beyond the first two chunks in shared memory (1,500 and
+    2,100 columns) or, past what a block's shared memory holds at N = 16, in
+    the wrapper's global scratch (4,200)."""
+    gen = torch.Generator(device=hopper).manual_seed(4)
+    bs, h, ed = 2, 5, 8
+    x = torch.randn(bs, h, w, ed, device=hopper, generator=gen)
+    delta = 0.1 * torch.nn.functional.softplus(torch.randn(bs, h, w, ed, device=hopper, generator=gen))
+    B, C = (torch.randn(bs, h, w, n, device=hopper, generator=gen) for _ in range(2))
+    a_log = torch.log(torch.arange(1, n + 1, device=hopper, dtype=torch.float32)).expand(ed, n)
+    D = torch.randn(ed, device=hopper, generator=gen)
+    before = scan2d.selective_scan_2d_fused.launches
+    got = scan2d.selective_scan_2d_fused(x, delta, a_log, B, C, D)
+    torch.cuda.synchronize()
+    assert scan2d.selective_scan_2d_fused.launches == before + 1
+    torch.testing.assert_close(got, scan2d.scan2d_plain(x, delta, a_log, B, C, D), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
 def test_scan2d_refuses_grad_and_wide_rows(hopper):
-    """K5 has no gradient, and rows wider than its two chunks raise."""
+    """K5 has no gradient; a row of 1,025 columns, one past the register
+    chunks, goes through the wide path and matches the plain scan."""
     x = torch.randn(1, 2, 8, 16, device=hopper, requires_grad=True)
     delta = torch.full_like(x, 0.05).detach()
     bc = torch.randn(1, 2, 8, 4, device=hopper)
     a_log, D = torch.zeros(16, 4, device=hopper), torch.ones(16, device=hopper)
     with pytest.raises(RuntimeError, match="no gradient"):
         scan2d.selective_scan_2d_fused(x, delta, a_log, bc, bc, D)
-    wide = torch.zeros(1, 1, 1025, 16, device=hopper)
-    with pytest.raises(ValueError, match="W <= 1024"):
-        scan2d.selective_scan_2d_fused(wide, wide, a_log, wide[..., :4], wide[..., :4], D)
+    wide = torch.randn(1, 1, 1025, 16, device=hopper)
+    got = scan2d.selective_scan_2d_fused(wide, 0.1 * wide.abs(), a_log, wide[..., :4], wide[..., 4:8], D)
+    torch.testing.assert_close(got, scan2d.scan2d_plain(wide, 0.1 * wide.abs(), a_log, wide[..., :4],
+                                                        wide[..., 4:8], D), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_probe_matches_its_plain_version_on_the_card(hopper):
+    """K6 against probe_plain, exactly: on the gate's ones(8, 128) and on
+    random values of an odd length; CPU tensors are refused."""
+    gen = torch.Generator(device=hopper).manual_seed(5)
+    for x in (torch.ones(8, 128, device=hopper), torch.randn(1001, device=hopper, generator=gen)):
+        before = probe.probe.launches
+        got = probe.probe(x)
+        torch.cuda.synchronize()
+        assert probe.probe.launches == before + 1
+        assert torch.equal(got, probe.probe_plain(x))
+    with pytest.raises(ValueError, match="on the card"):
+        probe.probe(torch.ones(8, 128))
+
+
+@pytest.mark.cuda
+def test_kernel_check_small_passes_on_the_card(hopper):
+    """``python3 -m mhim_mil_torch.utils.kernel_check --small`` exits 0 with
+    every check PASS."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-m", "mhim_mil_torch.utils.kernel_check", "--small"],
+                         cwd=repo, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert '"ok": true' in res.stdout.splitlines()[-1]

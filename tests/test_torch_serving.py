@@ -160,6 +160,11 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert len(mods) >= 15, mods\n"
         "assert {'mhim_mil_torch.ops.scan', 'mhim_mil_torch.ops.scan2d', 'mhim_mil_torch.models.mamba'} <= set(mods)\n"
+        "assert {'mhim_mil_torch.main', 'mhim_mil_torch.engine.driver', 'mhim_mil_torch.engine.metrics',\n"
+        "        'mhim_mil_torch.ops.probe', 'mhim_mil_torch.utils.kernel_gate', 'mhim_mil_torch.utils.kernel_check',\n"
+        "        'mhim_mil_torch.utils.checkpoint', 'mhim_mil_torch.utils.early_stopping',\n"
+        "        'mhim_mil_torch.utils.logging', 'mhim_mil_torch.data.synthetic', 'mhim_mil_torch.data.splits',\n"
+        "        'mhim_mil_torch.data.bucketing', 'mhim_mil_torch.data.readers'} <= set(mods)\n"
         "print(len(mods))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
