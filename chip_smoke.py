@@ -13,7 +13,10 @@ its eval step and its scorer. Phases, each of which fails the run:
 1. device: a CUDA card of capability 9.0, its name and power limit;
 2. build: ``nvcc`` builds every kernel from ``mhim_mil_torch/csrc``, all at once;
 3. kernels: K1, K2 and K4 against their plain versions in fp32 at the
-   flagship shapes (full and ragged masks) and a small odd shape, and K3's
+   flagship shapes (full and ragged masks; K1 and K2 at batch 4 and at
+   batch 1, timed at both beside their ``scaled_dot_product_attention``
+   yardsticks, with bounds that count their products on the tensor cores
+   as three TF32 products each) and a small odd shape, and K3's
    outputs and q/k/v gradients at the student's shape against autograd
    through the plain attention, and K5 against its plain version at the
    BLCA grid, the serving raster grid and a ragged 5 × 11 grid (and rows
@@ -59,6 +62,8 @@ import time
 import torch
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM data sheet, TF32 on the tensor cores, dense
+TF32_PRODUCTS = 3  # K1 and K2 take each fp32 product as hi·hi + hi·lo + lo·hi in TF32
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # exponentials per second on the special-function units: 16 per SM and
 # clock (CUDA C++ Programming Guide, arithmetic instruction throughput,
@@ -176,47 +181,59 @@ def phase_build():
 # ---- phase 3: kernels against their plain versions ----------------------------
 
 
-def make_operands(b, h, n, dh, m, lengths, gen):
-    """Realistic K1/K2 operands: random q/k/v (q scaled like the model's) on
-    the card, and the glue of ``flash_nystrom_infer`` between the passes."""
-    from mhim_mil_torch.ops import flash_nystrom as fn
-
-    q = torch.randn(b, h, n, dh, device="cuda", generator=gen) * dh ** -0.5
-    k = torch.randn(b, h, n, dh, device="cuda", generator=gen)
-    v = torch.randn(b, h, n, dh, device="cuda", generator=gen)
-    mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
-    q_l, k_l, lm_mask, pinv = fn.landmarks(q, k, mask, m)
-    attn3v, m3, s3 = fn.pass_a_plain(q_l, k, v, mask)
-    mid, rp = fn.pass_b_operands(q, k_l, mask, lm_mask, pinv, attn3v, s3)
-    return dict(q=q, k=k, v=v, mask=mask, q_l=q_l, k_l=k_l, lm_mask=lm_mask,
-                mid=mid, rp=rp, m3=m3)
+def tensor_core_bounds(flops: float, nbytes: float, exps: float) -> dict:
+    """The least times of a fp32 function whose products run on the tensor
+    cores as three TF32 products each (hi·hi + hi·lo + lo·hi, the split that
+    keeps fp32's accuracy), beside its bytes and its exponentials on the
+    special-function units; ``fp32`` is the time of the same products as fp32
+    FMAs outside the tensor cores. The bound is the largest of the first
+    three."""
+    t = {"tensor": TF32_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3,
+         "exp": exps / PEAK_EXP * 1e3, "fp32": flops / PEAK_FP32_FLOPS * 1e3}
+    bound = max(t["tensor"], t["bytes"], t["exp"])
+    return {"bound_ms": bound, "bound_by": "bytes" if t["bytes"] >= bound else "operations",
+            "bound_parts_ms": t}
 
 
-def bounds(name, o, h, m, dh):
+def bounds(name, o, h, m, dh) -> dict:
     """Least time for the work this run's data needs: the valid tokens' rows
-    read once, outputs written once; fp32 FMAs outside the tensor cores."""
+    read once, outputs written once; sim and the product with V (K1) or
+    sim1, the product with mid and sim3 (K2) over the valid tokens, and one
+    exponential per (landmark, valid token) and product."""
     b, _, n, _ = o["q"].shape
     n_valid = int(o["mask"].sum())  # summed over bags
     small = b * h * m * dh * F32  # one [B,H,m,dh] operand
     if name == "K1":
-        flops = 4 * h * m * dh * n_valid
+        flops, exps = 4 * h * m * dh * n_valid, h * m * n_valid
         nbytes = small + 2 * h * n_valid * dh * F32 + b * n + small + 2 * b * h * m * F32
     else:
-        flops = 6 * h * m * dh * n_valid
+        flops, exps = 6 * h * m * dh * n_valid, 2 * h * m * n_valid
         nbytes = (2 * h * n_valid * dh * F32 + b * n + 3 * small + b * m + 2 * b * h * m * F32
                   + b * h * n * dh * F32 + b * h * n * F32)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return tensor_core_bounds(flops, nbytes, exps)
+
+
+def fmt_bound(r: dict) -> str:
+    t = r["bound_parts_ms"]
+    return (f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: tensor cores 3xTF32 {t['tensor']:.4f}, bytes "
+            f"{t['bytes']:.4f}, exponentials {t['exp']:.4f}; fp32 FMAs {t['fp32']:.4f} ms)")
 
 
 def phase_nystrom_kernels(gen) -> dict:
+    """K1 and K2 against their plain versions at the flagship's shapes (batch
+    4 full and ragged, batch 1) and a small odd shape; timed at batch 4 and
+    batch 1 (every token valid) beside ``scaled_dot_product_attention`` on
+    the same operands: (q_l, k, v, key mask) for K1, (q, k_l, mid, landmark
+    mask) for K2, which gives ``out`` alone."""
     import torch.nn.functional as F
 
     from mhim_mil_torch.ops import flash_nystrom as fn
+    from mhim_mil_torch.utils.time_nystrom import operands, pass_args
 
     shapes = [
         ("flagship full", 4, 8, 10241, 64, 256, None),
         ("flagship ragged", 4, 8, 10241, 64, 256, (5121, 10241)),
+        ("flagship batch 1", 1, 8, 10241, 64, 256, None),
         ("small odd", 1, 2, 100, 32, 8, None),
     ]
     report = {"K1": {"max_abs_err": 0.0}, "K2": {"max_abs_err": 0.0}}
@@ -225,9 +242,8 @@ def phase_nystrom_kernels(gen) -> dict:
             lengths = torch.randint(ragged[0], ragged[1] + 1, (b,), device="cuda", generator=gen)
         else:
             lengths = torch.full((b,), n, device="cuda")
-        o = make_operands(b, h, n, dh, m, lengths, gen)
-        a_args = (o["q_l"], o["k"], o["v"], o["mask"])
-        b_args = (o["q"], o["k"], o["mask"], o["k_l"], o["lm_mask"], o["mid"], o["q_l"], o["rp"], o["m3"])
+        o = operands(b, h, n, dh, m, lengths, gen)
+        a_args, b_args = pass_args(o)
 
         got_a, want_a = fn.pass_a(*a_args), fn.pass_a_plain(*a_args)
         torch.cuda.synchronize()
@@ -245,7 +261,7 @@ def phase_nystrom_kernels(gen) -> dict:
         report["K1"]["max_abs_err"] = max(report["K1"]["max_abs_err"], e_a)
         report["K2"]["max_abs_err"] = max(report["K2"]["max_abs_err"], e_b)
 
-        if label != "flagship full":
+        if label not in ("flagship full", "flagship batch 1"):
             continue
         key_mask = o["mask"][:, None, None, :]
         lm_mask = o["lm_mask"][:, None, None, :]
@@ -256,14 +272,20 @@ def phase_nystrom_kernels(gen) -> dict:
                    lambda: F.scaled_dot_product_attention(o["q"], o["k_l"], o["mid"], lm_mask, scale=1.0)),
         }
         for kid, (kern, plain, lib) in timings.items():
-            bound_ms, bound_by = bounds(kid, o, h, m, dh)
-            r = report[kid]
+            # batch 4 fills the kernel's row of the kernels line; batch 1 sits inside it
+            r = report[kid] if b == 4 else report[kid].setdefault("batch1", {})
             timed(r, kern, plain, lib)
-            r.update(bound_ms=bound_ms, bound_by=bound_by)
+            r.update(bounds(kid, o, h, m, dh))
             log(f"{kid} [{label}]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, "
-                f"library {fmt_ms(r, 'library_')}, bound {bound_ms:.4f} ms ({bound_by})")
+                f"library {fmt_ms(r, 'library_')}, {fmt_bound(r)}")
         del o
         torch.cuda.empty_cache()
+    for kid in ("K1", "K2"):
+        r, r1 = report[kid], report[kid]["batch1"]
+        for name, row in (("batch 4", r), ("batch 1", r1)):
+            if not row["ms"] < row["library_ms"]:
+                log(f"{kid} [{name}]: kernel {row['ms']:.4f} ms is not below its library yardstick "
+                    f"{row['library_ms']:.4f} ms")
     return report
 
 
@@ -343,19 +365,19 @@ def k3_bounds(lengths, h, n, m, dh, iters=6):
     attn3@V, attn1@mid (4·nv·m·dh FMAs), sim2 and pinv@attn3V (2·m²·dh),
     the pseudo-inverse's 4 m×m products per iteration (4·iters·m³), the cls
     row (m·nv + m²) — once forward and twice more backward (the two products
-    of each gradient), in fp32. The recompute of the forward in K3's
-    backward is this design's choice, not work the function needs, so it is
-    not in the bound; the third return value is the time it adds. Bytes: q,
-    k, v and both cotangents read, out, attn and the three gradients
-    written."""
+    of each gradient), as :func:`tensor_core_bounds` counts them; the
+    forward's exponentials (sim1, sim3: 2·m·nv; attn2: m²). The recompute of
+    the forward in K3's backward is this design's choice, not work the
+    function needs, so it is not in the bound; the second return value is the
+    time it adds on the tensor cores. Bytes: q, k, v and both cotangents
+    read, out, attn and the three gradients written."""
     fmas = sum(4 * nv * m * dh + 2 * m * m * dh + 4 * iters * m ** 3 + m * nv + m * m
                for nv in lengths) * h
-    flops = 2 * 3 * fmas
+    exps = sum(2 * m * nv + m * m for nv in lengths) * h
     b = len(lengths)
     nbytes = (3 + 1 + 1 + 3) * b * h * n * dh * F32 + 2 * b * h * n * F32
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    recompute_ms = 2 * fmas / PEAK_FP32_FLOPS * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), recompute_ms
+    recompute_ms = TF32_PRODUCTS * 2 * fmas / PEAK_TF32_FLOPS * 1e3
+    return tensor_core_bounds(2 * 3 * fmas, nbytes, exps), recompute_ms
 
 
 def phase_k3(gen) -> dict:
@@ -386,15 +408,15 @@ def phase_k3(gen) -> dict:
     errs = [check_close("K3 out", got[0], want[0], 1e-4, 1e-5)]
     for name, g, w in zip(("attn", "dq", "dk", "dv"), got[1:], want[1:]):
         errs.append(check_rel(f"K3 {name}", g, w, 1e-4))
-    bound_ms, bound_by, recompute_ms = k3_bounds(lengths.tolist(), h, n, m, dh)
-    r = {"max_abs_err": max(errs), "bound_ms": bound_ms, "bound_by": bound_by}
+    bound, recompute_ms = k3_bounds(lengths.tolist(), h, n, m, dh)
+    r = {"max_abs_err": max(errs), **bound}
     timed(r, kern, plain)
     log(f"K3 [student] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: out max|d| {errs[0]:.3e}, "
         f"attn/dq/dk/dv max|d| {', '.join(f'{e:.3e}' for e in errs[1:])} (tolerances: out rtol 1e-4 "
         f"atol 1e-5, the rest max|d| <= 1e-4 max|ref|; the backward differentiates the plain "
         f"attention, so the gradients check only the autograd.Function's wiring); forward+backward "
-        f"{fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, bound {bound_ms:.4f} ms ({bound_by}), plus "
-        f"{recompute_ms:.4f} ms for this design's recompute of the forward; no library call computes it")
+        f"{fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, {fmt_bound(r)}, plus {recompute_ms:.4f} ms "
+        f"for this design's recompute of the forward; no library call computes it")
     return {"K3": r}
 
 
@@ -898,9 +920,9 @@ def main():
                 counted[kid] += n
     log(f"launches on the main paths: {counted}")
     meta = {
-        "K1": ("flash_nystrom_pass_a", "mhim_mil_torch/csrc/flash_nystrom.cu",
-               "mhim_mil_tpu/ops/pallas_nystrom.py:45"),
-        "K2": ("flash_nystrom_pass_b", "mhim_mil_torch/csrc/flash_nystrom.cu",
+        "K1": ("flash_nystrom_pass_a (pass_a_partial_kernel over key splits + pass_a_merge_kernel)",
+               "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:45"),
+        "K2": ("flash_nystrom_pass_b (pass_b_kernel)", "mhim_mil_torch/csrc/flash_nystrom.cu",
                "mhim_mil_tpu/ops/pallas_nystrom.py:85"),
         "K3": ("flash_nystrom (FlashNystrom: K1 + K2 forward, recompute backward)",
                "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
@@ -920,6 +942,9 @@ def main():
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "plain_device_ms": r["plain_device_ms"], "library_device_ms": r["library_device_ms"],
         }
+        for key in ("bound_parts_ms", "batch1"):
+            if key in r:
+                row[key] = r[key]
         if kid == "K3":
             row["backward_calls"] = counted["K3b"]
         kernels.append(row)

@@ -12,215 +12,407 @@
 // tokens.
 //
 // Bound at the flagship shape (batch 4, 8 heads, N = 10241, m = 256,
-// dh = 64, fp32 in and out; H100 SXM data sheet: 67 TFLOP/s fp32 outside
-// the tensor cores, 3.35 TB/s):
-//   K1: 4·B·H·m·N·dh = 21.5 GFLOP (sim3 and attn3@V), 168 MB (k and v read
-//       once) -> operations bound it, at 0.32 ms.
-//   K2: 6·B·H·m·N·dh = 32.2 GFLOP (sim1, attn1@mid, sim3 again for the cls
-//       row), 252 MB (q and k read, out written) -> operations bound it, at
-//       0.48 ms.
-// What the design does about it: nothing of size N·m ever reaches device
-// memory; each pass reads its N-sized operands once, straight from the
-// strided qkv projection (no transposed, padded or masked copies), and the
-// ragged tail is masked instead of padded. The products run as plain fp32
-// FMAs from shared memory: this first version is simple and exact and does
-// not reach the bound. The way to it is bf16 operands on the tensor cores
-// (wgmma) with TMA-fed tiles, and a split of K1's N loop across blocks at
-// batch 1, where 32 blocks leave most SMs idle.
+// dh = 64, fp32 in and out; H100 SXM data sheet: 495 TFLOP/s TF32 on the
+// tensor cores, 3.35 TB/s):
+//   K1: 4·B·H·m·N·dh = 21.5 GFLOP (sim3 and attn3@V), three TF32 products
+//       each (below) = 64.4 GFLOP -> 0.13 ms; 168 MB (k and v read once)
+//       -> 0.05 ms. Operations bound it.
+//   K2: 6·B·H·m·N·dh = 32.2 GFLOP (sim1, attn1@mid, sim3 for the cls row),
+//       96.6 GFLOP in TF32 -> 0.195 ms; 252 MB -> 0.075 ms. Operations.
 //
-// Design. The TPU grid (B·H, N/tile) runs in order and carries the softmax
-// state in scratch across N tiles. GPU blocks run in parallel, so K1 keeps
-// that loop inside the block: a block owns 64 landmark rows of one (bag,
-// head) and walks over all keys in tiles of 32, with the running max, sum
-// and the 64×dh accumulator in registers. K2 is parallel over token tiles:
-// a block owns 64 tokens and walks over the landmarks in chunks of 32 with
-// the same online softmax (flash attention with keys K_l and values mid),
-// then walks over them again for the cls row, which is additive over
-// landmarks. 256 threads: 16 row groups of 4 rows by 16 lanes; a row's
-// statistics reduce across its 16 lanes with shuffles.
+// Precision: 3×TF32. Each fp32 operand x is split into hi = tf32(x)
+// (rounded to nearest) and lo = x − hi (truncated to TF32 by the tensor
+// core, see `split`), and each product is lo·hi + hi·lo + hi·hi, accumulated
+// in fp32 by mma.sync.m16n8k8: close to fp32's accuracy (the lo·lo term is
+// below 2^-22 and the truncation of lo below 2^-21 of |x|·|y|) at three
+// tensor-core products. A single TF32 product fails the kernels' tolerances.
+// Exponentials are __expf (ex2.approx of x·log2 e): their error grows with
+// |x| to a few ulps at the scores' tens, far inside the tolerances.
+//
+// Design. Every product is a warp's mma.sync over 16 rows: a warp owns 16
+// rows (landmarks in K1, tokens in K2) with the running max, sum and the
+// [16 × dh] accumulator in registers, in the m16n8k8 accumulator layout
+// (thread g·4 + t holds rows g and g + 8, columns 2t and 2t + 1 of each
+// 8-column tile). The scores S of a 32-column step stay in registers: the
+// sum over S's columns does not care about their order, so the thread's
+// columns 2t, 2t + 1 of tile j are taken as the A fragment's columns t and
+// t + 4, and the B fragment of V (or mid) is read from rows 8j + 2t and
+// 8j + 2t + 1 to match. No shuffle and no shared-memory round trip for P.
+// Row statistics reduce across the quad only at the end.
+//
+// Operand tiles are staged in shared memory (rows of dh + 4 floats: the
+// fragment reads are free of bank conflicts) by 16-byte cp.async straight
+// from the strided q/k/v views, into a ring, so the next tile loads while
+// this one computes. Rows past the end are zero-filled.
+//
+// K1: a block owns 128 landmark rows (8 warps) of one (bag, head) and a
+// contiguous split of the keys; the wrapper plans the splits so that the
+// grid fills the card at batch 1 as at batch 4. The grid's fastest index
+// is the landmark row block, so the blocks that read the same keys run
+// together and k and v come from L2 after the first. Each block writes a
+// partial (max, sum, unnormalised acc[dh]) per row; a second kernel merges
+// the splits by log-sum-exp rescaling. Values at masked keys are never
+// used: their scores are replaced and their V rows read as zero.
+// K2: a block owns 64 tokens (4 warps) of one (bag, head), with their q and
+// k rows staged in turn, and walks the landmarks twice in chunks of 32: first
+// (k_l, mid) chunks in a two-stage ring, computing sim1 with the online
+// softmax and P·mid, and writes out; then (q_l, r', m3) chunks in a
+// three-stage ring over the same shared memory, computing sim3ᵀ = k·q_lᵀ
+// and adding exp(sim3 − m3)·r' to the cls row. Two walks need half the ring
+// of one walk over all three operands and one set of token rows at a time,
+// so four blocks fit on an SM.
 //
 // Plain C interface, loaded with ctypes. Each entry returns
-// cudaGetLastError() after its launch.
+// cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int ROWS = 64;      // rows of a block: landmarks in K1, tokens in K2
-constexpr int COLS = 32;      // columns of a step: keys in K1, landmarks in K2
-constexpr int THREADS = 256;  // 16 row groups x 16 lanes
-constexpr int PLD = COLS + 1;
 constexpr float NEG_INF = -1e30f;
+constexpr int COLS = 32;      // columns of a step: keys in K1, landmarks in K2
+constexpr int NT = COLS / 8;  // 8-column mma tiles of a step
+constexpr int A_WARPS = 8, A_ROWS = 16 * A_WARPS, A_STAGES = 3;
+constexpr int B_WARPS = 4, B_ROWS = 16 * B_WARPS, B_STAGES = 2, C_STAGES = 3, B_RESIDENT = 4;
+constexpr int MERGE_THREADS = 256;
 
-// Copy rows [0, nrows) of a strided [*, DH] slab into shared memory with a
-// padded row of DH + 1 floats. Rows past nrows, and rows whose byte in
-// `rowmask` is 0 where one is given, read as zero.
-template <int DH, int R>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t stride, int nrows,
-                                          const uint8_t* rowmask = nullptr) {
-  for (int e = threadIdx.x; e < R * DH; e += THREADS) {
-    const int r = e / DH, c = e % DH;
-    const bool in = r < nrows && (rowmask == nullptr || rowmask[r]);
-    dst[r * (DH + 1) + c] = in ? src[(int64_t)r * stride + c] : 0.f;
+// ---- 3×TF32 mma.sync ----
+
+// x = hi + lo, hi = x rounded to TF32 (to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds) and lo = x − hi exactly. Both go to mma.sync as
+// fp32 bit patterns: a tf32 operand is read from the top 19 bits of its
+// register (sign, exponent, 10 mantissa bits) and the rest is ignored, so hi
+// arrives exact and lo truncated, off by at most 2^-21·|x|. Three
+// instructions, where ptxas expands each cvt.rna.tf32.f32 into an integer
+// sequence with a finiteness test of its own.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+
+__device__ __forceinline__ void mma(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a·b with both operands split: the small products first
+__device__ __forceinline__ void mma3(float d[4], const uint32_t ah[4], const uint32_t al[4],
+                                     const uint32_t bh[2], const uint32_t bl[2]) {
+  mma(d, al, bh);
+  mma(d, ah, bl);
+  mma(d, ah, bh);
+}
+
+// ---- cp.async ----
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Stage rows [0, R) of a strided [*, DH] slab into shared memory rows of
+// DH + 4 floats; rows at or past nrows are zero-filled (and not read).
+template <int DH, int R, int NTH>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int64_t stride, int nrows) {
+  constexpr int CPR = DH / 4;  // 16-byte pieces of a row
+  for (int c = threadIdx.x; c < R * CPR; c += NTH) {
+    const int r = c / CPR, p = c % CPR;
+    const bool in = r < nrows;
+    cp16(dst + r * (DH + 4) + 4 * p, in ? src + r * stride + 4 * p : src, in);
   }
 }
 
-// s[i][j] = A[ty*4 + i] · B[tx + 16*j] over DH, both padded rows in shared memory.
+// ---- warp-level pieces, in the m16n8k8 layouts (g = lane / 4, t = lane % 4) ----
+
+// s[j] = rows [0, 16) of A · rows [8j, 8j + 8) of B over DH; A and B are
+// row-major in shared memory with rows of DH + 4 floats.
 template <int DH>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B, int ty,
-                                         int tx, float s[4][2]) {
-  constexpr int LD = DH + 1;
+__device__ __forceinline__ void scores(const float* A, const float* B, int g, int t, float s[NT][4]) {
+  constexpr int LD = DH + 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    float a[4], b[2];
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * LD + d];
+  for (int k0 = 0; k0 < DH; k0 += 8) {
+    uint32_t ah[4], al[4];
+    split(A[g * LD + k0 + t], ah[0], al[0]);
+    split(A[(g + 8) * LD + k0 + t], ah[1], al[1]);
+    split(A[g * LD + k0 + t + 4], ah[2], al[2]);
+    split(A[(g + 8) * LD + k0 + t + 4], ah[3], al[3]);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) b[j] = B[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
-
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// One step of the online softmax over a ROWS x COLS tile of scores: masks the
-// invalid columns, updates the running max and sum, rescales the accumulator
-// and leaves the probabilities in sP for the product with the values.
-template <int CPT>
-__device__ __forceinline__ void online_softmax_step(
-    float s[4][2], const float* sValid, float* sP, int ty, int tx,
-    float m_run[4], float s_run[4], float acc[4][CPT]) {
-  bool ok[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) ok[j] = sValid[tx + 16 * j] != 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float mx = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (!ok[j]) s[i][j] = NEG_INF;
-      mx = fmaxf(mx, s[i][j]);
-    }
-    mx = group16_max(mx);
-    const float m_new = fmaxf(m_run[i], mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-      sP[(ty * 4 + i) * PLD + tx + 16 * j] = p;
-      sum += p;
-    }
-    sum = group16_sum(sum);
-    const float scale = expf(m_run[i] - m_new);
-    s_run[i] = s_run[i] * scale + sum;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] *= scale;
-    m_run[i] = m_new;
-  }
-}
-
-// acc[i][c] += Σ_k sP[ty*4 + i][k] · V[k][tx + 16*c]
-template <int DH, int CPT>
-__device__ __forceinline__ void accumulate_pv(const float* sP, const float* sV,
-                                              int ty, int tx, float acc[4][CPT]) {
-#pragma unroll 4
-  for (int k = 0; k < COLS; ++k) {
-    float vv[CPT];
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) vv[c] = sV[k * (DH + 1) + tx + 16 * c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = sP[(ty * 4 + i) * PLD + k];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+    for (int j = 0; j < NT; ++j) {
+      const float* b = B + (8 * j + g) * LD + k0 + t;
+      uint32_t bh[2], bl[2];
+      split(b[0], bh[0], bl[0]);
+      split(b[4], bh[1], bl[1]);
+      mma3(s[j], ah, al, bh, bl);
     }
   }
 }
+
+// Bit 2j + e set where the thread's column 8j + 2t + e of a step starting at
+// c0 is below `limit` and its flag is nonzero.
+__device__ __forceinline__ uint32_t valid_bits(const uint8_t* flags, int c0, int limit, int t) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + 8 * j + 2 * t + e;
+      if (c < limit && flags[c]) bits |= 1u << (2 * j + e);
+    }
+  return bits;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One step of the online softmax on a 16 × COLS score tile: columns whose bit
+// in `keep` is 0 are masked; updates the running max (quad-uniform) and the
+// thread's share of the running sum, rescales the accumulator and leaves
+// the probabilities in s.
+template <int DH>
+__device__ __forceinline__ void softmax_step(float s[NT][4], uint32_t keep, float m_run[2],
+                                             float l_run[2], float acc[DH / 8][4]) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = (keep >> (2 * j + e)) & 1u;
+      s[j][e] = ok ? s[j][e] : NEG_INF;
+      s[j][2 + e] = ok ? s[j][2 + e] : NEG_INF;
+      mx[0] = fmaxf(mx[0], s[j][e]);
+      mx[1] = fmaxf(mx[1], s[j][2 + e]);
+    }
+  float scale[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+    scale[r] = __expf(m_run[r] - m_new);
+    m_run[r] = m_new;
+    l_run[r] *= scale[r];
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = (keep >> (2 * j + e)) & 1u;
+      s[j][e] = ok ? __expf(s[j][e] - m_run[0]) : 0.f;
+      s[j][2 + e] = ok ? __expf(s[j][2 + e] - m_run[1]) : 0.f;
+      l_run[0] += s[j][e];
+      l_run[1] += s[j][2 + e];
+    }
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d) {
+    acc[d][0] *= scale[0];
+    acc[d][1] *= scale[0];
+    acc[d][2] *= scale[1];
+    acc[d][3] *= scale[1];
+  }
+}
+
+// acc += P · V over the step's COLS rows of V, P in the accumulator layout
+// of `scores`: the thread's columns 2t, 2t + 1 of tile j serve as the A
+// fragment's columns t, t + 4, so V's B fragment is read from rows 8j + 2t
+// and 8j + 2t + 1. With ZERO, V rows whose bit in `keep` is 0 read as zero
+// (values at masked keys may hold anything, NaN included).
+template <int DH, bool ZERO>
+__device__ __forceinline__ void accumulate(const float p[NT][4], const float* V, uint32_t keep,
+                                           int g, int t, float acc[DH / 8][4]) {
+  constexpr int LD = DH + 4;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ah[4], al[4];
+    split(p[j][0], ah[0], al[0]);
+    split(p[j][2], ah[1], al[1]);
+    split(p[j][1], ah[2], al[2]);
+    split(p[j][3], ah[3], al[3]);
+    const float* v0 = V + (8 * j + 2 * t) * LD + g;
+    const bool k0 = !ZERO || ((keep >> (2 * j)) & 1u);
+    const bool k1 = !ZERO || ((keep >> (2 * j + 1)) & 1u);
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      uint32_t bh[2], bl[2];
+      split(k0 ? v0[8 * d] : 0.f, bh[0], bl[0]);
+      split(k1 ? v0[LD + 8 * d] : 0.f, bh[1], bl[1]);
+      mma3(acc[d], ah, al, bh, bl);
+    }
+  }
+}
+
+// ---- K1 ----
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
-pass_a_kernel(const float* __restrict__ ql,  // [B*H, M, DH]
-              const float* __restrict__ k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
-              const float* __restrict__ v, int64_t v_sb, int64_t v_sh, int64_t v_sn,
-              const uint8_t* __restrict__ mask,  // [B, N]
-              float* __restrict__ attn3v,        // [B*H, M, DH]
-              float* __restrict__ m3,            // [B*H, M]
-              float* __restrict__ s3,            // [B*H, M]
-              int H, int N, int M) {
-  constexpr int CPT = DH / 16;
-  __shared__ float sQ[ROWS * (DH + 1)];
-  __shared__ float sK[COLS * (DH + 1)];
-  __shared__ float sV[COLS * (DH + 1)];
-  __shared__ float sP[ROWS * PLD];
-  __shared__ float sValid[COLS];
+constexpr size_t pass_a_smem() {
+  return (size_t)(A_ROWS + A_STAGES * 2 * COLS) * (DH + 4) * sizeof(float);
+}
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int row0 = blockIdx.y * ROWS;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+// grid (ceil(M / A_ROWS), n_splits, B·H); split s covers keys
+// [s·per_split, min(N, (s + 1)·per_split)). Writes the partials of its rows
+// at slot (bh·n_splits + s)·M + row.
+template <int DH>
+__global__ void __launch_bounds__(32 * A_WARPS, 2)
+pass_a_partial_kernel(const float* __restrict__ ql,  // [B*H, M, DH]
+                      const float* __restrict__ k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
+                      const float* __restrict__ v, int64_t v_sb, int64_t v_sh, int64_t v_sn,
+                      const uint8_t* __restrict__ mask,  // [B, N]
+                      float* __restrict__ part_m, float* __restrict__ part_s,
+                      float* __restrict__ part_acc, int H, int N, int M, int per_split) {
+  constexpr int LD = DH + 4, TILE = COLS * LD, NTH = 32 * A_WARPS;
+  extern __shared__ float4 smem4[];
+  float* sQl = reinterpret_cast<float*>(smem4);
+  float* ring = sQl + A_ROWS * LD;  // A_STAGES × (k tile, v tile)
+
+  const int row0 = blockIdx.x * A_ROWS, split_id = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
   const uint8_t* mb = mask + (int64_t)b * N;
+  const int s0 = split_id * per_split, s1 = min(N, s0 + per_split);
+  const int ntiles = s1 > s0 ? (s1 - s0 + COLS - 1) / COLS : 0;
 
-  load_rows<DH, ROWS>(sQ, ql + ((int64_t)bh * M + row0) * DH, DH, M - row0);
-
-  float m_run[4], s_run[4], acc[4][CPT];
+  auto stage_tile = [&](int i) {
+    const int n0 = s0 + i * COLS;
+    float* dst = ring + (i % A_STAGES) * 2 * TILE;
+    stage_rows<DH, COLS, NTH>(dst, kb + n0 * k_sn, k_sn, s1 - n0);
+    stage_rows<DH, COLS, NTH>(dst + TILE, vb + n0 * v_sn, v_sn, s1 - n0);
+  };
+  stage_rows<DH, A_ROWS, NTH>(sQl, ql + ((int64_t)bh * M + row0) * DH, DH, M - row0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = NEG_INF;
-    s_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  for (int i = 0; i < A_STAGES - 1; ++i) {
+    if (i < ntiles) stage_tile(i);
+    cp_commit();
   }
 
-  for (int n0 = 0; n0 < N; n0 += COLS) {
-    __syncthreads();  // the previous step's reads of sK/sV/sP are done
-    load_rows<DH, COLS>(sK, kb + n0 * k_sn, k_sn, N - n0);
-    // values of masked keys are never read: their weight is 0, and a
-    // non-finite value there must not turn the sum into NaN
-    load_rows<DH, COLS>(sV, vb + n0 * v_sn, v_sn, N - n0, mb + n0);
-    if (tid < COLS) sValid[tid] = (n0 + tid < N && mb[n0 + tid]) ? 1.f : 0.f;
-    __syncthreads();
-    float s[4][2];
-    tile_dot<DH>(sQ, sK, ty, tx, s);
-    online_softmax_step<CPT>(s, sValid, sP, ty, tx, m_run, s_run, acc);
-    __syncthreads();
-    accumulate_pv<DH, CPT>(sP, sV, ty, tx, acc);
-  }
+  const bool active = row0 + 16 * warp < M;  // warp-uniform
+  const float* qw = sQl + 16 * warp * LD;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int d = 0; d < DH / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
+  for (int it = 0; it < ntiles; ++it) {
+    const uint32_t keep = valid_bits(mb, s0 + it * COLS, s1, t);
+    cp_wait<A_STAGES - 2>();  // tile it has landed (this thread's copies)
+    __syncthreads();          // ... everyone's, and tile it - 1 is consumed
+    if (it + A_STAGES - 1 < ntiles) stage_tile(it + A_STAGES - 1);
+    cp_commit();
+    if (!active) continue;
+    const float* sK = ring + (it % A_STAGES) * 2 * TILE;
+    float s[NT][4];
+    scores<DH>(qw, sK, g, t, s);
+    softmax_step<DH>(s, keep, m_run, l_run, acc);
+    accumulate<DH, true>(s, sK + TILE, keep, g, t, acc);
+  }
+  cp_wait<0>();
+  if (!active) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
-    if (r >= M) continue;
-    const int64_t o = (int64_t)bh * M + r;
-    const float denom = fmaxf(s_run[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    const int row = row0 + 16 * warp + g + 8 * r;
+    if (row >= M) continue;
+    const int64_t slot = ((int64_t)bh * gridDim.y + split_id) * M + row;
+    float* pa = part_acc + slot * DH + 2 * t;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) attn3v[o * DH + tx + 16 * c] = acc[i][c] / denom;
-    if (tx == 0) {
-      m3[o] = m_run[i];
-      s3[o] = s_run[i];
+    for (int d = 0; d < DH / 8; ++d)
+      *reinterpret_cast<float2*>(pa + 8 * d) = make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
+    if (t == 0) {
+      part_m[slot] = m_run[r];
+      part_s[slot] = l;
     }
   }
 }
 
+// One thread per output element (row, d): rescales the n_splits partials
+// of its row by exp(m_i − m) and sums them. A split without a valid key has
+// m_i = −1e30, s_i = 0 and acc_i = 0 and adds nothing.
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MERGE_THREADS)
+pass_a_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_s,
+                    const float* __restrict__ part_acc, float* __restrict__ attn3v,
+                    float* __restrict__ m3, float* __restrict__ s3, int64_t rows, int M,
+                    int n_splits) {
+  const int64_t e = (int64_t)blockIdx.x * MERGE_THREADS + threadIdx.x;
+  if (e >= rows * DH) return;
+  const int64_t row = e / DH, bh = row / M;
+  const int d = (int)(e % DH);
+  const int64_t base = bh * n_splits * M + row % M;  // split 0's slot
+  float m = NEG_INF;
+  for (int i = 0; i < n_splits; ++i) m = fmaxf(m, part_m[base + (int64_t)i * M]);
+  float s = 0.f, a = 0.f;
+  for (int i = 0; i < n_splits; ++i) {
+    const int64_t slot = base + (int64_t)i * M;
+    const float w = __expf(part_m[slot] - m);
+    s += part_s[slot] * w;
+    a += part_acc[slot * DH + d] * w;
+  }
+  attn3v[e] = a / fmaxf(s, 1e-30f);
+  if (d == 0) {
+    m3[row] = m;
+    s3[row] = s;
+  }
+}
+
+template <int DH>
+int launch_pass_a(const float* ql, const float* k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
+                  const float* v, int64_t v_sb, int64_t v_sh, int64_t v_sn, const uint8_t* mask,
+                  float* part_m, float* part_s, float* part_acc, float* attn3v, float* m3,
+                  float* s3, int B, int H, int N, int M, int n_splits, int per_split,
+                  cudaStream_t st) {
+  constexpr size_t smem = pass_a_smem<DH>();
+  cudaError_t err = cudaFuncSetAttribute(pass_a_partial_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + A_ROWS - 1) / A_ROWS, n_splits, B * H);
+  pass_a_partial_kernel<DH><<<grid, 32 * A_WARPS, smem, st>>>(
+      ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh, v_sn, mask, part_m, part_s, part_acc, H, N, M,
+      per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t rows = (int64_t)B * H * M;
+  const int64_t blocks = (rows * DH + MERGE_THREADS - 1) / MERGE_THREADS;
+  pass_a_merge_kernel<DH><<<(unsigned)blocks, MERGE_THREADS, 0, st>>>(
+      part_m, part_s, part_acc, attn3v, m3, s3, rows, M, n_splits);
+  return (int)cudaGetLastError();
+}
+
+// ---- K2 ----
+
+template <int DH>
+constexpr size_t pass_b_smem() {
+  // the block's q rows (then its k rows), then a ring shared by the two phases
+  constexpr size_t tile = (size_t)COLS * (DH + 4);
+  constexpr size_t out_ring = B_STAGES * 2 * tile, cls_ring = C_STAGES * (tile + 2 * COLS);
+  return (B_ROWS * (DH + 4) + (out_ring > cls_ring ? out_ring : cls_ring)) * sizeof(float);
+}
+
+// grid (ceil(N / B_ROWS), B·H): the token tiles of one (bag, head) are
+// neighbours, so its landmark operands stay in L2.
+template <int DH>
+__global__ void __launch_bounds__(32 * B_WARPS, B_RESIDENT)
 pass_b_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_sn,
               const float* __restrict__ k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
               const uint8_t* __restrict__ mask,     // [B, N]
@@ -233,107 +425,165 @@ pass_b_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q
               float* __restrict__ out, int64_t o_sb, int64_t o_sh, int64_t o_sn,
               float* __restrict__ cls,              // [B*H, N]
               int H, int N, int M) {
-  constexpr int CPT = DH / 16;
-  __shared__ float sA[ROWS * (DH + 1)];  // the block's q rows, then its k rows
-  __shared__ float sL[COLS * (DH + 1)];  // landmark keys, then landmark queries
-  __shared__ float sM[COLS * (DH + 1)];  // mid rows
-  __shared__ float sP[ROWS * PLD];
-  __shared__ float sValid[COLS];
-  __shared__ float sR[COLS];
-  __shared__ float sM3[COLS];
+  constexpr int LD = DH + 4, TILE = COLS * LD, NTH = 32 * B_WARPS;
+  extern __shared__ float4 smem4[];
+  float* sRows = reinterpret_cast<float*>(smem4);  // the block's q rows, then its k rows
+  float* ring = sRows + B_ROWS * LD;                // (k_l, mid) chunks, then (q_l, r', m3) chunks
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int t0 = blockIdx.y * ROWS;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int t0 = blockIdx.x * B_ROWS, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const uint8_t* mb = mask + (int64_t)b * N;
   const uint8_t* lb = lm_mask + (int64_t)b * M;
   const int64_t lm0 = (int64_t)bh * M;
+  const int nchunks = (M + COLS - 1) / COLS;
+  const float* rw = sRows + 16 * warp * LD;  // the warp's q rows, then its k rows
+  bool valid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tok = t0 + 16 * warp + g + 8 * r;
+    valid[r] = tok < N && mb[tok] != 0;
+  }
 
-  // ---- out = softmax over valid landmarks of q·k_l, times mid ----
-  load_rows<DH, ROWS>(sA, q + b * q_sb + h * q_sh + t0 * q_sn, q_sn, N - t0);
-  float m_run[4], s_run[4], acc[4][CPT];
+  // phase 1, out: online softmax of q·k_lᵀ over the valid landmarks, times mid
+  auto stage_out = [&](int c) {
+    const int c0 = c * COLS;
+    float* dst = ring + (c % B_STAGES) * 2 * TILE;
+    stage_rows<DH, COLS, NTH>(dst, kl + (lm0 + c0) * DH, DH, M - c0);
+    stage_rows<DH, COLS, NTH>(dst + TILE, mid + (lm0 + c0) * DH, DH, M - c0);
+  };
+  stage_rows<DH, B_ROWS, NTH>(sRows, q + b * q_sb + h * q_sh + t0 * q_sn, q_sn, N - t0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = NEG_INF;
-    s_run[i] = 0.f;
+  for (int i = 0; i < B_STAGES - 1; ++i) {
+    if (i < nchunks) stage_out(i);
+    cp_commit();
+  }
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  float acc[DH / 8][4];
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  for (int d = 0; d < DH / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  for (int c = 0; c < nchunks; ++c) {
+    const uint32_t keep = valid_bits(lb, c * COLS, M, t);
+    cp_wait<B_STAGES - 2>();
+    __syncthreads();
+    if (c + B_STAGES - 1 < nchunks) stage_out(c + B_STAGES - 1);
+    cp_commit();
+    const float* st = ring + (c % B_STAGES) * 2 * TILE;
+    float s[NT][4];
+    scores<DH>(rw, st, g, t, s);
+    softmax_step<DH>(s, keep, m_run, l_run, acc);
+    accumulate<DH, false>(s, st + TILE, 0u, g, t, acc);
   }
-  for (int c0 = 0; c0 < M; c0 += COLS) {
-    __syncthreads();
-    load_rows<DH, COLS>(sL, kl + (lm0 + c0) * DH, DH, M - c0);
-    load_rows<DH, COLS>(sM, mid + (lm0 + c0) * DH, DH, M - c0);
-    if (tid < COLS) sValid[tid] = (c0 + tid < M && lb[c0 + tid]) ? 1.f : 0.f;
-    __syncthreads();
-    float s[4][2];
-    tile_dot<DH>(sA, sL, ty, tx, s);
-    online_softmax_step<CPT>(s, sValid, sP, ty, tx, m_run, s_run, acc);
-    __syncthreads();
-    accumulate_pv<DH, CPT>(sP, sM, ty, tx, acc);
-  }
+  cp_wait<0>();
+  __syncthreads();  // the q rows and the ring are free for phase 2
+
   float* ob = out + b * o_sb + h * o_sh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
-    if (t >= N) continue;
-    const bool valid = mb[t] != 0;
-    const float denom = fmaxf(s_run[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    const int tok = t0 + 16 * warp + g + 8 * r;
+    if (tok >= N) continue;
+    const float denom = fmaxf(l, 1e-30f);
+    float* orow = ob + tok * o_sn + 2 * t;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      ob[t * o_sn + tx + 16 * c] = valid ? acc[i][c] / denom : 0.f;
+    for (int d = 0; d < DH / 8; ++d)
+      *reinterpret_cast<float2*>(orow + 8 * d) =
+          valid[r] ? make_float2(acc[d][2 * r] / denom, acc[d][2 * r + 1] / denom) : make_float2(0.f, 0.f);
   }
 
-  // ---- cls[t] = Σ_m r'[m]·exp(q_l[m]·k_t − m3[m]) over all landmarks ----
-  __syncthreads();
-  load_rows<DH, ROWS>(sA, k + b * k_sb + h * k_sh + t0 * k_sn, k_sn, N - t0);
-  float cl[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c0 = 0; c0 < M; c0 += COLS) {
-    __syncthreads();
-    load_rows<DH, COLS>(sL, ql + (lm0 + c0) * DH, DH, M - c0);
-    if (tid < COLS) {
-      const bool in = c0 + tid < M;
-      sR[tid] = in ? rp[lm0 + c0 + tid] : 0.f;
-      sM3[tid] = in ? m3[lm0 + c0 + tid] : 0.f;
-    }
-    __syncthreads();
-    float s[4][2];
-    tile_dot<DH>(sA, sL, ty, tx, s);
+  // phase 2, cls: Σ over every landmark of r'·exp(q_l·k − m3); past M, r' = 0
+  auto stage_cls = [&](int c) {
+    const int c0 = c * COLS;
+    float* dst = ring + (c % C_STAGES) * (TILE + 2 * COLS);
+    stage_rows<DH, COLS, NTH>(dst, ql + (lm0 + c0) * DH, DH, M - c0);
+    const int i = threadIdx.x % COLS;
+    const bool in = c0 + i < M;
+    if (threadIdx.x < COLS) cp4(dst + TILE + i, rp + lm0 + (in ? c0 + i : 0), in);
+    else if (threadIdx.x < 2 * COLS) cp4(dst + TILE + COLS + i, m3 + lm0 + (in ? c0 + i : 0), in);
+  };
+  stage_rows<DH, B_ROWS, NTH>(sRows, k + b * k_sb + h * k_sh + t0 * k_sn, k_sn, N - t0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        cl[i] += expf(s[i][j] - sM3[tx + 16 * j]) * sR[tx + 16 * j];
+  for (int i = 0; i < C_STAGES - 1; ++i) {
+    if (i < nchunks) stage_cls(i);
+    cp_commit();
   }
+  float cl[2] = {0.f, 0.f};
+  for (int c = 0; c < nchunks; ++c) {
+    cp_wait<C_STAGES - 2>();
+    __syncthreads();
+    if (c + C_STAGES - 1 < nchunks) stage_cls(c + C_STAGES - 1);
+    cp_commit();
+    const float* st = ring + (c % C_STAGES) * (TILE + 2 * COLS);
+    float s[NT][4];
+    scores<DH>(rw, st, g, t, s);
+    const float* sR = st + TILE;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float x = group16_sum(cl[i]);
-    const int t = t0 + ty * 4 + i;
-    if (tx == 0 && t < N) cls[(int64_t)bh * N + t] = mb[t] ? x : 0.f;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const float r = sR[col], mm = sR[COLS + col];
+        cl[0] += __expf(s[j][e] - mm) * r;
+        cl[1] += __expf(s[j][2 + e] - mm) * r;
+      }
   }
+  cp_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float x = quad_sum(cl[r]);
+    const int tok = t0 + 16 * warp + g + 8 * r;
+    if (tok < N && t == 0) cls[(int64_t)bh * N + tok] = valid[r] ? x : 0.f;
+  }
+}
+
+template <int DH>
+int launch_pass_b(const float* q, int64_t q_sb, int64_t q_sh, int64_t q_sn, const float* k,
+                  int64_t k_sb, int64_t k_sh, int64_t k_sn, const uint8_t* mask, const float* kl,
+                  const uint8_t* lm_mask, const float* mid, const float* ql, const float* rp,
+                  const float* m3, float* out, int64_t o_sb, int64_t o_sh, int64_t o_sn,
+                  float* cls, int B, int H, int N, int M, cudaStream_t st) {
+  constexpr size_t smem = pass_b_smem<DH>();
+  cudaError_t err = cudaFuncSetAttribute(pass_b_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + B_ROWS - 1) / B_ROWS, B * H);
+  pass_b_kernel<DH><<<grid, 32 * B_WARPS, smem, st>>>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn,
+                                                      mask, kl, lm_mask, mid, ql, rp, m3, out,
+                                                      o_sb, o_sh, o_sn, cls, H, N, M);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Rows of a K1 block and keys of its tiles: a split's length is a multiple
+// of the latter (the wrapper's plan mirrors both).
+extern "C" int flash_nystrom_pass_a_rows() { return A_ROWS; }
+extern "C" int flash_nystrom_pass_a_keys() { return COLS; }
+
+// q/k/v rows must start on 16 bytes (the wrapper checks): the base pointers
+// and every stride but the last a multiple of 4 floats. Scratch part_m,
+// part_s [B*H, n_splits, M] and part_acc [B*H, n_splits, M, DH], fp32.
 extern "C" int flash_nystrom_pass_a(
     const float* ql, const float* k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
     const float* v, int64_t v_sb, int64_t v_sh, int64_t v_sn, const uint8_t* mask,
-    float* attn3v, float* m3, float* s3, int B, int H, int N, int M, int DH,
-    void* stream) {
-  const dim3 grid(B * H, (M + ROWS - 1) / ROWS);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (DH == 64) {
-    pass_a_kernel<64><<<grid, THREADS, 0, st>>>(ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh,
-                                                 v_sn, mask, attn3v, m3, s3, H, N, M);
-  } else if (DH == 32) {
-    pass_a_kernel<32><<<grid, THREADS, 0, st>>>(ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh,
-                                                 v_sn, mask, attn3v, m3, s3, H, N, M);
-  } else if (DH == 16) {
-    pass_a_kernel<16><<<grid, THREADS, 0, st>>>(ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh,
-                                                 v_sn, mask, attn3v, m3, s3, H, N, M);
-  } else {
+    float* part_m, float* part_s, float* part_acc, float* attn3v, float* m3, float* s3,
+    int B, int H, int N, int M, int DH, int n_splits, int per_split, void* stream) {
+  if (per_split <= 0 || per_split % COLS != 0 || n_splits <= 0 ||
+      (int64_t)n_splits * per_split < N || (int64_t)(n_splits - 1) * per_split >= N)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (DH) {
+    case 64:
+      return launch_pass_a<64>(ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh, v_sn, mask, part_m, part_s,
+                               part_acc, attn3v, m3, s3, B, H, N, M, n_splits, per_split, st);
+    case 32:
+      return launch_pass_a<32>(ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh, v_sn, mask, part_m, part_s,
+                               part_acc, attn3v, m3, s3, B, H, N, M, n_splits, per_split, st);
+    case 16:
+      return launch_pass_a<16>(ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh, v_sn, mask, part_m, part_s,
+                               part_acc, attn3v, m3, s3, B, H, N, M, n_splits, per_split, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int flash_nystrom_pass_b(
@@ -342,22 +592,18 @@ extern "C" int flash_nystrom_pass_b(
     const uint8_t* lm_mask, const float* mid, const float* ql, const float* rp,
     const float* m3, float* out, int64_t o_sb, int64_t o_sh, int64_t o_sn, float* cls,
     int B, int H, int N, int M, int DH, void* stream) {
-  const dim3 grid(B * H, (N + ROWS - 1) / ROWS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (DH == 64) {
-    pass_b_kernel<64><<<grid, THREADS, 0, st>>>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn,
-                                                 mask, kl, lm_mask, mid, ql, rp, m3, out,
-                                                 o_sb, o_sh, o_sn, cls, H, N, M);
-  } else if (DH == 32) {
-    pass_b_kernel<32><<<grid, THREADS, 0, st>>>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn,
-                                                 mask, kl, lm_mask, mid, ql, rp, m3, out,
-                                                 o_sb, o_sh, o_sn, cls, H, N, M);
-  } else if (DH == 16) {
-    pass_b_kernel<16><<<grid, THREADS, 0, st>>>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn,
-                                                 mask, kl, lm_mask, mid, ql, rp, m3, out,
-                                                 o_sb, o_sh, o_sn, cls, H, N, M);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (DH) {
+    case 64:
+      return launch_pass_b<64>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn, mask, kl, lm_mask, mid,
+                               ql, rp, m3, out, o_sb, o_sh, o_sn, cls, B, H, N, M, st);
+    case 32:
+      return launch_pass_b<32>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn, mask, kl, lm_mask, mid,
+                               ql, rp, m3, out, o_sb, o_sh, o_sn, cls, B, H, N, M, st);
+    case 16:
+      return launch_pass_b<16>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn, mask, kl, lm_mask, mid,
+                               ql, rp, m3, out, o_sb, o_sh, o_sn, cls, B, H, N, M, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

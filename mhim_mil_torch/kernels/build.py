@@ -33,13 +33,17 @@ P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # argtypes of every C entry, by source
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_nystrom": {
+        "flash_nystrom_pass_a_rows": [],
+        "flash_nystrom_pass_a_keys": [],
         "flash_nystrom_pass_a": [
             P,  # ql
             P, I64, I64, I64,  # k and its batch, head, token strides
             P, I64, I64, I64,  # v
             P,  # mask
+            P, P, P,  # scratch: part_m, part_s, part_acc
             P, P, P,  # attn3v, m3, s3
             I32, I32, I32, I32, I32,  # B, H, N, M, DH
+            I32, I32,  # n_splits, per_split
             P,  # stream
         ],
         "flash_nystrom_pass_b": [

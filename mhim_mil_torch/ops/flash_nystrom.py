@@ -15,7 +15,9 @@ of device memory:
 ``pass_a`` and ``pass_b`` launch the CUDA kernels of
 ``csrc/flash_nystrom.cu`` on CUDA tensors and run ``pass_a_plain`` /
 ``pass_b_plain`` on CPU tensors. Each keeps in ``.launches`` the number of
-times it launched its kernel.
+times it was called on the card (K1's call launches two kernels: the
+partials of its key splits, planned by :func:`pass_a_plan`, and their merge;
+:func:`pass_a_split_plain` is that arithmetic in plain torch, for tests).
 
 **K3** :func:`flash_nystrom` is the differentiable form (the port of the
 custom VJP at ``pallas_nystrom.py:249-304``): its forward is
@@ -27,12 +29,15 @@ are ``FlashNystrom.forward_calls`` and ``FlashNystrom.backward_calls``.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Tuple
 
 import torch
 
 from ..kernels import load_library
-from ..kernels.launch import check as _check, on_cpu as _on_cpu, raise_on as _raise_on
+from ..kernels.launch import check as _check, check_rows_aligned as _aligned
+from ..kernels.launch import on_cpu as _on_cpu, raise_on as _raise_on
 from .masked import NEG_INF, masked_softmax
 from .nystrom import _landmark_mean, moore_penrose_pinv, nystrom_attention
 
@@ -69,9 +74,66 @@ def pass_b_plain(
     return out, torch.where(mask[:, None, :], cls, 0.0)
 
 
+PASS_A_ROWS = 128  # landmark rows of a K1 block (csrc A_ROWS)
+PASS_A_KEYS = 32  # keys of a K1 tile; a split is a whole number of tiles (csrc COLS)
+PASS_A_RESIDENT = 2  # K1 blocks an SM holds (its __launch_bounds__ and shared memory)
+H100_SMS = 132
+
+
+def pass_a_plan(b: int, h: int, n: int, m: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """K1's split of the keys: ``(n_splits, per_split)``, split ``s`` taking
+    keys ``[s·per_split, min(n, (s + 1)·per_split))``. Aims at two full waves
+    of resident blocks (``2·PASS_A_RESIDENT·sms``) over the grid's
+    ``b·h·⌈m/128⌉`` landmark blocks per split, rounding the split count down
+    so that the last wave is not a sliver; ``per_split`` is a whole number
+    of 32-key tiles, and no split is empty."""
+    row_blocks = b * h * math.ceil(m / PASS_A_ROWS)
+    tiles = max(1, math.ceil(n / PASS_A_KEYS))
+    target = max(1, min(tiles, (2 * PASS_A_RESIDENT * sms) // row_blocks))
+    per_split = math.ceil(tiles / target) * PASS_A_KEYS
+    return max(1, math.ceil(n / per_split)), per_split
+
+
+def pass_a_split_plain(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, n_splits: int,
+                       per_split: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """K1's split-and-merge arithmetic in plain torch (for tests): each split
+    of the keys gives its row max, sum and unnormalised ``p @ v``; the merge
+    rescales them by ``exp(m_i − m)``. Same function as :func:`pass_a_plain`;
+    a split without a valid key adds nothing."""
+    parts = []
+    for s in range(n_splits):
+        keys = slice(s * per_split, min(k.shape[2], (s + 1) * per_split))
+        valid = mask[:, None, None, keys]
+        sim = torch.where(valid, ql @ k[:, :, keys].transpose(-1, -2), NEG_INF)
+        m_s = sim.amax(dim=-1)
+        p = torch.where(valid, torch.exp(sim - m_s[..., None]), 0.0)
+        vs = torch.where(mask[:, None, keys, None], v[:, :, keys], 0.0)
+        parts.append((m_s, p.sum(dim=-1), p @ vs))
+    pm, ps, pacc = (torch.stack(x) for x in zip(*parts))
+    m3 = pm.amax(dim=0)
+    w = torch.exp(pm - m3)
+    s3 = (ps * w).sum(dim=0)
+    return (pacc * w[..., None]).sum(dim=0) / s3.clamp_min(1e-30)[..., None], m3, s3
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The kernels' library, once its K1 geometry is checked against the plan's."""
+    lib = load_library("flash_nystrom")
+    if (lib.flash_nystrom_pass_a_rows(), lib.flash_nystrom_pass_a_keys()) != (PASS_A_ROWS, PASS_A_KEYS):
+        raise RuntimeError("flash_nystrom.cu's K1 geometry differs from pass_a_plan's")
+    return lib
+
+
 def pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """K1: the CUDA kernel on CUDA tensors, :func:`pass_a_plain` on CPU tensors.
-    ``k`` and ``v`` may be any strided view with a unit last stride."""
+    """K1: the CUDA kernels on CUDA tensors, :func:`pass_a_plain` on CPU tensors.
+    ``k`` and ``v`` may be any strided view with a unit last stride whose
+    rows start on 16 bytes."""
     if _on_cpu(ql, k, v, mask):
         return pass_a_plain(ql, k, v, mask)
     b, h, m, dh = ql.shape
@@ -81,18 +143,25 @@ def pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tens
     _check("k", k, (b, h, n, dh), dev)
     _check("v", v, (b, h, n, dh), dev)
     _check("mask", mask, (b, n), dev, contiguous=True, dtype=torch.bool)
+    for name, t in (("ql", ql), ("k", k), ("v", v)):
+        _aligned(name, t)
+    lib = _library()
+    n_splits, per_split = pass_a_plan(b, h, n, m, _sm_count(dev.index))
+    part_m = torch.empty((b * h, n_splits, m), device=dev, dtype=torch.float32)
+    part_s = torch.empty_like(part_m)
+    part_acc = torch.empty((b * h, n_splits, m, dh), device=dev, dtype=torch.float32)
     attn3v = torch.empty((b, h, m, dh), device=dev, dtype=torch.float32)
     m3 = torch.empty((b, h, m), device=dev, dtype=torch.float32)
     s3 = torch.empty((b, h, m), device=dev, dtype=torch.float32)
-    lib = load_library("flash_nystrom")
     with torch.cuda.device(dev):
         err = lib.flash_nystrom_pass_a(
             ql.data_ptr(),
             k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
             v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
             mask.data_ptr(),
+            part_m.data_ptr(), part_s.data_ptr(), part_acc.data_ptr(),
             attn3v.data_ptr(), m3.data_ptr(), s3.data_ptr(),
-            b, h, n, m, dh, torch.cuda.current_stream(dev).cuda_stream,
+            b, h, n, m, dh, n_splits, per_split, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, "flash_nystrom_pass_a")
     pass_a.launches += 1
@@ -107,8 +176,9 @@ def pass_b(
     mid: Tensor, ql: Tensor, rp: Tensor, m3: Tensor,
 ) -> Tuple[Tensor, Tensor]:
     """K2: the CUDA kernel on CUDA tensors, :func:`pass_b_plain` on CPU tensors.
-    ``q`` and ``k`` may be strided views; ``out`` comes back as a ``[B,H,N,dh]``
-    view of ``[B,N,H,dh]`` storage, so the caller's merge of the heads is free."""
+    ``q`` and ``k`` may be strided views whose rows start on 16 bytes; ``out``
+    comes back as a ``[B,H,N,dh]`` view of ``[B,N,H,dh]`` storage, so the
+    caller's merge of the heads is free."""
     if _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3):
         return pass_b_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3)
     b, h, n, dh = q.shape
@@ -122,9 +192,11 @@ def pass_b(
     _check("lm_mask", lm_mask, (b, m), dev, contiguous=True, dtype=torch.bool)
     _check("rp", rp, (b, h, m), dev, contiguous=True)
     _check("m3", m3, (b, h, m), dev, contiguous=True)
+    for name, t in (("q", q), ("k", k), ("kl", kl), ("mid", mid), ("ql", ql)):
+        _aligned(name, t)
     out = torch.empty((b, n, h, dh), device=dev, dtype=torch.float32).transpose(1, 2)
     cls = torch.empty((b, h, n), device=dev, dtype=torch.float32)
-    lib = load_library("flash_nystrom")
+    lib = _library()
     with torch.cuda.device(dev):
         err = lib.flash_nystrom_pass_b(
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),

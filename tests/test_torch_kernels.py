@@ -27,20 +27,15 @@ def hopper():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,dh,m,ragged", [(1000, 64, 64, True), (100, 32, 8, False)])
-def test_kernels_match_plain_versions_on_the_card(hopper, n, dh, m, ragged):
-    """K1 and K2 against pass_a_plain / pass_b_plain on the same card inputs;
-    out at rtol 1e-4 atol 1e-5, cls at max|d| <= 1e-4 max|ref| (entries are small)."""
-    gen = torch.Generator(device=hopper).manual_seed(0)
-    b, h = 2, 4
-    q, k, v = (torch.randn(b, h, n, dh, device=hopper, generator=gen) for _ in range(3))
-    q = q * dh ** -0.5
-    lengths = torch.tensor([n * 2 // 3 if ragged else n, n], device=hopper)
-    mask = torch.arange(n, device=hopper)[None] < lengths[:, None]
+def _check_passes(dev, q, k, v, mask, m):
+    """K1 and K2 against pass_a_plain / pass_b_plain on the same card inputs,
+    one launch each; attn3v, m3, s3 and out at rtol 1e-4 atol 1e-5, cls at
+    max|d| <= 1e-4 max|ref| (entries are small)."""
     q_l, k_l, lm_mask, pinv = fn.landmarks(q, k, mask, m)
     want_a = fn.pass_a_plain(q_l, k, v, mask)
+    before = (fn.pass_a.launches, fn.pass_b.launches)
     got_a = fn.pass_a(q_l, k, v, mask)
+    torch.cuda.synchronize()
     for got, want in zip(got_a, want_a):
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     mid, rp = fn.pass_b_operands(q, k_l, mask, lm_mask, pinv, *want_a[::2])
@@ -48,8 +43,50 @@ def test_kernels_match_plain_versions_on_the_card(hopper, n, dh, m, ragged):
     got_out, got_cls = fn.pass_b(*args)
     want_out, want_cls = fn.pass_b_plain(*args)
     torch.cuda.synchronize()
+    assert (fn.pass_a.launches, fn.pass_b.launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(got_out, want_out, rtol=RTOL, atol=ATOL)
     assert (got_cls - want_cls).abs().max() <= 1e-4 * want_cls.abs().max()
+    return got_a, (got_out, got_cls), lm_mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,dh,m,ragged", [(2, 1000, 64, 64, True), (2, 100, 32, 8, False),
+                                             (1, 10241, 64, 256, False)])
+def test_kernels_match_plain_versions_on_the_card(hopper, b, n, dh, m, ragged):
+    """K1 and K2 against their plain versions, ragged and full, up to the
+    flagship's batch-1 shape (N 10,241, m 256, dh 64), at the tolerances of
+    ``_check_passes``."""
+    gen = torch.Generator(device=hopper).manual_seed(0)
+    h = 4 if b == 2 else 8
+    q, k, v = (torch.randn(b, h, n, dh, device=hopper, generator=gen) for _ in range(3))
+    q = q * dh ** -0.5
+    lengths = torch.tensor([n * 2 // 3 if ragged else n, n][:b], device=hopper)
+    mask = torch.arange(n, device=hopper)[None] < lengths[:, None]
+    _check_passes(hopper, q, k, v, mask, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,n,dh,m,lengths", [
+    (2, 300, 16, 8, (300, 150)),  # DH 16, m = 8; bag 1 leaves landmark groups empty
+    (2, 500, 32, 40, (500, 0, 77)),  # a bag with no valid key; m not a multiple of 16
+    (8, 10241, 64, 256, (5121,)),  # ragged at batch 1: K1's splits past 5,121 hold no valid key
+])
+def test_kernels_take_edge_cases_on_the_card(hopper, h, n, dh, m, lengths):
+    """K1 and K2 against their plain versions with NaN in q, k and v at
+    every masked token (never read), at the tolerances of ``_check_passes``;
+    a bag with no valid key gives attn3v 0, m3 −1e30, s3 0, and out and cls 0."""
+    gen = torch.Generator(device=hopper).manual_seed(6)
+    b = len(lengths)
+    mask = torch.arange(n, device=hopper)[None] < torch.tensor(lengths, device=hopper)[:, None]
+    q, k, v = (torch.where(mask[:, None, :, None], torch.randn(b, h, n, dh, device=hopper, generator=gen),
+                           float("nan")) for _ in range(3))
+    q = q * dh ** -0.5
+    (attn3v, m3, s3), (out, cls), lm_mask = _check_passes(hopper, q, k, v, mask, m)
+    assert not lm_mask.all()
+    for i, n_valid in enumerate(lengths):
+        if n_valid == 0:
+            assert torch.all(attn3v[i] == 0) and torch.all(m3[i] == -1e30) and torch.all(s3[i] == 0)
+            assert torch.all(out[i] == 0) and torch.all(cls[i] == 0)
 
 
 @pytest.mark.cuda
