@@ -21,7 +21,12 @@ its eval step and its scorer. Phases, each of which fails the run:
    through the plain attention, and K5 against its plain version at the
    BLCA grid, the serving raster grid and a ragged 5 × 11 grid (and rows
    of 1,500, 2,100 and 4,200 columns), and K6 against ``x + 1``, with
-   times, bounds and library yardsticks;
+   times, bounds and library yardsticks; the shapes the kernels are not
+   built for: K1/K2 at head dims 96 and 128 (timed at 128), K4 at 1,536
+   columns, K5 at 32 states on the BLCA grid; and K2b, the backward of K2's
+   pass, against its plain version at the student's shape, with and without
+   the cls term, timed with its bound (K3's backward does not call it yet,
+   so it has no launches on the main paths and no row in the kernels line);
 4. serving: the selfattn kernel path against the plain path on the whole
    model in fp32, then the scorer's requests under the default bf16 policy;
 5. train: one flagship train step on the kernel path against the plain path
@@ -235,6 +240,9 @@ def phase_nystrom_kernels(gen) -> dict:
         ("flagship ragged", 4, 8, 10241, 64, 256, (5121, 10241)),
         ("flagship batch 1", 1, 8, 10241, 64, 256, None),
         ("small odd", 1, 2, 100, 32, 8, None),
+        # head dims that --inner_dim / --n_heads give: 768 / 8 (padded to 128) and 512 / 4
+        ("dh 96", 2, 8, 10241, 96, 256, (5121, 10241)),
+        ("dh 128", 4, 4, 10241, 128, 256, None),
     ]
     report = {"K1": {"max_abs_err": 0.0}, "K2": {"max_abs_err": 0.0}}
     for label, b, h, n, dh, m, ragged in shapes:
@@ -261,7 +269,7 @@ def phase_nystrom_kernels(gen) -> dict:
         report["K1"]["max_abs_err"] = max(report["K1"]["max_abs_err"], e_a)
         report["K2"]["max_abs_err"] = max(report["K2"]["max_abs_err"], e_b)
 
-        if label not in ("flagship full", "flagship batch 1"):
+        if label not in ("flagship full", "flagship batch 1", "dh 128"):
             continue
         key_mask = o["mask"][:, None, None, :]
         lm_mask = o["lm_mask"][:, None, None, :]
@@ -272,8 +280,10 @@ def phase_nystrom_kernels(gen) -> dict:
                    lambda: F.scaled_dot_product_attention(o["q"], o["k_l"], o["mid"], lm_mask, scale=1.0)),
         }
         for kid, (kern, plain, lib) in timings.items():
-            # batch 4 fills the kernel's row of the kernels line; batch 1 sits inside it
-            r = report[kid] if b == 4 else report[kid].setdefault("batch1", {})
+            # the flagship at batch 4 fills the kernel's row of the kernels line;
+            # batch 1 and head dim 128 sit inside it
+            r = (report[kid] if label == "flagship full"
+                 else report[kid].setdefault("batch1" if b == 1 else "dh128", {}))
             timed(r, kern, plain, lib)
             r.update(bounds(kid, o, h, m, dh))
             log(f"{kid} [{label}]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, "
@@ -281,8 +291,8 @@ def phase_nystrom_kernels(gen) -> dict:
         del o
         torch.cuda.empty_cache()
     for kid in ("K1", "K2"):
-        r, r1 = report[kid], report[kid]["batch1"]
-        for name, row in (("batch 4", r), ("batch 1", r1)):
+        r, r1, r128 = report[kid], report[kid]["batch1"], report[kid]["dh128"]
+        for name, row in (("batch 4", r), ("batch 1", r1), ("dh 128", r128)):
             if not row["ms"] < row["library_ms"]:
                 log(f"{kid} [{name}]: kernel {row['ms']:.4f} ms is not below its library yardstick "
                     f"{row['library_ms']:.4f} ms")
@@ -314,6 +324,7 @@ def phase_k4(gen) -> dict:
         ("flagship ragged", 4, 10240, 512, True, torch.float32),
         ("flagship ragged bf16", 4, 10240, 512, True, torch.bfloat16),
         ("small odd", 3, 100, 100, True, torch.float32),
+        ("D 1536", 4, 10240, 1536, True, torch.float32),  # two column groups, one call
     ):
         x = torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
         logits = 3 * torch.randn(b, n, device="cuda", generator=gen)
@@ -333,7 +344,7 @@ def phase_k4(gen) -> dict:
         r["max_abs_err"] = max(r["max_abs_err"], e_p, e_a)
         log(f"K4 [{label}] B={b} N={n} D={d} {dtype} valid={lengths.tolist()}: pooled max|d| {e_p:.3e}, "
             f"attn max|d| {e_a:.3e}; tolerances rtol 1e-5, atol 1e-5 (pooled) / 1e-6 (attn)")
-        if label == "flagship ragged bf16":
+        if label in ("flagship ragged bf16", "D 1536"):
             log(f"K4 [{label}]: kernel {time_ms(lambda: abmil_pool.fused_abmil_pool(x, logits, mask)):.4f} ms, "
                 f"bound {k4_bounds(x, mask)[0]:.4f} ms")
         if label != "flagship full":
@@ -420,6 +431,68 @@ def phase_k3(gen) -> dict:
     return {"K3": r}
 
 
+def k2b_bounds(mask, h, m, dh, cls: bool) -> dict:
+    """K2b's least time: its function's products over the valid tokens nv of
+    each (bag, head) — s1 = q·k_lᵀ, dP1 = d_out·midᵀ, d_q, d_kl, d_mid
+    (5·nv·m·dh FMAs), with the cls term also s3 = q_l·kᵀ, d_k and d_ql
+    (3·nv·m·dh) — on the tensor cores at 3×TF32, the exponentials of P1 (and
+    E) on the special-function units, and its bytes: the valid rows of q,
+    d_out (and k, d_cls) read once, the landmark operands read, every
+    gradient written once."""
+    b, n = mask.shape
+    nv = int(mask.sum())  # summed over bags
+    per = 8 if cls else 5
+    small = b * h * m * dh * F32
+    nbytes = (h * nv * dh * F32 * (3 if cls else 2) + (h * nv * F32 if cls else 0) + b * n + b * m
+              + small * (3 if cls else 2) + (2 * b * h * m * F32 if cls else 0)
+              + b * h * n * dh * F32 * (2 if cls else 1) + small * (3 if cls else 2)
+              + (2 * b * h * m * F32 if cls else 0))
+    return tensor_core_bounds(2 * per * h * nv * m * dh, nbytes, (2 if cls else 1) * h * nv * m)
+
+
+def phase_k2b(gen) -> dict:
+    """K2b against pass_b_backward_plain at the student's shape (B=4, H=8,
+    N=1,027 ragged, dh 64, m 256) on the glue's operands, q, k and d_out as
+    strided views, NaN at masked q/k/d_out/d_cls: each gradient at max|d| <=
+    1e-4·max|ref|, with and without the cls term, and two launches equal to
+    the bit; timed without the cls term (the student's case: it never reads
+    attn) and with it."""
+    from mhim_mil_torch.ops import flash_nystrom as fn
+    from mhim_mil_torch.utils.time_nystrom import operands
+
+    b, h, n, dh, m = 4, 8, 1027, 64, 256
+    lengths = torch.randint(600, n + 1, (b,), device="cuda", generator=gen)
+    lengths[0] = n
+    o = operands(b, h, n, dh, m, lengths, gen)
+    tok = o["mask"][:, None, :, None]
+    q, k = (torch.where(tok, o[x], float("nan")) for x in ("q", "k"))
+    d_out = torch.where(tok, torch.randn(b, n, h, dh, device="cuda", generator=gen).transpose(1, 2), float("nan"))
+    d_cls = torch.where(o["mask"][:, None], torch.randn(b, h, n, device="cuda", generator=gen), float("nan"))
+    args = (q, k, o["mask"], o["k_l"], o["lm_mask"], o["mid"], o["q_l"], o["rp"], o["m3"], d_out)
+    r = {"max_abs_err": 0.0}
+    for cls in (None, d_cls):
+        got, again = fn.pass_b_backward(*args, cls), fn.pass_b_backward(*args, cls)
+        torch.cuda.synchronize()
+        want = fn.pass_b_backward_plain(*args, cls)
+        errs = []
+        for name, g, w, g2 in zip(("d_q", "d_k", "d_kl", "d_mid", "d_ql", "d_rp", "d_m3"), got, want, again):
+            if w is None:
+                continue
+            errs.append(check_rel(f"K2b {name} [cls {cls is not None}]", g, w, 1e-4))
+            if not torch.equal(g, g2):
+                fail(f"K2b {name}: two launches on the same inputs differ")
+        r["max_abs_err"] = max(r["max_abs_err"], *errs)
+        label = "with the cls term" if cls is not None else "without the cls term (the student's case)"
+        row = r if cls is None else r.setdefault("cls", {})
+        timed(row, lambda: fn.pass_b_backward(*args, cls), lambda: fn.pass_b_backward_plain(*args, cls))
+        row.update(k2b_bounds(o["mask"], h, m, dh, cls is not None))
+        log(f"K2b [student, {label}] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: gradients "
+            f"max|d| {', '.join(f'{e:.3e}' for e in errs)} (tolerance max|d| <= 1e-4 max|ref|; two launches "
+            f"equal to the bit); kernel {fmt_ms(row, '')}, plain {fmt_ms(row, 'plain_')}, {fmt_bound(row)}; "
+            f"no library call computes it")
+    return {"K2b": r}
+
+
 def k5_bounds(x, a_log):
     """K5's least time: x and Δ read and y written (fp32) once per
     (cell, channel), B and C once per cell; the exponentials ā, one per
@@ -469,6 +542,22 @@ def phase_k5(gen) -> dict:
                 f"({bound_by}); no library call computes a 2D selective scan")
         del ops, got, want
         torch.cuda.empty_cache()
+    # 32 states on the BLCA grid: two launches of 16 states each, one call
+    ops = operands(1, 275, 381, torch.float32, gen, n=32)
+    launched = scan2d.selective_scan_2d_fused.launches
+    got = scan2d.selective_scan_2d_fused(*ops)
+    torch.cuda.synchronize()
+    if scan2d.selective_scan_2d_fused.launches != launched + 1:
+        fail("K5 [BLCA N 32]: not counted as one call")
+    err = check_close("K5 [BLCA N 32]", got, scan2d.scan2d_plain(*ops), 1e-4, 1e-5)
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r_32 = {}
+    timed(r_32, lambda: scan2d.selective_scan_2d_fused(*ops), None)
+    bound_ms, bound_by, _ = k5_bounds(ops[0], ops[2])
+    log(f"K5 [BLCA N 32] Bs=1 H=275 W=381 ED=256 N=32 fp32: max|d| {err:.3e} (rtol 1e-4, atol 1e-5); "
+        f"kernel {fmt_ms(r_32, '')}, bound {bound_ms:.4f} ms ({bound_by})")
+    del ops, got
+    torch.cuda.empty_cache()
     # rows wider than 1,024 columns: h beyond the register chunks in shared
     # memory (1,500, 2,100) or in the wrapper's global scratch (4,200)
     for w in (1500, 2100, 4200):
@@ -911,6 +1000,7 @@ def main():
     report = phase_nystrom_kernels(gen)
     report.update(phase_k4(gen))
     report.update(phase_k3(gen))
+    report.update(phase_k2b(gen))
     report.update(phase_k5(gen))
     report.update(phase_k6(gen))
     counted = {kid: 0 for kid in KERNELS}
@@ -942,7 +1032,7 @@ def main():
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "plain_device_ms": r["plain_device_ms"], "library_device_ms": r["library_device_ms"],
         }
-        for key in ("bound_parts_ms", "batch1"):
+        for key in ("bound_parts_ms", "batch1", "dh128"):
             if key in r:
                 row[key] = r[key]
         if kid == "K3":

@@ -3,8 +3,8 @@
 Each source ``csrc/<name>.cu`` has a plain C interface. On first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads at once. Several sources build in parallel, one
+named by a hash of the source, the headers ``csrc/*.cuh`` and the flags, so
+an edited source or header rebuilds and an unchanged one loads at once. Several sources build in parallel, one
 ``nvcc`` each; a build prints ptxas's report (registers, shared memory,
 spills) for each kernel on stderr.
 """
@@ -35,6 +35,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_nystrom": {
         "flash_nystrom_pass_a_rows": [],
         "flash_nystrom_pass_a_keys": [],
+        "flash_nystrom_pass_a_resident": [I32],  # DH
         "flash_nystrom_pass_a": [
             P,  # ql
             P, I64, I64, I64,  # k and its batch, head, token strides
@@ -54,6 +55,27 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             P, I64, I64, I64,  # out
             P,  # cls
             I32, I32, I32, I32, I32,  # B, H, N, M, DH
+            P,  # stream
+        ],
+    },
+    "flash_nystrom_bwd": {
+        "flash_nystrom_bwd_rows": [],
+        "flash_nystrom_bwd_keys": [],
+        "flash_nystrom_bwd_resident": [I32],  # DH
+        "flash_nystrom_bwd_width": [I32, I32],  # DH, with the cls term
+        "flash_nystrom_pass_b_bwd": [
+            P, I64, I64, I64,  # q
+            P, I64, I64, I64,  # k
+            P,  # mask
+            P, P, P, P, P, P,  # kl, lm_mask, mid, ql, r', m3
+            P, I64, I64, I64,  # d_out
+            P,  # d_cls, or null
+            P, P,  # d_q, d_k (or null)
+            P, P, P,  # scratch: lse, D, the partial sums
+            P,  # out: d_kl | d_mid | d_ql | d_r'
+            P,  # scratch: int32 tickets
+            I32, I32, I32, I32, I32,  # B, H, N, M, DH
+            I32, I32,  # n_splits, per_split
             P,  # stream
         ],
     },
@@ -98,7 +120,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

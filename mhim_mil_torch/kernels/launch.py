@@ -31,11 +31,17 @@ def check(name: str, t: Tensor, shape, device, contiguous: bool = False, dtype=t
         raise ValueError(f"{name} must have a unit stride on its last axis")
 
 
-def check_rows_aligned(name: str, t: Tensor, nbytes: int = 16):
-    """Raise unless every row of ``t`` (its last axis) starts on ``nbytes``
-    bytes, as 16-byte ``cp.async`` copies of whole rows need."""
+def rows_aligned(t: Tensor, nbytes: int = 16) -> bool:
+    """True when ``t`` has a unit last stride and every row (its last axis)
+    starts on ``nbytes`` bytes, as 16-byte ``cp.async`` copies of whole rows
+    need."""
     per = nbytes // t.element_size()
-    if t.data_ptr() % nbytes or any(s % per for s in t.stride()[:-1]):
+    return t.stride(-1) == 1 and not t.data_ptr() % nbytes and not any(s % per for s in t.stride()[:-1])
+
+
+def check_rows_aligned(name: str, t: Tensor, nbytes: int = 16):
+    """Raise unless every row of ``t`` (its last axis) starts on ``nbytes`` bytes."""
+    if not rows_aligned(t, nbytes):
         raise ValueError(f"{name}: rows must start on {nbytes} bytes (pointer and strides), got "
                          f"offset {t.data_ptr() % nbytes} and strides {t.stride()}")
 

@@ -18,6 +18,9 @@ of device memory:
 times it was called on the card (K1's call launches two kernels: the
 partials of its key splits, planned by :func:`pass_a_plan`, and their merge;
 :func:`pass_a_split_plain` is that arithmetic in plain torch, for tests).
+The kernels are built for head dims 16, 32, 64 and 128; on the card
+:func:`padded_head_dim` zero-pads any other head dim up to the next of
+those, and above 128 the wrappers raise a ``ValueError``.
 
 **K3** :func:`flash_nystrom` is the differentiable form (the port of the
 custom VJP at ``pallas_nystrom.py:249-304``): its forward is
@@ -25,20 +28,33 @@ custom VJP at ``pallas_nystrom.py:249-304``): its forward is
 :func:`ops.nystrom.nystrom_attention` in fp32 and differentiates that, as
 the JAX package's backward does (there it is XLA, not a kernel). Its counts
 are ``FlashNystrom.forward_calls`` and ``FlashNystrom.backward_calls``.
+
+**K2b** :func:`pass_b_backward` is the backward of K2's pass, the gradients
+of ``out`` and the cls row with respect to K2's operands, in two CUDA
+kernels (``csrc/flash_nystrom_bwd.cu``) that never form ``[B,H,N,m]``;
+:func:`pass_b_backward_plain` on CPU tensors. K3's backward does not call
+it yet: any backward other than the recompute of the reference differs
+from autograd through ``nystrom_attention`` by more than the kernel gate's
+VJP check admits (``utils/kernel_check.py``: entries off by up to 1e-4 of
+gradients reaching 86 at its full shape, where the check allows 1e-5), as
+the JAX package's own hardware check does between its two fp32
+formulations.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import load_library
 from ..kernels.launch import check as _check, check_rows_aligned as _aligned
 from ..kernels.launch import on_cpu as _on_cpu, raise_on as _raise_on
 from .masked import NEG_INF, masked_softmax
+from ..kernels.launch import rows_aligned as _rows_aligned
 from .nystrom import _landmark_mean, moore_penrose_pinv, nystrom_attention
 
 Tensor = torch.Tensor
@@ -74,24 +90,103 @@ def pass_b_plain(
     return out, torch.where(mask[:, None, :], cls, 0.0)
 
 
+def pass_b_backward_plain(
+    q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor, mid: Tensor, ql: Tensor,
+    rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor] = None,
+) -> Tuple[Tensor, ...]:
+    """K2b's function: the gradients of :func:`pass_b_plain`'s ``out`` and,
+    given ``d_cls``, its ``cls`` under the cotangents ``d_out[B,H,N,dh]`` and
+    ``d_cls[B,H,N]``. With ``P1 = softmax_m(q·k_lᵀ)`` over the valid
+    landmarks and ``E = exp(q_l·kᵀ − m3)``: ``dP1 = d_out·midᵀ``,
+    ``dS1 = P1 ∘ (dP1 − Σ_m P1·dP1)``, ``d_q = dS1·k_l``, ``d_kl = dS1ᵀ·q``,
+    ``d_mid = P1ᵀ·d_out``; ``G = r'·E·d_cls``, ``d_k = Gᵀ·q_l``,
+    ``d_ql = G·k``, ``d_r' = Σ_N E·d_cls``, ``d_m3 = −r'·d_r'``. Returns
+    ``(d_q, d_k, d_kl, d_mid, d_ql, d_rp, d_m3)``, the last four of them and
+    ``d_k`` None without ``d_cls``; zero at masked tokens, and ``d_kl``,
+    ``d_mid`` zero at empty landmark groups. Values at masked tokens are
+    never used."""
+    tok = mask[:, None, :, None]
+    lm = lm_mask[:, None, None, :]
+    q, k, d_out = (torch.where(tok, t, 0.0) for t in (q, k, d_out))
+    sim1 = torch.where(lm, q @ kl.transpose(-1, -2), NEG_INF)  # [B,H,N,m]
+    p1 = torch.where(lm, torch.exp(sim1 - sim1.amax(dim=-1, keepdim=True)), 0.0)
+    p1 = torch.where(tok, p1 / p1.sum(dim=-1, keepdim=True).clamp_min(1e-30), 0.0)
+    dp1 = d_out @ mid.transpose(-1, -2)
+    ds1 = p1 * (dp1 - (p1 * dp1).sum(dim=-1, keepdim=True))
+    d_q, d_kl, d_mid = ds1 @ kl, ds1.transpose(-1, -2) @ q, p1.transpose(-1, -2) @ d_out
+    if d_cls is None:
+        return d_q, None, d_kl, d_mid, None, None, None
+    valid = mask[:, None, None, :]
+    e = torch.where(valid, torch.exp(ql @ k.transpose(-1, -2) - m3[..., None]), 0.0)  # [B,H,m,N]
+    ec = e * torch.where(valid, d_cls[:, :, None, :], 0.0)
+    g = rp[..., None] * ec
+    d_rp = ec.sum(dim=-1)
+    return d_q, g.transpose(-1, -2) @ ql, d_kl, d_mid, g @ k, d_rp, -rp * d_rp
+
+
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims K1, K2 and K2b are built for
+
+
+def kernel_head_dim(dh: int) -> int:
+    """The head dim the kernels run ``dh`` at: the next of :data:`HEAD_DIMS`.
+    Raises a ``ValueError`` above the largest."""
+    for d in HEAD_DIMS:
+        if dh <= d:
+            return d
+    raise ValueError(f"head dim {dh}: the flash-Nystrom kernels take head dims 1 to {HEAD_DIMS[-1]} "
+                     f"(zero-padded up to one of {HEAD_DIMS})")
+
+
+def padded_head_dim(call, args, pad, sliced):
+    """``call(*args)`` at :func:`kernel_head_dim`: the ``[..., dh]`` tensors at
+    positions ``pad`` of ``args`` zero-padded on their last axis (new
+    contiguous tensors) and the outputs at positions ``sliced`` cut back to
+    ``dh`` (views; None stays None). Zero q/k columns leave every product
+    unchanged, and zero v, mid and d_out columns give only output columns
+    that are cut off. At an instantiated head dim ``args`` pass as they are."""
+    dh = args[pad[0]].shape[-1]
+    dhp = kernel_head_dim(dh)
+    if dhp == dh:
+        return call(*args)
+    outs = call(*(F.pad(a, (0, dhp - dh)) if i in pad else a for i, a in enumerate(args)))
+    return tuple(o[..., :dh] if i in sliced and o is not None else o for i, o in enumerate(outs))
+
+
 PASS_A_ROWS = 128  # landmark rows of a K1 block (csrc A_ROWS)
 PASS_A_KEYS = 32  # keys of a K1 tile; a split is a whole number of tiles (csrc COLS)
-PASS_A_RESIDENT = 2  # K1 blocks an SM holds (its __launch_bounds__ and shared memory)
+PASS_A_RESIDENT = {16: 2, 32: 2, 64: 2, 128: 1}  # K1 blocks an SM holds, by head dim (csrc a_resident)
+BWD_ROWS = 64  # landmark rows of a K2b landmark block (csrc flash_nystrom_bwd.cu ROWS)
+BWD_KEYS = 32  # tokens of its tiles; a split is a whole number of tiles
+BWD_RESIDENT = {16: 2, 32: 2, 64: 2, 128: 1}  # its blocks an SM holds (csrc lm_resident)
 H100_SMS = 132
 
 
-def pass_a_plan(b: int, h: int, n: int, m: int, sms: int = H100_SMS) -> Tuple[int, int]:
-    """K1's split of the keys: ``(n_splits, per_split)``, split ``s`` taking
-    keys ``[s·per_split, min(n, (s + 1)·per_split))``. Aims at two full waves
-    of resident blocks (``2·PASS_A_RESIDENT·sms``) over the grid's
-    ``b·h·⌈m/128⌉`` landmark blocks per split, rounding the split count down
-    so that the last wave is not a sliver; ``per_split`` is a whole number
-    of 32-key tiles, and no split is empty."""
-    row_blocks = b * h * math.ceil(m / PASS_A_ROWS)
-    tiles = max(1, math.ceil(n / PASS_A_KEYS))
-    target = max(1, min(tiles, (2 * PASS_A_RESIDENT * sms) // row_blocks))
-    per_split = math.ceil(tiles / target) * PASS_A_KEYS
+def _split_plan(row_blocks: int, n: int, resident: int, sms: int, tile: int) -> Tuple[int, int]:
+    """``(n_splits, per_split)`` of n keys over a grid of ``row_blocks`` row
+    blocks per split: aims at two full waves of resident blocks
+    (``2·resident·sms``), rounding the split count down so that the last wave
+    is not a sliver; ``per_split`` is a whole number of tiles, and no split
+    is empty."""
+    tiles = max(1, math.ceil(n / tile))
+    target = max(1, min(tiles, (2 * resident * sms) // row_blocks))
+    per_split = math.ceil(tiles / target) * tile
     return max(1, math.ceil(n / per_split)), per_split
+
+
+def pass_a_plan(b: int, h: int, n: int, m: int, sms: int = H100_SMS, dh: int = 64) -> Tuple[int, int]:
+    """K1's split of the keys: ``(n_splits, per_split)``, split ``s`` taking
+    keys ``[s·per_split, min(n, (s + 1)·per_split))``, over the grid's
+    ``b·h·⌈m/128⌉`` landmark blocks per split at the residency of head dim
+    ``dh`` (:func:`_split_plan`)."""
+    return _split_plan(b * h * math.ceil(m / PASS_A_ROWS), n, PASS_A_RESIDENT[kernel_head_dim(dh)], sms,
+                       PASS_A_KEYS)
+
+
+def pass_b_backward_plan(b: int, h: int, n: int, m: int, sms: int = H100_SMS,
+                         dh: int = 64) -> Tuple[int, int]:
+    """K2b's landmark kernel's split of the tokens, as :func:`pass_a_plan`
+    splits K1's keys, over ``b·h·⌈m/64⌉`` landmark blocks per split."""
+    return _split_plan(b * h * math.ceil(m / BWD_ROWS), n, BWD_RESIDENT[kernel_head_dim(dh)], sms, BWD_KEYS)
 
 
 def pass_a_split_plain(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, n_splits: int,
@@ -123,19 +218,60 @@ def _sm_count(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The kernels' library, once its K1 geometry is checked against the plan's."""
+    """K1's and K2's library, once its K1 geometry (rows, keys and, by head
+    dim, blocks an SM) is checked against the plan's."""
     lib = load_library("flash_nystrom")
-    if (lib.flash_nystrom_pass_a_rows(), lib.flash_nystrom_pass_a_keys()) != (PASS_A_ROWS, PASS_A_KEYS):
-        raise RuntimeError("flash_nystrom.cu's K1 geometry differs from pass_a_plan's")
+    got = (lib.flash_nystrom_pass_a_rows(), lib.flash_nystrom_pass_a_keys(),
+           {d: lib.flash_nystrom_pass_a_resident(d) for d in HEAD_DIMS})
+    if got != (PASS_A_ROWS, PASS_A_KEYS, PASS_A_RESIDENT):
+        raise RuntimeError(f"flash_nystrom.cu's K1 geometry {got} differs from pass_a_plan's")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library():
+    """K2b's library, once its landmark kernel's geometry is checked against
+    :func:`pass_b_backward_plan`'s and its row width against the wrapper's."""
+    lib = load_library("flash_nystrom_bwd")
+    got = (lib.flash_nystrom_bwd_rows(), lib.flash_nystrom_bwd_keys(),
+           {d: lib.flash_nystrom_bwd_resident(d) for d in HEAD_DIMS},
+           [lib.flash_nystrom_bwd_width(d, c) for d in HEAD_DIMS for c in (0, 1)])
+    want = (BWD_ROWS, BWD_KEYS, BWD_RESIDENT, [_bwd_width(d, c) for d in HEAD_DIMS for c in (0, 1)])
+    if got != want:
+        raise RuntimeError(f"flash_nystrom_bwd.cu's geometry {got} differs from the wrapper's {want}")
+    return lib
+
+
+def _bwd_width(dh: int, cls: bool) -> int:
+    """Floats of a landmark row of K2b's output: d_kl | d_mid, and with the
+    cls term | d_ql | d_r' | 3 floats of padding."""
+    return 3 * dh + 4 if cls else 2 * dh
+
+
+_TICKETS = {}
+
+
+def _tickets(dev, n: int) -> Tensor:
+    """A zeroed int32 buffer of at least ``n`` entries on ``dev``, kept from
+    call to call: K2b's landmark kernel leaves its tickets zero."""
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < n:
+        t = _TICKETS[dev] = torch.zeros(max(n, 4096), device=dev, dtype=torch.int32)
+    return t
 
 
 def pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """K1: the CUDA kernels on CUDA tensors, :func:`pass_a_plain` on CPU tensors.
     ``k`` and ``v`` may be any strided view with a unit last stride whose
-    rows start on 16 bytes."""
+    rows start on 16 bytes; any head dim up to 128 (:func:`padded_head_dim`)."""
     if _on_cpu(ql, k, v, mask):
         return pass_a_plain(ql, k, v, mask)
+    out = padded_head_dim(_launch_pass_a, (ql, k, v, mask), (0, 1, 2), (0,))
+    pass_a.launches += 1
+    return out
+
+
+def _launch_pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     b, h, m, dh = ql.shape
     n = k.shape[2]
     dev = ql.device
@@ -146,7 +282,7 @@ def pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tens
     for name, t in (("ql", ql), ("k", k), ("v", v)):
         _aligned(name, t)
     lib = _library()
-    n_splits, per_split = pass_a_plan(b, h, n, m, _sm_count(dev.index))
+    n_splits, per_split = pass_a_plan(b, h, n, m, _sm_count(dev.index), dh)
     part_m = torch.empty((b * h, n_splits, m), device=dev, dtype=torch.float32)
     part_s = torch.empty_like(part_m)
     part_acc = torch.empty((b * h, n_splits, m, dh), device=dev, dtype=torch.float32)
@@ -164,7 +300,6 @@ def pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tens
             b, h, n, m, dh, n_splits, per_split, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, "flash_nystrom_pass_a")
-    pass_a.launches += 1
     return attn3v, m3, s3
 
 
@@ -177,10 +312,20 @@ def pass_b(
 ) -> Tuple[Tensor, Tensor]:
     """K2: the CUDA kernel on CUDA tensors, :func:`pass_b_plain` on CPU tensors.
     ``q`` and ``k`` may be strided views whose rows start on 16 bytes; ``out``
-    comes back as a ``[B,H,N,dh]`` view of ``[B,N,H,dh]`` storage, so the
-    caller's merge of the heads is free."""
+    comes back as a ``[B,H,N,dh]`` view of ``[B,N,H,dh']`` storage, ``dh'``
+    the head dim the kernel ran at (:func:`padded_head_dim`), so the caller's
+    merge of the heads is free where the two are equal."""
     if _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3):
         return pass_b_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3)
+    out = padded_head_dim(_launch_pass_b, (q, k, mask, kl, lm_mask, mid, ql, rp, m3), (0, 1, 3, 5, 6), (0,))
+    pass_b.launches += 1
+    return out
+
+
+def _launch_pass_b(
+    q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor,
+    mid: Tensor, ql: Tensor, rp: Tensor, m3: Tensor,
+) -> Tuple[Tensor, Tensor]:
     b, h, n, dh = q.shape
     m = kl.shape[2]
     dev = q.device
@@ -209,11 +354,82 @@ def pass_b(
             b, h, n, m, dh, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, "flash_nystrom_pass_b")
-    pass_b.launches += 1
     return out, cls
 
 
 pass_b.launches = 0
+
+
+def pass_b_backward(
+    q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor, mid: Tensor, ql: Tensor,
+    rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor] = None,
+) -> Tuple[Tensor, ...]:
+    """K2b: the CUDA kernels on CUDA tensors, :func:`pass_b_backward_plain`
+    (same arguments and fp32 outputs) on CPU tensors. ``q``, ``k`` and
+    ``d_out`` may be strided views (``d_out`` in any layout: one whose rows
+    do not start on 16 bytes is copied); any head dim up to 128. Without
+    ``d_cls`` the cls term is skipped and its four gradients are None."""
+    if _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, *(() if d_cls is None else (d_cls,))):
+        return pass_b_backward_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls)
+    d_out = d_out if _rows_aligned(d_out) else d_out.contiguous()
+    args = (q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls)
+    out = padded_head_dim(_launch_pass_b_backward, args, (0, 1, 3, 5, 6, 9), (0, 1, 2, 3, 4))
+    pass_b_backward.launches += 1
+    return out
+
+
+def _launch_pass_b_backward(
+    q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor, mid: Tensor, ql: Tensor,
+    rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor],
+) -> Tuple[Tensor, ...]:
+    b, h, n, dh = q.shape
+    m = kl.shape[2]
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("d_out", d_out)):
+        _check(name, t, (b, h, n, dh), dev)
+    _check("mask", mask, (b, n), dev, contiguous=True, dtype=torch.bool)
+    for name, t in (("kl", kl), ("mid", mid), ("ql", ql)):
+        _check(name, t, (b, h, m, dh), dev, contiguous=True)
+    _check("lm_mask", lm_mask, (b, m), dev, contiguous=True, dtype=torch.bool)
+    _check("rp", rp, (b, h, m), dev, contiguous=True)
+    _check("m3", m3, (b, h, m), dev, contiguous=True)
+    cls = d_cls is not None
+    if cls:
+        d_cls = d_cls.float().contiguous()
+        _check("d_cls", d_cls, (b, h, n), dev, contiguous=True)
+    for name, t in (("q", q), ("k", k), ("d_out", d_out), ("kl", kl), ("mid", mid), ("ql", ql)):
+        _aligned(name, t)
+    lib = _bwd_library()
+    n_splits, per_split = pass_b_backward_plan(b, h, n, m, _sm_count(dev.index), dh)
+    w = _bwd_width(dh, cls)
+    d_q = torch.empty((b, h, n, dh), device=dev, dtype=torch.float32)
+    d_k = torch.empty_like(d_q) if cls else None
+    lse = torch.empty((b, h, n), device=dev, dtype=torch.float32)
+    dd = torch.empty_like(lse)
+    out = torch.empty((b, h, m, w), device=dev, dtype=torch.float32)
+    part = out if n_splits == 1 else torch.empty((b * h, n_splits, m, w), device=dev, dtype=torch.float32)
+    tickets = _tickets(dev, b * h * math.ceil(m / BWD_ROWS))
+    with torch.cuda.device(dev):
+        err = lib.flash_nystrom_pass_b_bwd(
+            q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+            k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+            mask.data_ptr(),
+            kl.data_ptr(), lm_mask.data_ptr(), mid.data_ptr(), ql.data_ptr(), rp.data_ptr(), m3.data_ptr(),
+            d_out.data_ptr(), d_out.stride(0), d_out.stride(1), d_out.stride(2),
+            d_cls.data_ptr() if cls else None,
+            d_q.data_ptr(), d_k.data_ptr() if cls else None,
+            lse.data_ptr(), dd.data_ptr(), part.data_ptr(), out.data_ptr(), tickets.data_ptr(),
+            b, h, n, m, dh, n_splits, per_split, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(err, "flash_nystrom_pass_b_bwd")
+    d_kl, d_mid = out[..., :dh], out[..., dh:2 * dh]
+    if not cls:
+        return d_q, None, d_kl, d_mid, None, None, None
+    d_rp = out[..., 3 * dh]
+    return d_q, d_k, d_kl, d_mid, out[..., 2 * dh:3 * dh], d_rp, -rp * d_rp
+
+
+pass_b_backward.launches = 0
 
 
 def flash_nystrom_infer(

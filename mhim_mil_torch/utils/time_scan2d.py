@@ -26,18 +26,18 @@ SHAPES = {"BLCA": (1, 275, 381), "serving": (4, 101, 102)}
 ED, N = 256, 16
 
 
-def operands(bs, h, w, dtype, gen):
+def operands(bs, h, w, dtype, gen, n=N):
     """K5's operands as the 2D MambaBlock gives them, on the card: x and
     Δ = 0.1·softplus(normal) (as ``pallas_hw_check.py:148-155`` draws them)
-    ``[Bs, H, W, 256]``, B and C slices of one ``[.., 8 + 2·16]`` projection,
-    A_log = log(1..16) per channel, D."""
+    ``[Bs, H, W, 256]``, B and C slices of one ``[.., 8 + 2·n]`` projection,
+    A_log = log(1..n) per channel, D."""
     x = torch.randn(bs, h, w, ED, device="cuda", generator=gen)
     delta = 0.1 * torch.nn.functional.softplus(torch.randn(bs, h, w, ED, device="cuda", generator=gen))
-    dbc = torch.randn(bs, h, w, 8 + 2 * N, device="cuda", generator=gen)
-    a_log = torch.log(torch.arange(1, N + 1, device="cuda", dtype=torch.float32)).expand(ED, N).contiguous()
+    dbc = torch.randn(bs, h, w, 8 + 2 * n, device="cuda", generator=gen)
+    a_log = torch.log(torch.arange(1, n + 1, device="cuda", dtype=torch.float32)).expand(ED, n).contiguous()
     d = torch.randn(ED, device="cuda", generator=gen)
     x, delta, dbc = (t.to(dtype) for t in (x, delta, dbc))
-    return x, delta, a_log, dbc[..., 8:8 + N], dbc[..., 8 + N:], d
+    return x, delta, a_log, dbc[..., 8:8 + n], dbc[..., 8 + n:], d
 
 
 def event_ms(fn, iters=20, warmup=3):

@@ -1,4 +1,4 @@
-"""K1-K6 against their plain versions on a Hopper card, and the kernel check.
+"""K1-K6 and K2b against their plain versions on a Hopper card, and the kernel check.
 
 Marked ``cuda``: skips without a card of capability 9.0. This file imports no
 JAX, so it runs on the card's machine, from the root of the repo:
@@ -90,12 +90,95 @@ def test_kernels_take_edge_cases_on_the_card(hopper, h, n, dh, m, lengths):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,dh,m,ragged", [(2, 4, 1000, 48, 64, True), (2, 4, 1000, 128, 64, True),
+                                               (1, 8, 300, 96, 32, False), (1, 4, 10241, 128, 256, False)])
+def test_kernels_take_any_head_dim_on_the_card(hopper, b, h, n, dh, m, ragged):
+    """K1 and K2 at head dims they are not built for (48 and 96, zero-padded
+    to 64 and 128) and at the DH-128 instantiation, up to the flagship's
+    batch-1 shape with 4 heads of 128, against their plain versions at the
+    tolerances of ``_check_passes``; out keeps its head dim."""
+    gen = torch.Generator(device=hopper).manual_seed(7)
+    q, k, v = (torch.randn(b, h, n, dh, device=hopper, generator=gen) for _ in range(3))
+    q = q * dh ** -0.5
+    lengths = torch.tensor([n * 2 // 3 if ragged else n, n][:b], device=hopper)
+    mask = torch.arange(n, device=hopper)[None] < lengths[:, None]
+    (attn3v, _, _), (out, _), _ = _check_passes(hopper, q, k, v, mask, m)
+    assert attn3v.shape[-1] == out.shape[-1] == dh
+
+
+@pytest.mark.cuda
+def test_head_dims_above_128_raise_on_the_card(hopper):
+    """dh 129 raises a ValueError naming the range before any launch."""
+    q = torch.randn(1, 1, 64, 129, device=hopper)
+    mask = torch.ones(1, 64, dtype=torch.bool, device=hopper)
+    before = fn.pass_a.launches
+    with pytest.raises(ValueError, match="head dims 1 to 128"):
+        fn.flash_nystrom_infer(q, q, q, mask, 8)
+    assert fn.pass_a.launches == before
+
+
+def _k2b_operands(dev, b, h, n, dh, m, lengths, seed):
+    """K2's operands from the plain glue, q and k as strided views of one
+    qkv projection with NaN at masked tokens, d_out as a [B,H,N,dh] view of
+    [B,N,H,dh] storage with NaN at masked tokens, d_cls with NaN there."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.arange(n, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]
+    tok = mask[:, :, None]
+    qkv = torch.where(tok, torch.randn(b, n, 3 * h * dh, device=dev, generator=gen), float("nan"))
+    q, k, v = (qkv[..., i * h * dh:(i + 1) * h * dh].view(b, n, h, dh).transpose(1, 2) for i in range(3))
+    q = q * dh ** -0.5
+    q_l, k_l, lm_mask, pinv = fn.landmarks(q, k, mask, m)
+    attn3v, m3, s3 = fn.pass_a_plain(q_l, k, v, mask)
+    mid, rp = fn.pass_b_operands(q, k_l, mask, lm_mask, pinv, attn3v, s3)
+    d_out = torch.where(tok[..., None], torch.randn(b, n, h, dh, device=dev, generator=gen),
+                        float("nan")).transpose(1, 2)
+    d_cls = torch.where(mask[:, None], torch.randn(b, h, n, device=dev, generator=gen), float("nan"))
+    return (q, k, mask, k_l, lm_mask, mid, q_l, rp, m3), d_out, d_cls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,dh,m,lengths", [
+    (4, 8, 1027, 64, 256, (1027, 943, 717, 846)),  # the student's shape
+    (3, 2, 300, 16, 8, (300, 150, 0)),  # DH 16, m 8; empty landmark groups; a bag with no valid token
+    (2, 4, 500, 128, 40, (500, 77)),  # DH 128; m not a multiple of 16
+    (2, 2, 200, 24, 16, (200, 131)),  # a padded head dim
+])
+@pytest.mark.parametrize("with_cls", [False, True])
+def test_pass_b_backward_matches_its_plain_version_on_the_card(hopper, b, h, n, dh, m, lengths, with_cls):
+    """K2b against pass_b_backward_plain on the same card inputs, NaN at
+    every masked q, k, d_out and d_cls entry (never read): each gradient at
+    max|d| <= 1e-4·max|ref| (3×TF32 products against fp32 ones, sums over up
+    to a thousand tokens), zero at masked tokens; one launch counted; two
+    launches give the same bits (no float atomics)."""
+    args, d_out, d_cls = _k2b_operands(hopper, b, h, n, dh, m, lengths, 8)
+    cls = d_cls if with_cls else None
+    want = fn.pass_b_backward_plain(*args, d_out, cls)
+    before = fn.pass_b_backward.launches
+    got = fn.pass_b_backward(*args, d_out, cls)
+    again = fn.pass_b_backward(*args, d_out, cls)
+    torch.cuda.synchronize()
+    assert fn.pass_b_backward.launches == before + 2
+    for name, g, w, g2 in zip(("d_q", "d_k", "d_kl", "d_mid", "d_ql", "d_rp", "d_m3"), got, want, again):
+        assert (g is None) == (w is None), name
+        if w is None:
+            continue
+        assert torch.isfinite(g).all(), name
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max(), (name, (g - w).abs().max(), w.abs().max())
+        assert torch.equal(g, g2), name
+    for g in (got[0], got[1]):
+        if g is not None:
+            assert torch.all(torch.where(args[2][:, None, :, None], 0.0, g) == 0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d,dtype", [(4, 1000, 512, torch.float32), (3, 100, 32, torch.float32),
-                                         (2, 333, 100, torch.bfloat16)])
+                                         (2, 333, 100, torch.bfloat16),
+                                         (3, 500, 1536, torch.float32), (3, 500, 1536, torch.bfloat16)])
 def test_abmil_pool_matches_its_plain_version_on_the_card(hopper, b, n, d, dtype):
     """K4 against abmil_pool_plain: ragged bags, a fake bag (pooled and attn
     zero, nothing NaN) and garbage at masked instances; rtol 1e-5 atol 1e-5,
-    attn atol 1e-6, as the JAX package's kernel test holds its kernel."""
+    attn atol 1e-6, as the JAX package's kernel test holds its kernel. Widths
+    above 1,024 run as column groups in one call."""
     gen = torch.Generator(device=hopper).manual_seed(1)
     x = torch.randn(b, n, d, device=hopper, generator=gen).to(dtype)
     logits = 3 * torch.randn(b, n, device=hopper, generator=gen)
@@ -141,6 +224,32 @@ def test_flash_nystrom_gradients_on_the_card(hopper):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh,use_attn", [(48, True), (128, False)])
+def test_flash_nystrom_gradients_at_other_head_dims_on_the_card(hopper, dh, use_attn):
+    """K3 with its forward at a padded head dim (48) and at DH 128, attn used
+    and unused, against autograd through the plain attention: out at rtol
+    1e-4 atol 1e-5, gradients at max|d| <= 1e-4·max|ref|."""
+    gen = torch.Generator(device=hopper).manual_seed(9)
+    b, h, n, m = 2, 4, 300, 32
+    q, k, v, co = (torch.randn(b, h, n, dh, device=hopper, generator=gen) for _ in range(4))
+    q = q * dh ** -0.5
+    ca = torch.randn(b, h, n, device=hopper, generator=gen)
+    mask = torch.arange(n, device=hopper)[None] < torch.tensor([[n], [171]], device=hopper)
+
+    def run(f):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out, attn = f(qq, kk, vv)
+        total = (out * co).sum() + ((attn * ca).sum() if use_attn else 0.0)
+        return (out.detach(), *torch.autograd.grad(total, (qq, kk, vv)))
+
+    got = run(lambda *t: fn.flash_nystrom(*t, mask, m))
+    want = run(lambda *t: nystrom_attention(*t, mask, m, return_attn=True))
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    for g, w in zip(got[1:], want[1:]):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.cuda
 def test_flash_nystrom_infer_refuses_to_drop_the_graph(hopper):
     """The kernels' outputs carry no graph: under grad, with q/k/v that need
     one, the no-grad entry raises instead of cutting the gradient silently."""
@@ -165,6 +274,29 @@ def test_scan2d_matches_its_plain_version_on_the_card(hopper, bs, h, w, ed, n, d
     A_log = log(1..N), as pallas_hw_check.py draws them), rtol 1e-4 atol 1e-5;
     B and C as strided slices of one x_proj-like output."""
     gen = torch.Generator(device=hopper).manual_seed(3)
+    x = torch.randn(bs, h, w, ed, device=hopper, generator=gen).to(dtype)
+    delta = (0.1 * torch.nn.functional.softplus(torch.randn(bs, h, w, ed, device=hopper, generator=gen))).to(dtype)
+    bc = torch.randn(bs, h, w, 3 + 2 * n, device=hopper, generator=gen).to(dtype)
+    B, C = bc[..., 3:3 + n], bc[..., 3 + n:]
+    a_log = torch.log(torch.arange(1, n + 1, device=hopper, dtype=torch.float32)).expand(ed, n)
+    D = torch.randn(ed, device=hopper, generator=gen)
+    before = scan2d.selective_scan_2d_fused.launches
+    got = scan2d.selective_scan_2d_fused(x, delta, a_log, B, C, D)
+    torch.cuda.synchronize()
+    assert scan2d.selective_scan_2d_fused.launches == before + 1
+    torch.testing.assert_close(got, scan2d.scan2d_plain(x, delta, a_log, B, C, D), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(12, torch.float32), (32, torch.float32), (3, torch.bfloat16),
+                                     (20, torch.bfloat16)])
+def test_scan2d_takes_any_state_size(hopper, n, dtype):
+    """K5 at state sizes it is not built for (padded with zero B and C
+    columns; above 16 in groups of 16) against scan2d_plain, rtol 1e-4 atol
+    1e-5, at the serving raster width; B and C as strided slices of one
+    x_proj-like output; one call counted."""
+    gen = torch.Generator(device=hopper).manual_seed(10)
+    bs, h, w, ed = 2, 9, 102, 64
     x = torch.randn(bs, h, w, ed, device=hopper, generator=gen).to(dtype)
     delta = (0.1 * torch.nn.functional.softplus(torch.randn(bs, h, w, ed, device=hopper, generator=gen))).to(dtype)
     bc = torch.randn(bs, h, w, 3 + 2 * n, device=hopper, generator=gen).to(dtype)
