@@ -16,17 +16,19 @@ its eval step and its scorer. Phases, each of which fails the run:
    flagship shapes (full and ragged masks; K1 and K2 at batch 4 and at
    batch 1, timed at both beside their ``scaled_dot_product_attention``
    yardsticks, with bounds that count their products on the tensor cores
-   as three TF32 products each) and a small odd shape, and K3's
-   outputs and q/k/v gradients at the student's shape against autograd
-   through the plain attention, and K5 against its plain version at the
-   BLCA grid, the serving raster grid and a ragged 5 × 11 grid (and rows
-   of 1,500, 2,100 and 4,200 columns), and K6 against ``x + 1``, with
-   times, bounds and library yardsticks; the shapes the kernels are not
-   built for: K1/K2 at head dims 96 and 128 (timed at 128), K4 at 1,536
-   columns, K5 at 32 states on the BLCA grid; and K2b, the backward of K2's
-   pass, against its plain version at the student's shape, with and without
-   the cls term, timed with its bound (K3's backward does not call it yet,
-   so it has no launches on the main paths and no row in the kernels line);
+   as three TF32 products each) and a small odd shape; K3's outputs and
+   q/k/v gradients at the student's shape against autograd through the
+   plain attention in fp32, and its gradients against the plain attention
+   in fp64 by the kernel gate's VJP criterion; K2b and K1b, the backwards of
+   K2's and K1's passes that K3's backward launches, against their plain
+   versions at the student's shape, timed with their bounds beside the
+   backward of ``scaled_dot_product_attention``; K5 against its plain
+   version at the BLCA grid, the serving raster grid and a ragged 5 × 11
+   grid (and rows of 1,500, 2,100 and 4,200 columns), and K6 against
+   ``x + 1``, with times, bounds and library yardsticks; the shapes the
+   kernels are not built for: K1/K2 at head dims 96, 128, 192 and 256
+   (timed at 128 and 256), K1b/K2b at 256, K4 at 1,536 columns, K5 at 32
+   states on the BLCA grid;
 4. serving: the selfattn kernel path against the plain path on the whole
    model in fp32, then the scorer's requests under the default bf16 policy;
 5. train: one flagship train step on the kernel path against the plain path
@@ -63,6 +65,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -243,6 +246,9 @@ def phase_nystrom_kernels(gen) -> dict:
         # head dims that --inner_dim / --n_heads give: 768 / 8 (padded to 128) and 512 / 4
         ("dh 96", 2, 8, 10241, 96, 256, (5121, 10241)),
         ("dh 128", 4, 4, 10241, 128, 256, None),
+        # head dims above 128 (--inner_dim 512 --n_heads 2, or 768 / 4 padded): two column halves
+        ("dh 192", 2, 4, 10241, 192, 256, (5121, 10241)),
+        ("dh 256", 4, 2, 10241, 256, 256, None),
     ]
     report = {"K1": {"max_abs_err": 0.0}, "K2": {"max_abs_err": 0.0}}
     for label, b, h, n, dh, m, ragged in shapes:
@@ -269,7 +275,7 @@ def phase_nystrom_kernels(gen) -> dict:
         report["K1"]["max_abs_err"] = max(report["K1"]["max_abs_err"], e_a)
         report["K2"]["max_abs_err"] = max(report["K2"]["max_abs_err"], e_b)
 
-        if label not in ("flagship full", "flagship batch 1", "dh 128"):
+        if label not in ("flagship full", "flagship batch 1", "dh 128", "dh 256"):
             continue
         key_mask = o["mask"][:, None, None, :]
         lm_mask = o["lm_mask"][:, None, None, :]
@@ -281,9 +287,9 @@ def phase_nystrom_kernels(gen) -> dict:
         }
         for kid, (kern, plain, lib) in timings.items():
             # the flagship at batch 4 fills the kernel's row of the kernels line;
-            # batch 1 and head dim 128 sit inside it
+            # batch 1 and head dims 128 and 256 sit inside it
             r = (report[kid] if label == "flagship full"
-                 else report[kid].setdefault("batch1" if b == 1 else "dh128", {}))
+                 else report[kid].setdefault("batch1" if b == 1 else label.replace(" ", ""), {}))
             timed(r, kern, plain, lib)
             r.update(bounds(kid, o, h, m, dh))
             log(f"{kid} [{label}]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, "
@@ -291,8 +297,9 @@ def phase_nystrom_kernels(gen) -> dict:
         del o
         torch.cuda.empty_cache()
     for kid in ("K1", "K2"):
-        r, r1, r128 = report[kid], report[kid]["batch1"], report[kid]["dh128"]
-        for name, row in (("batch 4", r), ("batch 1", r1), ("dh 128", r128)):
+        r = report[kid]
+        for name, row in (("batch 4", r), ("batch 1", r["batch1"]), ("dh 128", r["dh128"]),
+                          ("dh 256", r["dh256"])):
             if not row["ms"] < row["library_ms"]:
                 log(f"{kid} [{name}]: kernel {row['ms']:.4f} ms is not below its library yardstick "
                     f"{row['library_ms']:.4f} ms")
@@ -370,34 +377,34 @@ def phase_k4(gen) -> dict:
     return {"K4": r}
 
 
-def k3_bounds(lengths, h, n, m, dh, iters=6):
+def k3_bounds(lengths, h, n, m, dh, iters=6) -> dict:
     """K3's least time for forward + backward: the products of the masked
     Nystrom attention per (bag, head) over its valid tokens nv — sim1, sim3,
     attn3@V, attn1@mid (4·nv·m·dh FMAs), sim2 and pinv@attn3V (2·m²·dh),
     the pseudo-inverse's 4 m×m products per iteration (4·iters·m³), the cls
     row (m·nv + m²) — once forward and twice more backward (the two products
     of each gradient), as :func:`tensor_core_bounds` counts them; the
-    forward's exponentials (sim1, sim3: 2·m·nv; attn2: m²). The recompute of
-    the forward in K3's backward is this design's choice, not work the
-    function needs, so it is not in the bound; the second return value is the
-    time it adds on the tensor cores. Bytes: q, k, v and both cotangents
-    read, out, attn and the three gradients written."""
+    forward's exponentials (sim1, sim3: 2·m·nv; attn2: m²). Bytes: q, k, v
+    and both cotangents read, out, attn and the three gradients written."""
     fmas = sum(4 * nv * m * dh + 2 * m * m * dh + 4 * iters * m ** 3 + m * nv + m * m
                for nv in lengths) * h
     exps = sum(2 * m * nv + m * m for nv in lengths) * h
     b = len(lengths)
     nbytes = (3 + 1 + 1 + 3) * b * h * n * dh * F32 + 2 * b * h * n * F32
-    recompute_ms = TF32_PRODUCTS * 2 * fmas / PEAK_TF32_FLOPS * 1e3
-    return tensor_core_bounds(2 * 3 * fmas, nbytes, exps), recompute_ms
+    return tensor_core_bounds(2 * 3 * fmas, nbytes, exps)
 
 
 def phase_k3(gen) -> dict:
     """K3 at the student's shape (B=4, H=8, N=1,027 tokens, ragged): out,
     attn and the q/k/v gradients under random cotangents against autograd
-    through the plain nystrom_attention, with the times of forward +
-    backward."""
+    through the plain nystrom_attention in fp32 (out rtol 1e-4 atol 1e-5,
+    the rest max|d| <= 1e-4·max|ref|), the gradients also against the plain
+    path in fp64 by kernel_check's VJP criterion; K1b and K2b launched once
+    each; the times of forward + backward, with and without attn's
+    cotangent (the student never reads attn)."""
     from mhim_mil_torch.ops import flash_nystrom as fn
     from mhim_mil_torch.ops.nystrom import nystrom_attention
+    from mhim_mil_torch.utils.kernel_check import vjp_close
 
     b, h, n, dh, m = 4, 8, 1027, 64, 256
     q, k, v, co = (torch.randn(b, h, n, dh, device="cuda", generator=gen) for _ in range(4))
@@ -407,28 +414,73 @@ def phase_k3(gen) -> dict:
     lengths[0] = n
     mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
 
-    def run(f):
-        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    def run(f, dtype=torch.float32, use_attn=True):
+        qq, kk, vv = (t.to(dtype, copy=True).requires_grad_() for t in (q, k, v))
         out, attn = f(qq, kk, vv)
-        return (out.detach(), attn.detach(), *torch.autograd.grad((out, attn), (qq, kk, vv), (co, ca)))
+        outs, cots = ((out, attn), (co.to(dtype), ca.to(dtype))) if use_attn else ((out,), (co,))
+        return (out.detach(), attn.detach(), *torch.autograd.grad(outs, (qq, kk, vv), cots))
 
-    kern = lambda: run(lambda *t: fn.flash_nystrom(*t, mask, m))
-    plain = lambda: run(lambda *t: nystrom_attention(*t, mask, m, return_attn=True))
-    got, want = kern(), plain()
+    kern = lambda use_attn=True: run(lambda *t: fn.flash_nystrom(*t, mask, m), use_attn=use_attn)
+    plain = lambda use_attn=True: run(lambda *t: nystrom_attention(*t, mask, m, return_attn=True),
+                                      use_attn=use_attn)
+    before = (fn.pass_a_backward.launches, fn.pass_b_backward.launches)
+    got = kern()
     torch.cuda.synchronize()
+    if (fn.pass_a_backward.launches, fn.pass_b_backward.launches) != (before[0] + 1, before[1] + 1):
+        fail("K3's backward did not launch K1b and K2b once each")
+    want = plain()
     errs = [check_close("K3 out", got[0], want[0], 1e-4, 1e-5)]
     for name, g, w in zip(("attn", "dq", "dk", "dv"), got[1:], want[1:]):
         errs.append(check_rel(f"K3 {name}", g, w, 1e-4))
-    bound, recompute_ms = k3_bounds(lengths.tolist(), h, n, m, dh)
-    r = {"max_abs_err": max(errs), **bound}
+    want64 = run(lambda *t: nystrom_attention(*t, mask, m, return_attn=True), torch.float64)
+    crit = []
+    for name, g, w32, w64 in zip(("dq", "dk", "dv"), got[2:], want[2:], want64[2:]):
+        r, r32 = vjp_close(g, w64), vjp_close(w32, w64)
+        crit.append(f"{name} {r['max_abs_err']:.3e} ({r['of_allowance']:.3f} of the allowance; fp32 plain "
+                    f"{r32['max_abs_err']:.3e}, {r32['of_allowance']:.3f})")
+        if not r["ok"]:
+            fail(f"K3 {name}: {r['n_bad']} entries miss the VJP criterion against fp64, max|d| "
+                 f"{r['max_abs_err']:.3e}")
+    del want64
+    r = {"max_abs_err": max(errs), **k3_bounds(lengths.tolist(), h, n, m, dh)}
     timed(r, kern, plain)
+    r_na = r.setdefault("no_attn", {})
+    timed(r_na, lambda: kern(False), lambda: plain(False))
     log(f"K3 [student] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: out max|d| {errs[0]:.3e}, "
-        f"attn/dq/dk/dv max|d| {', '.join(f'{e:.3e}' for e in errs[1:])} (tolerances: out rtol 1e-4 "
-        f"atol 1e-5, the rest max|d| <= 1e-4 max|ref|; the backward differentiates the plain "
-        f"attention, so the gradients check only the autograd.Function's wiring); forward+backward "
-        f"{fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, {fmt_bound(r)}, plus {recompute_ms:.4f} ms "
-        f"for this design's recompute of the forward; no library call computes it")
+        f"attn/dq/dk/dv max|d| {', '.join(f'{e:.3e}' for e in errs[1:])} against the fp32 plain path "
+        f"(tolerances: out rtol 1e-4 atol 1e-5, the rest max|d| <= 1e-4 max|ref|); against the fp64 plain "
+        f"path by the VJP criterion: {'; '.join(crit)}; forward+backward {fmt_ms(r, '')}, plain "
+        f"{fmt_ms(r, 'plain_')}, {fmt_bound(r)}; without attn's cotangent {fmt_ms(r_na, '')}, plain "
+        f"{fmt_ms(r_na, 'plain_')}; no library call computes it")
     return {"K3": r}
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")  # torch's preference
+
+
+def sdpa_backward(q, k, v, mask, d_out):
+    """The library yardstick of a backward kernel: the backward of
+    ``scaled_dot_product_attention(q, k, v, mask, scale=1)`` under ``d_out``,
+    on the first backend, in torch's order of preference, that takes these
+    inputs. Returns the timed call (the backward alone, the forward's graph
+    kept), its gradients and the backend's name."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # each refusal warns its reason
+                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=1.0)
+            grads = torch.autograd.grad(out, leaves, d_out, retain_graph=True)
+        except RuntimeError:
+            continue
+        return (lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True)), grads, name
+    fail("no scaled_dot_product_attention backend takes the yardstick's inputs")
 
 
 def k2b_bounds(mask, h, m, dh, cls: bool) -> dict:
@@ -450,47 +502,141 @@ def k2b_bounds(mask, h, m, dh, cls: bool) -> dict:
     return tensor_core_bounds(2 * per * h * nv * m * dh, nbytes, (2 if cls else 1) * h * nv * m)
 
 
-def phase_k2b(gen) -> dict:
-    """K2b against pass_b_backward_plain at the student's shape (B=4, H=8,
-    N=1,027 ragged, dh 64, m 256) on the glue's operands, q, k and d_out as
-    strided views, NaN at masked q/k/d_out/d_cls: each gradient at max|d| <=
-    1e-4·max|ref|, with and without the cls term, and two launches equal to
-    the bit; timed without the cls term (the student's case: it never reads
-    attn) and with it."""
+def k1b_bounds(mask, h, m, dh, with_s3: bool) -> dict:
+    """K1b's least time: its function's products over the valid keys nv of
+    each (bag, head) — S = q_l·kᵀ, dP = d_attn3v·vᵀ, d_ql, d_k, d_v
+    (5·nv·m·dh FMAs) — on the tensor cores at 3×TF32, the exponentials of P
+    on the special-function units, and its bytes: the valid rows of k and v
+    read once, q_l, attn3v, d_attn3v, m3, s3 (and d_s3) read, d_ql, d_k and
+    d_v written once."""
+    b, n = mask.shape
+    nv = int(mask.sum())  # summed over bags
+    small = b * h * m * dh * F32
+    nbytes = (2 * h * nv * dh * F32 + b * n + 3 * small + (3 if with_s3 else 2) * b * h * m * F32
+              + small + 2 * b * h * n * dh * F32)
+    return tensor_core_bounds(2 * 5 * h * nv * m * dh, nbytes, h * nv * m)
+
+
+def student_operands(gen, b, h, dh, m=256, n=1027):
+    """K1's and K2's operands at the student's shape (N 1,027, ragged from
+    600 tokens, the first bag full) from the plain glue (time_nystrom's
+    ``operands``), with K1's outputs attn3v and s3."""
     from mhim_mil_torch.ops import flash_nystrom as fn
     from mhim_mil_torch.utils.time_nystrom import operands
 
-    b, h, n, dh, m = 4, 8, 1027, 64, 256
     lengths = torch.randint(600, n + 1, (b,), device="cuda", generator=gen)
     lengths[0] = n
     o = operands(b, h, n, dh, m, lengths, gen)
-    tok = o["mask"][:, None, :, None]
-    q, k = (torch.where(tok, o[x], float("nan")) for x in ("q", "k"))
-    d_out = torch.where(tok, torch.randn(b, n, h, dh, device="cuda", generator=gen).transpose(1, 2), float("nan"))
-    d_cls = torch.where(o["mask"][:, None], torch.randn(b, h, n, device="cuda", generator=gen), float("nan"))
-    args = (q, k, o["mask"], o["k_l"], o["lm_mask"], o["mid"], o["q_l"], o["rp"], o["m3"], d_out)
+    o["attn3v"], _, o["s3"] = fn.pass_a_plain(o["q_l"], o["k"], o["v"], o["mask"])
+    return o, lengths
+
+
+def phase_k2b(gen) -> dict:
+    """K2b against pass_b_backward_plain at the student's shape (B=4, H=8,
+    N=1,027 ragged, dh 64, m 256) on the glue's operands, NaN at masked
+    q/k/d_out/d_cls: each gradient at max|d| <= 1e-4·max|ref|, with and
+    without the cls term, and two launches equal to the bit; timed without
+    the cls term (the student's case: it never reads attn) beside the
+    backward of ``scaled_dot_product_attention(q, k_l, mid, landmark
+    mask)`` (d_q, d_kl, d_mid: K2b's function without the cls term), and
+    with it; then at DH 256 (B 4, H 2, the same products), held and timed."""
+    from mhim_mil_torch.ops import flash_nystrom as fn
+
     r = {"max_abs_err": 0.0}
-    for cls in (None, d_cls):
-        got, again = fn.pass_b_backward(*args, cls), fn.pass_b_backward(*args, cls)
-        torch.cuda.synchronize()
-        want = fn.pass_b_backward_plain(*args, cls)
-        errs = []
-        for name, g, w, g2 in zip(("d_q", "d_k", "d_kl", "d_mid", "d_ql", "d_rp", "d_m3"), got, want, again):
-            if w is None:
-                continue
-            errs.append(check_rel(f"K2b {name} [cls {cls is not None}]", g, w, 1e-4))
-            if not torch.equal(g, g2):
-                fail(f"K2b {name}: two launches on the same inputs differ")
-        r["max_abs_err"] = max(r["max_abs_err"], *errs)
-        label = "with the cls term" if cls is not None else "without the cls term (the student's case)"
-        row = r if cls is None else r.setdefault("cls", {})
-        timed(row, lambda: fn.pass_b_backward(*args, cls), lambda: fn.pass_b_backward_plain(*args, cls))
-        row.update(k2b_bounds(o["mask"], h, m, dh, cls is not None))
-        log(f"K2b [student, {label}] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: gradients "
-            f"max|d| {', '.join(f'{e:.3e}' for e in errs)} (tolerance max|d| <= 1e-4 max|ref|; two launches "
-            f"equal to the bit); kernel {fmt_ms(row, '')}, plain {fmt_ms(row, 'plain_')}, {fmt_bound(row)}; "
-            f"no library call computes it")
+    for label, b, h, dh in (("student", 4, 8, 64), ("dh 256", 4, 2, 256)):
+        o, lengths = student_operands(gen, b, h, dh)
+        n, m = o["q"].shape[2], o["k_l"].shape[2]
+        tok = o["mask"][:, None, :, None]
+        q, k = (torch.where(tok, o[x], float("nan")) for x in ("q", "k"))
+        d_clean = torch.where(tok, torch.randn(b, n, h, dh, device="cuda", generator=gen).transpose(1, 2), 0.0)
+        d_out = torch.where(tok, d_clean, float("nan"))
+        d_cls = torch.where(o["mask"][:, None], torch.randn(b, h, n, device="cuda", generator=gen), float("nan"))
+        args = (q, k, o["mask"], o["k_l"], o["lm_mask"], o["mid"], o["q_l"], o["rp"], o["m3"], d_out)
+        for cls in ((None, d_cls) if label == "student" else (None,)):
+            got, again = fn.pass_b_backward(*args, cls), fn.pass_b_backward(*args, cls)
+            torch.cuda.synchronize()
+            want = fn.pass_b_backward_plain(*args, cls)
+            errs = []
+            for name, g, w, g2 in zip(("d_q", "d_k", "d_kl", "d_mid", "d_ql", "d_rp", "d_m3"), got, want, again):
+                if w is None:
+                    continue
+                errs.append(check_rel(f"K2b {name} [{label}, cls {cls is not None}]", g, w, 1e-4))
+                if not torch.equal(g, g2):
+                    fail(f"K2b {name} [{label}]: two launches on the same inputs differ")
+            r["max_abs_err"] = max(r["max_abs_err"], *errs)
+            row = r if (label, cls) == ("student", None) else r.setdefault(
+                "cls" if cls is not None else label.replace(" ", ""), {})
+            lib = lib_name = None
+            if cls is None:
+                lib, lib_grads, lib_name = sdpa_backward(o["q"], o["k_l"], o["mid"],
+                                                         o["lm_mask"][:, None, None, :], d_clean)
+                lib_err = max((lg - w).abs().max().item() / w.abs().max().item()
+                              for lg, w in zip(lib_grads, (want[0], want[2], want[3])))
+                row["library"] = f"scaled_dot_product_attention backward, {lib_name} backend"
+            timed(row, lambda: fn.pass_b_backward(*args, cls), lambda: fn.pass_b_backward_plain(*args, cls), lib)
+            row.update(k2b_bounds(o["mask"], h, m, dh, cls is not None))
+            what = ("with the cls term" if cls is not None
+                    else f"without the cls term; library: SDPA backward on the {lib_name} backend, d_q/d_kl/d_mid "
+                         f"within {lib_err:.2e} of max|ref|")
+            log(f"K2b [{label}, {what}] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: gradients "
+                f"max|d| {', '.join(f'{e:.3e}' for e in errs)} (tolerance max|d| <= 1e-4 max|ref|; two launches "
+                f"equal to the bit); kernel {fmt_ms(row, '')}, plain {fmt_ms(row, 'plain_')}"
+                + (f", library {fmt_ms(row, 'library_')}" if lib else "") + f", {fmt_bound(row)}")
+        del o, q, k, d_out, d_cls, args
+        torch.cuda.empty_cache()
     return {"K2b": r}
+
+
+def phase_k1b(gen) -> dict:
+    """K1b against pass_a_backward_plain at the student's shape (B=4, H=8,
+    N=1,027 ragged, dh 64, m 256) on K1's operands from the plain glue, NaN
+    at masked k and v: each gradient at max|d| <= 1e-4·max|ref|, without
+    s3's cotangent (the student's case: attn unused, so s3 gets none) and
+    with it, two launches equal to the bit; timed beside the backward of
+    ``scaled_dot_product_attention(q_l, k, v, key mask)`` (K1b's function
+    without s3's term); then at DH 256 (B 4, H 2), held and timed."""
+    from mhim_mil_torch.ops import flash_nystrom as fn
+
+    r = {"max_abs_err": 0.0}
+    for label, b, h, dh in (("student", 4, 8, 64), ("dh 256", 4, 2, 256)):
+        o, lengths = student_operands(gen, b, h, dh)
+        n, m = o["k"].shape[2], o["q_l"].shape[2]
+        tok = o["mask"][:, None, :, None]
+        k, v = (torch.where(tok, o[x], float("nan")) for x in ("k", "v"))
+        d_attn3v = torch.randn(b, h, m, dh, device="cuda", generator=gen)
+        d_s3 = torch.randn(b, h, m, device="cuda", generator=gen)
+        args = (o["q_l"], k, v, o["mask"], o["attn3v"], o["m3"], o["s3"], d_attn3v)
+        for s3_cot in ((None, d_s3) if label == "student" else (None,)):
+            got, again = fn.pass_a_backward(*args, s3_cot), fn.pass_a_backward(*args, s3_cot)
+            torch.cuda.synchronize()
+            want = fn.pass_a_backward_plain(*args, s3_cot)
+            errs = []
+            for name, g, w, g2 in zip(("d_ql", "d_k", "d_v"), got, want, again):
+                errs.append(check_rel(f"K1b {name} [{label}, d_s3 {s3_cot is not None}]", g, w, 1e-4))
+                if not torch.equal(g, g2):
+                    fail(f"K1b {name} [{label}]: two launches on the same inputs differ")
+            r["max_abs_err"] = max(r["max_abs_err"], *errs)
+            row = r if (label, s3_cot) == ("student", None) else r.setdefault(
+                "s3" if s3_cot is not None else label.replace(" ", ""), {})
+            lib = lib_name = None
+            if s3_cot is None:
+                lib, lib_grads, lib_name = sdpa_backward(o["q_l"], o["k"], o["v"], o["mask"][:, None, None, :],
+                                                         d_attn3v)
+                lib_err = max((lg - w).abs().max().item() / w.abs().max().item() for lg, w in zip(lib_grads, want))
+                row["library"] = f"scaled_dot_product_attention backward, {lib_name} backend"
+            timed(row, lambda: fn.pass_a_backward(*args, s3_cot), lambda: fn.pass_a_backward_plain(*args, s3_cot),
+                  lib)
+            row.update(k1b_bounds(o["mask"], h, m, dh, s3_cot is not None))
+            what = ("with s3's cotangent" if s3_cot is not None
+                    else f"without s3's cotangent; library: SDPA backward on the {lib_name} backend, "
+                         f"d_ql/d_k/d_v within {lib_err:.2e} of max|ref|")
+            log(f"K1b [{label}, {what}] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: gradients "
+                f"max|d| {', '.join(f'{e:.3e}' for e in errs)} (tolerance max|d| <= 1e-4 max|ref|; two launches "
+                f"equal to the bit); kernel {fmt_ms(row, '')}, plain {fmt_ms(row, 'plain_')}"
+                + (f", library {fmt_ms(row, 'library_')}" if lib else "") + f", {fmt_bound(row)}")
+        del o, k, v, args
+        torch.cuda.empty_cache()
+    return {"K1b": r}
 
 
 def k5_bounds(x, a_log):
@@ -603,7 +749,7 @@ def phase_k6(gen) -> dict:
 # ---- phases 4-7: the main paths ---------------------------------------------------
 
 
-KERNELS = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6")  # K3b: K3's backward
+KERNELS = ("K1", "K2", "K3", "K3b", "K1b", "K2b", "K4", "K5", "K6")  # K3b: K3's backward
 
 
 def launches() -> dict:
@@ -611,7 +757,8 @@ def launches() -> dict:
     from mhim_mil_torch.ops import flash_nystrom as fn
 
     return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches, "K3": fn.FlashNystrom.forward_calls,
-            "K3b": fn.FlashNystrom.backward_calls, "K4": abmil_pool.fused_abmil_pool.launches,
+            "K3b": fn.FlashNystrom.backward_calls, "K1b": fn.pass_a_backward.launches,
+            "K2b": fn.pass_b_backward.launches, "K4": abmil_pool.fused_abmil_pool.launches,
             "K5": scan2d.selective_scan_2d_fused.launches, "K6": probe.probe.launches}
 
 
@@ -619,7 +766,7 @@ def reset_launches():
     from mhim_mil_torch.ops import abmil_pool, probe, scan2d
     from mhim_mil_torch.ops import flash_nystrom as fn
 
-    fn.pass_a.launches = fn.pass_b.launches = 0
+    fn.pass_a.launches = fn.pass_b.launches = fn.pass_a_backward.launches = fn.pass_b_backward.launches = 0
     fn.FlashNystrom.forward_calls = fn.FlashNystrom.backward_calls = 0
     abmil_pool.fused_abmil_pool.launches = 0
     scan2d.selective_scan_2d_fused.launches = 0
@@ -754,7 +901,7 @@ def phase_train(gen) -> dict:
     reset_launches()
     m_k = make_mhim_train_step(cfg, spe, device="cuda")(state_k, batch)
     torch.cuda.synchronize()
-    counted = expect_launches("one fp32 train step", K1=4, K2=4, K3=2, K3b=2)
+    counted = expect_launches("one fp32 train step", K1=4, K2=4, K3=2, K3b=2, K1b=2, K2b=2)
     reset_launches()
     m_p = make_mhim_train_step(cfg.replace(use_flash_attn=False), spe, device="cuda")(state_p, batch)
     torch.cuda.synchronize()
@@ -800,7 +947,8 @@ def phase_train(gen) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     n = TRAIN_STEPS + 2
-    counted_16 = expect_launches("the bf16 train steps", K1=4 * n, K2=4 * n, K3=2 * n, K3b=2 * n)
+    counted_16 = expect_launches("the bf16 train steps", K1=4 * n, K2=4 * n, K3=2 * n, K3b=2 * n, K1b=2 * n,
+                                 K2b=2 * n)
     moved = sum(not torch.equal(p, q) for p, q in zip(model_k.parameters(), before))
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = statistics.median(times)
@@ -962,7 +1110,7 @@ def phase_driver() -> dict:
         log_folds("flagship", res)
         log(f"driver [flagship] launches {seen}; {secs:.2f} s in all (host clock, data made, gate and "
             f"checkpoints included); peak device memory {peak_gb:.2f} GiB")
-        for kid in ("K1", "K2", "K3", "K3b"):
+        for kid in ("K1", "K2", "K3", "K3b", "K1b", "K2b"):
             if seen[kid] < 1:
                 fail(f"driver [flagship]: {kid} was not launched")
         finite_rows("flagship", res, ("test", "test_ema"), "auc")
@@ -1001,6 +1149,7 @@ def main():
     report.update(phase_k4(gen))
     report.update(phase_k3(gen))
     report.update(phase_k2b(gen))
+    report.update(phase_k1b(gen))
     report.update(phase_k5(gen))
     report.update(phase_k6(gen))
     counted = {kid: 0 for kid in KERNELS}
@@ -1014,8 +1163,12 @@ def main():
                "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:45"),
         "K2": ("flash_nystrom_pass_b (pass_b_kernel)", "mhim_mil_torch/csrc/flash_nystrom.cu",
                "mhim_mil_tpu/ops/pallas_nystrom.py:85"),
-        "K3": ("flash_nystrom (FlashNystrom: K1 + K2 forward, recompute backward)",
-               "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
+        "K3": ("flash_nystrom (FlashNystrom: K1 + K2 forward; K2b, the glue's autograd and K1b backward)",
+               "mhim_mil_torch/ops/flash_nystrom.py", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
+        "K2b": ("flash_nystrom_pass_b_bwd (token_kernel + landmark_kernel), K3's backward of K2's pass",
+                "mhim_mil_torch/csrc/flash_nystrom_bwd.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:280"),
+        "K1b": ("flash_nystrom_pass_a_bwd (stats_kernel + key_kernel + landmark_kernel), K3's backward of "
+                "K1's pass", "mhim_mil_torch/csrc/flash_nystrom_k1b.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:280"),
         "K4": ("abmil_pool", "mhim_mil_torch/csrc/abmil_pool.cu", "mhim_mil_tpu/ops/pallas_abmil.py:42"),
         "K5": ("scan2d", "mhim_mil_torch/csrc/scan2d.cu", "mhim_mil_tpu/ops/pallas_scan2d.py:56"),
         "K6": ("probe", "mhim_mil_torch/csrc/probe.cu", "mhim_mil_tpu/utils/pallas_gate.py:37"),
@@ -1032,7 +1185,7 @@ def main():
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "plain_device_ms": r["plain_device_ms"], "library_device_ms": r["library_device_ms"],
         }
-        for key in ("bound_parts_ms", "batch1", "dh128"):
+        for key in ("bound_parts_ms", "batch1", "dh128", "dh256", "dh192", "no_attn", "cls", "s3", "library"):
             if key in r:
                 row[key] = r[key]
         if kid == "K3":

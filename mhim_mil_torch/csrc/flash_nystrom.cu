@@ -27,10 +27,14 @@
 // only at the end. Operand tiles arrive through cp.async rings, so the next
 // tile loads while this one computes; rows past the end are zero-filled.
 //
-// Head dims 16, 32, 64 and 128 are instantiated (the wrapper zero-pads any
-// other dh up to the next). At 128 the accumulator doubles, so K1 runs one
-// block an SM and K2 two (a_resident, b_resident), where 64 and below run
-// two and four.
+// Head dims 16, 32, 64, 128 and 256 are instantiated (the wrapper zero-pads
+// any other dh up to the next). At 128 the accumulator doubles, so K1 runs
+// one block an SM and K2 two (a_resident, b_resident), where 64 and below
+// run two and four. At 256 each runs as two column halves of the value side
+// (flash_nystrom.cuh), one block an SM, K1 with 64 landmark rows a block so
+// that its q_l rows and a three-stage ring of 256-wide k and 128-wide v
+// tiles fit in shared memory. That recomputes the scores once per half: no
+// speed target there.
 //
 // K1: a block owns 128 landmark rows (8 warps) of one (bag, head) and a
 // contiguous split of the keys; the wrapper plans the splits so that the
@@ -56,7 +60,7 @@
 
 namespace {
 
-constexpr int A_WARPS = 8, A_ROWS = 16 * A_WARPS, A_STAGES = 3;
+constexpr int A_STAGES = 3;
 constexpr int B_WARPS = 4, B_ROWS = 16 * B_WARPS, B_STAGES = 2, C_STAGES = 3;
 constexpr int MERGE_THREADS = 256;
 
@@ -65,32 +69,39 @@ constexpr int MERGE_THREADS = 256;
 // floats a thread; K1 (whose shared memory then admits one block) takes one
 // block an SM and K2 two, so that neither spills.
 constexpr int a_resident(int dh) { return dh > 64 ? 1 : 2; }
-constexpr int b_resident(int dh) { return dh > 64 ? 2 : 4; }
+constexpr int b_resident(int dh) { return dh > 128 ? 1 : dh > 64 ? 2 : 4; }
+__host__ __device__ constexpr int a_warps(int dh) { return dh > 128 ? 4 : 8; }
 
 // ---- K1 ----
 
 template <int DH>
 constexpr size_t pass_a_smem() {
-  return (size_t)(A_ROWS + A_STAGES * 2 * COLS) * (DH + 4) * sizeof(float);
+  // q_l rows, and a ring of (k tile, v tile); v at the accumulator's width
+  return ((size_t)16 * a_warps(DH) * (DH + 4) + (size_t)A_STAGES * COLS * (DH + acc_cols(DH) + 8)) *
+         sizeof(float);
 }
 
-// grid (ceil(M / A_ROWS), n_splits, B·H); split s covers keys
+// grid (ceil(M / rows)·halves, n_splits, B·H), rows = 16·a_warps; block x
+// takes row block x / halves and value half x % halves. Split s covers keys
 // [s·per_split, min(N, (s + 1)·per_split)). Writes the partials of its rows
 // at slot (bh·n_splits + s)·M + row.
 template <int DH>
-__global__ void __launch_bounds__(32 * A_WARPS, a_resident(DH))
+__global__ void __launch_bounds__(32 * a_warps(DH), a_resident(DH))
 pass_a_partial_kernel(const float* __restrict__ ql,  // [B*H, M, DH]
                       const float* __restrict__ k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
                       const float* __restrict__ v, int64_t v_sb, int64_t v_sh, int64_t v_sn,
                       const uint8_t* __restrict__ mask,  // [B, N]
                       float* __restrict__ part_m, float* __restrict__ part_s,
                       float* __restrict__ part_acc, int H, int N, int M, int per_split) {
-  constexpr int LD = DH + 4, TILE = COLS * LD, NTH = 32 * A_WARPS;
+  constexpr int A_ROWS = 16 * a_warps(DH), DV = acc_cols(DH), NTH = 32 * a_warps(DH);
+  constexpr int LD = DH + 4, KT = COLS * LD, STEP = KT + COLS * (DV + 4);
   extern __shared__ float4 smem4[];
   float* sQl = reinterpret_cast<float*>(smem4);
   float* ring = sQl + A_ROWS * LD;  // A_STAGES × (k tile, v tile)
 
-  const int row0 = blockIdx.x * A_ROWS, split_id = blockIdx.y, bh = blockIdx.z;
+  constexpr int HALVES = halves(DH);
+  const int row0 = blockIdx.x / HALVES * A_ROWS, vh = blockIdx.x % HALVES;
+  const int split_id = blockIdx.y, bh = blockIdx.z;
   const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const float* kb = k + b * k_sb + h * k_sh;
@@ -101,9 +112,9 @@ pass_a_partial_kernel(const float* __restrict__ ql,  // [B*H, M, DH]
 
   auto stage_tile = [&](int i) {
     const int n0 = s0 + i * COLS;
-    float* dst = ring + (i % A_STAGES) * 2 * TILE;
+    float* dst = ring + (i % A_STAGES) * STEP;
     stage_rows<DH, COLS, NTH>(dst, kb + n0 * k_sn, k_sn, s1 - n0);
-    stage_rows<DH, COLS, NTH>(dst + TILE, vb + n0 * v_sn, v_sn, s1 - n0);
+    stage_rows<DV, COLS, NTH>(dst + KT, vb + n0 * v_sn + vh * DV, v_sn, s1 - n0);
   };
   stage_rows<DH, A_ROWS, NTH>(sQl, ql + ((int64_t)bh * M + row0) * DH, DH, M - row0);
 #pragma unroll
@@ -115,9 +126,8 @@ pass_a_partial_kernel(const float* __restrict__ ql,  // [B*H, M, DH]
   const bool active = row0 + 16 * warp < M;  // warp-uniform
   const float* qw = sQl + 16 * warp * LD;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int d = 0; d < DH / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float acc[DV / 8][4];
+  zero<DV>(acc);
 
   for (int it = 0; it < ntiles; ++it) {
     const uint32_t keep = valid_bits(mb, s0 + it * COLS, s1, t);
@@ -126,11 +136,11 @@ pass_a_partial_kernel(const float* __restrict__ ql,  // [B*H, M, DH]
     if (it + A_STAGES - 1 < ntiles) stage_tile(it + A_STAGES - 1);
     cp_commit();
     if (!active) continue;
-    const float* sK = ring + (it % A_STAGES) * 2 * TILE;
+    const float* sK = ring + (it % A_STAGES) * STEP;
     float s[NT][4];
     scores<DH>(qw, sK, g, t, s);
-    softmax_step<DH>(s, keep, m_run, l_run, acc);
-    accumulate<DH, true>(s, sK + TILE, keep, g, t, acc);
+    softmax_step<DV>(s, keep, m_run, l_run, acc);
+    accumulate<DV, true>(s, sK + KT, keep, g, t, acc);
   }
   cp_wait<0>();
   if (!active) return;
@@ -140,11 +150,11 @@ pass_a_partial_kernel(const float* __restrict__ ql,  // [B*H, M, DH]
     const int row = row0 + 16 * warp + g + 8 * r;
     if (row >= M) continue;
     const int64_t slot = ((int64_t)bh * gridDim.y + split_id) * M + row;
-    float* pa = part_acc + slot * DH + 2 * t;
+    float* pa = part_acc + slot * DH + vh * DV + 2 * t;
 #pragma unroll
-    for (int d = 0; d < DH / 8; ++d)
+    for (int d = 0; d < DV / 8; ++d)
       *reinterpret_cast<float2*>(pa + 8 * d) = make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
-    if (t == 0) {
+    if (t == 0 && vh == 0) {
       part_m[slot] = m_run[r];
       part_s[slot] = l;
     }
@@ -191,8 +201,9 @@ int launch_pass_a(const float* ql, const float* k, int64_t k_sb, int64_t k_sh, i
   cudaError_t err = cudaFuncSetAttribute(pass_a_partial_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + A_ROWS - 1) / A_ROWS, n_splits, B * H);
-  pass_a_partial_kernel<DH><<<grid, 32 * A_WARPS, smem, st>>>(
+  constexpr int a_rows = 16 * a_warps(DH);
+  const dim3 grid((M + a_rows - 1) / a_rows * halves(DH), n_splits, B * H);
+  pass_a_partial_kernel<DH><<<grid, 32 * a_warps(DH), smem, st>>>(
       ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh, v_sn, mask, part_m, part_s, part_acc, H, N, M,
       per_split);
   err = cudaGetLastError();
@@ -208,14 +219,16 @@ int launch_pass_a(const float* ql, const float* k, int64_t k_sb, int64_t k_sh, i
 
 template <int DH>
 constexpr size_t pass_b_smem() {
-  // the block's q rows (then its k rows), then a ring shared by the two phases
+  // the block's q rows (then its k rows), then a ring shared by the two
+  // phases; mid at the accumulator's width
   constexpr size_t tile = (size_t)COLS * (DH + 4);
-  constexpr size_t out_ring = B_STAGES * 2 * tile, cls_ring = C_STAGES * (tile + 2 * COLS);
+  constexpr size_t out_ring = B_STAGES * (tile + COLS * (acc_cols(DH) + 4)), cls_ring = C_STAGES * (tile + 2 * COLS);
   return (B_ROWS * (DH + 4) + (out_ring > cls_ring ? out_ring : cls_ring)) * sizeof(float);
 }
 
-// grid (ceil(N / B_ROWS), B·H): the token tiles of one (bag, head) are
-// neighbours, so its landmark operands stay in L2.
+// grid (ceil(N / B_ROWS), B·H, halves): the token tiles of one (bag, head)
+// are neighbours, so its landmark operands stay in L2. Value half z writes
+// out's columns [z·128, z·128 + 128); half 0 alone computes the cls row.
 template <int DH>
 __global__ void __launch_bounds__(32 * B_WARPS, b_resident(DH))
 pass_b_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_sn,
@@ -230,12 +243,13 @@ pass_b_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q
               float* __restrict__ out, int64_t o_sb, int64_t o_sh, int64_t o_sn,
               float* __restrict__ cls,              // [B*H, N]
               int H, int N, int M) {
-  constexpr int LD = DH + 4, TILE = COLS * LD, NTH = 32 * B_WARPS;
+  constexpr int LD = DH + 4, TILE = COLS * LD, NTH = 32 * B_WARPS, DV = acc_cols(DH);
+  constexpr int STEP = TILE + COLS * (DV + 4);
   extern __shared__ float4 smem4[];
   float* sRows = reinterpret_cast<float*>(smem4);  // the block's q rows, then its k rows
   float* ring = sRows + B_ROWS * LD;                // (k_l, mid) chunks, then (q_l, r', m3) chunks
 
-  const int t0 = blockIdx.x * B_ROWS, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int t0 = blockIdx.x * B_ROWS, bh = blockIdx.y, b = bh / H, h = bh % H, vh = blockIdx.z;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const uint8_t* mb = mask + (int64_t)b * N;
   const uint8_t* lb = lm_mask + (int64_t)b * M;
@@ -252,9 +266,9 @@ pass_b_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q
   // phase 1, out: online softmax of q·k_lᵀ over the valid landmarks, times mid
   auto stage_out = [&](int c) {
     const int c0 = c * COLS;
-    float* dst = ring + (c % B_STAGES) * 2 * TILE;
+    float* dst = ring + (c % B_STAGES) * STEP;
     stage_rows<DH, COLS, NTH>(dst, kl + (lm0 + c0) * DH, DH, M - c0);
-    stage_rows<DH, COLS, NTH>(dst + TILE, mid + (lm0 + c0) * DH, DH, M - c0);
+    stage_rows<DV, COLS, NTH>(dst + TILE, mid + (lm0 + c0) * DH + vh * DV, DH, M - c0);
   };
   stage_rows<DH, B_ROWS, NTH>(sRows, q + b * q_sb + h * q_sh + t0 * q_sn, q_sn, N - t0);
 #pragma unroll
@@ -263,25 +277,24 @@ pass_b_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q
     cp_commit();
   }
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int d = 0; d < DH / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float acc[DV / 8][4];
+  zero<DV>(acc);
   for (int c = 0; c < nchunks; ++c) {
     const uint32_t keep = valid_bits(lb, c * COLS, M, t);
     cp_wait<B_STAGES - 2>();
     __syncthreads();
     if (c + B_STAGES - 1 < nchunks) stage_out(c + B_STAGES - 1);
     cp_commit();
-    const float* st = ring + (c % B_STAGES) * 2 * TILE;
+    const float* st = ring + (c % B_STAGES) * STEP;
     float s[NT][4];
     scores<DH>(rw, st, g, t, s);
-    softmax_step<DH>(s, keep, m_run, l_run, acc);
-    accumulate<DH, false>(s, st + TILE, 0u, g, t, acc);
+    softmax_step<DV>(s, keep, m_run, l_run, acc);
+    accumulate<DV, false>(s, st + TILE, 0u, g, t, acc);
   }
   cp_wait<0>();
   __syncthreads();  // the q rows and the ring are free for phase 2
 
-  float* ob = out + b * o_sb + h * o_sh;
+  float* ob = out + b * o_sb + h * o_sh + vh * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float l = quad_sum(l_run[r]);
@@ -290,10 +303,12 @@ pass_b_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q
     const float denom = fmaxf(l, 1e-30f);
     float* orow = ob + tok * o_sn + 2 * t;
 #pragma unroll
-    for (int d = 0; d < DH / 8; ++d)
+    for (int d = 0; d < DV / 8; ++d)
       *reinterpret_cast<float2*>(orow + 8 * d) =
           valid[r] ? make_float2(acc[d][2 * r] / denom, acc[d][2 * r + 1] / denom) : make_float2(0.f, 0.f);
   }
+
+  if (vh != 0) return;  // block-uniform: the cls row is half 0's
 
   // phase 2, cls: Σ over every landmark of r'·exp(q_l·k − m3); past M, r' = 0
   auto stage_cls = [&](int c) {
@@ -350,7 +365,7 @@ int launch_pass_b(const float* q, int64_t q_sb, int64_t q_sh, int64_t q_sn, cons
   cudaError_t err = cudaFuncSetAttribute(pass_b_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + B_ROWS - 1) / B_ROWS, B * H);
+  const dim3 grid((N + B_ROWS - 1) / B_ROWS, B * H, halves(DH));
   pass_b_kernel<DH><<<grid, 32 * B_WARPS, smem, st>>>(q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn,
                                                       mask, kl, lm_mask, mid, ql, rp, m3, out,
                                                       o_sb, o_sh, o_sn, cls, H, N, M);
@@ -361,12 +376,10 @@ int launch_pass_b(const float* q, int64_t q_sb, int64_t q_sh, int64_t q_sn, cons
 
 // Rows of a K1 block and keys of its tiles: a split's length is a multiple
 // of the latter (the wrapper's plan mirrors both), and the K1 blocks an SM
-// holds at head dim dh (0 for a head dim that is not instantiated).
-extern "C" int flash_nystrom_pass_a_rows() { return A_ROWS; }
+// holds, by head dim dh (0 for a head dim that is not instantiated).
+extern "C" int flash_nystrom_pass_a_rows(int dh) { return instantiated(dh) ? 16 * a_warps(dh) : 0; }
 extern "C" int flash_nystrom_pass_a_keys() { return COLS; }
-extern "C" int flash_nystrom_pass_a_resident(int dh) {
-  return (dh == 16 || dh == 32 || dh == 64 || dh == 128) ? a_resident(dh) : 0;
-}
+extern "C" int flash_nystrom_pass_a_resident(int dh) { return instantiated(dh) ? a_resident(dh) : 0; }
 
 #define PASS_A_ARGS                                                                             \
   ql, k, k_sb, k_sh, k_sn, v, v_sb, v_sh, v_sn, mask, part_m, part_s, part_acc, attn3v, m3, s3, \
@@ -388,6 +401,7 @@ extern "C" int flash_nystrom_pass_a(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (DH) {
+    case 256: return launch_pass_a<256>(PASS_A_ARGS);
     case 128: return launch_pass_a<128>(PASS_A_ARGS);
     case 64: return launch_pass_a<64>(PASS_A_ARGS);
     case 32: return launch_pass_a<32>(PASS_A_ARGS);
@@ -404,6 +418,7 @@ extern "C" int flash_nystrom_pass_b(
     int B, int H, int N, int M, int DH, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (DH) {
+    case 256: return launch_pass_b<256>(PASS_B_ARGS);
     case 128: return launch_pass_b<128>(PASS_B_ARGS);
     case 64: return launch_pass_b<64>(PASS_B_ARGS);
     case 32: return launch_pass_b<32>(PASS_B_ARGS);

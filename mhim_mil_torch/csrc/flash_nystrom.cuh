@@ -1,6 +1,6 @@
 // Warp-level pieces shared by the flash-Nystrom kernels for sm_90a: the
-// forward passes K1 and K2 (flash_nystrom.cu) and the backward of K2's pass,
-// K2b (flash_nystrom_bwd.cu).
+// forward passes K1 and K2 (flash_nystrom.cu) and their backwards, K2b
+// (flash_nystrom_bwd.cu) and K1b (flash_nystrom_k1b.cu).
 //
 // Precision: 3×TF32. Each fp32 operand x is split into hi = tf32(x)
 // (rounded to nearest) and lo = x − hi (truncated to TF32 by the tensor
@@ -21,6 +21,12 @@
 // round trip for P. Operand tiles are staged in shared memory in rows of
 // dh + 4 floats (the fragment reads are free of bank conflicts) by 16-byte
 // cp.async straight from strided views.
+//
+// Head dims 16, 32, 64, 128 and 256 are instantiated. A block keeps at most
+// a 128-column accumulator (64 floats a thread): at 256 the grid runs two
+// column halves, each block computing its scores over all 256 columns
+// (`scores` loops over them in k8 steps) and accumulating its half of the
+// value side, read at a column offset from rows staged at full width.
 
 #pragma once
 
@@ -32,6 +38,19 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int COLS = 32;      // columns of a step: keys, landmarks or tokens
 constexpr int NT = COLS / 8;  // 8-column mma tiles of a step
+
+// The accumulator columns of head dim DH and the column halves its grid runs.
+__host__ __device__ constexpr int acc_cols(int dh) { return dh > 128 ? 128 : dh; }
+__host__ __device__ constexpr int halves(int dh) { return dh / acc_cols(dh); }
+
+// Warps and resident blocks of the backward kernels' blocks (K2b's token and
+// landmark kernels, K1b's key and landmark kernels), by head dim: at 256 the
+// rows staged at full width leave room for 32 rows a block.
+__host__ __device__ constexpr int bwd_warps(int dh) { return dh > 128 ? 2 : 4; }
+__host__ __device__ constexpr int bwd_resident(int dh) { return dh > 64 ? 1 : 2; }
+__host__ __device__ constexpr bool instantiated(int dh) {
+  return dh == 16 || dh == 32 || dh == 64 || dh == 128 || dh == 256;
+}
 
 // ---- 3×TF32 mma.sync ----
 
@@ -212,15 +231,15 @@ __device__ __forceinline__ void zero(float acc[DH / 8][4]) {
   for (int d = 0; d < DH / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 }
 
-// acc += P · V over the step's COLS rows of V, P in the accumulator layout
-// of `scores`: the thread's columns 2t, 2t + 1 of tile j serve as the A
-// fragment's columns t, t + 4, so V's B fragment is read from rows 8j + 2t
-// and 8j + 2t + 1. With ZERO, V rows whose bit in `keep` is 0 read as zero
-// (values at masked rows may hold anything, NaN included).
-template <int DH, bool ZERO>
+// acc += P · V over the step's COLS rows of V (DH columns of rows LD floats
+// apart), P in the accumulator layout of `scores`: the thread's columns 2t,
+// 2t + 1 of tile j serve as the A fragment's columns t, t + 4, so V's B
+// fragment is read from rows 8j + 2t and 8j + 2t + 1. With ZERO, V rows whose
+// bit in `keep` is 0 read as zero (values at masked rows may hold anything,
+// NaN included).
+template <int DH, bool ZERO, int LD = DH + 4>
 __device__ __forceinline__ void accumulate(const float p[NT][4], const float* V, uint32_t keep,
                                            int g, int t, float acc[DH / 8][4]) {
-  constexpr int LD = DH + 4;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     uint32_t ah[4], al[4];
@@ -239,6 +258,25 @@ __device__ __forceinline__ void accumulate(const float p[NT][4], const float* V,
       mma3(acc[d], ah, al, bh, bl);
     }
   }
+}
+
+// Called by every thread of each of the `count` blocks that write the
+// partial sums of one output tile, after their writes: true in the block
+// that arrives last at `ticket` (an int32 that is 0 before the first
+// arrival and that this block resets to 0 for the next launch), which then
+// sees every other block's partial sums. No float atomics, so the sums that
+// follow are in a fixed order.
+__device__ __forceinline__ bool arrived_last(int* ticket, int count) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1) == count - 1;
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
 // Store a warp's [16 × DH] accumulator row r (0: row g, 1: row g + 8) at

@@ -17,15 +17,15 @@
 // tokens (NaN included) are never used.
 //
 // Two kernels, as a FlashAttention-2 backward splits its work:
-//   token:    a block owns 64 tokens (4 warps × 16) of one (bag, head) and
-//             walks the (k_l, mid) chunks twice through a cp.async ring:
-//             first for each token's log-sum-exp and D_t, which it writes to
-//             fp32 scratch [B·H, N]; then for dS1, accumulating d_q. With
-//             d_cls it walks the (q_l, r', m3) chunks a third time, over its
-//             k rows, accumulating d_k.
-//   landmark: a block owns 64 landmarks of one (bag, head) and a contiguous
-//             split of the tokens (planned by the wrapper, as K1's keys
-//             are); it recomputes P1ᵀ from the scratch statistics and
+//   token:    a block owns 64 tokens (4 warps × 16; 32 at DH 256) of one
+//             (bag, head) and walks the (k_l, mid) chunks twice through a
+//             cp.async ring: first for each token's log-sum-exp and D_t,
+//             which it writes to fp32 scratch [B·H, N]; then for dS1,
+//             accumulating d_q. With d_cls it walks the (q_l, r', m3)
+//             chunks a third time, over its k rows, accumulating d_k.
+//   landmark: a block owns 64 landmarks (32 at DH 256) of one (bag, head)
+//             and a contiguous split of the tokens (planned by the wrapper,
+//             as K1's keys are); it recomputes P1ᵀ from the scratch statistics and
 //             accumulates d_kl and d_mid, and, with d_cls, walks its tokens
 //             again for d_ql and d_r'. Each split writes its partial sums;
 //             the last block of a landmark tile to finish (an integer ticket,
@@ -40,19 +40,20 @@
 // again in the landmark kernel. Operations bound it; bytes (q, k, d_out read
 // once, d_q, d_k written) are a fifth of that.
 //
-// Precision and layouts are flash_nystrom.cuh's. Plain C interface, loaded
+// Precision, layouts and the two column halves at DH 256 (each block then
+// computes its products over all 256 columns and keeps half of the
+// gradients' columns) are flash_nystrom.cuh's. Plain C interface, loaded
 // with ctypes; the entry returns cudaGetLastError() after its launches.
 
 #include "flash_nystrom.cuh"
 
 namespace {
 
-constexpr int WARPS = 4, ROWS = 16 * WARPS, NTH = 32 * WARPS, STAGES = 2;
+constexpr int STAGES = 2;
 
 // Blocks an SM holds, by head dim (their __launch_bounds__): shared memory
-// admits one block of either kernel at DH 128.
+// admits one block of either kernel at DH 128 and 256.
 constexpr int tok_resident(int dh) { return dh > 64 ? 1 : 3; }
-constexpr int lm_resident(int dh) { return dh > 64 ? 1 : 2; }
 
 // Floats of a landmark row of the partial sums: d_kl, d_mid, and with the
 // cls term d_ql and d_r' (padded so that rows stay 16-byte aligned).
@@ -64,7 +65,7 @@ constexpr size_t token_smem() {
   // q rows (then k rows), d_out rows, and a ring of (k_l, mid) or (q_l, r', m3) chunks
   constexpr size_t tile = (size_t)COLS * (DH + 4);
   constexpr size_t out_ring = STAGES * 2 * tile, cls_ring = STAGES * (tile + 2 * COLS);
-  return (2 * ROWS * (DH + 4) + (out_ring > cls_ring ? out_ring : cls_ring)) * sizeof(float);
+  return (2 * 16 * bwd_warps(DH) * (DH + 4) + (out_ring > cls_ring ? out_ring : cls_ring)) * sizeof(float);
 }
 
 template <int DH>
@@ -72,12 +73,14 @@ constexpr size_t landmark_smem() {
   // k_l rows (then q_l rows), mid rows, and a ring of (q, d_out, lse, D) or (k, d_cls) chunks
   constexpr size_t tile = (size_t)COLS * (DH + 4);
   constexpr size_t out_ring = STAGES * (2 * tile + 2 * COLS), cls_ring = STAGES * (tile + COLS);
-  return (2 * ROWS * (DH + 4) + (out_ring > cls_ring ? out_ring : cls_ring)) * sizeof(float);
+  return (2 * 16 * bwd_warps(DH) * (DH + 4) + (out_ring > cls_ring ? out_ring : cls_ring)) * sizeof(float);
 }
 
-// grid (ceil(N / ROWS), B·H).
+// grid (ceil(N / rows), B·H, halves), rows = 16·bwd_warps; value half z
+// keeps d_q's and d_k's columns [z·128, z·128 + 128); half 0 writes the
+// scratch statistics.
 template <int DH, bool CLS>
-__global__ void __launch_bounds__(NTH, tok_resident(DH))
+__global__ void __launch_bounds__(32 * bwd_warps(DH), tok_resident(DH))
 token_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_sn,
              const float* __restrict__ k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
              const uint8_t* __restrict__ mask,     // [B, N]
@@ -94,13 +97,14 @@ token_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_
              float* __restrict__ lse,              // [B*H, N] scratch
              float* __restrict__ dd,               // [B*H, N] scratch: D_t
              int H, int N, int M) {
-  constexpr int LD = DH + 4, TILE = COLS * LD;
+  constexpr int LD = DH + 4, TILE = COLS * LD, DV = acc_cols(DH);
+  constexpr int ROWS = 16 * bwd_warps(DH), NTH = 32 * bwd_warps(DH);
   extern __shared__ float4 smem4[];
   float* sRows = reinterpret_cast<float*>(smem4);  // q rows, then k rows
   float* sDo = sRows + ROWS * LD;                  // d_out rows
   float* ring = sDo + ROWS * LD;
 
-  const int t0 = blockIdx.x * ROWS, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int t0 = blockIdx.x * ROWS, bh = blockIdx.y, b = bh / H, h = bh % H, vh = blockIdx.z;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const uint8_t* lb = lm_mask + (int64_t)b * M;
   const int64_t lm0 = (int64_t)bh * M;
@@ -168,15 +172,15 @@ token_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_
     const float den = fmaxf(quad_sum(l_run[r]), 1e-30f);
     row_lse[r] = m_run[r] + logf(den);
     row_d[r] = quad_sum(d_run[r]) / den;
-    if (t == 0 && tok[r] < N) {
+    if (t == 0 && vh == 0 && tok[r] < N) {
       lse[(int64_t)bh * N + tok[r]] = valid[r] ? row_lse[r] : 0.f;
       dd[(int64_t)bh * N + tok[r]] = valid[r] ? row_d[r] : 0.f;
     }
   }
 
   // walk 2: dS1 = P1 ∘ (dP1 − D) and d_q += dS1 · k_l
-  float acc[DH / 8][4];
-  zero<DH>(acc);
+  float acc[DV / 8][4];
+  zero<DV>(acc);
   walk_out([&](float s[NT][4], float dp[NT][4], uint32_t keep, const float* st) {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -186,11 +190,11 @@ token_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_
         s[j][e] = ok ? __expf(s[j][e] - row_lse[0]) * (dp[j][e] - row_d[0]) : 0.f;
         s[j][2 + e] = ok ? __expf(s[j][2 + e] - row_lse[1]) * (dp[j][2 + e] - row_d[1]) : 0.f;
       }
-    accumulate<DH, false>(s, st, 0u, g, t, acc);  // k_l rows past M are zero-filled
+    accumulate<DV, false, LD>(s, st + vh * DV, 0u, g, t, acc);  // k_l rows past M are zero-filled
   });
 #pragma unroll
   for (int r = 0; r < 2; ++r)
-    if (tok[r] < N) store_row<DH>(d_q + ((int64_t)bh * N + tok[r]) * DH, acc, r, t, valid[r]);
+    if (tok[r] < N) store_row<DV>(d_q + ((int64_t)bh * N + tok[r]) * DH + vh * DV, acc, r, t, valid[r]);
   if constexpr (CLS) {
     // walk 3: G = r'·exp(k·q_lᵀ − m3)·d_cls and d_k += G · q_l, over every landmark (r' = 0 past M)
     auto stage_cls = [&](int c) {
@@ -208,7 +212,7 @@ token_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_
       if (i < nchunks) stage_cls(i);
       cp_commit();
     }
-    zero<DH>(acc);
+    zero<DV>(acc);
     for (int c = 0; c < nchunks; ++c) {
       cp_wait<STAGES - 2>();
       __syncthreads();
@@ -227,22 +231,25 @@ token_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_
           s[j][e] = __expf(s[j][e] - mm) * r * dc[0];
           s[j][2 + e] = __expf(s[j][2 + e] - mm) * r * dc[1];
         }
-      accumulate<DH, false>(s, st, 0u, g, t, acc);
+      accumulate<DV, false, LD>(s, st + vh * DV, 0u, g, t, acc);
     }
     cp_wait<0>();
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (tok[r] < N) store_row<DH>(d_k + ((int64_t)bh * N + tok[r]) * DH, acc, r, t, valid[r]);
+      if (tok[r] < N) store_row<DV>(d_k + ((int64_t)bh * N + tok[r]) * DH + vh * DV, acc, r, t, valid[r]);
   }
 }
 
-// grid (ceil(M / ROWS), n_splits, B·H); split s covers tokens
+// grid (ceil(M / rows)·halves, n_splits, B·H), rows = 16·bwd_warps; block x
+// takes landmark tile x / halves and value half x % halves, whose columns
+// of d_kl, d_mid and d_ql it keeps (half 0 also d_r'). Split s covers tokens
 // [s·per_split, min(N, (s + 1)·per_split)). Writes the partial sums of its
 // landmark rows at slot (bh·n_splits + s)·M + row of `part`; with more than
-// one split, the last block of each landmark tile adds the splits into
-// `out` [B*H, M, W] and resets its ticket to 0 for the next launch.
+// one split, the last block of each (landmark tile, half) to finish adds
+// the splits of its columns into `out` [B*H, M, W] and resets its ticket
+// to 0 for the next launch.
 template <int DH, bool CLS>
-__global__ void __launch_bounds__(NTH, lm_resident(DH))
+__global__ void __launch_bounds__(32 * bwd_warps(DH), bwd_resident(DH))
 landmark_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_sn,
                 const float* __restrict__ k, int64_t k_sb, int64_t k_sh, int64_t k_sn,
                 const uint8_t* __restrict__ mask, const float* __restrict__ kl,
@@ -252,16 +259,18 @@ landmark_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t
                 const float* __restrict__ d_out, int64_t d_sb, int64_t d_sh, int64_t d_sn,
                 const float* __restrict__ d_cls, const float* __restrict__ lse,
                 const float* __restrict__ dd, float* __restrict__ part, float* __restrict__ out,
-                int* __restrict__ tickets,  // [B*H, ceil(M / ROWS)], zero between launches
+                int* __restrict__ tickets,  // [B*H, ceil(M / ROWS)·halves], zero between launches
                 int H, int N, int M, int per_split) {
-  constexpr int LD = DH + 4, TILE = COLS * LD, W = part_width<DH, CLS>();
+  constexpr int LD = DH + 4, TILE = COLS * LD, W = part_width<DH, CLS>(), DV = acc_cols(DH);
+  constexpr int ROWS = 16 * bwd_warps(DH), NTH = 32 * bwd_warps(DH);
   extern __shared__ float4 smem4[];
   float* sA = reinterpret_cast<float*>(smem4);  // k_l rows, then q_l rows
   float* sMid = sA + ROWS * LD;
   float* ring = sMid + ROWS * LD;
-  __shared__ bool last;
 
-  const int row0 = blockIdx.x * ROWS, split_id = blockIdx.y, bh = blockIdx.z;
+  constexpr int HALVES = halves(DH);
+  const int row0 = blockIdx.x / HALVES * ROWS, vh = blockIdx.x % HALVES;
+  const int split_id = blockIdx.y, bh = blockIdx.z;
   const int b = bh / H, h = bh % H;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const uint8_t* mb = mask + (int64_t)b * N;
@@ -293,9 +302,9 @@ landmark_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t
     if (i < ntiles) stage_out(i);
     cp_commit();
   }
-  float acc_kl[DH / 8][4], acc_mid[DH / 8][4];
-  zero<DH>(acc_kl);
-  zero<DH>(acc_mid);
+  float acc_kl[DV / 8][4], acc_mid[DV / 8][4];
+  zero<DV>(acc_kl);
+  zero<DV>(acc_mid);
   for (int it = 0; it < ntiles; ++it) {
     const uint32_t keep = valid_bits(mb, s0 + it * COLS, s1, t);
     cp_wait<STAGES - 2>();
@@ -321,8 +330,8 @@ landmark_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t
         dp[j][e] = p0;
         dp[j][2 + e] = p1;
       }
-    accumulate<DH, true>(s, st, keep, g, t, acc_kl);           // d_kl += dS1ᵀ · q
-    accumulate<DH, true>(dp, st + TILE, keep, g, t, acc_mid);  // d_mid += P1ᵀ · d_out
+    accumulate<DV, true, LD>(s, st + vh * DV, keep, g, t, acc_kl);           // d_kl += dS1ᵀ · q
+    accumulate<DV, true, LD>(dp, st + TILE + vh * DV, keep, g, t, acc_mid);  // d_mid += P1ᵀ · d_out
   }
   cp_wait<0>();
   if (active) {
@@ -330,9 +339,9 @@ landmark_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t
     for (int r = 0; r < 2; ++r) {
       if (row[r] >= M) continue;
       const bool lv = lm_mask[(int64_t)b * M + row[r]] != 0;
-      float* pr = slot_base + (int64_t)row[r] * W;
-      store_row<DH>(pr, acc_kl, r, t, lv);
-      store_row<DH>(pr + DH, acc_mid, r, t, lv);
+      float* pr = slot_base + (int64_t)row[r] * W + vh * DV;
+      store_row<DV>(pr, acc_kl, r, t, lv);
+      store_row<DV>(pr + DH, acc_mid, r, t, lv);
     }
   }
 
@@ -357,7 +366,7 @@ landmark_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t
       rpv[r] = row[r] < M ? rp[lm0 + row[r]] : 0.f;
       m3v[r] = row[r] < M ? m3[lm0 + row[r]] : 0.f;
     }
-    zero<DH>(acc_kl);
+    zero<DV>(acc_kl);
     for (int it = 0; it < ntiles; ++it) {
       const uint32_t keep = valid_bits(mb, s0 + it * COLS, s1, t);
       cp_wait<STAGES - 2>();
@@ -381,7 +390,7 @@ landmark_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t
           s[j][e] = rpv[0] * e0;
           s[j][2 + e] = rpv[1] * e1;
         }
-      accumulate<DH, true>(s, st, keep, g, t, acc_kl);  // d_ql += G · k
+      accumulate<DV, true, LD>(s, st + vh * DV, keep, g, t, acc_kl);  // d_ql += G · k
     }
     cp_wait<0>();
     if (active) {
@@ -390,28 +399,21 @@ landmark_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t
         const float x = quad_sum(rsum[r]);  // the whole quad, before any row test
         if (row[r] >= M) continue;
         float* pr = slot_base + (int64_t)row[r] * W;
-        store_row<DH>(pr + 2 * DH, acc_kl, r, t, true);
-        if (t == 0) pr[3 * DH] = x;
+        store_row<DV>(pr + 2 * DH + vh * DV, acc_kl, r, t, true);
+        if (t == 0 && vh == 0) pr[3 * DH] = x;
       }
     }
   }
 
   if (gridDim.y == 1) return;  // part is out
-  // The last split of this landmark tile to finish adds the partials in split order.
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* ticket = tickets + (int64_t)bh * gridDim.x + blockIdx.x;
-    last = atomicAdd(ticket, 1) == (int)gridDim.y - 1;
-    if (last) *ticket = 0;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  // The last split of this (landmark tile, half) to finish adds the partials in split order.
+  if (!arrived_last(tickets + (int64_t)bh * gridDim.x + blockIdx.x, gridDim.y)) return;
   const int rows = min(ROWS, M - row0);
   const float* p0 = part + ((int64_t)bh * gridDim.y * M + row0) * W;
   float* o = out + (lm0 + row0) * W;
   for (int e = threadIdx.x; e < rows * W; e += NTH) {
+    const int col = e % W;  // this half's columns of d_kl, d_mid, d_ql; d_r' and padding with half 0
+    if ((col < 3 * DH ? (col % DH) / DV : 0) != vh) continue;
     float x = 0.f;
     for (int i = 0; i < (int)gridDim.y; ++i) x += __ldcg(p0 + (int64_t)i * M * W + e);
     o[e] = x;
@@ -432,12 +434,13 @@ int launch(const float* q, int64_t q_sb, int64_t q_sh, int64_t q_sn, const float
   err = cudaFuncSetAttribute(landmark_kernel<DH, CLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_l);
   if (err != cudaSuccess) return (int)err;
-  token_kernel<DH, CLS><<<dim3((N + ROWS - 1) / ROWS, B * H), NTH, smem_t, st>>>(
+  constexpr int ROWS = 16 * bwd_warps(DH), NTH = 32 * bwd_warps(DH);
+  token_kernel<DH, CLS><<<dim3((N + ROWS - 1) / ROWS, B * H, halves(DH)), NTH, smem_t, st>>>(
       q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_sb,
       d_sh, d_sn, d_cls, d_q, d_k, lse, dd, H, N, M);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  landmark_kernel<DH, CLS><<<dim3((M + ROWS - 1) / ROWS, n_splits, B * H), NTH, smem_l, st>>>(
+  landmark_kernel<DH, CLS><<<dim3((M + ROWS - 1) / ROWS * halves(DH), n_splits, B * H), NTH, smem_l, st>>>(
       q, q_sb, q_sh, q_sn, k, k_sb, k_sh, k_sn, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_sb,
       d_sh, d_sn, d_cls, lse, dd, part, out, tickets, H, N, M, per_split);
   return (int)cudaGetLastError();
@@ -445,15 +448,13 @@ int launch(const float* q, int64_t q_sb, int64_t q_sh, int64_t q_sn, const float
 
 }  // namespace
 
-// Landmark rows of a landmark-kernel block, tokens of its tiles (a split's
-// length is a multiple), the landmark-kernel blocks an SM holds at head dim
-// dh (0 where dh is not instantiated), and the floats of a row of its
-// partial sums.
-extern "C" int flash_nystrom_bwd_rows() { return ROWS; }
+// Landmark rows of a landmark-kernel block and the landmark-kernel blocks
+// an SM holds, by head dim dh (0 where dh is not instantiated), tokens of
+// its tiles (a split's length is a multiple), and the floats of a row of
+// its partial sums.
+extern "C" int flash_nystrom_bwd_rows(int dh) { return instantiated(dh) ? 16 * bwd_warps(dh) : 0; }
 extern "C" int flash_nystrom_bwd_keys() { return COLS; }
-extern "C" int flash_nystrom_bwd_resident(int dh) {
-  return (dh == 16 || dh == 32 || dh == 64 || dh == 128) ? lm_resident(dh) : 0;
-}
+extern "C" int flash_nystrom_bwd_resident(int dh) { return instantiated(dh) ? bwd_resident(dh) : 0; }
 extern "C" int flash_nystrom_bwd_width(int dh, int cls) {
   return cls ? 3 * dh + 4 : 2 * dh;
 }
@@ -467,8 +468,8 @@ extern "C" int flash_nystrom_bwd_width(int dh, int cls) {
 // null: no cls term, and d_k untouched). Outputs d_q, d_k [B*H, N, DH] and
 // out [B*H, M, W] (d_kl | d_mid | d_ql | d_r', W = flash_nystrom_bwd_width);
 // scratch lse, dd [B*H, N], part [B*H, n_splits, M, W] (out itself when
-// n_splits is 1) and tickets [B*H, ceil(M / rows)] int32, zero at the first
-// launch and left zero by each.
+// n_splits is 1) and tickets [B*H, ceil(M / rows)·halves] int32, zero at the
+// first launch and left zero by each.
 extern "C" int flash_nystrom_pass_b_bwd(
     const float* q, int64_t q_sb, int64_t q_sh, int64_t q_sn, const float* k, int64_t k_sb,
     int64_t k_sh, int64_t k_sn, const uint8_t* mask, const float* kl, const uint8_t* lm_mask,
@@ -483,6 +484,7 @@ extern "C" int flash_nystrom_pass_b_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool cls = d_cls != nullptr;
   switch (DH) {
+    case 256: return cls ? launch<256, true>(BWD_ARGS) : launch<256, false>(BWD_ARGS);
     case 128: return cls ? launch<128, true>(BWD_ARGS) : launch<128, false>(BWD_ARGS);
     case 64: return cls ? launch<64, true>(BWD_ARGS) : launch<64, false>(BWD_ARGS);
     case 32: return cls ? launch<32, true>(BWD_ARGS) : launch<32, false>(BWD_ARGS);

@@ -33,7 +33,7 @@ P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # argtypes of every C entry, by source
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_nystrom": {
-        "flash_nystrom_pass_a_rows": [],
+        "flash_nystrom_pass_a_rows": [I32],  # DH
         "flash_nystrom_pass_a_keys": [],
         "flash_nystrom_pass_a_resident": [I32],  # DH
         "flash_nystrom_pass_a": [
@@ -59,7 +59,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         ],
     },
     "flash_nystrom_bwd": {
-        "flash_nystrom_bwd_rows": [],
+        "flash_nystrom_bwd_rows": [I32],  # DH
         "flash_nystrom_bwd_keys": [],
         "flash_nystrom_bwd_resident": [I32],  # DH
         "flash_nystrom_bwd_width": [I32, I32],  # DH, with the cls term
@@ -74,6 +74,23 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             P, P, P,  # scratch: lse, D, the partial sums
             P,  # out: d_kl | d_mid | d_ql | d_r'
             P,  # scratch: int32 tickets
+            I32, I32, I32, I32, I32,  # B, H, N, M, DH
+            I32, I32,  # n_splits, per_split
+            P,  # stream
+        ],
+    },
+    "flash_nystrom_k1b": {
+        "flash_nystrom_k1b_rows": [I32],  # DH
+        "flash_nystrom_k1b_keys": [],
+        "flash_nystrom_k1b_resident": [I32],  # DH
+        "flash_nystrom_pass_a_bwd": [
+            P,  # ql
+            P, I64, I64, I64,  # k
+            P, I64, I64, I64,  # v
+            P, P, P, P,  # mask, attn3v, m3, s3
+            P, P,  # d_attn3v, d_s3 (or null)
+            P, P, P,  # d_ql, d_k, d_v
+            P, P, P,  # scratch: D and 1 / s3, the partial sums, int32 tickets
             I32, I32, I32, I32, I32,  # B, H, N, M, DH
             I32, I32,  # n_splits, per_split
             P,  # stream

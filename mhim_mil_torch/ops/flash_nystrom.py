@@ -1,4 +1,4 @@
-"""Fused masked Nystrom attention for inference (port of ``mhim_mil_tpu/ops/pallas_nystrom.py``).
+"""Fused masked Nystrom attention (port of ``mhim_mil_tpu/ops/pallas_nystrom.py``).
 
 Two streaming passes over the bag keep every ``[B,H,N,m]`` intermediate out
 of device memory:
@@ -18,27 +18,33 @@ of device memory:
 times it was called on the card (K1's call launches two kernels: the
 partials of its key splits, planned by :func:`pass_a_plan`, and their merge;
 :func:`pass_a_split_plain` is that arithmetic in plain torch, for tests).
-The kernels are built for head dims 16, 32, 64 and 128; on the card
+The kernels are built for head dims 16, 32, 64, 128 and 256; on the card
 :func:`padded_head_dim` zero-pads any other head dim up to the next of
-those, and above 128 the wrappers raise a ``ValueError``.
+those, and above 256 the wrappers raise a ``ValueError``. At 256 a block
+keeps a 128-column accumulator: the grid runs two column halves, each
+computing the scores over all 256 columns (:func:`halves`).
+
+The backward of each pass is a kernel too:
+
+- **K2b** :func:`pass_b_backward`, the gradients of ``out`` and the cls row
+  with respect to K2's operands (``csrc/flash_nystrom_bwd.cu``);
+- **K1b** :func:`pass_a_backward`, the gradients of ``attn3v`` and ``s3``
+  with respect to ``q_l``, ``k`` and ``v`` (``csrc/flash_nystrom_k1b.cu``),
+  FlashAttention-2's backward with the m landmark rows as queries.
+
+Neither forms ``[B,H,N,m]``; :func:`pass_b_backward_plain` and
+:func:`pass_a_backward_plain` run on CPU tensors.
 
 **K3** :func:`flash_nystrom` is the differentiable form (the port of the
-custom VJP at ``pallas_nystrom.py:249-304``): its forward is
-:func:`flash_nystrom_infer`, its backward recomputes through the plain
-:func:`ops.nystrom.nystrom_attention` in fp32 and differentiates that, as
-the JAX package's backward does (there it is XLA, not a kernel). Its counts
-are ``FlashNystrom.forward_calls`` and ``FlashNystrom.backward_calls``.
-
-**K2b** :func:`pass_b_backward` is the backward of K2's pass, the gradients
-of ``out`` and the cls row with respect to K2's operands, in two CUDA
-kernels (``csrc/flash_nystrom_bwd.cu``) that never form ``[B,H,N,m]``;
-:func:`pass_b_backward_plain` on CPU tensors. K3's backward does not call
-it yet: any backward other than the recompute of the reference differs
-from autograd through ``nystrom_attention`` by more than the kernel gate's
-VJP check admits (``utils/kernel_check.py``: entries off by up to 1e-4 of
-gradients reaching 86 at its full shape, where the check allows 1e-5), as
-the JAX package's own hardware check does between its two fp32
-formulations.
+custom VJP at ``pallas_nystrom.py:249-304``): the composition that
+:func:`flash_nystrom_infer` runs, with K1 and K2 as autograd functions whose
+backwards are K1b and K2b, and the glue differentiated by autograd on
+``[B,H,m,·]`` tensors. Its graph is kept from the forward, so the backward
+recomputes nothing; ``m3`` is taken as a constant (the composition does not
+change when ``m3`` and ``s3`` shift together, so its cotangent cancels
+against the one that reaches it through ``s3``). The JAX package's backward
+recomputes the plain attention in XLA instead. Its counts are
+``FlashNystrom.forward_calls`` and ``FlashNystrom.backward_calls``.
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ from ..kernels.launch import check as _check, check_rows_aligned as _aligned
 from ..kernels.launch import on_cpu as _on_cpu, raise_on as _raise_on
 from .masked import NEG_INF, masked_softmax
 from ..kernels.launch import rows_aligned as _rows_aligned
-from .nystrom import _landmark_mean, moore_penrose_pinv, nystrom_attention
+from .nystrom import _landmark_mean, moore_penrose_pinv
 
 Tensor = torch.Tensor
 
@@ -124,7 +130,33 @@ def pass_b_backward_plain(
     return d_q, g.transpose(-1, -2) @ ql, d_kl, d_mid, g @ k, d_rp, -rp * d_rp
 
 
-HEAD_DIMS = (16, 32, 64, 128)  # the head dims K1, K2 and K2b are built for
+def pass_a_backward_plain(
+    ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, attn3v: Tensor, m3: Tensor, s3: Tensor,
+    d_attn3v: Tensor, d_s3: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """K1b's function: the gradients of :func:`pass_a_plain`'s ``attn3v`` and
+    ``s3`` under the cotangents ``d_attn3v[B,H,m,dh]`` and ``d_s3[B,H,m]``
+    (None: zero), with ``m3`` taken as a constant. With
+    ``P = exp(q_l·kᵀ − m3) / s3`` over the valid keys:
+    ``D = Σ_dh d_attn3v ∘ attn3v − s3·d_s3`` per landmark row (the second
+    term is ``s3``'s cotangent, since ``∂s3/∂S = s3·P``), ``dP = d_attn3v·vᵀ``,
+    ``dS = P ∘ (dP − D)``, ``d_ql = dS·k``, ``d_k = dSᵀ·q_l``,
+    ``d_v = Pᵀ·d_attn3v``. Returns ``(d_ql, d_k, d_v)``, ``d_k`` and ``d_v``
+    zero at masked keys, whose values are never used."""
+    tok = mask[:, None, :, None]
+    valid = mask[:, None, None, :]
+    k, v = (torch.where(tok, t, 0.0) for t in (k, v))
+    sim = ql @ k.transpose(-1, -2)  # [B,H,m,N]
+    p = torch.where(valid, torch.exp(sim - m3[..., None]), 0.0) / s3.clamp_min(1e-30)[..., None]
+    dd = (d_attn3v * attn3v).sum(dim=-1)
+    if d_s3 is not None:
+        dd = dd - s3 * d_s3
+    ds = p * (d_attn3v @ v.transpose(-1, -2) - dd[..., None])
+    return ds @ k, ds.transpose(-1, -2) @ ql, p.transpose(-1, -2) @ d_attn3v
+
+
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims K1, K2, K1b and K2b are built for
+ACC_COLS = 128  # the widest accumulator a block keeps: wider head dims run in column halves
 
 
 def kernel_head_dim(dh: int) -> int:
@@ -135,6 +167,13 @@ def kernel_head_dim(dh: int) -> int:
             return d
     raise ValueError(f"head dim {dh}: the flash-Nystrom kernels take head dims 1 to {HEAD_DIMS[-1]} "
                      f"(zero-padded up to one of {HEAD_DIMS})")
+
+
+def halves(dh: int) -> int:
+    """The column halves the grid of each kernel runs at head dim ``dh``: 2
+    at 256, where each block computes its scores over all 256 columns and
+    accumulates 128 of the value side, else 1."""
+    return max(1, kernel_head_dim(dh) // ACC_COLS)
 
 
 def padded_head_dim(call, args, pad, sliced):
@@ -152,13 +191,23 @@ def padded_head_dim(call, args, pad, sliced):
     return tuple(o[..., :dh] if i in sliced and o is not None else o for i, o in enumerate(outs))
 
 
-PASS_A_ROWS = 128  # landmark rows of a K1 block (csrc A_ROWS)
+PASS_A_ROWS = 128  # landmark rows of a K1 block up to DH 128; 64 at DH 256 (csrc a_warps)
 PASS_A_KEYS = 32  # keys of a K1 tile; a split is a whole number of tiles (csrc COLS)
-PASS_A_RESIDENT = {16: 2, 32: 2, 64: 2, 128: 1}  # K1 blocks an SM holds, by head dim (csrc a_resident)
-BWD_ROWS = 64  # landmark rows of a K2b landmark block (csrc flash_nystrom_bwd.cu ROWS)
+PASS_A_RESIDENT = {16: 2, 32: 2, 64: 2, 128: 1, 256: 1}  # K1 blocks an SM holds, by head dim (csrc a_resident)
+BWD_ROWS = 64  # landmark rows of a K2b or K1b landmark block up to DH 128; 32 at DH 256 (csrc bwd_warps)
 BWD_KEYS = 32  # tokens of its tiles; a split is a whole number of tiles
-BWD_RESIDENT = {16: 2, 32: 2, 64: 2, 128: 1}  # its blocks an SM holds (csrc lm_resident)
+BWD_RESIDENT = {16: 2, 32: 2, 64: 2, 128: 1, 256: 1}  # its blocks an SM holds (csrc bwd_resident)
 H100_SMS = 132
+
+
+def pass_a_rows(dh: int) -> int:
+    """Landmark rows of a K1 block at head dim ``dh``."""
+    return PASS_A_ROWS if kernel_head_dim(dh) <= ACC_COLS else PASS_A_ROWS // 2
+
+
+def bwd_rows(dh: int) -> int:
+    """Landmark rows of a K2b or K1b landmark block at head dim ``dh``."""
+    return BWD_ROWS if kernel_head_dim(dh) <= ACC_COLS else BWD_ROWS // 2
 
 
 def _split_plan(row_blocks: int, n: int, resident: int, sms: int, tile: int) -> Tuple[int, int]:
@@ -176,17 +225,19 @@ def _split_plan(row_blocks: int, n: int, resident: int, sms: int, tile: int) -> 
 def pass_a_plan(b: int, h: int, n: int, m: int, sms: int = H100_SMS, dh: int = 64) -> Tuple[int, int]:
     """K1's split of the keys: ``(n_splits, per_split)``, split ``s`` taking
     keys ``[s·per_split, min(n, (s + 1)·per_split))``, over the grid's
-    ``b·h·⌈m/128⌉`` landmark blocks per split at the residency of head dim
-    ``dh`` (:func:`_split_plan`)."""
-    return _split_plan(b * h * math.ceil(m / PASS_A_ROWS), n, PASS_A_RESIDENT[kernel_head_dim(dh)], sms,
-                       PASS_A_KEYS)
+    ``b·h·⌈m/rows⌉·halves`` landmark blocks per split at the residency of
+    head dim ``dh`` (:func:`_split_plan`)."""
+    return _split_plan(b * h * math.ceil(m / pass_a_rows(dh)) * halves(dh), n,
+                       PASS_A_RESIDENT[kernel_head_dim(dh)], sms, PASS_A_KEYS)
 
 
 def pass_b_backward_plan(b: int, h: int, n: int, m: int, sms: int = H100_SMS,
                          dh: int = 64) -> Tuple[int, int]:
-    """K2b's landmark kernel's split of the tokens, as :func:`pass_a_plan`
-    splits K1's keys, over ``b·h·⌈m/64⌉`` landmark blocks per split."""
-    return _split_plan(b * h * math.ceil(m / BWD_ROWS), n, BWD_RESIDENT[kernel_head_dim(dh)], sms, BWD_KEYS)
+    """The token split of K2b's landmark kernel, and of K1b's: as
+    :func:`pass_a_plan` splits K1's keys, over ``b·h·⌈m/rows⌉·halves``
+    landmark blocks per split (:func:`bwd_rows`)."""
+    return _split_plan(b * h * math.ceil(m / bwd_rows(dh)) * halves(dh), n,
+                       BWD_RESIDENT[kernel_head_dim(dh)], sms, BWD_KEYS)
 
 
 def pass_a_split_plain(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, n_splits: int,
@@ -221,25 +272,41 @@ def _library():
     """K1's and K2's library, once its K1 geometry (rows, keys and, by head
     dim, blocks an SM) is checked against the plan's."""
     lib = load_library("flash_nystrom")
-    got = (lib.flash_nystrom_pass_a_rows(), lib.flash_nystrom_pass_a_keys(),
+    got = ({d: lib.flash_nystrom_pass_a_rows(d) for d in HEAD_DIMS}, lib.flash_nystrom_pass_a_keys(),
            {d: lib.flash_nystrom_pass_a_resident(d) for d in HEAD_DIMS})
-    if got != (PASS_A_ROWS, PASS_A_KEYS, PASS_A_RESIDENT):
-        raise RuntimeError(f"flash_nystrom.cu's K1 geometry {got} differs from pass_a_plan's")
+    want = ({d: pass_a_rows(d) for d in HEAD_DIMS}, PASS_A_KEYS, PASS_A_RESIDENT)
+    if got != want:
+        raise RuntimeError(f"flash_nystrom.cu's K1 geometry {got} differs from pass_a_plan's {want}")
+    return lib
+
+
+def _bwd_geometry_library(name: str):
+    """A backward kernel's library, once its landmark kernel's geometry
+    (rows, keys and blocks an SM, by head dim) is checked against
+    :func:`pass_b_backward_plan`'s, which K2b and K1b share."""
+    lib = load_library(name)
+    got = ({d: getattr(lib, f"{name}_rows")(d) for d in HEAD_DIMS}, getattr(lib, f"{name}_keys")(),
+           {d: getattr(lib, f"{name}_resident")(d) for d in HEAD_DIMS})
+    want = ({d: bwd_rows(d) for d in HEAD_DIMS}, BWD_KEYS, BWD_RESIDENT)
+    if got != want:
+        raise RuntimeError(f"{name}.cu's geometry {got} differs from the wrapper's {want}")
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_library():
-    """K2b's library, once its landmark kernel's geometry is checked against
-    :func:`pass_b_backward_plan`'s and its row width against the wrapper's."""
-    lib = load_library("flash_nystrom_bwd")
-    got = (lib.flash_nystrom_bwd_rows(), lib.flash_nystrom_bwd_keys(),
-           {d: lib.flash_nystrom_bwd_resident(d) for d in HEAD_DIMS},
-           [lib.flash_nystrom_bwd_width(d, c) for d in HEAD_DIMS for c in (0, 1)])
-    want = (BWD_ROWS, BWD_KEYS, BWD_RESIDENT, [_bwd_width(d, c) for d in HEAD_DIMS for c in (0, 1)])
-    if got != want:
-        raise RuntimeError(f"flash_nystrom_bwd.cu's geometry {got} differs from the wrapper's {want}")
+    """K2b's library, its geometry and its row width checked."""
+    lib = _bwd_geometry_library("flash_nystrom_bwd")
+    got = [lib.flash_nystrom_bwd_width(d, c) for d in HEAD_DIMS for c in (0, 1)]
+    if got != [_bwd_width(d, c) for d in HEAD_DIMS for c in (0, 1)]:
+        raise RuntimeError(f"flash_nystrom_bwd.cu's row widths {got} differ from the wrapper's")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _k1b_library():
+    """K1b's library, its geometry checked."""
+    return _bwd_geometry_library("flash_nystrom_k1b")
 
 
 def _bwd_width(dh: int, cls: bool) -> int:
@@ -253,7 +320,7 @@ _TICKETS = {}
 
 def _tickets(dev, n: int) -> Tensor:
     """A zeroed int32 buffer of at least ``n`` entries on ``dev``, kept from
-    call to call: K2b's landmark kernel leaves its tickets zero."""
+    call to call: K2b's and K1b's landmark kernels leave their tickets zero."""
     t = _TICKETS.get(dev)
     if t is None or t.numel() < n:
         t = _TICKETS[dev] = torch.zeros(max(n, 4096), device=dev, dtype=torch.int32)
@@ -263,7 +330,7 @@ def _tickets(dev, n: int) -> Tensor:
 def pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """K1: the CUDA kernels on CUDA tensors, :func:`pass_a_plain` on CPU tensors.
     ``k`` and ``v`` may be any strided view with a unit last stride whose
-    rows start on 16 bytes; any head dim up to 128 (:func:`padded_head_dim`)."""
+    rows start on 16 bytes; any head dim up to 256 (:func:`padded_head_dim`)."""
     if _on_cpu(ql, k, v, mask):
         return pass_a_plain(ql, k, v, mask)
     out = padded_head_dim(_launch_pass_a, (ql, k, v, mask), (0, 1, 2), (0,))
@@ -367,7 +434,7 @@ def pass_b_backward(
     """K2b: the CUDA kernels on CUDA tensors, :func:`pass_b_backward_plain`
     (same arguments and fp32 outputs) on CPU tensors. ``q``, ``k`` and
     ``d_out`` may be strided views (``d_out`` in any layout: one whose rows
-    do not start on 16 bytes is copied); any head dim up to 128. Without
+    do not start on 16 bytes is copied); any head dim up to 256. Without
     ``d_cls`` the cls term is skipped and its four gradients are None."""
     if _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, *(() if d_cls is None else (d_cls,))):
         return pass_b_backward_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls)
@@ -408,7 +475,7 @@ def _launch_pass_b_backward(
     dd = torch.empty_like(lse)
     out = torch.empty((b, h, m, w), device=dev, dtype=torch.float32)
     part = out if n_splits == 1 else torch.empty((b * h, n_splits, m, w), device=dev, dtype=torch.float32)
-    tickets = _tickets(dev, b * h * math.ceil(m / BWD_ROWS))
+    tickets = _tickets(dev, b * h * math.ceil(m / bwd_rows(dh)) * halves(dh))
     with torch.cuda.device(dev):
         err = lib.flash_nystrom_pass_b_bwd(
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
@@ -432,6 +499,117 @@ def _launch_pass_b_backward(
 pass_b_backward.launches = 0
 
 
+def pass_a_backward(
+    ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, attn3v: Tensor, m3: Tensor, s3: Tensor,
+    d_attn3v: Tensor, d_s3: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """K1b: the CUDA kernels on CUDA tensors, :func:`pass_a_backward_plain`
+    (same arguments and fp32 outputs) on CPU tensors. ``k`` and ``v`` may be
+    strided views whose rows start on 16 bytes; any head dim up to 256.
+    Returns ``(d_ql, d_k, d_v)``."""
+    extra = () if d_s3 is None else (d_s3,)
+    if _on_cpu(ql, k, v, mask, attn3v, m3, s3, d_attn3v, *extra):
+        return pass_a_backward_plain(ql, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3)
+    args = (ql, k, v, mask, attn3v, m3, s3, d_attn3v.contiguous(), d_s3)
+    out = padded_head_dim(_launch_pass_a_backward, args, (0, 1, 2, 4, 7), (0, 1, 2))
+    pass_a_backward.launches += 1
+    return out
+
+
+def _launch_pass_a_backward(
+    ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, attn3v: Tensor, m3: Tensor, s3: Tensor,
+    d_attn3v: Tensor, d_s3: Optional[Tensor],
+) -> Tuple[Tensor, Tensor, Tensor]:
+    b, h, m, dh = ql.shape
+    n = k.shape[2]
+    dev = ql.device
+    for name, t in (("ql", ql), ("attn3v", attn3v), ("d_attn3v", d_attn3v)):
+        _check(name, t, (b, h, m, dh), dev, contiguous=True)
+    _check("k", k, (b, h, n, dh), dev)
+    _check("v", v, (b, h, n, dh), dev)
+    _check("mask", mask, (b, n), dev, contiguous=True, dtype=torch.bool)
+    if d_s3 is not None:
+        d_s3 = d_s3.float().contiguous()
+    for name, t in (("m3", m3), ("s3", s3)) + ((("d_s3", d_s3),) if d_s3 is not None else ()):
+        _check(name, t, (b, h, m), dev, contiguous=True)
+    for name, t in (("ql", ql), ("k", k), ("v", v), ("attn3v", attn3v), ("d_attn3v", d_attn3v)):
+        _aligned(name, t)
+    lib = _k1b_library()
+    n_splits, per_split = pass_b_backward_plan(b, h, n, m, _sm_count(dev.index), dh)
+    d_ql = torch.empty((b, h, m, dh), device=dev, dtype=torch.float32)
+    d_k = torch.empty((b, h, n, dh), device=dev, dtype=torch.float32)
+    d_v = torch.empty_like(d_k)
+    stats = torch.empty((2, b, h, m), device=dev, dtype=torch.float32)  # D and 1 / s3
+    part = d_ql if n_splits == 1 else torch.empty((b * h, n_splits, m, dh), device=dev, dtype=torch.float32)
+    tickets = _tickets(dev, b * h * math.ceil(m / bwd_rows(dh)) * halves(dh))
+    with torch.cuda.device(dev):
+        err = lib.flash_nystrom_pass_a_bwd(
+            ql.data_ptr(),
+            k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
+            v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
+            mask.data_ptr(), attn3v.data_ptr(), m3.data_ptr(), s3.data_ptr(),
+            d_attn3v.data_ptr(), d_s3.data_ptr() if d_s3 is not None else None,
+            d_ql.data_ptr(), d_k.data_ptr(), d_v.data_ptr(),
+            stats.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            b, h, n, m, dh, n_splits, per_split, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(err, "flash_nystrom_pass_a_bwd")
+    return d_ql, d_k, d_v
+
+
+pass_a_backward.launches = 0
+
+
+class PassA(torch.autograd.Function):
+    """K1 with K1b as its backward: ``(attn3v, m3, s3)`` of
+    :func:`pass_a`, ``m3`` without a gradient (see the module's note)."""
+
+    @staticmethod
+    def forward(ctx, ql, k, v, mask):
+        attn3v, m3, s3 = pass_a(ql, k, v, mask)
+        ctx.save_for_backward(ql, k, v, mask, attn3v, m3, s3)
+        ctx.mark_non_differentiable(m3)
+        ctx.set_materialize_grads(False)
+        return attn3v, m3, s3
+
+    @staticmethod
+    def backward(ctx, d_attn3v, _d_m3, d_s3):
+        # attn3v always has a cotangent: it reaches out through mid
+        ql, k, v, mask, attn3v, m3, s3 = ctx.saved_tensors
+        return (*pass_a_backward(ql, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3), None)
+
+
+class PassB(torch.autograd.Function):
+    """K2 with K2b as its backward: ``(out, cls)`` of :func:`pass_b`. The cls
+    term of K2b runs only when ``cls`` has a cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, mask, kl, lm_mask, mid, ql, rp, m3):
+        out, cls = pass_b(q, k, mask, kl, lm_mask, mid, ql, rp, m3)
+        ctx.save_for_backward(q, k, mask, kl, lm_mask, mid, ql, rp, m3)
+        ctx.set_materialize_grads(False)
+        return out, cls
+
+    @staticmethod
+    def backward(ctx, d_out, d_cls):
+        q, k, mask, kl, lm_mask, mid, ql, rp, m3 = ctx.saved_tensors
+        if d_out is None:
+            d_out = torch.zeros_like(q)
+        d_q, d_k, d_kl, d_mid, d_ql, d_rp, _ = pass_b_backward(q, k, mask, kl, lm_mask, mid, ql, rp, m3,
+                                                               d_out, d_cls)
+        return d_q, d_k, None, d_kl, None, d_mid, d_ql, d_rp, None
+
+
+def _nystrom_passes(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_landmarks: int,
+                    pinv_iters: int) -> Tuple[Tensor, Tensor]:
+    """The composition of K1, the glue and K2 on fp32 q, k, v and a bool
+    mask, differentiable through :class:`PassA` and :class:`PassB`."""
+    q_l, k_l, lm_mask, pinv = landmarks(q, k, mask, num_landmarks, pinv_iters)
+    attn3v, m3, s3 = PassA.apply(q_l, k, v, mask)
+    mid, rp = pass_b_operands(q, k_l, mask, lm_mask, pinv, attn3v, s3)
+    return PassB.apply(q, k, mask, k_l, lm_mask, mid, q_l, rp, m3)
+
+
 def flash_nystrom_infer(
     q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6,
 ) -> Tuple[Tensor, Tensor]:
@@ -449,19 +627,16 @@ def flash_nystrom_infer(
     if (torch.is_grad_enabled() and q.device.type == "cuda"
             and any(t.requires_grad for t in (q, k, v))):
         raise RuntimeError("flash_nystrom_infer has no gradient; call flash_nystrom under grad")
-    mask = mask.bool().contiguous()
-    q, k, v = (t.float() for t in (q, k, v))
-    q_l, k_l, lm_mask, pinv = landmarks(q, k, mask, num_landmarks, pinv_iters)
-    attn3v, m3, s3 = pass_a(q_l, k, v, mask)
-    mid, rp = pass_b_operands(q, k_l, mask, lm_mask, pinv, attn3v, s3)
-    return pass_b(q, k, mask, k_l, lm_mask, mid, q_l, rp, m3)
+    with torch.no_grad():
+        return _nystrom_passes(*(t.float() for t in (q, k, v)), mask.bool().contiguous(), num_landmarks,
+                               pinv_iters)
 
 
 class FlashNystrom(torch.autograd.Function):
-    """K3: the forward is :func:`flash_nystrom_infer` (K1 + K2 on the card);
-    the backward recomputes :func:`nystrom_attention` in fp32 from the saved
-    q, k, v and differentiates it, as the JAX custom VJP does
-    (``pallas_nystrom.py:273-301``). ``forward_calls`` and
+    """K3: the forward runs :func:`_nystrom_passes` (K1 + K2 on the card) on
+    detached fp32 copies of q, k and v under grad mode and keeps its graph;
+    the backward takes that graph's gradients, through K2b, the glue's
+    autograd and K1b, and recomputes nothing. ``forward_calls`` and
     ``backward_calls`` count the calls of each."""
 
     forward_calls = 0
@@ -469,39 +644,34 @@ class FlashNystrom(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, num_landmarks, pinv_iters):
-        ctx.save_for_backward(q, k, v, mask)
-        ctx.num_landmarks, ctx.pinv_iters = num_landmarks, pinv_iters
         # An unused output (the student never reads attn) gets a None
-        # cotangent, and the backward then leaves its products out.
+        # cotangent, and the backward then leaves its terms out.
         ctx.set_materialize_grads(False)
-        with torch.no_grad():
-            out, attn = flash_nystrom_infer(q, k, v, mask, num_landmarks, pinv_iters)
+        with torch.enable_grad():
+            leaves = tuple(t.detach().float().requires_grad_() for t in (q, k, v))
+            out, attn = _nystrom_passes(*leaves, mask.contiguous(), num_landmarks, pinv_iters)
+        ctx.graph = leaves, out, attn
+        ctx.dtypes = tuple(t.dtype for t in (q, k, v))
         FlashNystrom.forward_calls += 1
-        return out, attn
+        return out.detach(), attn.detach()
 
     @staticmethod
     def backward(ctx, d_out, d_attn):
-        q, k, v, mask = ctx.saved_tensors
-        with torch.enable_grad():
-            qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
-            out, attn = nystrom_attention(qf, kf, vf, mask, ctx.num_landmarks, ctx.pinv_iters,
-                                          return_attn=d_attn is not None)
-            # A missing cotangent counts as zeros: leave its output out.
-            outs, cots = [out], [d_out.float() if d_out is not None else torch.zeros_like(out)]
-            if d_attn is not None:
-                outs.append(attn)
-                cots.append(d_attn.float())
-            dq, dk, dv = torch.autograd.grad(outs, (qf, kf, vf), cots)
+        leaves, out, attn = ctx.graph
+        del ctx.graph  # the graph is used once
+        outs, cots = zip(*((o, d) for o, d in ((out, d_out), (attn, d_attn)) if d is not None))
+        grads = torch.autograd.grad(outs, leaves, cots)
         FlashNystrom.backward_calls += 1
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None, None)
 
 
 def flash_nystrom(
     q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6,
 ) -> Tuple[Tensor, Tensor]:
     """Differentiable masked Nystrom attention (K3): the fused forward of
-    :func:`flash_nystrom_infer` with gradients for q, k and v by recompute.
-    Same arguments and fp32 outputs as :func:`flash_nystrom_infer`."""
+    :func:`flash_nystrom_infer` with gradients for q, k and v through K1b,
+    K2b and the glue's autograd. Same arguments and fp32 outputs as
+    :func:`flash_nystrom_infer`."""
     return FlashNystrom.apply(q, k, v, mask.bool(), num_landmarks, pinv_iters)
 
 

@@ -16,19 +16,26 @@ import torch
 NEG_INF = -1e30
 
 
+def stats_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype statistics run in: fp32, or fp64 for fp64 input (a
+    reference computed in fp64 stays fp64 throughout)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Softmax over ``dim`` restricted to positions where ``mask`` is True.
 
     Fully masked rows return zeros. ``mask`` broadcasts against ``logits``.
-    Statistics run in fp32; the result comes back in the input dtype, with the
-    exponentials rounded to it before the fp32 denominator sum, as in the JAX
-    package.
+    Statistics run in fp32 (:func:`stats_dtype`); the result comes back in the
+    input dtype, with the exponentials rounded to it before the fp32
+    denominator sum, as in the JAX package.
     """
     out_dtype = logits.dtype
-    x = torch.where(mask, logits.float(), NEG_INF)
+    acc = stats_dtype(out_dtype)
+    x = torch.where(mask, logits.to(acc), NEG_INF)
     mx = x.amax(dim=dim, keepdim=True).detach()
     unnorm = (torch.exp(x - mx) * mask).to(out_dtype)
-    denom = unnorm.sum(dim=dim, keepdim=True, dtype=torch.float32)
+    denom = unnorm.sum(dim=dim, keepdim=True, dtype=acc)
     return (unnorm / denom.clamp_min(1e-30)).to(out_dtype)
 
 

@@ -13,17 +13,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from .masked import masked_softmax
+from .masked import masked_softmax, stats_dtype
 
 
 def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
-    """Newton–Schulz pseudo-inverse of the trailing square matrices, in fp32.
+    """Newton–Schulz pseudo-inverse of the trailing square matrices, in fp32
+    (fp64 for fp64 input).
 
     The initial scale ``1 / (max(row sums) · max(col sums))`` is a max over
     ALL leading axes (batch and heads), as in the reference: the bags of one
     batch are coupled through it.
     """
-    x = x.float()
+    x = x.to(stats_dtype(x.dtype))
     abs_x = x.abs()
     col = abs_x.sum(dim=-1)
     row = abs_x.sum(dim=-2)
@@ -53,7 +54,7 @@ def _landmark_mean(
     empty, short = divmod(m * l - n, l)
     first = l - short
     full = m - empty - 1
-    f32 = torch.float32
+    f32 = stats_dtype(t.dtype)
     grp = torch.cat([
         t.new_zeros((b, h, empty, d), dtype=f32),
         t[:, :, :first].sum(dim=2, keepdim=True, dtype=f32),
@@ -89,10 +90,10 @@ def nystrom_attention(
       return_attn: also return the cls row (token 0) of the attention.
 
     The big ``[B,H,N,m]`` tensors take q's dtype; softmax statistics and the
-    pseudo-inverse run in fp32.
+    pseudo-inverse run in fp32 (all of it in fp64 for fp64 input).
 
     Returns ``out[B,H,N,dh]`` (zero at masked tokens) and, when
-    ``return_attn``, ``cls_attn[B,H,N]`` in fp32.
+    ``return_attn``, ``cls_attn[B,H,N]`` in fp32 (fp64 for fp64 input).
     """
     if parity or no_norm:
         raise NotImplementedError("parity and no_norm modes are not ported yet")
@@ -116,6 +117,7 @@ def nystrom_attention(
     out = torch.where(mvalid, attn1 @ (pinv @ (attn3 @ v)), 0)
     if not return_attn:
         return out, None
-    cls_row = attn1[:, :, :1].float() @ pinv.float()  # [B,H,1,m]
-    cls_attn = (cls_row @ attn3.float())[:, :, 0]  # [B,H,N]
+    f32 = stats_dtype(q.dtype)
+    cls_row = attn1[:, :, :1].to(f32) @ pinv.to(f32)  # [B,H,1,m]
+    cls_attn = (cls_row @ attn3.to(f32))[:, :, 0]  # [B,H,N]
     return out, cls_attn

@@ -3,21 +3,39 @@ counterpart of ``tools/pallas_hw_check.py``):
 
     python3 -m mhim_mil_torch.utils.kernel_check [--small] [--only NAME,...]
 
-The checks, shapes and tolerances are those of ``pallas_hw_check.py``, plus
-the gate's probe:
+The checks and shapes are those of ``pallas_hw_check.py``, and so are the
+tolerances but the VJP's, plus the gate's probe:
 
 - ``flash_nystrom_infer`` (K1 + K2) against ``nystrom_attention``: 1 × 8 ×
   4,096, dh 64, 256 landmarks, 80% of the tokens valid; out and attn at
   rtol 1e-4, atol 1e-5;
-- ``flash_nystrom_vjp`` (K3): the q/k/v gradients of out·co + attn·ca
-  against autograd through ``nystrom_attention``: 1 × 8 × 2,048, dh 64, 128
-  landmarks, 90% valid; rtol 1e-4, atol 1e-5;
+- ``flash_nystrom_vjp`` (K3, whose backward runs K1b and K2b): the q/k/v
+  gradients of out·co + attn·ca at 1 × 8 × 2,048, dh 64, 128 landmarks, 90%
+  valid, against an fp64 reference, autograd through ``nystrom_attention``
+  on the same draws in float64, by :func:`vjp_close`: elementwise
+  ``|g − g64| ≤ 1e-4·|g64| + 1e-5·max(1, max|g64|)``, the max per tensor.
+  The fp32 autograd reference (the backward the port had before K1b and
+  K2b) is held to the same criterion, and the check fails if it misses,
+  since a criterion that the reference itself misses means nothing. Both
+  errors are reported. K3's forward and backward, K1b and K2b must each
+  have run once;
 - ``fused_abmil_pool`` (K4) against the masked softmax pooling: 4 × 10,240
   × 512, bags from half to full; pooled at rtol 1e-5, atol 1e-5, attn at
   rtol 1e-5, atol 1e-6;
 - ``selective_scan_2d`` (K5) against the plain separable scan: 1 × 64 × 64,
   ED 64, N 16; rtol 1e-4, atol 1e-5;
 - ``probe`` (K6) against ``probe_plain`` on ``ones(8, 128)``: exact.
+
+This VJP criterion differs from ``pallas_hw_check.py``'s (rtol 1e-4, atol
+1e-5 against the fp32 reference): there the gradients reach 86, where fp32's
+spacing is 7.6e-6, and the fp32 reference's own rounding fails that
+tolerance (the fp64 gradient misses it in 13 entries, by up to 1.1e-4 in
+dk; the JAX tool's two fp32 formulations miss it in 5), so it admitted no
+backward but the reference's own. The absolute term that scales with
+max|g64| (8.6e-4 at the full shape, 7.8 times the fp32 reference's largest
+error) is far below the 1e-2 to 1 error of a kernel that drops a term or
+mis-masks a token; a single-TF32 product misses it 29-43 times over. At
+``--small`` (gradients of order 1) it is as tight as before.
 
 ``--small`` takes ``pallas_hw_check.py``'s small shapes. Inputs are numpy
 draws from fixed seeds, computed in fp32 with TF32 off. A check passes only
@@ -44,6 +62,23 @@ def _cuda(a) -> torch.Tensor:
 def _close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
     return (got - want).abs().max().item()
+
+
+VJP_RTOL, VJP_ATOL = 1e-4, 1e-5
+
+
+def vjp_close(got: torch.Tensor, want64: torch.Tensor) -> dict:
+    """The VJP criterion against an fp64 reference gradient: elementwise
+    ``|g − g64| ≤ 1e-4·|g64| + 1e-5·max(1, max|g64|)``, the max over the
+    tensor. Returns ``ok``, the entries that miss (``n_bad``; NaN misses),
+    ``max_abs_err`` and the largest share of its allowance an entry takes
+    (``of_allowance``, 1 at the limit)."""
+    want = want64.double()
+    err = (got.to(want.device).double() - want).abs()
+    allow = VJP_RTOL * want.abs() + VJP_ATOL * max(1.0, want.abs().max().item())
+    bad = ~(err <= allow)
+    return {"ok": not bool(bad.any()), "n_bad": int(bad.sum()), "max_abs_err": err.max().item(),
+            "of_allowance": (err / allow).max().item()}
 
 
 def check_nystrom_infer(small: bool) -> dict:
@@ -74,18 +109,38 @@ def check_nystrom_vjp(small: bool) -> dict:
     co = _cuda(rng.normal(size=(b, h, n, dh)))
     ca = _cuda(rng.normal(size=(b, h, n)))
 
-    def grads(f):
-        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    def grads(f, dtype=torch.float32):
+        qq, kk, vv = (t.to(dtype, copy=True).requires_grad_() for t in (q, k, v))
         out, attn = f(qq, kk, vv)
-        return torch.autograd.grad((out * co).sum() + (attn * ca).sum(), (qq, kk, vv))
+        return torch.autograd.grad((out * co.to(dtype)).sum() + (attn * ca.to(dtype)).sum(), (qq, kk, vv))
 
-    calls = fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls
+    def counts():
+        return (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls, fn.pass_a_backward.launches,
+                fn.pass_b_backward.launches)
+
+    before = counts()
     got = grads(lambda *t: fn.flash_nystrom(*t, mask, m))
     torch.cuda.synchronize()
-    if (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls) != (calls[0] + 1, calls[1] + 1):
-        raise AssertionError("K3 did not run its forward and backward once each")
-    want = grads(lambda *t: nystrom_attention(*t, mask, m, return_attn=True))
-    return {"max_abs_err": max(_close(g, w, 1e-4, 1e-5) for g, w in zip(got, want))}
+    if counts() != tuple(c + 1 for c in before):
+        raise AssertionError(f"K3's forward, its backward, K1b and K2b did not run once each: "
+                             f"{before} -> {counts()}")
+    plain = lambda *t: nystrom_attention(*t, mask, m, return_attn=True)
+    want64, ref32 = grads(plain, torch.float64), grads(plain)
+    res = {"max_abs_err": 0.0, "of_allowance": 0.0, "fp32_reference_max_abs_err": 0.0,
+           "fp32_reference_of_allowance": 0.0}
+    for name, g, g32, g64 in zip(("dq", "dk", "dv"), got, ref32, want64):
+        r32, r = vjp_close(g32, g64), vjp_close(g, g64)
+        print(f"flash_nystrom_vjp {name}: kernel max|d| {r['max_abs_err']:.3e} ({r['of_allowance']:.3f} of "
+              f"the allowance), fp32 reference {r32['max_abs_err']:.3e} ({r32['of_allowance']:.3f}); "
+              f"max|g64| {g64.abs().max().item():.3e}", file=sys.stderr)
+        if not r32["ok"]:
+            raise AssertionError(f"{name}: the fp32 reference misses the criterion in {r32['n_bad']} entries")
+        if not r["ok"]:
+            raise AssertionError(f"{name}: {r['n_bad']} entries miss the criterion, max|d| {r['max_abs_err']:.3e}")
+        for key, x in (("", r), ("fp32_reference_", r32)):
+            for part in ("max_abs_err", "of_allowance"):
+                res[key + part] = max(res[key + part], x[part])
+    return res
 
 
 def check_abmil(small: bool) -> dict:

@@ -141,9 +141,9 @@ def test_flash_nystrom_vjp_matches_jax_interpret(b, n, dh, m, lengths, use_attn)
 @pytest.mark.parametrize("dh", [24, 40])
 def test_flash_nystrom_vjp_through_padded_head_dims(monkeypatch, dh):
     """K3 with every wrapper on its card branch (launches replaced by the
-    plain versions, each asserting a built head dim), so K1 and K2 run at 32
-    or 64 columns and are cut back, against JAX's VJP in interpreter mode at
-    rtol 1e-4, atol 1e-5."""
+    plain versions, each asserting a built head dim), so K1, K2 and their
+    backwards K1b and K2b run at 32 or 64 columns and are cut back, against
+    JAX's VJP in interpreter mode at rtol 1e-4, atol 1e-5."""
     def built_for(plain):
         def launch(*args):
             assert args[0].shape[-1] in fn.HEAD_DIMS
@@ -152,7 +152,8 @@ def test_flash_nystrom_vjp_through_padded_head_dims(monkeypatch, dh):
 
     monkeypatch.setattr(fn, "_on_cpu", lambda *ts: False)
     for name, plain in (("_launch_pass_a", fn.pass_a_plain), ("_launch_pass_b", fn.pass_b_plain),
-                        ("_launch_pass_b_backward", fn.pass_b_backward_plain)):
+                        ("_launch_pass_b_backward", fn.pass_b_backward_plain),
+                        ("_launch_pass_a_backward", fn.pass_a_backward_plain)):
         monkeypatch.setattr(fn, name, built_for(plain))
     g = np.random.default_rng(dh)
     b, n, m = 2, 80, 8
@@ -160,9 +161,10 @@ def test_flash_nystrom_vjp_through_padded_head_dims(monkeypatch, dh):
     q *= dh ** -0.5
     ca = g.normal(size=(b, 2, n)).astype(np.float32)
     mask = np.arange(n)[None] < np.array([80, 51])[:, None]
-    before = (fn.pass_a.launches, fn.pass_b.launches)
+    kernels = (fn.pass_a, fn.pass_b, fn.pass_a_backward, fn.pass_b_backward)
+    before = [f.launches for f in kernels]
     got = _vjp_port(q, k, v, mask, co, ca, m)
-    assert (fn.pass_a.launches, fn.pass_b.launches) == (before[0] + 1, before[1] + 1)
+    assert [f.launches for f in kernels] == [x + 1 for x in before]
     for name, x, y in zip(("out", "attn", "dq", "dk", "dv"), got, _vjp_jax(q, k, v, mask, co, ca, m)):
         np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-5, err_msg=name)
 

@@ -1,4 +1,4 @@
-"""K1-K6 and K2b against their plain versions on a Hopper card, and the kernel check.
+"""K1-K6, K1b and K2b against their plain versions on a Hopper card, and the kernel check.
 
 Marked ``cuda``: skips without a card of capability 9.0. This file imports no
 JAX, so it runs on the card's machine, from the root of the repo:
@@ -15,6 +15,7 @@ import sys
 from mhim_mil_torch.ops import abmil_pool, probe, scan2d
 from mhim_mil_torch.ops import flash_nystrom as fn
 from mhim_mil_torch.ops.nystrom import nystrom_attention
+from mhim_mil_torch.utils.kernel_check import vjp_close
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -91,12 +92,15 @@ def test_kernels_take_edge_cases_on_the_card(hopper, h, n, dh, m, lengths):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,n,dh,m,ragged", [(2, 4, 1000, 48, 64, True), (2, 4, 1000, 128, 64, True),
-                                               (1, 8, 300, 96, 32, False), (1, 4, 10241, 128, 256, False)])
+                                               (1, 8, 300, 96, 32, False), (1, 4, 10241, 128, 256, False),
+                                               (2, 4, 1000, 160, 64, True), (2, 2, 1000, 256, 256, True),
+                                               (1, 2, 10241, 256, 256, False)])
 def test_kernels_take_any_head_dim_on_the_card(hopper, b, h, n, dh, m, ragged):
-    """K1 and K2 at head dims they are not built for (48 and 96, zero-padded
-    to 64 and 128) and at the DH-128 instantiation, up to the flagship's
-    batch-1 shape with 4 heads of 128, against their plain versions at the
-    tolerances of ``_check_passes``; out keeps its head dim."""
+    """K1 and K2 at head dims they are not built for (48, 96 and 160,
+    zero-padded to 64, 128 and 256) and at the DH-128 and DH-256
+    instantiations (two column halves), up to the flagship's batch-1 shape,
+    against their plain versions at the tolerances of ``_check_passes``;
+    out keeps its head dim."""
     gen = torch.Generator(device=hopper).manual_seed(7)
     q, k, v = (torch.randn(b, h, n, dh, device=hopper, generator=gen) for _ in range(3))
     q = q * dh ** -0.5
@@ -108,11 +112,13 @@ def test_kernels_take_any_head_dim_on_the_card(hopper, b, h, n, dh, m, ragged):
 
 @pytest.mark.cuda
 def test_head_dims_above_128_raise_on_the_card(hopper):
-    """dh 129 raises a ValueError naming the range before any launch."""
-    q = torch.randn(1, 1, 64, 129, device=hopper)
+    """A head dim past the largest instantiation (257 since DH 256 was
+    added; 129 before) raises a ValueError naming the range before any
+    launch."""
+    q = torch.randn(1, 1, 64, 257, device=hopper)
     mask = torch.ones(1, 64, dtype=torch.bool, device=hopper)
     before = fn.pass_a.launches
-    with pytest.raises(ValueError, match="head dims 1 to 128"):
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
         fn.flash_nystrom_infer(q, q, q, mask, 8)
     assert fn.pass_a.launches == before
 
@@ -142,6 +148,8 @@ def _k2b_operands(dev, b, h, n, dh, m, lengths, seed):
     (3, 2, 300, 16, 8, (300, 150, 0)),  # DH 16, m 8; empty landmark groups; a bag with no valid token
     (2, 4, 500, 128, 40, (500, 77)),  # DH 128; m not a multiple of 16
     (2, 2, 200, 24, 16, (200, 131)),  # a padded head dim
+    (2, 2, 500, 160, 40, (500, 77)),  # padded to DH 256: two column halves
+    (2, 2, 1027, 256, 256, (1027, 0)),  # DH 256 at the student's m, a bag with no valid token
 ])
 @pytest.mark.parametrize("with_cls", [False, True])
 def test_pass_b_backward_matches_its_plain_version_on_the_card(hopper, b, h, n, dh, m, lengths, with_cls):
@@ -168,6 +176,42 @@ def test_pass_b_backward_matches_its_plain_version_on_the_card(hopper, b, h, n, 
     for g in (got[0], got[1]):
         if g is not None:
             assert torch.all(torch.where(args[2][:, None, :, None], 0.0, g) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,dh,m,lengths", [
+    (4, 8, 1027, 64, 256, (1027, 943, 717, 846)),  # the student's shape
+    (3, 2, 300, 16, 8, (300, 150, 0)),  # DH 16, m 8; a bag with no valid key
+    (2, 2, 200, 24, 16, (200, 131)),  # a padded head dim
+    (2, 4, 500, 128, 40, (500, 77)),  # DH 128; m not a multiple of 16
+    (2, 2, 500, 160, 40, (500, 77)),  # padded to DH 256: two column halves
+    (2, 2, 1027, 256, 256, (1027, 611)),  # DH 256 at the student's m
+])
+@pytest.mark.parametrize("with_s3", [False, True])
+def test_pass_a_backward_matches_its_plain_version_on_the_card(hopper, b, h, n, dh, m, lengths, with_s3):
+    """K1b against pass_a_backward_plain on K1's operands from the plain
+    glue, k and v as strided views with NaN at every masked key (never
+    read), random cotangents of attn3v and s3: each gradient at max|d| <=
+    1e-4·max|ref| (3×TF32 products against fp32 ones, as K2b's test), zero
+    at masked keys; one launch counted; two launches give the same bits."""
+    (q, k, mask, _, _, _, q_l, _, _), _, _ = _k2b_operands(hopper, b, h, n, dh, m, lengths, 10)
+    v = torch.where(mask[:, None, :, None], torch.randn_like(k), float("nan"))
+    attn3v, m3, s3 = fn.pass_a_plain(q_l, k, v, mask)
+    gen = torch.Generator(device=hopper).manual_seed(11)
+    d_attn3v = torch.randn(b, h, m, dh, device=hopper, generator=gen)
+    d_s3 = torch.randn(b, h, m, device=hopper, generator=gen) if with_s3 else None
+    args = (q_l, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3)
+    want = fn.pass_a_backward_plain(*args)
+    before = fn.pass_a_backward.launches
+    got, again = fn.pass_a_backward(*args), fn.pass_a_backward(*args)
+    torch.cuda.synchronize()
+    assert fn.pass_a_backward.launches == before + 2
+    for name, g, w, g2 in zip(("d_ql", "d_k", "d_v"), got, want, again):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max(), (name, (g - w).abs().max(), w.abs().max())
+        assert torch.equal(g, g2), name
+    for g in got[1:]:
+        assert torch.all(torch.where(mask[:, None, :, None], 0.0, g) == 0)
 
 
 @pytest.mark.cuda
@@ -198,9 +242,13 @@ def test_abmil_pool_matches_its_plain_version_on_the_card(hopper, b, n, d, dtype
 
 @pytest.mark.cuda
 def test_flash_nystrom_gradients_on_the_card(hopper):
-    """K3 (forward K1 + K2, backward by recompute) against autograd through
-    the plain nystrom_attention, at a student-like ragged shape: out and attn
-    at rtol 1e-4 atol 1e-5, q/k/v gradients at rtol 1e-4 atol 1e-5."""
+    """K3 (forward K1 + K2, backward K2b, the glue's autograd and K1b)
+    against autograd through the plain nystrom_attention, at a student-like
+    ragged shape: out and attn at rtol 1e-4 atol 1e-5 against the fp32
+    plain path, the q/k/v gradients by kernel_check's VJP criterion against
+    the plain path in fp64 (until the backward ran kernels it was the fp32
+    plain path at rtol 1e-4 atol 1e-5, which the fp64 gradient itself
+    misses at larger gradients); K1b and K2b launched once each."""
     gen = torch.Generator(device=hopper).manual_seed(2)
     b, h, n, dh, m = 2, 4, 300, 64, 32
     q, k, v = (torch.randn(b, h, n, dh, device=hopper, generator=gen) for _ in range(3))
@@ -209,26 +257,32 @@ def test_flash_nystrom_gradients_on_the_card(hopper):
     co = torch.randn(b, h, n, dh, device=hopper, generator=gen)
     ca = torch.randn(b, h, n, device=hopper, generator=gen)
 
-    def run(fn):
-        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
-        out, attn = fn(qq, kk, vv)
-        ((out * co).sum() + (attn * ca).sum()).backward()
+    def run(f, dtype=torch.float32):
+        qq, kk, vv = (t.to(dtype, copy=True).requires_grad_() for t in (q, k, v))
+        out, attn = f(qq, kk, vv)
+        ((out * co.to(dtype)).sum() + (attn * ca.to(dtype)).sum()).backward()
         return out.detach(), attn.detach(), qq.grad, kk.grad, vv.grad
 
-    calls = (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls)
+    calls = (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls, fn.pass_a_backward.launches,
+             fn.pass_b_backward.launches)
     got = run(lambda *t: fn.flash_nystrom(*t, mask, m))
-    assert (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls) == (calls[0] + 1, calls[1] + 1)
-    want = run(lambda *t: nystrom_attention(*t, mask, m, return_attn=True))
-    for g, w in zip(got, want):
+    assert (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls, fn.pass_a_backward.launches,
+            fn.pass_b_backward.launches) == tuple(c + 1 for c in calls)
+    plain = lambda *t: nystrom_attention(*t, mask, m, return_attn=True)
+    want = run(plain)
+    for g, w in zip(got[:2], want[:2]):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    for g, w in zip(got[2:], run(plain, torch.float64)[2:]):
+        assert vjp_close(g, w)["ok"], vjp_close(g, w)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,use_attn", [(48, True), (128, False)])
+@pytest.mark.parametrize("dh,use_attn", [(48, True), (128, False), (200, True), (200, False)])
 def test_flash_nystrom_gradients_at_other_head_dims_on_the_card(hopper, dh, use_attn):
-    """K3 with its forward at a padded head dim (48) and at DH 128, attn used
-    and unused, against autograd through the plain attention: out at rtol
-    1e-4 atol 1e-5, gradients at max|d| <= 1e-4·max|ref|."""
+    """K3 at a padded head dim (48), at DH 128 and at dh 200 (padded to
+    256: two column halves), attn used and unused, against autograd through
+    the plain attention: out at rtol 1e-4 atol 1e-5, gradients at max|d| <=
+    1e-4·max|ref|."""
     gen = torch.Generator(device=hopper).manual_seed(9)
     b, h, n, m = 2, 4, 300, 32
     q, k, v, co = (torch.randn(b, h, n, dh, device=hopper, generator=gen) for _ in range(4))

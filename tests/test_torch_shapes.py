@@ -1,6 +1,6 @@
 """The shapes the port's kernels are not built for, on the CPU.
 
-K1/K2 are built for head dims 16, 32, 64 and 128, K5 for state sizes 2, 4,
+K1/K2 are built for head dims 16, 32, 64, 128 and 256, K5 for state sizes 2, 4,
 8 and 16, and K4 for at most 1,024 columns a launch; their wrappers reshape
 every other shape into those (``flash_nystrom.padded_head_dim``,
 ``scan2d.state_groups``, ``abmil_pool.column_groups``). Here each wrapper
@@ -44,17 +44,18 @@ def nystrom_card_branch(monkeypatch):
 
     monkeypatch.setattr(fn, "_on_cpu", lambda *ts: False)
     for name, plain in (("_launch_pass_a", fn.pass_a_plain), ("_launch_pass_b", fn.pass_b_plain),
-                        ("_launch_pass_b_backward", fn.pass_b_backward_plain)):
+                        ("_launch_pass_b_backward", fn.pass_b_backward_plain),
+                        ("_launch_pass_a_backward", fn.pass_a_backward_plain)):
         monkeypatch.setattr(fn, name, built_for(plain))
 
 
-# ---- fault 7: K1/K2 at any head dim up to 128 ----
+# ---- faults 7 and 10: K1/K2 at any head dim up to 256 ----
 
 
-@pytest.mark.parametrize("dh", [8, 24, 48, 96])
+@pytest.mark.parametrize("dh", [8, 24, 48, 96, 160, 256])
 def test_padded_head_dim_matches_jax_flash_nystrom_infer(nystrom_card_branch, dh):
     """flash_nystrom_infer through the zero-padded head dim (each pass run
-    at 16, 32, 64 or 128 columns and cut back) against JAX's
+    at 16, 32, 64, 128 or 256 columns and cut back) against JAX's
     flash_nystrom_infer in interpreter mode: rtol 1e-4, atol 1e-5; K1 and K2
     counted once each."""
     rng = np.random.default_rng(dh)
@@ -72,18 +73,20 @@ def test_padded_head_dim_matches_jax_flash_nystrom_infer(nystrom_card_branch, dh
     np.testing.assert_allclose(attn.numpy(), np.asarray(want_attn), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("dh,want", [(1, 16), (16, 16), (17, 32), (48, 64), (64, 64), (96, 128), (128, 128)])
+@pytest.mark.parametrize("dh,want", [(1, 16), (16, 16), (17, 32), (48, 64), (64, 64), (96, 128), (128, 128),
+                                     (129, 256), (200, 256), (256, 256)])
 def test_kernel_head_dim_is_the_next_instantiation(dh, want):
     assert fn.kernel_head_dim(dh) == want
 
 
 def test_head_dims_above_128_raise_before_any_launch(nystrom_card_branch):
-    """A head dim past the largest instantiation raises a ValueError that
-    names the range, and no pass is counted."""
-    q = torch.zeros(1, 1, 8, 129)
+    """A head dim past the largest instantiation (256 since DH 256 was
+    added; 128 before) raises a ValueError that names the range, and no
+    pass is counted."""
+    q = torch.zeros(1, 1, 8, 257)
     mask = torch.ones(1, 8, dtype=torch.bool)
     before = fn.pass_a.launches
-    with pytest.raises(ValueError, match="head dims 1 to 128"):
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
         fn.pass_a(q[:, :, :2], q, q, mask)
     assert fn.pass_a.launches == before
 
