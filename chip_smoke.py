@@ -756,8 +756,8 @@ def launches() -> dict:
     from mhim_mil_torch.ops import abmil_pool, probe, scan2d
     from mhim_mil_torch.ops import flash_nystrom as fn
 
-    return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches, "K3": fn.FlashNystrom.forward_calls,
-            "K3b": fn.FlashNystrom.backward_calls, "K1b": fn.pass_a_backward.launches,
+    return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches, "K3": fn.flash_nystrom.forward_calls,
+            "K3b": fn.flash_nystrom.backward_calls, "K1b": fn.pass_a_backward.launches,
             "K2b": fn.pass_b_backward.launches, "K4": abmil_pool.fused_abmil_pool.launches,
             "K5": scan2d.selective_scan_2d_fused.launches, "K6": probe.probe.launches}
 
@@ -767,7 +767,7 @@ def reset_launches():
     from mhim_mil_torch.ops import flash_nystrom as fn
 
     fn.pass_a.launches = fn.pass_b.launches = fn.pass_a_backward.launches = fn.pass_b_backward.launches = 0
-    fn.FlashNystrom.forward_calls = fn.FlashNystrom.backward_calls = 0
+    fn.flash_nystrom.forward_calls = fn.flash_nystrom.backward_calls = 0
     abmil_pool.fused_abmil_pool.launches = 0
     scan2d.selective_scan_2d_fused.launches = 0
     probe.probe.launches = 0
@@ -1163,7 +1163,7 @@ def main():
                "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:45"),
         "K2": ("flash_nystrom_pass_b (pass_b_kernel)", "mhim_mil_torch/csrc/flash_nystrom.cu",
                "mhim_mil_tpu/ops/pallas_nystrom.py:85"),
-        "K3": ("flash_nystrom (FlashNystrom: K1 + K2 forward; K2b, the glue's autograd and K1b backward)",
+        "K3": ("flash_nystrom (PassA, PassB: K1 + K2 forward; K2b, the glue's autograd and K1b backward)",
                "mhim_mil_torch/ops/flash_nystrom.py", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
         "K2b": ("flash_nystrom_pass_b_bwd (token_kernel + landmark_kernel), K3's backward of K2's pass",
                 "mhim_mil_torch/csrc/flash_nystrom_bwd.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:280"),

@@ -249,7 +249,9 @@ pass_b_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q
   float* sRows = reinterpret_cast<float*>(smem4);  // the block's q rows, then its k rows
   float* ring = sRows + B_ROWS * LD;                // (k_l, mid) chunks, then (q_l, r', m3) chunks
 
-  const int t0 = blockIdx.x * B_ROWS, bh = blockIdx.y, b = bh / H, h = bh % H, vh = blockIdx.z;
+  // the value half: a compile-time 0 below DH 256, so those bodies index no half
+  const int t0 = blockIdx.x * B_ROWS, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int vh = halves(DH) > 1 ? (int)blockIdx.z : 0;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const uint8_t* mb = mask + (int64_t)b * N;
   const uint8_t* lb = lm_mask + (int64_t)b * M;

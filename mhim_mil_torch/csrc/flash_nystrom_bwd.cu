@@ -104,7 +104,9 @@ token_kernel(const float* __restrict__ q, int64_t q_sb, int64_t q_sh, int64_t q_
   float* sDo = sRows + ROWS * LD;                  // d_out rows
   float* ring = sDo + ROWS * LD;
 
-  const int t0 = blockIdx.x * ROWS, bh = blockIdx.y, b = bh / H, h = bh % H, vh = blockIdx.z;
+  // the value half: a compile-time 0 below DH 256, so those bodies index no half
+  const int t0 = blockIdx.x * ROWS, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int vh = halves(DH) > 1 ? (int)blockIdx.z : 0;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const uint8_t* lb = lm_mask + (int64_t)b * M;
   const int64_t lm0 = (int64_t)bh * M;

@@ -114,7 +114,9 @@ key_kernel(const float* __restrict__ ql,  // [B*H, M, DH]
   float* sV = sK + ROWS * LD;
   float* ring = sV + ROWS * LD;
 
-  const int t0 = blockIdx.x * ROWS, bh = blockIdx.y, b = bh / H, h = bh % H, vh = blockIdx.z;
+  // the value half: a compile-time 0 below DH 256, so those bodies index no half
+  const int t0 = blockIdx.x * ROWS, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int vh = halves(DH) > 1 ? (int)blockIdx.z : 0;
   const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   const int64_t lm0 = (int64_t)bh * M;
   const int nchunks = (M + COLS - 1) / COLS;

@@ -44,7 +44,7 @@ recomputes nothing; ``m3`` is taken as a constant (the composition does not
 change when ``m3`` and ``s3`` shift together, so its cotangent cancels
 against the one that reaches it through ``s3``). The JAX package's backward
 recomputes the plain attention in XLA instead. Its counts are
-``FlashNystrom.forward_calls`` and ``FlashNystrom.backward_calls``.
+``flash_nystrom.forward_calls`` and ``flash_nystrom.backward_calls``.
 """
 
 from __future__ import annotations
@@ -575,6 +575,7 @@ class PassA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_attn3v, _d_m3, d_s3):
         # attn3v always has a cotangent: it reaches out through mid
+        flash_nystrom.backward_calls += 1
         ql, k, v, mask, attn3v, m3, s3 = ctx.saved_tensors
         return (*pass_a_backward(ql, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3), None)
 
@@ -632,47 +633,24 @@ def flash_nystrom_infer(
                                pinv_iters)
 
 
-class FlashNystrom(torch.autograd.Function):
-    """K3: the forward runs :func:`_nystrom_passes` (K1 + K2 on the card) on
-    detached fp32 copies of q, k and v under grad mode and keeps its graph;
-    the backward takes that graph's gradients, through K2b, the glue's
-    autograd and K1b, and recomputes nothing. ``forward_calls`` and
-    ``backward_calls`` count the calls of each."""
-
-    forward_calls = 0
-    backward_calls = 0
-
-    @staticmethod
-    def forward(ctx, q, k, v, mask, num_landmarks, pinv_iters):
-        # An unused output (the student never reads attn) gets a None
-        # cotangent, and the backward then leaves its terms out.
-        ctx.set_materialize_grads(False)
-        with torch.enable_grad():
-            leaves = tuple(t.detach().float().requires_grad_() for t in (q, k, v))
-            out, attn = _nystrom_passes(*leaves, mask.contiguous(), num_landmarks, pinv_iters)
-        ctx.graph = leaves, out, attn
-        ctx.dtypes = tuple(t.dtype for t in (q, k, v))
-        FlashNystrom.forward_calls += 1
-        return out.detach(), attn.detach()
-
-    @staticmethod
-    def backward(ctx, d_out, d_attn):
-        leaves, out, attn = ctx.graph
-        del ctx.graph  # the graph is used once
-        outs, cots = zip(*((o, d) for o, d in ((out, d_out), (attn, d_attn)) if d is not None))
-        grads = torch.autograd.grad(outs, leaves, cots)
-        FlashNystrom.backward_calls += 1
-        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None, None)
-
-
 def flash_nystrom(
     q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6,
 ) -> Tuple[Tensor, Tensor]:
-    """Differentiable masked Nystrom attention (K3): the fused forward of
-    :func:`flash_nystrom_infer` with gradients for q, k and v through K1b,
-    K2b and the glue's autograd. Same arguments and fp32 outputs as
-    :func:`flash_nystrom_infer`."""
-    return FlashNystrom.apply(q, k, v, mask.bool(), num_landmarks, pinv_iters)
+    """Differentiable masked Nystrom attention (K3): the composition of
+    :func:`flash_nystrom_infer` under autograd, so its gradients for q, k and
+    v run through K2b, the glue's autograd and K1b, and the backward
+    recomputes nothing. An unused output (the student never reads attn)
+    gets no cotangent, and K2b then leaves the cls term out. Same arguments
+    and fp32 outputs as :func:`flash_nystrom_infer`. ``forward_calls`` and
+    ``backward_calls`` count the calls of each (the latter in
+    :class:`PassA`'s backward, which every backward of K3 reaches)."""
+    flash_nystrom.forward_calls += 1
+    return _nystrom_passes(*(t.float() for t in (q, k, v)), mask.bool().contiguous(), num_landmarks,
+                           pinv_iters)
+
+
+flash_nystrom.forward_calls = 0
+flash_nystrom.backward_calls = 0
 
 
 def landmarks(q: Tensor, k: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6):

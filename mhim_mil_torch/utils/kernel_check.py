@@ -115,7 +115,7 @@ def check_nystrom_vjp(small: bool) -> dict:
         return torch.autograd.grad((out * co.to(dtype)).sum() + (attn * ca.to(dtype)).sum(), (qq, kk, vv))
 
     def counts():
-        return (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls, fn.pass_a_backward.launches,
+        return (fn.flash_nystrom.forward_calls, fn.flash_nystrom.backward_calls, fn.pass_a_backward.launches,
                 fn.pass_b_backward.launches)
 
     before = counts()

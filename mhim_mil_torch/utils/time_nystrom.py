@@ -1,21 +1,21 @@
 """K1's, K2's and K3's times on the card at the flagship's shapes.
 
-``python -m mhim_mil_torch.utils.time_nystrom [--repeats 3] [--batches 4,1] [--dhs 64] [--k3]``
+``python -m mhim_mil_torch.utils.time_nystrom [--repeats 3] [--batches 4,1]``
 
 Times ``pass_a`` (K1) and ``pass_b`` (K2) of ``ops/flash_nystrom.py`` at
 N 10,241 (the cls token and a 10,240-instance bag), 256 landmarks, fp32,
-every token valid, at each batch size of ``--batches`` and each head dim of
-``--dhs`` with 512 / dh heads (the flagship's inner width: 8 heads of 64),
-with the operands of :func:`operands` (which ``chip_smoke.py`` uses too).
-With ``--k3``, also ``flash_nystrom`` (K3) forward + backward at the
-student's shape (B 4, H 8, N 1,027, valid 1,027 / 943 / 717 / 846, dh 64,
-m 256) under random cotangents, with attn's cotangent and without it (the
-student's case). Per case: the median of 20 CUDA-event timings of one call
-after 3 warm-ups, and the profiler's kernel time per call (mean of 10),
-``--repeats`` times in turn; the card's name and power limit first. It
-calls only the wrappers and the glue that every tree of the port has had,
-so a copy of this file in another checkout times that checkout's kernels on
-the same operands (same seed). Needs a CUDA card.
+every token valid, at each batch size of ``--batches`` and at head dims 64
+and 128 with 512 / dh heads (the flagship's inner width: 8 heads of 64),
+with the operands of :func:`operands` (which ``chip_smoke.py`` uses too);
+then ``flash_nystrom`` (K3) forward + backward at the student's shape (B 4,
+H 8, N 1,027, valid 1,027 / 943 / 717 / 846, dh 64, m 256) under random
+cotangents, with attn's cotangent and without it (the student's case). Per
+case: the median of 20 CUDA-event timings of one call after 3 warm-ups, and
+the profiler's kernel time per call (mean of 10), ``--repeats`` times in
+turn; the card's name and power limit first. It calls only the wrappers
+and the glue that every tree of the port has had, so a copy of this file in
+another checkout times that checkout's kernels on the same operands (same
+seed). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from ..ops import flash_nystrom as fn
 from .time_scan2d import event_ms, kernel_ms
 
 N, M, INNER = 10241, 256, 512
+DHS = (64, 128)
 
 
 def operands(b, h, n, dh, m, lengths, gen):
@@ -72,8 +73,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--batches", default="4,1", help="comma-separated batch sizes")
-    ap.add_argument("--dhs", default="64", help="comma-separated head dims, each at 512 / dh heads")
-    ap.add_argument("--k3", action="store_true", help="also K3 forward + backward at the student's shape")
     args = ap.parse_args(argv)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
@@ -81,16 +80,15 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
-    for dh in (int(x) for x in args.dhs.split(",")):
+    for dh in DHS:
         h = INNER // dh
         for b in (int(x) for x in args.batches.split(",")):
             a_args, b_args = pass_args(operands(b, h, N, dh, M, torch.full((b,), N, device="cuda"), gen))
             shape = f"[{b}, {h}, {N}, {dh}] m {M}"
             cases += [(f"K1 {shape}", lambda a=a_args: fn.pass_a(*a)),
                       (f"K2 {shape}", lambda a=b_args: fn.pass_b(*a))]
-    if args.k3:
-        cases += [(f"K3 forward+backward [4, 8, 1027, 64] m {M}, attn {'used' if u else 'unused'}", k3_case(gen, u))
-                  for u in (True, False)]
+    cases += [(f"K3 forward+backward [4, 8, 1027, 64] m {M}, attn {'used' if u else 'unused'}", k3_case(gen, u))
+              for u in (True, False)]
     for rep in range(args.repeats):
         for name, call in cases:
             print(f"{name} fp32 repeat {rep}: {event_ms(call):.4f} ms (kernel {kernel_ms(call):.4f} ms)",

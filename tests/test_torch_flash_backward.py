@@ -106,13 +106,13 @@ def _vjp_jax(q, k, v, mask, co, ca, m):
 
 def _vjp_port(q, k, v, mask, co, ca, m):
     qt, kt, vt = (_t(t).requires_grad_() for t in (q, k, v))
-    calls = fn.FlashNystrom.backward_calls
+    calls = fn.flash_nystrom.backward_calls
     out, attn = fn.flash_nystrom(qt, kt, vt, _t(mask), m)
     total = (out * _t(co)).sum()
     if ca is not None:
         total = total + (attn * _t(ca)).sum()
     total.backward()
-    assert fn.FlashNystrom.backward_calls == calls + 1
+    assert fn.flash_nystrom.backward_calls == calls + 1
     return [x.detach().numpy() for x in (out, attn, qt.grad, kt.grad, vt.grad)]
 
 
@@ -123,8 +123,8 @@ def _vjp_port(q, k, v, mask, co, ca, m):
     (2, 96, 32, 16, (96, 40), True),  # m 16, bag 1 leaves landmark groups empty
 ])
 def test_flash_nystrom_vjp_matches_jax_interpret(b, n, dh, m, lengths, use_attn):
-    """K3 on the CPU (the kernels' plain versions forward, recompute
-    backward) against JAX's custom-VJP flash_nystrom with its Pallas kernels
+    """K3 on the CPU (the plain versions of K1 and K2 forward, of K1b and
+    K2b backward) against JAX's custom-VJP flash_nystrom with its Pallas kernels
     in interpreter mode: out, attn and the q/k/v gradients under random
     cotangents (attn's left out where unused), rtol 1e-4, atol 1e-5."""
     g = np.random.default_rng(n + dh)

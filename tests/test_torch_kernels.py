@@ -244,11 +244,10 @@ def test_abmil_pool_matches_its_plain_version_on_the_card(hopper, b, n, d, dtype
 def test_flash_nystrom_gradients_on_the_card(hopper):
     """K3 (forward K1 + K2, backward K2b, the glue's autograd and K1b)
     against autograd through the plain nystrom_attention, at a student-like
-    ragged shape: out and attn at rtol 1e-4 atol 1e-5 against the fp32
-    plain path, the q/k/v gradients by kernel_check's VJP criterion against
-    the plain path in fp64 (until the backward ran kernels it was the fp32
-    plain path at rtol 1e-4 atol 1e-5, which the fp64 gradient itself
-    misses at larger gradients); K1b and K2b launched once each."""
+    ragged shape: out, attn and the q/k/v gradients at rtol 1e-4 atol 1e-5
+    against the fp32 plain path; besides, the gradients of K3 and of the
+    fp32 plain path each by kernel_check's VJP criterion against the plain
+    path in fp64. K1b and K2b launched once each."""
     gen = torch.Generator(device=hopper).manual_seed(2)
     b, h, n, dh, m = 2, 4, 300, 64, 32
     q, k, v = (torch.randn(b, h, n, dh, device=hopper, generator=gen) for _ in range(3))
@@ -263,17 +262,18 @@ def test_flash_nystrom_gradients_on_the_card(hopper):
         ((out * co.to(dtype)).sum() + (attn * ca.to(dtype)).sum()).backward()
         return out.detach(), attn.detach(), qq.grad, kk.grad, vv.grad
 
-    calls = (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls, fn.pass_a_backward.launches,
+    calls = (fn.flash_nystrom.forward_calls, fn.flash_nystrom.backward_calls, fn.pass_a_backward.launches,
              fn.pass_b_backward.launches)
     got = run(lambda *t: fn.flash_nystrom(*t, mask, m))
-    assert (fn.FlashNystrom.forward_calls, fn.FlashNystrom.backward_calls, fn.pass_a_backward.launches,
+    assert (fn.flash_nystrom.forward_calls, fn.flash_nystrom.backward_calls, fn.pass_a_backward.launches,
             fn.pass_b_backward.launches) == tuple(c + 1 for c in calls)
     plain = lambda *t: nystrom_attention(*t, mask, m, return_attn=True)
     want = run(plain)
-    for g, w in zip(got[:2], want[:2]):
+    for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
-    for g, w in zip(got[2:], run(plain, torch.float64)[2:]):
-        assert vjp_close(g, w)["ok"], vjp_close(g, w)
+    for g, g32, w in zip(got[2:], want[2:], run(plain, torch.float64)[2:]):
+        for x in (g, g32):
+            assert vjp_close(x, w)["ok"], vjp_close(x, w)
 
 
 @pytest.mark.cuda
