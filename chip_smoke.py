@@ -23,8 +23,9 @@ its eval step and its scorer. Phases, each of which fails the run:
    K2's and K1's passes that K3's backward launches, against their plain
    versions at the student's shape, timed with their bounds beside the
    backward of ``scaled_dot_product_attention``; K5 against its plain
-   version at the BLCA grid, the serving raster grid and a ragged 5 × 11
-   grid (and rows of 1,500, 2,100 and 4,200 columns), and K6 against
+   version at the BLCA grid and the serving raster grid in fp32 and bf16, a
+   ragged 5 × 11 grid and a segment edge of the cluster layout (and rows of
+   1,500, 2,100 and 4,200 columns), and K6 against
    ``x + 1``, with times, bounds and library yardsticks; the shapes the
    kernels are not built for: K1/K2 at head dims 96, 128, 192 and 256
    (timed at 128 and 256), K1b/K2b at 256, K4 at 1,536 columns, K5 at 32
@@ -47,9 +48,10 @@ its eval step and its scorer. Phases, each of which fails the run:
    and evaluating through K5.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
-on rows wider than 1,024 columns. Phases 4-8 each reset the launch counts
-before their main-path runs and read them after; the kernels' launches are
-the sums of those readings, plus the K6 launches of the gate's probe.
+on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
+columns). Phases 4-8 each reset the launch counts before their main-path
+runs and read them after; the kernels' launches are the sums of those
+readings, plus the K6 launches of the gate's probe.
 
 The line before the last lists the kernels as JSON; the last line is the
 run's JSON verdict. Any failure exits nonzero before it.
@@ -658,34 +660,43 @@ def k5_bounds(x, a_log):
 
 def phase_k5(gen) -> dict:
     """K5 against scan2d_plain at rtol 1e-4 atol 1e-5 (the JAX package's
-    ``pallas_hw_check.py:159``) on the BLCA grid at batch 1, the serving
-    raster grid at batch 4 and a ragged 5 × 11 grid; timed at the first two,
-    the plain version at BLCA only."""
+    ``pallas_hw_check.py:159``) on the BLCA grid at batch 1 in fp32 and bf16,
+    the serving raster grid at batch 4 in fp32 and bf16, a ragged 5 × 11 grid
+    and a row one column short of the BLCA layout's 8 × 48 columns (the last
+    block's last run one column short); timed at the BLCA and serving grids,
+    the plain version at BLCA fp32 only."""
     from mhim_mil_torch.ops import scan2d
     from mhim_mil_torch.utils.time_scan2d import operands
 
     r = {"max_abs_err": 0.0}
-    for label, bs, h, w in (("BLCA", 1, 275, 381), ("serving", 4, 101, 102), ("ragged", 1, 5, 11)):
-        ops = operands(bs, h, w, torch.float32, gen)
+    grids = (("BLCA", 1, 275, 381, torch.float32), ("BLCA bf16", 1, 275, 381, torch.bfloat16),
+             ("serving", 4, 101, 102, torch.float32), ("serving bf16", 4, 101, 102, torch.bfloat16),
+             ("ragged", 1, 5, 11, torch.float32), ("segment edge", 1, 16, 383, torch.float32))
+    for label, bs, h, w, dtype in grids:
+        ops = operands(bs, h, w, dtype, gen)
         got = scan2d.selective_scan_2d_fused(*ops)
         torch.cuda.synchronize()
         want = scan2d.scan2d_plain(*ops)
         err = check_close(f"K5 [{label}]", got, want, 1e-4, 1e-5)
         r["max_abs_err"] = max(r["max_abs_err"], err)
         bound_ms, bound_by, parts = k5_bounds(ops[0], ops[2])
-        log(f"K5 [{label}] Bs={bs} H={h} W={w} ED=256 N=16 fp32: max|d| {err:.3e} (rtol 1e-4, atol 1e-5); "
+        plan = scan2d.scan_plan(w, 16, ops[0].element_size())
+        log(f"K5 [{label}] Bs={bs} H={h} W={w} ED=256 N=16 {str(dtype).split('.')[-1]}: max|d| {err:.3e} "
+            f"(rtol 1e-4, atol 1e-5); layout G {plan.group}, S {plan.cluster}, P {plan.runs}, R {plan.run}; "
             f"bound {bound_ms:.4f} ms ({bound_by}: bytes {parts['bytes']:.4f}, exponentials "
             f"{parts['exp']:.4f}, fp32 FLOPs {parts['fma']:.4f} ms)")
         kern = lambda: scan2d.selective_scan_2d_fused(*ops)
-        if label == "serving":
-            r_s = {}
-            timed(r_s, kern, None)
-            log(f"K5 [{label}]: kernel {fmt_ms(r_s, '')}, bound {bound_ms:.4f} ms ({bound_by})")
-        elif label == "BLCA":
+        if label == "BLCA":
             timed(r, kern, lambda: scan2d.scan2d_plain(*ops), plain_iters=4)
             r.update(bound_ms=bound_ms, bound_by=bound_by)
             log(f"K5 [{label}]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, bound {bound_ms:.4f} ms "
                 f"({bound_by}); no library call computes a 2D selective scan")
+        elif label in ("BLCA bf16", "serving", "serving bf16"):
+            r_s = {}
+            timed(r_s, kern, None)
+            key = label.replace("BLCA ", "").replace(" ", "_")
+            r[key] = {"ms": r_s["ms"], "device_ms": r_s["device_ms"], "bound_ms": bound_ms, "bound_by": bound_by}
+            log(f"K5 [{label}]: kernel {fmt_ms(r_s, '')}, bound {bound_ms:.4f} ms ({bound_by})")
         del ops, got, want
         torch.cuda.empty_cache()
     # 32 states on the BLCA grid: two launches of 16 states each, one call
@@ -704,8 +715,9 @@ def phase_k5(gen) -> dict:
         f"kernel {fmt_ms(r_32, '')}, bound {bound_ms:.4f} ms ({bound_by})")
     del ops, got
     torch.cuda.empty_cache()
-    # rows wider than 1,024 columns: h beyond the register chunks in shared
-    # memory (1,500, 2,100) or in the wrapper's global scratch (4,200)
+    # rows wider than a cluster holds, on the wide kernel: h beyond the
+    # register chunks in shared memory (1,500, 2,100) or in the wrapper's
+    # global scratch (4,200)
     for w in (1500, 2100, 4200):
         ops = operands(1, 64, w, torch.float32, gen)
         got = scan2d.selective_scan_2d_fused(*ops)
@@ -1170,7 +1182,8 @@ def main():
         "K1b": ("flash_nystrom_pass_a_bwd (stats_kernel + key_kernel + landmark_kernel), K3's backward of "
                 "K1's pass", "mhim_mil_torch/csrc/flash_nystrom_k1b.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:280"),
         "K4": ("abmil_pool", "mhim_mil_torch/csrc/abmil_pool.cu", "mhim_mil_tpu/ops/pallas_abmil.py:42"),
-        "K5": ("scan2d", "mhim_mil_torch/csrc/scan2d.cu", "mhim_mil_tpu/ops/pallas_scan2d.py:56"),
+        "K5": ("scan2d (scan2d_cluster_kernel; scan2d_wide_kernel above 1,152 columns)",
+               "mhim_mil_torch/csrc/scan2d.cu", "mhim_mil_tpu/ops/pallas_scan2d.py:56"),
         "K6": ("probe", "mhim_mil_torch/csrc/probe.cu", "mhim_mil_tpu/utils/pallas_gate.py:37"),
     }
     kernels = []
@@ -1185,7 +1198,8 @@ def main():
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "plain_device_ms": r["plain_device_ms"], "library_device_ms": r["library_device_ms"],
         }
-        for key in ("bound_parts_ms", "batch1", "dh128", "dh256", "dh192", "no_attn", "cls", "s3", "library"):
+        for key in ("bound_parts_ms", "batch1", "dh128", "dh256", "dh192", "no_attn", "cls", "s3", "library", "bf16",
+                    "serving", "serving_bf16"):
             if key in r:
                 row[key] = r[key]
         if kid == "K3":

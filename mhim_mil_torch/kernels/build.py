@@ -109,6 +109,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "scan2d": {
         "scan2d_scratch": [I32, I32],  # W, N
+        "scan2d_resident": [I32, I32, I32, I32, I32],  # bf16, N, G, S, P
         "scan2d": [
             P, P,  # x, delta
             P, I64, P, I64,  # B, C and their cell strides
@@ -117,6 +118,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             P,  # y
             P,  # scratch for the h of wide rows, or null
             I32, I32, I32, I32, I32,  # Bs, H, W, ED, N
+            I32, I32, I32,  # the plan: G, S, P (S = 0: the wide kernel)
             P,  # stream
         ],
     },

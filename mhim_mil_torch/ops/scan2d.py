@@ -9,9 +9,18 @@ tensors and runs :func:`scan2d_plain` on CPU tensors;
 kernel is built for state sizes 2, 4, 8 and 16; :func:`state_groups` takes
 any other. No gradient: the training path keeps the differentiable plain
 scan, as in the JAX package.
+
+:func:`scan_plan` lays the cluster kernel out: blocks of G channels, each
+thread walking a run of 3 columns with all N states, a row split across a
+cluster of S ≤ 8 blocks of at most 128 threads. Rows wider than such a
+cluster holds (more than 768 columns) take the wide kernel, one block per
+(bag, channel) and one thread per column, whose h beyond 1,024 columns
+lives in shared memory or in a scratch buffer allocated here.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +31,11 @@ from .scan import selective_scan_2d
 
 Tensor = torch.Tensor
 STATES = (2, 4, 8, 16)  # the state sizes the kernel is built for
+RUN = 3  # R: columns a cluster-kernel thread walks, its h[R][N] in registers
+MAX_BLOCK = 128  # threads of a cluster block (168 registers each, three blocks an SM)
+MAX_CLUSTER = 8  # blocks of a cluster: the portable size
+SECTOR = 32  # bytes of one cell's G channels of x or Δ that a warp reads whole
+GROUPS = (16, 8, 4)  # the channel groups G the kernel is built for (16 with bf16 only)
 
 
 def scan2d_plain(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Tensor) -> Tensor:
@@ -52,6 +66,60 @@ def state_groups(call, x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Te
     return y
 
 
+@dataclass(frozen=True)
+class ScanPlan:
+    """The cluster kernel's layout: ``group`` channels a block (G),
+    ``cluster`` blocks a row (S), ``runs`` runs of ``run`` consecutive
+    columns for each channel of a block (P and R). Thread (j, g) walks
+    columns ``seg·P·R + j·R + k``, k < R, of channel ``g``."""
+
+    group: int
+    cluster: int
+    runs: int
+    run: int = RUN
+
+    @property
+    def threads(self) -> int:
+        return self.group * self.runs
+
+    @property
+    def columns(self) -> int:
+        """Columns of one block: its segment of the row."""
+        return self.runs * self.run
+
+    def blocks(self, bs: int, ed: int) -> int:
+        return bs * -(-ed // self.group) * self.cluster
+
+
+def scan_plan(w: int, n: int, itemsize: int) -> ScanPlan | None:
+    """The cluster kernel's layout for rows ``w`` columns wide, state size
+    ``n`` (one of :data:`STATES`) and inputs of ``itemsize`` bytes, or None
+    when the row is wider than a cluster holds (more than 768 columns: the
+    wide kernel takes it).
+
+    A thread walks R = 3 columns with all N states, so a row is ⌈w/3⌉ runs a
+    channel. A block has at most 128 threads (G·P) of 168 registers, so that
+    three fit an SM and an H100 holds 45 clusters of 8 at once. G is
+    the largest of :data:`GROUPS`, up to 32 / itemsize (one 32-byte sector
+    of a cell: 8 fp32, 16 bf16 channels), whose blocks of 128 / G runs cover
+    the row in at most 8 blocks: 8 fp32 (16 bf16) channels up to 384 (192)
+    columns, then 8 and 4 channels up to 384 and 768. S is then the fewest
+    blocks of a whole number of warps that cover the row, so no block is
+    empty."""
+    if n not in STATES:
+        raise ValueError(f"state size {n}: the kernel is built for {STATES}")
+    runs = -(-w // RUN)
+    for group in GROUPS:
+        if group * itemsize > SECTOR:
+            continue
+        cluster = -(-runs // (MAX_BLOCK // group))
+        if cluster <= MAX_CLUSTER:
+            step = 32 // group  # runs of one warp
+            per = -(-(-(-runs // cluster)) // step) * step
+            return ScanPlan(group, -(-runs // per), per)
+    return None
+
+
 def _cell_stride(t: Tensor, h: int, w: int):
     """``t[Bs, H, W, N]`` and the stride between its cells: a view whose
     cells are evenly spaced (a slice of a wider last axis) is kept, any
@@ -69,8 +137,9 @@ def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, 
     (post-softplus) ``[Bs, H, W, ED]``, ``A_log`` ``[ED, N]``, ``B``, ``C``
     ``[Bs, H, W, N]``, ``D`` ``[ED]``. ``x``, ``delta``, ``B`` and ``C`` are
     all fp32 or all bf16 (read in that type, computed in fp32). Returns fp32
-    ``y[Bs, H, W, ED]`` with ``D·x`` added. Any grid: rows wider than
-    1,024 columns keep the h of their columns beyond the first 1,024 in
+    ``y[Bs, H, W, ED]`` with ``D·x`` added. Any grid: rows up to what a
+    cluster holds (:func:`scan_plan`) take the cluster kernel; wider rows the
+    wide kernel, which keeps the h of columns beyond the first 1,024 in
     shared memory, or in a scratch buffer allocated here where that does not
     fit (about 4,000 columns at N = 16). Any state size N ≥ 1
     (:func:`state_groups`: one launch for N ≤ 16, ⌈N/16⌉ above)."""
@@ -87,19 +156,25 @@ def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, 
     return y
 
 
-def _launch(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Tensor) -> Tensor:
+def _launch(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Tensor,
+            plan: ScanPlan | None = None) -> Tensor:
+    """One launch at a built state size; ``plan`` overrides :func:`scan_plan`
+    (a layout the caller chooses; the kernel refuses one it does not take)."""
     bs, h, w, ed = x.shape
     n = A_log.shape[-1]
     dev, dtype = x.device, x.dtype
     if w < 1 or h < 1:
         raise ValueError(f"grid {h} x {w}: the kernel takes H, W >= 1")
+    plan = plan or scan_plan(w, n, x.element_size())
     lib = load_library("scan2d")
-    with torch.cuda.device(dev):
-        per_block = lib.scan2d_scratch(w, n)
-    if per_block < 0:
-        raise RuntimeError(f"scan2d_scratch({w}, {n}) failed")
-    # rows wider than 1,024 columns whose h does not fit a block's shared memory
-    scratch = torch.empty(bs * ed * per_block, device=dev, dtype=torch.float32) if per_block else None
+    scratch = None
+    if plan is None:  # the wide kernel
+        with torch.cuda.device(dev):
+            per_block = lib.scan2d_scratch(w, n)
+        if per_block < 0:
+            raise RuntimeError(f"scan2d_scratch({w}, {n}) failed")
+        # rows whose h beyond 1,024 columns does not fit a block's shared memory
+        scratch = torch.empty(bs * ed * per_block, device=dev, dtype=torch.float32) if per_block else None
     B, b_cs = _cell_stride(B, h, w)
     C, c_cs = _cell_stride(C, h, w)
     A_log = A_log.detach().float().contiguous()
@@ -111,12 +186,13 @@ def _launch(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Te
     check("A_log", A_log, (ed, n), dev)
     check("D", D, (ed,), dev)
     y = torch.empty((bs, h, w, ed), device=dev, dtype=torch.float32)
+    g, s, p = (plan.group, plan.cluster, plan.runs) if plan else (0, 0, 0)
     with torch.cuda.device(dev):
         err = lib.scan2d(
             x.data_ptr(), delta.data_ptr(), B.data_ptr(), b_cs, C.data_ptr(), c_cs,
             int(dtype == torch.bfloat16), A_log.data_ptr(), D.data_ptr(), y.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            bs, h, w, ed, n, torch.cuda.current_stream(dev).cuda_stream,
+            bs, h, w, ed, n, g, s, p, torch.cuda.current_stream(dev).cuda_stream,
         )
     raise_on(err, "scan2d")
     return y

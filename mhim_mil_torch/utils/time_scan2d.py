@@ -4,11 +4,16 @@
 
 Times ``selective_scan_2d_fused`` at the BLCA grid ``[1, 275, 381, 256]``
 and the serving raster grid ``[4, 101, 102, 256]``, N 16, fp32 and bf16
-inputs, with the operands of :func:`operands` (which ``chip_smoke.py``
-uses too). Per shape: the median of 20 CUDA-event timings of one call
-after 3 warm-ups, and the profiler's kernel time per call (mean of 10),
-``--repeats`` times in turn; the card's name and power limit first. Needs
-a CUDA card.
+inputs; at the BLCA grid with N 32 (two launches of 16 states); and on
+rows of 1,500, 2,100 and 4,200 columns (``[1, 64, W, 256]``, N 16, fp32),
+with the operands of :func:`operands` (which ``chip_smoke.py`` uses too).
+Per shape: the median of 20 CUDA-event timings of one call after 3
+warm-ups, and the profiler's kernel time per call (mean of 10),
+``--repeats`` times in turn; the card's name and power limit first, and
+each shape's cluster layout (``ops/scan2d.scan_plan``) with the clusters
+the card holds at once. Needs a CUDA card. The
+script runs in a checkout of an earlier tree too (copied there), timing
+that tree's kernel, so that two trees can be timed in turns in one call.
 """
 
 from __future__ import annotations
@@ -20,9 +25,12 @@ import subprocess
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..kernels import load_library
+from ..ops import scan2d
 from ..ops.scan2d import selective_scan_2d_fused
 
 SHAPES = {"BLCA": (1, 275, 381), "serving": (4, 101, 102)}
+WIDE = (1500, 2100, 4200)  # columns of the wide rows, 64 of them
 ED, N = 256, 16
 
 
@@ -65,6 +73,24 @@ def kernel_ms(fn, iters=10):
     return us / iters / 1e3
 
 
+def layout(ops) -> str:
+    """The shape's cluster layout and the clusters the card holds at once,
+    where this tree's K5 has a plan."""
+    plan_fn = getattr(scan2d, "scan_plan", None)
+    if plan_fn is None:
+        return "layout: this tree has no cluster plan"
+    x, a_log = ops[0], ops[2]
+    plan = plan_fn(x.shape[2], min(a_log.shape[-1], 16), x.element_size())
+    if plan is None:
+        return "layout: the wide kernel"
+    lib = load_library("scan2d")
+    held = lib.scan2d_resident(int(x.dtype == torch.bfloat16), min(a_log.shape[-1], 16), plan.group,
+                               plan.cluster, plan.runs)
+    return (f"layout: G {plan.group}, S {plan.cluster}, P {plan.runs}, R {plan.run}: {plan.threads} threads, "
+            f"{plan.blocks(x.shape[0], x.shape[-1])} blocks; the card holds {held} clusters "
+            f"({held * plan.cluster} blocks) at once")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repeats", type=int, default=3)
@@ -72,12 +98,16 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [(name, dtype, operands(*shape, dtype, gen)) for name, shape in SHAPES.items()
-             for dtype in (torch.float32, torch.bfloat16)]
+    cases = [(name, n, operands(*shape, dtype, gen, n)) for name, shape in SHAPES.items()
+             for dtype in (torch.float32, torch.bfloat16) for n in ((N, 32) if name == "BLCA" else (N,))
+             if n == N or dtype == torch.float32]
+    cases += [(f"wide {w}", N, operands(1, 64, w, torch.float32, gen)) for w in WIDE]
+    for name, n, ops in cases:
+        print(f"K5 {name} {tuple(ops[0].shape)} N {n} {str(ops[0].dtype).split('.')[-1]}: {layout(ops)}", flush=True)
     for rep in range(args.repeats):
-        for name, dtype, ops in cases:
+        for name, n, ops in cases:
             fn = lambda: selective_scan_2d_fused(*ops)
-            print(f"K5 {name} {tuple(ops[0].shape)} {str(dtype).split('.')[-1]} repeat {rep}: "
+            print(f"K5 {name} {tuple(ops[0].shape)} N {n} {str(ops[0].dtype).split('.')[-1]} repeat {rep}: "
                   f"{event_ms(fn):.4f} ms (kernel {kernel_ms(fn):.4f} ms)", flush=True)
 
 

@@ -401,6 +401,77 @@ def test_scan2d_refuses_grad_and_wide_rows(hopper):
                                                         wide[..., 4:8], D), rtol=RTOL, atol=ATOL)
 
 
+def _scan_operands(dev, seed, bs, h, w, ed, n, dtype):
+    """K5's operands as the card tests draw them: Δ = 0.1·softplus(normal),
+    A_log = log(1..N) plus a channel term, B and C at offsets 3 and 3 + N of
+    one ``[.., 3 + 2N]`` projection (not 16-byte aligned)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(bs, h, w, ed, device=dev, generator=gen).to(dtype)
+    delta = (0.1 * torch.nn.functional.softplus(torch.randn(bs, h, w, ed, device=dev, generator=gen))).to(dtype)
+    bc = torch.randn(bs, h, w, 3 + 2 * n, device=dev, generator=gen).to(dtype)
+    a_log = (torch.log(torch.arange(1, n + 1, device=dev, dtype=torch.float32))
+             + 0.01 * torch.arange(ed, device=dev, dtype=torch.float32)[:, None])
+    D = torch.randn(ed, device=dev, generator=gen)
+    return x, delta, a_log, bc[..., 3:3 + n], bc[..., 3 + n:], D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,h,w,ed,n,dtype", [
+    (1, 4, 383, 8, 16, torch.float32),  # the BLCA layout (S 8 x 16 runs of 3): one column short
+    (1, 4, 384, 8, 16, torch.float32),  # exactly S·P·R
+    (1, 4, 385, 8, 16, torch.float32),  # one past: 4 channels a block, 5 blocks of 32 runs
+    (1, 3, 119, 16, 16, torch.bfloat16),  # the bf16 serving layout (S 5 x 8 runs of 3): one short
+    (1, 3, 120, 16, 16, torch.bfloat16),
+    (1, 3, 121, 16, 16, torch.bfloat16),
+    (3, 5, 50, 12, 16, torch.float32),  # ED not a multiple of G; Bs 3
+    (3, 5, 50, 20, 16, torch.bfloat16),
+    (2, 6, 200, 16, 2, torch.float32),  # N 2, 4, 8
+    (2, 6, 200, 16, 4, torch.bfloat16),
+    (2, 6, 200, 16, 8, torch.float32),
+    (1, 3, 700, 16, 16, torch.bfloat16),  # 4 channels a block
+    (1, 3, 768, 6, 16, torch.float32),  # the widest row a cluster holds
+    (1, 3, 769, 8, 16, torch.float32),  # one past: the wide kernel
+])
+def test_scan2d_cluster_layouts_match_the_plain_version(hopper, bs, h, w, ed, n, dtype):
+    """The cluster kernel against scan2d_plain, rtol 1e-4 atol 1e-5, at the
+    edges of its layouts (``scan_plan``): a row one column short of, exactly
+    at and one past S·P·R columns, ED not a multiple of G, Bs 3, state sizes
+    2 to 16, fp32 and bf16, B and C at an unaligned offset; and at the
+    widest row it holds and the first it does not."""
+    plan = scan2d.scan_plan(w, n, torch.empty((), dtype=dtype).element_size())
+    assert (plan is None) == (w == 769)
+    ops = _scan_operands(hopper, w + n, bs, h, w, ed, n, dtype)
+    before = scan2d.selective_scan_2d_fused.launches
+    got = scan2d.selective_scan_2d_fused(*ops)
+    torch.cuda.synchronize()
+    assert scan2d.selective_scan_2d_fused.launches == before + 1
+    torch.testing.assert_close(got, scan2d.scan2d_plain(*ops), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,h,w,dtype", [(1, 275, 381, torch.float32), (4, 101, 102, torch.bfloat16)])
+def test_scan2d_is_deterministic(hopper, bs, h, w, dtype):
+    """Two launches of K5 at the BLCA grid (fp32) and the serving grid (bf16),
+    ED 256, N 16, give y equal to the bit."""
+    ops = _scan_operands(hopper, 11, bs, h, w, 256, 16, dtype)
+    first = scan2d.selective_scan_2d_fused(*ops)
+    second = scan2d.selective_scan_2d_fused(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_scan2d_refuses_a_bad_layout(hopper):
+    """A layout the kernel does not take (a cluster of 9 blocks, a block of
+    more than 128 threads, a block left empty, a group it is not built for)
+    raises at launch; nothing falls back."""
+    ops = _scan_operands(hopper, 12, 1, 2, 381, 16, 16, torch.float32)
+    for plan in (scan2d.ScanPlan(8, 9, 16), scan2d.ScanPlan(8, 1, 128), scan2d.ScanPlan(8, 8, 20),
+                 scan2d.ScanPlan(16, 8, 16)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            scan2d._launch(*ops, plan=plan)
+
+
 @pytest.mark.cuda
 def test_probe_matches_its_plain_version_on_the_card(hopper):
     """K6 against probe_plain, exactly: on the gate's ones(8, 128) and on
