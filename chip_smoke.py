@@ -24,8 +24,8 @@ its eval step and its scorer. Phases, each of which fails the run:
    versions at the student's shape, timed with their bounds beside the
    backward of ``scaled_dot_product_attention``; K5 against its plain
    version at the BLCA grid and the serving raster grid in fp32 and bf16, a
-   ragged 5 × 11 grid and a segment edge of the cluster layout (and rows of
-   1,500, 2,100 and 4,200 columns), and K6 against
+   ragged 5 × 11 grid, a segment edge of the cluster layout and a row of
+   1,000 columns (and rows of 1,500, 2,100 and 4,200 columns), and K6 against
    ``x + 1``, with times, bounds and library yardsticks; the shapes the
    kernels are not built for: K1/K2 at head dims 96, 128, 192 and 256
    (timed at 128 and 256), K1b/K2b at 256, K4 at 1,536 columns, K5 at 32
@@ -108,10 +108,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn, iters: int = 10):
     """Device time of one call of ``fn``: the summed durations of the kernels
-    and copies it puts on the card (``torch.profiler``), mean of ``iters``
+    and copies it puts on the card (``torch.profiler``), over ``iters``
     calls after a warm-up. Unlike :func:`time_ms` it leaves out the gaps in
-    which the card waits for the host to launch the next kernel. None when
-    the profiler sees no device activity."""
+    which the card waits for the host to launch the next kernel. The
+    profiler now and then returns fewer records than there were launches
+    (a count short of a multiple of ``iters``), so each kernel counts its
+    mean record times its launches a call, ``round(count / iters)``; a
+    shortfall is logged. None when the profiler sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -120,9 +123,14 @@ def device_ms(fn, iters: int = 10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
-    return us / iters / 1e3 if us > 0 else None
+    kernels = [e for e in prof.key_averages() if e.count and e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    per_call = [max(1, round(e.count / iters)) for e in kernels]
+    us = sum(e.self_device_time_total / e.count * k for e, k in zip(kernels, per_call))
+    seen, want = sum(e.count for e in kernels), iters * sum(per_call)
+    if seen < want:
+        log(f"  (the profiler returned {seen} of {want} kernel records; device time from each kernel's mean record)")
+    return us / 1e3 if us > 0 else None
 
 
 def timed(r: dict, kern, plain, lib=None, plain_iters: int = 20):
@@ -662,8 +670,9 @@ def phase_k5(gen) -> dict:
     """K5 against scan2d_plain at rtol 1e-4 atol 1e-5 (the JAX package's
     ``pallas_hw_check.py:159``) on the BLCA grid at batch 1 in fp32 and bf16,
     the serving raster grid at batch 4 in fp32 and bf16, a ragged 5 × 11 grid
-    and a row one column short of the BLCA layout's 8 × 48 columns (the last
-    block's last run one column short); timed at the BLCA and serving grids,
+    a row one column short of the BLCA layout's 8 × 48 columns (the last
+    block's last run one column short) and a row of 1,000 columns in bf16
+    (4-channel blocks of 192 threads); timed at the BLCA and serving grids,
     the plain version at BLCA fp32 only."""
     from mhim_mil_torch.ops import scan2d
     from mhim_mil_torch.utils.time_scan2d import operands
@@ -671,7 +680,8 @@ def phase_k5(gen) -> dict:
     r = {"max_abs_err": 0.0}
     grids = (("BLCA", 1, 275, 381, torch.float32), ("BLCA bf16", 1, 275, 381, torch.bfloat16),
              ("serving", 4, 101, 102, torch.float32), ("serving bf16", 4, 101, 102, torch.bfloat16),
-             ("ragged", 1, 5, 11, torch.float32), ("segment edge", 1, 16, 383, torch.float32))
+             ("ragged", 1, 5, 11, torch.float32), ("segment edge", 1, 16, 383, torch.float32),
+             ("1,000 columns", 1, 16, 1000, torch.bfloat16))
     for label, bs, h, w, dtype in grids:
         ops = operands(bs, h, w, dtype, gen)
         got = scan2d.selective_scan_2d_fused(*ops)

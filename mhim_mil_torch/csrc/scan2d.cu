@@ -30,7 +30,9 @@
 // most 128 threads, held to 168 registers, so that three fit an SM and the
 // BLCA grid's 32 clusters of 8 are resident at once (at two an SM the GPCs
 // hold 30); wider rows take fewer channels a block (8, then 4) rather than
-// more threads. A row:
+// more threads, and only past 768 columns do 4-channel blocks take up to
+// 192 threads (two an SM at the same 168 registers), for rows up to 1,152
+// columns. A row:
 //   1. pass 1: each run's aggregate (Πā, its scan of b̄x from zero) per
 //      state, into shared memory;
 //   2. one lane per (channel, state) scans the block's P run aggregates in
@@ -50,8 +52,8 @@
 // deterministic. The layout (G, S, P) comes from the caller
 // (`ops/scan2d.scan_plan`).
 //
-// Rows wider than a cluster of 8 blocks of at most MAX_BLOCK threads holds
-// (more than 768 columns) take scan2d_wide_kernel: one block per
+// Rows wider than a cluster of 8 blocks holds (more than 1,152 columns)
+// take scan2d_wide_kernel: one block per
 // (bag, channel), one thread per column of 512-column chunks, each thread
 // walking ceil(W / 512) columns, the first MAX_CHUNKS with h in registers
 // and the rest with h in dynamic shared memory where it fits the block,
@@ -78,9 +80,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int RUN = 3;  // R: the columns a thread walks; its h[R][N] stays in registers
-constexpr int MAX_BLOCK = 128;  // threads of a cluster block
-constexpr int MIN_BLOCKS = 3;  // cluster blocks an SM: 168 registers a thread, so that a wave holds
-                               // 45 clusters of 8 (at two an SM, the GPCs hold 30)
+// Threads of a cluster block: at most 128, three an SM at 168 registers a
+// thread, so that a wave holds 45 clusters of 8 (at two an SM, the GPCs hold
+// 30); 4-channel blocks take up to 192, two an SM at the same 168 registers.
+template <int G> constexpr int block_max() { return G == 4 ? 192 : 128; }
 constexpr int MAX_CLUSTER = 8;  // blocks of a cluster (the portable size)
 constexpr int MAX_THREADS = 512;  // the wide kernel's block
 constexpr int MAX_WARPS = MAX_THREADS / 32;
@@ -129,10 +132,10 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// grid (⌈ED/G⌉·S, Bs), clusters (S, 1, 1), blockDim G·P ≤ MAX_BLOCK; see
-// the design above
+// grid (⌈ED/G⌉·S, Bs), clusters (S, 1, 1), blockDim G·P ≤ block_max<G>(),
+// two blocks an SM at G 4 and three otherwise; see the design above
 template <typename T, int N, int G>
-__global__ void __launch_bounds__(MAX_BLOCK, MIN_BLOCKS)
+__global__ void __launch_bounds__(G == 4 ? 192 : 128, G == 4 ? 2 : 3)  // block_max, min_blocks
 scan2d_cluster_kernel(const T* __restrict__ x, const T* __restrict__ delta,
                       const T* __restrict__ Bm, int64_t b_cs, const T* __restrict__ Cm,
                       int64_t c_cs, const float* __restrict__ A_log,
@@ -501,8 +504,9 @@ cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, i
   return err;
 }
 
-bool valid_layout(int G, int S, int P, int W) {
-  return S >= 1 && S <= MAX_CLUSTER && P >= 1 && G * P <= MAX_BLOCK && (G * P) % 32 == 0 &&
+template <int G>
+bool valid_layout(int S, int P, int W) {
+  return S >= 1 && S <= MAX_CLUSTER && P >= 1 && G * P <= block_max<G>() && (G * P) % 32 == 0 &&
          (int64_t)S * P * RUN >= W && (int64_t)(S - 1) * P * RUN < W;
 }
 
@@ -510,7 +514,7 @@ template <typename T, int N, int G>
 int launch_cluster(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
                    int64_t c_cs, const float* A_log, const float* Dv, float* y, int Bs, int H, int W,
                    int ED, int S, int P, cudaStream_t st) {
-  if (!valid_layout(G, S, P, W)) return (int)cudaErrorInvalidValue;
+  if (!valid_layout<G>(S, P, W)) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t err = cluster_config<T, N, G>(cfg, attr, S, P);
@@ -524,27 +528,11 @@ int launch_cluster(const void* x, const void* delta, const void* Bm, int64_t b_c
   return (int)cudaGetLastError();
 }
 
-// Clusters of the layout (G, S, P) that the device holds at once, or a
-// negative CUDA error code.
-template <typename T, int N, int G>
-int resident_clusters(int S, int P) {
-  if (S < 1 || S > MAX_CLUSTER || P < 1 || G * P > MAX_BLOCK) return -(int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  cudaError_t err = cluster_config<T, N, G>(cfg, attr, S, P);
-  if (err != cudaSuccess) return -(int)err;
-  cfg.gridDim = dim3(S * 64);
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, scan2d_cluster_kernel<T, N, G>, &cfg);
-  return err == cudaSuccess ? n : -(int)err;
-}
-
 // Calls f(std::integral_constant<int, G>) for a G the cluster kernel is
-// built for: 8 and 4 channels (16 with bf16), so that a block of at most
-// MAX_BLOCK threads can hold more runs of a wide row. 0 on any other G.
-// (2 channels would hold rows up to 1,536 columns, but stage 48 B and C
-// values a thread: it spilled, and ran 29% slower than the wide kernel at
-// 1,500 columns.)
+// built for: 8 and 4 channels (16 with bf16), so that a block can hold more
+// runs of a wide row. 0 on any other G. (2 channels would hold rows up to
+// 1,536 columns, but stage 48 B and C values a thread: it spilled, and ran
+// 29% slower than the wide kernel at 1,500 columns.)
 template <typename T, typename F>
 int with_group(int G, F&& f) {
   switch (G) {
@@ -585,20 +573,6 @@ int by_state(const void* x, const void* delta, const void* Bm, int64_t b_cs, con
   }
 }
 
-template <int N>
-int resident_by_group(int bf16, int G, int S, int P) {
-  int n = -(int)cudaErrorInvalidValue;
-  auto one = [&](auto t, auto g) {
-    n = resident_clusters<decltype(t), N, decltype(g)::value>(S, P);
-    return 0;
-  };
-  if (bf16)
-    with_group<__nv_bfloat16>(G, [&](auto g) { return one(__nv_bfloat16{}, g); });
-  else
-    with_group<float>(G, [&](auto g) { return one(0.f, g); });
-  return n;
-}
-
 }  // namespace
 
 // Floats of global scratch per (bag, channel) that the wide kernel needs
@@ -619,27 +593,15 @@ extern "C" int scan2d_scratch(int W, int N) {
   return floats * (int64_t)sizeof(float) <= room ? 0 : (int)floats;
 }
 
-// Clusters of S blocks of G·P threads (state size N, bf16 or fp32 inputs)
-// that the current device holds at once; a negative CUDA error code on a
-// refusal.
-extern "C" int scan2d_resident(int bf16, int N, int G, int S, int P) {
-  switch (N) {
-    case 2: return resident_by_group<2>(bf16, G, S, P);
-    case 4: return resident_by_group<4>(bf16, G, S, P);
-    case 8: return resident_by_group<8>(bf16, G, S, P);
-    case 16: return resident_by_group<16>(bf16, G, S, P);
-    default: return -(int)cudaErrorInvalidValue;
-  }
-}
-
 // x, delta[Bs, H, W, ED] contiguous; B[Bs, H, W, N] and C with a cell
 // stride of b_cs / c_cs elements and a unit stride along N; all four fp32
 // (bf16 = 0) or bf16 (1). A_log[ED, N] and D[ED] fp32, contiguous. Writes
 // y[Bs, H, W, ED] fp32. N ∈ {2, 4, 8, 16}. The plan: S ≥ 1 runs the cluster
-// kernel with clusters of S blocks of G channels and P runs of 48 / N
-// columns each (S·P·48/N ≥ W, no empty block; G 8, or 16 for bf16); S = 0
-// runs the wide kernel, with scratch null or Bs · ED · scan2d_scratch(W, N)
-// fp32 on the card for the h of its chunks.
+// kernel with clusters of S blocks of G channels and P runs of 3 columns
+// each (S·P·3 ≥ W, no empty block; G 8 or 4, or 16 for bf16; G·P a
+// multiple of 32, at most 128, or 192 at G 4); S = 0 runs the wide kernel,
+// with scratch null or Bs · ED · scan2d_scratch(W, N) fp32 on the card for
+// the h of its chunks. An invalid plan returns cudaErrorInvalidValue.
 extern "C" int scan2d(const void* x, const void* delta, const void* Bm, int64_t b_cs,
                       const void* Cm, int64_t c_cs, int bf16, const float* A_log,
                       const float* Dv, float* y, float* scratch, int Bs, int H, int W, int ED,

@@ -109,7 +109,6 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "scan2d": {
         "scan2d_scratch": [I32, I32],  # W, N
-        "scan2d_resident": [I32, I32, I32, I32, I32],  # bf16, N, G, S, P
         "scan2d": [
             P, P,  # x, delta
             P, I64, P, I64,  # B, C and their cell strides

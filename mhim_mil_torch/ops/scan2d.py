@@ -12,10 +12,11 @@ scan, as in the JAX package.
 
 :func:`scan_plan` lays the cluster kernel out: blocks of G channels, each
 thread walking a run of 3 columns with all N states, a row split across a
-cluster of S ≤ 8 blocks of at most 128 threads. Rows wider than such a
-cluster holds (more than 768 columns) take the wide kernel, one block per
-(bag, channel) and one thread per column, whose h beyond 1,024 columns
-lives in shared memory or in a scratch buffer allocated here.
+cluster of S ≤ 8 blocks of at most 128 threads (192 for rows past 768
+columns). Rows wider than such a cluster holds (more than 1,152 columns)
+take the wide kernel, one block per (bag, channel) and one thread per
+column of 512-column chunks, whose h beyond 1,024 columns lives in shared
+memory or in a scratch buffer allocated here.
 """
 
 from __future__ import annotations
@@ -32,10 +33,15 @@ from .scan import selective_scan_2d
 Tensor = torch.Tensor
 STATES = (2, 4, 8, 16)  # the state sizes the kernel is built for
 RUN = 3  # R: columns a cluster-kernel thread walks, its h[R][N] in registers
-MAX_BLOCK = 128  # threads of a cluster block (168 registers each, three blocks an SM)
 MAX_CLUSTER = 8  # blocks of a cluster: the portable size
 SECTOR = 32  # bytes of one cell's G channels of x or Δ that a warp reads whole
-GROUPS = (16, 8, 4)  # the channel groups G the kernel is built for (16 with bf16 only)
+# (G, threads a block at most), tried in order: blocks of 128 threads of 168
+# registers, three an SM, with G the channel groups the kernel is built for
+# (16 with bf16 only); past what they hold, 4-channel blocks of 192 threads,
+# two an SM at the same 168 registers
+BLOCKS = ((16, 128), (8, 128), (4, 128), (4, 192))
+MAX_BLOCK = max(t for _, t in BLOCKS)
+WIDEST = MAX_CLUSTER * RUN * BLOCKS[-1][1] // BLOCKS[-1][0]  # 1,152: wider rows take the wide kernel
 
 
 def scan2d_plain(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Tensor) -> Tensor:
@@ -94,25 +100,26 @@ class ScanPlan:
 def scan_plan(w: int, n: int, itemsize: int) -> ScanPlan | None:
     """The cluster kernel's layout for rows ``w`` columns wide, state size
     ``n`` (one of :data:`STATES`) and inputs of ``itemsize`` bytes, or None
-    when the row is wider than a cluster holds (more than 768 columns: the
-    wide kernel takes it).
+    when the row is wider than a cluster holds (more than 1,152 columns:
+    the wide kernel takes it).
 
     A thread walks R = 3 columns with all N states, so a row is ⌈w/3⌉ runs a
     channel. A block has at most 128 threads (G·P) of 168 registers, so that
     three fit an SM and an H100 holds 45 clusters of 8 at once. G is
-    the largest of :data:`GROUPS`, up to 32 / itemsize (one 32-byte sector
+    the largest channel group, up to 32 / itemsize (one 32-byte sector
     of a cell: 8 fp32, 16 bf16 channels), whose blocks of 128 / G runs cover
     the row in at most 8 blocks: 8 fp32 (16 bf16) channels up to 384 (192)
-    columns, then 8 and 4 channels up to 384 and 768. S is then the fewest
-    blocks of a whole number of warps that cover the row, so no block is
-    empty."""
+    columns, then 8 and 4 channels up to 384 and 768; past 768 columns,
+    4 channels in blocks of up to 192 threads (:data:`BLOCKS`), up to 1,152.
+    S is then the fewest blocks of a whole number of warps that cover the
+    row, so no block is empty."""
     if n not in STATES:
         raise ValueError(f"state size {n}: the kernel is built for {STATES}")
     runs = -(-w // RUN)
-    for group in GROUPS:
+    for group, threads in BLOCKS:
         if group * itemsize > SECTOR:
             continue
-        cluster = -(-runs // (MAX_BLOCK // group))
+        cluster = -(-runs // (threads // group))
         if cluster <= MAX_CLUSTER:
             step = 32 // group  # runs of one warp
             per = -(-(-(-runs // cluster)) // step) * step
@@ -138,8 +145,8 @@ def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, 
     ``[Bs, H, W, N]``, ``D`` ``[ED]``. ``x``, ``delta``, ``B`` and ``C`` are
     all fp32 or all bf16 (read in that type, computed in fp32). Returns fp32
     ``y[Bs, H, W, ED]`` with ``D·x`` added. Any grid: rows up to what a
-    cluster holds (:func:`scan_plan`) take the cluster kernel; wider rows the
-    wide kernel, which keeps the h of columns beyond the first 1,024 in
+    cluster holds (1,152 columns, :func:`scan_plan`) take the cluster kernel;
+    wider rows the wide kernel, which keeps the h of columns beyond the first 1,024 in
     shared memory, or in a scratch buffer allocated here where that does not
     fit (about 4,000 columns at N = 16). Any state size N ≥ 1
     (:func:`state_groups`: one launch for N ≤ 16, ⌈N/16⌉ above)."""
@@ -156,16 +163,14 @@ def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, 
     return y
 
 
-def _launch(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Tensor,
-            plan: ScanPlan | None = None) -> Tensor:
-    """One launch at a built state size; ``plan`` overrides :func:`scan_plan`
-    (a layout the caller chooses; the kernel refuses one it does not take)."""
+def _launch(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Tensor) -> Tensor:
+    """One launch at a built state size, laid out by :func:`scan_plan`."""
     bs, h, w, ed = x.shape
     n = A_log.shape[-1]
     dev, dtype = x.device, x.dtype
     if w < 1 or h < 1:
         raise ValueError(f"grid {h} x {w}: the kernel takes H, W >= 1")
-    plan = plan or scan_plan(w, n, x.element_size())
+    plan = scan_plan(w, n, x.element_size())
     lib = load_library("scan2d")
     scratch = None
     if plan is None:  # the wide kernel

@@ -1,43 +1,26 @@
 """Where K5's time goes within a row, by ``clock64`` stamps.
 
-``python -m mhim_mil_torch.utils.phase_scan2d [--cluster]``
+``python -m mhim_mil_torch.utils.phase_scan2d``
 
-Without ``--cluster`` it builds an instrumented copy of the first K5 design
-(``scan2d_kernel``: one block per (bag, channel), one thread per column, up
-to 512 columns, N 16; the design that ``csrc/scan2d.cu`` replaced) into
-``build/phase_scan2d/`` with ``nvcc`` and runs it on the operands of
-``time_scan2d.operands``. Each warp stamps ``clock64()`` at the boundaries
-of five phases of every row and sums the cycles of each:
-
-1. ``xd``: the loads of x and Δ;
-2. ``exp_b``: the exponentials ā and the loads of B;
-3. ``shfl``: the warp's shuffle scan;
-4. ``fold``: the warp total's store, ``__syncthreads`` and the fold of the
-   totals of the warps before it;
-5. ``c_y``: the loads of C, the contraction and the store of y.
-
-A phase ends where its results are first needed: a branch on them (never
-taken) sits before each stamp, so that the stamp waits for the loads and
-arithmetic of its phase. Printed per grid and dtype: the mean cycles of each
-phase per warp and row, their shares, the warps of a block, and the
-time of one launch of the instrumented and of the plain copy (CUDA events,
-median of 5), beside the card's name and power limit and its SM clock under
-load; the rows as JSON in ``build/phase_scan2d/``.
-
-With ``--cluster`` it instruments the current K5 instead: a copy of
-``csrc/scan2d.cu`` with ``clock64`` stamps at the numbered steps of
-``scan2d_cluster_kernel``'s row loop, each warp summing the cycles of six
+Builds a copy of ``csrc/scan2d.cu`` with ``clock64`` stamps at the
+numbered steps of ``scan2d_cluster_kernel``'s row loop into
+``build/phase_scan2d/`` with ``nvcc``, and runs it at the layout of
+``ops/scan2d.scan_plan`` on the operands of ``time_scan2d.operands`` at the
+BLCA and serving grids, fp32 and bf16. Each warp sums the cycles of six
 phases of a row (``CLUSTER_PHASES``): the row's top (x and Δ converted);
 pass 1 with its ``__syncthreads``; the lanes' scan of the runs; the cluster
 barrier with the next row's loads issued, the fold of the blocks to the
 left, the ``__syncthreads`` after it and the staging of the next row's B
-and C; pass 2 with the y stores; and the row's last ``__syncthreads``; run
-at the layout of ``ops/scan2d.scan_plan``. Needs a CUDA card and ``nvcc``.
+and C; pass 2 with the y stores; and the row's last ``__syncthreads``.
+Printed per grid and dtype: the mean cycles of each phase per warp and
+row and their shares, the time of one stamped launch (CUDA events, median
+of 5) and its largest difference from the plain scan, beside the card's
+name and power limit and its SM clock under load; the rows as JSON in
+``build/phase_scan2d/``. Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
 
-import argparse
 import ctypes
 import json
 import statistics
@@ -50,147 +33,9 @@ from ..kernels.build import BUILD_DIR, CSRC, NVCC_FLAGS, SIGNATURES, _nvcc
 from ..ops import scan2d
 from .time_scan2d import operands
 
-PHASES = ("xd", "exp_b", "shfl", "fold", "c_y")
 CLUSTER_PHASES = ("top", "pass1", "runs", "cluster", "pass2", "sync")
 MAX_WARPS = scan2d.MAX_BLOCK // 32  # warps of a cluster block
 GRIDS = {"BLCA": (1, 275, 381), "serving": (4, 101, 102)}
-
-SOURCE = r"""
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-constexpr int MAX_THREADS = 512, MAX_WARPS = 16, N = 16, NP = 5;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ long long stamp() {
-  long long t;
-  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
-  return t;
-}
-// a branch on v that is never taken: the stamp after it waits for v
-#define WAIT_FOR(v) if (__float_as_uint(v) == 0x7fbadbadu) sink[0] = 1.f;
-#define PHASE(i, v) if (STAMPS) { WAIT_FOR(v) const long long t = stamp(); acc[i] += t - t0; t0 = t; }
-
-// the first K5 design (one chunk: W <= 512), with phase stamps when STAMPS
-template <typename T, bool STAMPS>
-__global__ void __launch_bounds__(MAX_THREADS)
-scan2d_phases_kernel(const T* __restrict__ x, const T* __restrict__ delta,
-                     const T* __restrict__ Bm, int64_t b_cs, const T* __restrict__ Cm, int64_t c_cs,
-                     const float* __restrict__ A_log, const float* __restrict__ Dv,
-                     float* __restrict__ y, int H, int W, int ED, long long* __restrict__ out,
-                     float* sink) {
-  __shared__ float tot_a[2][MAX_WARPS][N], tot_b[2][MAX_WARPS][N];
-  __shared__ float a_neg[N];
-  const int e = blockIdx.x, bag = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid < N) a_neg[tid] = -expf(A_log[(int64_t)e * N + tid]);
-  __syncthreads();
-  const float d_skip = Dv[e];
-  float h[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) h[n] = 0.f;
-  long long acc[NP] = {0, 0, 0, 0, 0};
-  long long t0 = stamp();
-  int buf = 0;
-  for (int r = 0; r < H; ++r) {
-    const int c = tid;
-    const bool in = c < W;
-    const int64_t cell = ((int64_t)bag * H + r) * W + c;
-    float xv = 0.f, dt = 0.f;
-    if (in) {
-      xv = to_f32(x[cell * ED + e]);
-      dt = to_f32(delta[cell * ED + e]);
-    }
-    const float dtx = dt * xv;
-    PHASE(0, dtx)
-    float abar[N], pa[N], pb[N];
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      abar[n] = in ? expf(dt * a_neg[n]) : 1.f;
-      pa[n] = abar[n];
-      pb[n] = in ? dtx * to_f32(Bm[cell * b_cs + n]) : 0.f;
-    }
-    PHASE(1, pa[N - 1] + pb[0] + pb[N - 1])
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const float ua = __shfl_up_sync(0xffffffffu, pa[n], off);
-        const float ub = __shfl_up_sync(0xffffffffu, pb[n], off);
-        if (lane >= off) {
-          pb[n] = fmaf(pa[n], ub, pb[n]);
-          pa[n] *= ua;
-        }
-      }
-    }
-    PHASE(2, pa[N - 1] + pb[N - 1])
-    if (lane == 31) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        tot_a[buf][warp][n] = pa[n];
-        tot_b[buf][warp][n] = pb[n];
-      }
-    }
-    __syncthreads();
-    float v[N];
-#pragma unroll
-    for (int n = 0; n < N; ++n) v[n] = 0.f;
-    for (int w = 0; w < warp; ++w) {
-#pragma unroll
-      for (int n = 0; n < N; ++n) v[n] = fmaf(tot_a[buf][w][n], v[n], tot_b[buf][w][n]);
-    }
-    PHASE(3, v[0] + v[N - 1])
-    float acc_y = d_skip * xv;
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const float u = fmaf(pa[n], v[n], pb[n]);
-      h[n] = fmaf(abar[n], h[n], u);
-      if (in) acc_y = fmaf(h[n], to_f32(Cm[cell * c_cs + n]), acc_y);
-    }
-    if (in) y[cell * ED + e] = acc_y;
-    PHASE(4, acc_y)
-    buf ^= 1;
-  }
-  if (STAMPS && lane == 0) {
-    long long* o = out + (((int64_t)bag * ED + e) * MAX_WARPS + warp) * NP;
-#pragma unroll
-    for (int i = 0; i < NP; ++i) o[i] = acc[i];
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
-           int64_t c_cs, const float* A_log, const float* Dv, float* y, long long* out, float* sink,
-           int Bs, int H, int W, int ED, cudaStream_t st) {
-  const int nt = 32 * ((W + 31) / 32);
-  if (out)
-    scan2d_phases_kernel<T, true><<<dim3(ED, Bs), nt, 0, st>>>(
-        (const T*)x, (const T*)delta, (const T*)Bm, b_cs, (const T*)Cm, c_cs, A_log, Dv, y, H, W,
-        ED, out, sink);
-  else
-    scan2d_phases_kernel<T, false><<<dim3(ED, Bs), nt, 0, st>>>(
-        (const T*)x, (const T*)delta, (const T*)Bm, b_cs, (const T*)Cm, c_cs, A_log, Dv, y, H, W,
-        ED, out, sink);
-  return (int)cudaGetLastError();
-}
-}  // namespace
-
-// out: null (no stamps) or Bs * ED * 16 * 5 int64, zeroed; W <= 512, N = 16
-extern "C" int scan2d_phases(const void* x, const void* delta, const void* Bm, int64_t b_cs,
-                             const void* Cm, int64_t c_cs, int bf16, const float* A_log,
-                             const float* Dv, float* y, long long* out, float* sink, int Bs, int H,
-                             int W, int ED, void* stream) {
-  if (W < 1 || W > MAX_THREADS) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, out, sink, Bs, H, W,
-                                 ED, st);
-  return launch<float>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, out, sink, Bs, H, W, ED, st);
-}
-"""
 
 
 def _compile(name: str, source: str) -> ctypes.CDLL:
@@ -203,15 +48,6 @@ def _compile(name: str, source: str) -> ctypes.CDLL:
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {name}")
     return ctypes.CDLL(str(so))
-
-
-def build() -> ctypes.CDLL:
-    """Compile :data:`SOURCE` with the kernels' flags and load it."""
-    lib = _compile("scan2d_phases", SOURCE)
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.scan2d_phases.argtypes = [p, p, p, i64, p, i64, i32, p, p, p, p, p, i32, i32, i32, i32, p]
-    lib.scan2d_phases.restype = ctypes.c_int
-    return lib
 
 
 STAMP = "{ const long long t = clock64(); acc[%d] += t - t0; t0 = t; }\n"
@@ -303,62 +139,19 @@ def event_ms(fn, iters=5):
     return statistics.median(times)
 
 
-def run(lib, name, shape, dtype, gen):
-    bs, h, w = shape
-    x, delta, a_log, B, C, D = operands(bs, h, w, dtype, gen)
-    ed = x.shape[-1]
-    y = torch.empty(x.shape, device="cuda", dtype=torch.float32)
-    sink = torch.zeros(1, device="cuda")
-    out = torch.zeros(bs * ed * 16 * len(PHASES), device="cuda", dtype=torch.int64)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch(stamps: bool):
-        err = lib.scan2d_phases(x.data_ptr(), delta.data_ptr(), B.data_ptr(), B.stride(2), C.data_ptr(),
-                                C.stride(2), int(dtype == torch.bfloat16), a_log.data_ptr(), D.data_ptr(),
-                                y.data_ptr(), out.data_ptr() if stamps else None, sink.data_ptr(), bs, h, w, ed,
-                                stream)
-        if err:
-            raise RuntimeError(f"scan2d_phases: CUDA error {err}")
-
-    plain_ms, stamped_ms = event_ms(lambda: launch(False)), event_ms(lambda: launch(True))
-    clock = sm_clock_mhz()
-    out.zero_()
-    launch(True)
-    torch.cuda.synchronize()
-    warps = (w + 31) // 32
-    cyc = out.view(bs * ed, 16, len(PHASES))[:, :warps].double() / h  # cycles per warp and row
-    mean = cyc.mean(dim=(0, 1)).tolist()
-    total = sum(mean)
-    row = {"grid": name, "shape": [bs, h, w, ed], "dtype": str(dtype).split(".")[-1], "warps_per_block": warps,
-           "cycles_per_warp_row": dict(zip(PHASES, mean)), "share": {p: m / total for p, m in zip(PHASES, mean)},
-           "cycles_per_row": total, "ms": plain_ms, "stamped_ms": stamped_ms, "sm_clock": clock}
-    print(f"{name} {tuple(x.shape)} {row['dtype']}: {total:.0f} cycles a row per warp; "
-          + ", ".join(f"{p} {m:.0f} ({m / total:.1%})" for p, m in zip(PHASES, mean))
-          + f"; one launch {plain_ms:.4f} ms, stamped {stamped_ms:.4f} ms; SM clock {clock}", flush=True)
-    return row
-
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cluster", action="store_true", help="instrument the current K5 (scan2d_cluster_kernel)")
-    args = ap.parse_args(argv)
+def main():
     if not torch.cuda.is_available():
         raise SystemExit("phase_scan2d needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.cluster:
-        lib = _compile("scan2d_cluster_phases", cluster_source())
-        for fn, argtypes in SIGNATURES["scan2d"].items():
-            getattr(lib, fn).argtypes = argtypes
-        lib.scan2d_set_stamps.argtypes = [ctypes.c_void_p]
-        rows = [run_cluster(lib, name, shape, dtype, gen) for name, shape in GRIDS.items()
-                for dtype in (torch.float32, torch.bfloat16)]
-    else:
-        lib = build()
-        rows = [run(lib, name, shape, dtype, gen) for name, shape in GRIDS.items()
-                for dtype in (torch.float32, torch.bfloat16)]
-    out = BUILD_DIR.parent / "phase_scan2d" / f"phase_scan2d{'_cluster' if args.cluster else ''}.json"
+    lib = _compile("scan2d_cluster_phases", cluster_source())
+    for fn, argtypes in SIGNATURES["scan2d"].items():
+        getattr(lib, fn).argtypes = argtypes
+    lib.scan2d_set_stamps.argtypes = [ctypes.c_void_p]
+    rows = [run_cluster(lib, name, shape, dtype, gen) for name, shape in GRIDS.items()
+            for dtype in (torch.float32, torch.bfloat16)]
+    out = BUILD_DIR.parent / "phase_scan2d" / "phase_scan2d_cluster.json"
     out.write_text(json.dumps(rows, indent=1))
     print(f"rows written to {out}")
 

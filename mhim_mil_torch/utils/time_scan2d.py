@@ -4,14 +4,18 @@
 
 Times ``selective_scan_2d_fused`` at the BLCA grid ``[1, 275, 381, 256]``
 and the serving raster grid ``[4, 101, 102, 256]``, N 16, fp32 and bf16
-inputs; at the BLCA grid with N 32 (two launches of 16 states); and on
-rows of 1,500, 2,100 and 4,200 columns (``[1, 64, W, 256]``, N 16, fp32),
-with the operands of :func:`operands` (which ``chip_smoke.py`` uses too).
-Per shape: the median of 20 CUDA-event timings of one call after 3
-warm-ups, and the profiler's kernel time per call (mean of 10),
-``--repeats`` times in turn; the card's name and power limit first, and
-each shape's cluster layout (``ops/scan2d.scan_plan``) with the clusters
-the card holds at once. Needs a CUDA card. The
+inputs; at the BLCA grid with N 32 (two launches of 16 states); on rows
+of 500, 700, 1,000 and 1,100 columns (``[1, 64, W, 256]``, N 16, fp32 and
+bf16: the cluster layouts of 4-channel blocks); and on rows of 1,500,
+2,100 and 4,200 columns (``[1, 64, W, 256]``, N 16, fp32: the wide
+kernel), with the operands of :func:`operands` (which ``chip_smoke.py``
+uses too). Per shape: the median of 20 CUDA-event timings of one call
+after 3 warm-ups, and the profiler's kernel time per call over 10 calls
+(each kernel's mean record times its launches a call, since the profiler
+now and then returns fewer records than there were launches; the records
+it returned are printed beside it), ``--repeats`` times in turn; the
+card's name and power limit first, and each shape's cluster layout
+(``ops/scan2d.scan_plan``). Needs a CUDA card. The
 script runs in a checkout of an earlier tree too (copied there), timing
 that tree's kernel, so that two trees can be timed in turns in one call.
 """
@@ -25,12 +29,12 @@ import subprocess
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..kernels import load_library
 from ..ops import scan2d
 from ..ops.scan2d import selective_scan_2d_fused
 
 SHAPES = {"BLCA": (1, 275, 381), "serving": (4, 101, 102)}
-WIDE = (1500, 2100, 4200)  # columns of the wide rows, 64 of them
+ROWS = (500, 700, 1000, 1100)  # columns of the cluster kernel's 4-channel rows, 64 of them
+WIDE = (1500, 2100, 4200)  # columns of the wide kernel's rows, 64 of them
 ED, N = 256, 16
 
 
@@ -63,19 +67,21 @@ def event_ms(fn, iters=20, warmup=3):
 
 
 def kernel_ms(fn, iters=10):
+    """The device time of one call: each kernel's mean record times its
+    launches a call, ``round(count / iters)``; and the kernel records the
+    profiler returned for the ``iters`` calls."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters / 1e3
+    events = [e for e in prof.key_averages() if e.count and e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters)) for e in events)
+    return us / 1e3, sum(e.count for e in events)
 
 
 def layout(ops) -> str:
-    """The shape's cluster layout and the clusters the card holds at once,
-    where this tree's K5 has a plan."""
+    """The shape's cluster layout, where this tree's K5 has a plan."""
     plan_fn = getattr(scan2d, "scan_plan", None)
     if plan_fn is None:
         return "layout: this tree has no cluster plan"
@@ -83,12 +89,8 @@ def layout(ops) -> str:
     plan = plan_fn(x.shape[2], min(a_log.shape[-1], 16), x.element_size())
     if plan is None:
         return "layout: the wide kernel"
-    lib = load_library("scan2d")
-    held = lib.scan2d_resident(int(x.dtype == torch.bfloat16), min(a_log.shape[-1], 16), plan.group,
-                               plan.cluster, plan.runs)
     return (f"layout: G {plan.group}, S {plan.cluster}, P {plan.runs}, R {plan.run}: {plan.threads} threads, "
-            f"{plan.blocks(x.shape[0], x.shape[-1])} blocks; the card holds {held} clusters "
-            f"({held * plan.cluster} blocks) at once")
+            f"{plan.blocks(x.shape[0], x.shape[-1])} blocks")
 
 
 def main(argv=None):
@@ -101,14 +103,18 @@ def main(argv=None):
     cases = [(name, n, operands(*shape, dtype, gen, n)) for name, shape in SHAPES.items()
              for dtype in (torch.float32, torch.bfloat16) for n in ((N, 32) if name == "BLCA" else (N,))
              if n == N or dtype == torch.float32]
+    cases += [(f"row {w}", N, operands(1, 64, w, dtype, gen)) for w in ROWS
+              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(f"wide {w}", N, operands(1, 64, w, torch.float32, gen)) for w in WIDE]
     for name, n, ops in cases:
         print(f"K5 {name} {tuple(ops[0].shape)} N {n} {str(ops[0].dtype).split('.')[-1]}: {layout(ops)}", flush=True)
     for rep in range(args.repeats):
         for name, n, ops in cases:
             fn = lambda: selective_scan_2d_fused(*ops)
+            ev = event_ms(fn)
+            dev, records = kernel_ms(fn)
             print(f"K5 {name} {tuple(ops[0].shape)} N {n} {str(ops[0].dtype).split('.')[-1]} repeat {rep}: "
-                  f"{event_ms(fn):.4f} ms (kernel {kernel_ms(fn):.4f} ms)", flush=True)
+                  f"{ev:.4f} ms (kernel {dev:.4f} ms, {records} kernel records for 10 calls)", flush=True)
 
 
 if __name__ == "__main__":

@@ -387,8 +387,9 @@ def test_scan2d_takes_wide_rows(hopper, w, n):
 
 @pytest.mark.cuda
 def test_scan2d_refuses_grad_and_wide_rows(hopper):
-    """K5 has no gradient; a row of 1,025 columns, one past the register
-    chunks, goes through the wide path and matches the plain scan."""
+    """K5 has no gradient; a row of 1,025 columns, one past the wide
+    kernel's register chunks (run by the cluster kernel since it holds rows
+    up to 1,152 columns), matches the plain scan."""
     x = torch.randn(1, 2, 8, 16, device=hopper, requires_grad=True)
     delta = torch.full_like(x, 0.05).detach()
     bc = torch.randn(1, 2, 8, 4, device=hopper)
@@ -429,17 +430,22 @@ def _scan_operands(dev, seed, bs, h, w, ed, n, dtype):
     (2, 6, 200, 16, 4, torch.bfloat16),
     (2, 6, 200, 16, 8, torch.float32),
     (1, 3, 700, 16, 16, torch.bfloat16),  # 4 channels a block
-    (1, 3, 768, 6, 16, torch.float32),  # the widest row a cluster holds
-    (1, 3, 769, 8, 16, torch.float32),  # one past: the wide kernel
+    (1, 3, 768, 6, 16, torch.float32),  # the widest row of 128-thread blocks
+    (1, 3, 769, 8, 16, torch.float32),  # one past: 4 channels in 6 blocks of 192 threads
+    (2, 3, 1000, 12, 16, torch.bfloat16),
+    (1, 3, 1024, 8, 8, torch.float32),
+    (1, 3, 1152, 4, 16, torch.float32),  # the widest row a cluster holds (S 8 x 48 runs of 3)
+    (1, 3, 1153, 8, 16, torch.float32),  # one past: the wide kernel
 ])
 def test_scan2d_cluster_layouts_match_the_plain_version(hopper, bs, h, w, ed, n, dtype):
     """The cluster kernel against scan2d_plain, rtol 1e-4 atol 1e-5, at the
     edges of its layouts (``scan_plan``): a row one column short of, exactly
     at and one past S·P·R columns, ED not a multiple of G, Bs 3, state sizes
-    2 to 16, fp32 and bf16, B and C at an unaligned offset; and at the
-    widest row it holds and the first it does not."""
+    2 to 16, fp32 and bf16, B and C at an unaligned offset; in 192-thread
+    blocks past 768 columns; and at the widest row it holds and the first it
+    does not."""
     plan = scan2d.scan_plan(w, n, torch.empty((), dtype=dtype).element_size())
-    assert (plan is None) == (w == 769)
+    assert (plan is None) == (w == 1153)
     ops = _scan_operands(hopper, w + n, bs, h, w, ed, n, dtype)
     before = scan2d.selective_scan_2d_fused.launches
     got = scan2d.selective_scan_2d_fused(*ops)
@@ -462,14 +468,22 @@ def test_scan2d_is_deterministic(hopper, bs, h, w, dtype):
 
 @pytest.mark.cuda
 def test_scan2d_refuses_a_bad_layout(hopper):
-    """A layout the kernel does not take (a cluster of 9 blocks, a block of
-    more than 128 threads, a block left empty, a group it is not built for)
-    raises at launch; nothing falls back."""
-    ops = _scan_operands(hopper, 12, 1, 2, 381, 16, 16, torch.float32)
-    for plan in (scan2d.ScanPlan(8, 9, 16), scan2d.ScanPlan(8, 1, 128), scan2d.ScanPlan(8, 8, 20),
-                 scan2d.ScanPlan(16, 8, 16)):
+    """A layout the C entry does not take (a cluster of 9 blocks, a block of
+    more than 128 threads of 8 channels or 192 of 4, a block left empty, a
+    group it is not built for) is refused at launch, and the wrapper's check
+    raises on it; nothing falls back."""
+    from mhim_mil_torch.kernels import load_library
+    from mhim_mil_torch.kernels.launch import raise_on
+
+    x, delta, a_log, B, C, D = _scan_operands(hopper, 12, 1, 2, 381, 16, 16, torch.float32)
+    y = torch.empty(x.shape, device=hopper)
+    lib = load_library("scan2d")
+    stream = torch.cuda.current_stream(hopper).cuda_stream
+    for g, s, p in ((8, 9, 16), (8, 1, 128), (4, 2, 64), (8, 8, 20), (16, 8, 16)):
+        err = lib.scan2d(x.data_ptr(), delta.data_ptr(), B.data_ptr(), B.stride(2), C.data_ptr(), C.stride(2), 0,
+                         a_log.data_ptr(), D.data_ptr(), y.data_ptr(), None, 1, 2, 381, 16, 16, g, s, p, stream)
         with pytest.raises(RuntimeError, match="CUDA error"):
-            scan2d._launch(*ops, plan=plan)
+            raise_on(err, "scan2d")
 
 
 @pytest.mark.cuda

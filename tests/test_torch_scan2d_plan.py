@@ -21,8 +21,9 @@ from mhim_mil_torch.ops import scan2d
 from mhim_mil_tpu.ops import scan as jscan
 
 SMS = 132  # an H100 SXM
-WIDTHS = (1, 11, 31, 33, 102, 119, 120, 121, 192, 193, 381, 383, 384, 385, 700, 767, 768)
-WIDE = (769, 1024, 1025, 1500, 2100, 4200)
+WIDTHS = (1, 11, 31, 33, 102, 119, 120, 121, 192, 193, 381, 383, 384, 385, 500, 700, 767, 768, 769, 1000,
+          1024, 1025, 1100, 1151, 1152)
+WIDE = (1153, 1500, 2100, 4200)
 ITEMSIZE = {"fp32": 4, "bf16": 2}
 
 
@@ -39,7 +40,8 @@ def test_plan_covers_the_row_exactly(w, n, dtype):
     """Each column of the row is walked by exactly one thread of a channel;
     the columns past the row fall in the last block only, so no block is
     empty; S ≤ 8 and a block is a whole number of warps of at most 128
-    threads, each keeping R·N ≤ 48 floats of h in registers."""
+    threads (192 of 4 channels, only for rows past 768 columns), each
+    keeping R·N ≤ 48 floats of h in registers."""
     plan = scan2d.scan_plan(w, n, ITEMSIZE[dtype])
     assert plan is not None
     cols = _columns(plan, w)
@@ -47,11 +49,12 @@ def test_plan_covers_the_row_exactly(w, n, dtype):
     assert sorted(c for c in cols if c < w) == list(range(w))
     assert (plan.cluster - 1) * plan.columns < w <= plan.cluster * plan.columns
     assert 1 <= plan.cluster <= scan2d.MAX_CLUSTER
-    assert plan.threads % 32 == 0 and plan.threads <= scan2d.MAX_BLOCK
+    limit = 192 if plan.group == 4 and w > 768 else 128
+    assert plan.threads % 32 == 0 and plan.threads <= limit
     assert plan.run == scan2d.RUN and plan.run * n <= 48
     # a block's h: G channels x its columns x N states, within the budget of
-    # MAX_BLOCK threads of 48 floats
-    assert plan.group * plan.columns * n <= scan2d.MAX_BLOCK * 48
+    # its threads at 48 floats each
+    assert plan.group * plan.columns * n <= limit * 48
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -61,10 +64,11 @@ def test_group_fills_a_sector(w, dtype):
     of 128 threads over 8 blocks hold the row: up to 384 columns in fp32
     (G 8) and 192 in bf16 (G 16). Wider rows take 8 and then 4 channels a
     block (up to 384 and 768 columns), so that a block of 128 threads holds
-    more runs. Rows wider than 768 columns have no plan: the wide kernel."""
+    more runs, and then 4 channels in blocks of up to 192 threads (up to
+    1,152 columns). Wider rows have no plan: the wide kernel."""
     plan = scan2d.scan_plan(w, 16, ITEMSIZE[dtype])
     sector_cols = {"fp32": 384, "bf16": 192}[dtype]
-    if w > 768:
+    if w > 1152:
         assert plan is None
     elif w <= sector_cols:
         assert plan.group * ITEMSIZE[dtype] == 32
@@ -90,6 +94,19 @@ def test_blocks_count_masked_channel_groups(bs, ed):
     masked): Bs · ⌈ED/G⌉ · S blocks."""
     plan = scan2d.scan_plan(102, 16, 4)
     assert plan.blocks(bs, ed) == bs * -(-ed // plan.group) * plan.cluster
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("w", (1, 31, 33, 381, 700, 768, 769, 1000, 1024))
+def test_every_row_up_to_1024_columns_has_a_cluster_plan(w, dtype):
+    """Every row of at most 1,024 columns (the rows the parent's one-block
+    kernel held in registers) runs the cluster kernel at every built state
+    size, in blocks of more than 128 threads only past 768 columns."""
+    for n in scan2d.STATES:
+        plan = scan2d.scan_plan(w, n, ITEMSIZE[dtype])
+        assert plan is not None
+        assert plan.threads <= 128 or (w > 768 and plan.group == 4)
+    assert scan2d.WIDEST == 1152
 
 
 def test_plan_refuses_an_unbuilt_state_size():
