@@ -21,14 +21,15 @@ its eval step and its scorer. Phases, each of which fails the run:
    plain attention in fp32, and its gradients against the plain attention
    in fp64 by the kernel gate's VJP criterion; K2b and K1b, the backwards of
    K2's and K1's passes that K3's backward launches, against their plain
-   versions at the student's shape, timed with their bounds beside the
-   backward of ``scaled_dot_product_attention``; K5 against its plain
+   versions at the student's shape and at head dims 128 and 256, timed with
+   their bounds beside the backward of ``scaled_dot_product_attention``;
+   K5 against its plain
    version at the BLCA grid and the serving raster grid in fp32 and bf16, a
    ragged 5 × 11 grid, a segment edge of the cluster layout and a row of
    1,000 columns (and rows of 1,500, 2,100 and 4,200 columns), and K6 against
    ``x + 1``, with times, bounds and library yardsticks; the shapes the
    kernels are not built for: K1/K2 at head dims 96, 128, 192 and 256
-   (timed at 128 and 256), K1b/K2b at 256, K4 at 1,536 columns, K5 at 32
+   (timed at 128 and 256), K4 at 1,536 columns, K5 at 32
    states on the BLCA grid;
 4. serving: the selfattn kernel path against the plain path on the whole
    model in fp32, then the scorer's requests under the default bf16 policy;
@@ -67,7 +68,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 
 import torch
 
@@ -465,47 +465,19 @@ def phase_k3(gen) -> dict:
     return {"K3": r}
 
 
-SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")  # torch's preference
-
-
-def sdpa_backward(q, k, v, mask, d_out):
-    """The library yardstick of a backward kernel: the backward of
-    ``scaled_dot_product_attention(q, k, v, mask, scale=1)`` under ``d_out``,
-    on the first backend, in torch's order of preference, that takes these
-    inputs. Returns the timed call (the backward alone, the forward's graph
-    kept), its gradients and the backend's name."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    for name in SDPA_BACKENDS:
-        backend = getattr(SDPBackend, name, None)
-        if backend is None:
-            continue
-        try:
-            with sdpa_kernel([backend]), warnings.catch_warnings():
-                warnings.simplefilter("ignore")  # each refusal warns its reason
-                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=1.0)
-            grads = torch.autograd.grad(out, leaves, d_out, retain_graph=True)
-        except RuntimeError:
-            continue
-        return (lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True)), grads, name
-    fail("no scaled_dot_product_attention backend takes the yardstick's inputs")
-
-
 def k2b_bounds(mask, h, m, dh, cls: bool) -> dict:
     """K2b's least time: its function's products over the valid tokens nv of
     each (bag, head) — s1 = q·k_lᵀ, dP1 = d_out·midᵀ, d_q, d_kl, d_mid
     (5·nv·m·dh FMAs), with the cls term also s3 = q_l·kᵀ, d_k and d_ql
     (3·nv·m·dh) — on the tensor cores at 3×TF32, the exponentials of P1 (and
     E) on the special-function units, and its bytes: the valid rows of q,
-    d_out (and k, d_cls) read once, the landmark operands read, every
-    gradient written once."""
+    d_out, K2's out (and k, d_cls) read once, the landmark operands read,
+    every gradient written once."""
     b, n = mask.shape
     nv = int(mask.sum())  # summed over bags
     per = 8 if cls else 5
     small = b * h * m * dh * F32
-    nbytes = (h * nv * dh * F32 * (3 if cls else 2) + (h * nv * F32 if cls else 0) + b * n + b * m
+    nbytes = (h * nv * dh * F32 * (4 if cls else 3) + (h * nv * F32 if cls else 0) + b * n + b * m
               + small * (3 if cls else 2) + (2 * b * h * m * F32 if cls else 0)
               + b * h * n * dh * F32 * (2 if cls else 1) + small * (3 if cls else 2)
               + (2 * b * h * m * F32 if cls else 0))
@@ -527,45 +499,36 @@ def k1b_bounds(mask, h, m, dh, with_s3: bool) -> dict:
     return tensor_core_bounds(2 * 5 * h * nv * m * dh, nbytes, h * nv * m)
 
 
-def student_operands(gen, b, h, dh, m=256, n=1027):
-    """K1's and K2's operands at the student's shape (N 1,027, ragged from
-    600 tokens, the first bag full) from the plain glue (time_nystrom's
-    ``operands``), with K1's outputs attn3v and s3."""
-    from mhim_mil_torch.ops import flash_nystrom as fn
-    from mhim_mil_torch.utils.time_nystrom import operands
-
-    lengths = torch.randint(600, n + 1, (b,), device="cuda", generator=gen)
-    lengths[0] = n
-    o = operands(b, h, n, dh, m, lengths, gen)
-    o["attn3v"], _, o["s3"] = fn.pass_a_plain(o["q_l"], o["k"], o["v"], o["mask"])
-    return o, lengths
+BACKWARD_CASES = (("student", 4, 8, 64), ("dh 128", 4, 4, 128), ("dh 256", 4, 2, 256))
 
 
 def phase_k2b(gen) -> dict:
-    """K2b against pass_b_backward_plain at the student's shape (B=4, H=8,
-    N=1,027 ragged, dh 64, m 256) on the glue's operands, NaN at masked
+    """K2b against pass_b_backward_plain on time_nystrom's backward operands
+    (the glue's, with K2's out handed over as PassB hands it) at the
+    student's shape (B=4, H=8, N=1,027 ragged, dh 64, m 256), NaN at masked
     q/k/d_out/d_cls: each gradient at max|d| <= 1e-4·max|ref|, with and
     without the cls term, and two launches equal to the bit; timed without
     the cls term (the student's case: it never reads attn) beside the
     backward of ``scaled_dot_product_attention(q, k_l, mid, landmark
     mask)`` (d_q, d_kl, d_mid: K2b's function without the cls term), and
-    with it; then at DH 256 (B 4, H 2, the same products), held and timed."""
+    with it; then at dh 128 (B 4, H 4) and dh 256 (B 4, H 2), the same
+    products, held and timed beside SDPA's backward."""
     from mhim_mil_torch.ops import flash_nystrom as fn
+    from mhim_mil_torch.utils.time_nystrom import backward_operands, k2b_call, sdpa_backward
 
     r = {"max_abs_err": 0.0}
-    for label, b, h, dh in (("student", 4, 8, 64), ("dh 256", 4, 2, 256)):
-        o, lengths = student_operands(gen, b, h, dh)
+    for label, b, h, dh in BACKWARD_CASES:
+        o = backward_operands(gen, b, h, dh)
+        lengths = o["lengths"]
         n, m = o["q"].shape[2], o["k_l"].shape[2]
         tok = o["mask"][:, None, :, None]
-        q, k = (torch.where(tok, o[x], float("nan")) for x in ("q", "k"))
-        d_clean = torch.where(tok, torch.randn(b, n, h, dh, device="cuda", generator=gen).transpose(1, 2), 0.0)
-        d_out = torch.where(tok, d_clean, float("nan"))
-        d_cls = torch.where(o["mask"][:, None], torch.randn(b, h, n, device="cuda", generator=gen), float("nan"))
-        args = (q, k, o["mask"], o["k_l"], o["lm_mask"], o["mid"], o["q_l"], o["rp"], o["m3"], d_out)
+        q, k, d_out = (torch.where(tok, o[x], float("nan")) for x in ("q", "k", "d_out"))
+        d_cls = torch.where(o["mask"][:, None], o["d_cls"], float("nan"))
         for cls in ((None, d_cls) if label == "student" else (None,)):
-            got, again = fn.pass_b_backward(*args, cls), fn.pass_b_backward(*args, cls)
+            args, kw = k2b_call(o, q, k, d_out, cls)
+            got, again = fn.pass_b_backward(*args, **kw), fn.pass_b_backward(*args, **kw)
             torch.cuda.synchronize()
-            want = fn.pass_b_backward_plain(*args, cls)
+            want = fn.pass_b_backward_plain(*args)
             errs = []
             for name, g, w, g2 in zip(("d_q", "d_k", "d_kl", "d_mid", "d_ql", "d_rp", "d_m3"), got, want, again):
                 if w is None:
@@ -579,11 +542,11 @@ def phase_k2b(gen) -> dict:
             lib = lib_name = None
             if cls is None:
                 lib, lib_grads, lib_name = sdpa_backward(o["q"], o["k_l"], o["mid"],
-                                                         o["lm_mask"][:, None, None, :], d_clean)
+                                                         o["lm_mask"][:, None, None, :], o["d_out"])
                 lib_err = max((lg - w).abs().max().item() / w.abs().max().item()
                               for lg, w in zip(lib_grads, (want[0], want[2], want[3])))
                 row["library"] = f"scaled_dot_product_attention backward, {lib_name} backend"
-            timed(row, lambda: fn.pass_b_backward(*args, cls), lambda: fn.pass_b_backward_plain(*args, cls), lib)
+            timed(row, lambda: fn.pass_b_backward(*args, **kw), lambda: fn.pass_b_backward_plain(*args), lib)
             row.update(k2b_bounds(o["mask"], h, m, dh, cls is not None))
             what = ("with the cls term" if cls is not None
                     else f"without the cls term; library: SDPA backward on the {lib_name} backend, d_q/d_kl/d_mid "
@@ -598,25 +561,26 @@ def phase_k2b(gen) -> dict:
 
 
 def phase_k1b(gen) -> dict:
-    """K1b against pass_a_backward_plain at the student's shape (B=4, H=8,
-    N=1,027 ragged, dh 64, m 256) on K1's operands from the plain glue, NaN
-    at masked k and v: each gradient at max|d| <= 1e-4·max|ref|, without
-    s3's cotangent (the student's case: attn unused, so s3 gets none) and
-    with it, two launches equal to the bit; timed beside the backward of
+    """K1b against pass_a_backward_plain on time_nystrom's backward operands
+    at the student's shape (B=4, H=8, N=1,027 ragged, dh 64, m 256), NaN at
+    masked k and v: each gradient at max|d| <= 1e-4·max|ref|, without s3's
+    cotangent (the student's case: attn unused, so s3 gets none) and with
+    it, two launches equal to the bit; timed beside the backward of
     ``scaled_dot_product_attention(q_l, k, v, key mask)`` (K1b's function
-    without s3's term); then at DH 256 (B 4, H 2), held and timed."""
+    without s3's term); then at dh 128 (B 4, H 4) and dh 256 (B 4, H 2),
+    held and timed beside SDPA's backward."""
     from mhim_mil_torch.ops import flash_nystrom as fn
+    from mhim_mil_torch.utils.time_nystrom import backward_operands, sdpa_backward
 
     r = {"max_abs_err": 0.0}
-    for label, b, h, dh in (("student", 4, 8, 64), ("dh 256", 4, 2, 256)):
-        o, lengths = student_operands(gen, b, h, dh)
+    for label, b, h, dh in BACKWARD_CASES:
+        o = backward_operands(gen, b, h, dh)
+        lengths = o["lengths"]
         n, m = o["k"].shape[2], o["q_l"].shape[2]
         tok = o["mask"][:, None, :, None]
         k, v = (torch.where(tok, o[x], float("nan")) for x in ("k", "v"))
-        d_attn3v = torch.randn(b, h, m, dh, device="cuda", generator=gen)
-        d_s3 = torch.randn(b, h, m, device="cuda", generator=gen)
-        args = (o["q_l"], k, v, o["mask"], o["attn3v"], o["m3"], o["s3"], d_attn3v)
-        for s3_cot in ((None, d_s3) if label == "student" else (None,)):
+        args = (o["q_l"], k, v, o["mask"], o["attn3v"], o["m3"], o["s3"], o["d_attn3v"])
+        for s3_cot in ((None, o["d_s3"]) if label == "student" else (None,)):
             got, again = fn.pass_a_backward(*args, s3_cot), fn.pass_a_backward(*args, s3_cot)
             torch.cuda.synchronize()
             want = fn.pass_a_backward_plain(*args, s3_cot)
@@ -631,7 +595,7 @@ def phase_k1b(gen) -> dict:
             lib = lib_name = None
             if s3_cot is None:
                 lib, lib_grads, lib_name = sdpa_backward(o["q_l"], o["k"], o["v"], o["mask"][:, None, None, :],
-                                                         d_attn3v)
+                                                         o["d_attn3v"])
                 lib_err = max((lg - w).abs().max().item() / w.abs().max().item() for lg, w in zip(lib_grads, want))
                 row["library"] = f"scaled_dot_product_attention backward, {lib_name} backend"
             timed(row, lambda: fn.pass_a_backward(*args, s3_cot), lambda: fn.pass_a_backward_plain(*args, s3_cot),
@@ -1189,7 +1153,7 @@ def main():
                "mhim_mil_torch/ops/flash_nystrom.py", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
         "K2b": ("flash_nystrom_pass_b_bwd (token_kernel + landmark_kernel), K3's backward of K2's pass",
                 "mhim_mil_torch/csrc/flash_nystrom_bwd.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:280"),
-        "K1b": ("flash_nystrom_pass_a_bwd (stats_kernel + key_kernel + landmark_kernel), K3's backward of "
+        "K1b": ("flash_nystrom_pass_a_bwd (k1b_kernel: landmark and key blocks in one grid), K3's backward of "
                 "K1's pass", "mhim_mil_torch/csrc/flash_nystrom_k1b.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:280"),
         "K4": ("abmil_pool", "mhim_mil_torch/csrc/abmil_pool.cu", "mhim_mil_tpu/ops/pallas_abmil.py:42"),
         "K5": ("scan2d (scan2d_cluster_kernel; scan2d_wide_kernel above 1,152 columns)",

@@ -22,11 +22,13 @@
 // dh + 4 floats (the fragment reads are free of bank conflicts) by 16-byte
 // cp.async straight from strided views.
 //
-// Head dims 16, 32, 64, 128 and 256 are instantiated. A block keeps at most
-// a 128-column accumulator (64 floats a thread): at 256 the grid runs two
-// column halves, each block computing its scores over all 256 columns
-// (`scores` loops over them in k8 steps) and accumulating its half of the
-// value side, read at a column offset from rows staged at full width.
+// Head dims 16, 32, 64, 128 and 256 are instantiated. A block of K1 or K2
+// keeps at most a 128-column accumulator (64 floats a thread): at 256 the
+// grid runs two column halves, each block computing its scores over all 256
+// columns (`scores` loops over them in k8 steps) and accumulating its half
+// of the value side, read at a column offset from rows staged at full
+// width. The backward kernels split the head dim across warps instead
+// (flash_nystrom_bwd.cuh).
 
 #pragma once
 
@@ -34,6 +36,63 @@
 #include <stdint.h>
 
 namespace {
+
+// ---- phase stamps, in diagnostic builds only ----
+// Built with -DNYS_PHASES (mhim_mil_torch/utils/phase_nystrom_bwd.py), each
+// warp of a backward kernel sums the clock64() cycles between its PHASE
+// marks, by the phase that just ended, and adds them to
+// g_phases[kernel][phase] at its end; slot NPHASES counts the warps. Two
+// more switches of those builds: NYS_FREE_SPLIT makes flash_nystrom_bwd.cuh's
+// `split_t` pass each operand to the tensor cores unsplit (hi = lo = x:
+// wrong sums, the same mma.sync count) and NYS_ONE_MMA makes `mma3` issue
+// the hi·hi product alone. Without NYS_PHASES the marks compile to nothing.
+enum Phase { PH_STAGE, PH_WAIT, PH_SCORES, PH_ELEM, PH_ACC, PH_EPI, NPHASES };
+#ifdef NYS_PHASES
+__device__ unsigned long long* g_phases;
+#define PHASES_BEGIN                  \
+  long long ph_acc_[NPHASES] = {};    \
+  long long ph_t_ = clock64();
+#define PHASE(p)                        \
+  do {                                  \
+    const long long t_ = clock64();     \
+    ph_acc_[p] += t_ - ph_t_;           \
+    ph_t_ = t_;                         \
+  } while (0)
+#define PHASES_END(kernel)                                                               \
+  do {                                                                                   \
+    if (g_phases != nullptr && threadIdx.x % 32 == 0) {                                  \
+      for (int p_ = 0; p_ < NPHASES; ++p_)                                               \
+        atomicAdd(g_phases + (kernel) * (NPHASES + 1) + p_, (unsigned long long)ph_acc_[p_]); \
+      atomicAdd(g_phases + (kernel) * (NPHASES + 1) + NPHASES, 1ull);                    \
+    }                                                                                    \
+  } while (0)
+#define PHASES_ENTRY(prefix)                                           \
+  extern "C" int prefix##_set_phases(void* p) {                        \
+    return (int)cudaMemcpyToSymbol(g_phases, &p, sizeof(p));           \
+  }
+// A kernel's blocks an SM at `threads` and `smem` bytes of dynamic shared
+// memory, its registers a thread, its local (spilled) bytes, smem and threads.
+template <typename K>
+int occupancy_of(K kernel, int threads, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = blocks;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)smem;
+  out[4] = threads;
+  return 0;
+}
+#else
+#define PHASES_BEGIN
+#define PHASE(p)
+#define PHASES_END(kernel)
+#define PHASES_ENTRY(prefix)
+#endif
 
 constexpr float NEG_INF = -1e30f;
 constexpr int COLS = 32;      // columns of a step: keys, landmarks or tokens
@@ -43,11 +102,6 @@ constexpr int NT = COLS / 8;  // 8-column mma tiles of a step
 __host__ __device__ constexpr int acc_cols(int dh) { return dh > 128 ? 128 : dh; }
 __host__ __device__ constexpr int halves(int dh) { return dh / acc_cols(dh); }
 
-// Warps and resident blocks of the backward kernels' blocks (K2b's token and
-// landmark kernels, K1b's key and landmark kernels), by head dim: at 256 the
-// rows staged at full width leave room for 32 rows a block.
-__host__ __device__ constexpr int bwd_warps(int dh) { return dh > 128 ? 2 : 4; }
-__host__ __device__ constexpr int bwd_resident(int dh) { return dh > 64 ? 1 : 2; }
 __host__ __device__ constexpr bool instantiated(int dh) {
   return dh == 16 || dh == 32 || dh == 64 || dh == 128 || dh == 256;
 }
@@ -76,8 +130,10 @@ __device__ __forceinline__ void mma(float d[4], const uint32_t a[4], const uint3
 // d += a·b with both operands split: the small products first
 __device__ __forceinline__ void mma3(float d[4], const uint32_t ah[4], const uint32_t al[4],
                                      const uint32_t bh[2], const uint32_t bl[2]) {
+#ifndef NYS_ONE_MMA
   mma(d, al, bh);
   mma(d, ah, bl);
+#endif
   mma(d, ah, bh);
 }
 
@@ -148,12 +204,13 @@ __device__ __forceinline__ void scores(const float* A, const float* B, int g, in
   }
 }
 
-// Bit 2j + e set where the thread's column 8j + 2t + e of a step starting at
-// c0 is below `limit` and its flag is nonzero.
+// Bit 2j + e set where the thread's column 8j + 2t + e of a step of 8·NTT
+// columns starting at c0 is below `limit` and its flag is nonzero.
+template <int NTT = NT>
 __device__ __forceinline__ uint32_t valid_bits(const uint8_t* flags, int c0, int limit, int t) {
   uint32_t bits = 0;
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NTT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = c0 + 8 * j + 2 * t + e;
@@ -174,15 +231,17 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// One step of the online softmax on a 16 × COLS score tile: columns whose bit
-// in `keep` is 0 are masked; updates the running max (quad-uniform) and the
-// thread's share of the running sum, leaves the probabilities in s and the
-// factor that rescaled the earlier sums in `scale`.
-__device__ __forceinline__ void online_softmax(float s[NT][4], uint32_t keep, float m_run[2],
+// One step of the online softmax on a 16 × 8·NTT score tile (NTT = NT: a
+// 16 × COLS tile): columns whose bit in `keep` is 0 are masked; updates the
+// running max (quad-uniform) and the thread's share of the running sum,
+// leaves the probabilities in s and the factor that rescaled the earlier
+// sums in `scale`.
+template <int NTT = NT>
+__device__ __forceinline__ void online_softmax(float s[NTT][4], uint32_t keep, float m_run[2],
                                                float l_run[2], float scale[2]) {
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NTT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const bool ok = kept(keep, j, e);
@@ -199,7 +258,7 @@ __device__ __forceinline__ void online_softmax(float s[NT][4], uint32_t keep, fl
     l_run[r] *= scale[r];
   }
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NTT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const bool ok = kept(keep, j, e);

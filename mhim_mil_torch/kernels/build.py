@@ -60,7 +60,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "flash_nystrom_bwd": {
         "flash_nystrom_bwd_rows": [I32],  # DH
-        "flash_nystrom_bwd_keys": [],
+        "flash_nystrom_bwd_keys": [I32],  # DH
         "flash_nystrom_bwd_resident": [I32],  # DH
         "flash_nystrom_bwd_width": [I32, I32],  # DH, with the cls term
         "flash_nystrom_pass_b_bwd": [
@@ -69,6 +69,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             P,  # mask
             P, P, P, P, P, P,  # kl, lm_mask, mid, ql, r', m3
             P, I64, I64, I64,  # d_out
+            P, I64, I64, I64,  # out, K2's output
             P,  # d_cls, or null
             P, P,  # d_q, d_k (or null)
             P, P, P,  # scratch: lse, D, the partial sums
@@ -81,7 +82,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "flash_nystrom_k1b": {
         "flash_nystrom_k1b_rows": [I32],  # DH
-        "flash_nystrom_k1b_keys": [],
+        "flash_nystrom_k1b_keys": [I32],  # DH
         "flash_nystrom_k1b_resident": [I32],  # DH
         "flash_nystrom_pass_a_bwd": [
             P,  # ql
@@ -90,7 +91,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             P, P, P, P,  # mask, attn3v, m3, s3
             P, P,  # d_attn3v, d_s3 (or null)
             P, P, P,  # d_ql, d_k, d_v
-            P, P, P,  # scratch: D and 1 / s3, the partial sums, int32 tickets
+            P, P,  # scratch: the partial sums, int32 tickets
             I32, I32, I32, I32, I32,  # B, H, N, M, DH
             I32, I32,  # n_splits, per_split
             P,  # stream

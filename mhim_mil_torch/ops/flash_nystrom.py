@@ -21,8 +21,10 @@ partials of its key splits, planned by :func:`pass_a_plan`, and their merge;
 The kernels are built for head dims 16, 32, 64, 128 and 256; on the card
 :func:`padded_head_dim` zero-pads any other head dim up to the next of
 those, and above 256 the wrappers raise a ``ValueError``. At 256 a block
-keeps a 128-column accumulator: the grid runs two column halves, each
-computing the scores over all 256 columns (:func:`halves`).
+of K1 or K2 keeps a 128-column accumulator: the grid runs two column halves,
+each computing the scores over all 256 columns (:func:`halves`). K1b and K2b
+split the head dim across the warps of a block instead, in 64-column
+groups, and compute each score once (:func:`bwd_rows`).
 
 The backward of each pass is a kernel too:
 
@@ -33,7 +35,13 @@ The backward of each pass is a kernel too:
   FlashAttention-2's backward with the m landmark rows as queries.
 
 Neither forms ``[B,H,N,m]``; :func:`pass_b_backward_plain` and
-:func:`pass_a_backward_plain` run on CPU tensors.
+:func:`pass_a_backward_plain` run on CPU tensors. K2b's token kernel takes
+``D = Σ d_out·out`` from K2's output and walks the landmarks once with an
+online softmax, and its landmark kernel splits the tokens
+(:func:`pass_b_backward_plan`); K1b runs its landmark and key blocks as one
+grid (:func:`pass_a_backward_plan`).
+:func:`pass_b_backward_stream_plain` and :func:`pass_a_backward_split_plain`
+are that arithmetic in plain torch, for tests.
 
 **K3** :func:`flash_nystrom` is the differentiable form (the port of the
 custom VJP at ``pallas_nystrom.py:249-304``): the composition that
@@ -194,9 +202,9 @@ def padded_head_dim(call, args, pad, sliced):
 PASS_A_ROWS = 128  # landmark rows of a K1 block up to DH 128; 64 at DH 256 (csrc a_warps)
 PASS_A_KEYS = 32  # keys of a K1 tile; a split is a whole number of tiles (csrc COLS)
 PASS_A_RESIDENT = {16: 2, 32: 2, 64: 2, 128: 1, 256: 1}  # K1 blocks an SM holds, by head dim (csrc a_resident)
-BWD_ROWS = 64  # landmark rows of a K2b or K1b landmark block up to DH 128; 32 at DH 256 (csrc bwd_warps)
-BWD_KEYS = 32  # tokens of its tiles; a split is a whole number of tiles
-BWD_RESIDENT = {16: 2, 32: 2, 64: 2, 128: 1, 256: 1}  # its blocks an SM holds (csrc bwd_resident)
+BWD_ROWS = 64  # rows of a K2b or K1b block up to DH 64; 32 above (csrc flash_nystrom_bwd.cuh bwd_rows)
+BWD_KEYS = 32  # rows of the tiles it streams up to DH 64; 16 above (bwd_cols): a split is whole tiles
+BWD_RESIDENT = {16: 3, 32: 3, 64: 3, 128: 2, 256: 1}  # their blocks an SM (bwd_resident)
 H100_SMS = 132
 
 
@@ -206,18 +214,26 @@ def pass_a_rows(dh: int) -> int:
 
 
 def bwd_rows(dh: int) -> int:
-    """Landmark rows of a K2b or K1b landmark block at head dim ``dh``."""
-    return BWD_ROWS if kernel_head_dim(dh) <= ACC_COLS else BWD_ROWS // 2
+    """Rows (tokens, keys or landmarks) of a K2b or K1b block at head dim
+    ``dh``: 4 row groups of 16 up to 64, 2 above, where each row group's
+    warps split the head dim in 64-column groups (a block of 4 warps at
+    128, 8 at 256)."""
+    return BWD_ROWS if kernel_head_dim(dh) <= 64 else BWD_ROWS // 2
 
 
-def _split_plan(row_blocks: int, n: int, resident: int, sms: int, tile: int) -> Tuple[int, int]:
+def bwd_keys(dh: int) -> int:
+    """Rows of the tiles a K2b or K1b block streams at head dim ``dh``."""
+    return BWD_KEYS if kernel_head_dim(dh) <= 64 else BWD_KEYS // 2
+
+
+def _split_plan(row_blocks: int, n: int, resident: int, sms: int, tile: int, waves: int = 2) -> Tuple[int, int]:
     """``(n_splits, per_split)`` of n keys over a grid of ``row_blocks`` row
-    blocks per split: aims at two full waves of resident blocks
-    (``2·resident·sms``), rounding the split count down so that the last wave
-    is not a sliver; ``per_split`` is a whole number of tiles, and no split
-    is empty."""
+    blocks per split: aims at ``waves`` full waves of resident blocks
+    (``waves·resident·sms``), rounding the split count down so that the last
+    wave is not a sliver; ``per_split`` is a whole number of tiles, and no
+    split is empty."""
     tiles = max(1, math.ceil(n / tile))
-    target = max(1, min(tiles, (2 * resident * sms) // row_blocks))
+    target = max(1, min(tiles, (waves * resident * sms) // row_blocks))
     per_split = math.ceil(tiles / target) * tile
     return max(1, math.ceil(n / per_split)), per_split
 
@@ -233,11 +249,27 @@ def pass_a_plan(b: int, h: int, n: int, m: int, sms: int = H100_SMS, dh: int = 6
 
 def pass_b_backward_plan(b: int, h: int, n: int, m: int, sms: int = H100_SMS,
                          dh: int = 64) -> Tuple[int, int]:
-    """The token split of K2b's landmark kernel, and of K1b's: as
-    :func:`pass_a_plan` splits K1's keys, over ``b·h·⌈m/rows⌉·halves``
-    landmark blocks per split (:func:`bwd_rows`)."""
-    return _split_plan(b * h * math.ceil(m / bwd_rows(dh)) * halves(dh), n,
-                       BWD_RESIDENT[kernel_head_dim(dh)], sms, BWD_KEYS)
+    """The token split of K2b's landmark kernel: as :func:`pass_a_plan`
+    splits K1's keys, over ``b·h·⌈m/rows⌉`` landmark blocks per split
+    (:func:`bwd_rows`), in tiles of :func:`bwd_keys` tokens, but aiming at
+    one wave: fewer splits to merge, and on the H100 one wave beat two by
+    5–15% at every head dim (``PERF.md`` §6)."""
+    return _split_plan(b * h * math.ceil(m / bwd_rows(dh)), n, BWD_RESIDENT[kernel_head_dim(dh)], sms,
+                       bwd_keys(dh), waves=1)
+
+
+def pass_a_backward_plan(n: int, m: int, dh: int = 64) -> Tuple[int, int]:
+    """The key split of K1b's landmark blocks: ``(n_splits, per_split)``,
+    split ``s`` taking keys ``[s·per_split, min(n, (s + 1)·per_split))``.
+    One grid holds the landmark blocks and the key blocks, and a key block
+    walks all ``m`` landmarks with four products where a landmark block
+    walks its split with three: ``⌈n/m⌉`` splits keep each landmark block
+    within the time of a key block. ``per_split`` is whole tiles of
+    :func:`bwd_keys` keys, and no split is empty."""
+    tile = bwd_keys(dh)
+    tiles = max(1, math.ceil(n / tile))
+    per_split = math.ceil(tiles / max(1, min(tiles, math.ceil(n / max(m, 1))))) * tile
+    return max(1, math.ceil(n / per_split)), per_split
 
 
 def pass_a_split_plain(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, n_splits: int,
@@ -262,6 +294,96 @@ def pass_a_split_plain(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, n_splits:
     return (pacc * w[..., None]).sum(dim=0) / s3.clamp_min(1e-30)[..., None], m3, s3
 
 
+def pass_b_backward_stream_plain(
+    q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor, mid: Tensor, ql: Tensor,
+    rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor], out: Tensor, chunk: int,
+    n_splits: int, per_split: int,
+) -> Tuple[Tensor, ...]:
+    """K2b's arithmetic as its kernels order it, in plain torch (for tests):
+    ``D = Σ d_out·out`` from K2's ``out``; per token, one walk over the
+    landmarks in chunks of ``chunk`` with the online softmax of ``s1``,
+    ``acc = Σ exp(s1 − max)·(dP1 − D)·k_l`` rescaled as the max moves and
+    ``d_q = acc / Σ exp(s1 − max)``, which leaves the log-sum-exp; per
+    landmark, each token split's ``P1ᵀ = exp(s1ᵀ − lse)`` and
+    ``dS1ᵀ = P1ᵀ∘(dP1ᵀ − D)`` give partial ``d_kl``, ``d_mid`` (and ``d_ql``,
+    ``d_r'``), added in split order. Same function and outputs as
+    :func:`pass_b_backward_plain`."""
+    tok = mask[:, None, :, None]
+    lm = lm_mask[:, None, None, :]
+    q, k, d_out = (torch.where(tok, t, 0.0) for t in (q, k, d_out))
+    dd = torch.where(mask[:, None], (d_out * out).sum(dim=-1), 0.0)  # [B,H,N]
+    m_run = torch.full(dd.shape, NEG_INF, dtype=q.dtype, device=q.device)
+    l_run = torch.zeros_like(dd)
+    acc = torch.zeros_like(q)
+    for c0 in range(0, kl.shape[2], chunk):
+        c = slice(c0, c0 + chunk)
+        ok = lm[..., c]
+        s1 = torch.where(ok, q @ kl[:, :, c].transpose(-1, -2), NEG_INF)
+        m_new = torch.maximum(m_run, s1.amax(dim=-1))
+        scale = torch.exp(m_run - m_new)
+        p = torch.where(ok, torch.exp(s1 - m_new[..., None]), 0.0)
+        dp = d_out @ mid[:, :, c].transpose(-1, -2)
+        l_run = l_run * scale + p.sum(dim=-1)
+        acc = acc * scale[..., None] + (p * (dp - dd[..., None])) @ kl[:, :, c]
+        m_run = m_new
+    den = l_run.clamp_min(1e-30)
+    d_q = torch.where(tok, acc / den[..., None], 0.0)
+    lse = m_run + torch.log(den)
+    valid = mask[:, None, None, :]
+    cls = d_cls is not None
+    d_kl = torch.zeros_like(kl)
+    d_mid, d_ql = torch.zeros_like(mid), torch.zeros_like(ql)
+    d_rp = torch.zeros_like(rp)
+    for s in range(n_splits):
+        n = slice(s * per_split, min(q.shape[2], (s + 1) * per_split))
+        ok = valid[..., n]
+        p1t = torch.where(ok, torch.exp(kl @ q[:, :, n].transpose(-1, -2) - lse[:, :, None, n]), 0.0)
+        dp1t = mid @ d_out[:, :, n].transpose(-1, -2)
+        ds1t = torch.where(ok, p1t * (dp1t - dd[:, :, None, n]), 0.0)
+        d_kl = d_kl + ds1t @ q[:, :, n]
+        d_mid = d_mid + p1t @ d_out[:, :, n]
+        if cls:
+            e = torch.where(ok, torch.exp(ql @ k[:, :, n].transpose(-1, -2) - m3[..., None]), 0.0)
+            ec = e * torch.where(ok, d_cls[:, :, None, n], 0.0)
+            d_ql = d_ql + (rp[..., None] * ec) @ k[:, :, n]
+            d_rp = d_rp + ec.sum(dim=-1)
+    lmz = lm_mask[:, None, :, None]
+    d_kl, d_mid = torch.where(lmz, d_kl, 0.0), torch.where(lmz, d_mid, 0.0)
+    if not cls:
+        return d_q, None, d_kl, d_mid, None, None, None
+    g = rp[..., None] * torch.where(valid, torch.exp(ql @ k.transpose(-1, -2) - m3[..., None]), 0.0) \
+        * torch.where(valid, d_cls[:, :, None, :], 0.0)
+    return d_q, g.transpose(-1, -2) @ ql, d_kl, d_mid, d_ql, d_rp, -rp * d_rp
+
+
+def pass_a_backward_split_plain(
+    ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, attn3v: Tensor, m3: Tensor, s3: Tensor,
+    d_attn3v: Tensor, d_s3: Optional[Tensor], n_splits: int, per_split: int,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """K1b's arithmetic as its one grid orders it, in plain torch (for
+    tests): ``D`` and ``1/s3`` taken where they are used, ``d_k`` and ``d_v``
+    over every landmark, ``d_ql`` as the partial sums of the key splits
+    added in split order. Same function and outputs as
+    :func:`pass_a_backward_plain`."""
+    tok = mask[:, None, :, None]
+    k, v = (torch.where(tok, t, 0.0) for t in (k, v))
+    dd = (d_attn3v * attn3v).sum(dim=-1)
+    if d_s3 is not None:
+        dd = dd - s3 * d_s3
+    inv = 1.0 / s3.clamp_min(1e-30)
+    d_ql = torch.zeros_like(ql)
+    for s in range(n_splits):
+        n = slice(s * per_split, min(k.shape[2], (s + 1) * per_split))
+        ok = mask[:, None, None, n]
+        p = torch.where(ok, torch.exp(ql @ k[:, :, n].transpose(-1, -2) - m3[..., None]), 0.0) * inv[..., None]
+        ds = torch.where(ok, p * (d_attn3v @ v[:, :, n].transpose(-1, -2) - dd[..., None]), 0.0)
+        d_ql = d_ql + ds @ k[:, :, n]
+    valid = mask[:, None, :, None]
+    pt = torch.where(valid, torch.exp(k @ ql.transpose(-1, -2) - m3[:, :, None, :]), 0.0) * inv[:, :, None, :]
+    dst = torch.where(valid, pt * (v @ d_attn3v.transpose(-1, -2) - dd[:, :, None, :]), 0.0)
+    return d_ql, dst @ ql, pt @ d_attn3v
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -281,13 +403,15 @@ def _library():
 
 
 def _bwd_geometry_library(name: str):
-    """A backward kernel's library, once its landmark kernel's geometry
-    (rows, keys and blocks an SM, by head dim) is checked against
-    :func:`pass_b_backward_plan`'s, which K2b and K1b share."""
+    """A backward kernel's library, once its geometry (rows, tile rows and
+    blocks an SM, by head dim) is checked against the plans'
+    (:func:`bwd_rows`, :func:`bwd_keys`, :data:`BWD_RESIDENT`), which K2b and
+    K1b share."""
     lib = load_library(name)
-    got = ({d: getattr(lib, f"{name}_rows")(d) for d in HEAD_DIMS}, getattr(lib, f"{name}_keys")(),
+    got = ({d: getattr(lib, f"{name}_rows")(d) for d in HEAD_DIMS},
+           {d: getattr(lib, f"{name}_keys")(d) for d in HEAD_DIMS},
            {d: getattr(lib, f"{name}_resident")(d) for d in HEAD_DIMS})
-    want = ({d: bwd_rows(d) for d in HEAD_DIMS}, BWD_KEYS, BWD_RESIDENT)
+    want = ({d: bwd_rows(d) for d in HEAD_DIMS}, {d: bwd_keys(d) for d in HEAD_DIMS}, BWD_RESIDENT)
     if got != want:
         raise RuntimeError(f"{name}.cu's geometry {got} differs from the wrapper's {want}")
     return lib
@@ -429,30 +553,35 @@ pass_b.launches = 0
 
 def pass_b_backward(
     q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor, mid: Tensor, ql: Tensor,
-    rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor] = None,
+    rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor] = None, *, out: Optional[Tensor] = None,
 ) -> Tuple[Tensor, ...]:
     """K2b: the CUDA kernels on CUDA tensors, :func:`pass_b_backward_plain`
-    (same arguments and fp32 outputs) on CPU tensors. ``q``, ``k`` and
-    ``d_out`` may be strided views (``d_out`` in any layout: one whose rows
-    do not start on 16 bytes is copied); any head dim up to 256. Without
-    ``d_cls`` the cls term is skipped and its four gradients are None."""
+    (same arguments and fp32 outputs) on CPU tensors. ``q``, ``k``, ``d_out``
+    and ``out`` may be strided views (``d_out`` and ``out`` in any layout:
+    one whose rows do not start on 16 bytes is copied); any head dim up to
+    256. Without ``d_cls`` the cls term is skipped and its four gradients
+    are None. ``out`` is K2's output for these operands, which the kernels
+    take ``D = Σ d_out·out`` from (:class:`PassB` saves it); without it the
+    card branch runs :func:`pass_b` (K2, counted) for it first."""
     if _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, *(() if d_cls is None else (d_cls,))):
         return pass_b_backward_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls)
-    d_out = d_out if _rows_aligned(d_out) else d_out.contiguous()
-    args = (q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls)
-    out = padded_head_dim(_launch_pass_b_backward, args, (0, 1, 3, 5, 6, 9), (0, 1, 2, 3, 4))
+    if out is None:
+        out = pass_b(q, k, mask, kl, lm_mask, mid, ql, rp, m3)[0]
+    d_out, out = (t if _rows_aligned(t) else t.contiguous() for t in (d_out, out))
+    args = (q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls, out)
+    grads = padded_head_dim(_launch_pass_b_backward, args, (0, 1, 3, 5, 6, 9, 11), (0, 1, 2, 3, 4))
     pass_b_backward.launches += 1
-    return out
+    return grads
 
 
 def _launch_pass_b_backward(
     q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor, mid: Tensor, ql: Tensor,
-    rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor],
+    rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor], out: Tensor,
 ) -> Tuple[Tensor, ...]:
     b, h, n, dh = q.shape
     m = kl.shape[2]
     dev = q.device
-    for name, t in (("q", q), ("k", k), ("d_out", d_out)):
+    for name, t in (("q", q), ("k", k), ("d_out", d_out), ("out", out)):
         _check(name, t, (b, h, n, dh), dev)
     _check("mask", mask, (b, n), dev, contiguous=True, dtype=torch.bool)
     for name, t in (("kl", kl), ("mid", mid), ("ql", ql)):
@@ -464,7 +593,7 @@ def _launch_pass_b_backward(
     if cls:
         d_cls = d_cls.float().contiguous()
         _check("d_cls", d_cls, (b, h, n), dev, contiguous=True)
-    for name, t in (("q", q), ("k", k), ("d_out", d_out), ("kl", kl), ("mid", mid), ("ql", ql)):
+    for name, t in (("q", q), ("k", k), ("d_out", d_out), ("out", out), ("kl", kl), ("mid", mid), ("ql", ql)):
         _aligned(name, t)
     lib = _bwd_library()
     n_splits, per_split = pass_b_backward_plan(b, h, n, m, _sm_count(dev.index), dh)
@@ -473,9 +602,9 @@ def _launch_pass_b_backward(
     d_k = torch.empty_like(d_q) if cls else None
     lse = torch.empty((b, h, n), device=dev, dtype=torch.float32)
     dd = torch.empty_like(lse)
-    out = torch.empty((b, h, m, w), device=dev, dtype=torch.float32)
-    part = out if n_splits == 1 else torch.empty((b * h, n_splits, m, w), device=dev, dtype=torch.float32)
-    tickets = _tickets(dev, b * h * math.ceil(m / bwd_rows(dh)) * halves(dh))
+    rows = torch.empty((b, h, m, w), device=dev, dtype=torch.float32)  # d_kl | d_mid | d_ql | d_r'
+    part = rows if n_splits == 1 else torch.empty((b * h, n_splits, m, w), device=dev, dtype=torch.float32)
+    tickets = _tickets(dev, b * h * math.ceil(m / bwd_rows(dh)))
     with torch.cuda.device(dev):
         err = lib.flash_nystrom_pass_b_bwd(
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
@@ -483,17 +612,18 @@ def _launch_pass_b_backward(
             mask.data_ptr(),
             kl.data_ptr(), lm_mask.data_ptr(), mid.data_ptr(), ql.data_ptr(), rp.data_ptr(), m3.data_ptr(),
             d_out.data_ptr(), d_out.stride(0), d_out.stride(1), d_out.stride(2),
+            out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
             d_cls.data_ptr() if cls else None,
             d_q.data_ptr(), d_k.data_ptr() if cls else None,
-            lse.data_ptr(), dd.data_ptr(), part.data_ptr(), out.data_ptr(), tickets.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), part.data_ptr(), rows.data_ptr(), tickets.data_ptr(),
             b, h, n, m, dh, n_splits, per_split, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, "flash_nystrom_pass_b_bwd")
-    d_kl, d_mid = out[..., :dh], out[..., dh:2 * dh]
+    d_kl, d_mid = rows[..., :dh], rows[..., dh:2 * dh]
     if not cls:
         return d_q, None, d_kl, d_mid, None, None, None
-    d_rp = out[..., 3 * dh]
-    return d_q, d_k, d_kl, d_mid, out[..., 2 * dh:3 * dh], d_rp, -rp * d_rp
+    d_rp = rows[..., 3 * dh]
+    return d_q, d_k, d_kl, d_mid, rows[..., 2 * dh:3 * dh], d_rp, -rp * d_rp
 
 
 pass_b_backward.launches = 0
@@ -535,13 +665,12 @@ def _launch_pass_a_backward(
     for name, t in (("ql", ql), ("k", k), ("v", v), ("attn3v", attn3v), ("d_attn3v", d_attn3v)):
         _aligned(name, t)
     lib = _k1b_library()
-    n_splits, per_split = pass_b_backward_plan(b, h, n, m, _sm_count(dev.index), dh)
+    n_splits, per_split = pass_a_backward_plan(n, m, dh)
     d_ql = torch.empty((b, h, m, dh), device=dev, dtype=torch.float32)
     d_k = torch.empty((b, h, n, dh), device=dev, dtype=torch.float32)
     d_v = torch.empty_like(d_k)
-    stats = torch.empty((2, b, h, m), device=dev, dtype=torch.float32)  # D and 1 / s3
     part = d_ql if n_splits == 1 else torch.empty((b * h, n_splits, m, dh), device=dev, dtype=torch.float32)
-    tickets = _tickets(dev, b * h * math.ceil(m / bwd_rows(dh)) * halves(dh))
+    tickets = _tickets(dev, b * h * math.ceil(m / bwd_rows(dh)))
     with torch.cuda.device(dev):
         err = lib.flash_nystrom_pass_a_bwd(
             ql.data_ptr(),
@@ -550,7 +679,7 @@ def _launch_pass_a_backward(
             mask.data_ptr(), attn3v.data_ptr(), m3.data_ptr(), s3.data_ptr(),
             d_attn3v.data_ptr(), d_s3.data_ptr() if d_s3 is not None else None,
             d_ql.data_ptr(), d_k.data_ptr(), d_v.data_ptr(),
-            stats.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            part.data_ptr(), tickets.data_ptr(),
             b, h, n, m, dh, n_splits, per_split, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, "flash_nystrom_pass_a_bwd")
@@ -587,17 +716,17 @@ class PassB(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, mask, kl, lm_mask, mid, ql, rp, m3):
         out, cls = pass_b(q, k, mask, kl, lm_mask, mid, ql, rp, m3)
-        ctx.save_for_backward(q, k, mask, kl, lm_mask, mid, ql, rp, m3)
+        ctx.save_for_backward(q, k, mask, kl, lm_mask, mid, ql, rp, m3, out)
         ctx.set_materialize_grads(False)
         return out, cls
 
     @staticmethod
     def backward(ctx, d_out, d_cls):
-        q, k, mask, kl, lm_mask, mid, ql, rp, m3 = ctx.saved_tensors
+        q, k, mask, kl, lm_mask, mid, ql, rp, m3, out = ctx.saved_tensors
         if d_out is None:
             d_out = torch.zeros_like(q)
         d_q, d_k, d_kl, d_mid, d_ql, d_rp, _ = pass_b_backward(q, k, mask, kl, lm_mask, mid, ql, rp, m3,
-                                                               d_out, d_cls)
+                                                               d_out, d_cls, out=out)
         return d_q, d_k, None, d_kl, None, d_mid, d_ql, d_rp, None
 
 

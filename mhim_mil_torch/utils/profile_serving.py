@@ -7,8 +7,10 @@ Builds the model with random weights (seed 0): MHIM-selfattn from
 ``config/feat_surv.yaml`` with the ``surv_blca`` grid, both at input_dim
 1024. Warms the scorer up, then profiles 5 requests of ``--batch`` bags of
 10,240 instances with ``torch.profiler``. Prints the host-clock time per
-request, the device time summed over kernels per request and its share of
-the wall time (the device's busy share), and the 20 kernels that take the
+request, the device time per request (each kernel's mean record times its
+launches a request, since the profiler now and then drops a record; a
+shortfall is printed) and its share of the wall time (the device's busy
+share), and the 20 kernels that take the
 most device time. Needs a CUDA card.
 """
 
@@ -24,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..config import load_config
 from ..models import build_model
 from .serving import Scorer
+from .time_scan2d import per_call_us
 
 CONFIGS = {
     "mhim": (["-c", "config/mhim_c16.yaml"], {}),
@@ -56,15 +59,19 @@ def main(argv=None):
             scorer.score(feats)
         wall_ms = (time.perf_counter() - t0) * 1e3 / requests
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels) / requests
+    per_request, seen, want = per_call_us(kernels, requests)
+    device_us = sum(per_request.values())
     print(f"{torch.cuda.get_device_name(0)}; {args.model}, batch {args.batch} x {n}, "
           f"bf16 policy: {wall_ms:.2f} ms per request (host clock, under the profiler), "
           f"device busy {device_us / 1e3:.2f} ms per request = {100 * device_us / 1e3 / wall_ms:.1f}% "
           f"of the wall time")
-    rows = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:20]
+    if seen < want:
+        print(f"the profiler returned {seen} of {want} kernel records; device time from each kernel's mean "
+              f"record times its launches a request")
+    rows = sorted(kernels, key=lambda e: per_request[e.key], reverse=True)[:20]
     print(f"{'kernel':60s} {'device ms/request':>18s} {'share':>7s} {'calls/request':>14s}")
     for e in rows:
-        per = e.self_device_time_total / requests / 1e3
+        per = per_request[e.key] / 1e3
         print(f"{e.key[:60]:60s} {per:18.3f} {100 * per * 1e3 / max(device_us, 1):6.1f}% "
               f"{e.count / requests:14.1f}")
 

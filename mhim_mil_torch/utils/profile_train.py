@@ -7,7 +7,9 @@ weights (seed 0), takes 3 warm-up steps under the default bf16 policy on a
 batch of 4 bags of 10,240 instances (two of them ragged, 8,000 and 6,000),
 then profiles ``--steps`` steps with ``torch.profiler``. Prints the host-clock
 time per step, the device time per step and its share of the wall time (the
-device's busy share), the device time of each stage of the step (the
+device's busy share; each kernel's mean record times its launches a step,
+since the profiler now and then drops a record, and a shortfall is
+printed), the device time of each stage of the step (the
 ``record_function`` ranges of ``make_mhim_train_step``), the peak device
 memory of a step, and the 20 kernels that take the most device time.
 Needs a CUDA card.
@@ -26,6 +28,7 @@ from ..config import load_config
 from ..engine.steps import make_mhim_train_step
 from ..engine.train_state import create_mhim_state
 from ..models import build_model
+from .time_scan2d import per_call_us
 
 STAGES = ("mhim.teacher", "mhim.student", "mhim.backward", "mhim.update")
 
@@ -68,11 +71,15 @@ def main(argv=None):
     # device activity only: kernels and copies, not the ranges annotated on the device timeline
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and e.key not in STAGES and not getattr(e, "is_user_annotation", False)]
-    device_us = sum(e.self_device_time_total for e in kernels) / steps
+    per_step, seen, want = per_call_us(kernels, steps)
+    device_us = sum(per_step.values())
     print(f"{torch.cuda.get_device_name(0)}; MHIM-{args.baseline} train step, batch {b} x {n}, "
           f"{cfg.compute_dtype} policy: {wall_ms:.2f} ms per step (host clock, under the profiler), "
           f"device busy {device_us / 1e3:.2f} ms per step = {100 * device_us / 1e3 / wall_ms:.1f}% of the "
           f"wall time; peak memory {peak_gib:.2f} GiB ({base / 2 ** 30:.2f} GiB held between steps)")
+    if seen < want:
+        print(f"the profiler returned {seen} of {want} kernel records; device time from each kernel's mean "
+              f"record times its launches a step")
     print(f"{'stage':20s} {'device ms/step':>15s} {'host ms/step':>13s}")
     for name in STAGES:
         dev = sum(e.device_time_total for e in events if e.key == name
@@ -80,10 +87,10 @@ def main(argv=None):
         host = sum(e.cpu_time_total for e in events if e.key == name
                    and e.device_type == torch.autograd.DeviceType.CPU) / steps / 1e3
         print(f"{name:20s} {dev:15.3f} {host:13.3f}")
-    rows = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:20]
+    rows = sorted(kernels, key=lambda e: per_step[e.key], reverse=True)[:20]
     print(f"{'kernel':60s} {'device ms/step':>15s} {'share':>7s} {'calls/step':>11s}")
     for e in rows:
-        per = e.self_device_time_total / steps / 1e3
+        per = per_step[e.key] / 1e3
         print(f"{e.key[:60]:60s} {per:15.3f} {100 * per * 1e3 / max(device_us, 1):6.1f}% "
               f"{e.count / steps:11.1f}")
 

@@ -66,18 +66,27 @@ def event_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
+def per_call_us(events, calls):
+    """Each device event's time a call, ``{key: us}``: its mean record times
+    its launches a call, ``max(1, round(count / calls))``, since the
+    profiler now and then returns fewer records than there were launches;
+    and the records returned against the records that many launches make."""
+    per = {e.key: e.self_device_time_total / max(1, e.count) * max(1, round(e.count / calls)) for e in events}
+    seen = sum(e.count for e in events)
+    return per, seen, calls * sum(max(1, round(e.count / calls)) for e in events)
+
+
 def kernel_ms(fn, iters=10):
-    """The device time of one call: each kernel's mean record times its
-    launches a call, ``round(count / iters)``; and the kernel records the
-    profiler returned for the ``iters`` calls."""
+    """The device time of one call (:func:`per_call_us`), and the kernel
+    records the profiler returned for the ``iters`` calls."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.count and e.device_type == torch.autograd.DeviceType.CUDA]
-    us = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters)) for e in events)
-    return us / 1e3, sum(e.count for e in events)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    per, seen, _ = per_call_us(events, iters)
+    return sum(per.values()) / 1e3, seen
 
 
 def layout(ops) -> str:

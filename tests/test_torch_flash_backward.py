@@ -11,7 +11,8 @@
   the cases that file does not take: a bag with no valid token, attn
   unused, m 16 with empty landmark groups, and head dims the kernels are not
   built for, through the wrappers' padding.
-- K2b's token split plan.
+- The backward kernels' grids: K2b's token tiles and landmark splits, K1b's
+  one grid of landmark and key blocks.
 """
 
 import math
@@ -152,7 +153,7 @@ def test_flash_nystrom_vjp_through_padded_head_dims(monkeypatch, dh):
 
     monkeypatch.setattr(fn, "_on_cpu", lambda *ts: False)
     for name, plain in (("_launch_pass_a", fn.pass_a_plain), ("_launch_pass_b", fn.pass_b_plain),
-                        ("_launch_pass_b_backward", fn.pass_b_backward_plain),
+                        ("_launch_pass_b_backward", lambda *a: fn.pass_b_backward_plain(*a[:11])),  # K2's out: unused
                         ("_launch_pass_a_backward", fn.pass_a_backward_plain)):
         monkeypatch.setattr(fn, name, built_for(plain))
     g = np.random.default_rng(dh)
@@ -190,19 +191,39 @@ def test_cls_term_is_invariant_to_a_shift_of_m3():
 
 
 @pytest.mark.parametrize("b,h,n,m,dh", [(4, 8, 1027, 256, 64), (1, 2, 128, 8, 16), (2, 4, 10241, 256, 128),
-                                        (1, 1, 31, 300, 32)])
-def test_backward_plan_covers_every_token_once(b, h, n, m, dh):
-    """K2b's token splits are whole 32-token tiles, none empty, and together
-    cover [0, n) exactly once; at the student's shape (B 4, H 8, N 1,027,
-    m 256) the landmark kernel has at least two blocks for each of the
-    H100's 132 SMs."""
-    n_splits, per_split = fn.pass_b_backward_plan(b, h, n, m, dh=dh)
-    assert per_split % fn.BWD_KEYS == 0 and per_split > 0
+                                        (1, 1, 31, 300, 32), (4, 4, 1027, 256, 128), (4, 2, 1027, 256, 256),
+                                        (1, 8, 2048, 128, 64)])
+@pytest.mark.parametrize("kernel", ["K2b", "K1b"])
+def test_backward_plan_covers_every_token_once(b, h, n, m, dh, kernel):
+    """The backward kernels' grids at the student's shape (B 4, H 8, N
+    1,027, m 256), dh 128 and 256 beside it, kernel_check's VJP shapes (full
+    and --small) and odd ones. K2b: the token kernel's tiles cover [0, n)
+    once, and the landmark kernel's token splits are whole tiles of
+    ``bwd_keys`` tokens, none empty, that cover [0, n) once for every
+    landmark tile, which cover [0, m) once; at the student's shape it has at
+    least two blocks for each of the H100's 132 SMs. K1b: its one grid's
+    landmark blocks (tiles of rows landmarks, key splits) cover each
+    (landmark, key) pair once and its key blocks each key once. Every block
+    holds at least four warps."""
+    rows, tile = fn.bwd_rows(dh), fn.bwd_keys(dh)
+    assert (rows // 16) * max(1, fn.kernel_head_dim(dh) // 64) >= 4  # warps: row groups × 64-column groups
+    if kernel == "K2b":
+        n_splits, per_split = fn.pass_b_backward_plan(b, h, n, m, dh=dh)
+    else:
+        n_splits, per_split = fn.pass_a_backward_plan(n, m, dh)
+    landmark = [(r, s * per_split, min(n, (s + 1) * per_split)) for s in range(n_splits)
+                for r in range(0, m, rows)]
+    key = [(t0, min(n, t0 + rows)) for t0 in range(0, n, rows)]
+    assert per_split % tile == 0 and per_split > 0
+    pairs = torch.zeros(m, n, dtype=torch.int64)
+    for r0, lo, hi in landmark:
+        assert lo < hi and r0 < m
+        pairs[r0:r0 + rows, lo:hi] += 1
+    assert torch.all(pairs == 1)
     covered = torch.zeros(n, dtype=torch.int64)
-    for s in range(n_splits):
-        lo, hi = s * per_split, min(n, (s + 1) * per_split)
+    for lo, hi in key:
         assert lo < hi
         covered[lo:hi] += 1
     assert torch.all(covered == 1)
-    if (b, h, n, m) == (4, 8, 1027, 256):
-        assert b * h * math.ceil(m / fn.BWD_ROWS) * n_splits >= 2 * 132
+    if (b, h, n, m, dh, kernel) == (4, 8, 1027, 256, 64, "K2b"):
+        assert b * h * math.ceil(m / fn.bwd_rows(dh)) * n_splits >= 2 * 132

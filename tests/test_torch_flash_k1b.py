@@ -267,8 +267,8 @@ def _mutated_k3(monkeypatch, case, name, mutate):
     """K3 with one wrapper's result changed by ``mutate``."""
     real = getattr(fn, name)
 
-    def wrapper(*args):
-        return mutate(real(*args))
+    def wrapper(*args, **kwargs):
+        return mutate(real(*args, **kwargs))
 
     with monkeypatch.context() as mp:
         mp.setattr(fn, name, wrapper)

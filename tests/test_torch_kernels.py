@@ -142,28 +142,37 @@ def _k2b_operands(dev, b, h, n, dh, m, lengths, seed):
     return (q, k, mask, k_l, lm_mask, mid, q_l, rp, m3), d_out, d_cls
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,n,dh,m,lengths", [
+BACKWARD_LAYOUTS = [
     (4, 8, 1027, 64, 256, (1027, 943, 717, 846)),  # the student's shape
     (3, 2, 300, 16, 8, (300, 150, 0)),  # DH 16, m 8; empty landmark groups; a bag with no valid token
-    (2, 4, 500, 128, 40, (500, 77)),  # DH 128; m not a multiple of 16
+    (2, 2, 333, 32, 24, (333, 0)),  # DH 32; N and m not multiples of the 32-row step; a bag with no valid token
+    (2, 3, 95, 64, 40, (95, 17)),  # DH 64; N and m not multiples of 32 and 64
+    (2, 4, 500, 128, 40, (500, 77)),  # DH 128 (2 × 2 warps, 16-row steps); m not a multiple of 16
+    (3, 4, 257, 128, 48, (257, 0, 100)),  # DH 128, a bag with no valid token
     (2, 2, 200, 24, 16, (200, 131)),  # a padded head dim
-    (2, 2, 500, 160, 40, (500, 77)),  # padded to DH 256: two column halves
+    (2, 2, 500, 160, 40, (500, 77)),  # padded to DH 256 (2 × 4 warps)
     (2, 2, 1027, 256, 256, (1027, 0)),  # DH 256 at the student's m, a bag with no valid token
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,dh,m,lengths", BACKWARD_LAYOUTS)
 @pytest.mark.parametrize("with_cls", [False, True])
 def test_pass_b_backward_matches_its_plain_version_on_the_card(hopper, b, h, n, dh, m, lengths, with_cls):
     """K2b against pass_b_backward_plain on the same card inputs, NaN at
     every masked q, k, d_out and d_cls entry (never read): each gradient at
     max|d| <= 1e-4·max|ref| (3×TF32 products against fp32 ones, sums over up
     to a thousand tokens), zero at masked tokens; one launch counted; two
-    launches give the same bits (no float atomics)."""
+    launches give the same bits (no float atomics). Without the cls term it
+    is handed K2's out, as PassB hands it; with it the wrapper runs K2 for
+    out itself."""
     args, d_out, d_cls = _k2b_operands(hopper, b, h, n, dh, m, lengths, 8)
     cls = d_cls if with_cls else None
+    kw = {} if with_cls else {"out": fn.pass_b(*args)[0]}
     want = fn.pass_b_backward_plain(*args, d_out, cls)
     before = fn.pass_b_backward.launches
-    got = fn.pass_b_backward(*args, d_out, cls)
-    again = fn.pass_b_backward(*args, d_out, cls)
+    got = fn.pass_b_backward(*args, d_out, cls, **kw)
+    again = fn.pass_b_backward(*args, d_out, cls, **kw)
     torch.cuda.synchronize()
     assert fn.pass_b_backward.launches == before + 2
     for name, g, w, g2 in zip(("d_q", "d_k", "d_kl", "d_mid", "d_ql", "d_rp", "d_m3"), got, want, again):
@@ -179,14 +188,7 @@ def test_pass_b_backward_matches_its_plain_version_on_the_card(hopper, b, h, n, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,n,dh,m,lengths", [
-    (4, 8, 1027, 64, 256, (1027, 943, 717, 846)),  # the student's shape
-    (3, 2, 300, 16, 8, (300, 150, 0)),  # DH 16, m 8; a bag with no valid key
-    (2, 2, 200, 24, 16, (200, 131)),  # a padded head dim
-    (2, 4, 500, 128, 40, (500, 77)),  # DH 128; m not a multiple of 16
-    (2, 2, 500, 160, 40, (500, 77)),  # padded to DH 256: two column halves
-    (2, 2, 1027, 256, 256, (1027, 611)),  # DH 256 at the student's m
-])
+@pytest.mark.parametrize("b,h,n,dh,m,lengths", BACKWARD_LAYOUTS)
 @pytest.mark.parametrize("with_s3", [False, True])
 def test_pass_a_backward_matches_its_plain_version_on_the_card(hopper, b, h, n, dh, m, lengths, with_s3):
     """K1b against pass_a_backward_plain on K1's operands from the plain
