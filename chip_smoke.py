@@ -19,15 +19,20 @@ its eval step and its scorer. Phases, each of which fails the run:
    as three TF32 products each) and a small odd shape; K3's outputs and
    q/k/v gradients at the student's shape against autograd through the
    plain attention in fp32, and its gradients against the plain attention
-   in fp64 by the kernel gate's VJP criterion; K2b and K1b, the backwards of
-   K2's and K1's passes that K3's backward launches, against their plain
+   in fp64 by the kernel gate's VJP criterion, and its pseudo-inverse as K3p
+   launches alone (the profiler's record); K3p, the Newton–Schulz
+   pseudo-inverse on the tensor cores, against ``moore_penrose_pinv`` and
+   its autograd in fp32 and against fp64 on the attn2 of the student's and
+   the flagship's shapes, timed beside ``torch.bmm``; K2b and K1b, the
+   backwards of K2's and K1's passes that K3's backward launches, against their plain
    versions at the student's shape and at head dims 128 and 256, timed with
    their bounds beside the backward of ``scaled_dot_product_attention``;
    K5 against its plain
    version at the BLCA grid and the serving raster grid in fp32 and bf16, a
    ragged 5 × 11 grid, a segment edge of the cluster layout and a row of
    1,000 columns (and rows of 1,500, 2,100 and 4,200 columns), and K6 against
-   ``x + 1``, with times, bounds and library yardsticks; the shapes the
+   ``x + 1`` (beside an empty launch), with times, bounds and library
+   yardsticks, K4 as one CUDA launch a call; the shapes the
    kernels are not built for: K1/K2 at head dims 96, 128, 192 and 256
    (timed at 128 and 256), K4 at 1,536 columns, K5 at 32
    states on the BLCA grid;
@@ -378,12 +383,26 @@ def phase_k4(gen) -> dict:
             got_lib = lib()[:, 0]
             r["library"] = "softmax + bmm"
         check_close("K4 library yardstick", got_lib, want_pooled, 1e-4, 1e-5)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                abmil_pool.fused_abmil_pool(x, logits, mask)
+            torch.cuda.synchronize()
+        # every device record of 5 calls is K4's one kernel (the profiler drops a record now and then)
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        if not (1 <= len(names) <= 5 and all("abmil_pool_kernel" in name for name in names)):
+            fail(f"K4 [{label}]: 5 calls put {len(names)} records on the card, want one launch of abmil_pool_kernel "
+                 f"a call: {sorted(set(names))}")
+        r["cuda_launches_per_call"] = 1
         bound_ms, bound_by = k4_bounds(x, mask)
         timed(r, lambda: abmil_pool.fused_abmil_pool(x, logits, mask),
               lambda: abmil_pool.abmil_pool_plain(x, logits, mask), lib)
         r.update(bound_ms=bound_ms, bound_by=bound_by)
         log(f"K4 [{label}]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, library "
-            f"{fmt_ms(r, 'library_')} ({r['library']}), bound {bound_ms:.4f} ms ({bound_by})")
+            f"{fmt_ms(r, 'library_')} ({r['library']}), bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{r['cuda_launches_per_call']} CUDA launch a call (profiler)")
     return {"K4": r}
 
 
@@ -452,6 +471,19 @@ def phase_k3(gen) -> dict:
             fail(f"K3 {name}: {r['n_bad']} entries miss the VJP criterion against fp64, max|d| "
                  f"{r['max_abs_err']:.3e}")
     del want64
+    from mhim_mil_torch.ops import nystrom_pinv as npv
+
+    for use_attn in (True, False):
+        before = npv.pinv_product.launches
+        ids = k3p_records(lambda: kern(use_attn))
+        runs = [len(run) for run in "".join("p" if i == "K3p" else "." for i in ids).split(".") if run]
+        if npv.pinv_product.launches - before != 4 * 72 or len(runs) != 6 or max(runs[0::2]) > 24 \
+                or max(runs[1::2]) > 48:
+            fail(f"K3 (attn {'used' if use_attn else 'unused'}): in 3 calls its pseudo-inverse ran as K3p runs {runs} "
+                 f"in the profiler's record ({npv.pinv_product.launches - before} launches in 4 calls); want a run of "
+                 f"at most 24 forward and one of at most 48 backward a call, nothing else between their launches")
+        crit.append(f"attn {'used' if use_attn else 'unused'}: its pseudo-inverse K3p alone, runs of {runs} launches "
+                    f"in 3 calls; {ids.count('cuBLAS GEMM')} cuBLAS GEMMs in all (the glue's products outside it)")
     r = {"max_abs_err": max(errs), **k3_bounds(lengths.tolist(), h, n, m, dh)}
     timed(r, kern, plain)
     r_na = r.setdefault("no_attn", {})
@@ -463,6 +495,111 @@ def phase_k3(gen) -> dict:
         f"{fmt_ms(r, 'plain_')}, {fmt_bound(r)}; without attn's cotangent {fmt_ms(r_na, '')}, plain "
         f"{fmt_ms(r_na, 'plain_')}; no library call computes it")
     return {"K3": r}
+
+
+def pinv_bounds(g, m, products, matrices) -> dict:
+    """K3p's least time for ``products`` products of ``g`` m × m matrices
+    (2·g·m³ FLOPs each, on the tensor cores at 3×TF32), and the bytes of the
+    function: ``matrices`` [g, m, m] fp32 tensors read or written once."""
+    return tensor_core_bounds(products * 2 * g * m ** 3, matrices * g * m * m * F32, 0)
+
+
+def k3p_records(call, calls: int = 3) -> list:
+    """The profiler's device records of ``calls`` calls of ``call`` after a
+    warm-up, by id (``time_scan2d.kernel_id``), in the order the card ran
+    them: K3p's runs among them show what ran between its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mhim_mil_torch.utils.time_scan2d import kernel_id
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)), key=lambda e: e.time_range.start)
+    return [kernel_id(e.name) for e in events]
+
+
+def phase_k3p(gen) -> dict:
+    """K3p, the Newton–Schulz pseudo-inverse on the tensor cores
+    (``ops/nystrom_pinv.pseudo_inverse``), on the attn2 of the student's
+    ragged shape (B 4, H 8, N 1,027: G 32, m 256) and of the flagship's (B 4,
+    H 8, N 10,241, the cls token and bags of 10,240 / 10,240 / 8,000 /
+    6,000): the pseudo-inverse and its VJP under a random cotangent against
+    ``moore_penrose_pinv`` and its autograd in fp32 (max|d| <= 1e-4·max|ref|),
+    and against fp64 by the VJP criterion (``pinv_reference64``: the scale's
+    maxes over fp32's ties), the fp32 reference held to it too; 24 launches
+    forward and 48 backward. Timed at the student's: forward (beside 24
+    ``torch.bmm`` calls in fp32), forward + backward (beside 72), and one
+    product beside one ``torch.bmm``."""
+    from mhim_mil_torch.ops import nystrom_pinv as npv
+    from mhim_mil_torch.ops.nystrom import moore_penrose_pinv
+    from mhim_mil_torch.utils.kernel_check import pinv_reference64, vjp_close
+    from mhim_mil_torch.utils.time_nystrom import attn2_operand
+
+    r = {"max_abs_err": 0.0, "vjp_max_abs_err": 0.0}
+    for label, n, lengths in (("student", 1027, [1027, 943, 717, 846]),
+                              ("flagship", 10241, [10241, 10241, 8001, 6001])):
+        x = attn2_operand(gen, 4, n, lengths)
+        g, m = x.shape[0] * x.shape[1], x.shape[-1]
+        cot = torch.randn(x.shape, device="cuda", generator=gen)
+
+        def run(f, dtype=torch.float32):
+            xx = x.to(dtype).requires_grad_()
+            z = f(xx)
+            return z.detach(), torch.autograd.grad(z, xx, cot.to(dtype))[0]
+
+        before = npv.pinv_product.launches
+        z, dx = run(npv.pseudo_inverse)
+        torch.cuda.synchronize()
+        if npv.pinv_product.launches - before != 24 + 48:
+            fail(f"K3p [{label}]: {npv.pinv_product.launches - before} launches for a forward and a backward, want 72")
+        z32, dx32 = run(moore_penrose_pinv)
+        z64, dx64 = run(lambda xx: pinv_reference64(xx, x), torch.float64)
+        e_z = check_rel(f"K3p pinv [{label}]", z, z32, 1e-4)
+        e_g = check_rel(f"K3p VJP [{label}]", dx, dx32, 1e-4)
+        v, v32 = vjp_close(dx, dx64), vjp_close(dx32, dx64)
+        if not v32["ok"]:
+            fail(f"K3p VJP [{label}]: the fp32 reference misses the VJP criterion against fp64 in {v32['n_bad']} entries")
+        if not v["ok"]:
+            fail(f"K3p VJP [{label}]: {v['n_bad']} entries miss the VJP criterion against fp64, max|d| "
+                 f"{v['max_abs_err']:.3e}")
+        r["max_abs_err"] = max(r["max_abs_err"], e_z)
+        r["vjp_max_abs_err"] = max(r["vjp_max_abs_err"], e_g)
+        log(f"K3p [{label}] G={g} m={m} valid={lengths}: pinv max|d| {e_z:.3e} (max|ref| {z32.abs().max().item():.3e}; "
+            f"fp64: kernel {(z - z64).abs().max().item():.3e}, fp32 plain {(z32 - z64).abs().max().item():.3e}), "
+            f"VJP max|d| {e_g:.3e} (max|ref| {dx32.abs().max().item():.3e}), tolerance max|d| <= 1e-4 max|ref|; "
+            f"VJP against fp64 by the criterion: kernel {v['max_abs_err']:.3e} ({v['of_allowance']:.3f} of the "
+            f"allowance), fp32 plain {v32['max_abs_err']:.3e} ({v32['of_allowance']:.3f}); 24 + 48 launches")
+        del z64, dx64
+        if label != "student":
+            continue
+        zr = torch.randn_like(x)
+
+        def bmms(count):
+            for _ in range(count):
+                torch.bmm(x.view(g, m, m), zr.view(g, m, m))
+
+        def fwd_bwd(f):
+            xx = x.detach().requires_grad_()
+            return torch.autograd.grad(f(xx), xx, cot)
+
+        timed(r, lambda: npv.pseudo_inverse(x), lambda: moore_penrose_pinv(x), lambda: bmms(24))
+        r.update(pinv_bounds(g, m, 24, 2), library="24 torch.bmm calls in fp32 on [32, 256, 256]")
+        rb = r.setdefault("backward", {"library": "72 torch.bmm calls in fp32"})
+        timed(rb, lambda: fwd_bwd(npv.pseudo_inverse), lambda: fwd_bwd(moore_penrose_pinv), lambda: bmms(72))
+        rb.update(pinv_bounds(g, m, 72, 4))
+        rp = r.setdefault("product", {"library": "one torch.bmm in fp32"})
+        timed(rp, lambda: npv.pinv_product(x, zr), lambda: npv.pinv_product_plain(x, zr), lambda: bmms(1))
+        rp.update(pinv_bounds(g, m, 1, 3))
+        for name, row in (("forward, 24 products", r), ("forward + backward, 72 products", rb),
+                          ("one product", rp)):
+            log(f"K3p [student, {name}]: kernel {fmt_ms(row, '')}, plain {fmt_ms(row, 'plain_')}, library "
+                f"({row['library']}) {fmt_ms(row, 'library_')}, {fmt_bound(row)}")
+    return {"K3p": r}
 
 
 def k2b_bounds(mask, h, m, dh, cls: bool) -> dict:
@@ -727,31 +864,38 @@ def phase_k6(gen) -> dict:
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32_FLOPS * 1e3
     r.update(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
     timed(r, lambda: probe.probe(x), lambda: probe.probe_plain(x), lambda: torch.add(x, 1.0))
+    from mhim_mil_torch.kernels import load_library
+
+    lib = load_library("probe")
+    r["empty_launch_device_ms"] = device_ms(lambda: lib.probe_empty(torch.cuda.current_stream().cuda_stream), 20)
     log(f"K6 [ones]: kernel {fmt_ms(r, '')}, plain {fmt_ms(r, 'plain_')}, library (torch.add) "
-        f"{fmt_ms(r, 'library_')}, bound {r['bound_ms']:.3e} ms ({r['bound_by']}: {nbytes} bytes)")
+        f"{fmt_ms(r, 'library_')}, bound {r['bound_ms']:.3e} ms ({r['bound_by']}: {nbytes} bytes); an empty "
+        f"launch (csrc/probe.cu empty_kernel) takes {r['empty_launch_device_ms']} device ms")
     return {"K6": r}
 
 
 # ---- phases 4-7: the main paths ---------------------------------------------------
 
 
-KERNELS = ("K1", "K2", "K3", "K3b", "K1b", "K2b", "K4", "K5", "K6")  # K3b: K3's backward
+KERNELS = ("K1", "K2", "K3", "K3b", "K3p", "K1b", "K2b", "K4", "K5", "K6")  # K3b: K3's backward
 
 
 def launches() -> dict:
-    from mhim_mil_torch.ops import abmil_pool, probe, scan2d
+    from mhim_mil_torch.ops import abmil_pool, nystrom_pinv, probe, scan2d
     from mhim_mil_torch.ops import flash_nystrom as fn
 
     return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches, "K3": fn.flash_nystrom.forward_calls,
-            "K3b": fn.flash_nystrom.backward_calls, "K1b": fn.pass_a_backward.launches,
+            "K3b": fn.flash_nystrom.backward_calls, "K3p": nystrom_pinv.pinv_product.launches,
+            "K1b": fn.pass_a_backward.launches,
             "K2b": fn.pass_b_backward.launches, "K4": abmil_pool.fused_abmil_pool.launches,
             "K5": scan2d.selective_scan_2d_fused.launches, "K6": probe.probe.launches}
 
 
 def reset_launches():
-    from mhim_mil_torch.ops import abmil_pool, probe, scan2d
+    from mhim_mil_torch.ops import abmil_pool, nystrom_pinv, probe, scan2d
     from mhim_mil_torch.ops import flash_nystrom as fn
 
+    nystrom_pinv.pinv_product.launches = 0
     fn.pass_a.launches = fn.pass_b.launches = fn.pass_a_backward.launches = fn.pass_b_backward.launches = 0
     fn.flash_nystrom.forward_calls = fn.flash_nystrom.backward_calls = 0
     abmil_pool.fused_abmil_pool.launches = 0
@@ -846,7 +990,7 @@ def phase_serving(gen) -> dict:
     logits_k = model_k.forward_test(feats, mask)["logits"]
     cls_k, score_k = model_k.forward_teacher(feats, mask)
     torch.cuda.synchronize()
-    counted = expect_launches("forward_test + forward_teacher", K1=4, K2=4)
+    counted = expect_launches("forward_test + forward_teacher", K1=4, K2=4, K3p=4 * 24)
     reset_launches()
     logits_p = model_p.forward_test(feats, mask)["logits"]
     cls_p, score_p = model_p.forward_teacher(feats, mask)
@@ -861,7 +1005,7 @@ def phase_serving(gen) -> dict:
         ("batch 1 x 10240", feats[:1].cpu().numpy(), None, 1),
         ("ragged 6000 (bucket 10240)", ragged.cpu().numpy(), None, 1),
     ]
-    sv = serve("selfattn", cfg, model_k, requests, {"K1": 2, "K2": 2}, logits_k)
+    sv = serve("selfattn", cfg, model_k, requests, {"K1": 2, "K2": 2, "K3p": 2 * 24}, logits_k)
     return {"launches": [counted, sv["launches"]], "serving": sv["serving"]}
 
 
@@ -887,7 +1031,7 @@ def phase_train(gen) -> dict:
     reset_launches()
     m_k = make_mhim_train_step(cfg, spe, device="cuda")(state_k, batch)
     torch.cuda.synchronize()
-    counted = expect_launches("one fp32 train step", K1=4, K2=4, K3=2, K3b=2, K1b=2, K2b=2)
+    counted = expect_launches("one fp32 train step", K1=4, K2=4, K3=2, K3b=2, K3p=4 * 24 + 2 * 48, K1b=2, K2b=2)
     reset_launches()
     m_p = make_mhim_train_step(cfg.replace(use_flash_attn=False), spe, device="cuda")(state_p, batch)
     torch.cuda.synchronize()
@@ -933,8 +1077,8 @@ def phase_train(gen) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     n = TRAIN_STEPS + 2
-    counted_16 = expect_launches("the bf16 train steps", K1=4 * n, K2=4 * n, K3=2 * n, K3b=2 * n, K1b=2 * n,
-                                 K2b=2 * n)
+    counted_16 = expect_launches("the bf16 train steps", K1=4 * n, K2=4 * n, K3=2 * n, K3b=2 * n,
+                                 K3p=(4 * 24 + 2 * 48) * n, K1b=2 * n, K2b=2 * n)
     moved = sum(not torch.equal(p, q) for p, q in zip(model_k.parameters(), before))
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = statistics.median(times)
@@ -1096,7 +1240,7 @@ def phase_driver() -> dict:
         log_folds("flagship", res)
         log(f"driver [flagship] launches {seen}; {secs:.2f} s in all (host clock, data made, gate and "
             f"checkpoints included); peak device memory {peak_gb:.2f} GiB")
-        for kid in ("K1", "K2", "K3", "K3b", "K1b", "K2b"):
+        for kid in ("K1", "K2", "K3", "K3b", "K3p", "K1b", "K2b"):
             if seen[kid] < 1:
                 fail(f"driver [flagship]: {kid} was not launched")
         finite_rows("flagship", res, ("test", "test_ema"), "auc")
@@ -1134,6 +1278,7 @@ def main():
     report = phase_nystrom_kernels(gen)
     report.update(phase_k4(gen))
     report.update(phase_k3(gen))
+    report.update(phase_k3p(gen))
     report.update(phase_k2b(gen))
     report.update(phase_k1b(gen))
     report.update(phase_k5(gen))
@@ -1149,8 +1294,10 @@ def main():
                "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:45"),
         "K2": ("flash_nystrom_pass_b (pass_b_kernel)", "mhim_mil_torch/csrc/flash_nystrom.cu",
                "mhim_mil_tpu/ops/pallas_nystrom.py:85"),
-        "K3": ("flash_nystrom (PassA, PassB: K1 + K2 forward; K2b, the glue's autograd and K1b backward)",
-               "mhim_mil_torch/ops/flash_nystrom.py", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
+        "K3": ("flash_nystrom (PassA, PassB: K1 + K2 forward; K2b, the glue's autograd and K1b backward; the "
+               "pseudo-inverse on K3p)", "mhim_mil_torch/ops/flash_nystrom.py", "mhim_mil_tpu/ops/pallas_nystrom.py:249"),
+        "K3p": ("nystrom_pinv_product (pinv_product_kernel), the Newton-Schulz pseudo-inverse of K3's glue, "
+                "forward and backward", "mhim_mil_torch/csrc/nystrom_pinv.cu", "mhim_mil_tpu/ops/nystrom.py:33"),
         "K2b": ("flash_nystrom_pass_b_bwd (token_kernel + landmark_kernel), K3's backward of K2's pass",
                 "mhim_mil_torch/csrc/flash_nystrom_bwd.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:280"),
         "K1b": ("flash_nystrom_pass_a_bwd (k1b_kernel: landmark and key blocks in one grid), K3's backward of "
@@ -1173,7 +1320,8 @@ def main():
             "plain_device_ms": r["plain_device_ms"], "library_device_ms": r["library_device_ms"],
         }
         for key in ("bound_parts_ms", "batch1", "dh128", "dh256", "dh192", "no_attn", "cls", "s3", "library", "bf16",
-                    "serving", "serving_bf16"):
+                    "serving", "serving_bf16", "backward", "product", "vjp_max_abs_err", "cuda_launches_per_call",
+                    "empty_launch_device_ms"):
             if key in r:
                 row[key] = r[key]
         if kid == "K3":

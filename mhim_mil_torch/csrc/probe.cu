@@ -19,6 +19,9 @@ __global__ void probe_kernel(const float* __restrict__ x, float* __restrict__ o,
   if (i < n) o[i] = x[i] + 1.0f;
 }
 
+// No work: its device time is that of a launch, the least any kernel takes.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // x[n] and o[n] fp32, contiguous, on the card.
@@ -27,5 +30,12 @@ extern "C" int probe(const float* x, float* o, int64_t n, void* stream) {
   constexpr int threads = 256;
   const int64_t blocks = (n + threads - 1) / threads;
   probe_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(x, o, n);
+  return (int)cudaGetLastError();
+}
+
+// One launch of a block of 32 threads that does nothing (chip_smoke.py times
+// it as the floor under K6's time).
+extern "C" int probe_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+P, I64, I32, F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 
 # argtypes of every C entry, by source
 SIGNATURES: Dict[str, Dict[str, list]] = {
@@ -97,14 +97,26 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             P,  # stream
         ],
     },
+    "nystrom_pinv": {
+        "nystrom_pinv_tiles": [P],  # out: the tiles built, BM·1000 + BN
+        "nystrom_pinv_product": [
+            P, P, P, P,  # A, B, C (or null), D
+            I32, I32,  # G, m
+            I32, I32,  # A transposed, B transposed
+            F, F, F,  # alpha, diag, beta
+            I32, I32,  # the tile: BM, BN
+            P,  # stream
+        ],
+    },
     "abmil_pool": {
-        "abmil_pool_chunk": [],
+        "abmil_pool_limits": [P],  # out: threads a block, tokens a block, chunks a bag
         "abmil_pool": [
-            P, I64, I64, I32,  # x, its batch and token strides, x is bf16
+            P, I64, I64, I32, I32,  # x, its batch and token strides, x is bf16, its rows are 16-byte aligned
             P, P,  # logits, mask
-            P, P, P,  # scratch: part_m, part_s, part_acc
-            P, P,  # pooled, stats
-            I32, I32, I32,  # B, N, D
+            P, P,  # scratch: part_ms, part_acc
+            P,  # scratch: int32 tickets
+            P, P,  # pooled, attn
+            I32, I32, I32, I32,  # B, N, D, tokens a block
             P,  # stream
         ],
     },
@@ -124,6 +136,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "probe": {
         "probe": [P, P, I64, P],  # x, o, n, stream
+        "probe_empty": [P],  # stream
     },
 }
 

@@ -1,10 +1,13 @@
-"""Checks shared by the kernel wrappers in ``mhim_mil_torch/ops``."""
+"""Checks and device facts shared by the kernel wrappers in ``mhim_mil_torch/ops``."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 Tensor = torch.Tensor
+H100_SMS = 132  # the plans' SM count where no card is asked (the CPU tests)
 
 
 def on_cpu(*ts: Tensor) -> bool:
@@ -50,3 +53,24 @@ def raise_on(err: int, fn: str):
     """Raise on a nonzero CUDA error code returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+
+
+_TICKETS = {}
+
+
+def tickets(dev, n: int) -> Tensor:
+    """A zeroed int32 buffer of at least ``n`` entries on ``dev``, kept from
+    call to call and shared by the kernels that merge in their last block
+    (K2b, K1b, K4): each leaves its tickets zero, and they run in stream
+    order."""
+    t = _TICKETS.get(dev)
+    if t is None or t.numel() < n:
+        t = _TICKETS[dev] = torch.zeros(max(n, 4096), device=dev, dtype=torch.int32)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``, which the
+    wrappers' plans size their grids by."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -66,10 +66,12 @@ import torch.nn.functional as F
 
 from ..kernels import load_library
 from ..kernels.launch import check as _check, check_rows_aligned as _aligned
-from ..kernels.launch import on_cpu as _on_cpu, raise_on as _raise_on
+from ..kernels.launch import H100_SMS, on_cpu as _on_cpu, raise_on as _raise_on, sm_count as _sm_count
+from ..kernels.launch import tickets as _tickets
 from .masked import NEG_INF, masked_softmax
 from ..kernels.launch import rows_aligned as _rows_aligned
-from .nystrom import _landmark_mean, moore_penrose_pinv
+from .nystrom import _landmark_mean
+from .nystrom_pinv import pseudo_inverse
 
 Tensor = torch.Tensor
 
@@ -205,7 +207,6 @@ PASS_A_RESIDENT = {16: 2, 32: 2, 64: 2, 128: 1, 256: 1}  # K1 blocks an SM holds
 BWD_ROWS = 64  # rows of a K2b or K1b block up to DH 64; 32 above (csrc flash_nystrom_bwd.cuh bwd_rows)
 BWD_KEYS = 32  # rows of the tiles it streams up to DH 64; 16 above (bwd_cols): a split is whole tiles
 BWD_RESIDENT = {16: 3, 32: 3, 64: 3, 128: 2, 256: 1}  # their blocks an SM (bwd_resident)
-H100_SMS = 132
 
 
 def pass_a_rows(dh: int) -> int:
@@ -385,11 +386,6 @@ def pass_a_backward_split_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _library():
     """K1's and K2's library, once its K1 geometry (rows, keys and, by head
     dim, blocks an SM) is checked against the plan's."""
@@ -437,18 +433,6 @@ def _bwd_width(dh: int, cls: bool) -> int:
     """Floats of a landmark row of K2b's output: d_kl | d_mid, and with the
     cls term | d_ql | d_r' | 3 floats of padding."""
     return 3 * dh + 4 if cls else 2 * dh
-
-
-_TICKETS = {}
-
-
-def _tickets(dev, n: int) -> Tensor:
-    """A zeroed int32 buffer of at least ``n`` entries on ``dev``, kept from
-    call to call: K2b's and K1b's landmark kernels leave their tickets zero."""
-    t = _TICKETS.get(dev)
-    if t is None or t.numel() < n:
-        t = _TICKETS[dev] = torch.zeros(max(n, 4096), device=dev, dtype=torch.int32)
-    return t
 
 
 def pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -785,12 +769,13 @@ flash_nystrom.backward_calls = 0
 def landmarks(q: Tensor, k: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6):
     """Glue before K1: the landmark means ``q_l, k_l[B,H,m,dh]`` of the valid
     tokens (zero rows at empty groups, as the kernels expect), ``lm_mask[B,m]``
-    and the pseudo-inverse of ``attn2 = softmax(Q_l·K_lᵀ)``, ``[B,H,m,m]``."""
+    and the pseudo-inverse of ``attn2 = softmax(Q_l·K_lᵀ)``, ``[B,H,m,m]``
+    (K3p's :func:`~.nystrom_pinv.pseudo_inverse` on the card)."""
     mvalid = mask[:, None, :, None]
     q_l, lm_mask = _landmark_mean(torch.where(mvalid, q, 0.0), mask, num_landmarks)
     k_l, _ = _landmark_mean(torch.where(mvalid, k, 0.0), mask, num_landmarks)
     attn2 = masked_softmax(q_l @ k_l.transpose(-1, -2), lm_mask[:, None, None, :])
-    return q_l, k_l, lm_mask, moore_penrose_pinv(attn2, pinv_iters)
+    return q_l, k_l, lm_mask, pseudo_inverse(attn2, pinv_iters)
 
 
 def pass_b_operands(q: Tensor, k_l: Tensor, mask: Tensor, lm_mask: Tensor,

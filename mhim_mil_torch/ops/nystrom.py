@@ -16,25 +16,33 @@ import torch
 from .masked import masked_softmax, stats_dtype
 
 
-def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
-    """Newton–Schulz pseudo-inverse of the trailing square matrices, in fp32
-    (fp64 for fp64 input).
-
-    The initial scale ``1 / (max(row sums) · max(col sums))`` is a max over
-    ALL leading axes (batch and heads), as in the reference: the bags of one
-    batch are coupled through it.
-    """
+def pinv_start(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` in fp32 (fp64 for fp64 input) and the Newton–Schulz start
+    ``z0 = xᵀ / (max(row sums) · max(col sums))`` of its |x|. The scale is a
+    max over ALL leading axes (batch and heads), as in the reference: the
+    bags of one batch are coupled through it."""
     x = x.to(stats_dtype(x.dtype))
     abs_x = x.abs()
     col = abs_x.sum(dim=-1)
     row = abs_x.sum(dim=-2)
     denom = (col.max() * row.max()).clamp_min(1e-12)
-    z = x.transpose(-1, -2) / denom
+    return x, x.transpose(-1, -2) / denom
+
+
+def newton_schulz_plain(x: torch.Tensor, z: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` Newton–Schulz iterations for the pseudo-inverse of ``x``
+    from ``z``."""
     eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
     for _ in range(iters):
         xz = x @ z
         z = 0.25 * z @ (13 * eye - (xz @ (15 * eye - (xz @ (7 * eye - xz)))))
     return z
+
+
+def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
+    """Newton–Schulz pseudo-inverse of the trailing square matrices, in fp32
+    (fp64 for fp64 input), from :func:`pinv_start`."""
+    return newton_schulz_plain(*pinv_start(x), iters)
 
 
 def _landmark_mean(

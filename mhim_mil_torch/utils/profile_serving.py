@@ -26,7 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..config import load_config
 from ..models import build_model
 from .serving import Scorer
-from .time_scan2d import per_call_us
+from .time_scan2d import by_kind, kernel_id, per_call_us
 
 CONFIGS = {
     "mhim": (["-c", "config/mhim_c16.yaml"], {}),
@@ -68,11 +68,13 @@ def main(argv=None):
     if seen < want:
         print(f"the profiler returned {seen} of {want} kernel records; device time from each kernel's mean "
               f"record times its launches a request")
+    kinds = by_kind([(e.key, per_request[e.key] / 1e3, max(1, round(e.count / requests))) for e in kernels])
+    print(f"by kind, device ms and launches a request: {kinds}")
     rows = sorted(kernels, key=lambda e: per_request[e.key], reverse=True)[:20]
-    print(f"{'kernel':60s} {'device ms/request':>18s} {'share':>7s} {'calls/request':>14s}")
+    print(f"{'id':12s} {'kernel':60s} {'device ms/request':>18s} {'share':>7s} {'calls/request':>14s}")
     for e in rows:
         per = per_request[e.key] / 1e3
-        print(f"{e.key[:60]:60s} {per:18.3f} {100 * per * 1e3 / max(device_us, 1):6.1f}% "
+        print(f"{kernel_id(e.key):12s} {e.key[:60]:60s} {per:18.3f} {100 * per * 1e3 / max(device_us, 1):6.1f}% "
               f"{e.count / requests:14.1f}")
 
 

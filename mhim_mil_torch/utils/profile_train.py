@@ -28,7 +28,7 @@ from ..config import load_config
 from ..engine.steps import make_mhim_train_step
 from ..engine.train_state import create_mhim_state
 from ..models import build_model
-from .time_scan2d import per_call_us
+from .time_scan2d import by_kind, kernel_id, per_call_us
 
 STAGES = ("mhim.teacher", "mhim.student", "mhim.backward", "mhim.update")
 
@@ -87,11 +87,13 @@ def main(argv=None):
         host = sum(e.cpu_time_total for e in events if e.key == name
                    and e.device_type == torch.autograd.DeviceType.CPU) / steps / 1e3
         print(f"{name:20s} {dev:15.3f} {host:13.3f}")
+    kinds = by_kind([(e.key, per_step[e.key] / 1e3, max(1, round(e.count / steps))) for e in kernels])
+    print(f"by kind, device ms and launches a step: {kinds}")
     rows = sorted(kernels, key=lambda e: per_step[e.key], reverse=True)[:20]
-    print(f"{'kernel':60s} {'device ms/step':>15s} {'share':>7s} {'calls/step':>11s}")
+    print(f"{'id':12s} {'kernel':60s} {'device ms/step':>15s} {'share':>7s} {'calls/step':>11s}")
     for e in rows:
         per = per_step[e.key] / 1e3
-        print(f"{e.key[:60]:60s} {per:15.3f} {100 * per * 1e3 / max(device_us, 1):6.1f}% "
+        print(f"{kernel_id(e.key):12s} {e.key[:60]:60s} {per:15.3f} {100 * per * 1e3 / max(device_us, 1):6.1f}% "
               f"{e.count / steps:11.1f}")
 
 

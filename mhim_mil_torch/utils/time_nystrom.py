@@ -1,6 +1,6 @@
-"""K1's, K2's, K3's, K2b's and K1b's times on the card.
+"""K1's, K2's, K3's, K2b's, K1b's and K3p's times on the card.
 
-``python -m mhim_mil_torch.utils.time_nystrom [--repeats 3] [--batches 4,1] [--cases passes,k3,backward]``
+``python -m mhim_mil_torch.utils.time_nystrom [--repeats 3] [--batches 4,1] [--cases passes,k3,backward,pinv]``
 
 ``passes``: ``pass_a`` (K1) and ``pass_b`` (K2) of ``ops/flash_nystrom.py``
 at N 10,241 (the cls token and a 10,240-instance bag), 256 landmarks, fp32,
@@ -16,7 +16,11 @@ K2b and K1b phases use them too): at the student's shape without and with
 the cls term (K2b) or s3's cotangent (K1b), at dh 128 (B 4, H 4), dh 256
 (B 4, H 2), dh 32 (B 4, H 16) and dh 16 (B 4, H 32), each beside the
 backward of ``scaled_dot_product_attention`` on the same operands
-(:func:`sdpa_backward`).
+(:func:`sdpa_backward`). ``pinv``: the pseudo-inverse of the flagship's
+attn2 at G 32 and 8 (:func:`pinv_cases`): K3p forward and forward +
+backward, the plain ``moore_penrose_pinv``, 24, 72 and one ``torch.bmm``
+calls in fp32, and one K3p product. The K3 and pseudo-inverse cases first
+print their device time by kernel (:func:`print_breakdown`).
 
 Per case: the median of 20 CUDA-event timings of one call after 3
 warm-ups, and the profiler's kernel time per call over 10 calls (each
@@ -39,7 +43,7 @@ import warnings
 import torch
 
 from ..ops import flash_nystrom as fn
-from .time_scan2d import event_ms, kernel_ms
+from .time_scan2d import breakdown, by_kind, event_ms, kernel_ms
 
 N, M, INNER = 10241, 256, 512
 DHS = (64, 128)
@@ -167,11 +171,79 @@ def k3_case(gen, use_attn: bool):
     return call
 
 
+def attn2_operand(gen, b, n=N, lengths=None, h=8, dh=64, m=M):
+    """The glue's ``attn2 = softmax(q_l·k_lᵀ)`` over the valid landmarks,
+    ``[b, h, m, m]``, from random q (scaled by dh^-½) and k of ``lengths``
+    valid tokens a bag (all ``n`` where None), as K3p's pseudo-inverse gets
+    it: the flagship's at N 10,241, the student's at N 1,027."""
+    from ..ops.masked import masked_softmax
+    from ..ops.nystrom import _landmark_mean
+
+    q = torch.randn(b, h, n, dh, device="cuda", generator=gen) * dh ** -0.5
+    k = torch.randn(b, h, n, dh, device="cuda", generator=gen)
+    lengths = torch.full((b,), n, device="cuda") if lengths is None else torch.as_tensor(lengths, device="cuda")
+    mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
+    mv = mask[:, None, :, None]
+    q_l, lm_mask = _landmark_mean(torch.where(mv, q, 0.0), mask, m)
+    k_l, _ = _landmark_mean(torch.where(mv, k, 0.0), mask, m)
+    return masked_softmax(q_l @ k_l.transpose(-1, -2), lm_mask[:, None, None, :])
+
+
+def pinv_cases(gen):
+    """(name, call) of the pseudo-inverse of the flagship's attn2 at batch 4
+    (G 32) and 1 (G 8), forward and forward + backward: K3p's
+    ``pseudo_inverse`` where this tree has it, the plain
+    ``moore_penrose_pinv``, and 24 (72) ``torch.bmm`` calls in fp32 as the
+    library yardstick; one K3p product beside one ``torch.bmm``."""
+    from ..ops.nystrom import moore_penrose_pinv
+
+    try:
+        from ..ops import nystrom_pinv as npv
+    except ImportError:  # a tree before K3p
+        npv = None
+    cases = []
+    for b in (4, 1):
+        x = attn2_operand(gen, b)
+        z = torch.randn_like(x)
+        cot = torch.randn_like(x)
+        shape = f"[{b}, 8, {M}, {M}] (G {8 * b})"
+
+        def fwd_bwd(f, x=x, cot=cot):
+            xx = x.detach().requires_grad_()
+            return torch.autograd.grad(f(xx), xx, cot)
+
+        def bmms(count, x=x, z=z):
+            for _ in range(count):
+                torch.bmm(x.view(-1, M, M), z.view(-1, M, M))
+
+        if npv is not None:
+            cases += [(f"K3p pseudo_inverse forward {shape}", lambda x=x: npv.pseudo_inverse(x)),
+                      (f"K3p pseudo_inverse forward+backward {shape}", lambda f=fwd_bwd: f(npv.pseudo_inverse)),
+                      (f"K3p one product {shape}", lambda x=x, z=z: npv.pinv_product(x, z))]
+        cases += [(f"plain moore_penrose_pinv forward {shape}", lambda x=x: moore_penrose_pinv(x)),
+                  (f"plain moore_penrose_pinv forward+backward {shape}", lambda f=fwd_bwd: f(moore_penrose_pinv)),
+                  (f"torch.bmm fp32 x 24 {shape}", lambda f=bmms: f(24)),
+                  (f"torch.bmm fp32 x 72 {shape}", lambda f=bmms: f(72)),
+                  (f"torch.bmm fp32 x 1 {shape}", lambda f=bmms: f(1))]
+    return cases
+
+
+def print_breakdown(name, call):
+    """A call's device time by kind of kernel (the port's kernels by id,
+    cuBLAS products, elementwise passes, reductions, ...), then by kernel."""
+    rows = breakdown(call)
+    print(f"{name}: {sum(r[2] for r in rows):.4f} device ms a call in {sum(r[3] for r in rows)} launches; by "
+          f"kind: {by_kind([(key, ms, n) for key, _, ms, n in rows])}", flush=True)
+    for key, kid, ms, n in rows:
+        print(f"  {kid:12s} {ms:9.4f} ms {n:4d} launches  {key[:110]}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--batches", default="4,1", help="comma-separated batch sizes of the passes' cases")
-    ap.add_argument("--cases", default="passes,k3,backward", help="comma-separated: passes, k3, backward")
+    ap.add_argument("--cases", default="passes,k3,backward,pinv",
+                    help="comma-separated: passes, k3, backward, pinv")
     args = ap.parse_args(argv)
     which = set(args.cases.split(","))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -193,6 +265,11 @@ def main(argv=None):
                    k3_case(gen, u)) for u in (True, False)]
     if "backward" in which:
         cases += backward_cases(torch.Generator(device="cuda").manual_seed(1))
+    if "pinv" in which:
+        cases += pinv_cases(torch.Generator(device="cuda").manual_seed(2))
+    for name, call in cases:
+        if name.startswith(("K3 ", "K3p pseudo_inverse", "plain moore_penrose_pinv forward+")):
+            print_breakdown(name, call)
     for rep in range(args.repeats):
         for name, call in cases:
             ev = event_ms(call)

@@ -76,16 +76,55 @@ def per_call_us(events, calls):
     return per, seen, calls * sum(max(1, round(e.count / calls)) for e in events)
 
 
-def kernel_ms(fn, iters=10):
-    """The device time of one call (:func:`per_call_us`), and the kernel
-    records the profiler returned for the ``iters`` calls."""
+# The port's kernels by a piece of their function names, first match wins
+# (``pass_a_partial_kernel`` before K4's names); anything else by what it is.
+KERNEL_IDS = (("pass_a_partial_kernel", "K1"), ("pass_a_merge_kernel", "K1"), ("pass_b_kernel", "K2"),
+              ("token_kernel", "K2b"), ("landmark_kernel", "K2b"), ("k1b_kernel", "K1b"),
+              ("pinv_product_kernel", "K3p"), ("abmil_pool_kernel", "K4"), ("partial_kernel", "K4"),
+              ("merge_kernel", "K4"), ("scan2d_", "K5"), ("probe_kernel", "K6"), ("empty_kernel", "K6 empty"),
+              ("gemm", "cuBLAS GEMM"), ("gemv", "cuBLAS GEMV"), ("elementwise", "elementwise"),
+              ("reduce", "reduction"), ("softmax", "softmax"), ("Memcpy", "copy"), ("Memset", "memset"))
+
+
+def kernel_id(name: str) -> str:
+    """What a device record is: a kernel of the port (K1 ... K6, K1b, K2b,
+    K3p), a cuBLAS product, an elementwise pass, a reduction, ... or other."""
+    return next((kid for part, kid in KERNEL_IDS if part in name), "other")
+
+
+def by_kind(rows) -> str:
+    """``rows`` of ``(name, ms, launches)`` summed by :func:`kernel_id`,
+    largest first, as one line."""
+    kinds = {}
+    for name, ms, n in rows:
+        t = kinds.setdefault(kernel_id(name), [0.0, 0])
+        t[0] += ms
+        t[1] += n
+    return "; ".join(f"{kid} {ms:.4f} ms in {n}" for kid, (ms, n) in sorted(kinds.items(), key=lambda x: -x[1][0]))
+
+
+def _device_events(fn, iters):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    per, seen, _ = per_call_us(events, iters)
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def breakdown(fn, iters=10):
+    """Each device record's ``(name, id, ms a call, launches a call)`` over
+    ``iters`` calls of ``fn`` (:func:`per_call_us`), largest first."""
+    events = _device_events(fn, iters)
+    per, _, _ = per_call_us(events, iters)
+    rows = [(e.key, kernel_id(e.key), per[e.key] / 1e3, max(1, round(e.count / iters))) for e in events]
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def kernel_ms(fn, iters=10):
+    """The device time of one call (:func:`per_call_us`), and the kernel
+    records the profiler returned for the ``iters`` calls."""
+    per, seen, _ = per_call_us(_device_events(fn, iters), iters)
     return sum(per.values()) / 1e3, seen
 
 

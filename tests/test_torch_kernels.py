@@ -14,8 +14,10 @@ import sys
 
 from mhim_mil_torch.ops import abmil_pool, probe, scan2d
 from mhim_mil_torch.ops import flash_nystrom as fn
-from mhim_mil_torch.ops.nystrom import nystrom_attention
-from mhim_mil_torch.utils.kernel_check import vjp_close
+from mhim_mil_torch.ops import nystrom_pinv as npv
+from mhim_mil_torch.ops.masked import masked_softmax
+from mhim_mil_torch.ops.nystrom import _landmark_mean, moore_penrose_pinv, nystrom_attention
+from mhim_mil_torch.utils.kernel_check import pinv_reference64, vjp_close
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -240,6 +242,105 @@ def test_abmil_pool_matches_its_plain_version_on_the_card(hopper, b, n, d, dtype
     torch.testing.assert_close(attn, want_attn, rtol=1e-5, atol=1e-6)
     if b > 2:
         assert torch.all(pooled[2] == 0) and torch.all(attn[2] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,dtype", [(4, 10240, 512, torch.float32), (4, 10240, 512, torch.bfloat16),
+                                         (1, 10240, 512, torch.float32), (2, 333, 100, torch.bfloat16)])
+def test_abmil_pool_is_one_launch(hopper, b, n, d, dtype):
+    """K4 at D <= 1,024 is one CUDA launch a call: the profiler's device
+    records of 5 calls after a warm-up are all K4's kernel, at most 5 of
+    them (the profiler drops a record now and then); and two calls give the
+    same bits (the last block of a bag merges the chunks in a fixed order)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=hopper).manual_seed(3)
+    x = torch.randn(b, n, d, device=hopper, generator=gen).to(dtype)
+    logits = 3 * torch.randn(b, n, device=hopper, generator=gen)
+    mask = torch.arange(n, device=hopper)[None] < torch.tensor([n, n // 2, n - 5, 7][:b], device=hopper)[:, None]
+    first = abmil_pool.fused_abmil_pool(x, logits, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            again = abmil_pool.fused_abmil_pool(x, logits, mask)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(names) <= 5 and all("abmil_pool_kernel" in name for name in names), names
+    for g, w in zip(first, again):
+        assert torch.equal(g, w)
+
+
+def _attn2(dev, b, h, n, dh, m, lengths, seed):
+    """The glue's attn2 = softmax(q_l·k_lᵀ) over the valid landmarks, from
+    random q, k of ragged bags (empty landmark groups where a bag is short)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (torch.randn(b, h, n, dh, device=dev, generator=gen) for _ in range(2))
+    mask = torch.arange(n, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]
+    mv = mask[:, None, :, None]
+    q_l, lm_mask = _landmark_mean(torch.where(mv, q * dh ** -0.5, 0.0), mask, m)
+    k_l, _ = _landmark_mean(torch.where(mv, k, 0.0), mask, m)
+    return masked_softmax(q_l @ k_l.transpose(-1, -2), lm_mask[:, None, None, :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [256, 40, 30])
+@pytest.mark.parametrize("tile", npv.TILES)
+def test_pinv_product_matches_its_plain_version_on_the_card(hopper, monkeypatch, m, tile):
+    """Each product K3p runs (every transpose, diagonal and accumulate of
+    the iterations and their reverse sweep) at each tile the kernel is built
+    for, against pinv_product_plain in fp64 on the same fp32 inputs: max|d|
+    <= 1e-5·max|ref| (3×TF32: about 2^-20 of each term); m 40 leaves partial
+    tiles, m 30 is padded to 32 as pseudo_inverse pads it."""
+    monkeypatch.setattr(npv, "pinv_plan", lambda g, mm, sms=0: tile)
+    gen = torch.Generator(device=hopper).manual_seed(m)
+    mp = m + (-m % 4)
+    a, b_, c = (torch.nn.functional.pad(torch.randn(6, m, m, device=hopper, generator=gen), (0, mp - m, 0, mp - m))
+                for _ in range(3))
+    for kw in ({}, {"alpha": -1.0, "diag": -7.0}, {"alpha": -0.25, "diag": -13.0, "tb": True},
+               {"alpha": -0.25, "ta": True}, {"alpha": -1.0, "diag": -7.0, "tb": True, "beta": 1.0},
+               {"ta": True, "beta": 1.0}, {"tb": True}):
+        cc = c if kw.get("beta") else None
+        got = npv.pinv_product(a, b_, c=cc, **kw)
+        torch.cuda.synchronize()
+        want = npv.pinv_product_plain(a.double(), b_.double(), c=None if cc is None else cc.double(), **kw)
+        assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max(), kw
+        assert torch.all(got[:, m:] == 0) and torch.all(got[:, :, m:] == 0)
+    out = c.clone()
+    got = npv.pinv_product(a, b_, tb=True, c=out, beta=1.0, out=out)  # accumulate in place
+    want = npv.pinv_product_plain(a.double(), b_.double(), tb=True, c=c.double(), beta=1.0)
+    assert got.data_ptr() == out.data_ptr() and (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,m,lengths", [(1, 8, 256, (1027,)), (4, 8, 256, (1027, 943, 300, 846)),
+                                           (2, 4, 40, (300, 90)), (4, 8, 40, (300, 30, 299, 150))])
+def test_pseudo_inverse_matches_moore_penrose_pinv_on_the_card(hopper, b, h, m, lengths):
+    """K3p's pseudo_inverse against moore_penrose_pinv at G = B·H of 8 and
+    32, m 256 and 40, on attn2 of ragged bags (empty landmark groups):
+    forward max|d| <= 1e-4·max|ref| against fp32, the VJP (through the
+    initial scale too) at max|d| <= 1e-4·max|ref| against fp32 autograd and
+    by kernel_check's VJP criterion against fp64 with fp32's ties in the
+    scale's maxes (``pinv_reference64``); 24 launches forward and 48
+    backward."""
+    x = _attn2(hopper, b, h, 1027 if m == 256 else 300, 64, m, lengths, seed=m + b)
+    gen = torch.Generator(device=hopper).manual_seed(11)
+    cot = torch.randn(b, h, m, m, device=hopper, generator=gen)
+
+    def run(f, dtype=torch.float32):
+        xx = x.to(dtype).requires_grad_()
+        z = f(xx)
+        return z.detach(), torch.autograd.grad(z, xx, cot.to(dtype))[0]
+
+    before = npv.pinv_product.launches
+    z, dx = run(npv.pseudo_inverse)
+    torch.cuda.synchronize()
+    assert npv.pinv_product.launches == before + 24 + 48
+    z32, dx32 = run(moore_penrose_pinv)
+    z64, dx64 = run(lambda xx: pinv_reference64(xx, x), torch.float64)
+    assert (z - z32).abs().max() <= 1e-4 * z32.abs().max()
+    assert (dx - dx32).abs().max() <= 1e-4 * dx32.abs().max()
+    assert vjp_close(dx, dx64)["ok"], vjp_close(dx, dx64)
+    assert vjp_close(dx32, dx64)["ok"], vjp_close(dx32, dx64)
 
 
 @pytest.mark.cuda

@@ -22,7 +22,6 @@ import torch
 import mhim_mil_tpu.ops.pallas_scan2d as jps
 from mhim_mil_torch.ops import abmil_pool, scan2d
 from mhim_mil_torch.ops import flash_nystrom as fn
-from mhim_mil_torch.ops.masked import NEG_INF
 from mhim_mil_tpu.ops import scan as jscan
 from mhim_mil_tpu.ops.pallas_abmil import fused_abmil_pool as j_abmil
 from mhim_mil_tpu.ops.pallas_nystrom import flash_nystrom_infer as j_flash_infer
@@ -175,15 +174,12 @@ def test_state_groups_pass_states_16_as_they_are():
 
 
 def _abmil_launch(widths):
-    """K4's launch as plain torch, returning (pooled, stats) as the kernel
+    """K4's launch as plain torch, returning (pooled, attn) as the kernel
     does, after asserting a width the kernel takes."""
     def launch(x, logits, mask):
         assert x.shape[-1] <= abmil_pool.COLUMNS and x.stride(-1) == 1
         widths.append(x.shape[-1])
-        m = torch.where(mask, logits, NEG_INF).amax(dim=-1)
-        s = torch.where(mask, torch.exp(logits - m[:, None]), 0.0).sum(dim=-1)
-        pooled, _ = abmil_pool.abmil_pool_plain(x, logits, mask)
-        return pooled, torch.stack([s.clamp_min(1e-30), m], dim=-1)
+        return abmil_pool.abmil_pool_plain(x, logits, mask)
     return launch
 
 
