@@ -22,11 +22,14 @@
 // split into hi and lo once, as its fragment is read, by flash_nystrom.cuh's
 // `split`, hi rounded to nearest: the backward kernels' truncating split
 // triples a term's error bound, and K3's output magnifies the pinv's
-// error), so fp32's accuracy holds where a single TF32 product would not; operand tiles arrive through
-// a three-stage cp.async ring; d·I is added to B's fragments on the
-// diagonal 8 × 8 tiles as they are read, so no pass over a matrix forms
-// c·I − M; α and β·C are applied in the epilogue, so no elementwise pass
-// remains between the products.
+// error), so fp32's accuracy holds where a single TF32 product would not;
+// operand tiles arrive through a three-stage cp.async ring, C's tile through
+// the slot the ring frees for the step past the last, in flight with the
+// last products; the fragments of an operand read along K come by
+// ldmatrix; d·I is added to B's fragments on the diagonal 8 × 8 tiles as
+// they are read, so no pass over a matrix forms c·I − M; α and β·C are
+// applied in the epilogue, so no elementwise pass remains between the
+// products.
 //
 // Geometry. A block is 4 warps over a BM × BN tile of D (2 × 2 warps, each
 // (BM/2) × (BN/2)) and walks K in steps of 32. Tiles 64 × 64, 64 × 32 and
@@ -40,7 +43,7 @@
 // Plain C interface, loaded with ctypes; the entry returns
 // cudaGetLastError() after its launch.
 
-#include "flash_nystrom.cuh"
+#include "flash_nystrom_bwd.cuh"  // ldsm_x4, and flash_nystrom.cuh's split, mma3, cp.async
 
 namespace {
 
@@ -54,7 +57,9 @@ struct PinvTile {
   static constexpr int MT = WM / 16, NT = WN / 8;  // its m16 and n8 mma tiles
   static constexpr int RA = TA ? PK : BM, PA = TA ? BM + 8 : PK + 4;  // staged rows of A and their pitch
   static constexpr int RB = TB ? BN : PK, PB = TB ? PK + 4 : BN + 8;
+  static constexpr int PC = BN + 8;  // pitch of C's tile, staged in a free slot of the ring
   static constexpr int STAGE = RA * PA + RB * PB;
+  static_assert(BM * PC <= STAGE, "C's tile fits a slot");
   static constexpr size_t SMEM = sizeof(float) * PINV_STAGES * STAGE;
 };
 
@@ -87,10 +92,17 @@ pinv_product_kernel(const float* __restrict__ A, const float* __restrict__ B, co
   const int wm = (warp / 2) * T::WM, wn = (warp % 2) * T::WN;
   const int steps = (m + PK - 1) / PK;
 
+  // Slot `step` of the ring takes K-step `step`; the slot of step `steps`,
+  // the first past the end, takes C's tile for the epilogue, in flight
+  // with the last steps' products.
   auto stage = [&](int step) {
     float* a = smem + (step % PINV_STAGES) * T::STAGE;
     float* b = a + T::RA * T::PA;
     const int k0 = step * PK;
+    if (step == steps) {
+      if (beta != 0.f) stage_tile<BM, BN, T::PC>(a, C + off, m, m0, n0);
+      return;
+    }
     if constexpr (TA) stage_tile<PK, BM, T::PA>(a, A, m, k0, m0);
     else stage_tile<BM, PK, T::PA>(a, A, m, m0, k0);
     if constexpr (TB) stage_tile<BN, PK, T::PB>(b, B, m, n0, k0);
@@ -98,7 +110,7 @@ pinv_product_kernel(const float* __restrict__ A, const float* __restrict__ B, co
   };
 #pragma unroll
   for (int s = 0; s < PINV_STAGES - 1; ++s) {
-    if (s < steps) stage(s);
+    if (s <= steps) stage(s);
     cp_commit();
   }
 
@@ -111,14 +123,14 @@ pinv_product_kernel(const float* __restrict__ A, const float* __restrict__ B, co
   for (int step = 0; step < steps; ++step) {
     cp_wait<PINV_STAGES - 2>();
     __syncthreads();  // the step has landed, and the slot read a step ago is free
-    if (step + PINV_STAGES - 1 < steps) stage(step + PINV_STAGES - 1);
+    if (step + PINV_STAGES - 1 <= steps) stage(step + PINV_STAGES - 1);
     cp_commit();
     const float* a = smem + (step % PINV_STAGES) * T::STAGE;
     const float* b = a + T::RA * T::PA;
     const int k0 = step * PK;
 #pragma unroll
     for (int kk = 0; kk < PK; kk += 8) {
-      uint32_t ah[T::MT][4], al[T::MT][4];
+      uint32_t ah[T::MT][4], al[T::MT][4], braw[4];
 #pragma unroll
       for (int i = 0; i < T::MT; ++i) {
         const int r = wm + 16 * i + g;
@@ -128,11 +140,11 @@ pinv_product_kernel(const float* __restrict__ A, const float* __restrict__ B, co
           f[1] = a[(kk + t) * T::PA + r + 8];
           f[2] = a[(kk + t + 4) * T::PA + r];
           f[3] = a[(kk + t + 4) * T::PA + r + 8];
-        } else {  // staged [row][k]
-          f[0] = a[r * T::PA + kk + t];
-          f[1] = a[(r + 8) * T::PA + kk + t];
-          f[2] = a[r * T::PA + kk + t + 4];
-          f[3] = a[(r + 8) * T::PA + kk + t + 4];
+        } else {  // staged [row][k]: the 16 × 8 fragment by one ldmatrix.x4
+          uint32_t raw[4];
+          ldsm_x4(a + (wm + 16 * i + (lane & 7) + 8 * ((lane >> 3) & 1)) * T::PA + kk + 4 * (lane >> 4), raw);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[e] = __uint_as_float(raw[e]);
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) split(f[e], ah[i][e], al[i][e]);
@@ -141,9 +153,11 @@ pinv_product_kernel(const float* __restrict__ A, const float* __restrict__ B, co
       for (int j = 0; j < T::NT; ++j) {
         const int c = wn + 8 * j + g;
         float f0, f1;
-        if constexpr (TB) {  // staged [col][k]
-          f0 = b[c * T::PB + kk + t];
-          f1 = b[c * T::PB + kk + t + 4];
+        if constexpr (TB) {  // staged [col][k]: two 8 × 8 tiles by one ldmatrix.x4
+          if (j % 2 == 0)
+            ldsm_x4(b + (wn + 8 * j + (lane & 7) + 8 * (lane >> 4)) * T::PB + kk + 4 * ((lane >> 3) & 1), braw);
+          f0 = __uint_as_float(braw[2 * (j % 2)]);
+          f1 = __uint_as_float(braw[2 * (j % 2) + 1]);
         } else {  // staged [k][col]
           f0 = b[(kk + t) * T::PB + c];
           f1 = b[(kk + t + 4) * T::PB + c];
@@ -161,6 +175,9 @@ pinv_product_kernel(const float* __restrict__ A, const float* __restrict__ B, co
     }
   }
 
+  cp_wait<0>();
+  __syncthreads();  // C's tile has landed
+  const float* cs = smem + (steps % PINV_STAGES) * T::STAGE;
 #pragma unroll
   for (int i = 0; i < T::MT; ++i)
 #pragma unroll
@@ -172,7 +189,7 @@ pinv_product_kernel(const float* __restrict__ A, const float* __restrict__ B, co
         const int64_t at = off + (int64_t)row * m + col;
         float2 v = make_float2(alpha * acc[i][j][2 * r], alpha * acc[i][j][2 * r + 1]);
         if (beta != 0.f) {  // after the products: an accumulator started at β·C lost accuracy (PERF.md)
-          const float2 c = *reinterpret_cast<const float2*>(C + at);
+          const float2 c = *reinterpret_cast<const float2*>(cs + (row - m0) * T::PC + col - n0);
           v.x += beta * c.x;
           v.y += beta * c.y;
         }
