@@ -32,9 +32,9 @@
 // products.
 //
 // Geometry. A block is 4 warps over a BM × BN tile of D (2 × 2 warps, each
-// (BM/2) × (BN/2)) and walks K in steps of 32. Tiles 64 × 64, 64 × 32 and
-// 32 × 32; the wrapper's plan (`pinv_plan`) takes the largest that gives the
-// grid three blocks an SM. Staged rows: an operand read along K (A, or B
+// (BM/2) × (BN/2)) and walks K in steps of 32. Tiles 64 × 64 and 32 × 32;
+// the wrapper's plan (`pinv_plan`) takes 64 × 64 where its grid has a block
+// for three quarters of the SMs. Staged rows: an operand read along K (A, or B
 // transposed) in rows of 32 + 4 floats, one read across K (A transposed, or
 // B) in rows of its tile width + 8, which keeps the fragment reads free of
 // bank conflicts. m is a multiple of 4 (16-byte rows; the wrapper pads
@@ -219,11 +219,10 @@ int by_transposes(const float* A, const float* B, const float* C, float* D, int 
 
 }  // namespace
 
-// The tiles the kernel is built for, as BM·1000 + BN, into out[0..3).
+// The tiles the kernel is built for, as BM·1000 + BN, into out[0..2).
 extern "C" int nystrom_pinv_tiles(int* out) {
   out[0] = 64064;
-  out[1] = 64032;
-  out[2] = 32032;
+  out[1] = 32032;
   return 0;
 }
 
@@ -237,7 +236,6 @@ extern "C" int nystrom_pinv_product(const float* A, const float* B, const float*
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bm == 64 && bn == 64) return by_transposes<64, 64>(A, B, C, D, G, m, ta, tb, alpha, diag, beta, st);
-  if (bm == 64 && bn == 32) return by_transposes<64, 32>(A, B, C, D, G, m, ta, tb, alpha, diag, beta, st);
   if (bm == 32 && bn == 32) return by_transposes<32, 32>(A, B, C, D, G, m, ta, tb, alpha, diag, beta, st);
   return (int)cudaErrorInvalidValue;
 }

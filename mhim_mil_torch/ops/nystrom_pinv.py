@@ -41,7 +41,7 @@ from ..kernels.launch import H100_SMS, check, on_cpu, raise_on, sm_count
 from .nystrom import moore_penrose_pinv, pinv_start
 
 Tensor = torch.Tensor
-TILES = ((64, 64), (64, 32), (32, 32))  # the kernel's tiles, largest first (csrc nystrom_pinv_tiles)
+TILES = ((64, 64), (32, 32))  # the kernel's tiles, largest first (csrc nystrom_pinv_tiles)
 
 
 def pinv_product_plain(a: Tensor, b: Tensor, alpha: float = 1.0, diag: float = 0.0, ta: bool = False,
@@ -58,19 +58,19 @@ def pinv_product_plain(a: Tensor, b: Tensor, alpha: float = 1.0, diag: float = 0
 
 def pinv_plan(g: int, m: int, sms: int = H100_SMS) -> Tuple[int, int]:
     """The tile ``(BM, BN)`` of a product over ``g`` matrices of ``m × m``:
-    the largest of :data:`TILES` whose grid gives every SM three blocks, else
-    the smallest."""
-    for bm, bn in TILES:
-        if g * math.ceil(m / bm) * math.ceil(m / bn) >= 3 * sms:
-            return bm, bn
-    return TILES[-1]
+    64 × 64 where its grid has a block for three quarters of the SMs, else
+    32 × 32. On the H100 (``time_nystrom --cases pinv``) 64 × 64 was the
+    faster with 128 blocks and more (m 256 at G 8, 16 and 32; m 128 at G
+    32), 32 × 32 with 64 and 32 (m 128 at G 16 and 8)."""
+    bm, bn = TILES[0]
+    return TILES[0] if g * math.ceil(m / bm) * math.ceil(m / bn) >= 3 * sms // 4 else TILES[-1]
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
     """K3p's library, once its tiles are checked against :data:`TILES`."""
     lib = load_library("nystrom_pinv")
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * len(TILES))()
     lib.nystrom_pinv_tiles(out)
     got = tuple(divmod(v, 1000) for v in out)
     if got != TILES:

@@ -13,7 +13,10 @@ tolerances but the VJP's, plus the gate's probe:
   are reported, with the entries that miss rtol 1e-4, atol 1e-5 against
   the fp32 reference (the check's criterion until the pseudo-inverse left
   cuBLAS: out sits on the pinv's rounding, and there the fp64 result itself
-  misses it in 26 entries);
+  misses it in 26 entries) and the entries of each that miss rtol 1e-4,
+  atol 1e-5 against fp64. Two controls must fail the criterion
+  (:func:`infer_controls`): the pinv's products in single TF32 and 5
+  Newton–Schulz iterations for 6;
 - ``flash_nystrom_vjp`` (K3, whose backward runs K1b and K2b): the q/k/v
   gradients of out·co + attn·ca at 1 × 8 × 2,048, dh 64, 128 landmarks, 90%
   valid, against an fp64 reference, autograd through ``nystrom_attention``
@@ -104,15 +107,61 @@ def pinv_reference64(x64: torch.Tensor, x32: torch.Tensor, iters: int = 6) -> to
     return newton_schulz_plain(x64, x64.transpose(-1, -2) / denom.clamp_min(1e-12), iters)
 
 
+def infer_case(small: bool, device: str = "cuda"):
+    """The draws of the ``flash_nystrom_infer`` check: ``q, k, v, mask, m``."""
+    rng = np.random.default_rng(0)
+    b, h, n, dh, m = (1, 2, 256, 32, 16) if small else (1, 8, 4096, 64, 256)
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, h, n, dh)).astype(np.float32), device=device) for _ in range(3))
+    mask = torch.as_tensor(np.arange(n)[None] < int(n * 0.8), device=device)
+    return q, k, v, mask, m
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32's 10 mantissa bits, to nearest."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def single_tf32_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
+    """``moore_penrose_pinv`` with each product's operands rounded once to
+    TF32 and summed in fp32 (with TF32 off, as this script runs): what K3p
+    would compute without its 3×TF32 split. A control of the infer check."""
+    from ..ops.nystrom import pinv_start
+
+    x, z = pinv_start(x)
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    mm = lambda a, b: tf32(a) @ tf32(b)
+    for _ in range(iters):
+        xz = mm(x, z)
+        z = 0.25 * mm(z, 13 * eye - mm(xz, 15 * eye - mm(xz, 7 * eye - xz)))
+    return z
+
+
+def infer_controls(q, k, v, mask, m, want64) -> dict:
+    """Two wrong forwards that the infer check's criterion must reject,
+    each ``flash_nystrom_infer`` on the check's draws with its pinv broken:
+    the products in single TF32 (:func:`single_tf32_pinv` in place of
+    K3p's), and 5 Newton–Schulz iterations for 6. Returns ``{control:
+    {"out": vjp_close, "attn": vjp_close}}`` against ``want64``."""
+    from unittest import mock
+
+    from ..ops import flash_nystrom as fn
+
+    def tf32_pinv():
+        with mock.patch.object(fn, "pseudo_inverse", single_tf32_pinv):
+            return fn.flash_nystrom_infer(q, k, v, mask, m)
+
+    runs = {"pinv products in single TF32": tf32_pinv,
+            "pinv of 5 iterations": lambda: fn.flash_nystrom_infer(q, k, v, mask, m, pinv_iters=5)}
+    return {name: {part: vjp_close(g, g64) for part, g, g64 in zip(("out", "attn"), run(), want64)}
+            for name, run in runs.items()}
+
+
 def check_nystrom_infer(small: bool) -> dict:
     from ..ops import flash_nystrom as fn
     from ..ops import nystrom_pinv as npv
     from ..ops.nystrom import nystrom_attention
 
-    rng = np.random.default_rng(0)
-    b, h, n, dh, m = (1, 2, 256, 32, 16) if small else (1, 8, 4096, 64, 256)
-    q, k, v = (_cuda(rng.normal(size=(b, h, n, dh))) for _ in range(3))
-    mask = torch.as_tensor(np.arange(n)[None] < int(n * 0.8), device="cuda")
+    q, k, v, mask, m = infer_case(small)
     ref32 = nystrom_attention(q, k, v, mask, m, return_attn=True)
     want64 = nystrom_attention(q.double(), k.double(), v.double(), mask, m, return_attn=True)
     counts = lambda: (fn.pass_a.launches, fn.pass_b.launches, npv.pinv_product.launches)
@@ -122,16 +171,20 @@ def check_nystrom_infer(small: bool) -> dict:
     if counts() != (launched[0] + 1, launched[1] + 1, launched[2] + 24):
         raise AssertionError("K1 and K2 were not launched once each, or the pinv not 24 times on K3p")
     res = {"max_abs_err": 0.0, "of_allowance": 0.0, "fp32_reference_max_abs_err": 0.0,
-           "fp32_reference_of_allowance": 0.0}
+           "fp32_reference_of_allowance": 0.0, "fp64_misses_at_rtol_1e-4_atol_1e-5": {}, "controls_of_allowance": {}}
+    old_misses = lambda g, want: int(((g.double() - want.double()).abs() > 1e-5 + 1e-4 * want.double().abs()).sum())
     for name, g, g32, g64 in zip(("out", "attn"), got, ref32, want64):
         r32, r = vjp_close(g32, g64), vjp_close(g, g64)
         err = (g - g32).abs()
-        off = int((err > 1e-5 + 1e-4 * g32.abs()).sum())
+        off = old_misses(g, g32)
+        miss64 = {"kernel": old_misses(g, g64), "fp32_reference": old_misses(g32, g64)}
+        res["fp64_misses_at_rtol_1e-4_atol_1e-5"][name] = miss64
         print(f"flash_nystrom_infer {name}: kernel max|d| {r['max_abs_err']:.3e} ({r['of_allowance']:.3f} of the "
               f"allowance), fp32 reference {r32['max_abs_err']:.3e} ({r32['of_allowance']:.3f}); max|ref64| "
               f"{g64.abs().max().item():.3e}; against the fp32 reference at rtol 1e-4 atol 1e-5: kernel "
-              f"{off} entries off, max|d| {err.max().item():.3e}; fp64 {int(((g64 - g32).abs() > 1e-5 + 1e-4 * g32.abs()).sum())} "
-              f"entries off", file=sys.stderr)
+              f"{off} entries off, max|d| {err.max().item():.3e}; fp64 {old_misses(g64, g32)} entries off; "
+              f"against fp64 at rtol 1e-4 atol 1e-5: kernel {miss64['kernel']} entries off, fp32 reference "
+              f"{miss64['fp32_reference']}", file=sys.stderr)
         if not r32["ok"]:
             raise AssertionError(f"{name}: the fp32 reference misses the criterion in {r32['n_bad']} entries")
         if not r["ok"]:
@@ -139,6 +192,13 @@ def check_nystrom_infer(small: bool) -> dict:
         for key, x in (("", r), ("fp32_reference_", r32)):
             for part in ("max_abs_err", "of_allowance"):
                 res[key + part] = max(res[key + part], x[part])
+    for control, parts in infer_controls(q, k, v, mask, m, want64).items():
+        print(f"flash_nystrom_infer control '{control}': " + "; ".join(
+            f"{part} {p['n_bad']} entries miss, {p['of_allowance']:.3f} of the allowance" for part, p in parts.items()),
+              file=sys.stderr)
+        if all(p["ok"] for p in parts.values()):
+            raise AssertionError(f"the criterion does not reject the control '{control}'")
+        res["controls_of_allowance"][control] = max(p["of_allowance"] for p in parts.values())
     return res
 
 

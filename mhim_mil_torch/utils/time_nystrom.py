@@ -17,10 +17,13 @@ the cls term (K2b) or s3's cotangent (K1b), at dh 128 (B 4, H 4), dh 256
 (B 4, H 2), dh 32 (B 4, H 16) and dh 16 (B 4, H 32), each beside the
 backward of ``scaled_dot_product_attention`` on the same operands
 (:func:`sdpa_backward`). ``pinv``: the pseudo-inverse of the flagship's
-attn2 at G 32 and 8 (:func:`pinv_cases`): K3p forward and forward +
+attn2 at G 32, 16 and 8 (:func:`pinv_cases`): K3p forward and forward +
 backward, the plain ``moore_penrose_pinv``, 24, 72 and one ``torch.bmm``
-calls in fp32, and one K3p product. The K3 and pseudo-inverse cases first
-print their device time by kernel (:func:`print_breakdown`).
+calls in fp32, one K3p product, and K3p's forward and one product at each
+tile the kernel is built for (``pinv_plan``'s choice and the other), also
+at 128 landmarks. The
+K3 and pseudo-inverse cases first print their device time by kernel
+(:func:`print_breakdown`).
 
 Per case: the median of 20 CUDA-event timings of one call after 3
 warm-ups, and the profiler's kernel time per call over 10 calls (each
@@ -189,12 +192,25 @@ def attn2_operand(gen, b, n=N, lengths=None, h=8, dh=64, m=M):
     return masked_softmax(q_l @ k_l.transpose(-1, -2), lm_mask[:, None, None, :])
 
 
+def at_tile(npv, tile, call):
+    """``call`` with K3p's products at ``tile`` whatever ``pinv_plan`` takes."""
+    def run():
+        plan = npv.pinv_plan
+        npv.pinv_plan = lambda g, m, sms=0: tile
+        try:
+            return call()
+        finally:
+            npv.pinv_plan = plan
+    return run
+
+
 def pinv_cases(gen):
     """(name, call) of the pseudo-inverse of the flagship's attn2 at batch 4
-    (G 32) and 1 (G 8), forward and forward + backward: K3p's
+    (G 32), 2 (G 16) and 1 (G 8), forward and forward + backward: K3p's
     ``pseudo_inverse`` where this tree has it, the plain
     ``moore_penrose_pinv``, and 24 (72) ``torch.bmm`` calls in fp32 as the
-    library yardstick; one K3p product beside one ``torch.bmm``."""
+    library yardstick; one K3p product beside one ``torch.bmm``; K3p's
+    forward and one product at each of its tiles, at m 256 and 128."""
     from ..ops.nystrom import moore_penrose_pinv
 
     try:
@@ -202,7 +218,7 @@ def pinv_cases(gen):
     except ImportError:  # a tree before K3p
         npv = None
     cases = []
-    for b in (4, 1):
+    for b in (4, 2, 1):
         x = attn2_operand(gen, b)
         z = torch.randn_like(x)
         cot = torch.randn_like(x)
@@ -225,6 +241,15 @@ def pinv_cases(gen):
                   (f"torch.bmm fp32 x 24 {shape}", lambda f=bmms: f(24)),
                   (f"torch.bmm fp32 x 72 {shape}", lambda f=bmms: f(72)),
                   (f"torch.bmm fp32 x 1 {shape}", lambda f=bmms: f(1))]
+    for m in (M, 128) if npv is not None else ():
+        for b in (4, 2, 1):
+            x = attn2_operand(gen, b, m=m)
+            z = torch.randn_like(x)
+            for tile in npv.TILES:
+                at = (f"at tile {tile[0]}x{tile[1]}{' (plan)' if npv.pinv_plan(8 * b, m) == tile else ''} "
+                      f"[{b}, 8, {m}, {m}] (G {8 * b})")
+                cases += [(f"K3p forward {at}", at_tile(npv, tile, lambda x=x: npv.pseudo_inverse(x))),
+                          (f"K3p one product {at}", at_tile(npv, tile, lambda x=x, z=z: npv.pinv_product(x, z)))]
     return cases
 
 

@@ -15,6 +15,12 @@ rows scaled apart (``_untied``): a softmax's row sums tie or nearly tie at 1, an
 the initial scale's max would send its gradient to whichever rows tie in
 each framework's own rounding. Against torch autograd: fp64, where the two
 orders of the same products agree to 1e-12 of max|ref|.
+
+The kernel gate's ``flash_nystrom_infer`` criterion (``kernel_check``:
+``vjp_close`` against the fp64 plain attention) at its full shape and draws:
+it passes the fp32 plain path and K3p's products in emulated 3×TF32, and
+rejects both of its controls (the pinv's products in single TF32, 5
+iterations for 6).
 """
 
 import jax
@@ -23,10 +29,13 @@ import numpy as np
 import pytest
 import torch
 
+from mhim_mil_torch.ops import flash_nystrom as fn
 from mhim_mil_torch.ops import nystrom_pinv as npv
 from mhim_mil_torch.ops.masked import masked_softmax
-from mhim_mil_torch.ops.nystrom import _landmark_mean, moore_penrose_pinv, pinv_start
+from mhim_mil_torch.ops.nystrom import _landmark_mean, moore_penrose_pinv, nystrom_attention, pinv_start
+from mhim_mil_torch.utils import kernel_check
 from mhim_mil_tpu.ops import nystrom as jny
+from test_torch_flash_passes import _mm3
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -170,19 +179,61 @@ def test_the_iterations_are_products_only(monkeypatch):
 
 
 def test_pinv_plan_fills_the_card():
-    """The tile plan: 64 × 64 at the student's 32 matrices of 256 (512
-    blocks), smaller tiles at batch 1 (8 matrices) so that every SM of the
-    H100 gets three blocks, and the smallest tile where none fills it."""
-    assert npv.pinv_plan(32, 256) == (64, 64)
-    assert npv.pinv_plan(8, 256) == (32, 32)
-    assert npv.pinv_plan(16, 256) == (64, 32)
-    assert npv.pinv_plan(8, 40) == (32, 32)
-    for g, m in ((32, 256), (8, 256), (16, 256), (64, 256)):
-        bm, bn = npv.pinv_plan(g, m)
-        assert g * -(-m // bm) * -(-m // bn) >= 3 * npv.H100_SMS
+    """The tile plan: 64 × 64 where its grid has a block for three quarters
+    of the H100's SMs (128 blocks and more: m 256 at batch 1, 2 and 4, the
+    gate's m 128 at G 32), 32 × 32 below (m 128 at G 16 and 8, m 40)."""
+    assert npv.TILES == ((64, 64), (32, 32))
+    for g, m, tile in ((32, 256, 64), (16, 256, 64), (8, 256, 64), (32, 128, 64), (16, 128, 32),
+                       (8, 128, 32), (8, 40, 32)):
+        assert npv.pinv_plan(g, m) == (tile, tile), (g, m)
+        assert (g * ((m + 63) // 64) ** 2 >= 99) == (tile == 64)
 
 
 def test_pseudo_inverse_on_the_cpu_is_moore_penrose_pinv():
     """CPU tensors keep the plain pseudo-inverse, bit for bit."""
     x = _inputs("masked attn2")
     assert torch.equal(npv.pseudo_inverse(x), moore_penrose_pinv(x))
+
+
+@pytest.fixture(scope="module")
+def infer_full_case():
+    """kernel_check's flash_nystrom_infer draws (1 × 8 × 4,096, dh 64, 256
+    landmarks, 80% valid) on the CPU, and the fp64 plain attention on them."""
+    q, k, v, mask, m = kernel_check.infer_case(False, "cpu")
+    want64 = nystrom_attention(q.double(), k.double(), v.double(), mask, m, return_attn=True)
+    return q, k, v, mask, m, want64
+
+
+def _product_3xtf32(a, b, alpha=1.0, diag=0.0, ta=False, tb=False, c=None, beta=0.0):
+    """pinv_product_plain with its product on the kernel's 3×TF32 operands."""
+    a = a.transpose(-1, -2) if ta else a
+    b = b.transpose(-1, -2) if tb else b
+    if diag:
+        b = b + diag * torch.eye(b.shape[-1], dtype=b.dtype)
+    d = alpha * _mm3(a, b)
+    return d + beta * c if beta else d
+
+
+@pytest.mark.parametrize("pinv", ["fp32 plain", "K3p in 3xTF32"])
+def test_infer_criterion_passes_the_fp32_path_and_k3p_arithmetic(monkeypatch, infer_full_case, pinv):
+    """flash_nystrom_infer on the CPU (the plain passes) with the fp32
+    moore_penrose_pinv, or with K3p's products in emulated 3×TF32, passes
+    the gate's criterion on out and attn against fp64 (measured: 0.240 and
+    0.226 of the allowance on out)."""
+    q, k, v, mask, m, want64 = infer_full_case
+    if pinv == "K3p in 3xTF32":
+        monkeypatch.setattr(fn, "pseudo_inverse", npv.newton_schulz_pinv)
+        monkeypatch.setattr(npv, "pinv_product_plain", _product_3xtf32)
+    for g, g64 in zip(fn.flash_nystrom_infer(q, k, v, mask, m), want64):
+        r = kernel_check.vjp_close(g, g64)
+        assert r["ok"] and r["of_allowance"] < 0.5, r
+
+
+def test_infer_criterion_rejects_its_controls(infer_full_case):
+    """Each control of the gate's infer check misses the criterion on out in
+    more than 100,000 of its 2,097,152 entries (measured: 1,276,402 in
+    single TF32 at 56.7 times the allowance, 1,676,562 at 5 iterations)."""
+    controls = kernel_check.infer_controls(*infer_full_case)
+    assert set(controls) == {"pinv products in single TF32", "pinv of 5 iterations"}
+    for name, parts in controls.items():
+        assert parts["out"]["n_bad"] > 100_000 and parts["out"]["of_allowance"] > 10, (name, parts["out"])
