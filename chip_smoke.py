@@ -20,7 +20,10 @@ its eval step and its scorer. Phases, each of which fails the run:
    q/k/v gradients at the student's shape against autograd through the
    plain attention in fp32, and its gradients against the plain attention
    in fp64 by the kernel gate's VJP criterion, and its pseudo-inverse as K3p
-   launches alone (the profiler's record); K3p, the Newton–Schulz
+   launches alone (the profiler's record); K3 again at the teacher stage's
+   length, B 4, H 8, N 10,241, full and ragged bags (out and attn against
+   the fp32 plain path, everything against fp64 by the VJP criterion,
+   timed with each kernel's device ms); K3p, the Newton–Schulz
    pseudo-inverse on the tensor cores, against ``moore_penrose_pinv`` and
    its autograd in fp32 and against fp64 on the attn2 of the student's and
    the flagship's shapes, timed beside ``torch.bmm``; K2b and K1b, the
@@ -39,19 +42,24 @@ its eval step and its scorer. Phases, each of which fails the run:
 4. serving: the selfattn kernel path against the plain path on the whole
    model in fp32, then the scorer's requests under the default bf16 policy;
 5. train: one flagship train step on the kernel path against the plain path
-   in fp32 from the same weights and draws, then steps under bf16;
+   in fp32 from the same weights and draws, then steps under bf16; then the
+   same for the teacher stage's step (``--model mhim_pure``: K3 over the
+   whole bag, no teacher forward), whose teacher must not move;
 6. attn: MHIM-attn ``forward_test`` on the kernel path against the plain
    path in fp32, then the scorer's requests under bf16;
 7. 2dmamba: the eval step on one 20,000-instance bag on the BLCA grid, the
    kernel path (K5) against the plain path in fp32 and bf16 against fp32,
    then the scorer's requests on the raster grid under bf16;
-8. driver: ``mhim_mil_torch.main.main`` with ``use_flash_attn`` on auto, so
-   the kernel gate builds and launches K6 in its probe and runs the kernel
-   check: two folds of the flagship on synthetic bags of 5,120-10,240
-   instances in the 10,240 bucket, two epochs each, with the student and
-   EMA bests final-tested; the ``script_mode test`` reload of those bests;
-   then one fold of the 2dmamba survival model, training on the plain scan
-   and evaluating through K5.
+8. driver: ``mhim_mil_torch.main.main``, the two-stage workflow on synthetic
+   bags of 5,120-10,240 instances in the 10,240 bucket, two folds of two
+   epochs each: the teacher stage (``--model mhim_pure``) with
+   ``use_flash_attn`` on auto, so the kernel gate builds and launches K6 in
+   its probe and runs the kernel check; then the flagship with
+   ``--teacher_init`` from the teacher stage's directory (each fold's
+   teacher its stage-1 best, bit for bit), its student and EMA bests
+   final-tested; the ``script_mode test`` reload of those bests; then one
+   fold of the 2dmamba survival model, training on the plain scan and
+   evaluating through K5.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
@@ -423,6 +431,23 @@ def k3_bounds(lengths, h, n, m, dh, iters=6) -> dict:
     return tensor_core_bounds(2 * 3 * fmas, nbytes, exps)
 
 
+def k3_operands(gen, b, h, n, dh):
+    """q (scaled by dh**-0.5), k, v and out's cotangent ``[B,H,N,dh]``, and
+    attn's cotangent ``[B,H,N]``, standard normal."""
+    q, k, v, co = (torch.randn(b, h, n, dh, device="cuda", generator=gen) for _ in range(4))
+    return q * dh ** -0.5, k, v, co, torch.randn(b, h, n, device="cuda", generator=gen)
+
+
+def k3_grads(f, qkv, cots, dtype=torch.float32, use_attn=True):
+    """``(out, attn, dq, dk, dv)`` of ``f(q, k, v)`` in ``dtype`` under the
+    cotangents of out and (with ``use_attn``) attn."""
+    qq, kk, vv = (t.to(dtype, copy=True).requires_grad_() for t in qkv)
+    out, attn = f(qq, kk, vv)
+    outs = (out, attn) if use_attn else (out,)
+    grads = torch.autograd.grad(outs, (qq, kk, vv), tuple(c.to(dtype) for c in cots[:len(outs)]))
+    return (out.detach(), attn.detach(), *grads)
+
+
 def phase_k3(gen) -> dict:
     """K3 at the student's shape (B=4, H=8, N=1,027 tokens, ragged): out,
     attn and the q/k/v gradients under random cotangents against autograd
@@ -436,18 +461,11 @@ def phase_k3(gen) -> dict:
     from mhim_mil_torch.utils.kernel_check import vjp_close
 
     b, h, n, dh, m = 4, 8, 1027, 64, 256
-    q, k, v, co = (torch.randn(b, h, n, dh, device="cuda", generator=gen) for _ in range(4))
-    q = q * dh ** -0.5
-    ca = torch.randn(b, h, n, device="cuda", generator=gen)
+    q, k, v, co, ca = k3_operands(gen, b, h, n, dh)
     lengths = torch.randint(600, n + 1, (b,), device="cuda", generator=gen)
     lengths[0] = n
     mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
-
-    def run(f, dtype=torch.float32, use_attn=True):
-        qq, kk, vv = (t.to(dtype, copy=True).requires_grad_() for t in (q, k, v))
-        out, attn = f(qq, kk, vv)
-        outs, cots = ((out, attn), (co.to(dtype), ca.to(dtype))) if use_attn else ((out,), (co,))
-        return (out.detach(), attn.detach(), *torch.autograd.grad(outs, (qq, kk, vv), cots))
+    run = lambda f, dtype=torch.float32, use_attn=True: k3_grads(f, (q, k, v), (co, ca), dtype, use_attn)
 
     kern = lambda use_attn=True: run(lambda *t: fn.flash_nystrom(*t, mask, m), use_attn=use_attn)
     plain = lambda use_attn=True: run(lambda *t: nystrom_attention(*t, mask, m, return_attn=True),
@@ -494,7 +512,92 @@ def phase_k3(gen) -> dict:
         f"path by the VJP criterion: {'; '.join(crit)}; forward+backward {fmt_ms(r, '')}, plain "
         f"{fmt_ms(r, 'plain_')}, {fmt_bound(r)}; without attn's cotangent {fmt_ms(r_na, '')}, plain "
         f"{fmt_ms(r_na, 'plain_')}; no library call computes it")
+    for label, ragged in (("long", False), ("long_ragged", True)):
+        r[label] = k3_long(gen, label, ragged)
     return {"K3": r}
+
+
+K3_LONG_N = 10241  # the cls token and a bag of 10,240: K3's length in the teacher stage (mhim_pure)
+K3_LONG_KERNELS = ("K1", "K2", "K3p", "K1b", "K2b")
+
+
+def k3_long(gen, label: str, ragged: bool) -> dict:
+    """K3 at the teacher stage's length (B 4, H 8, N 10,241, dh 64, m 256),
+    every bag full or ragged (5,121-10,241 valid tokens, cls included): out
+    and attn against the fp32 plain path (out rtol 1e-4 atol 1e-5, attn
+    max|d| <= 1e-4·max|ref|), and out, attn and the q/k/v gradients under
+    random cotangents against the fp64 plain path by the kernel gate's VJP
+    criterion (the fp32 plain path's share beside it); one forward +
+    backward launches K1b and K2b once each. Timed beside the plain path,
+    with each kernel's device ms and records a call (profiler) and the
+    bound at this shape. Every check is printed before any fails the run."""
+    from mhim_mil_torch.ops import flash_nystrom as fn
+    from mhim_mil_torch.ops.nystrom import nystrom_attention
+    from mhim_mil_torch.utils.kernel_check import vjp_close
+    from mhim_mil_torch.utils.time_scan2d import breakdown
+
+    b, h, n, dh, m = 4, 8, K3_LONG_N, 64, 256
+    q, k, v, co, ca = k3_operands(gen, b, h, n, dh)
+    lengths = torch.full((b,), n, device="cuda")
+    if ragged:
+        lengths = 1 + torch.randint(5120, n, (b,), device="cuda", generator=gen)
+    mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
+    kern = lambda: k3_grads(lambda *t: fn.flash_nystrom(*t, mask, m), (q, k, v), (co, ca))
+    plain_f = lambda *t: nystrom_attention(*t, mask, m, return_attn=True)
+    plain = lambda: k3_grads(plain_f, (q, k, v), (co, ca))
+    before = launches()
+    got = kern()
+    torch.cuda.synchronize()
+    calls = {kid: n - before[kid] for kid, n in launches().items()}
+    once = (calls["K1b"], calls["K2b"]) == (1, 1)
+    want = plain()
+    out_err = (got[0] - want[0]).abs()
+    out_off = int((out_err > 1e-5 + 1e-4 * want[0].abs()).sum())
+    attn_rel = ((got[1] - want[1]).abs().max() / want[1].abs().max()).item()
+    want64 = k3_grads(plain_f, (q, k, v), (co, ca), torch.float64)
+    crit, bad = [], []
+    for name, g, w32, w64 in zip(("out", "attn", "dq", "dk", "dv"), got, want, want64):
+        r64, r32 = vjp_close(g, w64), vjp_close(w32, w64)
+        crit.append(f"{name} {r64['of_allowance']:.3f} of the allowance ({r64['n_bad']} entries miss; fp32 plain "
+                    f"{r32['of_allowance']:.3f}, {r32['n_bad']} miss)")
+        if not r64["ok"]:
+            bad.append(f"{name} misses the VJP criterion against fp64 in {r64['n_bad']} entries")
+    del want64
+    row = {"lengths": lengths.tolist(), "max_abs_err": max(out_err.max().item(), attn_rel), "launches": calls,
+           "out_entries_off_fp32": out_off, **k3_bounds(lengths.tolist(), h, n, m, dh)}
+    log(f"K3 [{label}] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: against the fp32 plain path out "
+        f"max|d| {out_err.max().item():.3e} ({out_off} entries beyond rtol 1e-4 atol 1e-5; max|out| "
+        f"{want[0].abs().max().item():.3e}), attn max|d|/max|ref| {attn_rel:.3e} (tolerance 1e-4); against the fp64 "
+        f"plain path by the VJP criterion: {'; '.join(crit)}; K1b and K2b once each in a backward: {once}")
+    if out_off:
+        bad.append(f"out: {out_off} entries beyond rtol 1e-4 atol 1e-5 of the fp32 plain path")
+    if not attn_rel <= 1e-4 or not torch.isfinite(got[1]).all():
+        bad.append(f"attn: max|d|/max|ref| {attn_rel:.3e} against the fp32 plain path")
+    if not once:
+        bad.append("its backward did not launch K1b and K2b once each")
+    if bad:
+        fail(f"K3 [{label}]: " + "; ".join(bad))
+    del got, want
+    torch.cuda.empty_cache()
+    timed(row, kern, plain, plain_iters=5)
+    # each kernel's bound for its part of this call (K2b with the cls term, K1b with s3's cotangent)
+    o = {"q": q, "mask": mask}
+    bound = {"K1": bounds("K1", o, h, m, dh), "K2": bounds("K2", o, h, m, dh), "K3p": pinv_bounds(b * h, m, 72, 4),
+             "K1b": k1b_bounds(mask, h, m, dh, True), "K2b": k2b_bounds(mask, h, m, dh, True)}
+    by = {kid: {"device_ms": 0.0, "records": 0, "bound_ms": bound[kid]["bound_ms"], "launches": calls[kid]}
+          for kid in K3_LONG_KERNELS}
+    for _, kid, ms, calls in breakdown(kern, iters=5):
+        if kid in by:
+            by[kid]["device_ms"] += ms
+            by[kid]["records"] += calls
+    row["by_kernel"] = by
+    log(f"K3 [{label}] forward+backward {fmt_ms(row, '')}, plain {fmt_ms(row, 'plain_')}, {fmt_bound(row)}; "
+        f"a call by kernel: device ms (profiler records, wrapper launches; bound ms) "
+        + ", ".join(f"{kid} {t['device_ms']:.4f} ({t['records']}, {t['launches']}; {t['bound_ms']:.4f})"
+                    for kid, t in by.items()))
+    del q, k, v, co, ca
+    torch.cuda.empty_cache()
+    return row
 
 
 def pinv_bounds(g, m, products, matrices) -> dict:
@@ -933,7 +1036,7 @@ def flagship_models(gen_seed: int, **kw):
     model_p, _ = build_model(cfg.replace(use_flash_attn=False), device="cuda",
                              generator=torch.Generator().manual_seed(gen_seed + 1))
     model_p.load_state_dict(model_k.state_dict())
-    log(f"model: MHIM-{cfg.baseline} input_dim {cfg.input_dim} inner_dim {cfg.inner_dim} heads "
+    log(f"model: {cfg.model}-{cfg.baseline} input_dim {cfg.input_dim} inner_dim {cfg.inner_dim} heads "
         f"{cfg.n_heads}, {sum(p.numel() for p in model_k.parameters())} params, compute_dtype "
         f"{cfg.compute_dtype}")
     return cfg, model_k, model_p
@@ -1012,84 +1115,146 @@ def phase_serving(gen) -> dict:
 TRAIN_STEPS = 10  # timed bf16 steps, after 2 warm-up steps
 
 
-def phase_train(gen) -> dict:
-    """Phase 5: the flagship train step. One fp32 step on the kernel path
-    against the plain path from the same weights, batch and generator seed
-    (so the same dropout, mining and merge draws), then bf16 steps."""
+def train_batch(gen, cfg) -> dict:
+    feats, mask = flagship_batch(gen, cfg.input_dim)
+    b = feats.shape[0]
+    return {"feats": feats, "mask": mask, "bag_valid": torch.ones(b, dtype=torch.bool, device="cuda"),
+            "target": torch.randint(0, cfg.n_classes, (b,), device="cuda", generator=gen)}
+
+
+def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, **launches_per_step):
+    """One fp32 train step on the kernel path and one on the plain path, from
+    the same weights, batch and generator seed (so the same dropout, mining
+    and merge draws). Fails unless the kernel path launched
+    ``launches_per_step`` and the plain path no kernel, the losses agree to
+    1e-4 relative, the gradients to 1e-3 of max|g| and the parameters to
+    2·lr: Adam's first step moves each parameter by about lr·sign(g), so a
+    gradient entry near zero may move the two paths' parameters apart by up
+    to 2·lr. Returns the two states, their metrics, the launches and lr."""
     from mhim_mil_torch.engine.steps import make_mhim_train_step
     from mhim_mil_torch.engine.train_state import create_mhim_state
 
-    cfg, model_k, model_p = flagship_models(2, compute_dtype="float32")
-    feats, mask = flagship_batch(gen, cfg.input_dim)
-    b = feats.shape[0]
-    batch = {"feats": feats, "mask": mask, "bag_valid": torch.ones(b, dtype=torch.bool, device="cuda"),
-             "target": torch.randint(0, cfg.n_classes, (b,), device="cuda", generator=gen)}
-    spe = 8
     state_k = create_mhim_state(cfg, model_k, spe, seed=0, device="cuda")
     state_p = create_mhim_state(cfg, model_p, spe, seed=0, device="cuda")
     lr = float(state_k.optimizer.lr_schedule(0))
     reset_launches()
     m_k = make_mhim_train_step(cfg, spe, device="cuda")(state_k, batch)
     torch.cuda.synchronize()
-    counted = expect_launches("one fp32 train step", K1=4, K2=4, K3=2, K3b=2, K3p=4 * 24 + 2 * 48, K1b=2, K2b=2)
+    counted = expect_launches(f"one fp32 {label} step", **launches_per_step)
     reset_launches()
     m_p = make_mhim_train_step(cfg.replace(use_flash_attn=False), spe, device="cuda")(state_p, batch)
     torch.cuda.synchronize()
-    expect_launches("the plain-path train step")
-    log("train fp32 metrics, kernel path: " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_k.items()))
-    log("train fp32 metrics, plain path:  " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_p.items()))
-    for key in ("keep_num", "patch_num"):
-        if float(m_k[key]) != float(m_p[key]):
-            fail(f"train: {key} differs between the paths: the mining took other instances")
+    expect_launches(f"the plain-path {label} step")
+    log(f"{label} fp32 metrics, kernel path: " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_k.items()))
+    log(f"{label} fp32 metrics, plain path:  " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_p.items()))
     d_loss = abs(float(m_k["loss"]) - float(m_p["loss"]))
-    log(f"train fp32 loss: kernel vs plain |d| {d_loss:.3e} (tolerance 1e-4 * |loss|)")
-    if not math.isfinite(float(m_k["loss"])) or d_loss > 1e-4 * abs(float(m_p["loss"])):
-        fail("train: the loss disagrees")
-    # The gradients are the kernels' real test; Adam's first step moves each
-    # parameter by about lr·sign(g), so a gradient entry near zero may move
-    # the two paths' parameters apart by up to 2·lr, and the teacher by
-    # (1 − mm) times that.
     g_err = max(((pk.grad - pp.grad).abs().max() / pp.grad.abs().max().clamp_min(1e-30)).item()
                 for pk, pp in zip(model_k.parameters(), model_p.parameters()))
     p_err = max((pk - pp).abs().max().item() for pk, pp in zip(model_k.parameters(), model_p.parameters()))
-    t_err = max((tk - tp).abs().max().item()
-                for tk, tp in zip(state_k.teacher.parameters(), state_p.teacher.parameters()))
-    q_err = (model_k.merge.global_q_mm - model_p.merge.global_q_mm).abs().max().item()
-    log(f"train fp32 kernel vs plain: gradients max|d|/max|ref| {g_err:.3e} (tolerance 1e-3), params max|d| "
-        f"{p_err:.3e} (tolerance 2·lr = {2 * lr:.3e}), teacher max|d| {t_err:.3e} (tolerance "
-        f"{2 * lr * (1 - cfg.mm) + 1e-7:.3e}), global_q max|d| {q_err:.3e} (tolerance 1e-6)")
-    if g_err > 1e-3 or p_err > 2 * lr or t_err > 2 * lr * (1 - cfg.mm) + 1e-7 or q_err > 1e-6:
-        fail("train: the kernel path's update disagrees with the plain path's")
+    log(f"{label} fp32 kernel vs plain: loss |d| {d_loss:.3e} (tolerance 1e-4 * |loss|), gradients max|d|/max|ref| "
+        f"{g_err:.3e} (tolerance 1e-3), params max|d| {p_err:.3e} (tolerance 2·lr = {2 * lr:.3e})")
+    if not math.isfinite(float(m_k["loss"])) or d_loss > 1e-4 * abs(float(m_p["loss"])):
+        fail(f"{label}: the loss disagrees")
+    if g_err > 1e-3 or p_err > 2 * lr:
+        fail(f"{label}: the kernel path's update disagrees with the plain path's")
+    return state_k, state_p, m_k, m_p, counted, lr
 
-    cfg16 = cfg.replace(compute_dtype="bfloat16")
-    step16 = make_mhim_train_step(cfg16, spe, device="cuda")
-    before = [p.detach().clone() for p in model_k.parameters()]
+
+def bf16_steps(label: str, cfg, state, batch, spe: int, **launches_per_step) -> dict:
+    """2 warm-up and TRAIN_STEPS timed bf16 steps of ``state``: the host ms
+    of each (synchronised), the losses, the peak memory of the timed steps,
+    the launches (``launches_per_step`` a step, else the run fails) and the
+    step. Fails unless every loss is finite and every parameter moved."""
+    from mhim_mil_torch.engine.steps import make_mhim_train_step
+
+    step16 = make_mhim_train_step(cfg.replace(compute_dtype="bfloat16"), spe, device="cuda")
+    before = [p.detach().clone() for p in state.model.parameters()]
     reset_launches()
     for _ in range(2):
-        step16(state_k, batch)
+        step16(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        m = step16(state_k, batch)
+        m = step16(state, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
     n = TRAIN_STEPS + 2
-    counted_16 = expect_launches("the bf16 train steps", K1=4 * n, K2=4 * n, K3=2 * n, K3b=2 * n,
-                                 K3p=(4 * 24 + 2 * 48) * n, K1b=2 * n, K2b=2 * n)
-    moved = sum(not torch.equal(p, q) for p, q in zip(model_k.parameters(), before))
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    ms = statistics.median(times)
-    log(f"train bf16: {TRAIN_STEPS} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; "
-        f"{moved}/{len(before)} parameter tensors moved; {ms:.2f} ms per step (median, host clock, "
-        f"synchronised; min {min(times):.2f}, max {max(times):.2f}), {b / ms * 1e3:.1f} bags/s; "
-        f"peak memory {peak_gb:.2f} GiB")
+    counted = expect_launches(f"the bf16 {label} steps", **{k: v * n for k, v in launches_per_step.items()})
+    moved = sum(not torch.equal(p, q) for p, q in zip(state.model.parameters(), before))
+    r = {"ms": statistics.median(times), "times": times, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "counted": counted, "step": step16}
+    log(f"{label} bf16: {TRAIN_STEPS} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; {moved}/{len(before)} "
+        f"parameter tensors moved; {r['ms']:.2f} ms per step (median, host clock, synchronised; min {min(times):.2f}, "
+        f"max {max(times):.2f}), {batch['feats'].shape[0] / r['ms'] * 1e3:.1f} bags/s; peak memory "
+        f"{r['peak_gib']:.2f} GiB")
     if not all(math.isfinite(x) for x in losses) or moved != len(before):
-        fail("train bf16: a loss is not finite or a parameter did not move")
-    return {"launches": [counted, counted_16],
-            "train": {"ms_per_step": ms, "bags_per_s": b / ms * 1e3, "peak_gib": peak_gb}}
+        fail(f"{label} bf16: a loss is not finite or a parameter did not move")
+    return r
+
+
+TRAIN_LAUNCHES = dict(K1=4, K2=4, K3=2, K3b=2, K3p=4 * 24 + 2 * 48, K1b=2, K2b=2)  # a flagship step
+TEACHER_LAUNCHES = dict(K1=2, K2=2, K3=2, K3b=2, K3p=2 * 24 + 2 * 48, K1b=2, K2b=2)  # a teacher-stage step
+
+
+def phase_train(gen) -> dict:
+    """Phase 5: the flagship train step. One fp32 step on the kernel path
+    against the plain path (:func:`fp32_step_pair`; the mining took the same
+    instances, the teacher within (1 − mm)·2·lr, global_q within 1e-6),
+    then bf16 steps."""
+    cfg, model_k, model_p = flagship_models(2, compute_dtype="float32")
+    batch = train_batch(gen, cfg)
+    spe = 8
+    state_k, state_p, m_k, m_p, counted, lr = fp32_step_pair("train", cfg, model_k, model_p, batch, spe,
+                                                             **TRAIN_LAUNCHES)
+    for key in ("keep_num", "patch_num"):
+        if float(m_k[key]) != float(m_p[key]):
+            fail(f"train: {key} differs between the paths: the mining took other instances")
+    t_err = max((tk - tp).abs().max().item()
+                for tk, tp in zip(state_k.teacher.parameters(), state_p.teacher.parameters()))
+    q_err = (model_k.merge.global_q_mm - model_p.merge.global_q_mm).abs().max().item()
+    log(f"train fp32 kernel vs plain: teacher max|d| {t_err:.3e} (tolerance {2 * lr * (1 - cfg.mm) + 1e-7:.3e}), "
+        f"global_q max|d| {q_err:.3e} (tolerance 1e-6)")
+    if t_err > 2 * lr * (1 - cfg.mm) + 1e-7 or q_err > 1e-6:
+        fail("train: the kernel path's teacher EMA or global_q disagrees with the plain path's")
+    r = bf16_steps("train", cfg, state_k, batch, spe, **TRAIN_LAUNCHES)
+    b = batch["feats"].shape[0]
+    return {"launches": [counted, r["counted"]],
+            "train": {"ms_per_step": r["ms"], "bags_per_s": b / r["ms"] * 1e3, "peak_gib": r["peak_gib"]}}
+
+
+def phase_teacher(gen) -> dict:
+    """Phase 5b: the teacher-stage step (``--model mhim_pure``, selfattn, no
+    mining or merge, K3 over the whole bag of up to 10,241 tokens). One fp32
+    step on the kernel path against the plain path (:func:`fp32_step_pair`,
+    phase 5's tolerances), with its launches; then bf16 steps: host ms, the
+    device's busy ms a step (profiler), peak memory. The teacher, which no
+    EMA moves in this stage, must keep its initial weights bit for bit."""
+    cfg, model_k, model_p = flagship_models(6, model="mhim_pure", compute_dtype="float32")
+    batch = train_batch(gen, cfg)
+    spe = 8
+    teacher0 = [p.detach().clone() for p in model_k.parameters()]
+    state_k, state_p, m_k, _, counted, _ = fp32_step_pair("teacher", cfg, model_k, model_p, batch, spe,
+                                                          **TEACHER_LAUNCHES)
+    log(f"teacher fp32: patch_num {float(m_k['patch_num']):.1f}, keep_num {float(m_k['keep_num']):.1f}, "
+        f"aux_loss {float(m_k['aux_loss'])}")
+    if float(m_k["keep_num"]) != float(m_k["patch_num"]) or float(m_k["aux_loss"]) != 0.0:
+        fail("teacher: the mhim_pure step mined, merged or paid a consistency loss")
+    del state_p, model_p
+    torch.cuda.empty_cache()
+    r = bf16_steps("teacher", cfg, state_k, batch, spe, **TEACHER_LAUNCHES)
+    busy = device_ms(lambda: r["step"](state_k, batch), iters=5)
+    frozen = all(torch.equal(p, q) for p, q in zip(state_k.teacher.parameters(), teacher0))
+    log(f"teacher bf16: device busy {'not measured' if busy is None else f'{busy:.2f} ms a step'} (profiler, 5 "
+        f"steps) of {r['ms']:.2f} ms; the teacher kept its initial weights: {frozen}")
+    if not frozen:
+        fail("teacher: the mhim_pure step moved the teacher")
+    b = batch["feats"].shape[0]
+    return {"launches": [counted, r["counted"]],
+            "teacher": {"ms_per_step": r["ms"], "bags_per_s": b / r["ms"] * 1e3, "peak_gib": r["peak_gib"],
+                        "device_busy_ms": busy}}
 
 
 def phase_attn(gen) -> dict:
@@ -1223,23 +1388,62 @@ def finite_rows(label: str, res: dict, rows, key: str):
                 fail(f"driver [{label}] fold {f['fold']}: no finite {row} row: {f.get(row)}")
 
 
+class TeachersBuilt:
+    """Records the teacher each fold of a driver run starts from: wraps
+    ``driver._build_fold`` while the ``with`` block runs."""
+
+    def __enter__(self):
+        from mhim_mil_torch.engine import driver
+
+        self.driver, self.real, self.teachers = driver, driver._build_fold, {}
+
+        def build(cfg, train_slides, fold_seed, fold=0, device=None):
+            out = self.real(cfg, train_slides, fold_seed, fold, device)
+            self.teachers[fold] = {k: v.detach().clone() for k, v in out[2].teacher.state_dict().items()}
+            return out
+
+        driver._build_fold = build
+        return self
+
+    def __exit__(self, *exc):
+        self.driver._build_fold = self.real
+
+
 def phase_driver() -> dict:
-    """Phase 8: the k-fold driver through its command line, the kernel gate
-    on auto in the first run; then the reload of the bests; then 2dmamba
-    survival with the kernels named explicitly (one gate per script)."""
+    """Phase 8: the k-fold driver through its command line. The two-stage
+    workflow first: the teacher stage (``--model mhim_pure``) with the
+    kernel gate on auto, then the flagship with ``--teacher_init`` from its
+    output directory, each fold's teacher its stage-1 best, bit for bit;
+    then the reload of the flagship's bests; then 2dmamba survival with the
+    kernels named explicitly (one gate per script)."""
+    from mhim_mil_torch.utils.checkpoint import load_checkpoint
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
-        out = os.path.join(tmp, "mhim")
+        stage1, out = os.path.join(tmp, "mhim_pure"), os.path.join(tmp, "mhim")
         torch.cuda.reset_peak_memory_stats()
-        res, seen, secs = drive("flagship", DRIVER_ARGS + ["--output_path", out])
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        gate = res["kernel_gate"]
-        log(f"driver [flagship] kernel gate: {gate['outcome']} in {gate['seconds']:.2f} s, K6 launched "
+        res1, seen1, secs1 = drive("teacher stage", DRIVER_ARGS + ["--model", "mhim_pure", "--output_path", stage1])
+        peak1 = torch.cuda.max_memory_allocated() / 2 ** 30
+        gate = res1["kernel_gate"]
+        log(f"driver [teacher stage] kernel gate: {gate['outcome']} in {gate['seconds']:.2f} s, K6 launched "
             f"{gate['probe_launches']} time(s) in its probe; {gate['detail']}")
         if gate["outcome"] != "enabled" or gate["probe_launches"] < 1:
             fail(f"driver: the kernel gate gave {gate}")
+        log_folds("teacher stage", res1)
+        log(f"driver [teacher stage] launches {seen1}; {secs1:.2f} s in all (host clock, data made, gate and "
+            f"checkpoints included); peak device memory {peak1:.2f} GiB")
+        for kid in ("K1", "K2", "K3", "K3b", "K3p", "K1b", "K2b"):
+            if seen1[kid] < 1:
+                fail(f"driver [teacher stage]: {kid} was not launched")
+        finite_rows("teacher stage", res1, ("test", "test_ema"), "auc")
+
+        torch.cuda.reset_peak_memory_stats()
+        with TeachersBuilt() as built:
+            res, seen, secs = drive("flagship", DRIVER_ARGS + ["--use_flash_attn", "true", "--teacher_init", stage1,
+                                                               "--output_path", out])
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         log_folds("flagship", res)
-        log(f"driver [flagship] launches {seen}; {secs:.2f} s in all (host clock, data made, gate and "
-            f"checkpoints included); peak device memory {peak_gb:.2f} GiB")
+        log(f"driver [flagship] launches {seen}; {secs:.2f} s in all (host clock, data made and checkpoints "
+            f"included); peak device memory {peak_gb:.2f} GiB")
         for kid in ("K1", "K2", "K3", "K3b", "K3p", "K1b", "K2b"):
             if seen[kid] < 1:
                 fail(f"driver [flagship]: {kid} was not launched")
@@ -1250,6 +1454,13 @@ def phase_driver() -> dict:
             for name in (f"fold_{k}_model_best.ckpt", f"fold_{k}_ema_model_best.ckpt"):
                 if not os.path.exists(os.path.join(out, name)):
                     fail(f"driver [flagship]: {name} was not written")
+            best = load_checkpoint(os.path.join(stage1, f"fold_{k}_model_best.ckpt"))["model"]
+            teacher = built.teachers.get(k, {})
+            same = sum(name in teacher and torch.equal(teacher[name].cpu(), w) for name, w in best.items())
+            log(f"driver [flagship] fold {k}: its teacher at the start holds {same} of the {len(best)} tensors of "
+                f"the teacher stage's best, bit for bit")
+            if same != len(best):
+                fail(f"driver [flagship] fold {k}: the teacher is not its stage-1 best")
 
         res2, seen2, secs2 = drive("reload", DRIVER_ARGS + ["--use_flash_attn", "true", "--script_mode", "test",
                                                          "--model_path", out, "--output_path", ""])
@@ -1268,7 +1479,7 @@ def phase_driver() -> dict:
             fail("driver [2dmamba]: K5 was not launched")
         log(f"driver [2dmamba] launches {seen3}; {secs3:.2f} s; c-index {res3['summary']['cindex']['mean']:.4f}")
         probes = {"K6": gate["probe_launches"] + res3["kernel_gate"]["probe_launches"]}
-    return {"launches": [seen, seen2, seen3, probes], "seconds": secs + secs2 + secs3}
+    return {"launches": [seen1, seen, seen2, seen3, probes], "seconds": secs1 + secs + secs2 + secs3}
 
 
 def main():
@@ -1284,11 +1495,14 @@ def main():
     report.update(phase_k5(gen))
     report.update(phase_k6(gen))
     counted = {kid: 0 for kid in KERNELS}
-    for phase in (phase_serving, phase_train, phase_attn, phase_mamba, lambda g: phase_driver()):
+    for phase in (phase_serving, phase_train, phase_teacher, phase_attn, phase_mamba, lambda g: phase_driver()):
         for seen in phase(gen)["launches"]:
             for kid, n in seen.items():
                 counted[kid] += n
     log(f"launches on the main paths: {counted}")
+    for label in ("long", "long_ragged"):  # each kernel's share of K3 at the teacher stage's length
+        for kid, t in report["K3"][label]["by_kernel"].items():
+            report[kid].setdefault("k3_long", {})[label] = t
     meta = {
         "K1": ("flash_nystrom_pass_a (pass_a_partial_kernel over key splits + pass_a_merge_kernel)",
                "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:45"),
@@ -1321,7 +1535,7 @@ def main():
         }
         for key in ("bound_parts_ms", "batch1", "dh128", "dh256", "dh192", "no_attn", "cls", "s3", "library", "bf16",
                     "serving", "serving_bf16", "backward", "product", "vjp_max_abs_err", "cuda_records_in_5_calls",
-                    "empty_launch_device_ms"):
+                    "empty_launch_device_ms", "long", "long_ragged", "k3_long"):
             if key in r:
                 row[key] = r[key]
         if kid == "K3":

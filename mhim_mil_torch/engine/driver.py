@@ -37,9 +37,11 @@ import torch
 from ..data.bucketing import batch_bags, count_batches
 from ..data.synthetic import make_synthetic_dataset, make_synthetic_survival_dataset
 from ..models import build_model
-from ..utils.checkpoint import load_checkpoint, overlay_params, restore_state, save_checkpoint, snapshot
+from ..utils.checkpoint import (is_jax_checkpoint, load_checkpoint, load_jax_checkpoint, overlay_params,
+                                restore_state, save_checkpoint, snapshot)
 from ..utils.early_stopping import EarlyStopping
 from ..utils.platform import resolve_device
+from ..utils.weights import state_dict_from_flax
 from . import metrics as M
 from .losses import nll_surv_loss, surv_risk
 from .steps import make_eval_step, make_mhim_eval_step, make_mhim_train_step, make_train_step
@@ -214,7 +216,7 @@ def device_eval_batches(cfg, slides, device: Device = None):
 
 
 def _eval_step(cfg, model: torch.nn.Module, family: str):
-    if family == "mhim":
+    if family in ("mhim", "mhim_pure"):
         return make_mhim_eval_step(cfg, model)
     return make_eval_step(cfg, model, family)
 
@@ -293,26 +295,35 @@ def _resolve_teacher_init(path: str, fold: int) -> str:
 
 def _load_teacher(path: str) -> Tuple[Dict[str, torch.Tensor], bool]:
     """The ``state_dict`` of a teacher checkpoint: this port's ``.ckpt``
-    (the student weights it saved) or a reference ``.pt`` / ``.pth``
-    (``{'model': state_dict, ...}`` or a bare state_dict, DDP ``module.``
-    prefixes dropped), whose names the port keeps. The flag says whether it
-    is a reference checkpoint."""
+    (the student weights it saved), the JAX package's ``.ckpt`` (its
+    ``params`` converted by ``state_dict_from_flax``, without buffers, read
+    with neither JAX nor optax), told apart by their first bytes, or a
+    reference ``.pt`` / ``.pth`` (``{'model': state_dict, ...}`` or a bare
+    state_dict, DDP ``module.`` prefixes dropped), whose names the port
+    keeps. The flag says whether it is a reference checkpoint."""
     if path.endswith((".pt", ".pth")):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
             sd = sd["model"]
         return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}, True
+    if is_jax_checkpoint(path):
+        return state_dict_from_flax(load_jax_checkpoint(path)["params"]), False
     return load_checkpoint(path)["model"], False
 
 
 def _build_fold(cfg, train_slides, fold_seed: int, fold: int = 0, device: Device = None):
     """The fold's model (weights drawn from ``fold_seed``), family, train
     state and train step (``driver.py:361-459``), with the ``--teacher_init``
-    overlay and the ``--init_stu_type`` warm start (none / fc / all)."""
+    overlay (``driver.py:385-427``): the teacher takes every weight of the
+    checkpoint, the student its parameters by ``--init_stu_type`` (none /
+    fc / all), and only a reference ``.pt`` also gives the student its
+    buffers (``global_q``). The ``mhim_pure`` family (the teacher stage)
+    keeps a teacher too: the frozen copy that its ``test_ema`` rows score,
+    as JAX's do."""
     device = resolve_device(device)
     model, family = build_model(cfg, device=device, generator=torch.Generator().manual_seed(fold_seed))
     n_batches = max(1, count_batches(train_slides, cfg.batch_size, cfg.bucket_sizes))
-    if family != "mhim":
+    if family not in ("mhim", "mhim_pure"):
         state = create_train_state(cfg, model, n_batches, seed=fold_seed, device=device)
         return model, family, state, make_train_step(cfg, family, n_batches, device)
 
@@ -321,15 +332,15 @@ def _build_fold(cfg, train_slides, fold_seed: int, fold: int = 0, device: Device
         loaded, reference = _load_teacher(_resolve_teacher_init(cfg.teacher_init, fold))
         teacher = copy.deepcopy(model)
         overlay_params(teacher, loaded)
-        buffers = {n for n, _ in model.named_buffers()}
+        params = {n for n, _ in model.named_parameters()}
         if cfg.init_stu_type == "all":
-            overlay_params(model, loaded)
+            overlay_params(model, {k: v for k, v in loaded.items() if k in params})
         elif cfg.init_stu_type == "fc":
             overlay_params(model, {k: v for k, v in loaded.items() if k.startswith("feature.")})
         elif cfg.init_stu_type != "none":
             raise ValueError(f"unknown init_stu_type: {cfg.init_stu_type}")
         if reference:  # JAX shares the buffers (global_q) of a reference teacher with the student
-            overlay_params(model, {k: v for k, v in loaded.items() if k in buffers})
+            overlay_params(model, {k: v for k, v in loaded.items() if k not in params})
     state = create_mhim_state(cfg, model, n_batches, seed=fold_seed, teacher=teacher, device=device)
     return model, family, state, make_mhim_train_step(cfg, n_batches, device)
 

@@ -89,18 +89,26 @@ def grad_norm_metrics(cfg, model: nn.Module) -> Dict[str, Tensor]:
 def make_mhim_train_step(
     cfg, steps_per_epoch: int, device: Optional[Union[str, torch.device]] = None,
 ) -> Callable[..., Dict[str, Tensor]]:
-    """The MHIM train step (``mhim.py:349-489`` without ``ablate``), run on
-    ``device`` (CUDA unless ``"cpu"`` is asked for). ``step(state, batch,
-    draws=None)`` runs, in order:
+    """The MHIM train step (``mhim.py:349-489`` without ``ablate``) for
+    ``cfg.model`` ``mhim`` or ``mhim_pure``, run on ``device`` (CUDA unless
+    ``"cpu"`` is asked for). ``step(state, batch, draws=None)`` runs, in
+    order:
 
     - the teacher's ``forward_teacher`` in training mode, under no_grad;
     - the scheduled high-mining ratio ``mrh`` (cosine, with ``mrh_sche``);
     - the student's training pass;
     - ``main_alpha``·criterion + ``aux_alpha``·``soft_target_ce``;
-    - backward and the optimizer step at the pre-update step count;
-    - the teacher EMA at ``mm`` (or its cosine schedule with ``mm_sche``).
+    - backward and the optimizer's micro-step (an update on every
+      ``accumulation_steps``-th, see ``Optimizer.step``);
+    - the teacher EMA at ``mm`` (or its cosine schedule with ``mm_sche``),
+      on every micro-step.
 
-    The four stages run under ``record_function`` ranges (``mhim.teacher``,
+    ``mrh`` and ``mm`` read the micro-step count ``state.step``. For
+    ``mhim_pure`` (the teacher stage, ``mhim.py:374, 387-395``) the student
+    runs its ``pure`` pass and there is no teacher forward and no EMA: the
+    teacher stays the copy made at init, and ``aux_loss`` is 0.
+
+    The stages run under ``record_function`` ranges (``mhim.teacher``,
     ``mhim.student``, ``mhim.backward``, ``mhim.update``) that a profiler
     reads. It updates ``state`` (a ``TrainState``) in place and returns the
     metrics of ``mhim.py:428-437`` with ``loss`` and ``mm``, as 0-d tensors.
@@ -110,8 +118,9 @@ def make_mhim_train_step(
     (see ``MHIM.forward``).
     """
     device = resolve_device(device)
-    if cfg.model != "mhim":
-        raise NotImplementedError(f"model={cfg.model!r}: only the mhim train step is ported")
+    if cfg.model not in ("mhim", "mhim_pure"):
+        raise NotImplementedError(f"model={cfg.model!r}: only the mhim and mhim_pure train steps are ported")
+    is_pure = cfg.model == "mhim_pure"
     criterion = build_criterion(cfg)
     dtype = compute_dtype(cfg)
     total_steps = max(cfg.num_epoch * steps_per_epoch, 1)
@@ -126,16 +135,21 @@ def make_mhim_train_step(
         batch_c = _cast_batch(dtype, batch)
         feats, mask = batch_c["feats"], batch["mask"].bool()
 
-        # The reference's EMA teacher mines with its dropouts on
-        # (model_ema.train(), base_engine.py:37-38).
-        with record_function("mhim.teacher"):
-            cls_tea, attn = apply_cast(teacher, cast_compute(cfg, teacher), "forward_teacher",
-                                       feats, mask, training=True, gen=gen)
-        cls_tea = None if cfg.aux_alpha == 0.0 else cls_tea
-        mrh = mrh_sche(state.step) if mrh_sche is not None else None
+        if not is_pure:
+            # The reference's EMA teacher mines with its dropouts on
+            # (model_ema.train(), base_engine.py:37-38).
+            with record_function("mhim.teacher"):
+                cls_tea, attn = apply_cast(teacher, cast_compute(cfg, teacher), "forward_teacher",
+                                           feats, mask, training=True, gen=gen)
+            cls_tea = None if cfg.aux_alpha == 0.0 else cls_tea
+            mrh = mrh_sche(state.step) if mrh_sche is not None else None
         with record_function("mhim.student"):
-            out = apply_cast(student, cast_compute(cfg, student), "forward", feats, mask, attn, cls_tea, mrh,
-                             training=True, gen=gen, draws=draws)
+            params = cast_compute(cfg, student)
+            if is_pure:
+                out = apply_cast(student, params, "pure", feats, mask, training=True, gen=gen)
+            else:
+                out = apply_cast(student, params, "forward", feats, mask, attn, cls_tea, mrh,
+                                 training=True, gen=gen, draws=draws)
             main = criterion(out["logits"], batch)
             loss = cfg.main_alpha * main + cfg.aux_alpha * out["aux_loss"]
         with record_function("mhim.backward"):
@@ -143,9 +157,10 @@ def make_mhim_train_step(
             loss.backward()
         grad_norms = grad_norm_metrics(cfg, student)
         with record_function("mhim.update"):
-            state.optimizer.step(state.step)
+            state.optimizer.step()
             mm = mm_sche(state.step) if mm_sche is not None else cfg.mm
-            ema_update(teacher, student, mm)
+            if not is_pure:
+                ema_update(teacher, student, mm)
         state.step += 1
         return {
             "loss": loss.detach(),
@@ -170,9 +185,10 @@ def make_train_step(
     ``step(state, batch)`` runs the model's training forward on ``feats``,
     ``mask`` and, when the batch has them, the grid coordinates ``pos``;
     pays ``main_alpha``·criterion + ``aux_alpha``·``aux_loss`` (when the
-    model returns one); steps the optimizer at the pre-update step count; and
-    under ``model_ema`` moves ``state.teacher`` by the EMA at
-    ``model_ema_decay``. It trains through the plain 2D scan: the model
+    model returns one); takes the optimizer's micro-step (an update on every
+    ``accumulation_steps``-th); and under ``model_ema`` moves
+    ``state.teacher`` by the EMA at ``model_ema_decay``. It trains through
+    the plain 2D scan: the model
     takes it whenever ``training`` is set, since K5 has no gradient. It
     updates ``state`` in place and returns ``loss``, ``main_loss``,
     ``aux_loss``, ``pad_ratio`` and, under ``wandb_watch``, the
@@ -199,7 +215,7 @@ def make_train_step(
             loss.backward()
         grad_norms = grad_norm_metrics(cfg, model)
         with record_function("train.update"):
-            state.optimizer.step(state.step)
+            state.optimizer.step()
             if state.teacher is not None:
                 ema_update(state.teacher, model, cfg.model_ema_decay)
         state.step += 1

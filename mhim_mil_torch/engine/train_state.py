@@ -9,10 +9,14 @@ optax chains map onto torch optimizers as follows:
 - ``adamw``: decoupled decay, ``torch.optim.AdamW``;
 - ``sgd``: coupled decay, ``torch.optim.SGD(weight_decay=…)``;
 - ``clip_grad``: a global-norm clip of the raw gradients first, exactly as
-  ``optax.clip_by_global_norm``.
+  ``optax.clip_by_global_norm``;
+- ``accumulation_steps`` k > 1: ``optax.MultiSteps(tx, k)`` around the
+  chain, so the chain (clip included) sees the mean of k micro-steps'
+  gradients and the parameters move on every k-th micro-step only.
 
-The learning rate is the schedule's value at the step count before the
-update, as ``optax.scale_by_learning_rate`` reads it.
+The learning rate is the schedule's value at the count of updates made
+before this one, as ``optax.scale_by_learning_rate`` reads the chain's own
+count (which ``MultiSteps`` advances on every k-th micro-step only).
 """
 
 from __future__ import annotations
@@ -29,14 +33,19 @@ from ..utils.schedules import Schedule, make_lr_schedule
 
 
 class Optimizer:
-    """A torch optimizer driven by a step-indexed learning-rate schedule."""
+    """A torch optimizer driven by a step-indexed learning-rate schedule,
+    with ``optax.MultiSteps``' gradient accumulation over
+    ``cfg.accumulation_steps`` micro-steps. ``count`` is the number of
+    updates made (the chain's count under ``MultiSteps``), ``mini_step`` the
+    micro-steps gathered towards the next one."""
 
     def __init__(self, cfg, params: Iterable[torch.nn.Parameter], lr_schedule: Schedule):
-        if cfg.accumulation_steps > 1:
-            raise NotImplementedError("accumulation_steps > 1 is not ported yet")
         self.params: List[torch.nn.Parameter] = list(params)
         self.lr_schedule = lr_schedule
         self.clip: Optional[float] = cfg.clip_grad
+        self.k = int(cfg.accumulation_steps)
+        self.count, self.mini_step = 0, 0
+        self.acc: Optional[List[torch.Tensor]] = None  # the running mean of the micro-steps' gradients
         wd = cfg.weight_decay or 0.0
         if cfg.opt == "adam":
             self.opt = torch.optim.Adam(self.params, lr=0.0, weight_decay=wd, eps=1e-8)
@@ -48,32 +57,57 @@ class Optimizer:
             raise NotImplementedError(cfg.opt)
 
     @torch.no_grad()
-    def step(self, step_count: int) -> None:
-        """Clip, set the learning rate for ``step_count`` and update in place.
-        A parameter that took no gradient counts a zero one, as in optax: the
-        coupled weight decay and the moments still move it."""
+    def step(self) -> bool:
+        """Take this micro-step's gradients. Under accumulation they join the
+        running mean (``acc + (g − acc)/(n + 1)``, as ``MultiSteps``
+        averages), and only the k-th micro-step updates, from that mean.
+        An update clips, sets the learning rate for ``count`` and steps the
+        optimizer in place. A parameter that took no gradient counts a zero
+        one, as in optax: the coupled weight decay and the moments still move
+        it. Returns whether the parameters moved."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.k > 1:
+            grads = [p.grad for p in self.params]
+            if self.acc is None:
+                self.acc = [torch.zeros_like(g) for g in grads]
+            torch._foreach_add_(self.acc, torch._foreach_div(torch._foreach_sub(grads, self.acc),
+                                                             float(self.mini_step + 1)))
+            self.mini_step += 1
+            if self.mini_step < self.k:
+                return False
+            for p, a in zip(self.params, self.acc):
+                p.grad.copy_(a)
+            self.mini_step = 0
+            torch._foreach_zero_(self.acc)
         if self.clip is not None:
             grads = [p.grad for p in self.params]
             norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
             scale = torch.where(norm < self.clip, 1.0, self.clip / norm)
             for g in grads:
                 g.mul_(scale.to(g.dtype))
-        lr = float(self.lr_schedule(step_count))
+        lr = float(self.lr_schedule(self.count))
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
+        self.count += 1
+        return True
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
     def state_dict(self) -> dict:
-        return self.opt.state_dict()
+        """The torch optimizer's state, the update count and, under
+        accumulation, the micro-step and the running mean, so that a resumed
+        run continues mid-accumulation."""
+        return {"opt": self.opt.state_dict(), "count": self.count, "mini_step": self.mini_step,
+                "acc": None if self.acc is None else [a.detach().cpu() for a in self.acc]}
 
     def load_state_dict(self, sd: dict) -> None:
-        self.opt.load_state_dict(sd)
+        self.opt.load_state_dict(sd["opt"])
+        self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+        self.acc = None if sd["acc"] is None else [a.to(p.device) for a, p in zip(sd["acc"], self.params)]
 
 
 def make_optimizer(cfg, params: Iterable[torch.nn.Parameter], lr_schedule: Schedule) -> Optimizer:

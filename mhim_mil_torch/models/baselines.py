@@ -44,22 +44,26 @@ class SAttentionBaseline(nn.Module):
     """cls token + two Nystrom TransLayers with PPEG between them, then LayerNorm.
 
     ``attn_layers`` names the layers whose cls attention ``return_attn``
-    returns; attn2score mining reads only layer 1's.
+    returns; attn2score mining reads only layer 1's. ``parity`` gives both
+    TransLayers the reference's unmasked landmark arithmetic
+    (``NystromMSA``).
     """
 
     def __init__(self, dim: int = 512, heads: int = 8, use_flash: bool = True,
-                 attn_layers: tuple = (0, 1)):
+                 attn_layers: tuple = (0, 1), parity: bool = False):
         super().__init__()
         self.attn_layers = attn_layers
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
-        self.layer1 = TransLayer(dim, heads, use_flash)
+        self.layer1 = TransLayer(dim, heads, use_flash, parity)
         self.pos_embedding = PPEG(dim)
-        self.layer2 = TransLayer(dim, heads, use_flash)
+        self.layer2 = TransLayer(dim, heads, use_flash, parity)
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
-                training: bool = False, gen: Optional[torch.Generator] = None):
-        """``training`` turns the attention dropouts on, with masks from ``gen``."""
+                training: bool = False, gen: Optional[torch.Generator] = None,
+                no_norm: bool = False):
+        """``training`` turns the attention dropouts on, with masks from
+        ``gen``; ``no_norm`` makes the returned attention unsoftmaxed."""
         b = x.shape[0]
         mask = mask.bool()
         x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
@@ -67,13 +71,13 @@ class SAttentionBaseline(nn.Module):
 
         attns, scored1 = [], None
         if return_attn:
-            x, a, _, scored1 = self.layer1(x, full_mask, True, training, gen)
+            x, a, _, scored1 = self.layer1(x, full_mask, True, training, gen, no_norm)
             attns.append(a[:, :, 1:])  # drop the cls column
         else:
             x = self.layer1(x, full_mask, False, training, gen)
         x = torch.cat([x[:, :1], self.pos_embedding(x[:, 1:], mask)], dim=1)
         if return_attn and 1 in self.attn_layers:
-            x, a, *_ = self.layer2(x, full_mask, True, training, gen)
+            x, a, *_ = self.layer2(x, full_mask, True, training, gen, no_norm)
             attns.append(a[:, :, 1:])
         else:
             x = self.layer2(x, full_mask, False, training, gen)

@@ -3,8 +3,9 @@
 
 Reference: modules/mhim.py:12-378. Ported: the ``selfattn`` and ``attn``
 baselines with the teacher pass (eval and training mode), the student
-training pass (layered mining, compaction, Merge, the consistency loss) and
-``forward_test``. Masking never changes a shape that depends on the data:
+training pass (layered mining, compaction, Merge, the consistency loss),
+``forward_test`` and the baseline-only ``pure`` pass of the ``mhim_pure``
+teacher stage. Masking never changes a shape that depends on the data:
 the removal set is a boolean mask, and the kept tokens are compacted into
 static slices. Every random draw of the student pass (the three mining
 stages, the merge split) is an argument or comes from the caller's
@@ -174,24 +175,35 @@ class MHIM(nn.Module):
             "keep_num": valid.sum(dim=-1),
         }
 
+    def pure(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
+             gen: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Baseline-only pass, no mining or merging: the ``mhim_pure`` model
+        that the teacher stage trains (reference mhim.py:274-298, JAX
+        mhim.py:293-307). The feature MLP, the encoder over the whole bag
+        and the predictor; ``aux_loss`` is 0 and ``patch_num`` and
+        ``keep_num`` are both the bag's size. With the selfattn baseline and
+        ``use_flash`` a training pass runs K3 at the bag's full length."""
+        mask = mask.bool()
+        out = self.online_encoder(self.feature(feats, training, gen), mask, False, training, gen)
+        logits = self.predictor(out["cls_feat"])
+        n = mask.sum(dim=-1)
+        return {"logits": logits, "aux_loss": logits.new_zeros((), dtype=torch.float32),
+                "patch_num": n, "keep_num": n}
+
     # ---- inference ----------------------------------------------------------
 
     @torch.no_grad()
     def forward_test(self, feats: torch.Tensor, mask: torch.Tensor,
                      return_attn: bool = False, no_norm: bool = False):
-        """Inference pass (reference mhim.py:229-272): ``{"logits"[, "attn"]}``."""
-        if no_norm and self.baseline == "selfattn":
-            raise NotImplementedError("no_norm Nystrom attention is not ported yet")
+        """Inference pass (reference mhim.py:229-272): ``{"logits"[, "attn"]}``;
+        ``no_norm`` returns the unsoftmaxed attention."""
         x = self.feature(feats)
         mask = mask.bool()
         if self.merge_enable and self.merge_test:
             _, merged = self.merge(x, mask)
             x = torch.cat([x, merged], dim=1)
             mask = torch.cat([mask, mask.new_ones((x.shape[0], self.merge_k))], dim=1)
-        if self.baseline == "attn":
-            out = self.online_encoder(x, mask, return_attn, no_norm=no_norm)
-        else:
-            out = self.online_encoder(x, mask, return_attn)
+        out = self.online_encoder(x, mask, return_attn, no_norm=no_norm)
         res = {"logits": self.predictor(out["cls_feat"])}
         if return_attn:
             res["attn"] = out["attn"]

@@ -39,17 +39,22 @@ class NystromMSA(nn.Module):
     (:func:`flash_nystrom`) when a gradient is wanted, :func:`flash_nystrom_infer`
     (K1 + K2) otherwise; each runs its plain versions on the CPU. Without
     ``use_flash`` it runs the materialising reference :func:`nystrom_attention`.
+    The ``parity`` layer and a ``no_norm`` call run :func:`nystrom_attention`
+    whatever ``use_flash`` says, as JAX's layer does (``flash_ok``,
+    transformer.py:116-121): the kernels compute neither mode, so the mode
+    asked for selects the plain op; it is not a fallback from a kernel.
     ``to_out`` is a one-layer ``Sequential`` so that its weights keep the
     reference's name ``to_out.0``; the dropout after it (p=0.1, as in the JAX
     package) applies to the attention output only, never to the scored values.
     """
 
     def __init__(self, dim: int = 512, heads: int = 8, dim_head: int = 64,
-                 num_landmarks: int = 256, pinv_iterations: int = 6, use_flash: bool = True):
+                 num_landmarks: int = 256, pinv_iterations: int = 6, use_flash: bool = True,
+                 parity: bool = False):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         self.num_landmarks, self.pinv_iterations = num_landmarks, pinv_iterations
-        self.use_flash = use_flash
+        self.use_flash, self.parity = use_flash, parity
         inner = heads * dim_head
         self.to_qkv = dense(dim, inner * 3, use_bias=False)
         self.to_out = nn.Sequential(dense(inner, dim))
@@ -57,7 +62,7 @@ class NystromMSA(nn.Module):
         self.res_conv = _DepthwiseResConv(heads)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
-                training: bool = False, gen: Optional[torch.Generator] = None):
+                training: bool = False, gen: Optional[torch.Generator] = None, no_norm: bool = False):
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
         inner = h * dh
@@ -68,10 +73,10 @@ class NystromMSA(nn.Module):
         q = qkv[:, :, 0] * dh ** -0.5  # [B,N,H,dh]
         k, v = qkv[:, :, 1], qkv[:, :, 2]  # strided views, no copy
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B,H,N,dh] views
-        if not self.use_flash:
+        if not self.use_flash or no_norm or self.parity:
             out, attn = nystrom_attention(
                 qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations,
-                return_attn=return_attn,
+                return_attn=return_attn, no_norm=no_norm, parity=self.parity,
             )
         elif torch.is_grad_enabled() and qkv.requires_grad:
             out, attn = flash_nystrom(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations)
@@ -91,17 +96,18 @@ class NystromMSA(nn.Module):
 
 class TransLayer(nn.Module):
     """Pre-norm Nystrom block ``x + MSA(LN(x))`` (reference transmil.py:23-47)
-    with dim/heads head width and dim/2 landmarks."""
+    with dim/heads head width and dim/2 landmarks; ``no_norm`` reaches the
+    attention only with ``need_attn``, as in JAX's layer."""
 
-    def __init__(self, dim: int = 512, heads: int = 8, use_flash: bool = True):
+    def __init__(self, dim: int = 512, heads: int = 8, use_flash: bool = True, parity: bool = False):
         super().__init__()
         self.norm = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = NystromMSA(dim, heads, dim // heads, dim // 2, use_flash=use_flash)
+        self.attn = NystromMSA(dim, heads, dim // heads, dim // 2, use_flash=use_flash, parity=parity)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, need_attn: bool = False,
-                training: bool = False, gen: Optional[torch.Generator] = None):
+                training: bool = False, gen: Optional[torch.Generator] = None, no_norm: bool = False):
         normed = self.norm(x)
         if need_attn:
-            z, attn, v, scored = self.attn(normed, mask, True, training, gen)
+            z, attn, v, scored = self.attn(normed, mask, True, training, gen, no_norm)
             return x + z, attn, v, scored
         return x + self.attn(normed, mask, False, training, gen)

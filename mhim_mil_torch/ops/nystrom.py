@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .masked import masked_softmax, stats_dtype
 
@@ -46,23 +47,29 @@ def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
 
 
 def _landmark_mean(
-    t: torch.Tensor, mask: torch.Tensor, m: int
+    t: torch.Tensor, mask: torch.Tensor, m: int, parity: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked segment means of ``t[B,H,N,d]`` (zero at masked tokens) into
     ``m`` landmark groups: token i joins group ``(i + pad) // l`` with
     ``l = ceil(N/m)`` and ``pad = m·l − N``, so the first groups may be empty.
 
     Returns ``(means[B,H,m,d]`` in t's dtype, ``lm_mask[B,m])``; a group with
-    no valid token is masked out and its mean is 0.
+    no valid token is masked out and its mean is 0. ``parity`` reproduces the
+    reference's unmasked full-bag path (JAX ``_landmark_mean(parity=True)``)
+    on ``t`` already front-padded to ``m·l`` tokens (:func:`nystrom_attention`
+    pads it): every group divided by ``l`` and every landmark valid.
     """
     b, h, n, d = t.shape
     l = -(-n // m)
+    f32 = stats_dtype(t.dtype)
+    if parity:
+        grp = t.reshape(b, h, m, l, d).sum(dim=3, dtype=f32)
+        return (grp / l).to(t.dtype), mask.new_ones((b, m), dtype=torch.bool)
     # The first `empty` groups hold no token, the next one `first` tokens,
     # and the rest `l` each: one read of t, no padded copy.
     empty, short = divmod(m * l - n, l)
     first = l - short
     full = m - empty - 1
-    f32 = stats_dtype(t.dtype)
     grp = torch.cat([
         t.new_zeros((b, h, empty, d), dtype=f32),
         t[:, :, :first].sum(dim=2, keepdim=True, dtype=f32),
@@ -96,6 +103,14 @@ def nystrom_attention(
       q, k, v: ``[B, H, N, dh]``, q pre-scaled by ``dh**-0.5``.
       mask: ``[B, N]`` validity.
       return_attn: also return the cls row (token 0) of the attention.
+      no_norm: the returned attention from the unsoftmaxed similarities and
+        the pseudo-inverse of the raw ``sim2`` (the reference's ``no_norm``
+        path, nystrom_attention.py:131-134); ``out`` is unchanged.
+      parity: the reference's unmasked full-bag arithmetic (JAX
+        ``nystrom_attention(parity=True)``): q, k and v front-padded to a
+        multiple of ``num_landmarks`` tokens, the padding then counted as
+        valid keys (its zeros enter attn3's softmax), landmark means over
+        the whole group; right only for unpadded bags.
 
     The big ``[B,H,N,m]`` tensors take q's dtype; softmax statistics and the
     pseudo-inverse run in fp32 (all of it in fp64 for fp64 input).
@@ -103,13 +118,19 @@ def nystrom_attention(
     Returns ``out[B,H,N,dh]`` (zero at masked tokens) and, when
     ``return_attn``, ``cls_attn[B,H,N]`` in fp32 (fp64 for fp64 input).
     """
-    if parity or no_norm:
-        raise NotImplementedError("parity and no_norm modes are not ported yet")
     mask = mask.bool()
+    m = num_landmarks
+    front_pad = 0
+    if parity:
+        n0 = q.shape[2]
+        front_pad = m * -(-n0 // m) - n0
+        if front_pad:
+            q, k, v = (F.pad(t, (0, 0, front_pad, 0)) for t in (q, k, v))
+            mask = mask.new_ones((q.shape[0], q.shape[2]))
     mvalid = mask[:, None, :, None]
     q, k, v = (torch.where(mvalid, t, 0) for t in (q, k, v))
-    q_l, lm_mask = _landmark_mean(q, mask, num_landmarks)
-    k_l, _ = _landmark_mean(k, mask, num_landmarks)
+    q_l, lm_mask = _landmark_mean(q, mask, m, parity)
+    k_l, _ = _landmark_mean(k, mask, m, parity)
 
     sim1 = q @ k_l.transpose(-1, -2)  # [B,H,N,m]
     sim2 = q_l @ k_l.transpose(-1, -2)  # [B,H,m,m]
@@ -122,10 +143,14 @@ def nystrom_attention(
     pinv = moore_penrose_pinv(attn2, pinv_iters).to(q.dtype)
 
     # attn1 @ (pinv @ (attn3 @ v)): the small factors first
-    out = torch.where(mvalid, attn1 @ (pinv @ (attn3 @ v)), 0)
+    out = torch.where(mvalid, attn1 @ (pinv @ (attn3 @ v)), 0)[:, :, front_pad:]
     if not return_attn:
         return out, None
+    if no_norm:
+        a1, a2, a3 = sim1, moore_penrose_pinv(sim2, pinv_iters).to(q.dtype), sim3
+    else:
+        a1, a2, a3 = attn1, pinv, attn3
     f32 = stats_dtype(q.dtype)
-    cls_row = attn1[:, :, :1].to(f32) @ pinv.to(f32)  # [B,H,1,m]
-    cls_attn = (cls_row @ attn3.to(f32))[:, :, 0]  # [B,H,N]
+    cls_row = a1[:, :, front_pad:front_pad + 1].to(f32) @ a2.to(f32)  # [B,H,1,m]
+    cls_attn = (cls_row @ a3.to(f32))[:, :, 0, front_pad:]  # [B,H,N]
     return out, cls_attn

@@ -7,13 +7,22 @@ train generator (``torch.Generator.get_state``) and free-form metadata. A
 best checkpoint comes from a :func:`snapshot` of the weights at the best
 epoch and holds no optimizer or generator state. Loading uses
 ``torch.load(weights_only=True)``.
+
+The JAX package writes its ``.ckpt`` as a protocol-4 pickle of host numpy
+flax trees (``mhim_mil_tpu/utils/checkpoint.py:23-46``). Both name their
+files ``.ckpt``, so :func:`is_jax_checkpoint` tells them apart by their first
+bytes, and :func:`load_jax_checkpoint` reads the pickle with an unpickler
+that admits numpy's arrays and builtin containers only.
 """
 
 from __future__ import annotations
 
+import builtins
 import os
+import pickle
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..engine.train_state import TrainState
@@ -60,6 +69,70 @@ def save_checkpoint(path: str, state: TrainState, metadata: Optional[Dict] = Non
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+TORCH_MAGIC = b"PK\x03\x04"  # torch.save's zip archive
+PICKLE4_MAGIC = b"\x80\x04"  # pickle protocol 4, as the JAX package writes
+
+
+def is_jax_checkpoint(path: str) -> bool:
+    """Whether ``path`` is the JAX package's pickle (True) or a
+    ``torch.save`` file (False); anything else raises."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head.startswith(PICKLE4_MAGIC):
+        return True
+    if head == TORCH_MAGIC:
+        return False
+    raise ValueError(f"{path}: neither a torch.save zip nor a protocol-4 pickle (starts {head!r})")
+
+
+class _Opaque:
+    """Stands in for every class of optax, flax, jax or chex that a JAX
+    checkpoint pickles (the optimizer's states): it takes any arguments and
+    state and keeps them unread."""
+
+    def __new__(cls, *args, **kwargs):
+        obj = super().__new__(cls)
+        obj.args = args
+        return obj
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+_NUMPY = {("numpy", "ndarray"), ("numpy", "dtype")} | {
+    (mod, name) for mod in ("numpy.core.multiarray", "numpy._core.multiarray")  # numpy 1.x, 2.x
+    for name in ("_reconstruct", "scalar")}
+_BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int", "float", "complex", "bool", "str", "bytes",
+             "bytearray", "slice"}
+_OPAQUE_ROOTS = {"optax", "flax", "jax", "jaxlib", "chex"}
+
+
+class _JaxCheckpointUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if (module, name) in _NUMPY:
+            if module == "numpy":
+                return getattr(np, name)
+            try:
+                from numpy._core import multiarray
+            except ImportError:  # numpy 1.x before the _core rename
+                from numpy.core import multiarray
+            return getattr(multiarray, name)
+        if module == "builtins" and name in _BUILTINS:
+            return getattr(builtins, name)
+        if module.split(".")[0] in _OPAQUE_ROOTS:
+            return _Opaque
+        raise pickle.UnpicklingError(f"a JAX checkpoint may not name {module}.{name}")
+
+
+def load_jax_checkpoint(path: str) -> Dict[str, Any]:
+    """The JAX package's checkpoint: ``params`` and ``model_state`` as
+    nested dicts of numpy arrays, and ``step``, ``metadata`` and the rest as
+    pickled. The optimizer's state is opaque. Imports neither JAX, flax nor
+    optax."""
+    with open(path, "rb") as f:
+        return _JaxCheckpointUnpickler(f).load()
 
 
 def restore_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:

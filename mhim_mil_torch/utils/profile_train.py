@@ -1,8 +1,9 @@
 """Where a flagship MHIM train step's time goes on the card.
 
-``python -m mhim_mil_torch.utils.profile_train [--baseline selfattn] [--steps 5]``
+``python -m mhim_mil_torch.utils.profile_train [--model mhim] [--baseline selfattn] [--steps 5]``
 
-Builds MHIM from ``config/mhim_c16.yaml`` at input_dim 1024 with random
+Builds MHIM (``--model mhim``, or ``mhim_pure`` for the teacher stage's
+step) from ``config/mhim_c16.yaml`` at input_dim 1024 with random
 weights (seed 0), takes 3 warm-up steps under the default bf16 policy on a
 batch of 4 bags of 10,240 instances (two of them ragged, 8,000 and 6,000),
 then profiles ``--steps`` steps with ``torch.profiler``. Prints the host-clock
@@ -35,6 +36,7 @@ STAGES = ("mhim.teacher", "mhim.student", "mhim.backward", "mhim.update")
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="mhim", choices=("mhim", "mhim_pure"))
     ap.add_argument("--baseline", default="selfattn", choices=("selfattn", "attn"))
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args(argv)
@@ -44,7 +46,7 @@ def main(argv=None):
                          capture_output=True, text=True, timeout=60).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(["-c", "config/mhim_c16.yaml"], input_dim=1024, baseline=args.baseline)
+    cfg = load_config(["-c", "config/mhim_c16.yaml"], input_dim=1024, model=args.model, baseline=args.baseline)
     model, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     state = create_mhim_state(cfg, model, spe, seed=0, device="cuda")
     step = make_mhim_train_step(cfg, spe, device="cuda")
@@ -73,7 +75,7 @@ def main(argv=None):
                and e.key not in STAGES and not getattr(e, "is_user_annotation", False)]
     per_step, seen, want = per_call_us(kernels, steps)
     device_us = sum(per_step.values())
-    print(f"{torch.cuda.get_device_name(0)}; MHIM-{args.baseline} train step, batch {b} x {n}, "
+    print(f"{torch.cuda.get_device_name(0)}; {args.model}-{args.baseline} train step, batch {b} x {n}, "
           f"{cfg.compute_dtype} policy: {wall_ms:.2f} ms per step (host clock, under the profiler), "
           f"device busy {device_us / 1e3:.2f} ms per step = {100 * device_us / 1e3 / wall_ms:.1f}% of the "
           f"wall time; peak memory {peak_gib:.2f} GiB ({base / 2 ** 30:.2f} GiB held between steps)")

@@ -42,7 +42,7 @@ class Scorer:
             raise ValueError(f"model is on {param_dev}, scorer on {self.device}")
         self.buckets = sorted(int(n) for n in buckets)
         self.input_dim = int(cfg.input_dim)
-        if family == "mhim":
+        if family in ("mhim", "mhim_pure"):
             self._step = make_mhim_eval_step(cfg, model)
         else:
             self._step = make_eval_step(cfg, model, family)

@@ -69,21 +69,26 @@ def dattention_state(sd: Dict, prefix: str, p: Mapping):
     _linear(sd, f"{prefix}attention.attention.2", p["attention"]["attn_c"])
 
 
-def merge_state(sd: Dict, prefix: str, p: Mapping, buffers: Mapping):
-    """A ``Merge``'s flax params and its ``global_q`` buffer into ``sd``
-    under ``prefix``, by the names ``import_merge`` reads."""
+def merge_state(sd: Dict, prefix: str, p: Mapping, buffers: Optional[Mapping] = None):
+    """A ``Merge``'s flax params and, when ``buffers`` is given, its
+    ``global_q`` buffer into ``sd`` under ``prefix``, by the names
+    ``import_merge`` reads."""
     _layernorm(sd, f"{prefix}norm", p["norm"])
     _linear(sd, f"{prefix}attn.to_kv", p["attn"]["to_kv"])
     _linear(sd, f"{prefix}attn.to_q", p["attn"]["to_q"])
     _linear(sd, f"{prefix}attn.to_out.0", p["attn"]["to_out"])
-    sd[f"{prefix}global_q_mm"] = _t(buffers["global_q"])
+    if buffers is not None:
+        sd[f"{prefix}global_q_mm"] = _t(buffers["global_q"])
 
 
 def state_dict_from_flax(params: Mapping, buffers: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of the port's MHIM (``selfattn`` or ``attn``
     baseline, told apart by the encoder's params) from the JAX package's
     ``params`` and, when they hold a ``merge`` subtree, its ``buffers``
-    collection (``model_state["buffers"]``, which carries ``global_q``)."""
+    collection (``model_state["buffers"]``, which carries ``global_q``).
+    Without ``buffers`` the result has the merge parameters but no
+    ``merge.global_q_mm`` (the teacher init of a JAX ``.ckpt`` reads params
+    only); a ``mhim_pure`` tree has no ``merge`` at all."""
     unknown = sorted(set(params) - {"feature", "online_encoder", "predictor", "merge"})
     if unknown:
         raise ValueError(f"state_dict_from_flax: unknown subtrees {unknown}")
@@ -96,9 +101,7 @@ def state_dict_from_flax(params: Mapping, buffers: Optional[Mapping] = None) -> 
         sattention_state(sd, "online_encoder.", enc)
     _linear(sd, "predictor", params["predictor"])
     if "merge" in params:
-        if buffers is None or "merge" not in buffers:
-            raise ValueError("the merge params need buffers['merge']['global_q']")
-        merge_state(sd, "merge.", params["merge"], buffers["merge"])
+        merge_state(sd, "merge.", params["merge"], None if buffers is None else buffers["merge"])
     return sd
 
 

@@ -16,6 +16,7 @@ to 64 instances in one bucket, batch 4, fp32 unless a test says otherwise.
 import copy
 import math
 import os
+import pickle
 import subprocess
 import sys
 
@@ -262,9 +263,10 @@ def test_no_train_run_on_jax_weights_matches_jax(monkeypatch):
 @pytest.mark.parametrize("preset,kw", [
     (C16, {}),
     (C16, dict(baseline="attn")),
+    (C16, dict(model="mhim_pure")),
     (SURV, dict(model="2dmamba", datasets="surv_synth", mambamil_dim=16, mambamil_state_dim=4,
                 mamba_2d_max_hw=10, model_ema=True)),
-], ids=["selfattn", "attn", "2dmamba-survival"])
+], ids=["selfattn", "attn", "mhim_pure", "2dmamba-survival"])
 def test_tiny_runs_are_finite(preset, kw):
     """Each ported family trains, validates and tests under the bf16 policy;
     the MHIM teacher and the generic EMA give their own test rows."""
@@ -412,6 +414,59 @@ def test_teacher_init_from_a_port_ckpt_and_a_reference_pt(tmp_path, kind):
         if kind == "pt":  # the Merge the file lacks keeps its initial weights
             assert not torch.equal(teacher["merge.attn.to_q.weight"], sd["merge.attn.to_q.weight"])
     res = driver.run_experiment(base.replace(teacher_init=path, num_epoch=1, max_epoch=1), device="cpu")
+    assert math.isfinite(res["summary"]["auc"]["mean"])
+
+
+def _teacher_is(state, best_path):
+    """The teacher of a fold just built holds every weight of the stage-1
+    best checkpoint, bit for bit."""
+    best = driver._load_teacher(best_path)[0]
+    teacher = state.teacher.state_dict()
+    assert best and all(torch.equal(teacher[k], v) for k, v in best.items())
+
+
+def test_teacher_init_two_stage(tmp_path):
+    """The two-stage workflow of JAX's ``tests/test_driver.py:137-175`` on
+    the port: ``mhim_pure`` trains two folds and writes each fold's best,
+    with ``test_ema`` rows from its frozen teacher; ``mhim`` then takes
+    ``--teacher_init`` from a file and from the directory, where each fold's
+    teacher is that fold's stage-1 best; a directory without the fold's
+    checkpoint raises ``FileNotFoundError``."""
+    stage1 = driver.run_experiment(_cfg(model="mhim_pure", baseline="attn", cv_fold=2, output_path=str(tmp_path)),
+                                   device="cpu")
+    assert stage1["config_model"] == "mhim_pure" and math.isfinite(stage1["summary_ema"]["auc"]["mean"])
+    ckpt = tmp_path / "fold_0_model_best.ckpt"
+    assert ckpt.exists() and not any(k.startswith("merge.") for k in torch.load(ckpt)["model"])
+    stage2 = dict(model="mhim", baseline="attn", mask_ratio_h=0.1, merge_enable=True, merge_ratio=0.5,
+                  aux_alpha=0.5)
+    res = driver.run_experiment(_cfg(**stage2, teacher_init=str(ckpt)), device="cpu")
+    assert math.isfinite(res["summary"]["auc"]["mean"])
+    assert driver._resolve_teacher_init(str(tmp_path), 1).endswith("fold_1_model_best.ckpt")
+    with pytest.raises(FileNotFoundError):
+        driver._resolve_teacher_init(str(tmp_path), 7)
+    cfg = _cfg(**stage2, cv_fold=2, teacher_init=str(tmp_path))
+    for fold, (train, _, _) in enumerate(driver.get_folds(cfg)):
+        state = driver._build_fold(cfg, train, cfg.seed, fold, "cpu")[2]
+        _teacher_is(state, str(tmp_path / f"fold_{fold}_model_best.ckpt"))
+    res = driver.run_experiment(cfg, device="cpu")
+    assert math.isfinite(res["summary"]["auc"]["mean"]) and len(res["folds"]) == 2
+
+
+def test_teacher_init_from_a_jax_stage1_directory(tmp_path):
+    """Stage 2 of the port from the directory of a stage-1 run of JAX's
+    driver (``mhim_pure``, pickled ``.ckpt``): each fold's teacher is JAX's
+    best params, converted; the run is finite."""
+    j_driver.run_experiment(j_load_config(["-c", C16], **{**TINY, "model": "mhim_pure", "baseline": "attn",
+                                                          "output_path": str(tmp_path)}))
+    path = str(tmp_path / "fold_0_model_best.ckpt")
+    with open(path, "rb") as f:
+        want = state_dict_from_flax(jax.tree.map(np.asarray, pickle.load(f)["params"]))
+    cfg = _cfg(baseline="attn", teacher_init=str(tmp_path))
+    state = driver._build_fold(cfg, driver.get_folds(cfg)[0][0], cfg.seed, 0, "cpu")[2]
+    _teacher_is(state, path)
+    teacher = state.teacher.state_dict()
+    assert all(torch.equal(teacher[k], v) for k, v in want.items())
+    res = driver.run_experiment(cfg, device="cpu")
     assert math.isfinite(res["summary"]["auc"]["mean"])
 
 

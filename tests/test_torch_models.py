@@ -112,8 +112,10 @@ def _check_round_trip(baseline):
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    with pytest.raises(ValueError, match="global_q"):
-        weights.state_dict_from_flax(params)
+    no_buffers = weights.state_dict_from_flax(params)  # a JAX .ckpt's teacher init reads params only
+    assert set(no_buffers) == set(sd) - {"merge.global_q_mm"}
+    for k, v in no_buffers.items():
+        assert torch.equal(v, sd[k]), k
 
 
 def test_state_dict_round_trips_through_the_jax_importer():
@@ -211,10 +213,6 @@ def test_forward_teacher_matches_jax(mhim_pair):
 
 def test_unported_configurations_raise():
     cfg = load_config([], **CFG)
-    for kw in ({"baseline": "dsmil"}, {"model": "abmil"}, {"model": "mhim_pure"}, {"pos": "sincos"}):
+    for kw in ({"baseline": "dsmil"}, {"model": "abmil"}, {"pos": "sincos"}):
         with pytest.raises(NotImplementedError):
             build_model(cfg.replace(**kw), device="cpu")
-    model, _ = build_model(cfg, device="cpu")
-    x, mask = torch.zeros(1, 8, IN_DIM), torch.ones(1, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        model.forward_test(x, mask, no_norm=True)

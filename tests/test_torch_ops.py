@@ -90,11 +90,15 @@ def test_nystrom_attention_matches_jax(n_valid, return_attn):
 
 
 def test_nystrom_attention_unported_modes_raise():
+    """The parity and no_norm modes, which raised until they were ported,
+    now return out and the cls attention of the right shapes (their values
+    against JAX's: tests/test_torch_teacher_stage.py)."""
     q, k, v = (torch.zeros(1, 1, 8, 4) for _ in range(3))
     mask = torch.ones(1, 8, dtype=torch.bool)
     for kw in ({"parity": True}, {"no_norm": True}):
-        with pytest.raises(NotImplementedError):
-            nystrom.nystrom_attention(q, k, v, mask, 4, **kw)
+        out, attn = nystrom.nystrom_attention(q, k, v, mask, 4, return_attn=True, **kw)
+        assert out.shape == (1, 1, 8, 4) and attn.shape == (1, 1, 8)
+        assert torch.isfinite(out).all() and torch.isfinite(attn).all()
 
 
 @pytest.mark.parametrize(

@@ -192,10 +192,9 @@ def test_optimizer_matches_optax(opt, clip):
         upd, st = tx.update({"w": jnp.asarray(gr)}, st, params)
         params = optax.apply_updates(params, upd)
         p.grad = _t(gr).clone()
-        opt_p.step(i)
+        assert opt_p.step()
+        assert opt_p.count == i + 1
         _close(p, params["w"], rtol=1e-5, atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        make_optimizer(load_config([], accumulation_steps=2), [p], schedules.make_lr_schedule(cfg, 2))
 
 
 # ---- K3 ---------------------------------------------------------------------------
@@ -346,20 +345,24 @@ def _batch(seed):
 
 
 def _port_flax(model, baseline):
-    """The port's weights as the JAX package's params and buffers, through its importers."""
+    """The port's weights as the JAX package's params and buffers, through
+    its importers (a ``mhim_pure`` model has no Merge and no buffers)."""
     sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
     params = (import_mhim_selfattn if baseline == "selfattn" else import_mhim_attn)(sd)
+    if not any(k.startswith("merge.") for k in sd):
+        return params, {}
     params["merge"], mb = import_merge(sd)
     return params, {"buffers": {"merge": mb}}
 
 
-def _jax_steps(monkeypatch, baseline, compute_dtype, n_steps, batch):
+def _jax_steps(monkeypatch, baseline, compute_dtype, n_steps, batch, **kw):
     """Build the port's model, carry its weights into JAX and run ``n_steps``
     JAX train steps with dropout off, recording every uniform draw of the
-    mining and merge stages in order."""
-    cfg = load_config(["-c", "config/mhim_c16.yaml"], baseline=baseline, **{**CFG, "compute_dtype": compute_dtype})
+    mining and merge stages in order. ``kw`` overrides the config of both."""
+    kw = {**CFG, "compute_dtype": compute_dtype, **kw}
+    cfg = load_config(["-c", "config/mhim_c16.yaml"], baseline=baseline, **kw)
     model, _ = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    jcfg = j_load_config(["-c", "config/mhim_c16.yaml"], baseline=baseline, **{**CFG, "compute_dtype": compute_dtype})
+    jcfg = j_load_config(["-c", "config/mhim_c16.yaml"], baseline=baseline, **kw)
     jmodel, _ = j_build_model(jcfg)
     params, model_state = _port_flax(model, baseline)
     tx = j_make_optimizer(jcfg, jsched.make_lr_schedule(jcfg, SPE))
@@ -396,12 +399,13 @@ def _port_draws(model, draws):
 def _check_state(state, jstate, jmetrics, metrics, rtol, atol):
     for k, want in jmetrics.items():
         _close(metrics[k], want, rtol=RTOL, atol=ATOL, msg=k)
-    want = state_dict_from_flax(jstate.params, jstate.model_state["buffers"])
+    buffers = jstate.model_state.get("buffers")
+    want = state_dict_from_flax(jstate.params, buffers)
     got = state.model.state_dict()
     assert set(got) == set(want)
     for k in want:
         _close(got[k], want[k], rtol, atol, msg=f"student {k}")
-    want_t = state_dict_from_flax(jstate.teacher_params, jstate.model_state["buffers"])
+    want_t = state_dict_from_flax(jstate.teacher_params, buffers)
     for k, t in state.teacher.state_dict().items():
         if k != "merge.global_q_mm":  # the teacher's copy of the buffer is never read
             _close(t, want_t[k], rtol, atol, msg=f"teacher {k}")
