@@ -8,7 +8,8 @@ through the ``Scorer``, the eval-mode ``forward_teacher``), the MHIM train
 step, and the MHIM-attn serving path; then the 2D-Mamba survival model of
 the README (``config/feat_surv.yaml``, ``--model 2dmamba``, ``surv_blca``:
 input 1024, width 128, one layer, 16 states, the 275 × 381 BLCA grid) on
-its eval step and its scorer. Phases, each of which fails the run:
+its eval step and its scorer; then the zoo (abmil, gabmil, transmil, dsmil
+and MHIM-dsmil). Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
 2. build: ``nvcc`` builds every kernel from ``mhim_mil_torch/csrc``, all at once;
@@ -50,20 +51,28 @@ its eval step and its scorer. Phases, each of which fails the run:
 7. 2dmamba: the eval step on one 20,000-instance bag on the BLCA grid, the
    kernel path (K5) against the plain path in fp32 and bf16 against fp32,
    then the scorer's requests on the raster grid under bf16;
-8. driver: ``mhim_mil_torch.main.main``, the two-stage workflow on synthetic
-   bags of 5,120-10,240 instances in the 10,240 bucket, two folds of two
-   epochs each: the teacher stage (``--model mhim_pure``) with
-   ``use_flash_attn`` on auto, so the kernel gate builds and launches K6 in
-   its probe and runs the kernel check; then the flagship with
-   ``--teacher_init`` from the teacher stage's directory (each fold's
-   teacher its stage-1 best, bit for bit), its student and EMA bests
-   final-tested; the ``script_mode test`` reload of those bests; then one
-   fold of the 2dmamba survival model, training on the plain scan and
-   evaluating through K5.
+8. driver: ``mhim_mil_torch.main.main`` on synthetic bags of 5,120-10,240
+   instances in the 10,240 bucket: one fold of abmil
+   (``config/feat_cls.yaml``) with ``use_flash_attn`` on auto, so the
+   kernel gate builds and launches K6 in its probe and runs the kernel
+   check, and K4 pools its evaluations; then the two-stage workflow, two
+   folds of two epochs each: the teacher stage (``--model mhim_pure``),
+   then the flagship with ``--teacher_init`` from the teacher stage's
+   directory (each fold's teacher its stage-1 best, bit for bit), its
+   student and EMA bests final-tested; the ``script_mode test`` reload of
+   those bests; then one fold of the 2dmamba survival model, training on
+   the plain scan and evaluating through K5;
+9. zoo: ``config/feat_cls.yaml`` (act gelu) at input 1024, inner 512, 8
+   heads of 64, 256 landmarks, on the ragged 4 × 10,240 batch: abmil and
+   gabmil, the eval step through K4 against the plain pool in fp32, then
+   the scorer under bf16, and abmil's bf16 train steps; transmil, the eval
+   step (K1 + K2) against the plain path in fp32, one fp32 train step on
+   K3 forward and backward against the plain path, then bf16 steps with
+   the device's busy time; dsmil and MHIM-dsmil, bf16 eval against fp32.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-8 each reset the launch counts before their main-path
+columns). Phases 4-9 each reset the launch counts before their main-path
 runs and read them after; the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
@@ -1025,20 +1034,27 @@ def compare_models(label: str, pairs, tol: float):
             fail(f"{label} fp32 {name} disagrees")
 
 
-def flagship_models(gen_seed: int, **kw):
-    """The kernel-path and plain-path models of ``config/mhim_c16.yaml`` at
-    input_dim 1024 on the same random weights."""
+def preset_models(preset: str, gen_seed: int, **kw):
+    """The kernel-path and plain-path models of ``preset`` at input_dim 1024
+    on the same random weights, and the family."""
     from mhim_mil_torch.config import load_config
     from mhim_mil_torch.models import build_model
 
-    cfg = load_config(["-c", "config/mhim_c16.yaml"], input_dim=1024, **kw)
-    model_k, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(gen_seed))
+    cfg = load_config(["-c", preset], input_dim=1024, **kw)
+    model_k, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(gen_seed))
     model_p, _ = build_model(cfg.replace(use_flash_attn=False), device="cuda",
                              generator=torch.Generator().manual_seed(gen_seed + 1))
     model_p.load_state_dict(model_k.state_dict())
-    log(f"model: {cfg.model}-{cfg.baseline} input_dim {cfg.input_dim} inner_dim {cfg.inner_dim} heads "
-        f"{cfg.n_heads}, {sum(p.numel() for p in model_k.parameters())} params, compute_dtype "
-        f"{cfg.compute_dtype}")
+    name = cfg.model + (f"-{cfg.baseline}" if cfg.model.startswith("mhim") else "")
+    log(f"model: {name} ({preset}) input_dim {cfg.input_dim} inner_dim {cfg.inner_dim} heads {cfg.n_heads}, "
+        f"{sum(p.numel() for p in model_k.parameters())} params, compute_dtype {cfg.compute_dtype}")
+    return cfg, family, model_k, model_p
+
+
+def flagship_models(gen_seed: int, **kw):
+    """The kernel-path and plain-path models of ``config/mhim_c16.yaml`` at
+    input_dim 1024 on the same random weights."""
+    cfg, _, model_k, model_p = preset_models("config/mhim_c16.yaml", gen_seed, **kw)
     return cfg, model_k, model_p
 
 
@@ -1122,27 +1138,37 @@ def train_batch(gen, cfg) -> dict:
             "target": torch.randint(0, cfg.n_classes, (b,), device="cuda", generator=gen)}
 
 
-def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, **launches_per_step):
+def train_step_for(cfg, spe: int, family=None):
+    """The MHIM train step (``family`` None) or the generic one of ``family``."""
+    from mhim_mil_torch.engine.steps import make_mhim_train_step, make_train_step
+
+    if family is None:
+        return make_mhim_train_step(cfg, spe, device="cuda")
+    return make_train_step(cfg, family, spe, device="cuda")
+
+
+def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=None, **launches_per_step):
     """One fp32 train step on the kernel path and one on the plain path, from
     the same weights, batch and generator seed (so the same dropout, mining
-    and merge draws). Fails unless the kernel path launched
-    ``launches_per_step`` and the plain path no kernel, the losses agree to
-    1e-4 relative, the gradients to 1e-3 of max|g| and the parameters to
-    2·lr: Adam's first step moves each parameter by about lr·sign(g), so a
-    gradient entry near zero may move the two paths' parameters apart by up
-    to 2·lr. Returns the two states, their metrics, the launches and lr."""
-    from mhim_mil_torch.engine.steps import make_mhim_train_step
-    from mhim_mil_torch.engine.train_state import create_mhim_state
+    and merge draws): the MHIM step, or the generic step of ``family``.
+    Fails unless the kernel path launched ``launches_per_step`` and the plain
+    path no kernel, the losses agree to 1e-4 relative, the gradients to 1e-3
+    of max|g| and the parameters to 2·lr: Adam's first step moves each
+    parameter by about lr·sign(g), so a gradient entry near zero may move
+    the two paths' parameters apart by up to 2·lr. Returns the two states,
+    their metrics, the launches and lr."""
+    from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
 
-    state_k = create_mhim_state(cfg, model_k, spe, seed=0, device="cuda")
-    state_p = create_mhim_state(cfg, model_p, spe, seed=0, device="cuda")
+    create = create_mhim_state if family is None else create_train_state
+    state_k = create(cfg, model_k, spe, seed=0, device="cuda")
+    state_p = create(cfg, model_p, spe, seed=0, device="cuda")
     lr = float(state_k.optimizer.lr_schedule(0))
     reset_launches()
-    m_k = make_mhim_train_step(cfg, spe, device="cuda")(state_k, batch)
+    m_k = train_step_for(cfg, spe, family)(state_k, batch)
     torch.cuda.synchronize()
     counted = expect_launches(f"one fp32 {label} step", **launches_per_step)
     reset_launches()
-    m_p = make_mhim_train_step(cfg.replace(use_flash_attn=False), spe, device="cuda")(state_p, batch)
+    m_p = train_step_for(cfg.replace(use_flash_attn=False), spe, family)(state_p, batch)
     torch.cuda.synchronize()
     expect_launches(f"the plain-path {label} step")
     log(f"{label} fp32 metrics, kernel path: " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_k.items()))
@@ -1160,14 +1186,13 @@ def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, **launche
     return state_k, state_p, m_k, m_p, counted, lr
 
 
-def bf16_steps(label: str, cfg, state, batch, spe: int, **launches_per_step) -> dict:
-    """2 warm-up and TRAIN_STEPS timed bf16 steps of ``state``: the host ms
-    of each (synchronised), the losses, the peak memory of the timed steps,
-    the launches (``launches_per_step`` a step, else the run fails) and the
-    step. Fails unless every loss is finite and every parameter moved."""
-    from mhim_mil_torch.engine.steps import make_mhim_train_step
-
-    step16 = make_mhim_train_step(cfg.replace(compute_dtype="bfloat16"), spe, device="cuda")
+def bf16_steps(label: str, cfg, state, batch, spe: int, family=None, **launches_per_step) -> dict:
+    """2 warm-up and TRAIN_STEPS timed bf16 steps of ``state`` (the MHIM step,
+    or the generic step of ``family``): the host ms of each (synchronised),
+    the losses, the peak memory of the timed steps, the launches
+    (``launches_per_step`` a step, else the run fails) and the step. Fails
+    unless every loss is finite and every parameter moved."""
+    step16 = train_step_for(cfg.replace(compute_dtype="bfloat16"), spe, family)
     before = [p.detach().clone() for p in state.model.parameters()]
     reset_launches()
     for _ in range(2):
@@ -1349,9 +1374,112 @@ def phase_mamba(gen) -> dict:
     return {"launches": counted + [sv["launches"]], "serving": sv["serving"], "eval_ms": eval_ms}
 
 
+ZOO = "config/feat_cls.yaml"
+
+
+def zoo_eval_pair(label: str, cfg, family, model_k, model_p, batch, tol: float, **launches) -> tuple:
+    """The fp32 eval step of ``model_k`` (kernel path, ``launches``) against
+    ``model_p``'s (plain path, no launch) on ``batch``, within tol·max(1,
+    max|ref|). Returns the kernel path's logits and its launches."""
+    from mhim_mil_torch.engine.steps import make_eval_step
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    reset_launches()
+    out_k = make_eval_step(cfg32, model_k, family)(batch)
+    torch.cuda.synchronize()
+    counted = expect_launches(f"{label} eval step", **launches)
+    reset_launches()
+    out_p = make_eval_step(cfg32, model_p, family)(batch)
+    torch.cuda.synchronize()
+    expect_launches(f"the {label} plain path")
+    compare_models(label, [(k, out_k[k], out_p[k]) for k in out_p], tol)
+    return out_k["logits"], counted
+
+
+def phase_zoo(gen) -> dict:
+    """Phase 9: the zoo at full width (``config/feat_cls.yaml``, act gelu,
+    input 1024, inner 512, 8 heads of 64, 256 landmarks) on the ragged
+    4 × 10,240 batch. abmil and gabmil: the eval step through K4 against the
+    plain pool in fp32 (1e-4·max(1, max|ref|)), then the scorer under bf16
+    (K4 once a request), and abmil's bf16 train steps (the plain pool: K4
+    has no gradient). transmil: the eval step (K1 + K2 in each layer)
+    against the plain path in fp32 (1e-3·max(1, max|ref|)), one fp32 train
+    step on K3 forward and backward against the plain path (phase 5's
+    tolerances), then bf16 steps with the device's busy ms (profiler).
+    dsmil and MHIM-dsmil, which run no kernel: the eval step in bf16
+    against fp32 within 0.1 (dsmil's logits fused on the host as the
+    driver fuses them)."""
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.engine.steps import make_eval_step, make_mhim_eval_step
+    from mhim_mil_torch.engine.train_state import create_train_state
+
+    batch = train_batch(gen, load_config(["-c", ZOO], input_dim=1024))
+    counted, readings, rows = [], {}, []
+    spe = 8
+    for seed, name in ((10, "abmil"), (12, "gabmil")):
+        cfg, family, model_k, model_p = preset_models(ZOO, seed, model=name)
+        logits_k, c = zoo_eval_pair(name, cfg, family, model_k, model_p, batch, 1e-4, K4=1)
+        counted.append(c)
+        with torch.no_grad():  # bag_feat and attn through K4 against the plain pool
+            got = model_k(batch["feats"], batch["mask"], return_attn=True)
+            want = model_p(batch["feats"], batch["mask"], return_attn=True)
+        compare_models(name, [(k, got[k], want[k]) for k in ("bag_feat", "attn")], 1e-4)
+        requests = [("batch 4 x 10240", batch["feats"].cpu().numpy(), batch["mask"].cpu().numpy(), 4),
+                    ("batch 1 x 10240", batch["feats"][:1].cpu().numpy(), None, 1)]
+        sv = serve(name, cfg, model_k, requests, {"K4": 1}, logits_k, family=family)
+        counted.append(sv["launches"])
+        rows += sv["serving"]
+        if name == "abmil":
+            del model_p
+            state = create_train_state(cfg, model_k, spe, seed=0, device="cuda")
+            r = bf16_steps(name, cfg, state, batch, spe, family=family)
+            busy = device_ms(lambda: r["step"](state, batch), iters=5)
+            log(f"abmil bf16: device busy {'not measured' if busy is None else f'{busy:.2f} ms a step'} "
+                f"(profiler, 5 steps) of {r['ms']:.2f} ms")
+            readings[name] = {"ms_per_step": r["ms"], "peak_gib": r["peak_gib"], "device_busy_ms": busy}
+        torch.cuda.empty_cache()
+
+    cfg, family, model_k, model_p = preset_models(ZOO, 14, model="transmil", compute_dtype="float32")
+    _, c = zoo_eval_pair("transmil", cfg, family, model_k, model_p, batch, 1e-3, K1=2, K2=2, K3p=2 * 24)
+    counted.append(c)
+    state_k, state_p, m_k, _, c, _ = fp32_step_pair("transmil", cfg, model_k, model_p, batch, spe,
+                                                    family=family, **TEACHER_LAUNCHES)
+    counted.append(c)
+    del state_p, model_p
+    torch.cuda.empty_cache()
+    r = bf16_steps("transmil", cfg, state_k, batch, spe, family=family, **TEACHER_LAUNCHES)
+    counted.append(r["counted"])
+    busy = device_ms(lambda: r["step"](state_k, batch), iters=5)
+    log(f"transmil bf16: device busy {'not measured' if busy is None else f'{busy:.2f} ms a step'} (profiler, "
+        f"5 steps) of {r['ms']:.2f} ms")
+    readings["transmil"] = {"ms_per_step": r["ms"], "peak_gib": r["peak_gib"], "device_busy_ms": busy}
+    del state_k, model_k
+    torch.cuda.empty_cache()
+
+    for label, preset, kw in (("dsmil", ZOO, dict(model="dsmil")),
+                              ("mhim-dsmil", "config/mhim_c16.yaml", dict(baseline="dsmil"))):
+        cfg, family, model, _ = preset_models(preset, 16, **kw)
+        make = make_mhim_eval_step if family == "mhim" else (lambda c, m: make_eval_step(c, m, family))
+        reset_launches()
+        outs = {}
+        for dtype in ("float32", "bfloat16"):
+            out = make(cfg.replace(compute_dtype=dtype), model)(batch)
+            outs[dtype] = 0.5 * out["logits"] + 0.5 * out["sub_logits"] if "sub_logits" in out else out["logits"]
+        torch.cuda.synchronize()
+        counted.append(expect_launches(f"{label} eval steps"))
+        err = (outs["bfloat16"] - outs["float32"]).abs().max().item()
+        log(f"{label} eval bf16 vs fp32 logits {tuple(outs['float32'].shape)}: max|d| {err:.3e} (tolerance 0.1)")
+        if not torch.isfinite(outs["bfloat16"]).all() or err > 0.1:
+            fail(f"{label}: bf16 eval logits drift from the fp32 logits")
+    return {"launches": counted, "serving": rows, "zoo": readings}
+
+
 DRIVER_ARGS = ["-c", "config/mhim_c16.yaml", "--datasets", "synth", "--input_dim", "1024", "--synth_bag_size",
                "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24", "--cv_fold", "2",
                "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50"]
+ABMIL_ARGS = ["-c", "config/feat_cls.yaml", "--model", "abmil", "--datasets", "synth", "--input_dim", "1024",
+              "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24",
+              "--cv_fold", "1", "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50"]
 MAMBA_ARGS = ["-c", "config/feat_surv.yaml", "--model", "2dmamba", "--datasets", "surv_synth", "--input_dim", "1024",
               "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--cv_fold", "1",
               "--num_epoch", "1", "--use_flash_attn", "true"]
@@ -1410,26 +1538,38 @@ class TeachersBuilt:
 
 
 def phase_driver() -> dict:
-    """Phase 8: the k-fold driver through its command line. The two-stage
-    workflow first: the teacher stage (``--model mhim_pure``) with the
-    kernel gate on auto, then the flagship with ``--teacher_init`` from its
-    output directory, each fold's teacher its stage-1 best, bit for bit;
-    then the reload of the flagship's bests; then 2dmamba survival with the
-    kernels named explicitly (one gate per script)."""
+    """Phase 8: the k-fold driver through its command line. One fold of
+    abmil (``config/feat_cls.yaml``) with the kernel gate on auto, K4 in its
+    evaluations; then the two-stage workflow: the teacher stage (``--model
+    mhim_pure``), then the flagship with ``--teacher_init`` from its output
+    directory, each fold's teacher its stage-1 best, bit for bit; then the
+    reload of the flagship's bests; then 2dmamba survival. Those name the
+    kernels explicitly (one gate per script)."""
     from mhim_mil_torch.utils.checkpoint import load_checkpoint
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
         stage1, out = os.path.join(tmp, "mhim_pure"), os.path.join(tmp, "mhim")
         torch.cuda.reset_peak_memory_stats()
-        res1, seen1, secs1 = drive("teacher stage", DRIVER_ARGS + ["--model", "mhim_pure", "--output_path", stage1])
-        peak1 = torch.cuda.max_memory_allocated() / 2 ** 30
-        gate = res1["kernel_gate"]
-        log(f"driver [teacher stage] kernel gate: {gate['outcome']} in {gate['seconds']:.2f} s, K6 launched "
+        res0, seen0, secs0 = drive("abmil", ABMIL_ARGS + ["--output_path", os.path.join(tmp, "abmil")])
+        peak0 = torch.cuda.max_memory_allocated() / 2 ** 30
+        gate = res0["kernel_gate"]
+        log(f"driver [abmil] kernel gate: {gate['outcome']} in {gate['seconds']:.2f} s, K6 launched "
             f"{gate['probe_launches']} time(s) in its probe; {gate['detail']}")
         if gate["outcome"] != "enabled" or gate["probe_launches"] < 1:
             fail(f"driver: the kernel gate gave {gate}")
+        log_folds("abmil", res0)
+        log(f"driver [abmil] launches {seen0}; {secs0:.2f} s in all (host clock, data made, gate and checkpoints "
+            f"included); peak device memory {peak0:.2f} GiB")
+        if seen0["K4"] < 1:
+            fail("driver [abmil]: K4 was not launched")
+        finite_rows("abmil", res0, ("test",), "auc")
+
+        torch.cuda.reset_peak_memory_stats()
+        res1, seen1, secs1 = drive("teacher stage", DRIVER_ARGS + ["--model", "mhim_pure", "--use_flash_attn", "true",
+                                                                   "--output_path", stage1])
+        peak1 = torch.cuda.max_memory_allocated() / 2 ** 30
         log_folds("teacher stage", res1)
-        log(f"driver [teacher stage] launches {seen1}; {secs1:.2f} s in all (host clock, data made, gate and "
+        log(f"driver [teacher stage] launches {seen1}; {secs1:.2f} s in all (host clock, data made and "
             f"checkpoints included); peak device memory {peak1:.2f} GiB")
         for kid in ("K1", "K2", "K3", "K3b", "K3p", "K1b", "K2b"):
             if seen1[kid] < 1:
@@ -1478,8 +1618,8 @@ def phase_driver() -> dict:
         if seen3["K5"] < 1:
             fail("driver [2dmamba]: K5 was not launched")
         log(f"driver [2dmamba] launches {seen3}; {secs3:.2f} s; c-index {res3['summary']['cindex']['mean']:.4f}")
-        probes = {"K6": gate["probe_launches"] + res3["kernel_gate"]["probe_launches"]}
-    return {"launches": [seen1, seen, seen2, seen3, probes], "seconds": secs1 + secs + secs2 + secs3}
+        probes = {"K6": sum(r["kernel_gate"]["probe_launches"] for r in (res0, res1, res, res2, res3))}
+    return {"launches": [seen0, seen1, seen, seen2, seen3, probes], "seconds": secs0 + secs1 + secs + secs2 + secs3}
 
 
 def main():
@@ -1495,7 +1635,8 @@ def main():
     report.update(phase_k5(gen))
     report.update(phase_k6(gen))
     counted = {kid: 0 for kid in KERNELS}
-    for phase in (phase_serving, phase_train, phase_teacher, phase_attn, phase_mamba, lambda g: phase_driver()):
+    for phase in (phase_serving, phase_train, phase_teacher, phase_attn, phase_mamba, phase_zoo,
+                  lambda g: phase_driver()):
         for seen in phase(gen)["launches"]:
             for kid, n in seen.items():
                 counted[kid] += n

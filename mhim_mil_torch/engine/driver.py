@@ -227,10 +227,15 @@ def evaluate(cfg, model: torch.nn.Module, family: str, slides, fold: int, bootst
     (``driver.py:241-299``; reference BaseTrainer.validate
     engines/base_engine.py:234-329). ``slides`` is a slide list or the
     output of :func:`device_eval_batches`. The eval step is made here, from
-    the weights the model holds now; the logits come to the host once."""
+    the weights the model holds now; the logits come to the host once, and
+    DSMIL's ``sub_logits`` are fused there, ``0.5·logits + 0.5·sub_logits``
+    (``driver.py:255-256``; reference common_mil.py:66-67)."""
     staged = slides if slides and isinstance(slides[0], tuple) else device_eval_batches(cfg, slides, device)
     step = _eval_step(cfg, model, family)
-    logits = torch.cat([step(jb)["logits"] for jb, _ in staged]).cpu().numpy()
+    outs = [step(jb) for jb, _ in staged]
+    logits = torch.cat([o["logits"] for o in outs]).cpu().numpy()
+    if "sub_logits" in outs[0]:
+        logits = 0.5 * logits + 0.5 * torch.cat([o["sub_logits"] for o in outs]).cpu().numpy()
     targets = np.concatenate([b["target"] for _, b in staged])
     keep = np.concatenate([b["bag_valid"] for _, b in staged])
     cens = [b["censorship"] for _, b in staged] if is_survival(cfg) else []

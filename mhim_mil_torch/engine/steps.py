@@ -177,25 +177,45 @@ def make_mhim_train_step(
     return train_step
 
 
+TRAIN_FAMILIES = ("default", "dsmil", "mamba2d")
+
+
+def _forward_inputs(model: nn.Module, family: str, batch: Dict[str, Tensor]):
+    """The positional and keyword inputs of a generic model's forward beyond
+    ``(feats, mask)`` (``steps.py:66-73``): the grid coordinates ``pos`` for
+    ``mamba2d``, or as ``coords`` for a ``pos="sincos"`` model, when the
+    batch holds them."""
+    if "pos" not in batch:
+        return (), {}
+    if family == "mamba2d":
+        return (batch["pos"],), {}
+    if getattr(model, "pos", None) == "sincos":
+        return (), {"coords": batch["pos"]}
+    return (), {}
+
+
 def make_train_step(
     cfg, family: str, steps_per_epoch: int, device: Optional[Union[str, torch.device]] = None,
 ) -> Callable[[TrainState, Dict[str, Tensor]], Dict[str, Tensor]]:
-    """The generic train step (``steps.py:38-137``) for the ``mamba2d``
-    family, run on ``device`` (CUDA unless ``"cpu"`` is asked for).
+    """The generic train step (``steps.py:38-137``) for the families
+    ``default`` (abmil, gabmil, meanmil, maxmil, transmil), ``dsmil`` and
+    ``mamba2d``, run on ``device`` (CUDA unless ``"cpu"`` is asked for).
     ``step(state, batch)`` runs the model's training forward on ``feats``,
-    ``mask`` and, when the batch has them, the grid coordinates ``pos``;
-    pays ``main_alpha``·criterion + ``aux_alpha``·``aux_loss`` (when the
-    model returns one); takes the optimizer's micro-step (an update on every
-    ``accumulation_steps``-th); and under ``model_ema`` moves
-    ``state.teacher`` by the EMA at ``model_ema_decay``. It trains through
-    the plain 2D scan: the model
-    takes it whenever ``training`` is set, since K5 has no gradient. It
-    updates ``state`` in place and returns ``loss``, ``main_loss``,
-    ``aux_loss``, ``pad_ratio`` and, under ``wandb_watch``, the
-    ``grad_norm/<module>`` meters, as 0-d tensors."""
+    ``mask`` and the grid coordinates ``pos`` where the model takes them
+    (:func:`_forward_inputs`); pays ``main_alpha``·criterion +
+    ``aux_alpha``·aux, aux being the model's ``aux_loss`` (when it returns
+    one) plus the criterion of DSMIL's max-pooled instance logits
+    ``inst_logits_bag`` (``steps.py:84-87``); takes the optimizer's
+    micro-step (an update on every ``accumulation_steps``-th); and under
+    ``model_ema`` moves ``state.teacher`` by the EMA at
+    ``model_ema_decay``. Attention pools train on their plain path (K4 has
+    no gradient), TransMIL's layers through K3, 2dmamba on the plain 2D
+    scan (K5 has no gradient). It updates ``state`` in place and returns
+    ``loss``, ``main_loss``, ``aux_loss``, ``pad_ratio`` and, under
+    ``wandb_watch``, the ``grad_norm/<module>`` meters, as 0-d tensors."""
     device = resolve_device(device)
-    if family != "mamba2d":
-        raise NotImplementedError(f"family={family!r}: the generic train step is ported for mamba2d only")
+    if family not in TRAIN_FAMILIES:
+        raise NotImplementedError(f"family={family!r}: the generic train step is ported for {TRAIN_FAMILIES}")
     criterion = build_criterion(cfg)
     dtype = compute_dtype(cfg)
 
@@ -204,11 +224,14 @@ def make_train_step(
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
         model = state.model
         feats = _cast_batch(dtype, batch)["feats"]
-        args = (feats, batch["mask"]) + ((batch["pos"],) if "pos" in batch else ())
+        extra, kw = _forward_inputs(model, family, batch)
         with record_function("train.forward"):
-            out = apply_cast(model, cast_compute(cfg, model), "forward", *args, training=True, gen=state.gen)
+            out = apply_cast(model, cast_compute(cfg, model), "forward", feats, batch["mask"], *extra,
+                             training=True, gen=state.gen, **kw)
             main = criterion(out["logits"], batch)
             aux = out.get("aux_loss", torch.zeros((), device=main.device))
+            if "inst_logits_bag" in out:
+                aux = aux + criterion(out["inst_logits_bag"], batch)
             loss = cfg.main_alpha * main + cfg.aux_alpha * aux
         with record_function("train.backward"):
             state.optimizer.zero_grad()
@@ -255,19 +278,22 @@ def make_eval_step(cfg, model: nn.Module, family: str) -> Callable[[Dict[str, Te
     """Inference through the model's ``forward`` (``steps.py:166-190``) under
     the config's precision policy, weights cast once as in
     :func:`make_mhim_eval_step`. The step takes ``{"feats", "mask"}`` on the
-    model's device, and for the ``mamba2d`` family the grid coordinates
-    ``"pos"`` when the batch holds them; it returns fp32 ``{"logits"}``."""
+    model's device and the grid coordinates ``"pos"`` where the model takes
+    them (:func:`_forward_inputs`); it returns fp32 ``{"logits"}``, and
+    ``"sub_logits"`` (DSMIL's max-pooled instance logits) when the model
+    gives them: the caller fuses the two."""
     dtype = compute_dtype(cfg)
     with torch.no_grad():
         params = cast_compute(cfg, model)
 
     @torch.inference_mode()
     def eval_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
-        batch = _cast_batch(dtype, batch)
-        args = (batch["feats"], batch["mask"])
-        if family == "mamba2d" and "pos" in batch:
-            args = args + (batch["pos"],)
-        out = apply_cast(model, params, "forward", *args, training=False)
-        return {"logits": out["logits"].float()}
+        feats = _cast_batch(dtype, batch)["feats"]
+        extra, kw = _forward_inputs(model, family, batch)
+        out = apply_cast(model, params, "forward", feats, batch["mask"], *extra, training=False, **kw)
+        res = {"logits": out["logits"].float()}
+        if "inst_logits_bag" in out:
+            res["sub_logits"] = out["inst_logits_bag"].float()
+        return res
 
     return eval_step

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from .layers import TanhAttentionPool
-from .positional import PPEG
+from .positional import make_pos
 from .transformer import TransLayer
 
 
@@ -41,7 +41,10 @@ class DAttentionBaseline(nn.Module):
 
 
 class SAttentionBaseline(nn.Module):
-    """cls token + two Nystrom TransLayers with PPEG between them, then LayerNorm.
+    """cls token + two Nystrom TransLayers with the positional module ``pos``
+    between them (``ppeg``, ``sincos`` on the row-major grid, ``peg`` or
+    ``none``, kernel ``peg_k``; module ``pos_embedding``, as in
+    ``baselines.py:46-108``), then LayerNorm.
 
     ``attn_layers`` names the layers whose cls attention ``return_attn``
     returns; attn2score mining reads only layer 1's. ``parity`` gives both
@@ -50,12 +53,12 @@ class SAttentionBaseline(nn.Module):
     """
 
     def __init__(self, dim: int = 512, heads: int = 8, use_flash: bool = True,
-                 attn_layers: tuple = (0, 1), parity: bool = False):
+                 attn_layers: tuple = (0, 1), parity: bool = False, pos: str = "ppeg", peg_k: int = 7):
         super().__init__()
         self.attn_layers = attn_layers
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.layer1 = TransLayer(dim, heads, use_flash, parity)
-        self.pos_embedding = PPEG(dim)
+        self.pos_embedding = make_pos(pos, dim, peg_k)
         self.layer2 = TransLayer(dim, heads, use_flash, parity)
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
@@ -75,7 +78,8 @@ class SAttentionBaseline(nn.Module):
             attns.append(a[:, :, 1:])  # drop the cls column
         else:
             x = self.layer1(x, full_mask, False, training, gen)
-        x = torch.cat([x[:, :1], self.pos_embedding(x[:, 1:], mask)], dim=1)
+        if self.pos_embedding is not None:
+            x = torch.cat([x[:, :1], self.pos_embedding(x[:, 1:], mask)], dim=1)
         if return_attn and 1 in self.attn_layers:
             x, a, *_ = self.layer2(x, full_mask, True, training, gen, no_norm)
             attns.append(a[:, :, 1:])

@@ -59,8 +59,8 @@ class FeatureEmbed(nn.Sequential):
     linear layer, so the weights are named ``feature.0.*`` as in the reference."""
 
     def __init__(self, input_dim: int, inner_dim: int = 512, act: str = "relu",
-                 dropout: float = 0.25):
-        super().__init__(dense(input_dim, inner_dim), get_act(act), Dropout(dropout))
+                 dropout: float = 0.25, use_bias: bool = True):
+        super().__init__(dense(input_dim, inner_dim, use_bias), get_act(act), Dropout(dropout))
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -80,45 +80,67 @@ def _pool(pool: nn.Module, x, logits, mask, training, no_norm):
     return pooled, (logits if no_norm else attn)
 
 
+def add_tanh_attention(mod: nn.Module, dim: int, attn_dim: int, n_branches: int, act: str,
+                       use_bias: bool, dropout: float, use_flash: bool):
+    """Give ``mod`` the layers of the ABMIL attention ``A = w2·act(w1·x)``:
+    ``attention``, the reference's ``Sequential(Linear, act, Linear)``, and
+    the dropout after the activation. A model that pools with it holds the
+    layers itself, so that its weights keep the reference's names."""
+    mod.n_branches, mod.use_flash = n_branches, use_flash
+    mod.attention = nn.Sequential(dense(dim, attn_dim, use_bias), get_act(act),
+                                  dense(attn_dim, n_branches, use_bias))
+    mod.drop = Dropout(dropout)
+
+
+def tanh_attention(mod: nn.Module, x, mask, training: bool = False,
+                   gen: Optional[torch.Generator] = None, no_norm: bool = False):
+    """Pool ``x`` with the layers of :func:`add_tanh_attention` on ``mod``."""
+    a = mod.drop(mod.attention[1](mod.attention[0](x)), training, gen)
+    return _pool(mod, x, mod.attention[2](a), mask.bool(), training, no_norm)
+
+
+def add_gated_attention(mod: nn.Module, dim: int, attn_dim: int, n_branches: int, act: str,
+                        use_bias: bool, dropout: float, use_flash: bool):
+    """Give ``mod`` the layers of the gated attention ``A = w_c·(act(w_a·x) ⊙
+    σ(w_b·x))``, with the reference's ``attention_a``/``_b``/``_c`` names."""
+    mod.n_branches, mod.use_flash = n_branches, use_flash
+    mod.attention_a = nn.Sequential(dense(dim, attn_dim, use_bias), get_act(act))
+    mod.attention_b = nn.Sequential(dense(dim, attn_dim, use_bias), nn.Sigmoid())
+    mod.attention_c = dense(attn_dim, n_branches, use_bias)
+    mod.drop = Dropout(dropout)
+
+
+def gated_attention(mod: nn.Module, x, mask, training: bool = False,
+                    gen: Optional[torch.Generator] = None, no_norm: bool = False):
+    """Pool ``x`` with the layers of :func:`add_gated_attention` on ``mod``;
+    the two branches draw their dropout masks apart, as flax's do."""
+    a = mod.drop(mod.attention_a(x), training, gen)
+    g = mod.drop(mod.attention_b(x), training, gen)
+    return _pool(mod, x, mod.attention_c(a * g), mask.bool(), training, no_norm)
+
+
 class TanhAttentionPool(nn.Module):
     """ABMIL attention pooling ``A = w2·act(w1·x)``, masked softmax over the
-    instances, weighted sum (port of ``layers.py:66-114``). ``attention`` is
-    the reference's ``Sequential(Linear, act, Linear)``. Returns
+    instances, weighted sum (port of ``layers.py:66-114``). Returns
     ``(pooled[B,K,D], attn[B,K,N])``, attn softmaxed (raw with ``no_norm``)."""
 
     def __init__(self, dim: int, attn_dim: int = 128, n_branches: int = 1, act: str = "tanh",
                  use_bias: bool = True, dropout: float = 0.0, use_flash: bool = True):
         super().__init__()
-        self.n_branches, self.use_flash = n_branches, use_flash
-        self.attention = nn.Sequential(dense(dim, attn_dim, use_bias), get_act(act),
-                                       dense(attn_dim, n_branches, use_bias))
-        self.drop = Dropout(dropout)
+        add_tanh_attention(self, dim, attn_dim, n_branches, act, use_bias, dropout, use_flash)
 
-    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None,
-                no_norm: bool = False):
-        a = self.drop(self.attention[1](self.attention[0](x)), training, gen)
-        return _pool(self, x, self.attention[2](a), mask.bool(), training, no_norm)
+    forward = tanh_attention
 
 
 class GatedAttentionPool(nn.Module):
-    """Gated ABMIL attention ``A = w_c·(act(w_a·x) ⊙ σ(w_b·x))`` (port of
-    ``layers.py:117-163``), with the reference's ``attention_a``/``_b``/``_c``
-    names."""
+    """Gated ABMIL attention pooling (port of ``layers.py:117-163``)."""
 
     def __init__(self, dim: int, attn_dim: int = 128, n_branches: int = 1, act: str = "tanh",
                  use_bias: bool = True, dropout: float = 0.0, use_flash: bool = True):
         super().__init__()
-        self.n_branches, self.use_flash = n_branches, use_flash
-        self.attention_a = nn.Sequential(dense(dim, attn_dim, use_bias), get_act(act))
-        self.attention_b = nn.Sequential(dense(dim, attn_dim, use_bias), nn.Sigmoid())
-        self.attention_c = dense(attn_dim, n_branches, use_bias)
-        self.drop = Dropout(dropout)
+        add_gated_attention(self, dim, attn_dim, n_branches, act, use_bias, dropout, use_flash)
 
-    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None,
-                no_norm: bool = False):
-        a = self.drop(self.attention_a(x), training, gen)
-        g = self.drop(self.attention_b(x), training, gen)
-        return _pool(self, x, self.attention_c(a * g), mask.bool(), training, no_norm)
+    forward = gated_attention
 
 
 @torch.no_grad()
@@ -126,8 +148,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Reference initialisation, drawn from ``generator`` in module order:
     a module's own ``init_own`` where it has one (the Mamba modules, whose
     initialisers the JAX package sets apart), else xavier-normal weights and
-    zero biases for linear and convolution layers, unit LayerNorms, N(0, 1)
-    for a ``cls_token``, and a module's own ``reset_buffers``."""
+    zero biases for linear and convolution layers, unit LayerNorms (zero
+    bias where they have one), N(0, σ²) for a ``cls_token`` (σ the module's
+    ``cls_token_std``, default 1), and a module's own ``reset_buffers``."""
     for mod in model.modules():
         if hasattr(mod, "init_own"):
             mod.init_own(generator)
@@ -137,10 +160,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 mod.bias.zero_()
         elif isinstance(mod, nn.LayerNorm):
             nn.init.ones_(mod.weight)
-            nn.init.zeros_(mod.bias)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
         cls = getattr(mod, "cls_token", None)
         if isinstance(cls, nn.Parameter):
-            cls.normal_(0.0, 1.0, generator=generator)
+            cls.normal_(0.0, getattr(mod, "cls_token_std", 1.0), generator=generator)
         if hasattr(mod, "reset_buffers"):  # Merge's global queries
             mod.reset_buffers(generator)
     return model

@@ -1,11 +1,11 @@
 """MHIM, masked hard-instance-mining teacher/student MIL (port of
 ``mhim_mil_tpu/models/mhim.py``).
 
-Reference: modules/mhim.py:12-378. Ported: the ``selfattn`` and ``attn``
-baselines with the teacher pass (eval and training mode), the student
-training pass (layered mining, compaction, Merge, the consistency loss),
-``forward_test`` and the baseline-only ``pure`` pass of the ``mhim_pure``
-teacher stage. Masking never changes a shape that depends on the data:
+Reference: modules/mhim.py:12-378. Ported: the ``selfattn`` (with each
+``pos``), ``attn`` and ``dsmil`` baselines with the teacher pass (eval and
+training mode), the student training pass (layered mining, compaction,
+Merge, the consistency loss), ``forward_test`` and the baseline-only
+``pure`` pass of the ``mhim_pure`` teacher stage. Masking never changes a shape that depends on the data:
 the removal set is a boolean mask, and the kept tokens are compacted into
 static slices. Every random draw of the student pass (the three mining
 stages, the merge split) is an argument or comes from the caller's
@@ -23,6 +23,7 @@ from ..engine.losses import soft_target_ce
 from ..ops.masked import compact
 from ..ops.masking import MaskSchedule, layered_mask
 from .baselines import DAttentionBaseline, SAttentionBaseline
+from .dsmil import DSMILHead
 from .layers import FeatureEmbed, dense
 from .merge import Merge
 
@@ -43,8 +44,10 @@ def _uniform(shape, gen: Optional[torch.Generator], device) -> torch.Tensor:
 
 
 class MHIM(nn.Module):
-    """MHIM with the ``selfattn`` (SAttention) or ``attn`` (DAttention)
-    baseline encoder, a linear predictor and, with ``merge_enable``, the
+    """MHIM with the ``selfattn`` (SAttention, its positional module
+    ``pos``), ``attn`` (DAttention) or ``dsmil`` (DSMILHead) baseline
+    encoder, a linear predictor (none for ``dsmil``, whose head predicts:
+    ``0.5·bag + 0.5·instance`` logits) and, with ``merge_enable``, the
     Merge module. The knobs are those of ``mhim.py:55-86``."""
 
     def __init__(self, input_dim: int = 1024, mlp_dim: int = 512, n_classes: int = 2,
@@ -54,7 +57,7 @@ class MHIM(nn.Module):
                  msa_fusion: str = "vote", attn_layer: int = 0, attn2score: bool = True,
                  temp_t: float = 1.0, temp_s: float = 1.0, merge_enable: bool = True,
                  merge_k: int = 1, merge_mm: float = 0.9998, merge_ratio: float = 0.2,
-                 merge_test: bool = False, use_flash: bool = True):
+                 merge_test: bool = False, use_flash: bool = True, pos: str = "ppeg"):
         super().__init__()
         self.baseline = baseline
         self.sched = MaskSchedule(mask_ratio, mask_ratio_l, mask_ratio_h, mask_ratio_hr, msa_fusion)
@@ -66,12 +69,15 @@ class MHIM(nn.Module):
         if baseline == "selfattn":
             # attn2score mining reads only layer 1's attention and scored values
             need = (0,) if (attn2score and attn_layer == 0) else (0, 1)
-            self.online_encoder = SAttentionBaseline(mlp_dim, heads, use_flash, attn_layers=need)
+            self.online_encoder = SAttentionBaseline(mlp_dim, heads, use_flash, attn_layers=need, pos=pos)
         elif baseline == "attn":
             self.online_encoder = DAttentionBaseline(mlp_dim, da_act, use_flash=use_flash)
+        elif baseline == "dsmil":
+            self.online_encoder = DSMILHead(mlp_dim, n_classes, cls_attn=attn2score)
         else:
-            raise NotImplementedError(f"baseline {baseline!r} is not ported")
-        self.predictor = dense(mlp_dim, n_classes)
+            raise ValueError(f"unknown baseline: {baseline!r}")
+        if baseline != "dsmil":
+            self.predictor = dense(mlp_dim, n_classes)
         if merge_enable:
             self.merge = Merge(mlp_dim, k=merge_k, g_q_mm=merge_mm, merge_ratio=merge_ratio)
 
@@ -81,11 +87,15 @@ class MHIM(nn.Module):
     def forward_teacher(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
                         gen: Optional[torch.Generator] = None):
         """Teacher pass over the full bag (reference mhim.py:181-227):
-        ``(cls_feat[B,D], mining score[B,N])``. The train step runs it with
+        ``(cls_feat[B,D], mining score[B,N])``; for ``dsmil`` the bag
+        feature ``[B,C,D]`` and each instance's largest class logit (or
+        attention, without ``attn2score``). The train step runs it with
         ``training=True``: the reference's EMA teacher mines with its
         dropouts on, and their masks come from ``gen``."""
         mask = mask.bool()
         out = self.online_encoder(self.feature(feats, training, gen), mask, True, training, gen)
+        if self.baseline == "dsmil":
+            return out["bag_feat"], out["attn"]
         if not self.attn2score:
             return out["cls_feat"], (out["attns"][self.attn_layer] if "attns" in out else out["attn"])
         if self.baseline == "selfattn":
@@ -161,13 +171,17 @@ class MHIM(nn.Module):
         else:
             valid = vis
 
-        cls_feat = self.online_encoder(x, valid, False, training, gen)["cls_feat"]
-        logits = self.predictor(cls_feat)
+        logits, cls_feat = self._predict(self.online_encoder(x, valid, False, training, gen))
         aux_loss = logits.new_zeros((), dtype=torch.float32)
         if teacher_cls_feat is not None:
-            # Fake zero-padded bags (mask all False) contribute nothing.
+            # Fake zero-padded bags (mask all False) contribute nothing. The
+            # dsmil feature [B,C,D] pays the loss of each class, weighted by
+            # its bag (JAX's weights broadcast against the class axis).
+            weights = mask.any(dim=-1)
+            if cls_feat.dim() == 3:
+                weights = weights[:, None]
             aux_loss = soft_target_ce(cls_feat, teacher_cls_feat.detach(), self.temp_t, self.temp_s,
-                                      weights=mask.any(dim=-1))
+                                      weights=weights)
         return {
             "logits": logits,
             "aux_loss": aux_loss,
@@ -184,11 +198,19 @@ class MHIM(nn.Module):
         ``keep_num`` are both the bag's size. With the selfattn baseline and
         ``use_flash`` a training pass runs K3 at the bag's full length."""
         mask = mask.bool()
-        out = self.online_encoder(self.feature(feats, training, gen), mask, False, training, gen)
-        logits = self.predictor(out["cls_feat"])
+        logits, _ = self._predict(self.online_encoder(self.feature(feats, training, gen), mask, False,
+                                                      training, gen))
         n = mask.sum(dim=-1)
         return {"logits": logits, "aux_loss": logits.new_zeros((), dtype=torch.float32),
                 "patch_num": n, "keep_num": n}
+
+    def _predict(self, out: Dict[str, torch.Tensor]):
+        """``(logits, feature)`` from the encoder's output: the predictor on
+        ``cls_feat``; for ``dsmil`` ``0.5·bag + 0.5·instance`` logits and the
+        ``[B,C,D]`` bag feature (``mhim.py:243-245``)."""
+        if self.baseline == "dsmil":
+            return 0.5 * out["bag_logits"] + 0.5 * out["inst_logits"], out["bag_feat"]
+        return self.predictor(out["cls_feat"]), out["cls_feat"]
 
     # ---- inference ----------------------------------------------------------
 
@@ -204,7 +226,7 @@ class MHIM(nn.Module):
             x = torch.cat([x, merged], dim=1)
             mask = torch.cat([mask, mask.new_ones((x.shape[0], self.merge_k))], dim=1)
         out = self.online_encoder(x, mask, return_attn, no_norm=no_norm)
-        res = {"logits": self.predictor(out["cls_feat"])}
+        res = {"logits": self._predict(out)[0]}
         if return_attn:
             res["attn"] = out["attn"]
         return res

@@ -1,4 +1,5 @@
-"""PPEG positional encoding (port of ``mhim_mil_tpu/models/positional.py``).
+"""Positional encodings PPEG, PEG and SINCOS (port of
+``mhim_mil_tpu/models/positional.py``).
 
 The bag is rasterised row-major into the static ``ceil(sqrt(N))²`` grid with
 zeros at masked and filler positions, as in the JAX package.
@@ -7,10 +8,28 @@ zeros at masked and filler positions, as in the JAX package.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def _square_grid(x: torch.Tensor, mask: torch.Tensor):
+    """``x[B,N,C]`` laid row-major on the ``[B,C,hw,hw]`` square grid
+    (``hw = ceil(sqrt(N))``), zero at masked and filler cells
+    (``positional.py:25-34``)."""
+    b, n, c = x.shape
+    hw = int(math.ceil(math.sqrt(n)))
+    grid = F.pad(x * mask[..., None].to(x.dtype), (0, 0, 0, hw * hw - n))
+    return grid.view(b, hw, hw, c).permute(0, 3, 1, 2)
+
+
+def _from_grid(out: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The grid's cells back in bag order; masked tokens keep ``x``."""
+    b, n, c = x.shape
+    out = out.permute(0, 2, 3, 1).reshape(b, -1, c)[:, :n]
+    return torch.where(mask[..., None], out, x)
 
 
 class PPEG(nn.Module):
@@ -48,11 +67,66 @@ class PPEG(nn.Module):
         return kern + delta, bias
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        b, n, c = x.shape
-        hw = int(math.ceil(math.sqrt(n)))
-        grid = F.pad(x * mask[..., None].to(x.dtype), (0, 0, 0, hw * hw - n))
-        grid = grid.view(b, hw, hw, c).permute(0, 3, 1, 2)  # NCHW view
+        grid = _square_grid(x, mask)
         kern, bias = self.folded()
-        out = F.conv2d(grid, kern, bias, padding=self.k // 2, groups=c)
-        out = out.permute(0, 2, 3, 1).reshape(b, hw * hw, c)[:, :n]
-        return torch.where(mask[..., None], out, x)
+        out = F.conv2d(grid, kern, bias, padding=self.k // 2, groups=x.shape[-1])
+        return _from_grid(out, x, mask)
+
+
+class PEG(nn.Module):
+    """One depthwise k×k convolution on the square token grid plus identity
+    (``positional.py:103-123``; reference modules/rrt.py:602-624). Masked
+    tokens keep their input."""
+
+    def __init__(self, dim: int = 512, k: int = 7, use_bias: bool = True):
+        super().__init__()
+        self.proj = nn.Conv2d(dim, dim, k, padding=k // 2, groups=dim, bias=use_bias)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        grid = _square_grid(x, mask)
+        return _from_grid(grid + self.proj(grid), x, mask)
+
+
+def sincos_2d(coords: torch.Tensor, dim: int) -> torch.Tensor:
+    """The 2D sin-cos embedding ``[..., dim]`` of integer grid coordinates
+    ``coords[..., 2]`` (x, y) in fp32: ``sin(x·ω), cos(x·ω), sin(y·ω),
+    cos(y·ω)`` with ``ω_i = 10000^(-i/(dim/4))`` (``positional.py:126-142``;
+    reference modules/emb_position.py:9-56)."""
+    quarter = dim // 2 // 2
+    omega = 1.0 / 10000.0 ** (torch.arange(quarter, dtype=torch.float32, device=coords.device) / quarter)
+    cx = coords[..., 0].float()[..., None] * omega
+    cy = coords[..., 1].float()[..., None] * omega
+    return torch.cat([torch.sin(cx), torch.cos(cx), torch.sin(cy), torch.cos(cy)], dim=-1)
+
+
+class SINCOS(nn.Module):
+    """Adds the 2D sin-cos embedding of ``coords`` to the valid tokens
+    (``positional.py:145-160``). Without coords the bag lies on the
+    row-major square grid of side ``ceil(sqrt(N))``. No parameters."""
+
+    def __init__(self, dim: int = 512):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, coords: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if coords is None:
+            n = x.shape[1]
+            hw = int(math.ceil(math.sqrt(n)))
+            idx = torch.arange(n, device=x.device)
+            coords = torch.stack([idx % hw, idx // hw], dim=-1)[None].expand(x.shape[0], n, 2)
+        emb = sincos_2d(coords, self.dim).to(x.dtype)
+        return torch.where(mask[..., None], x + emb, x)
+
+
+def make_pos(pos: str, dim: int, k: int = 7, use_bias: bool = True) -> Optional[nn.Module]:
+    """The positional module that sits between two TransLayers: ``ppeg``,
+    ``sincos``, ``peg``, or None for ``none``."""
+    if pos == "ppeg":
+        return PPEG(dim, k, use_bias)
+    if pos == "peg":
+        return PEG(dim, k, use_bias)
+    if pos == "sincos":
+        return SINCOS(dim)
+    if pos in ("none", None):
+        return None
+    raise ValueError(f"unknown pos {pos!r}: ppeg, sincos, peg or none")

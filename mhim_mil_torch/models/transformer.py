@@ -14,7 +14,8 @@ from torch import nn
 
 from ..ops.flash_nystrom import flash_nystrom, flash_nystrom_infer
 from ..ops.nystrom import nystrom_attention
-from .layers import Dropout, dense
+from .layers import Dropout, FeatureEmbed, dense
+from .positional import make_pos
 
 
 class _DepthwiseResConv(nn.Conv2d):
@@ -111,3 +112,71 @@ class TransLayer(nn.Module):
             z, attn, v, scored = self.attn(normed, mask, True, training, gen, no_norm)
             return x + z, attn, v, scored
         return x + self.attn(normed, mask, False, training, gen)
+
+
+class TransMIL(nn.Module):
+    """``transmil``: embed → cls token → TransLayer → positional module →
+    TransLayer → LayerNorm → linear head (``transformer.py:225-313``;
+    reference modules/transmil.py:66-175), with padding masked rather than
+    filled by repeated tokens.
+
+    ``mil_norm="ln"`` adds a LayerNorm ``in_norm`` on the raw features; the
+    embed's dropout is 0.25 whenever ``dropout`` is set. ``pos`` is the
+    module ``pos_layer``: ``ppeg``, ``sincos`` (from ``coords``, else the
+    row-major grid), ``peg`` or ``none``. The cls token starts at
+    N(0, 1e-6²), as in JAX's TransMIL (SAttention's starts at N(0, 1)).
+    ``return_attn`` adds both layers' cls attention (``attns``, each
+    ``[B,H,N]``) and layer 2's as ``attn``. Both TransLayers run K3 in
+    training and K1 + K2 otherwise under ``use_flash``, unless ``parity``.
+    """
+
+    cls_token_std = 1e-6
+
+    def __init__(self, input_dim: int = 1024, n_classes: int = 2, inner_dim: int = 512,
+                 dropout: float = 0.25, act: str = "relu", mil_norm: Optional[str] = None,
+                 mil_bias: bool = True, pos: str = "ppeg", n_heads: int = 8, parity: bool = False,
+                 use_flash: bool = True):
+        super().__init__()
+        self.mil_norm, self.pos = mil_norm, pos
+        if mil_norm == "ln":
+            self.in_norm = nn.LayerNorm(input_dim, eps=1e-5, bias=mil_bias)
+        self.feature = FeatureEmbed(input_dim, inner_dim, act, 0.25 if dropout else 0.0, mil_bias)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, inner_dim))
+        self.layer1 = TransLayer(inner_dim, n_heads, use_flash, parity)
+        self.pos_layer = make_pos(pos, inner_dim, 7, mil_bias)
+        self.layer2 = TransLayer(inner_dim, n_heads, use_flash, parity)
+        self.norm = nn.LayerNorm(inner_dim, eps=1e-5)
+        self.classifier = dense(inner_dim, n_classes, mil_bias)
+
+    def forward(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
+                gen: Optional[torch.Generator] = None, return_attn: bool = False,
+                coords: Optional[torch.Tensor] = None):
+        """``{"logits", "bag_feat"[, "attn", "attns"]}``."""
+        b = feats.shape[0]
+        mask = mask.bool()
+        x = self.in_norm(feats) if self.mil_norm == "ln" else feats
+        x = self.feature(x, training, gen)
+        x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
+        full_mask = torch.cat([mask.new_ones((b, 1)), mask], dim=1)
+
+        attns = []
+        if return_attn:
+            x, a, *_ = self.layer1(x, full_mask, True, training, gen)
+            attns.append(a[:, :, 1:])  # drop the cls column
+        else:
+            x = self.layer1(x, full_mask, False, training, gen)
+        if self.pos_layer is not None:
+            extra = (coords,) if self.pos == "sincos" else ()
+            x = torch.cat([x[:, :1], self.pos_layer(x[:, 1:], mask, *extra)], dim=1)
+        if return_attn:
+            x, a, *_ = self.layer2(x, full_mask, True, training, gen)
+            attns.append(a[:, :, 1:])
+        else:
+            x = self.layer2(x, full_mask, False, training, gen)
+
+        x = self.norm(x[:, 0])  # LayerNorm is per token
+        out = {"logits": self.classifier(x), "bag_feat": x}
+        if return_attn:
+            out["attn"] = attns[-1]
+            out["attns"] = attns
+        return out

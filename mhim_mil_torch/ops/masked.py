@@ -39,6 +39,29 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> t
     return (unnorm / denom.clamp_min(1e-30)).to(out_dtype)
 
 
+def masked_logsumexp(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``log Σ exp`` over ``dim`` of the positions where ``mask`` is True
+    (``masked.py:60-64``); a fully masked row gives ``NEG_INF + log(1e-30)``."""
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=dim, keepdim=True)
+    s = (torch.exp(logits - m) * mask).sum(dim=dim)
+    return m.squeeze(dim) + torch.log(s.clamp_min(1e-30))
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """Mean of ``x`` over ``dim`` counting only the masked-in positions
+    (``masked.py:67-76``); ``mask`` broadcasts to ``x`` (``mask[..., None]``
+    against ``x[B, N, D]``). A fully masked row gives 0."""
+    mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
+    return (x * mask).sum(dim=dim) / mask.sum(dim=dim).clamp_min(1.0)
+
+
+def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """Max of ``x`` over ``dim`` of the masked-in positions (``masked.py:79-81``);
+    a fully masked row gives ``NEG_INF``."""
+    return torch.where(torch.broadcast_to(mask, x.shape), x, NEG_INF).amax(dim=dim)
+
+
 def topk_mask(scores: torch.Tensor, valid: torch.Tensor, k, largest: bool = True) -> torch.Tensor:
     """Boolean mask of the top-``k`` valid positions of ``scores`` on the last axis.
 

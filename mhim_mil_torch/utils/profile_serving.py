@@ -1,11 +1,11 @@
 """Where a scorer request's time goes on the card.
 
-``python -m mhim_mil_torch.utils.profile_serving [--model mhim|2dmamba] [--batch 4]``
+``python -m mhim_mil_torch.utils.profile_serving [--model mhim|2dmamba|abmil|gabmil|transmil|dsmil] [--batch 4]``
 
 Builds the model with random weights (seed 0): MHIM-selfattn from
-``config/mhim_c16.yaml``, or the 2D-Mamba survival model from
-``config/feat_surv.yaml`` with the ``surv_blca`` grid, both at input_dim
-1024. Warms the scorer up, then profiles 5 requests of ``--batch`` bags of
+``config/mhim_c16.yaml``, the 2D-Mamba survival model from
+``config/feat_surv.yaml`` with the ``surv_blca`` grid, or a zoo model from
+``config/feat_cls.yaml``, all at input_dim 1024. Warms the scorer up, then profiles 5 requests of ``--batch`` bags of
 10,240 instances with ``torch.profiler``. Prints the host-clock time per
 request, the device time per request (each kernel's mean record times its
 launches a request, since the profiler now and then drops a record; a
@@ -31,6 +31,7 @@ from .time_scan2d import by_kind, kernel_id, per_call_us
 CONFIGS = {
     "mhim": (["-c", "config/mhim_c16.yaml"], {}),
     "2dmamba": (["-c", "config/feat_surv.yaml"], {"model": "2dmamba", "datasets": "surv_blca"}),
+    **{m: (["-c", "config/feat_cls.yaml"], {"model": m}) for m in ("abmil", "gabmil", "transmil", "dsmil")},
 }
 
 

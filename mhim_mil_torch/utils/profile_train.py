@@ -1,17 +1,20 @@
-"""Where a flagship MHIM train step's time goes on the card.
+"""Where a train step's time goes on the card.
 
 ``python -m mhim_mil_torch.utils.profile_train [--model mhim] [--baseline selfattn] [--steps 5]``
 
 Builds MHIM (``--model mhim``, or ``mhim_pure`` for the teacher stage's
-step) from ``config/mhim_c16.yaml`` at input_dim 1024 with random
-weights (seed 0), takes 3 warm-up steps under the default bf16 policy on a
+step) from ``config/mhim_c16.yaml``, or a zoo model (``--model abmil``,
+``gabmil``, ``transmil`` or ``dsmil``, on the generic train step) from
+``config/feat_cls.yaml``, at input_dim 1024 with random weights (seed 0),
+takes 3 warm-up steps under the default bf16 policy on a
 batch of 4 bags of 10,240 instances (two of them ragged, 8,000 and 6,000),
 then profiles ``--steps`` steps with ``torch.profiler``. Prints the host-clock
 time per step, the device time per step and its share of the wall time (the
 device's busy share; each kernel's mean record times its launches a step,
 since the profiler now and then drops a record, and a shortfall is
 printed), the device time of each stage of the step (the
-``record_function`` ranges of ``make_mhim_train_step``), the peak device
+``record_function`` ranges of ``make_mhim_train_step`` or
+``make_train_step``), the peak device
 memory of a step, and the 20 kernels that take the most device time.
 Needs a CUDA card.
 """
@@ -26,17 +29,19 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..config import load_config
-from ..engine.steps import make_mhim_train_step
-from ..engine.train_state import create_mhim_state
+from ..engine.steps import make_mhim_train_step, make_train_step
+from ..engine.train_state import create_mhim_state, create_train_state
 from ..models import build_model
 from .time_scan2d import by_kind, kernel_id, per_call_us
 
-STAGES = ("mhim.teacher", "mhim.student", "mhim.backward", "mhim.update")
+MHIM_STAGES = ("mhim.teacher", "mhim.student", "mhim.backward", "mhim.update")
+STAGES = ("train.forward", "train.backward", "train.update")  # make_train_step's ranges
+ZOO = ("abmil", "gabmil", "transmil", "dsmil")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="mhim", choices=("mhim", "mhim_pure"))
+    ap.add_argument("--model", default="mhim", choices=("mhim", "mhim_pure") + ZOO)
     ap.add_argument("--baseline", default="selfattn", choices=("selfattn", "attn"))
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args(argv)
@@ -46,10 +51,16 @@ def main(argv=None):
                          capture_output=True, text=True, timeout=60).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(["-c", "config/mhim_c16.yaml"], input_dim=1024, model=args.model, baseline=args.baseline)
-    model, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
-    state = create_mhim_state(cfg, model, spe, seed=0, device="cuda")
-    step = make_mhim_train_step(cfg, spe, device="cuda")
+    zoo = args.model in ZOO
+    preset = "config/feat_cls.yaml" if zoo else "config/mhim_c16.yaml"
+    cfg = load_config(["-c", preset], input_dim=1024, model=args.model, baseline=args.baseline)
+    model, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    if zoo:
+        state = create_train_state(cfg, model, spe, seed=0, device="cuda")
+        step = make_train_step(cfg, family, spe, device="cuda")
+    else:
+        state = create_mhim_state(cfg, model, spe, seed=0, device="cuda")
+        step = make_mhim_train_step(cfg, spe, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     lengths = torch.tensor([n, n, 8000, 6000], device="cuda")
     batch = {"feats": torch.randn(b, n, cfg.input_dim, device="cuda", generator=gen),
@@ -72,10 +83,11 @@ def main(argv=None):
     events = prof.key_averages()
     # device activity only: kernels and copies, not the ranges annotated on the device timeline
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key not in STAGES and not getattr(e, "is_user_annotation", False)]
+               and e.key not in STAGES + MHIM_STAGES and not getattr(e, "is_user_annotation", False)]
     per_step, seen, want = per_call_us(kernels, steps)
     device_us = sum(per_step.values())
-    print(f"{torch.cuda.get_device_name(0)}; {args.model}-{args.baseline} train step, batch {b} x {n}, "
+    name = args.model if zoo else f"{args.model}-{args.baseline}"
+    print(f"{torch.cuda.get_device_name(0)}; {name} train step, batch {b} x {n}, "
           f"{cfg.compute_dtype} policy: {wall_ms:.2f} ms per step (host clock, under the profiler), "
           f"device busy {device_us / 1e3:.2f} ms per step = {100 * device_us / 1e3 / wall_ms:.1f}% of the "
           f"wall time; peak memory {peak_gib:.2f} GiB ({base / 2 ** 30:.2f} GiB held between steps)")
@@ -83,12 +95,12 @@ def main(argv=None):
         print(f"the profiler returned {seen} of {want} kernel records; device time from each kernel's mean "
               f"record times its launches a step")
     print(f"{'stage':20s} {'device ms/step':>15s} {'host ms/step':>13s}")
-    for name in STAGES:
-        dev = sum(e.device_time_total for e in events if e.key == name
+    for stage in STAGES if zoo else MHIM_STAGES:
+        dev = sum(e.device_time_total for e in events if e.key == stage
                   and e.device_type == torch.autograd.DeviceType.CUDA) / steps / 1e3
-        host = sum(e.cpu_time_total for e in events if e.key == name
+        host = sum(e.cpu_time_total for e in events if e.key == stage
                    and e.device_type == torch.autograd.DeviceType.CPU) / steps / 1e3
-        print(f"{name:20s} {dev:15.3f} {host:13.3f}")
+        print(f"{stage:20s} {dev:15.3f} {host:13.3f}")
     kinds = by_kind([(e.key, per_step[e.key] / 1e3, max(1, round(e.count / steps))) for e in kernels])
     print(f"by kind, device ms and launches a step: {kinds}")
     rows = sorted(kernels, key=lambda e: per_step[e.key], reverse=True)[:20]

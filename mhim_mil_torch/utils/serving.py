@@ -5,9 +5,12 @@ A request is one bag ``[N, D]`` or a batch ``[B, N, D]`` with an optional
 ``[B, N]`` validity mask. It is padded at the end, masked, into the smallest
 instance bucket that holds it, as the training pipeline's length bucketing
 does, and scored by the eval step of the model's family: ``forward_test``
-for ``mhim``, the model's forward on ``(feats, mask)`` for any other
-family (``mamba2d`` then lays the bag on a row-major grid, with no
-coordinates), as ``_infer_fn`` in the JAX package does. Note that the bags
+for ``mhim`` and ``mhim_pure``, the model's forward on ``(feats, mask)``
+for ``default``, ``dsmil`` and ``mamba2d`` (``mamba2d`` and a ``sincos``
+model then lay the bag on a row-major grid, with no coordinates), as
+``_infer_fn`` in the JAX package does. For ``dsmil`` the result holds
+``sub_logits`` beside ``logits``, unfused, as ``_infer_fn``'s does: the
+caller fuses them (``0.5·logits + 0.5·sub_logits``). Note that the bags
 of one MHIM request are not independent: the Nystrom pseudo-inverse takes
 its initial scale over the whole batch, so a bag's logits depend on the
 bags it is batched with (as in the JAX package and the reference). No
@@ -54,7 +57,8 @@ class Scorer:
         raise ValueError(f"bag of {n} instances exceeds the largest bucket {self.buckets[-1]}")
 
     def score(self, feats: ArrayLike, mask: Optional[ArrayLike] = None) -> Dict[str, np.ndarray]:
-        """``{"logits": [B, C]}`` (``[C]`` for one ``[N, D]`` bag), fp32 on the host."""
+        """``{"logits": [B, C]}`` (``[C]`` for one ``[N, D]`` bag), and for
+        ``dsmil`` ``"sub_logits"`` of the same shape, fp32 on the host."""
         feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
         squeeze = feats.dim() == 2
         if squeeze:

@@ -1,7 +1,11 @@
 """Flax parameter tree → the port's ``state_dict`` (for MHIM the reverse of
-``import_mhim_selfattn``, ``import_mhim_attn`` and ``import_merge`` in
-``mhim_mil_tpu/utils/torch_import.py``; for ``2dmamba``, which has no
-importer there, :func:`mamba2d_state_from_flax`).
+``import_mhim_selfattn``, ``import_mhim_attn``, ``import_mhim_dsmil`` and
+``import_merge`` in ``mhim_mil_tpu/utils/torch_import.py``; for the zoo
+:func:`abmil_state_from_flax`, :func:`mean_max_state_from_flax`,
+:func:`transmil_state_from_flax` and :func:`dsmil_state_from_flax`, the
+reverses of ``import_abmil``, ``import_transmil`` and ``import_dsmil`` where
+those exist; for ``2dmamba``, which has no importer there,
+:func:`mamba2d_state_from_flax`).
 
 The port keeps the original PyTorch repo's names, so the JAX package's
 importer maps a port ``state_dict`` straight back onto the flax tree:
@@ -30,7 +34,8 @@ def _linear(sd: Dict, prefix: str, p: Mapping):
 
 def _layernorm(sd: Dict, prefix: str, p: Mapping):
     sd[f"{prefix}.weight"] = _t(p["scale"])
-    sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def _conv(sd: Dict, prefix: str, p: Mapping):
@@ -53,13 +58,40 @@ def ppeg_state(sd: Dict, prefix: str, p: Mapping):
         _conv(sd, f"{prefix}{name}", p[name])
 
 
+def pos_state(sd: Dict, prefix: str, p: Optional[Mapping]):
+    """A positional module's flax params into ``sd`` under ``prefix``: PPEG
+    (``proj``, ``proj1``, ``proj2``), PEG (``proj``), or nothing (SINCOS
+    and ``none`` have no parameters)."""
+    if p is None:
+        return
+    if "proj1" in p:
+        ppeg_state(sd, prefix, p)
+    else:
+        _conv(sd, f"{prefix}proj", p["proj"])
+
+
 def sattention_state(sd: Dict, prefix: str, p: Mapping):
     """A ``SAttentionBaseline``'s flax params into ``sd`` under ``prefix``."""
     sd[f"{prefix}cls_token"] = _t(p["cls_token"])
     translayer_state(sd, f"{prefix}layer1.", p["layer1"])
-    ppeg_state(sd, f"{prefix}pos_embedding.", p["pos_embedding"])
+    pos_state(sd, f"{prefix}pos_embedding.", p.get("pos_embedding"))
     translayer_state(sd, f"{prefix}layer2.", p["layer2"])
     _layernorm(sd, f"{prefix}norm", p["norm"])
+
+
+def bclassifier_state(sd: Dict, prefix: str, p: Mapping):
+    """A DSMIL ``BClassifier``'s flax params into ``sd`` under ``prefix``, by
+    the names ``import_dsmil`` reads: ``q0``/``q1`` as ``q.0``/``q.2``, ``v``
+    as ``v.1``, and the dense ``fcc`` kernel ``[C·D, C]`` (input index
+    ``c_in·D + d``) as the ``Conv1d(C, C, kernel_size=D)`` weight ``[C, C, D]``."""
+    _linear(sd, f"{prefix}q.0", p["q0"])
+    _linear(sd, f"{prefix}q.2", p["q1"])
+    _linear(sd, f"{prefix}v.1", p["v"])
+    k = _t(p["fcc"]["kernel"])
+    c = k.shape[1]
+    sd[f"{prefix}fcc.weight"] = k.reshape(c, -1, c).permute(2, 0, 1).contiguous()
+    if "bias" in p["fcc"]:
+        sd[f"{prefix}fcc.bias"] = _t(p["fcc"]["bias"])
 
 
 def dattention_state(sd: Dict, prefix: str, p: Mapping):
@@ -82,8 +114,8 @@ def merge_state(sd: Dict, prefix: str, p: Mapping, buffers: Optional[Mapping] = 
 
 
 def state_dict_from_flax(params: Mapping, buffers: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
-    """The ``state_dict`` of the port's MHIM (``selfattn`` or ``attn``
-    baseline, told apart by the encoder's params) from the JAX package's
+    """The ``state_dict`` of the port's MHIM (``selfattn`` with any ``pos``,
+    ``attn`` or ``dsmil`` baseline, told apart by the encoder's params) from the JAX package's
     ``params`` and, when they hold a ``merge`` subtree, its ``buffers``
     collection (``model_state["buffers"]``, which carries ``global_q``).
     Without ``buffers`` the result has the merge parameters but no
@@ -97,11 +129,83 @@ def state_dict_from_flax(params: Mapping, buffers: Optional[Mapping] = None) -> 
     enc = params["online_encoder"]
     if "attention" in enc:
         dattention_state(sd, "online_encoder.", enc)
+    elif "b_classifier" in enc:  # dsmil: no predictor (import_mhim_dsmil)
+        _linear(sd, "online_encoder.i_classifier.0", enc["i_classifier"])
+        bclassifier_state(sd, "online_encoder.b_classifier.", enc["b_classifier"])
     else:
         sattention_state(sd, "online_encoder.", enc)
-    _linear(sd, "predictor", params["predictor"])
+    if "predictor" in params:
+        _linear(sd, "predictor", params["predictor"])
     if "merge" in params:
         merge_state(sd, "merge.", params["merge"], None if buffers is None else buffers["merge"])
+    return sd
+
+
+def abmil_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``ABMIL`` (``abmil`` or ``gabmil``)
+    from the JAX ``ABMIL``'s params: ``FeatureEmbed_0/proj`` as
+    ``feature.0``; the tanh pool's ``attn_a``/``attn_c`` as
+    ``attention.0``/``.2``, or the gated pool's ``attn_a``/``attn_b``/
+    ``attn_c`` as ``attention_a.0``/``attention_b.0``/``attention_c``;
+    ``LayerNorm_0``/``LayerNorm_1`` (``mil_norm="ln"``) as ``norm``/``norm1``;
+    ``classifier``."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "LayerNorm_0" in params:
+        _layernorm(sd, "norm", params["LayerNorm_0"])
+        _layernorm(sd, "norm1", params["LayerNorm_1"])
+    _linear(sd, "feature.0", params["FeatureEmbed_0"]["proj"])
+    if "GatedAttentionPool_0" in params:
+        pool = params["GatedAttentionPool_0"]
+        _linear(sd, "attention_a.0", pool["attn_a"])
+        _linear(sd, "attention_b.0", pool["attn_b"])
+        _linear(sd, "attention_c", pool["attn_c"])
+    else:
+        pool = params["TanhAttentionPool_0"]
+        _linear(sd, "attention.0", pool["attn_a"])
+        _linear(sd, "attention.2", pool["attn_c"])
+    _linear(sd, "classifier", params["classifier"])
+    return sd
+
+
+def mean_max_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``MeanMIL`` or ``MaxMIL``:
+    ``FeatureEmbed_0/proj`` as ``feature.0``, and ``classifier``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "feature.0", params["FeatureEmbed_0"]["proj"])
+    _linear(sd, "classifier", params["classifier"])
+    return sd
+
+
+def transmil_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``TransMIL`` (the reverse of
+    ``import_transmil``): ``LayerNorm_0`` (``mil_norm="ln"``) as
+    ``in_norm``, ``FeatureEmbed_0/proj`` as ``feature.0``, ``cls_token``,
+    ``layer1``/``layer2``, ``pos_layer`` (PPEG or PEG), ``norm`` and
+    ``classifier``."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "LayerNorm_0" in params:
+        _layernorm(sd, "in_norm", params["LayerNorm_0"])
+    _linear(sd, "feature.0", params["FeatureEmbed_0"]["proj"])
+    sd["cls_token"] = _t(params["cls_token"])
+    translayer_state(sd, "layer1.", params["layer1"])
+    pos_state(sd, "pos_layer.", params.get("pos_layer"))
+    translayer_state(sd, "layer2.", params["layer2"])
+    _layernorm(sd, "norm", params["norm"])
+    _linear(sd, "classifier", params["classifier"])
+    return sd
+
+
+def dsmil_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``DSMIL`` (the reverse of
+    ``import_dsmil``): ``LayerNorm_0`` (``mil_norm="ln"``) as ``in_norm``,
+    ``feature`` as ``feature.0``, ``i_classifier`` and ``b_classifier``
+    (:func:`bclassifier_state`)."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "LayerNorm_0" in params:
+        _layernorm(sd, "in_norm", params["LayerNorm_0"])
+    _linear(sd, "feature.0", params["feature"])
+    _linear(sd, "i_classifier", params["i_classifier"])
+    bclassifier_state(sd, "b_classifier.", params["b_classifier"])
     return sd
 
 

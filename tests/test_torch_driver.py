@@ -34,6 +34,7 @@ from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_st
 from mhim_mil_torch.models import build_model
 from mhim_mil_torch.utils.checkpoint import save_checkpoint
 from mhim_mil_torch.utils.early_stopping import EarlyStopping
+from mhim_mil_torch.utils import weights
 from mhim_mil_torch.utils.weights import mamba2d_state_from_flax, state_dict_from_flax
 from mhim_mil_tpu.config import load_config as j_load_config
 from mhim_mil_tpu.data import bucketing as j_bucketing, splits as j_splits, synthetic as j_synthetic
@@ -50,6 +51,16 @@ C16, SURV = "config/mhim_c16.yaml", "config/feat_surv.yaml"
 TINY = dict(datasets="synth", input_dim=16, inner_dim=32, n_heads=2, synth_n_slides=12, synth_bag_size=64,
             bucket_sizes=(64,), batch_size=4, cv_fold=1, num_epoch=2, max_epoch=2, lr=1e-3, lr_sche="const",
             num_bootstrap=5, output_path="", compute_dtype="float32")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for torch: beside the other test workers its
+    thread pool spins against theirs, and a tiny run takes 10–100× longer."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg(preset=C16, **kw):
@@ -257,6 +268,92 @@ def test_no_train_run_on_jax_weights_matches_jax(monkeypatch):
     assert got["summary"].keys() == want["summary"].keys()
 
 
+ZOO_TO_PORT = {"abmil": weights.abmil_state_from_flax, "gabmil": weights.abmil_state_from_flax,
+               "meanmil": weights.mean_max_state_from_flax, "maxmil": weights.mean_max_state_from_flax,
+               "transmil": weights.transmil_state_from_flax, "dsmil": weights.dsmil_state_from_flax}
+
+
+@pytest.mark.parametrize("model", sorted(ZOO_TO_PORT))
+def test_zoo_no_train_run_on_jax_weights_matches_jax(monkeypatch, model, one_torch_thread):
+    """Two folds of each zoo model under ``script_mode="no_train"`` with the
+    model EMA on: JAX's run, recording the initial state of each fold; then
+    the port's with those weights in the student and the EMA teacher
+    (through the model's ``*_state_from_flax``). The ``test`` and
+    ``test_ema`` rows (bootstrap included) and each epoch's validation row
+    match at rtol 1e-4. For dsmil the rows score the host fusion
+    ``0.5·logits + 0.5·sub_logits``, once, as JAX's do."""
+    kw = dict(TINY, model=model, cv_fold=2, num_epoch=1, max_epoch=1, script_mode="no_train", model_ema=True)
+    built = {}
+    j_build = j_driver._build_fold
+
+    def recording(cfg, train_slides, fold_seed, fold=0):
+        out = j_build(cfg, train_slides, fold_seed, fold)
+        built[fold] = out[2]
+        return out
+
+    monkeypatch.setattr(j_driver, "_build_fold", recording)
+    want = j_driver.run_experiment(j_load_config(["-c", C16], **kw))
+    build, to_port = driver._build_fold, ZOO_TO_PORT[model]
+
+    def jax_weights(cfg, train_slides, fold_seed, fold=0, device=None):
+        out = build(cfg, train_slides, fold_seed, fold, device)
+        js = built[fold]
+        out[2].model.load_state_dict(to_port(jax.tree.map(np.asarray, js.params)))
+        out[2].teacher.load_state_dict(to_port(jax.tree.map(np.asarray, js.teacher_params)))
+        return out
+
+    fused = []
+    real_eval = driver._eval_step
+
+    def counting(cfg, model_, family):
+        step = real_eval(cfg, model_, family)
+
+        def wrapped(batch):
+            out = step(batch)
+            fused.append("sub_logits" in out)
+            return out
+        return wrapped
+
+    monkeypatch.setattr(driver, "_build_fold", jax_weights)
+    monkeypatch.setattr(driver, "_eval_step", counting)
+    got = driver.run_experiment(_cfg(**kw), device="cpu")
+    assert len(got["folds"]) == len(want["folds"]) == 2
+    for g, w in zip(got["folds"], want["folds"]):
+        for row in ("test", "test_ema"):
+            _assert_rows(g[row], w[row], rtol=1e-4)
+        for hg, hw in zip(g["history"], w["history"]):
+            _assert_rows(hg["val"], hw["val"], rtol=1e-4)
+    assert fused and all(fused) == (model == "dsmil")
+
+
+def test_dsmil_evaluation_fuses_the_two_heads_once(one_torch_thread):
+    """``evaluate`` scores ``0.5·logits + 0.5·sub_logits``: the logits it
+    keeps are that fusion of the eval step's two outputs, not the bag head's
+    alone nor a second fusion."""
+    cfg = _cfg(model="dsmil")
+    model, family = build_model(cfg, device="cpu")
+    slides = synthetic.make_synthetic_dataset(n_slides=6, bag_size=64, feat_dim=16, seed=1)
+    staged = driver.device_eval_batches(cfg, slides, "cpu")
+    outs = [driver._eval_step(cfg, model, family)(jb) for jb, _ in staged]
+    want = np.concatenate([0.5 * o["logits"].numpy() + 0.5 * o["sub_logits"].numpy() for o in outs])
+    keep = np.concatenate([b["bag_valid"] for _, b in staged])
+    row = driver.evaluate(cfg, model, family, staged, 0, False)
+    np.testing.assert_array_equal(row["_logits"], want[keep])
+
+
+def test_quickstart_command_runs_on_the_cpu(one_torch_thread):
+    """The README's first command through the port, on the CPU:
+    ``python3 -m mhim_mil_torch.main --datasets synth --model abmil --device
+    cpu --cv_fold 2``, with the epochs and the bootstrap cut so that the
+    test stays short."""
+    from mhim_mil_torch.main import main
+
+    res = main(["--datasets", "synth", "--model", "abmil", "--device", "cpu", "--cv_fold", "2",
+                "--num_epoch", "2", "--num_bootstrap", "10", "--output_path", ""])
+    assert len(res["folds"]) == 2 and res["kernel_gate"]["outcome"] == "skipped"
+    assert math.isfinite(res["summary"]["auc"]["mean"])
+
+
 # ---- the port's driver -------------------------------------------------------------
 
 
@@ -266,17 +363,29 @@ def test_no_train_run_on_jax_weights_matches_jax(monkeypatch):
     (C16, dict(model="mhim_pure")),
     (SURV, dict(model="2dmamba", datasets="surv_synth", mambamil_dim=16, mambamil_state_dim=4,
                 mamba_2d_max_hw=10, model_ema=True)),
-], ids=["selfattn", "attn", "mhim_pure", "2dmamba-survival"])
-def test_tiny_runs_are_finite(preset, kw):
-    """Each ported family trains, validates and tests under the bf16 policy;
-    the MHIM teacher and the generic EMA give their own test rows."""
+    (C16, dict(model="abmil", model_ema=True, cv_fold=2)),
+    (C16, dict(model="gabmil", model_ema=True, cv_fold=2)),
+    (C16, dict(model="meanmil", model_ema=True, cv_fold=2)),
+    (C16, dict(model="maxmil", model_ema=True, cv_fold=2)),
+    (C16, dict(model="transmil", pos="sincos", model_ema=True, cv_fold=2)),
+    (C16, dict(model="dsmil", model_ema=True, cv_fold=2)),
+    (C16, dict(baseline="dsmil", cv_fold=2)),
+], ids=["selfattn", "attn", "mhim_pure", "2dmamba-survival", "abmil", "gabmil", "meanmil", "maxmil",
+        "transmil-sincos", "dsmil", "mhim-dsmil"])
+def test_tiny_runs_are_finite(preset, kw, one_torch_thread):
+    """Each ported family trains, validates and tests under the bf16 policy
+    (the zoo on two folds); the MHIM teacher and the generic EMA give their
+    own test rows, finite in every fold."""
     res = driver.run_experiment(_cfg(preset, **{**kw, "compute_dtype": "bfloat16"}), device="cpu")
     key = "cindex" if kw.get("model") == "2dmamba" else "auc"
     assert res["kernel_gate"]["outcome"] == "skipped"
+    assert len(res["folds"]) == kw.get("cv_fold", 1)
     for summary in ("summary", "summary_ema"):
         assert math.isfinite(res[summary][key]["mean"])
-    fold = res["folds"][0]
-    assert fold["timing"]["train_steps"] == 2 * 2 and all(math.isfinite(h["train_loss"]) for h in fold["history"])
+    for fold in res["folds"]:
+        assert all(math.isfinite(fold[row][key]) for row in ("test", "test_ema"))
+        assert all(math.isfinite(h["train_loss"]) for h in fold["history"])
+    assert res["folds"][0]["timing"]["train_steps"] == 2 * 2
 
 
 def _student_calls(monkeypatch):

@@ -212,7 +212,12 @@ def test_forward_teacher_matches_jax(mhim_pair):
 
 
 def test_unported_configurations_raise():
+    """The models of the JAX registry that are not ported yet raise, and the
+    message names them; unknown names raise too."""
     cfg = load_config([], **CFG)
-    for kw in ({"baseline": "dsmil"}, {"model": "abmil"}, {"pos": "sincos"}):
-        with pytest.raises(NotImplementedError):
+    for model in ("clam_sb", "clam_mb", "dtfd", "ibmil", "rrtmil", "mambamil"):
+        with pytest.raises(NotImplementedError, match=model):
+            build_model(cfg.replace(model=model), device="cpu")
+    for kw in ({"model": "nomil"}, {"baseline": "nobaseline"}, {"pos": "nopos"}):
+        with pytest.raises(ValueError):
             build_model(cfg.replace(**kw), device="cpu")

@@ -165,6 +165,9 @@ def test_port_imports_no_jax():
         "        'mhim_mil_torch.utils.checkpoint', 'mhim_mil_torch.utils.early_stopping',\n"
         "        'mhim_mil_torch.utils.logging', 'mhim_mil_torch.data.synthetic', 'mhim_mil_torch.data.splits',\n"
         "        'mhim_mil_torch.data.bucketing', 'mhim_mil_torch.data.readers'} <= set(mods)\n"
+        "assert {'mhim_mil_torch.models.abmil', 'mhim_mil_torch.models.mean_max', 'mhim_mil_torch.models.dsmil',\n"
+        "        'mhim_mil_torch.models.positional', 'mhim_mil_torch.models.transformer',\n"
+        "        'mhim_mil_torch.utils.weights'} <= set(mods)\n"
         "print(len(mods))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
