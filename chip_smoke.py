@@ -9,7 +9,8 @@ step, and the MHIM-attn serving path; then the 2D-Mamba survival model of
 the README (``config/feat_surv.yaml``, ``--model 2dmamba``, ``surv_blca``:
 input 1024, width 128, one layer, 16 states, the 275 × 381 BLCA grid) on
 its eval step and its scorer; then the zoo (abmil, gabmil, transmil, dsmil
-and MHIM-dsmil). Phases, each of which fails the run:
+and MHIM-dsmil) and zoo II (clam_sb, clam_mb, dtfd, ibmil, rrtmil).
+Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
 2. build: ``nvcc`` builds every kernel from ``mhim_mil_torch/csrc``, all at once;
@@ -61,18 +62,26 @@ and MHIM-dsmil). Phases, each of which fails the run:
    directory (each fold's teacher its stage-1 best, bit for bit), its
    student and EMA bests final-tested; the ``script_mode test`` reload of
    those bests; then one fold of the 2dmamba survival model, training on
-   the plain scan and evaluating through K5;
+   the plain scan and evaluating through K5; then one fold of clam_sb
+   (``config/feat_cls.yaml``, two epochs), its instance loss nonzero;
 9. zoo: ``config/feat_cls.yaml`` (act gelu) at input 1024, inner 512, 8
    heads of 64, 256 landmarks, on the ragged 4 × 10,240 batch: abmil and
    gabmil, the eval step through K4 against the plain pool in fp32, then
    the scorer under bf16, and abmil's bf16 train steps; transmil, the eval
    step (K1 + K2) against the plain path in fp32, one fp32 train step on
    K3 forward and backward against the plain path, then bf16 steps with
-   the device's busy time; dsmil and MHIM-dsmil, bf16 eval against fp32.
+   the device's busy time; dsmil and MHIM-dsmil, bf16 eval against fp32;
+10. zoo II, at the same width on the same batch, none of which runs a
+   kernel: clam_sb, clam_mb, dtfd, ibmil (a bank of 8 prototypes drawn by
+   the port's kmeans from its own bag features) and rrtmil (1 R-MSA + 1
+   CR-MSA, 8 heads, region_num 8, epeg_k 15, crmsa_k 3): the fp32 eval
+   step on the card against the CPU, CLAM's instance loss on the card
+   against the CPU (dropout off) and its top-k on planted ties, bf16 eval
+   against fp32, bf16 train steps with the device's busy time.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-9 each reset the launch counts before their main-path
+columns). Phases 4-10 each reset the launch counts before their main-path
 runs and read them after; the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
@@ -1474,12 +1483,158 @@ def phase_zoo(gen) -> dict:
     return {"launches": counted, "serving": rows, "zoo": readings}
 
 
+# CLAM's instance loss and DTFD's pseudo-bag loss are its aux loss, which
+# feat_cls.yaml weights 0 (aux_alpha's default): 0.5, as mhim_c16.yaml
+# weights MHIM's, so that the steps train their instance and tier-1 heads.
+ZOO_II = (("clam_sb", dict(aux_alpha=0.5)), ("clam_mb", dict(aux_alpha=0.5)), ("dtfd", dict(aux_alpha=0.5)),
+          ("ibmil", {}),
+          ("rrtmil", dict(rrt_n_layers=2, rrt_n_heads=8, region_num=8, epeg_k=15, crmsa_k=3)))
+
+
+class NoDropout:
+    """Dropout off in the port's models while the ``with`` block runs, so that
+    a training forward on the card and on the CPU draw nothing."""
+
+    def __enter__(self):
+        from mhim_mil_torch.models import layers
+
+        self.layers, self.real = layers, layers.Dropout.forward
+        layers.Dropout.forward = lambda self_, x, *a, **k: x
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.Dropout.forward = self.real
+
+
+def ibmil_bank(gen, path: str, seed: int) -> None:
+    """IBMIL's bank of 8 prototypes: the port's ``kmeans`` over the fp32 bag
+    features that the model without a bank (weights from ``seed``, the
+    embed and pool the banked model draws first) gives 32 random bags of
+    1,024 instances; saved to ``path``."""
+    import numpy as np
+
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.models import build_model
+    from mhim_mil_torch.utils.confounders import build_confounders
+
+    cfg = load_config(["-c", ZOO], input_dim=1024, model="ibmil")
+    model, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+    feats = torch.randn(32, 1024, cfg.input_dim, device="cuda", generator=gen)
+    with torch.no_grad():
+        bags = model(feats, torch.ones(feats.shape[:2], dtype=torch.bool, device="cuda"))["bag_feat"]
+    protos = build_confounders(bags.cpu().numpy(), 8, path, seed=seed)
+    log(f"ibmil bank: kmeans of {tuple(bags.shape)} bag features into {protos.shape}, finite "
+        f"{bool(np.isfinite(protos).all())}")
+
+
+def planted_topk(gen):
+    """CLAM's top-k on the card against the CPU, index for index, on scores
+    with planted ties (rounded to 0.1) and NEG_INF padding, ``[4, 2, 10240]``
+    with 10,240, 10,240, 8,000 and 5 valid instances: the last bag's top-8
+    reach into its padding, which ties among itself."""
+    from mhim_mil_torch.models.clam import top_k_indices
+    from mhim_mil_torch.ops.masked import NEG_INF
+
+    lengths = torch.tensor([10240, 10240, 8000, 5], device="cuda")
+    mask = torch.arange(10240, device="cuda")[None] < lengths[:, None]
+    s = torch.round(torch.randn(4, 2, 10240, device="cuda", generator=gen) * 10) / 10
+    for sign in (1.0, -1.0):
+        scores = torch.where(mask[:, None], sign * s, NEG_INF)
+        got, want = top_k_indices(scores, 8).cpu(), top_k_indices(scores.cpu(), 8)
+        if not torch.equal(got, want) or got[3, 0, 5:].tolist() != [5, 6, 7]:
+            fail(f"clam top-k on the card {got[3].tolist()} != the CPU's {want[3].tolist()}")
+    log("clam top-k with planted ties: the card's indices equal the CPU's (ties in index order)")
+
+
+def phase_zoo2(gen) -> dict:
+    """Phase 10, zoo II, at full width (``config/feat_cls.yaml``, act gelu,
+    Adam 2e-4, input 1024, inner 512) on the ragged 4 × 10,240 batch:
+    clam_sb, clam_mb, dtfd, ibmil (with a bank of 8 prototypes that the
+    port's kmeans draws from its own bag features) and rrtmil (1 R-MSA + 1
+    CR-MSA, 8 heads, region_num 8, epeg_k 15, crmsa_k 3: 64 regions of 169
+    tokens); CLAM and DTFD weight their aux loss 0.5. For each: the fp32
+    eval step on the card against the same
+    model on the CPU (1e-4·max(1, max|ref|)); for CLAM the training
+    forward's ``aux_loss``, dropout off, card against CPU (1e-4 relative);
+    bf16 eval against fp32 (0.1) and its host ms; 2 + TRAIN_STEPS bf16
+    train steps (finite, every parameter moved), host ms, the device's busy
+    ms (profiler) and peak memory; none of K1-K6 launched."""
+    import copy
+
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.engine.steps import make_eval_step
+    from mhim_mil_torch.engine.train_state import create_train_state
+
+    planted_topk(gen)
+    batch = train_batch(gen, load_config(["-c", ZOO], input_dim=1024))
+    batch["target"] = torch.tensor([0, 1, 0, 1], device="cuda")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    counted, readings, spe = [], {}, 8
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ibmil_") as tmp:
+        bank = os.path.join(tmp, "bank.npy")
+        ibmil_bank(gen, bank, 20)
+        for seed, (name, kw) in enumerate(ZOO_II, start=20):
+            extra = {"confounder_path": bank} if name == "ibmil" else {}
+            cfg, family, model, _ = preset_models(ZOO, seed, model=name, **kw, **extra)
+            model_c = copy.deepcopy(model).cpu()
+            cfg32 = cfg.replace(compute_dtype="float32")
+            reset_launches()
+            out = make_eval_step(cfg32, model, family)(batch)
+            torch.cuda.synchronize()
+            counted.append(expect_launches(f"{name} eval step"))
+            ref = make_eval_step(cfg32, model_c, family)(cpu_batch)
+            compare_models(f"{name} card vs CPU", [("logits", out["logits"].cpu(), ref["logits"])], 1e-4)
+            if family == "clam":
+                with NoDropout(), torch.no_grad():
+                    aux = model(batch["feats"], batch["mask"], batch["target"], training=True)["aux_loss"]
+                    aux_c = model_c(cpu_batch["feats"], cpu_batch["mask"], cpu_batch["target"],
+                                    training=True)["aux_loss"]
+                d = abs(float(aux) - float(aux_c))
+                log(f"{name} fp32 aux_loss (instance loss, dropout off): card {float(aux):.7f}, CPU "
+                    f"{float(aux_c):.7f}, |d| {d:.3e} (tolerance 1e-4 * |CPU|)")
+                if not math.isfinite(float(aux)) or d > 1e-4 * abs(float(aux_c)):
+                    fail(f"{name}: the card's instance loss disagrees with the CPU's")
+            del model_c
+            step16 = make_eval_step(cfg, model, family)
+            reset_launches()
+            logits16 = step16(batch)["logits"]
+            torch.cuda.synchronize()
+            counted.append(expect_launches(f"{name} bf16 eval step"))
+            err = (logits16 - out["logits"]).abs().max().item()
+            log(f"{name} eval bf16 vs fp32 logits {tuple(logits16.shape)}: max|d| {err:.3e} (tolerance 0.1)")
+            if not torch.isfinite(logits16).all() or err > 0.1:
+                fail(f"{name}: bf16 eval logits drift from the fp32 logits")
+            times = []
+            for _ in range(SERVING_REPEATS):
+                t0 = time.perf_counter()
+                step16(batch)["logits"].cpu()
+                times.append((time.perf_counter() - t0) * 1e3)
+            eval_ms = statistics.median(times)
+            state = create_train_state(cfg, model, spe, seed=0, device="cuda")
+            r = bf16_steps(name, cfg, state, batch, spe, family=family)
+            counted.append(r["counted"])
+            busy = device_ms(lambda: r["step"](state, batch), iters=5)
+            log(f"{name} bf16: eval {eval_ms:.2f} ms a call (median of {SERVING_REPEATS}, host clock, features on "
+                f"the card); train step device busy {'not measured' if busy is None else f'{busy:.2f} ms'} "
+                f"(profiler, 5 steps) of {r['ms']:.2f} ms")
+            readings[name] = {"ms_per_step": r["ms"], "peak_gib": r["peak_gib"], "device_busy_ms": busy,
+                              "eval_ms": eval_ms}
+            del state, model, r
+            torch.cuda.empty_cache()
+    log(f"zoo II readings: {json.dumps(readings)}")
+    return {"launches": counted, "zoo2": readings}
+
+
 DRIVER_ARGS = ["-c", "config/mhim_c16.yaml", "--datasets", "synth", "--input_dim", "1024", "--synth_bag_size",
                "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24", "--cv_fold", "2",
                "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50"]
 ABMIL_ARGS = ["-c", "config/feat_cls.yaml", "--model", "abmil", "--datasets", "synth", "--input_dim", "1024",
               "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24",
               "--cv_fold", "1", "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50"]
+CLAM_ARGS = ["-c", "config/feat_cls.yaml", "--model", "clam_sb", "--datasets", "synth", "--input_dim", "1024",
+             "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24",
+             "--cv_fold", "1", "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50",
+             "--aux_alpha", "0.5", "--use_flash_attn", "true"]
 MAMBA_ARGS = ["-c", "config/feat_surv.yaml", "--model", "2dmamba", "--datasets", "surv_synth", "--input_dim", "1024",
               "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--cv_fold", "1",
               "--num_epoch", "1", "--use_flash_attn", "true"]
@@ -1543,8 +1698,9 @@ def phase_driver() -> dict:
     evaluations; then the two-stage workflow: the teacher stage (``--model
     mhim_pure``), then the flagship with ``--teacher_init`` from its output
     directory, each fold's teacher its stage-1 best, bit for bit; then the
-    reload of the flagship's bests; then 2dmamba survival. Those name the
-    kernels explicitly (one gate per script)."""
+    reload of the flagship's bests; then 2dmamba survival; then one fold of
+    clam_sb (no kernel; a finite test row and a nonzero instance loss in
+    each epoch). Those name the kernels explicitly (one gate per script)."""
     from mhim_mil_torch.utils.checkpoint import load_checkpoint
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
@@ -1618,28 +1774,41 @@ def phase_driver() -> dict:
         if seen3["K5"] < 1:
             fail("driver [2dmamba]: K5 was not launched")
         log(f"driver [2dmamba] launches {seen3}; {secs3:.2f} s; c-index {res3['summary']['cindex']['mean']:.4f}")
-        probes = {"K6": sum(r["kernel_gate"]["probe_launches"] for r in (res0, res1, res, res2, res3))}
-    return {"launches": [seen0, seen1, seen, seen2, seen3, probes], "seconds": secs0 + secs1 + secs + secs2 + secs3}
+
+        res4, seen4, secs4 = drive("clam_sb", CLAM_ARGS + ["--output_path", os.path.join(tmp, "clam")])
+        log_folds("clam_sb", res4)
+        finite_rows("clam_sb", res4, ("test",), "auc")
+        aux = [h.get("aux_loss", 0.0) for h in res4["folds"][0]["history"]]
+        log(f"driver [clam_sb] launches {seen4}; {secs4:.2f} s; instance loss (aux_loss) by epoch "
+            f"{', '.join(f'{a:.4f}' for a in aux)}")
+        if not all(math.isfinite(a) and a > 0 for a in aux):
+            fail("driver [clam_sb]: the instance loss is not finite and nonzero in every epoch")
+        if any(seen4.values()):
+            fail(f"driver [clam_sb]: launched {seen4}, want no kernel")
+        runs = (res0, res1, res, res2, res3, res4)
+        probes = {"K6": sum(r["kernel_gate"]["probe_launches"] for r in runs)}
+    return {"launches": [seen0, seen1, seen, seen2, seen3, seen4, probes],
+            "seconds": secs0 + secs1 + secs + secs2 + secs3 + secs4}
 
 
 def main():
     phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
     report = phase_nystrom_kernels(gen)
-    report.update(phase_k4(gen))
-    report.update(phase_k3(gen))
-    report.update(phase_k3p(gen))
-    report.update(phase_k2b(gen))
-    report.update(phase_k1b(gen))
-    report.update(phase_k5(gen))
-    report.update(phase_k6(gen))
+    for phase in (phase_k4, phase_k3, phase_k3p, phase_k2b, phase_k1b, phase_k5, phase_k6):
+        report.update(phase(gen))
+    log(f"phase 3 (the kernels against their plain versions): {time.perf_counter() - t0:.1f} s")
     counted = {kid: 0 for kid in KERNELS}
-    for phase in (phase_serving, phase_train, phase_teacher, phase_attn, phase_mamba, phase_zoo,
-                  lambda g: phase_driver()):
+    for label, phase in (("4 serving", phase_serving), ("5 train", phase_train), ("5b teacher", phase_teacher),
+                         ("6 attn", phase_attn), ("7 2dmamba", phase_mamba), ("9 zoo", phase_zoo),
+                         ("10 zoo II", phase_zoo2), ("8 driver", lambda g: phase_driver())):
+        t0 = time.perf_counter()
         for seen in phase(gen)["launches"]:
             for kid, n in seen.items():
                 counted[kid] += n
+        log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
     log(f"launches on the main paths: {counted}")
     for label in ("long", "long_ragged"):  # each kernel's share of K3 at the teacher stage's length
         for kid, t in report["K3"][label]["by_kernel"].items():

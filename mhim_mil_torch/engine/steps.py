@@ -15,7 +15,7 @@ from torch.profiler import record_function
 
 from ..utils.platform import resolve_device
 from ..utils.schedules import cosine_schedule
-from .losses import build_criterion
+from .losses import build_criterion, cross_entropy
 from .train_state import TrainState
 
 Tensor = torch.Tensor
@@ -177,7 +177,7 @@ def make_mhim_train_step(
     return train_step
 
 
-TRAIN_FAMILIES = ("default", "dsmil", "mamba2d")
+TRAIN_FAMILIES = ("default", "clam", "dsmil", "mamba2d")
 
 
 def _forward_inputs(model: nn.Module, family: str, batch: Dict[str, Tensor]):
@@ -194,18 +194,34 @@ def _forward_inputs(model: nn.Module, family: str, batch: Dict[str, Tensor]):
     return (), {}
 
 
+def _pseudo_bag_loss(out: Dict[str, Tensor], batch: Dict[str, Tensor]) -> Tensor:
+    """DTFD's tier-1 loss (``steps.py:86-98``): the cross-entropy of each
+    filled pseudo-bag of a real bag against the bag's label."""
+    sp = out["sub_preds"]  # [B,G,C]
+    w = out["sub_preds_mask"]
+    if "bag_valid" in batch:
+        w = w & batch["bag_valid"].bool()[:, None]
+    tgt = batch["target"][:, None].expand(sp.shape[:2])
+    return cross_entropy(sp.reshape(-1, sp.shape[-1]), tgt.reshape(-1), w.reshape(-1))
+
+
 def make_train_step(
     cfg, family: str, steps_per_epoch: int, device: Optional[Union[str, torch.device]] = None,
 ) -> Callable[[TrainState, Dict[str, Tensor]], Dict[str, Tensor]]:
     """The generic train step (``steps.py:38-137``) for the families
-    ``default`` (abmil, gabmil, meanmil, maxmil, transmil), ``dsmil`` and
-    ``mamba2d``, run on ``device`` (CUDA unless ``"cpu"`` is asked for).
-    ``step(state, batch)`` runs the model's training forward on ``feats``,
-    ``mask`` and the grid coordinates ``pos`` where the model takes them
-    (:func:`_forward_inputs`); pays ``main_alpha``·criterion +
-    ``aux_alpha``·aux, aux being the model's ``aux_loss`` (when it returns
-    one) plus the criterion of DSMIL's max-pooled instance logits
-    ``inst_logits_bag`` (``steps.py:84-87``); takes the optimizer's
+    ``default`` (abmil, gabmil, meanmil, maxmil, transmil, dtfd, ibmil,
+    rrtmil), ``clam``, ``dsmil`` and ``mamba2d``, run on ``device`` (CUDA
+    unless ``"cpu"`` is asked for). ``step(state, batch)`` runs the model's
+    training forward on ``feats``, ``mask``, for ``clam`` the bag label
+    ``target`` (``steps.py:66-67``), and the grid coordinates ``pos`` where
+    the model takes them (:func:`_forward_inputs`); pays
+    ``main_alpha``·criterion + ``aux_alpha``·aux, aux being the model's
+    ``aux_loss`` (when it returns one: CLAM's instance loss) plus the
+    criterion of DSMIL's max-pooled instance logits ``inst_logits_bag``
+    (``steps.py:84-87``) plus, for DTFD, the cross-entropy of its
+    pseudo-bag predictions ``sub_preds [B,G,C]`` against the bag label,
+    weighted by ``sub_preds_mask`` and ``bag_valid`` (``steps.py:88-98``);
+    takes the optimizer's
     micro-step (an update on every ``accumulation_steps``-th); and under
     ``model_ema`` moves ``state.teacher`` by the EMA at
     ``model_ema_decay``. Attention pools train on their plain path (K4 has
@@ -225,6 +241,8 @@ def make_train_step(
         model = state.model
         feats = _cast_batch(dtype, batch)["feats"]
         extra, kw = _forward_inputs(model, family, batch)
+        if family == "clam":
+            extra = (batch["target"],)
         with record_function("train.forward"):
             out = apply_cast(model, cast_compute(cfg, model), "forward", feats, batch["mask"], *extra,
                              training=True, gen=state.gen, **kw)
@@ -232,6 +250,8 @@ def make_train_step(
             aux = out.get("aux_loss", torch.zeros((), device=main.device))
             if "inst_logits_bag" in out:
                 aux = aux + criterion(out["inst_logits_bag"], batch)
+            if "sub_preds" in out:
+                aux = aux + _pseudo_bag_loss(out, batch)
             loss = cfg.main_alpha * main + cfg.aux_alpha * aux
         with record_function("train.backward"):
             state.optimizer.zero_grad()

@@ -1,0 +1,74 @@
+"""IBMIL, ABMIL deconfounded by a prototype bank (port of
+``mhim_mil_tpu/models/ibmil.py``).
+
+Reference: modules/abmil_ibmil.py:43-101. The confounder bank (k-means
+prototypes of bag features, ``utils/confounders.py``) is a fixed fp32
+buffer ``confounder_feat``; the bag feature queries it in a ``joint_dim``
+space, softmax over the prototypes at scale ``1/sqrt(joint_dim)``, and the
+attended prototype summary is concatenated to the bag feature before the
+head. The names are the reference's: ``embedding.embed.0``,
+``attention.{0,2}``, ``W_q``, ``W_k``, ``head``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.masked import masked_softmax
+from .layers import FeatureEmbed, dense
+
+
+def promoted_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin(x)`` in the wider of the two dtypes, as flax's ``Dense`` promotes
+    an fp32 input against bf16 weights under the bf16 policy."""
+    dtype = torch.promote_types(x.dtype, lin.weight.dtype)
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+class IBMIL(nn.Module):
+    """``ibmil`` (``ibmil.py:23-57``): embed, the tanh attention pool of
+    width ``attn_dim``, then, with a bank ``confounders [K, inner_dim]``,
+    the deconfounding summary, and the linear head."""
+
+    def __init__(self, input_dim: int = 1024, n_classes: int = 2, inner_dim: int = 512, attn_dim: int = 128,
+                 dropout: float = 0.25, act: str = "relu", confounders: Optional[np.ndarray] = None,
+                 joint_dim: int = 128):
+        super().__init__()
+        self.joint_dim = joint_dim
+        self.embedding = nn.Module()  # the reference's wrapper of the feature MLP ``embed``
+        self.embedding.embed = FeatureEmbed(input_dim, inner_dim, act, dropout)
+        self.attention = nn.Sequential(dense(inner_dim, attn_dim), nn.Tanh(), dense(attn_dim, 1))
+        head_dim = inner_dim
+        if confounders is not None:
+            bank = torch.as_tensor(np.asarray(confounders, np.float32))
+            self.register_buffer("confounder_feat", bank)
+            self.W_q = dense(inner_dim, joint_dim)
+            self.W_k = dense(bank.shape[-1], joint_dim)
+            head_dim += bank.shape[-1]
+        self.head = dense(head_dim, n_classes)
+
+    def forward(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
+                gen: Optional[torch.Generator] = None, return_attn: bool = False):
+        """``{"logits", "bag_feat"[, "attn" [B,N]]}``."""
+        mask = mask.bool()
+        x = self.embedding.embed(feats, training, gen)
+        attn = masked_softmax(self.attention(x)[..., 0], mask)
+        bag = torch.einsum("bn,bnd->bd", attn, torch.where(mask[..., None], x, 0))
+        if hasattr(self, "confounder_feat"):
+            conf = self.confounder_feat.float()
+            q = self.W_q(bag)  # [B,J]
+            k = promoted_linear(self.W_k, conf)  # [K,J]
+            da = torch.softmax(torch.einsum("kj,bj->bk", k, q.to(k.dtype)) / math.sqrt(float(self.joint_dim)),
+                               dim=-1)
+            bag = torch.cat([bag.to(da.dtype), torch.einsum("bk,kd->bd", da, conf)], dim=-1)
+        out = {"logits": promoted_linear(self.head, bag), "bag_feat": bag}
+        if return_attn:
+            out["attn"] = attn
+        return out

@@ -2,36 +2,64 @@
 
 Ported: ``mhim`` and ``mhim_pure`` with the ``selfattn`` (``pos`` ppeg,
 sincos, peg or none), ``attn`` or ``dsmil`` baseline (families ``mhim``
-and ``mhim_pure``); ``abmil``, ``gabmil``, ``meanmil``, ``maxmil`` and
-``transmil`` (family ``default``); ``dsmil`` (family ``dsmil``); and
-``2dmamba`` (family ``mamba2d``). The other models of the JAX registry
-raise ``NotImplementedError``.
+and ``mhim_pure``); ``abmil``, ``gabmil``, ``meanmil``, ``maxmil``,
+``transmil``, ``dtfd``, ``ibmil`` and ``rrtmil`` (family ``default``);
+``clam_sb`` and ``clam_mb`` (family ``clam``, whose training forward takes
+the bag label); ``dsmil`` (family ``dsmil``); and ``2dmamba`` (family
+``mamba2d``). ``mambamil`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..utils.platform import resolve_device
 from .abmil import ABMIL
+from .clam import CLAM
 from .dsmil import DSMIL
+from .dtfd import DTFD
+from .ibmil import IBMIL
 from .layers import init_weights
 from .mamba import MambaMIL2D
 from .mean_max import MaxMIL, MeanMIL
 from .mhim import MHIM
+from .rrt import RRTMIL
 from .transformer import TransMIL
 
-NOT_PORTED = ("clam_sb", "clam_mb", "dtfd", "ibmil", "rrtmil", "mambamil")
+NOT_PORTED = ("mambamil",)
 
 
 def _mil_norm(cfg):
     return None if cfg.mil_norm in (None, "none") else cfg.mil_norm
 
 
+def load_confounders(cfg) -> Optional[np.ndarray]:
+    """IBMIL's bank from ``--confounder_path`` (``registry.py:282-304``): a
+    file, or a directory, which selects
+    ``train_bag_cls_agnostic_feats_proto_{confounder_k}.npy`` in it, else in
+    its ``0/`` (the reference's ``<dir>/[fold/]`` scheme); a list of them is
+    concatenated. Each file is read as rows of ``inner_dim``. None without
+    a path."""
+    if not cfg.confounder_path:
+        return None
+    paths = cfg.confounder_path if isinstance(cfg.confounder_path, (list, tuple)) else [cfg.confounder_path]
+    proto = f"train_bag_cls_agnostic_feats_proto_{cfg.confounder_k}.npy"
+    resolved = []
+    for p in paths:
+        if os.path.isdir(p):
+            cand = os.path.join(p, proto)
+            resolved.append(cand if os.path.exists(cand) else os.path.join(p, "0", proto))
+        else:
+            resolved.append(p)
+    return np.concatenate([np.load(p).reshape(-1, cfg.inner_dim) for p in resolved], axis=0)
+
+
 def _zoo(cfg, use_flash: bool):
-    """The zoo models of ``registry.py:35-111,164-184,319-335``: ``(model, family)``."""
+    """The zoo models of ``registry.py:35-111,164-184,234-335``: ``(model, family)``."""
     if cfg.model in ("abmil", "gabmil"):
         gated = cfg.model == "gabmil"
         return ABMIL(input_dim=cfg.input_dim, n_classes=cfg.n_classes, inner_dim=cfg.inner_dim,
@@ -47,6 +75,20 @@ def _zoo(cfg, use_flash: bool):
     if cfg.model == "dsmil":
         return DSMIL(input_dim=cfg.input_dim, n_classes=cfg.n_classes, inner_dim=cfg.inner_dim,
                      dropout=cfg.dropout, act=cfg.act, mil_norm=_mil_norm(cfg), mil_bias=cfg.mil_bias), "dsmil"
+    if cfg.model in ("clam_sb", "clam_mb"):
+        return CLAM(input_dim=cfg.input_dim, n_classes=cfg.n_classes, inner_dim=cfg.inner_dim, dropout=cfg.dropout,
+                    act=cfg.act, multi_branch=cfg.model == "clam_mb", mil_norm=_mil_norm(cfg),
+                    mil_bias=cfg.mil_bias), "clam"
+    if cfg.model == "dtfd":
+        return DTFD(input_dim=cfg.input_dim, n_classes=cfg.n_classes, inner_dim=cfg.inner_dim, act=cfg.act), "default"
+    if cfg.model == "ibmil":
+        return IBMIL(input_dim=cfg.input_dim, n_classes=cfg.n_classes, inner_dim=cfg.inner_dim, dropout=cfg.dropout,
+                     act=cfg.act, confounders=load_confounders(cfg)), "default"
+    if cfg.model == "rrtmil":
+        return RRTMIL(input_dim=cfg.input_dim, n_classes=cfg.n_classes, inner_dim=cfg.inner_dim,
+                      dropout=cfg.dropout, act=cfg.act, da_act=cfg.da_act, da_gated=cfg.da_gated,
+                      n_layers=cfg.rrt_n_layers, n_heads=cfg.rrt_n_heads, region_num=cfg.region_num,
+                      epeg_k=cfg.epeg_k, crmsa_k=cfg.crmsa_k, mil_bias=cfg.mil_bias), "default"
     return None, None
 
 

@@ -1,11 +1,12 @@
 """Where a scorer request's time goes on the card.
 
-``python -m mhim_mil_torch.utils.profile_serving [--model mhim|2dmamba|abmil|gabmil|transmil|dsmil] [--batch 4]``
+``python -m mhim_mil_torch.utils.profile_serving [--model mhim|2dmamba|<zoo model>] [--batch 4]``
 
 Builds the model with random weights (seed 0): MHIM-selfattn from
 ``config/mhim_c16.yaml``, the 2D-Mamba survival model from
-``config/feat_surv.yaml`` with the ``surv_blca`` grid, or a zoo model from
-``config/feat_cls.yaml``, all at input_dim 1024. Warms the scorer up, then profiles 5 requests of ``--batch`` bags of
+``config/feat_surv.yaml`` with the ``surv_blca`` grid, or a zoo model
+(abmil, gabmil, transmil, dsmil, clam_sb, clam_mb, dtfd, ibmil without a
+confounder bank, rrtmil) from ``config/feat_cls.yaml``, all at input_dim 1024. Warms the scorer up, then profiles 5 requests of ``--batch`` bags of
 10,240 instances with ``torch.profiler``. Prints the host-clock time per
 request, the device time per request (each kernel's mean record times its
 launches a request, since the profiler now and then drops a record; a
@@ -28,10 +29,11 @@ from ..models import build_model
 from .serving import Scorer
 from .time_scan2d import by_kind, kernel_id, per_call_us
 
+ZOO = ("abmil", "gabmil", "transmil", "dsmil", "clam_sb", "clam_mb", "dtfd", "ibmil", "rrtmil")
 CONFIGS = {
     "mhim": (["-c", "config/mhim_c16.yaml"], {}),
     "2dmamba": (["-c", "config/feat_surv.yaml"], {"model": "2dmamba", "datasets": "surv_blca"}),
-    **{m: (["-c", "config/feat_cls.yaml"], {"model": m}) for m in ("abmil", "gabmil", "transmil", "dsmil")},
+    **{m: (["-c", "config/feat_cls.yaml"], {"model": m}) for m in ZOO},
 }
 
 

@@ -4,7 +4,8 @@
 
 Builds MHIM (``--model mhim``, or ``mhim_pure`` for the teacher stage's
 step) from ``config/mhim_c16.yaml``, or a zoo model (``--model abmil``,
-``gabmil``, ``transmil`` or ``dsmil``, on the generic train step) from
+``gabmil``, ``transmil``, ``dsmil``, ``clam_sb``, ``clam_mb``, ``dtfd``,
+``ibmil`` (no confounder bank) or ``rrtmil``, on the generic train step) from
 ``config/feat_cls.yaml``, at input_dim 1024 with random weights (seed 0),
 takes 3 warm-up steps under the default bf16 policy on a
 batch of 4 bags of 10,240 instances (two of them ragged, 8,000 and 6,000),
@@ -36,7 +37,7 @@ from .time_scan2d import by_kind, kernel_id, per_call_us
 
 MHIM_STAGES = ("mhim.teacher", "mhim.student", "mhim.backward", "mhim.update")
 STAGES = ("train.forward", "train.backward", "train.update")  # make_train_step's ranges
-ZOO = ("abmil", "gabmil", "transmil", "dsmil")
+ZOO = ("abmil", "gabmil", "transmil", "dsmil", "clam_sb", "clam_mb", "dtfd", "ibmil", "rrtmil")
 
 
 def main(argv=None):

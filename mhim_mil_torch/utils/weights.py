@@ -5,7 +5,11 @@
 :func:`transmil_state_from_flax` and :func:`dsmil_state_from_flax`, the
 reverses of ``import_abmil``, ``import_transmil`` and ``import_dsmil`` where
 those exist; for ``2dmamba``, which has no importer there,
-:func:`mamba2d_state_from_flax`).
+:func:`mamba2d_state_from_flax`; for the rest of the classification zoo
+:func:`clam_state_from_flax`, :func:`dtfd_state_from_flax`,
+:func:`ibmil_state_from_flax` and :func:`rrtmil_state_from_flax`, the
+reverses of ``import_clam``, ``import_dtfd``, ``import_ibmil`` and
+``import_rrtmil`` and beyond them where those read no such weights).
 
 The port keeps the original PyTorch repo's names, so the JAX package's
 importer maps a port ``state_dict`` straight back onto the flax tree:
@@ -245,4 +249,118 @@ def mamba2d_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     _linear(sd, "attention.0", params["attn_0"])
     _linear(sd, "attention.2", params["attn_1"])
     _linear(sd, "classifier", params["classifier"])
+    return sd
+
+
+def clam_state_from_flax(params: Mapping, dropout: bool = True) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``CLAM`` (SB or MB, gated or not)
+    from the JAX ``CLAM``'s params: ``fc`` as ``attention_net.0``, the
+    attention net at ``attention_net.3`` (``attention_net.2`` without
+    ``dropout``: the reference's ``Sequential`` then holds no dropout) with
+    the gated net's ``attention_a.0``/``attention_b.0``/``attention_c`` or
+    the ungated's ``module.0`` and its last ``module`` index (3 with
+    ``dropout``, 2 without), ``classifiers`` (SB) or the rows of
+    ``classifiers_w``/``classifiers_b`` as ``classifiers.{c}`` (MB), the
+    bank ``inst_classifiers_w [C,D,2]``/``_b`` as ``instance_classifiers.{c}``,
+    and ``LayerNorm_0`` (``mil_norm="ln"``, which ``import_clam`` does not
+    read) as ``in_norm``."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "LayerNorm_0" in params:
+        _layernorm(sd, "in_norm", params["LayerNorm_0"])
+    _linear(sd, "attention_net.0", params["fc"])
+    net, pre = params["attention_net"], f"attention_net.{3 if dropout else 2}"
+    if "attention_b" in net:
+        _linear(sd, f"{pre}.attention_a.0", net["attention_a"])
+        _linear(sd, f"{pre}.attention_b.0", net["attention_b"])
+        _linear(sd, f"{pre}.attention_c", net["attention_c"])
+    else:
+        _linear(sd, f"{pre}.module.0", net["attention_a"])
+        _linear(sd, f"{pre}.module.{3 if dropout else 2}", net["attention_c"])
+    if "classifiers_w" in params:
+        for c, (w, b) in enumerate(zip(np.asarray(params["classifiers_w"]), np.asarray(params["classifiers_b"]))):
+            sd[f"classifiers.{c}.weight"] = _t(w)[None]
+            sd[f"classifiers.{c}.bias"] = _t(b).reshape(1)
+    else:
+        _linear(sd, "classifiers", params["classifiers"])
+    for c, (w, b) in enumerate(zip(np.asarray(params["inst_classifiers_w"]),
+                                   np.asarray(params["inst_classifiers_b"]))):
+        _linear(sd, f"instance_classifiers.{c}", {"kernel": w, "bias": b})
+    return sd
+
+
+def _gated_attention(sd: Dict, prefix: str, p: Mapping):
+    _linear(sd, f"{prefix}.attention_V.0", p["attention_V"])
+    _linear(sd, f"{prefix}.attention_U.0", p["attention_U"])
+    _linear(sd, f"{prefix}.attention_weights", p["attention_weights"])
+
+
+def dtfd_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``DTFD`` (the reverse of
+    ``import_dtfd``): ``dimReduction.fc1``, ``attention``, ``classifier.fc``,
+    ``UClassifier.attention`` and ``UClassifier.classifier.fc``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "dimReduction.fc1", params["dimReduction"])
+    _gated_attention(sd, "attention", params["attention"])
+    _linear(sd, "classifier.fc", params["classifier"])
+    _gated_attention(sd, "UClassifier.attention", params["u_attention"])
+    _linear(sd, "UClassifier.classifier.fc", params["u_classifier"])
+    return sd
+
+
+def ibmil_state_from_flax(params: Mapping, confounders: Optional[np.ndarray] = None) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``IBMIL`` (the reverse of
+    ``import_ibmil``): ``embedding.embed.0``, ``attention.{0,2}``, ``W_q``
+    and ``W_k`` where the model has a bank, ``head``, and the bank
+    ``confounders`` (a constructor argument of the JAX model, not a
+    parameter) as the buffer ``confounder_feat``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "embedding.embed.0", params["embedding"]["proj"])
+    _linear(sd, "attention.0", params["attn_0"])
+    _linear(sd, "attention.2", params["attn_1"])
+    if "W_q" in params:
+        _linear(sd, "W_q", params["W_q"])
+        _linear(sd, "W_k", params["W_k"])
+    if confounders is not None:
+        sd["confounder_feat"] = _t(confounders)
+    _linear(sd, "head", params["head"])
+    return sd
+
+
+def _rrt_inner_attention(sd: Dict, prefix: str, p: Mapping):
+    _linear(sd, f"{prefix}.qkv", p["qkv"])
+    _linear(sd, f"{prefix}.proj", p["proj"])
+    if "pe" in p:
+        _conv(sd, f"{prefix}.pe", p["pe"])
+
+
+def rrtmil_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``RRTMIL`` (the reverse of
+    ``import_rrtmil``): ``FeatureEmbed_0/proj`` as ``feature.0``, the
+    encoder's ``layer{i}`` as ``online_encoder.layers.{i}`` (``norm``,
+    ``attn.attn.qkv``/``proj``/``pe``, the EPEG kernel ``[k,1,1,H]`` as the
+    depthwise ``Conv2d`` weight ``[H,1,k,1]``), ``cr_msa`` (``norm``,
+    ``attn.phi``, ``attn.attn``), ``norm``, the pool ``pool_fn`` as
+    ``pool_fn.attention.attention.{0,2}``, or, gated (``da_gated``, which
+    ``import_rrtmil`` does not read), as ``pool_fn.attention.attention_a.0``,
+    ``attention_b.0`` and ``attention_c``; and ``predictor``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "feature.0", params["FeatureEmbed_0"]["proj"])
+    enc = params["online_encoder"]
+    layers = sorted((k for k in enc if k.startswith("layer")), key=lambda k: int(k[5:]))
+    for i, name in enumerate(layers):
+        _layernorm(sd, f"online_encoder.layers.{i}.norm", enc[name]["norm"])
+        _rrt_inner_attention(sd, f"online_encoder.layers.{i}.attn.attn", enc[name]["attn"]["attn"])
+    _layernorm(sd, "online_encoder.cr_msa.norm", enc["cr_msa"]["norm"])
+    sd["online_encoder.cr_msa.attn.phi"] = _t(enc["cr_msa"]["attn"]["phi"])
+    _rrt_inner_attention(sd, "online_encoder.cr_msa.attn.attn", enc["cr_msa"]["attn"]["attn"])
+    _layernorm(sd, "online_encoder.norm", enc["norm"])
+    pool = params["pool_fn"]
+    if "attn_b" in pool:
+        _linear(sd, "pool_fn.attention.attention_a.0", pool["attn_a"])
+        _linear(sd, "pool_fn.attention.attention_b.0", pool["attn_b"])
+        _linear(sd, "pool_fn.attention.attention_c", pool["attn_c"])
+    else:
+        _linear(sd, "pool_fn.attention.attention.0", pool["attn_a"])
+        _linear(sd, "pool_fn.attention.attention.2", pool["attn_c"])
+    _linear(sd, "predictor", params["predictor"])
     return sd

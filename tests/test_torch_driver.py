@@ -270,7 +270,10 @@ def test_no_train_run_on_jax_weights_matches_jax(monkeypatch):
 
 ZOO_TO_PORT = {"abmil": weights.abmil_state_from_flax, "gabmil": weights.abmil_state_from_flax,
                "meanmil": weights.mean_max_state_from_flax, "maxmil": weights.mean_max_state_from_flax,
-               "transmil": weights.transmil_state_from_flax, "dsmil": weights.dsmil_state_from_flax}
+               "transmil": weights.transmil_state_from_flax, "dsmil": weights.dsmil_state_from_flax,
+               "clam_sb": weights.clam_state_from_flax, "clam_mb": weights.clam_state_from_flax,
+               "dtfd": weights.dtfd_state_from_flax, "ibmil": weights.ibmil_state_from_flax,
+               "rrtmil": weights.rrtmil_state_from_flax}
 
 
 @pytest.mark.parametrize("model", sorted(ZOO_TO_PORT))
@@ -370,8 +373,13 @@ def test_quickstart_command_runs_on_the_cpu(one_torch_thread):
     (C16, dict(model="transmil", pos="sincos", model_ema=True, cv_fold=2)),
     (C16, dict(model="dsmil", model_ema=True, cv_fold=2)),
     (C16, dict(baseline="dsmil", cv_fold=2)),
+    (C16, dict(model="clam_sb", model_ema=True, cv_fold=2)),
+    (C16, dict(model="clam_mb", model_ema=True, cv_fold=2)),
+    (C16, dict(model="dtfd", model_ema=True, cv_fold=2)),
+    (C16, dict(model="ibmil", model_ema=True, cv_fold=2)),
+    (C16, dict(model="rrtmil", region_num=2, rrt_n_heads=2, model_ema=True, cv_fold=2)),
 ], ids=["selfattn", "attn", "mhim_pure", "2dmamba-survival", "abmil", "gabmil", "meanmil", "maxmil",
-        "transmil-sincos", "dsmil", "mhim-dsmil"])
+        "transmil-sincos", "dsmil", "mhim-dsmil", "clam_sb", "clam_mb", "dtfd", "ibmil", "rrtmil"])
 def test_tiny_runs_are_finite(preset, kw, one_torch_thread):
     """Each ported family trains, validates and tests under the bf16 policy
     (the zoo on two folds); the MHIM teacher and the generic EMA give their
@@ -386,6 +394,31 @@ def test_tiny_runs_are_finite(preset, kw, one_torch_thread):
         assert all(math.isfinite(fold[row][key]) for row in ("test", "test_ema"))
         assert all(math.isfinite(h["train_loss"]) for h in fold["history"])
     assert res["folds"][0]["timing"]["train_steps"] == 2 * 2
+
+
+@pytest.mark.parametrize("model", ["clam_sb", "ibmil-bank"])
+def test_zoo_ii_fold_and_its_reload(tmp_path, model, one_torch_thread):
+    """One fold of one epoch through the command line (clam_sb, and ibmil
+    with a confounder bank, which the checkpoint carries as a buffer):
+    finite test rows and a nonzero instance loss for clam; then the
+    ``--script_mode test`` reload of its best reproduces the test row."""
+    from mhim_mil_torch.main import main
+
+    args = ["-c", C16, "--datasets", "synth", "--input_dim", "16", "--inner_dim", "32", "--synth_n_slides", "12",
+            "--synth_bag_size", "64", "--bucket_sizes", "64", "--batch_size", "4", "--cv_fold", "1",
+            "--num_epoch", "1", "--max_epoch", "1", "--num_bootstrap", "5", "--device", "cpu",
+            "--compute_dtype", "float32", "--model", model.split("-")[0]]
+    if model == "ibmil-bank":
+        np.save(tmp_path / "bank.npy", np.random.default_rng(0).normal(size=(4, 32)).astype(np.float32))
+        args += ["--confounder_path", str(tmp_path / "bank.npy")]
+    out = str(tmp_path / "run")
+    first = main(args + ["--output_path", out])
+    fold = first["folds"][0]
+    assert all(math.isfinite(fold["test"][k]) for k in ("auc", "acc"))
+    if model == "clam_sb":
+        assert fold["history"][0]["aux_loss"] > 0
+    again = main(args + ["--script_mode", "test", "--model_path", out, "--output_path", ""])
+    _assert_rows(again["folds"][0]["test"], fold["test"])
 
 
 def _student_calls(monkeypatch):

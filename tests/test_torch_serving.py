@@ -168,6 +168,8 @@ def test_port_imports_no_jax():
         "assert {'mhim_mil_torch.models.abmil', 'mhim_mil_torch.models.mean_max', 'mhim_mil_torch.models.dsmil',\n"
         "        'mhim_mil_torch.models.positional', 'mhim_mil_torch.models.transformer',\n"
         "        'mhim_mil_torch.utils.weights'} <= set(mods)\n"
+        "assert {'mhim_mil_torch.models.clam', 'mhim_mil_torch.models.dtfd', 'mhim_mil_torch.models.ibmil',\n"
+        "        'mhim_mil_torch.models.rrt', 'mhim_mil_torch.utils.confounders'} <= set(mods)\n"
         "print(len(mods))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
