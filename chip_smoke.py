@@ -9,7 +9,8 @@ step, and the MHIM-attn serving path; then the 2D-Mamba survival model of
 the README (``config/feat_surv.yaml``, ``--model 2dmamba``, ``surv_blca``:
 input 1024, width 128, one layer, 16 states, the 275 × 381 BLCA grid) on
 its eval step and its scorer; then the zoo (abmil, gabmil, transmil, dsmil
-and MHIM-dsmil) and zoo II (clam_sb, clam_mb, dtfd, ibmil, rrtmil).
+and MHIM-dsmil), zoo II (clam_sb, clam_mb, dtfd, ibmil, rrtmil), mambamil,
+the streamed Nystrom path and the attention-heatmap export.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -77,11 +78,23 @@ Phases, each of which fails the run:
    CR-MSA, 8 heads, region_num 8, epeg_k 15, crmsa_k 3): the fp32 eval
    step on the card against the CPU, CLAM's instance loss on the card
    against the CPU (dropout off) and its top-k on planted ties, bf16 eval
-   against fp32, bf16 train steps with the device's busy time.
+   against fp32, bf16 train steps with the device's busy time;
+11. the last modules, none of which adds a kernel: (a) mambamil
+   (``config/feat_cls.yaml`` + ``--model mambamil``: width 128, one layer,
+   16 states, ``sr_rate`` 10) as simple, srmamba and bimamba on the same
+   batch: the fp32 eval step on the card against the CPU, bf16 against
+   fp32, bf16 train steps with busy time and peak memory (bimamba's below
+   14 full scan lattices), no kernel launched; (b) the streamed Nystrom
+   path at B 4, H 8, N 10,241 against the kernel path, with the peak
+   memory of the three paths, and the teacher-stage step on
+   ``use_flash_attn=False`` (streamed) against the materialising path;
+   (c) the attention-heatmap export CLI on a synthetic ``.pt`` store,
+   MHIM selfattn through K1, K2 and K3p and abmil through K4, each grid
+   against the plain path's. Phase 8 adds one bimamba fold.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-10 each reset the launch counts before their main-path
+columns). Phases 4-11 each reset the launch counts before their main-path
 runs and read them after; the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
@@ -162,6 +175,16 @@ def device_ms(fn, iters: int = 10):
     if seen < want:
         log(f"  (the profiler returned {seen} of {want} kernel records; device time from each kernel's mean record)")
     return us / 1e3 if us > 0 else None
+
+
+def peak_gib(fn):
+    """``fn()`` and the peak device memory it reached above what was allocated before, in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
 
 
 def timed(r: dict, kern, plain, lib=None, plain_iters: int = 20):
@@ -1043,6 +1066,23 @@ def compare_models(label: str, pairs, tol: float):
             fail(f"{label} fp32 {name} disagrees")
 
 
+def compare_attention(label: str, pairs, tol: float):
+    """Hold attention weights, whose values are near 1/N and far below 1, at
+    ``tol``·max|ref|, their own scale; and fail unless that limit is below
+    max|ref − mean(ref)|, what a constant attention of the right mean
+    would miss by, so that the check tells the reference from such a one."""
+    for name, got, want in pairs:
+        err = (got - want).abs().max().item()
+        limit = tol * want.abs().max().item()
+        spread = (want - want.mean()).abs().max().item()
+        log(f"{label} fp32 {name} {tuple(got.shape)}: kernel vs plain max|d| {err:.3e} (tolerance {tol} * max|ref| "
+            f"= {limit:.3e}; a constant of the mean would miss by {spread:.3e})")
+        if not torch.isfinite(got).all() or err > limit:
+            fail(f"{label} fp32 {name} disagrees")
+        if limit >= spread:
+            fail(f"{label} fp32 {name}: the limit {limit:.3e} does not tell the reference from a constant")
+
+
 def preset_models(preset: str, gen_seed: int, **kw):
     """The kernel-path and plain-path models of ``preset`` at input_dim 1024
     on the same random weights, and the family."""
@@ -1165,7 +1205,8 @@ def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=No
     of max|g| and the parameters to 2·lr: Adam's first step moves each
     parameter by about lr·sign(g), so a gradient entry near zero may move
     the two paths' parameters apart by up to 2·lr. Returns the two states,
-    their metrics, the launches and lr."""
+    their metrics (with the peak memory of each step, ``peak_gib``), the
+    launches and lr."""
     from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
 
     create = create_mhim_state if family is None else create_train_state
@@ -1173,12 +1214,10 @@ def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=No
     state_p = create(cfg, model_p, spe, seed=0, device="cuda")
     lr = float(state_k.optimizer.lr_schedule(0))
     reset_launches()
-    m_k = train_step_for(cfg, spe, family)(state_k, batch)
-    torch.cuda.synchronize()
+    m_k, peak_k = peak_gib(lambda: train_step_for(cfg, spe, family)(state_k, batch))
     counted = expect_launches(f"one fp32 {label} step", **launches_per_step)
     reset_launches()
-    m_p = train_step_for(cfg.replace(use_flash_attn=False), spe, family)(state_p, batch)
-    torch.cuda.synchronize()
+    m_p, peak_p = peak_gib(lambda: train_step_for(cfg.replace(use_flash_attn=False), spe, family)(state_p, batch))
     expect_launches(f"the plain-path {label} step")
     log(f"{label} fp32 metrics, kernel path: " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_k.items()))
     log(f"{label} fp32 metrics, plain path:  " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_p.items()))
@@ -1192,6 +1231,8 @@ def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=No
         fail(f"{label}: the loss disagrees")
     if g_err > 1e-3 or p_err > 2 * lr:
         fail(f"{label}: the kernel path's update disagrees with the plain path's")
+    log(f"{label} fp32 step peak memory above the states and the batch: {peak_k:.2f} GiB, plain path {peak_p:.2f} GiB")
+    m_k["peak_gib"], m_p["peak_gib"] = peak_k, peak_p
     return state_k, state_p, m_k, m_p, counted, lr
 
 
@@ -1625,6 +1666,193 @@ def phase_zoo2(gen) -> dict:
     return {"launches": counted, "zoo2": readings}
 
 
+MAMBAMIL = (("simple", "SimpleMamba"), ("srmamba", "SRMamba"), ("bimamba", "BiMamba"))
+LATTICE_BYTES = 4 * 10240 * 256 * 16 * F32  # one fp32 [Bs, L, ED, N] lattice of the 1D scan at full width
+
+
+def phase_mambamil(gen) -> dict:
+    """Phase 11a: ``mambamil`` at full width (``config/feat_cls.yaml`` +
+    ``--model mambamil``: input 1024, width 128, one layer, 16 states,
+    ``sr_rate`` 10) on the ragged 4 × 10,240 batch, for each of simple,
+    srmamba and bimamba: the fp32 eval step on the card against the same
+    model on the CPU for bags 3 and 4 (8,000 and 6,000 valid: the CPU
+    reference at full size doubled the script's time), within
+    1e-4·max(1, max|ref|); bf16 eval against fp32 (0.1)
+    and its host ms; 2 + TRAIN_STEPS bf16 train steps (finite, every
+    parameter moved) with host ms, the device's busy ms (profiler) and
+    peak memory; none of K1-K6 launched (the 1D scan is plain torch, as
+    JAX runs it in XLA). bimamba's step must peak below 14 full lattices
+    (one a doubling step of the scan: what a scan that kept its lattice
+    for the backward would hold)."""
+    import copy
+
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.engine.steps import make_eval_step
+    from mhim_mil_torch.engine.train_state import create_train_state
+
+    batch = train_batch(gen, load_config(["-c", ZOO], input_dim=1024))
+    cpu_batch = {k: v[2:].cpu() for k, v in batch.items()}  # the ragged bags
+    counted, readings, spe = [], {}, 8
+    for seed, (variant, mtype) in enumerate(MAMBAMIL, start=30):
+        cfg, family, model, _ = preset_models(ZOO, seed, model="mambamil", mambamil_type=mtype)
+        cfg32 = cfg.replace(compute_dtype="float32")
+        reset_launches()
+        out = make_eval_step(cfg32, model, family)(batch)
+        torch.cuda.synchronize()
+        counted.append(expect_launches(f"mambamil {variant} eval step"))
+        ref = make_eval_step(cfg32, copy.deepcopy(model).cpu(), family)(cpu_batch)
+        compare_models(f"mambamil {variant} card vs CPU, bags 3-4", [("logits", out["logits"][2:].cpu(),
+                                                                       ref["logits"])], 1e-4)
+        step16 = make_eval_step(cfg, model, family)
+        reset_launches()
+        logits16 = step16(batch)["logits"]
+        torch.cuda.synchronize()
+        counted.append(expect_launches(f"mambamil {variant} bf16 eval step"))
+        err = (logits16 - out["logits"]).abs().max().item()
+        log(f"mambamil {variant} eval bf16 vs fp32 logits {tuple(logits16.shape)}: max|d| {err:.3e} (tolerance 0.1)")
+        if not torch.isfinite(logits16).all() or err > 0.1:
+            fail(f"mambamil {variant}: bf16 eval logits drift from the fp32 logits")
+        times = []
+        for _ in range(SERVING_REPEATS):
+            t0 = time.perf_counter()
+            step16(batch)["logits"].cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        eval_ms = statistics.median(times)
+        eval_busy = device_ms(lambda: step16(batch), iters=5)
+        state = create_train_state(cfg, model, spe, seed=0, device="cuda")
+        r = bf16_steps(f"mambamil {variant}", cfg, state, batch, spe, family=family)
+        counted.append(r["counted"])
+        busy = device_ms(lambda: r["step"](state, batch), iters=5)
+        fmt = lambda x: "not measured" if x is None else f"{x:.2f} ms"
+        log(f"mambamil {variant} bf16: eval {eval_ms:.2f} ms a call (median of {SERVING_REPEATS}, host clock, "
+            f"features on the card; device busy {fmt(eval_busy)}); train step device busy {fmt(busy)} (profiler, 5 "
+            f"steps) of {r['ms']:.2f} ms; peak {r['peak_gib']:.2f} GiB against one full lattice "
+            f"[4, 10240, 256, 16] fp32 of {LATTICE_BYTES / 2 ** 30:.3f} GiB")
+        readings[variant] = {"ms_per_step": r["ms"], "peak_gib": r["peak_gib"], "device_busy_ms": busy,
+                             "eval_ms": eval_ms, "eval_device_busy_ms": eval_busy}
+        if variant == "bimamba" and r["peak_gib"] * 2 ** 30 >= 14 * LATTICE_BYTES:
+            fail(f"mambamil bimamba: the train step peaked at {r['peak_gib']:.2f} GiB, not below 14 lattices "
+                 f"({14 * LATTICE_BYTES / 2 ** 30:.2f} GiB): the scan keeps its lattice for the backward")
+        del state, model, r
+        torch.cuda.empty_cache()
+    log(f"mambamil readings: {json.dumps(readings)}")
+    return {"launches": counted, "mambamil": readings}
+
+
+def phase_streamed(gen) -> dict:
+    """Phase 11b: the streamed Nystrom path (``nystrom_attention_streamed``,
+    windows of 1,024 tokens) on the card. At B 4, H 8, N 10,241, dh 64,
+    m 256, fp32, full and ragged bags: out and the cls row against the
+    kernel path (K1 + K2 with the pseudo-inverse on K3p), out within
+    1e-3·max(1, max|ref|) (phase 4's), the cls row (values near 1/N)
+    within 1e-4·max|ref| (``compare_attention``), with the peak memory of the
+    streamed, materialising and kernel paths. Then the teacher-stage step
+    (``--model mhim_pure``) with ``use_flash_attn=False``, whose two
+    TransLayers stream at 10,241 tokens: one fp32 step against the same
+    step on the materialising path (phase 5's tolerances; no kernel), with
+    the peak memory of each."""
+    from mhim_mil_torch.models.transformer import NystromMSA
+    from mhim_mil_torch.ops import flash_nystrom as fn
+    from mhim_mil_torch.ops.nystrom import nystrom_attention, nystrom_attention_streamed
+
+    b, h, n, dh, m = 4, 8, K3_LONG_N, 64, 256
+    q, k, v, _, _ = k3_operands(gen, b, h, n, dh)
+    row = {}
+    for label, ragged in (("full", False), ("ragged", True)):
+        lengths = torch.full((b,), n, device="cuda")
+        if ragged:
+            lengths = 1 + torch.randint(5120, n, (b,), device="cuda", generator=gen)
+        mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
+        with torch.no_grad():
+            (s_out, s_attn), s_peak = peak_gib(lambda: nystrom_attention_streamed(
+                *(t.transpose(1, 2) for t in (q, k, v)), mask, m, return_attn=True))
+            (k_out, k_attn), k_peak = peak_gib(lambda: fn.flash_nystrom_infer(q, k, v, mask, m))
+            _, m_peak = peak_gib(lambda: nystrom_attention(q, k, v, mask, m, return_attn=True))
+        compare_models(f"streamed [{label}] vs the kernel path", (
+            ("out", s_out, k_out.transpose(1, 2).reshape(b, n, h * dh)),), 1e-3)
+        compare_attention(f"streamed [{label}] vs the kernel path", (("cls attn", s_attn, k_attn),), 1e-4)
+        row[label] = {"lengths": lengths.tolist(), "peak_gib": {"streamed": s_peak, "kernels": k_peak,
+                                                                "materialising": m_peak}}
+        log(f"streamed [{label}] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: peak memory above the "
+            f"inputs, no grad: streamed {s_peak:.3f} GiB, kernel path {k_peak:.3f}, materialising {m_peak:.3f}")
+        del s_out, s_attn, k_out, k_attn
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    cfg, model_s, model_m = flagship_models(40, model="mhim_pure", compute_dtype="float32", use_flash_attn=False)
+    for mod in model_m.modules():
+        if isinstance(mod, NystromMSA):
+            mod.stream_min_len = 1 << 30
+    batch = train_batch(gen, cfg)
+    paths = {n_: mod.path(K3_LONG_N, True) for n_, model in (("s", model_s), ("m", model_m))
+             for mod in model.modules() if isinstance(mod, NystromMSA)}
+    if paths != {"s": "streamed", "m": "materialising"}:
+        fail(f"streamed: the teacher-stage models take the paths {paths}")
+    _, _, m_s, m_m, counted, _ = fp32_step_pair("streamed teacher-stage", cfg, model_s, model_m, batch, 8)
+    row["step_peak_gib"] = {"streamed": m_s["peak_gib"], "materialising": m_m["peak_gib"]}
+    log(f"streamed teacher-stage fp32 step: peak memory streamed {m_s['peak_gib']:.2f} GiB, materialising "
+        f"{m_m['peak_gib']:.2f} GiB")
+    return {"launches": [counted], "streamed": row}
+
+
+EXPORT_RUNS = (  # label, flags, kernel launches a slide on the kernel path
+    ("mhim selfattn", ["-c", "config/mhim_c16.yaml", "--model", "mhim"], dict(K1=2, K2=2, K3p=2 * 24)),
+    ("abmil", ["-c", ZOO, "--model", "abmil"], dict(K4=1)),
+)
+EXPORT_LENGTHS = (10240, 8000, 6000)
+
+
+def phase_heatmaps(gen) -> dict:
+    """Phase 11c: ``python -m mhim_mil_torch.tools.export_attention`` on a
+    synthetic ``.pt`` store of three slides (10,240, 8,000 and 6,000
+    instances of width 1024; no coordinates, so each grid is the raster),
+    random weights from the config's seed: MHIM selfattn (``forward_test``,
+    K1 + K2 with K3p in each of its two layers) and abmil (K4), each against
+    the same export on the plain path (``--use_flash_attn false``: MHIM's
+    layers stream at these lengths), slide by slide: the raw scores the
+    tool returns within 1e-4·max|ref| (``compare_attention``), and each
+    written grid the percentile raster of its scores; the launches of each
+    kernel-path export."""
+    import numpy as np
+
+    from mhim_mil_torch.tools.export_attention import main as export
+    from mhim_mil_torch.utils.heatmap import attention_to_grid
+
+    counted = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_heatmaps_") as tmp:
+        os.makedirs(os.path.join(tmp, "store", "pt_files"))
+        for i, n in enumerate(EXPORT_LENGTHS):
+            torch.save(torch.randn(n, 1024, device="cuda", generator=gen).cpu(),
+                       os.path.join(tmp, "store", "pt_files", f"slide{i}.pt"))
+        for label, flags, per_slide in EXPORT_RUNS:
+            runs = {}
+            for path, flash in (("kernels", "true"), ("plain", "false")):
+                out = os.path.join(tmp, f"{label}-{path}")
+                reset_launches()
+                t0 = time.perf_counter()
+                scores = export(["--out", out, "--dataset_root", os.path.join(tmp, "store"), "--input_dim", "1024",
+                                 "--use_flash_attn", flash, *flags])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                want = {kid: k * len(EXPORT_LENGTHS) for kid, k in per_slide.items()} if path == "kernels" else {}
+                seen = expect_launches(f"heatmaps [{label}] export on the {path} path", **want)
+                if path == "kernels":
+                    counted.append(seen)
+                log(f"heatmaps [{label}] {path} path: {len(scores)} slides exported in {secs:.2f} s (host clock, "
+                    f"model built and files written), launches {seen}")
+                for sid, sc in scores.items():
+                    grid = np.load(os.path.join(out, f"{sid}_attn.npy"))
+                    if not np.array_equal(grid, attention_to_grid(sc), equal_nan=True):
+                        fail(f"heatmaps [{label}] {path} path: {sid}'s grid is not the raster of its scores")
+                runs[path] = scores
+            if sorted(runs["kernels"]) != sorted(runs["plain"]):
+                fail(f"heatmaps [{label}]: the two paths exported {sorted(runs['kernels'])}, {sorted(runs['plain'])}")
+            for sid, want in runs["plain"].items():
+                compare_attention(f"heatmaps [{label}] {sid}", [(
+                    "scores", torch.from_numpy(runs["kernels"][sid]), torch.from_numpy(want))], 1e-4)
+    return {"launches": counted}
+
+
 DRIVER_ARGS = ["-c", "config/mhim_c16.yaml", "--datasets", "synth", "--input_dim", "1024", "--synth_bag_size",
                "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24", "--cv_fold", "2",
                "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50"]
@@ -1635,6 +1863,10 @@ CLAM_ARGS = ["-c", "config/feat_cls.yaml", "--model", "clam_sb", "--datasets", "
              "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24",
              "--cv_fold", "1", "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50",
              "--aux_alpha", "0.5", "--use_flash_attn", "true"]
+MAMBAMIL_ARGS = ["-c", "config/feat_cls.yaml", "--model", "mambamil", "--mambamil_type", "BiMamba", "--datasets",
+                 "synth", "--input_dim", "1024", "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size",
+                 "4", "--synth_n_slides", "24", "--cv_fold", "1", "--num_epoch", "2", "--max_epoch", "2",
+                 "--num_bootstrap", "50", "--use_flash_attn", "true"]
 MAMBA_ARGS = ["-c", "config/feat_surv.yaml", "--model", "2dmamba", "--datasets", "surv_synth", "--input_dim", "1024",
               "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--cv_fold", "1",
               "--num_epoch", "1", "--use_flash_attn", "true"]
@@ -1785,10 +2017,16 @@ def phase_driver() -> dict:
             fail("driver [clam_sb]: the instance loss is not finite and nonzero in every epoch")
         if any(seen4.values()):
             fail(f"driver [clam_sb]: launched {seen4}, want no kernel")
-        runs = (res0, res1, res, res2, res3, res4)
+        res5, seen5, secs5 = drive("mambamil", MAMBAMIL_ARGS + ["--output_path", os.path.join(tmp, "mambamil")])
+        log_folds("mambamil", res5)
+        finite_rows("mambamil", res5, ("test",), "auc")
+        log(f"driver [mambamil] launches {seen5}; {secs5:.2f} s")
+        if any(seen5.values()):
+            fail(f"driver [mambamil]: launched {seen5}, want no kernel")
+        runs = (res0, res1, res, res2, res3, res4, res5)
         probes = {"K6": sum(r["kernel_gate"]["probe_launches"] for r in runs)}
-    return {"launches": [seen0, seen1, seen, seen2, seen3, seen4, probes],
-            "seconds": secs0 + secs1 + secs + secs2 + secs3 + secs4}
+    return {"launches": [seen0, seen1, seen, seen2, seen3, seen4, seen5, probes],
+            "seconds": secs0 + secs1 + secs + secs2 + secs3 + secs4 + secs5}
 
 
 def main():
@@ -1803,7 +2041,8 @@ def main():
     counted = {kid: 0 for kid in KERNELS}
     for label, phase in (("4 serving", phase_serving), ("5 train", phase_train), ("5b teacher", phase_teacher),
                          ("6 attn", phase_attn), ("7 2dmamba", phase_mamba), ("9 zoo", phase_zoo),
-                         ("10 zoo II", phase_zoo2), ("8 driver", lambda g: phase_driver())):
+                         ("10 zoo II", phase_zoo2), ("11a mambamil", phase_mambamil), ("11b streamed", phase_streamed),
+                         ("11c heatmaps", phase_heatmaps), ("8 driver", lambda g: phase_driver())):
         t0 = time.perf_counter()
         for seen in phase(gen)["launches"]:
             for kid, n in seen.items():

@@ -17,19 +17,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import masked_softmax
-from .layers import FeatureEmbed, dense
-
-
-def promoted_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``lin(x)`` in the wider of the two dtypes, as flax's ``Dense`` promotes
-    an fp32 input against bf16 weights under the bf16 policy."""
-    dtype = torch.promote_types(x.dtype, lin.weight.dtype)
-    bias = None if lin.bias is None else lin.bias.to(dtype)
-    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+from .layers import FeatureEmbed, dense, promoted_linear
 
 
 class IBMIL(nn.Module):

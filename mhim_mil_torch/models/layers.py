@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.abmil_pool import fused_abmil_pool
@@ -19,6 +20,21 @@ from ..ops.masked import masked_softmax
 def dense(in_features: int, out_features: int, use_bias: bool = True) -> nn.Linear:
     """A linear layer; :func:`init_weights` gives it xavier-normal weights and a zero bias."""
     return nn.Linear(in_features, out_features, bias=use_bias)
+
+
+def promoted_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin(x)`` in the wider of the two dtypes, as flax's ``Dense`` promotes
+    an fp32 input against bf16 weights under the bf16 policy."""
+    dtype = torch.promote_types(x.dtype, lin.weight.dtype)
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def promoted_layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``ln(x)`` in the wider of the two dtypes, as flax's ``LayerNorm``."""
+    dtype = torch.promote_types(x.dtype, ln.weight.dtype)
+    bias = None if ln.bias is None else ln.bias.to(dtype)
+    return F.layer_norm(x.to(dtype), ln.normalized_shape, ln.weight.to(dtype), bias, ln.eps)
 
 
 def get_act(name: str) -> nn.Module:

@@ -1,20 +1,27 @@
-"""The 2D Mamba MIL aggregator ``2dmamba`` (port of ``mhim_mil_tpu/models/mamba.py``).
+"""The Mamba MIL aggregators ``2dmamba`` and ``mambamil`` (port of
+``mhim_mil_tpu/models/mamba.py``).
 
-Embed → rasterize the bag onto a grid → ResidualMamba stack (RMSNorm, the
-2D ``MambaBlock``, residual) → LayerNorm → masked attention pooling over the
-valid cells → classifier. Names follow the reference's modules
-(``mamba_simple.py``, ``mambamil_2d.py``), as listed in
-``utils/weights.mamba2d_state_from_flax``.
+``2dmamba``: embed → rasterize the bag onto a grid → ResidualMamba stack
+(RMSNorm, the 2D ``MambaBlock``, residual) → LayerNorm → masked attention
+pooling over the valid cells → classifier. ``mambamil``: the same stack
+over the instance sequence with the masked 1D scan, in three variants
+(simple, srmamba, bimamba), then the masked attention pool. Names follow
+the reference's modules (``mamba_simple.py``, ``mambamil_2d.py``,
+``srmamba.py``, ``bimamba.py``), as listed in
+``utils/weights.mamba2d_state_from_flax`` and ``mambamil_state_from_flax``.
 
 On no-grad paths (not training, ``use_flash``) the 2D scan is K5
 (``ops/scan2d.selective_scan_2d_fused``); training takes the plain scan of
-``ops/scan.py``. The 1D scan and its models (``mambamil``: simple, srmamba,
-bimamba) are not ported yet.
+``ops/scan.py``. The 1D scan has no kernel (JAX runs it in XLA): both ways
+it is ``ops/scan.selective_scan_1d``.
 
-Under the bf16 policy the scan's fp32 result is cast back to the compute
+Under the bf16 policy the 2D scan's fp32 result is cast back to the compute
 type on both paths, as JAX's kernel path does; JAX's plain path lets it
 promote the rest of the block to fp32. The linear position embedding is
-added in the compute type; JAX promotes it to fp32.
+added in the compute type; JAX promotes it to fp32. The 1D block follows
+JAX's promotion: its fp32 scan output makes the gate, ``out_proj``, the
+residual and everything after the first layer fp32, as flax's layers
+promote an fp32 input against bf16 weights.
 """
 
 from __future__ import annotations
@@ -27,9 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import masked_softmax
-from ..ops.scan import selective_scan_2d
+from ..ops.scan import selective_scan_1d, selective_scan_2d
 from ..ops.scan2d import selective_scan_2d_fused
-from .layers import Dropout, dense
+from .layers import Dropout, dense, promoted_layer_norm, promoted_linear
 
 Tensor = torch.Tensor
 
@@ -60,8 +67,10 @@ class CausalConv1d(nn.Conv1d):
         super().__init__(channels, channels, kernel_size, groups=channels)
 
     def forward(self, x: Tensor) -> Tensor:
-        x = F.pad(x.transpose(1, 2), (self.kernel_size[0] - 1, 0))
-        return F.conv1d(x, self.weight, self.bias, groups=self.groups).transpose(1, 2)
+        """In the wider of the input's and the weights' dtypes, as flax's ``Conv``."""
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        x = F.pad(x.transpose(1, 2).to(dtype), (self.kernel_size[0] - 1, 0))
+        return F.conv1d(x, self.weight.to(dtype), self.bias.to(dtype), groups=self.groups).transpose(1, 2)
 
     @torch.no_grad()
     def init_own(self, generator: torch.Generator):
@@ -86,61 +95,134 @@ class DtProj(nn.Linear):
 
 
 class MambaBlock(nn.Module):
-    """The 2D Mamba mixer (``mamba.py:90-271``): in_proj → (x, z); causal
+    """The Mamba mixer (``mamba.py:90-271``): in_proj → (x, z); causal
     depthwise conv of width 4 over the raster order; SiLU; x_proj → (Δ, B,
-    C) with their RMSNorms; Δ = softplus(dt_proj); the 2D selective scan;
-    gate by SiLU(z); out_proj. ED = 2·d_model, dt_rank = ⌈d_model/16⌉,
-    ``A_log`` is log(1..N) per channel and ``D`` one."""
+    C) with their RMSNorms; Δ = softplus(dt_proj); the selective scan (2D
+    on a ``[B, H, W, d_model]`` grid, masked 1D on a ``[B, L, d_model]``
+    sequence); gate by SiLU(z); out_proj. ED = 2·d_model, dt_rank =
+    ⌈d_model/16⌉, ``A_log`` is log(1..N) per channel and ``D`` one.
 
-    def __init__(self, d_model: int = 128, d_state: int = 16, use_flash: bool = True):
+    ``variant`` (1D only): ``simple`` is the single branch; ``srmamba`` and
+    ``bimamba`` add a second branch with its own parameter set (``conv1d_b``,
+    ``x_proj_b``, ``dt_layernorm_b``, ``B_layernorm_b``, ``C_layernorm_b``,
+    ``dt_proj_b``, ``A_b_log``, ``D_b``) over the stride-permuted
+    (:func:`sr_permute`, stride ``sr_rate``) or the flipped sequence; the
+    two branches sum before the gate (``mamba.py:116-168, 251-268``)."""
+
+    def __init__(self, d_model: int = 128, d_state: int = 16, use_flash: bool = True,
+                 variant: str = "simple", sr_rate: int = 10):
         super().__init__()
+        if variant not in ("simple", "srmamba", "bimamba"):
+            raise ValueError(f"unknown mamba variant {variant!r}")
         ed = 2 * d_model
         self.ed, self.d_state = ed, d_state
         self.dt_rank = math.ceil(d_model / 16)
-        self.use_flash = use_flash
+        self.use_flash, self.variant, self.sr_rate = use_flash, variant, sr_rate
         self.in_proj = dense(d_model, 2 * ed, use_bias=False)
-        self.conv1d = CausalConv1d(ed, 4)
-        self.x_proj = dense(ed, self.dt_rank + 2 * d_state, use_bias=False)
-        self.dt_layernorm = RMSNorm(self.dt_rank)
-        self.B_layernorm = RMSNorm(d_state)
-        self.C_layernorm = RMSNorm(d_state)
-        self.dt_proj = DtProj(self.dt_rank, ed)
-        self.A_log = nn.Parameter(torch.empty(ed, d_state))
-        self.D = nn.Parameter(torch.empty(ed))
+        self.branches = ("", "_b") if variant != "simple" else ("",)  # the parameter names' suffixes
+        for sfx in self.branches:  # registered in the JAX module's order, branch after branch
+            setattr(self, f"conv1d{sfx}", CausalConv1d(ed, 4))
+            setattr(self, f"x_proj{sfx}", dense(ed, self.dt_rank + 2 * d_state, use_bias=False))
+            setattr(self, f"dt_layernorm{sfx}", RMSNorm(self.dt_rank))
+            setattr(self, f"B_layernorm{sfx}", RMSNorm(d_state))
+            setattr(self, f"C_layernorm{sfx}", RMSNorm(d_state))
+            setattr(self, f"dt_proj{sfx}", DtProj(self.dt_rank, ed))
+            setattr(self, f"A{sfx}_log", nn.Parameter(torch.empty(ed, d_state)))
+            setattr(self, f"D{sfx}", nn.Parameter(torch.empty(ed)))
         self.out_proj = dense(ed, d_model, use_bias=False)
 
     @torch.no_grad()
     def init_own(self, generator: torch.Generator):
-        self.A_log.copy_(torch.log(torch.arange(1, self.d_state + 1, dtype=torch.float32)).expand_as(self.A_log))
-        self.D.fill_(1.0)
+        for sfx in self.branches:
+            a_log, d = getattr(self, f"A{sfx}_log"), getattr(self, f"D{sfx}")
+            a_log.copy_(torch.log(torch.arange(1, self.d_state + 1, dtype=torch.float32)).expand_as(a_log))
+            d.fill_(1.0)
 
-    def forward(self, x: Tensor, training: bool = False) -> Tensor:
-        """``x[B, H, W, d_model]`` → the same shape. The 1D branch is not ported."""
-        if x.dim() != 4:
-            raise NotImplementedError("only the 2D MambaBlock is ported; the 1D scan is not")
-        bs, hh, ww, _ = x.shape
-        xin, z = self.in_proj(x).chunk(2, dim=-1)
-        xin = F.silu(self.conv1d(xin.reshape(bs, hh * ww, self.ed)).reshape(bs, hh, ww, self.ed))
-        dt, b_ssm, c_ssm = self.x_proj(xin).split([self.dt_rank, self.d_state, self.d_state], dim=-1)
-        dt, b_ssm, c_ssm = self.dt_layernorm(dt), self.B_layernorm(b_ssm), self.C_layernorm(c_ssm)
-        delta = F.softplus(self.dt_proj(dt))
-        if self.use_flash and not training:
-            y = selective_scan_2d_fused(xin, delta, self.A_log, b_ssm, c_ssm, self.D)
-        else:
-            y = selective_scan_2d(xin, delta, -torch.exp(self.A_log), b_ssm, c_ssm, self.D)
-        return self.out_proj(y.to(xin.dtype) * F.silu(z))
+    def _ssm_inputs(self, xin: Tensor, sfx: str = ""):
+        """The conv → SiLU → x_proj → RMSNorms → softplus(dt_proj) chain of
+        one branch: ``(x, Δ, A, B, C, D)`` for the scan, each layer in the
+        wider of its input's and its weights' dtypes."""
+        shape = xin.shape
+        seq = getattr(self, f"conv1d{sfx}")(xin.reshape(shape[0], -1, self.ed))
+        xin = F.silu(seq.reshape(*shape[:-1], self.ed))
+        dbc = promoted_linear(getattr(self, f"x_proj{sfx}"), xin)
+        dt, b_ssm, c_ssm = dbc.split([self.dt_rank, self.d_state, self.d_state], dim=-1)
+        dt = getattr(self, f"dt_layernorm{sfx}")(dt)
+        b_ssm = getattr(self, f"B_layernorm{sfx}")(b_ssm)
+        c_ssm = getattr(self, f"C_layernorm{sfx}")(c_ssm)
+        delta = F.softplus(promoted_linear(getattr(self, f"dt_proj{sfx}"), dt))
+        return xin, delta, getattr(self, f"A{sfx}_log"), b_ssm, c_ssm, getattr(self, f"D{sfx}")
+
+    def _branch_1d(self, xin_raw: Tensor, mask: Optional[Tensor]) -> Tensor:
+        """The second branch (``mamba.py:116-168``) on its permuted sequence;
+        masked rows are zeroed before its conv, since the flip or the
+        permutation puts padding upstream of valid tokens."""
+        if mask is not None:
+            xin_raw = torch.where(mask[..., None], xin_raw, 0)
+        xin, delta, a_log, b_ssm, c_ssm, d = self._ssm_inputs(xin_raw, "_b")
+        return selective_scan_1d(xin, delta, -torch.exp(a_log), b_ssm, c_ssm, d, mask=mask)
+
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None, training: bool = False) -> Tensor:
+        """``x[B, H, W, d_model]`` (2D; ``mask`` unused: the grid scans its pad
+        cells, as in the reference) or ``x[B, L, d_model]`` with ``mask[B, L]``
+        (1D) → the same shape."""
+        if x.dim() == 4:
+            xin, z = self.in_proj(x).chunk(2, dim=-1)
+            xin, delta, a_log, b_ssm, c_ssm, d = self._ssm_inputs(xin)
+            if self.use_flash and not training:
+                y = selective_scan_2d_fused(xin, delta, a_log, b_ssm, c_ssm, d)
+            else:
+                y = selective_scan_2d(xin, delta, -torch.exp(a_log), b_ssm, c_ssm, d)
+            return self.out_proj(y.to(xin.dtype) * F.silu(z))
+        if mask is not None:
+            mask = mask.bool()
+        xin_raw, z = promoted_linear(self.in_proj, x).chunk(2, dim=-1)
+        xin, delta, a_log, b_ssm, c_ssm, d = self._ssm_inputs(xin_raw)
+        y = selective_scan_1d(xin, delta, -torch.exp(a_log), b_ssm, c_ssm, d, mask=mask)
+        if self.variant == "bimamba":
+            mb = None if mask is None else mask.flip(1)
+            y = y + self._branch_1d(xin_raw.flip(1), mb).flip(1)
+        elif self.variant == "srmamba":
+            xb, mb = sr_permute(xin_raw, mask, self.sr_rate)
+            y = y + sr_unpermute(self._branch_1d(xb, mb), self.sr_rate, x.shape[1])
+        return promoted_linear(self.out_proj, y * F.silu(z))
 
 
 class ResidualMamba(nn.Module):
     """RMSNorm → MambaBlock → + residual (``mamba.py:274-292``)."""
 
-    def __init__(self, d_model: int = 128, d_state: int = 16, use_flash: bool = True):
+    def __init__(self, d_model: int = 128, d_state: int = 16, use_flash: bool = True,
+                 variant: str = "simple", sr_rate: int = 10):
         super().__init__()
         self.norm = RMSNorm(d_model)
-        self.mixer = MambaBlock(d_model, d_state, use_flash)
+        self.mixer = MambaBlock(d_model, d_state, use_flash, variant, sr_rate)
 
-    def forward(self, x: Tensor, training: bool = False) -> Tensor:
-        return self.mixer(self.norm(x), training) + x
+    def forward(self, x: Tensor, training: bool = False, mask: Optional[Tensor] = None) -> Tensor:
+        return self.mixer(self.norm(x), mask, training) + x
+
+
+def sr_permute(x: Tensor, mask: Optional[Tensor], rate: int):
+    """SRMamba's re-embedding (``mamba.py:60-74``, reference srmamba.py:33-46):
+    zero-pad L to a multiple of ``rate`` and reorder ``(k w) → (w k)`` with
+    w = ``rate``. Returns ``(x[B, k·rate, C], mask[B, k·rate])``; the
+    padded slots are masked."""
+    b, l, c = x.shape
+    k = -(-l // rate)
+    if mask is None:
+        mask = torch.ones((b, l), dtype=torch.bool, device=x.device)
+    if k * rate > l:
+        x = F.pad(x, (0, 0, 0, k * rate - l))
+        mask = F.pad(mask, (0, k * rate - l))
+    xp = x.reshape(b, k, rate, c).transpose(1, 2).reshape(b, k * rate, c)
+    mp = mask.reshape(b, k, rate).transpose(1, 2).reshape(b, k * rate)
+    return xp, mp
+
+
+def sr_unpermute(y: Tensor, rate: int, length: int) -> Tensor:
+    """The inverse of :func:`sr_permute`, cut to ``length`` (``mamba.py:77-82``)."""
+    b, lp, c = y.shape
+    k = lp // rate
+    return y.reshape(b, rate, k, c).transpose(1, 2).reshape(b, lp, c)[:, :length]
 
 
 def rasterize_grid(feats: Tensor, coords: Tensor, mask: Tensor, h: int, w: int, pad_token: Tensor):
@@ -220,6 +302,43 @@ class MambaMIL2D(nn.Module):
         attn = masked_softmax(self.attention(hseq)[..., 0], mseq)
         bag = torch.einsum("bl,bld->bd", attn, torch.where(mseq[..., None], hseq, 0))
         out = {"logits": self.classifier(bag), "bag_feat": bag}
+        if return_attn:
+            out["attn"] = attn
+        return out
+
+
+class MambaMIL1D(nn.Module):
+    """``mambamil`` (``mamba.py:366-405``): ``_fc1`` → GELU → dropout →
+    ResidualMamba stack over the instance sequence (the masked 1D scan;
+    ``variant`` simple, srmamba or bimamba, SRMamba's stride ``sr_rate``)
+    → LayerNorm → the masked tanh attention pool (``attention.0`` /
+    ``attention.2``, JAX's ``attn_0`` / ``attn_1``) → ``classifier``.
+    Returns ``{"logits", "bag_feat"}`` and ``"attn" [B, N]`` with
+    ``return_attn``. Under bf16 the layers after the first scan run in fp32,
+    as in JAX (see the module's docstring)."""
+
+    def __init__(self, input_dim: int = 1024, n_classes: int = 2, dim: int = 128, n_layers: int = 1,
+                 d_state: int = 16, dropout: float = 0.25, variant: str = "simple", sr_rate: int = 10):
+        super().__init__()
+        self.variant = variant
+        self._fc1 = dense(input_dim, dim)
+        self.drop = Dropout(dropout)
+        self.layers = nn.ModuleList(ResidualMamba(dim, d_state, False, variant, sr_rate) for _ in range(n_layers))
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.attention = nn.Sequential(dense(dim, 128), nn.Tanh(), dense(128, 1))
+        self.classifier = dense(dim, n_classes)
+
+    def forward(self, feats: Tensor, mask: Tensor, training: bool = False, return_attn: bool = False,
+                gen: Optional[torch.Generator] = None):
+        mask = mask.bool()
+        x = self.drop(F.gelu(self._fc1(feats), approximate="tanh"), training, gen)
+        for layer in self.layers:
+            x = layer(x, training, mask)
+        x = promoted_layer_norm(self.norm, x)
+        a = promoted_linear(self.attention[2], torch.tanh(promoted_linear(self.attention[0], x)))
+        attn = masked_softmax(a[..., 0], mask)
+        bag = torch.einsum("bl,bld->bd", attn, torch.where(mask[..., None], x, 0))
+        out = {"logits": promoted_linear(self.classifier, bag), "bag_feat": bag}
         if return_attn:
             out["attn"] = attn
         return out

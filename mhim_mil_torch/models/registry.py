@@ -5,8 +5,10 @@ sincos, peg or none), ``attn`` or ``dsmil`` baseline (families ``mhim``
 and ``mhim_pure``); ``abmil``, ``gabmil``, ``meanmil``, ``maxmil``,
 ``transmil``, ``dtfd``, ``ibmil`` and ``rrtmil`` (family ``default``);
 ``clam_sb`` and ``clam_mb`` (family ``clam``, whose training forward takes
-the bag label); ``dsmil`` (family ``dsmil``); and ``2dmamba`` (family
-``mamba2d``). ``mambamil`` raises ``NotImplementedError``.
+the bag label); ``dsmil`` (family ``dsmil``); ``2dmamba`` (family
+``mamba2d``); and ``mambamil`` (family ``default``), whose
+``--mambamil_type`` selects the simple, srmamba or bimamba block. Every
+model of the JAX registry builds.
 """
 
 from __future__ import annotations
@@ -24,13 +26,18 @@ from .dsmil import DSMIL
 from .dtfd import DTFD
 from .ibmil import IBMIL
 from .layers import init_weights
-from .mamba import MambaMIL2D
+from .mamba import MambaMIL1D, MambaMIL2D
 from .mean_max import MaxMIL, MeanMIL
 from .mhim import MHIM
 from .rrt import RRTMIL
 from .transformer import TransMIL
 
-NOT_PORTED = ("mambamil",)
+NOT_PORTED: Tuple[str, ...] = ()  # the JAX registry's models that the port does not build: none
+
+# --mambamil_type (JAX registry.py:208-230, reference options.py:158): Mamba
+# and SimpleMamba are both the single-branch block.
+MAMBAMIL_VARIANTS = {None: "simple", "none": "simple", "mamba": "simple", "simplemamba": "simple",
+                     "srmamba": "srmamba", "bimamba": "bimamba"}
 
 
 def _mil_norm(cfg):
@@ -59,7 +66,7 @@ def load_confounders(cfg) -> Optional[np.ndarray]:
 
 
 def _zoo(cfg, use_flash: bool):
-    """The zoo models of ``registry.py:35-111,164-184,234-335``: ``(model, family)``."""
+    """The zoo models of ``registry.py:35-111,164-184,208-335``: ``(model, family)``."""
     if cfg.model in ("abmil", "gabmil"):
         gated = cfg.model == "gabmil"
         return ABMIL(input_dim=cfg.input_dim, n_classes=cfg.n_classes, inner_dim=cfg.inner_dim,
@@ -89,6 +96,11 @@ def _zoo(cfg, use_flash: bool):
                       dropout=cfg.dropout, act=cfg.act, da_act=cfg.da_act, da_gated=cfg.da_gated,
                       n_layers=cfg.rrt_n_layers, n_heads=cfg.rrt_n_heads, region_num=cfg.region_num,
                       epeg_k=cfg.epeg_k, crmsa_k=cfg.crmsa_k, mil_bias=cfg.mil_bias), "default"
+    if cfg.model == "mambamil":
+        return MambaMIL1D(input_dim=cfg.input_dim, n_classes=cfg.n_classes, dim=cfg.mambamil_dim,
+                          n_layers=cfg.mambamil_layer, d_state=cfg.mambamil_state_dim, dropout=cfg.dropout,
+                          variant=MAMBAMIL_VARIANTS[(cfg.mambamil_type or "none").lower()],
+                          sr_rate=cfg.mambamil_rate), "default"
     return None, None
 
 
@@ -125,8 +137,6 @@ def build_model(
             use_flash=use_flash,
         )
         return init_weights(model, generator).to(device).eval(), "mamba2d"
-    if cfg.model in NOT_PORTED:
-        raise NotImplementedError(f"model={cfg.model!r} is not ported yet (not ported: {', '.join(NOT_PORTED)})")
     if cfg.model not in ("mhim", "mhim_pure"):
         raise ValueError(f"unknown model {cfg.model!r}")
     # mhim_pure, the teacher stage: the same MHIM without mining or merge

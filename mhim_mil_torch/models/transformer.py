@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.flash_nystrom import flash_nystrom, flash_nystrom_infer
-from ..ops.nystrom import nystrom_attention
+from ..ops.nystrom import nystrom_attention, nystrom_attention_streamed
 from .layers import Dropout, FeatureEmbed, dense
 from .positional import make_pos
 
@@ -36,31 +36,62 @@ class _DepthwiseResConv(nn.Conv2d):
 class NystromMSA(nn.Module):
     """Multi-head Nystrom self-attention with the depthwise-conv value residual.
 
-    ``use_flash`` runs the attention through the kernels: K3
-    (:func:`flash_nystrom`) when a gradient is wanted, :func:`flash_nystrom_infer`
-    (K1 + K2) otherwise; each runs its plain versions on the CPU. Without
-    ``use_flash`` it runs the materialising reference :func:`nystrom_attention`.
-    The ``parity`` layer and a ``no_norm`` call run :func:`nystrom_attention`
-    whatever ``use_flash`` says, as JAX's layer does (``flash_ok``,
-    transformer.py:116-121): the kernels compute neither mode, so the mode
-    asked for selects the plain op; it is not a fallback from a kernel.
-    ``to_out`` is a one-layer ``Sequential`` so that its weights keep the
-    reference's name ``to_out.0``; the dropout after it (p=0.1, as in the JAX
-    package) applies to the attention output only, never to the scored values.
+    The attention takes one of three paths (:meth:`path`), in the order of
+    JAX's layer (``transformer.py:111-150``):
+
+    - ``kernels``: with ``use_flash`` on CUDA tensors, K3 (:func:`flash_nystrom`)
+      when a gradient is wanted, :func:`flash_nystrom_infer` (K1 + K2)
+      otherwise;
+    - ``streamed``: otherwise, from ``stream_min_len`` tokens,
+      :func:`nystrom_attention_streamed`, which builds no ``[B,H,N,m]``
+      tensor: what JAX's layer runs there on the CPU and without ``use_flash``;
+    - below ``stream_min_len``: the kernels' wrappers under ``use_flash``
+      (on CPU tensors they run their plain versions), else the materialising
+      :func:`nystrom_attention`.
+
+    JAX's layer takes the materialising op below ``stream_min_len`` on the
+    CPU. The port keeps the wrappers there so that the CPU tests of a
+    ``use_flash`` model go through the kernel path's own autograd wiring
+    (K3's ``FlashNystrom`` with its recompute backward, the no-grad route)
+    and hold it against JAX. The two ops compute the same function and
+    differ only in rounding: a whole MHIM train step's gradients match
+    JAX's within 1e-5 of each tensor's max|g| with either
+    (``tests/test_torch_train.py::test_first_step_gradients_match_jax``).
+    Adam's first update magnifies that rounding on weights whose gradient
+    is itself rounding noise, far under Adam's eps: there the parameters
+    after a step differ from JAX's by a few 1e-6 with either op.
+
+    The ``parity`` layer and a ``no_norm`` call always take the
+    materialising op, as JAX's layer does: the kernels and the streamed op
+    compute neither mode, so the mode asked for selects the plain op; it is
+    not a fallback from a kernel. ``to_out`` is a one-layer ``Sequential`` so that its weights
+    keep the reference's name ``to_out.0``; the dropout after it (p=0.1, as
+    in the JAX package) applies to the attention output only, never to the
+    scored values.
     """
 
     def __init__(self, dim: int = 512, heads: int = 8, dim_head: int = 64,
                  num_landmarks: int = 256, pinv_iterations: int = 6, use_flash: bool = True,
-                 parity: bool = False):
+                 parity: bool = False, stream_min_len: int = 4096):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         self.num_landmarks, self.pinv_iterations = num_landmarks, pinv_iterations
-        self.use_flash, self.parity = use_flash, parity
+        self.use_flash, self.parity, self.stream_min_len = use_flash, parity, stream_min_len
         inner = heads * dim_head
         self.to_qkv = dense(dim, inner * 3, use_bias=False)
         self.to_out = nn.Sequential(dense(inner, dim))
         self.drop = Dropout(0.1)
         self.res_conv = _DepthwiseResConv(heads)
+
+    def path(self, n: int, on_cuda: bool, no_norm: bool = False) -> str:
+        """The attention's path for ``n`` tokens: ``kernels``, ``streamed`` or ``materialising``."""
+        if no_norm or self.parity:
+            return "materialising"
+        if self.use_flash and on_cuda:
+            return "kernels"
+        if n >= self.stream_min_len:
+            return "streamed"
+        return "kernels" if self.use_flash else "materialising"
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
                 training: bool = False, gen: Optional[torch.Generator] = None, no_norm: bool = False):
@@ -73,17 +104,23 @@ class NystromMSA(nn.Module):
         qkv = self.to_qkv(x).view(b, n, 3, h, dh)
         q = qkv[:, :, 0] * dh ** -0.5  # [B,N,H,dh]
         k, v = qkv[:, :, 1], qkv[:, :, 2]  # strided views, no copy
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B,H,N,dh] views
-        if not self.use_flash or no_norm or self.parity:
-            out, attn = nystrom_attention(
-                qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations,
-                return_attn=return_attn, no_norm=no_norm, parity=self.parity,
-            )
-        elif torch.is_grad_enabled() and qkv.requires_grad:
-            out, attn = flash_nystrom(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations)
+        path = self.path(n, qkv.is_cuda, no_norm)
+        if path == "streamed":
+            out, attn = nystrom_attention_streamed(q, k, v, mask, self.num_landmarks, self.pinv_iterations,
+                                                   return_attn=return_attn, pre_masked=True)
         else:
-            out, attn = flash_nystrom_infer(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations)
-        out = out.transpose(1, 2).reshape(b, n, inner).to(x.dtype) + self.res_conv(v)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B,H,N,dh] views
+            if path == "materialising":
+                out, attn = nystrom_attention(
+                    qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations,
+                    return_attn=return_attn, no_norm=no_norm, parity=self.parity,
+                )
+            elif torch.is_grad_enabled() and qkv.requires_grad:
+                out, attn = flash_nystrom(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations)
+            else:
+                out, attn = flash_nystrom_infer(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations)
+            out = out.transpose(1, 2).reshape(b, n, inner)
+        out = out.to(x.dtype) + self.res_conv(v)
         out = torch.where(mask[..., None], self.drop(self.to_out(out), training, gen), 0)
         if not return_attn:
             return out

@@ -2,9 +2,11 @@
 
 Eq. 15 of Xiong et al. 2021: ``softmax(Q·K_l)·pinv(softmax(Q_l·K_l))·
 softmax(Q_l·K)·V``, with landmark means over groups of consecutive valid
-tokens and the pseudo-inverse from 6 Newton–Schulz iterations. This
-materialises the ``[B,H,N,m]`` similarity tensors; the fused two-pass version
-that the model runs is ``ops/flash_nystrom.py``.
+tokens and the pseudo-inverse from 6 Newton–Schulz iterations.
+:func:`nystrom_attention` materialises the ``[B,H,N,m]`` similarity tensors;
+:func:`nystrom_attention_streamed` computes the same function in two passes
+over windows of the bag and never does; the fused two-pass kernels that the
+model runs on the card are ``ops/flash_nystrom.py``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .masked import masked_softmax, stats_dtype
+from .masked import NEG_INF, masked_softmax, stats_dtype
 
 
 def pinv_start(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -154,3 +156,125 @@ def nystrom_attention(
     cls_row = a1[:, :, front_pad:front_pad + 1].to(f32) @ a2.to(f32)  # [B,H,1,m]
     cls_attn = (cls_row @ a3.to(f32))[:, :, 0, front_pad:]  # [B,H,N]
     return out, cls_attn
+
+
+def _landmark_mean_seq(t: torch.Tensor, mask: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_landmark_mean` of sequence-major ``t[B,N,H,d]`` (zero at
+    masked tokens; ``nystrom.py:211-223``): the same groups, token i in
+    group ``(i + pad) // l``. Returns ``(means[B,H,m,d]`` in t's dtype,
+    summed in fp32, ``lm_mask[B,m])``."""
+    b, n, h, d = t.shape
+    l = -(-n // m)
+    f32 = stats_dtype(t.dtype)
+    empty, short = divmod(m * l - n, l)
+    first = l - short
+    full = m - empty - 1
+    grp = torch.cat([
+        t.new_zeros((b, empty, h, d), dtype=f32),
+        t[:, :first].sum(dim=1, keepdim=True, dtype=f32),
+        t[:, first:].reshape(b, full, l, h, d).sum(dim=2, dtype=f32),
+    ], dim=1).transpose(1, 2)  # [B,H,m,d]
+    mask = mask.to(f32)
+    cnt = torch.cat([
+        mask.new_zeros((b, empty)),
+        mask[:, :first].sum(dim=1, keepdim=True),
+        mask[:, first:].reshape(b, full, l).sum(dim=2),
+    ], dim=1)
+    grp = grp / cnt.clamp_min(1.0)[:, None, :, None]
+    return grp.to(t.dtype), cnt > 0
+
+
+def _f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` accumulated and returned in fp32 (JAX's ``einsum_f32``)."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def nystrom_attention_streamed(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor,
+    num_landmarks: int,
+    pinv_iters: int = 6,
+    return_attn: bool = False,
+    chunk: int = 1024,
+    compute_dtype: Optional[torch.dtype] = None,
+    pre_masked: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Masked Nystrom attention streamed over windows of the bag
+    (``nystrom.py:226-401``): the function of :func:`nystrom_attention`
+    (without its ``no_norm`` and ``parity`` modes), with no ``[B,H,N,m]``
+    tensor built. Plain torch, a Python loop over the windows, differentiable.
+
+    Args:
+      q, k, v: **sequence-major** ``[B, N, H, dh]`` (the qkv projection's
+        layout), q pre-scaled by ``dh**-0.5``.
+      mask: ``[B, N]`` validity.
+      chunk: tokens a window; window i starts at ``min(i·chunk, N − chunk)``,
+        so the last one is clamped and overlaps the one before.
+      compute_dtype: the dtype q, k, v are cast to (default q's); ``attn1``
+        is cast to it before ``@ z``.
+      pre_masked: q, k and v are already zero at masked tokens.
+
+    Phase 1 runs the online softmax of ``attn3 = softmax_N(Q_l·Kᵀ)`` for
+    each landmark row, accumulating ``attn3@V`` in fp32; keys that a clamped
+    window covers again are masked out of it. Then ``z = pinv(attn2) @
+    attn3v``. Phase 2 computes each window's ``out = softmax_m(Q·K_lᵀ) @ z``
+    (and the cls row's part), keeping only the tail window's fresh rows.
+
+    Returns ``out[B, N, H·dh]`` (zero at masked tokens) and, with
+    ``return_attn``, the cls row ``cls_attn[B, H, N]`` in fp32.
+    """
+    mask = mask.bool()
+    cd = compute_dtype or q.dtype
+    b, n, h, dh = q.shape
+    m = num_landmarks
+    if pre_masked:
+        q, k, v = (t.to(cd) for t in (q, k, v))
+    else:
+        mvalid = mask[:, :, None, None]
+        q, k, v = (torch.where(mvalid, t, 0).to(cd) for t in (q, k, v))
+    q_l, lm_mask = _landmark_mean_seq(q, mask, m)  # [B,H,m,dh], [B,m]
+    k_l, _ = _landmark_mean_seq(k, mask, m)
+    lm_b = lm_mask[:, None, None, :]
+    pinv = moore_penrose_pinv(masked_softmax(q_l @ k_l.transpose(-1, -2), lm_b), pinv_iters)  # fp32
+
+    chunk = min(chunk, n)
+    windows = [(min(i * chunk, n - chunk), i * chunk) for i in range(-(-n // chunk))]  # (start, first fresh key)
+    pos = torch.arange(chunk, device=q.device)
+
+    def sim3(off: int, fresh: int):
+        """A window's ``Q_l·Kᵀ [B,H,m,chunk]`` in fp32, NEG_INF at masked and
+        already covered keys, and its key mask ``[B,1,1,chunk]``."""
+        m_c = (mask[:, off:off + chunk] & (off + pos >= fresh)[None, :])[:, None, None, :]
+        s = _f32("bhmd,bnhd->bhmn", q_l, k[:, off:off + chunk])
+        return torch.where(m_c, s, NEG_INF), m_c
+
+    # phase 1: the online softmax over the keys, attn3 @ V in fp32
+    run_max = q.new_full((b, h, m), NEG_INF, dtype=torch.float32)
+    run_sum = q.new_zeros((b, h, m), dtype=torch.float32)
+    acc = q.new_zeros((b, h, m, dh), dtype=torch.float32)
+    for off, fresh in windows:
+        s, m_c = sim3(off, fresh)
+        new_max = torch.maximum(run_max, s.amax(dim=-1)).detach()  # the softmax does not move with it
+        scale = torch.exp(run_max - new_max)
+        p = torch.exp(s - new_max[..., None]) * m_c
+        acc = acc * scale[..., None] + _f32("bhmn,bnhd->bhmd", p.to(cd), v[:, off:off + chunk])
+        run_sum = run_sum * scale + p.sum(dim=-1)
+        run_max = new_max
+    run_sum = run_sum.clamp_min(1e-30)
+    z = (pinv @ (acc / run_sum[..., None])).to(cd)  # [B,H,m,dh]
+    if return_attn:  # the cls row of attn1 (token 0) @ pinv: [B,H,1,m]
+        r = (masked_softmax(_f32("bnhd,bhmd->bhnm", q[:, :1], k_l), lm_b) @ pinv).to(cd)
+
+    # phase 2: out = softmax_m(Q·K_lᵀ) @ z and the cls row, window by window
+    outs, cls = [], []
+    for off, fresh in windows:
+        attn1 = masked_softmax(_f32("bnhd,bhmd->bhnm", q[:, off:off + chunk], k_l), lm_b).to(cd)
+        out_c = torch.einsum("bhnm,bhmd->bnhd", attn1, z).reshape(b, chunk, h * dh)
+        outs.append(torch.where(mask[:, off:off + chunk, None], out_c, 0)[:, fresh - off:])
+        if return_attn:
+            s, m_c = sim3(off, off)
+            attn3 = torch.exp(s - run_max[..., None]) * (m_c * (1.0 / run_sum)[..., None])
+            cls.append(_f32("bhom,bhmn->bhon", r, attn3.to(cd))[:, :, 0, fresh - off:])
+    return torch.cat(outs, dim=1), (torch.cat(cls, dim=-1) if return_attn else None)

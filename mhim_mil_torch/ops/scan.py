@@ -1,17 +1,22 @@
-"""Linear recurrences for the 2D Mamba (port of ``mhim_mil_tpu/ops/scan.py``).
+"""Linear recurrences for the Mamba models (port of ``mhim_mil_tpu/ops/scan.py``).
 
 :func:`linear_scan` is the first-order recurrence ``h[t] = a[t]·h[t-1] + x[t]``
-as a log-step doubling scan; :func:`selective_scan_2d` the 2D selective scan
-over a ``[Bs, H, W, ·]`` grid, streamed row by row so that the
-``[Bs, H, W, ED, N]`` lattice is never built. These are the plain versions:
-the training path differentiates them, and ``ops/scan2d.py`` holds the K5
-kernel of the separable variant against them. The 1D scan
-(``selective_scan_1d``) is not ported yet.
+as a log-step doubling scan; :func:`selective_scan_1d` the masked 1D
+selective scan of ``mambamil``, streamed in chunks along L; and
+:func:`selective_scan_2d` the 2D selective scan over a ``[Bs, H, W, ·]``
+grid, streamed row by row. Neither builds its whole ``[Bs, ·, ED, N]``
+lattice. These are the plain versions: the training path differentiates
+them, and ``ops/scan2d.py`` holds the K5 kernel of the separable 2D variant
+against them. The 1D scan has no kernel: JAX computes it in XLA.
+:func:`selective_scan_1d_seq` is the sequential recurrence, for tests.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 
@@ -39,6 +44,76 @@ def linear_scan(a: Tensor, x: Tensor, dim: int = 0) -> Tensor:
             a = a * _shift(a, d, dim, 1.0)
         d *= 2
     return x
+
+
+SCAN_CHUNK = 1024  # tokens of the 1D lattice built at a time
+
+
+def _scan_chunk_1d(x: Tensor, delta: Tensor, B: Tensor, C: Tensor, mask: Optional[Tensor],
+                   h0: Optional[Tensor], A: Tensor, D: Tensor):
+    """One chunk of :func:`selective_scan_1d` from the state ``h0[Bs, ED, N]``
+    before it (None: zero): ``(y[Bs, Lc, ED], h at its last step)``. The
+    chunk's lattice ``[Bs, Lc, ED, N]`` is built here from the thin inputs."""
+    dA = torch.exp(delta[..., None] * A)  # [Bs, Lc, ED, N]
+    dBx = (delta * x)[..., None] * B[..., None, :]
+    if mask is not None:
+        m = mask[..., None, None]
+        dA = torch.where(m, dA, 1.0)
+        dBx = torch.where(m, dBx, 0.0)
+    if h0 is not None:  # h[0] = ā[0]·h0 + b̄x[0]; the rest of the recurrence is unchanged
+        dBx = torch.cat([dBx[:, :1] + dA[:, :1] * h0[:, None], dBx[:, 1:]], 1)
+    hs = linear_scan(dA, dBx, dim=1)
+    y = torch.einsum("blen,bln->ble", hs, C) + D * x
+    if mask is not None:
+        y = torch.where(mask[..., None], y, 0.0)
+    return y, hs[:, -1]
+
+
+def selective_scan_1d(x: Tensor, delta: Tensor, A: Tensor, B: Tensor, C: Tensor, D: Tensor,
+                      mask: Optional[Tensor] = None, chunk: int = SCAN_CHUNK) -> Tensor:
+    """1D selective scan (``scan.py:38-67``; reference mamba_simple.py:344-423).
+
+    ``h[t] = ā[t]·h[t−1] + b̄x[t]``, ``y[t] = Σ_n h[t]·C[t] + D·x[t]`` with
+    ā = exp(Δ·A), b̄x = Δ·x·B. Args: ``x``, ``delta`` ``[Bs, L, ED]``
+    (softplus applied); ``A`` ``[ED, N]`` (negative); ``B``, ``C``
+    ``[Bs, L, N]``; ``D`` ``[ED]``; ``mask`` ``[Bs, L]`` validity or None.
+    A masked step carries the state through unchanged (ā = 1, b̄x = 0) and
+    gives y = 0, so ragged bags and permuted padding scan correctly.
+
+    The inputs are cast to fp32 whatever the policy. The scan runs in
+    chunks of ``chunk`` tokens, the state carried from one to the next, so
+    at most one chunk's lattice is alive; when a gradient is wanted each
+    chunk runs under ``torch.utils.checkpoint``, so the backward keeps only
+    the thin inputs and the state at each chunk's start, and rebuilds one
+    chunk's lattice at a time. Returns fp32 ``y[Bs, L, ED]``.
+    """
+    x, delta, A, B, C, D = (t.float() for t in (x, delta, A, B, C, D))
+    if mask is not None:
+        mask = mask.bool()
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, delta, A, B, C, D))
+    ys, h = [], None
+    for s in range(0, x.shape[1], chunk):
+        part = [t[:, s:s + chunk] for t in (x, delta, B, C)]
+        m = None if mask is None else mask[:, s:s + chunk]
+        if grad:
+            y, h = checkpoint(_scan_chunk_1d, *part, m, h, A, D, use_reentrant=False)
+        else:
+            y, h = _scan_chunk_1d(*part, m, h, A, D)
+        ys.append(y)
+    return torch.cat(ys, 1)
+
+
+def selective_scan_1d_seq(x: Tensor, delta: Tensor, A: Tensor, B: Tensor, C: Tensor, D: Tensor) -> Tensor:
+    """The sequential 1D recurrence (``scan.py:152-166``), one step at a
+    time in the inputs' dtype: the tests' reference."""
+    dA = torch.exp(delta[..., None] * A)
+    dBx = (delta * x)[..., None] * B[..., None, :]
+    h = x.new_zeros((x.shape[0], x.shape[2], A.shape[-1]))
+    hs = []
+    for t in range(x.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        hs.append(h)
+    return torch.einsum("blen,bln->ble", torch.stack(hs, 1), C) + D * x
 
 
 def selective_scan_2d(x: Tensor, delta: Tensor, A: Tensor, B: Tensor, C: Tensor, D: Tensor,

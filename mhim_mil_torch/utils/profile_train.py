@@ -1,11 +1,12 @@
 """Where a train step's time goes on the card.
 
-``python -m mhim_mil_torch.utils.profile_train [--model mhim] [--baseline selfattn] [--steps 5]``
+``python -m mhim_mil_torch.utils.profile_train [--model mhim] [--baseline selfattn] [--mambamil_type BiMamba] [--steps 5]``
 
 Builds MHIM (``--model mhim``, or ``mhim_pure`` for the teacher stage's
 step) from ``config/mhim_c16.yaml``, or a zoo model (``--model abmil``,
 ``gabmil``, ``transmil``, ``dsmil``, ``clam_sb``, ``clam_mb``, ``dtfd``,
-``ibmil`` (no confounder bank) or ``rrtmil``, on the generic train step) from
+``ibmil`` (no confounder bank), ``rrtmil`` or ``mambamil`` (of
+``--mambamil_type``), on the generic train step) from
 ``config/feat_cls.yaml``, at input_dim 1024 with random weights (seed 0),
 takes 3 warm-up steps under the default bf16 policy on a
 batch of 4 bags of 10,240 instances (two of them ragged, 8,000 and 6,000),
@@ -37,13 +38,14 @@ from .time_scan2d import by_kind, kernel_id, per_call_us
 
 MHIM_STAGES = ("mhim.teacher", "mhim.student", "mhim.backward", "mhim.update")
 STAGES = ("train.forward", "train.backward", "train.update")  # make_train_step's ranges
-ZOO = ("abmil", "gabmil", "transmil", "dsmil", "clam_sb", "clam_mb", "dtfd", "ibmil", "rrtmil")
+ZOO = ("abmil", "gabmil", "transmil", "dsmil", "clam_sb", "clam_mb", "dtfd", "ibmil", "rrtmil", "mambamil")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="mhim", choices=("mhim", "mhim_pure") + ZOO)
     ap.add_argument("--baseline", default="selfattn", choices=("selfattn", "attn"))
+    ap.add_argument("--mambamil_type", default=None, choices=(None, "SimpleMamba", "SRMamba", "BiMamba"))
     ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args(argv)
     b, n, steps, spe = 4, 10240, args.steps, 8
@@ -54,7 +56,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     zoo = args.model in ZOO
     preset = "config/feat_cls.yaml" if zoo else "config/mhim_c16.yaml"
-    cfg = load_config(["-c", preset], input_dim=1024, model=args.model, baseline=args.baseline)
+    cfg = load_config(["-c", preset], input_dim=1024, model=args.model, baseline=args.baseline,
+                      mambamil_type=args.mambamil_type)
     model, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     if zoo:
         state = create_train_state(cfg, model, spe, seed=0, device="cuda")

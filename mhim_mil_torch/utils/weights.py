@@ -4,8 +4,9 @@
 :func:`abmil_state_from_flax`, :func:`mean_max_state_from_flax`,
 :func:`transmil_state_from_flax` and :func:`dsmil_state_from_flax`, the
 reverses of ``import_abmil``, ``import_transmil`` and ``import_dsmil`` where
-those exist; for ``2dmamba``, which has no importer there,
-:func:`mamba2d_state_from_flax`; for the rest of the classification zoo
+those exist; for ``2dmamba`` and ``mambamil``, which have no importer
+there, :func:`mamba2d_state_from_flax` and :func:`mambamil_state_from_flax`;
+for the rest of the classification zoo
 :func:`clam_state_from_flax`, :func:`dtfd_state_from_flax`,
 :func:`ibmil_state_from_flax` and :func:`rrtmil_state_from_flax`, the
 reverses of ``import_clam``, ``import_dtfd``, ``import_ibmil`` and
@@ -217,39 +218,60 @@ def _rmsnorm(sd: Dict, prefix: str, p: Mapping):
     sd[f"{prefix}.weight"] = _t(p["weight"])
 
 
+def _mamba_layers(sd: Dict, params: Mapping):
+    """``layer{i}/norm`` and ``layer{i}/mixer`` as ``layers.{i}.*``: the
+    mixer's ``in_proj``, ``out_proj`` and each branch's ``conv1d``,
+    ``x_proj``, three inner RMSNorms, ``dt_proj``, ``A_log``, ``D`` (the
+    second branch's with the suffix ``_b``: ``conv1d_b`` … ``A_b_log``,
+    ``D_b``, where the mixer has it). The flax 1D conv kernel ``[k, 1, C]``
+    becomes the torch weight ``[C, 1, k]``."""
+    layers = sorted((k for k in params if k.startswith("layer")), key=lambda k: int(k[5:]))
+    for i, name in enumerate(layers):
+        pre, p = f"layers.{i}", params[name]
+        _rmsnorm(sd, f"{pre}.norm", p["norm"])
+        m = p["mixer"]
+        for lin in ("in_proj", "out_proj"):
+            _linear(sd, f"{pre}.mixer.{lin}", m[lin])
+        for sfx in ("", "_b") if "conv1d_b" in m else ("",):
+            for lin in ("x_proj", "dt_proj"):
+                _linear(sd, f"{pre}.mixer.{lin}{sfx}", m[f"{lin}{sfx}"])
+            conv = m[f"conv1d{sfx}"]
+            sd[f"{pre}.mixer.conv1d{sfx}.weight"] = _t(conv["kernel"]).permute(2, 1, 0).contiguous()
+            sd[f"{pre}.mixer.conv1d{sfx}.bias"] = _t(conv["bias"])
+            for norm in ("dt_layernorm", "B_layernorm", "C_layernorm"):
+                _rmsnorm(sd, f"{pre}.mixer.{norm}{sfx}", m[f"{norm}{sfx}"])
+            sd[f"{pre}.mixer.A{sfx}_log"] = _t(m[f"A{sfx}_log"])
+            sd[f"{pre}.mixer.D{sfx}"] = _t(m[f"D{sfx}"])
+
+
 def mamba2d_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of the port's ``MambaMIL2D`` from the JAX
     package's ``MambaMIL2D`` params: ``_fc1``, ``pos_embs`` and
-    ``pad_token`` where the model has them, ``layer{i}/norm`` and
-    ``layer{i}/mixer`` (``in_proj``, ``conv1d``, ``x_proj``, the three inner
-    RMSNorms, ``dt_proj``, ``A_log``, ``D``, ``out_proj``) as
-    ``layers.{i}.*``, ``norm``, ``attn_0`` / ``attn_1`` as
-    ``attention.0`` / ``attention.2``, and ``classifier``. The flax 1D conv
-    kernel ``[k, 1, C]`` becomes the torch weight ``[C, 1, k]``."""
+    ``pad_token`` where the model has them, the layers
+    (:func:`_mamba_layers`), ``norm``, ``attn_0`` / ``attn_1`` as
+    ``attention.0`` / ``attention.2``, and ``classifier``."""
     sd: Dict[str, torch.Tensor] = {}
     _linear(sd, "_fc1", params["_fc1"])
     if "pos_embs" in params:
         _linear(sd, "pos_embs", params["pos_embs"])
     if "pad_token" in params:
         sd["pad_token"] = _t(params["pad_token"])
-    layers = sorted((k for k in params if k.startswith("layer")), key=lambda k: int(k[5:]))
-    for i, name in enumerate(layers):
-        pre, p = f"layers.{i}", params[name]
-        _rmsnorm(sd, f"{pre}.norm", p["norm"])
-        m = p["mixer"]
-        for lin in ("in_proj", "x_proj", "dt_proj", "out_proj"):
-            _linear(sd, f"{pre}.mixer.{lin}", m[lin])
-        sd[f"{pre}.mixer.conv1d.weight"] = _t(m["conv1d"]["kernel"]).permute(2, 1, 0).contiguous()
-        sd[f"{pre}.mixer.conv1d.bias"] = _t(m["conv1d"]["bias"])
-        for norm in ("dt_layernorm", "B_layernorm", "C_layernorm"):
-            _rmsnorm(sd, f"{pre}.mixer.{norm}", m[norm])
-        sd[f"{pre}.mixer.A_log"] = _t(m["A_log"])
-        sd[f"{pre}.mixer.D"] = _t(m["D"])
+    _mamba_layers(sd, params)
     _layernorm(sd, "norm", params["norm"])
     _linear(sd, "attention.0", params["attn_0"])
     _linear(sd, "attention.2", params["attn_1"])
     _linear(sd, "classifier", params["classifier"])
     return sd
+
+
+def mambamil_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``MambaMIL1D`` from the JAX
+    package's ``MambaMIL1D`` params (the port's own map: the JAX package
+    has no importer for it): ``_fc1``, the layers with both branches of an
+    srmamba or bimamba mixer (:func:`_mamba_layers`), ``norm``,
+    ``attn_0`` / ``attn_1`` as ``attention.0`` / ``attention.2``, and
+    ``classifier``."""
+    return mamba2d_state_from_flax(params)
 
 
 def clam_state_from_flax(params: Mapping, dropout: bool = True) -> Dict[str, torch.Tensor]:

@@ -273,7 +273,7 @@ ZOO_TO_PORT = {"abmil": weights.abmil_state_from_flax, "gabmil": weights.abmil_s
                "transmil": weights.transmil_state_from_flax, "dsmil": weights.dsmil_state_from_flax,
                "clam_sb": weights.clam_state_from_flax, "clam_mb": weights.clam_state_from_flax,
                "dtfd": weights.dtfd_state_from_flax, "ibmil": weights.ibmil_state_from_flax,
-               "rrtmil": weights.rrtmil_state_from_flax}
+               "rrtmil": weights.rrtmil_state_from_flax, "mambamil": weights.mambamil_state_from_flax}
 
 
 @pytest.mark.parametrize("model", sorted(ZOO_TO_PORT))

@@ -268,7 +268,9 @@ def test_build_model_gives_the_blca_survival_configuration():
 
 def test_training_takes_the_plain_scan_and_the_1d_block_raises(flax_model):
     """Under grad in training mode the block differentiates the plain scan
-    (and equals the no-grad path); a 1D input is not ported."""
+    (and equals the no-grad path). A 1D input, which raised before the 1D
+    scan was ported, now runs the masked 1D scan: an all-valid mask gives
+    what no mask gives (``tests/test_torch_mambamil.py`` holds it against JAX)."""
     _, _, port = flax_model
     block = port.layers[0]
     grid = torch.randn(1, 3, 4, DIM, generator=torch.Generator().manual_seed(0))
@@ -279,8 +281,11 @@ def test_training_takes_the_plain_scan_and_the_1d_block_raises(flax_model):
     torch.testing.assert_close(got.detach(), want, rtol=RTOL, atol=ATOL)
     assert block.mixer.A_log.grad is not None and block.mixer.A_log.grad.abs().sum() > 0
     port.zero_grad()
-    with pytest.raises(NotImplementedError, match="1D"):
-        block.mixer(torch.zeros(1, 5, DIM))
+    seq = torch.randn(2, 5, DIM, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        out = block.mixer(seq)
+        torch.testing.assert_close(block.mixer(seq, torch.ones(2, 5, dtype=torch.bool)), out, rtol=0, atol=0)
+    assert out.shape == seq.shape and torch.isfinite(out).all()
 
 
 # ---- the eval step and the scorer ---------------------------------------------------------

@@ -212,15 +212,19 @@ def test_forward_teacher_matches_jax(mhim_pair):
 
 
 def test_unported_configurations_raise():
-    """The models of the JAX registry that are not ported yet (``mambamil``
-    alone) raise, and the message names them; unknown names raise too."""
+    """Every model of the JAX registry builds in the port, with the JAX
+    registry's family (``NOT_PORTED`` is empty); unknown names of a model,
+    a baseline or a position module raise."""
+    from mhim_mil_tpu.models.registry import MODEL_REGISTRY
     from mhim_mil_torch.models.registry import NOT_PORTED
 
+    assert NOT_PORTED == ()
     cfg = load_config([], **CFG)
-    assert NOT_PORTED == ("mambamil",)
-    for model in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match=model):
-            build_model(cfg.replace(model=model), device="cpu")
+    for model in sorted(MODEL_REGISTRY):
+        kw = dict(model=model, mambamil_dim=DIM, mambamil_state_dim=4, mamba_2d_max_hw=4)
+        _, family = build_model(cfg.replace(**kw), device="cpu")
+        _, j_family = j_build_model(j_load_config([], **{**CFG, **kw}))
+        assert family == j_family, model
     for kw in ({"model": "nomil"}, {"baseline": "nobaseline"}, {"pos": "nopos"}):
         with pytest.raises(ValueError):
             build_model(cfg.replace(**kw), device="cpu")

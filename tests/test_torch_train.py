@@ -434,6 +434,33 @@ def test_train_steps_match_jax(monkeypatch, baseline):
     assert metrics["keep_num"] <= model.merge_len(v_static) + 1
 
 
+@pytest.mark.parametrize("attention", ["wrappers", "materialising"])
+def test_first_step_gradients_match_jax(monkeypatch, attention):
+    """The first fp32 MHIM-selfattn step's gradients, read as Adam's first
+    moment (1 − β1)·g, equal JAX's within 1e-5 of each tensor's max|·|,
+    whether the CPU runs the kernels' wrappers below ``stream_min_len`` (the
+    port's dispatch) or the materialising op (JAX's): the two compute the
+    same function. The parameters after the step may still differ by more
+    (test_train_steps_match_jax), where Adam's first update divides a
+    gradient of rounding noise by itself plus eps (NystromMSA's docstring)."""
+    if attention == "materialising":
+        monkeypatch.setattr(NystromMSA, "path", lambda self, n, on_cuda, no_norm=False: "materialising")
+    batch = _batch(1)
+    cfg, model, jout, draws = _jax_steps(monkeypatch, "selfattn", "float32", 1, batch)
+    monkeypatch.setattr(layers.Dropout, "forward", lambda self, x, *a, **k: x)
+    state = create_mhim_state(cfg, model, SPE, device="cpu")
+    make_mhim_train_step(cfg, SPE, device="cpu")(state, {k: _t(v) for k, v in batch.items()},
+                                                 draws=_port_draws(model, draws))
+    moments = [s for s in jax.tree.leaves(jout[0][0].opt_state, is_leaf=lambda x: hasattr(x, "mu"))
+               if hasattr(s, "mu")]
+    want = state_dict_from_flax(moments[0].mu, None)
+    params = dict(model.named_parameters())
+    assert set(params) <= set(want)
+    for k, p in params.items():
+        got = state.optimizer.opt.state[p]["exp_avg"]
+        _close(got, want[k], rtol=0, atol=1e-5 * want[k].abs().max().item(), msg=k)
+
+
 def test_bf16_step_loss_is_close_to_jax(monkeypatch):
     """Under the default bf16 policy, the port's first step against JAX's on
     the same weights and draws: the two frameworks round to bf16 at other
