@@ -10,7 +10,8 @@ the README (``config/feat_surv.yaml``, ``--model 2dmamba``, ``surv_blca``:
 input 1024, width 128, one layer, 16 states, the 275 × 381 BLCA grid) on
 its eval step and its scorer; then the zoo (abmil, gabmil, transmil, dsmil
 and MHIM-dsmil), zoo II (clam_sb, clam_mb, dtfd, ibmil, rrtmil), mambamil,
-the streamed Nystrom path and the attention-heatmap export.
+the streamed Nystrom path and the attention-heatmap export; then the
+flagship and K3 at the 16,384 and 32,768 buckets.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -90,11 +91,21 @@ Phases, each of which fails the run:
    ``use_flash_attn=False`` (streamed) against the materialising path;
    (c) the attention-heatmap export CLI on a synthetic ``.pt`` store,
    MHIM selfattn through K1, K2 and K3p and abmil through K4, each grid
-   against the plain path's. Phase 8 adds one bimamba fold.
+   against the plain path's. Phase 8 adds one bimamba fold;
+12. stress, the 16,384 and 32,768 buckets (``tools/stress_30k.py``'s
+   config, ``bench.py``'s flagship at batch 2): the batch-1
+   ``forward_test`` on a full bag of 32,768 (K1 and K2 over 32,769 tokens),
+   kernel path against plain path in fp32; one fp32 flagship train step on
+   ``stress_30k``'s ragged 2 × 32,768 batch, kernel path against plain path
+   at phase 5's tolerances, then 3 bf16 steps with their peak memory; K3
+   alone at B 2, H 8, N 32,769, full and ragged, and N 16,385, as at
+   10,241 in phase 3 (out and attn against the fp32 plain path, everything
+   against fp64 by the VJP criterion, each kernel's device ms and bound:
+   the kernels line's ``stress``).
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-11 each reset the launch counts before their main-path
+columns). Phases 4-12 each reset the launch counts before their main-path
 runs and read them after; the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
@@ -562,26 +573,28 @@ K3_LONG_N = 10241  # the cls token and a bag of 10,240: K3's length in the teach
 K3_LONG_KERNELS = ("K1", "K2", "K3p", "K1b", "K2b")
 
 
-def k3_long(gen, label: str, ragged: bool) -> dict:
-    """K3 at the teacher stage's length (B 4, H 8, N 10,241, dh 64, m 256),
-    every bag full or ragged (5,121-10,241 valid tokens, cls included): out
+def k3_long(gen, label: str, ragged: bool, b: int = 4, n: int = K3_LONG_N) -> dict:
+    """K3 at the teacher stage's length (B 4, H 8, N 10,241, dh 64, m 256;
+    phase 12 also B 2 at N 16,385 and 32,769), every bag full or ragged
+    (half to all of the N tokens valid, cls included: 5,121-10,241): out
     and attn against the fp32 plain path (out rtol 1e-4 atol 1e-5, attn
     max|d| <= 1e-4·max|ref|), and out, attn and the q/k/v gradients under
     random cotangents against the fp64 plain path by the kernel gate's VJP
     criterion (the fp32 plain path's share beside it); one forward +
     backward launches K1b and K2b once each. Timed beside the plain path,
     with each kernel's device ms and records a call (profiler) and the
-    bound at this shape. Every check is printed before any fails the run."""
+    bound at this shape, and the peak memory of the fp64 plain path. Every
+    check is printed before any fails the run."""
     from mhim_mil_torch.ops import flash_nystrom as fn
     from mhim_mil_torch.ops.nystrom import nystrom_attention
     from mhim_mil_torch.utils.kernel_check import vjp_close
     from mhim_mil_torch.utils.time_scan2d import breakdown
 
-    b, h, n, dh, m = 4, 8, K3_LONG_N, 64, 256
+    h, dh, m = 8, 64, 256
     q, k, v, co, ca = k3_operands(gen, b, h, n, dh)
     lengths = torch.full((b,), n, device="cuda")
     if ragged:
-        lengths = 1 + torch.randint(5120, n, (b,), device="cuda", generator=gen)
+        lengths = 1 + torch.randint((n - 1) // 2, n, (b,), device="cuda", generator=gen)
     mask = torch.arange(n, device="cuda")[None] < lengths[:, None]
     kern = lambda: k3_grads(lambda *t: fn.flash_nystrom(*t, mask, m), (q, k, v), (co, ca))
     plain_f = lambda *t: nystrom_attention(*t, mask, m, return_attn=True)
@@ -595,7 +608,7 @@ def k3_long(gen, label: str, ragged: bool) -> dict:
     out_err = (got[0] - want[0]).abs()
     out_off = int((out_err > 1e-5 + 1e-4 * want[0].abs()).sum())
     attn_rel = ((got[1] - want[1]).abs().max() / want[1].abs().max()).item()
-    want64 = k3_grads(plain_f, (q, k, v), (co, ca), torch.float64)
+    want64, peak64 = peak_gib(lambda: k3_grads(plain_f, (q, k, v), (co, ca), torch.float64))
     crit, bad = [], []
     for name, g, w32, w64 in zip(("out", "attn", "dq", "dk", "dv"), got, want, want64):
         r64, r32 = vjp_close(g, w64), vjp_close(w32, w64)
@@ -605,11 +618,12 @@ def k3_long(gen, label: str, ragged: bool) -> dict:
             bad.append(f"{name} misses the VJP criterion against fp64 in {r64['n_bad']} entries")
     del want64
     row = {"lengths": lengths.tolist(), "max_abs_err": max(out_err.max().item(), attn_rel), "launches": calls,
-           "out_entries_off_fp32": out_off, **k3_bounds(lengths.tolist(), h, n, m, dh)}
+           "out_entries_off_fp32": out_off, "plain_fp64_peak_gib": peak64, **k3_bounds(lengths.tolist(), h, n, m, dh)}
     log(f"K3 [{label}] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: against the fp32 plain path out "
         f"max|d| {out_err.max().item():.3e} ({out_off} entries beyond rtol 1e-4 atol 1e-5; max|out| "
         f"{want[0].abs().max().item():.3e}), attn max|d|/max|ref| {attn_rel:.3e} (tolerance 1e-4); against the fp64 "
-        f"plain path by the VJP criterion: {'; '.join(crit)}; K1b and K2b once each in a backward: {once}")
+        f"plain path by the VJP criterion: {'; '.join(crit)}; K1b and K2b once each in a backward: {once}; the fp64 "
+        f"plain path's peak memory {peak64:.2f} GiB")
     if out_off:
         bad.append(f"out: {out_off} entries beyond rtol 1e-4 atol 1e-5 of the fp32 plain path")
     if not attn_rel <= 1e-4 or not torch.isfinite(got[1]).all():
@@ -1025,14 +1039,9 @@ KERNELS = ("K1", "K2", "K3", "K3b", "K3p", "K1b", "K2b", "K4", "K5", "K6")  # K3
 
 
 def launches() -> dict:
-    from mhim_mil_torch.ops import abmil_pool, nystrom_pinv, probe, scan2d
-    from mhim_mil_torch.ops import flash_nystrom as fn
+    from mhim_mil_torch.tools.timing import kernel_launches
 
-    return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches, "K3": fn.flash_nystrom.forward_calls,
-            "K3b": fn.flash_nystrom.backward_calls, "K3p": nystrom_pinv.pinv_product.launches,
-            "K1b": fn.pass_a_backward.launches,
-            "K2b": fn.pass_b_backward.launches, "K4": abmil_pool.fused_abmil_pool.launches,
-            "K5": scan2d.selective_scan_2d_fused.launches, "K6": probe.probe.launches}
+    return kernel_launches()
 
 
 def reset_launches():
@@ -1083,21 +1092,28 @@ def compare_attention(label: str, pairs, tol: float):
             fail(f"{label} fp32 {name}: the limit {limit:.3e} does not tell the reference from a constant")
 
 
-def preset_models(preset: str, gen_seed: int, **kw):
-    """The kernel-path and plain-path models of ``preset`` at input_dim 1024
-    on the same random weights, and the family."""
-    from mhim_mil_torch.config import load_config
+def config_models(cfg, source: str, gen_seed: int):
+    """The kernel-path and plain-path models of ``cfg`` on the same random
+    weights, and the family; ``source`` names the config in the log."""
     from mhim_mil_torch.models import build_model
 
-    cfg = load_config(["-c", preset], input_dim=1024, **kw)
     model_k, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(gen_seed))
     model_p, _ = build_model(cfg.replace(use_flash_attn=False), device="cuda",
                              generator=torch.Generator().manual_seed(gen_seed + 1))
     model_p.load_state_dict(model_k.state_dict())
     name = cfg.model + (f"-{cfg.baseline}" if cfg.model.startswith("mhim") else "")
-    log(f"model: {name} ({preset}) input_dim {cfg.input_dim} inner_dim {cfg.inner_dim} heads {cfg.n_heads}, "
+    log(f"model: {name} ({source}) input_dim {cfg.input_dim} inner_dim {cfg.inner_dim} heads {cfg.n_heads}, "
         f"{sum(p.numel() for p in model_k.parameters())} params, compute_dtype {cfg.compute_dtype}")
-    return cfg, family, model_k, model_p
+    return family, model_k, model_p
+
+
+def preset_models(preset: str, gen_seed: int, **kw):
+    """The kernel-path and plain-path models of ``preset`` at input_dim 1024
+    on the same random weights, and the family."""
+    from mhim_mil_torch.config import load_config
+
+    cfg = load_config(["-c", preset], input_dim=1024, **kw)
+    return (cfg, *config_models(cfg, preset, gen_seed))
 
 
 def flagship_models(gen_seed: int, **kw):
@@ -1236,8 +1252,9 @@ def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=No
     return state_k, state_p, m_k, m_p, counted, lr
 
 
-def bf16_steps(label: str, cfg, state, batch, spe: int, family=None, **launches_per_step) -> dict:
-    """2 warm-up and TRAIN_STEPS timed bf16 steps of ``state`` (the MHIM step,
+def bf16_steps(label: str, cfg, state, batch, spe: int, family=None, steps: int = TRAIN_STEPS,
+               **launches_per_step) -> dict:
+    """2 warm-up and ``steps`` timed bf16 steps of ``state`` (the MHIM step,
     or the generic step of ``family``): the host ms of each (synchronised),
     the losses, the peak memory of the timed steps, the launches
     (``launches_per_step`` a step, else the run fails) and the step. Fails
@@ -1250,18 +1267,18 @@ def bf16_steps(label: str, cfg, state, batch, spe: int, family=None, **launches_
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         m = step16(state, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
-    n = TRAIN_STEPS + 2
+    n = steps + 2
     counted = expect_launches(f"the bf16 {label} steps", **{k: v * n for k, v in launches_per_step.items()})
     moved = sum(not torch.equal(p, q) for p, q in zip(state.model.parameters(), before))
     r = {"ms": statistics.median(times), "times": times, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
          "counted": counted, "step": step16}
-    log(f"{label} bf16: {TRAIN_STEPS} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; {moved}/{len(before)} "
+    log(f"{label} bf16: {steps} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; {moved}/{len(before)} "
         f"parameter tensors moved; {r['ms']:.2f} ms per step (median, host clock, synchronised; min {min(times):.2f}, "
         f"max {max(times):.2f}), {batch['feats'].shape[0] / r['ms'] * 1e3:.1f} bags/s; peak memory "
         f"{r['peak_gib']:.2f} GiB")
@@ -1274,6 +1291,27 @@ TRAIN_LAUNCHES = dict(K1=4, K2=4, K3=2, K3b=2, K3p=4 * 24 + 2 * 48, K1b=2, K2b=2
 TEACHER_LAUNCHES = dict(K1=2, K2=2, K3=2, K3b=2, K3p=2 * 24 + 2 * 48, K1b=2, K2b=2)  # a teacher-stage step
 
 
+def flagship_step_pair(label: str, cfg, model_k, model_p, batch, spe: int):
+    """:func:`fp32_step_pair` of the flagship step with its launches
+    (TRAIN_LAUNCHES), and the mining's, the teacher EMA's and global_q's
+    checks: the mining took the same instances, the teacher within
+    (1 − mm)·2·lr, global_q within 1e-6. Returns the two states, their
+    metrics and the launches."""
+    state_k, state_p, m_k, m_p, counted, lr = fp32_step_pair(label, cfg, model_k, model_p, batch, spe,
+                                                             **TRAIN_LAUNCHES)
+    for key in ("keep_num", "patch_num"):
+        if float(m_k[key]) != float(m_p[key]):
+            fail(f"{label}: {key} differs between the paths: the mining took other instances")
+    t_err = max((tk - tp).abs().max().item()
+                for tk, tp in zip(state_k.teacher.parameters(), state_p.teacher.parameters()))
+    q_err = (model_k.merge.global_q_mm - model_p.merge.global_q_mm).abs().max().item()
+    log(f"{label} fp32 kernel vs plain: teacher max|d| {t_err:.3e} (tolerance {2 * lr * (1 - cfg.mm) + 1e-7:.3e}), "
+        f"global_q max|d| {q_err:.3e} (tolerance 1e-6)")
+    if t_err > 2 * lr * (1 - cfg.mm) + 1e-7 or q_err > 1e-6:
+        fail(f"{label}: the kernel path's teacher EMA or global_q disagrees with the plain path's")
+    return state_k, state_p, m_k, m_p, counted
+
+
 def phase_train(gen) -> dict:
     """Phase 5: the flagship train step. One fp32 step on the kernel path
     against the plain path (:func:`fp32_step_pair`; the mining took the same
@@ -1282,18 +1320,7 @@ def phase_train(gen) -> dict:
     cfg, model_k, model_p = flagship_models(2, compute_dtype="float32")
     batch = train_batch(gen, cfg)
     spe = 8
-    state_k, state_p, m_k, m_p, counted, lr = fp32_step_pair("train", cfg, model_k, model_p, batch, spe,
-                                                             **TRAIN_LAUNCHES)
-    for key in ("keep_num", "patch_num"):
-        if float(m_k[key]) != float(m_p[key]):
-            fail(f"train: {key} differs between the paths: the mining took other instances")
-    t_err = max((tk - tp).abs().max().item()
-                for tk, tp in zip(state_k.teacher.parameters(), state_p.teacher.parameters()))
-    q_err = (model_k.merge.global_q_mm - model_p.merge.global_q_mm).abs().max().item()
-    log(f"train fp32 kernel vs plain: teacher max|d| {t_err:.3e} (tolerance {2 * lr * (1 - cfg.mm) + 1e-7:.3e}), "
-        f"global_q max|d| {q_err:.3e} (tolerance 1e-6)")
-    if t_err > 2 * lr * (1 - cfg.mm) + 1e-7 or q_err > 1e-6:
-        fail("train: the kernel path's teacher EMA or global_q disagrees with the plain path's")
+    state_k, _, _, _, counted = flagship_step_pair("train", cfg, model_k, model_p, batch, spe)
     r = bf16_steps("train", cfg, state_k, batch, spe, **TRAIN_LAUNCHES)
     b = batch["feats"].shape[0]
     return {"launches": [counted, r["counted"]],
@@ -1853,6 +1880,69 @@ def phase_heatmaps(gen) -> dict:
     return {"launches": counted}
 
 
+# ---- phase 12: the 16,384 and 32,768 buckets -------------------------------------
+
+STRESS_N = 32768  # the largest bucket of data/bucketing.DEFAULT_BUCKETS
+STRESS_K3 = (("n32769", 32769, False), ("n32769_ragged", 32769, True), ("n16385", 16385, False))  # cls + bag
+
+
+def phase_stress(gen) -> dict:
+    """Phase 12: the flagship at the 32,768 bucket and K3 at 16,385 and
+    32,769 tokens. (b) Batch-1 ``forward_test`` on a full bag of 32,768
+    (K1 and K2 over 32,769 tokens), the kernel path against the plain path
+    in fp32 at phase 4's 1e-3·max(1, max|ref|); (a) one fp32 flagship step
+    on ``tools/stress_30k.py``'s ragged 2 × 32,768 batch, kernel path
+    against plain path at phase 5's tolerances (:func:`flagship_step_pair`),
+    then 3 bf16 steps with finite losses and their peak memory; (c) K3 alone
+    (:func:`k3_long`) at B 2, H 8, N 32,769, full and ragged (16,385-32,769
+    valid), and at N 16,385 full. The fp64 plain path's peak is reckoned
+    before (c) and the run fails first if the card lacks the room."""
+    from mhim_mil_torch.tools.bench import flagship_config
+    from mhim_mil_torch.tools.stress_30k import BATCH, stress_inputs
+
+    cfg = flagship_config([f"--batch_size={BATCH}"]).replace(compute_dtype="float32")
+    _, model_k, model_p = config_models(cfg, "tools/stress_30k.py", 12)
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in stress_inputs(BATCH, STRESS_N, cfg.input_dim).items()}
+    lengths = batch["mask"].sum(dim=1).tolist()
+    log(f"stress batch {BATCH} x {STRESS_N} x {cfg.input_dim}, lengths {lengths} (tools/stress_30k.py's draw), "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    full = torch.ones_like(batch["mask"][:1])
+    reset_launches()
+    logits_k = model_k.forward_test(batch["feats"][:1], full)["logits"]
+    torch.cuda.synchronize()
+    counted_eval = expect_launches("stress forward_test", K1=2, K2=2, K3p=2 * 24)
+    reset_launches()
+    logits_p = model_p.forward_test(batch["feats"][:1], full)["logits"]
+    torch.cuda.synchronize()
+    expect_launches("the plain-path stress forward_test")
+    compare_models(f"stress forward_test 1 x {STRESS_N}", (("logits", logits_k, logits_p),), 1e-3)
+    spe = 8
+    state_k, state_p, m_k, _, counted = flagship_step_pair("stress", cfg, model_k, model_p, batch, spe)
+    del state_p, model_p
+    torch.cuda.empty_cache()
+    r = bf16_steps("stress", cfg, state_k, batch, spe, steps=3, **TRAIN_LAUNCHES)
+    bf16_counted = r["counted"]
+    flagship = {"lengths": lengths, "fp32_loss": float(m_k["loss"]), "fp32_peak_gib": m_k["peak_gib"],
+                "bf16_ms_per_step": r["ms"], "bf16_peak_gib": r["peak_gib"], "keep_num": float(m_k["keep_num"])}
+    del state_k, model_k, batch, r
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for label, n, ragged in STRESS_K3:
+        b, h, m = BATCH, 8, 256
+        one = b * h * n * m * 8  # one [B,H,N,m] fp64 tensor
+        free, total = torch.cuda.mem_get_info()
+        log(f"K3 [{label}] reckoning: the fp64 plain path holds [B,H,N,m] = [{b},{h},{n},{m}] tensors of "
+            f"{one / 2 ** 30:.2f} GiB (sim1, attn1, sim3, attn3, their softmax temporaries and gradients: about 12, "
+            f"{12 * one / 2 ** 30:.1f} GiB), the fp32 paths half that; {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} "
+            f"GiB free")
+        if 18 * one > free:
+            fail(f"K3 [{label}]: the card lacks the room for the fp64 plain path")
+        rows[label] = k3_long(gen, label, ragged, b=b, n=n)
+    return {"launches": [counted_eval, counted, bf16_counted], "stress": {"flagship": flagship, "K3": rows}}
+
+
 DRIVER_ARGS = ["-c", "config/mhim_c16.yaml", "--datasets", "synth", "--input_dim", "1024", "--synth_bag_size",
                "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24", "--cv_fold", "2",
                "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50"]
@@ -2039,19 +2129,28 @@ def main():
         report.update(phase(gen))
     log(f"phase 3 (the kernels against their plain versions): {time.perf_counter() - t0:.1f} s")
     counted = {kid: 0 for kid in KERNELS}
+    stress = None
     for label, phase in (("4 serving", phase_serving), ("5 train", phase_train), ("5b teacher", phase_teacher),
                          ("6 attn", phase_attn), ("7 2dmamba", phase_mamba), ("9 zoo", phase_zoo),
                          ("10 zoo II", phase_zoo2), ("11a mambamil", phase_mambamil), ("11b streamed", phase_streamed),
-                         ("11c heatmaps", phase_heatmaps), ("8 driver", lambda g: phase_driver())):
+                         ("11c heatmaps", phase_heatmaps), ("12 stress", phase_stress),
+                         ("8 driver", lambda g: phase_driver())):
         t0 = time.perf_counter()
-        for seen in phase(gen)["launches"]:
+        res = phase(gen)
+        for seen in res["launches"]:
             for kid, n in seen.items():
                 counted[kid] += n
+        stress = res.get("stress", stress)
         log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
     log(f"launches on the main paths: {counted}")
     for label in ("long", "long_ragged"):  # each kernel's share of K3 at the teacher stage's length
         for kid, t in report["K3"][label]["by_kernel"].items():
             report[kid].setdefault("k3_long", {})[label] = t
+    report["K3"]["stress"] = {"flagship_2x32768": stress["flagship"]}
+    for label, row in stress["K3"].items():  # K3 alone at N 32,769 and 16,385, and each kernel's share
+        report["K3"]["stress"][label] = {k: v for k, v in row.items() if k != "by_kernel"}
+        for kid, t in row["by_kernel"].items():
+            report[kid].setdefault("stress", {})[label] = t
     meta = {
         "K1": ("flash_nystrom_pass_a (pass_a_partial_kernel over key splits + pass_a_merge_kernel)",
                "mhim_mil_torch/csrc/flash_nystrom.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:45"),
@@ -2084,7 +2183,7 @@ def main():
         }
         for key in ("bound_parts_ms", "batch1", "dh128", "dh256", "dh192", "no_attn", "cls", "s3", "library", "bf16",
                     "serving", "serving_bf16", "backward", "product", "vjp_max_abs_err", "cuda_records_in_5_calls",
-                    "empty_launch_device_ms", "long", "long_ragged", "k3_long"):
+                    "empty_launch_device_ms", "long", "long_ragged", "k3_long", "stress"):
             if key in r:
                 row[key] = r[key]
         if kid == "K3":

@@ -171,6 +171,8 @@ def test_port_imports_no_jax():
         "assert {'mhim_mil_torch.models.clam', 'mhim_mil_torch.models.dtfd', 'mhim_mil_torch.models.ibmil',\n"
         "        'mhim_mil_torch.models.rrt', 'mhim_mil_torch.utils.confounders'} <= set(mods)\n"
         "assert {'mhim_mil_torch.utils.heatmap', 'mhim_mil_torch.tools.export_attention'} <= set(mods)\n"
+        "assert {'mhim_mil_torch.tools.bench', 'mhim_mil_torch.tools.stress_30k', 'mhim_mil_torch.tools.latency',\n"
+        "        'mhim_mil_torch.tools.timing'} <= set(mods)\n"
         "print(len(mods))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
