@@ -11,7 +11,8 @@ input 1024, width 128, one layer, 16 states, the 275 × 381 BLCA grid) on
 its eval step and its scorer; then the zoo (abmil, gabmil, transmil, dsmil
 and MHIM-dsmil), zoo II (clam_sb, clam_mb, dtfd, ibmil, rrtmil), mambamil,
 the streamed Nystrom path and the attention-heatmap export; then the
-flagship and K3 at the 16,384 and 32,768 buckets.
+flagship and K3 at the 16,384 and 32,768 buckets; then the train step's
+diagnostic variants and the in-step breakdown and HBM tools.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -101,11 +102,26 @@ Phases, each of which fails the run:
    alone at B 2, H 8, N 32,769, full and ragged, and N 16,385, as at
    10,241 in phase 3 (out and attn against the fp32 plain path, everything
    against fp64 by the VJP criterion, each kernel's device ms and bound:
-   the kernels line's ``stress``).
+   the kernels line's ``stress``);
+13. the MHIM train step's ``ablate`` variants and the step tools: (a) the
+   flagship step and its ``no_teacher``, ``fwd_only``, ``no_opt_ema`` and
+   ``no_ema`` variants, one fp32 step each on phase 5's ragged batch, the
+   kernel path against the plain path at phase 5's tolerances, with each
+   variant's launches (``no_teacher``: no teacher K1 or K2; ``fwd_only``:
+   the inference path, no K3 call and no backward) and its invariants
+   (``fwd_only`` and ``no_opt_ema`` move no parameter, teacher or Adam
+   moment, ``fwd_only`` moves global_q, ``no_opt_ema``'s gradient norm
+   within 1e-3 of the plain path's, ``no_ema`` updates as the full step
+   does and keeps the teacher); (b) ``tools/roofline.py``'s streaming
+   probes over 1 GiB (each at most 1.05 × the data sheet's 3.35 TB/s) and
+   ``tools/step_breakdown.py`` on ``tools/bench.py``'s bf16 flagship: the
+   host-clock components, each variant's device-busy ms (at most 1.05 × the
+   host ms of the same steps), the device ms of each stage and the bytes
+   floor at the measured rate.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-12 each reset the launch counts before their main-path
+columns). Phases 4-13 each reset the launch counts before their main-path
 runs and read them after; the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
@@ -115,6 +131,7 @@ run's JSON verdict. Any failure exits nonzero before it.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -1203,19 +1220,25 @@ def train_batch(gen, cfg) -> dict:
             "target": torch.randint(0, cfg.n_classes, (b,), device="cuda", generator=gen)}
 
 
-def train_step_for(cfg, spe: int, family=None):
-    """The MHIM train step (``family`` None) or the generic one of ``family``."""
+def train_step_for(cfg, spe: int, family=None, ablate=None):
+    """The MHIM train step (``family`` None; its ``ablate`` variant) or the generic one of ``family``."""
     from mhim_mil_torch.engine.steps import make_mhim_train_step, make_train_step
 
     if family is None:
-        return make_mhim_train_step(cfg, spe, device="cuda")
+        return make_mhim_train_step(cfg, spe, device="cuda", ablate=ablate)
     return make_train_step(cfg, family, spe, device="cuda")
 
 
-def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=None, **launches_per_step):
+def max_diff(a, b) -> float:
+    return max((pa - pb).abs().max().item() for pa, pb in zip(a.parameters(), b.parameters()))
+
+
+def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=None, ablate=None,
+                   **launches_per_step):
     """One fp32 train step on the kernel path and one on the plain path, from
     the same weights, batch and generator seed (so the same dropout, mining
-    and merge draws): the MHIM step, or the generic step of ``family``.
+    and merge draws): the MHIM step (its ``ablate`` variant), or the generic
+    step of ``family``.
     Fails unless the kernel path launched ``launches_per_step`` and the plain
     path no kernel, the losses agree to 1e-4 relative, the gradients to 1e-3
     of max|g| and the parameters to 2·lr: Adam's first step moves each
@@ -1230,17 +1253,21 @@ def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=No
     state_p = create(cfg, model_p, spe, seed=0, device="cuda")
     lr = float(state_k.optimizer.lr_schedule(0))
     reset_launches()
-    m_k, peak_k = peak_gib(lambda: train_step_for(cfg, spe, family)(state_k, batch))
+    m_k, peak_k = peak_gib(lambda: train_step_for(cfg, spe, family, ablate)(state_k, batch))
     counted = expect_launches(f"one fp32 {label} step", **launches_per_step)
     reset_launches()
-    m_p, peak_p = peak_gib(lambda: train_step_for(cfg.replace(use_flash_attn=False), spe, family)(state_p, batch))
+    m_p, peak_p = peak_gib(lambda: train_step_for(cfg.replace(use_flash_attn=False), spe, family, ablate)(state_p,
+                                                                                                        batch))
     expect_launches(f"the plain-path {label} step")
     log(f"{label} fp32 metrics, kernel path: " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_k.items()))
     log(f"{label} fp32 metrics, plain path:  " + ", ".join(f"{k} {float(v):.6g}" for k, v in m_p.items()))
+    if set(m_k) != set(m_p):
+        fail(f"{label}: the paths return other metrics: {sorted(m_k)} against {sorted(m_p)}")
     d_loss = abs(float(m_k["loss"]) - float(m_p["loss"]))
-    g_err = max(((pk.grad - pp.grad).abs().max() / pp.grad.abs().max().clamp_min(1e-30)).item()
-                for pk, pp in zip(model_k.parameters(), model_p.parameters()))
-    p_err = max((pk - pp).abs().max().item() for pk, pp in zip(model_k.parameters(), model_p.parameters()))
+    g_err = 0.0 if ablate == "fwd_only" else max(  # fwd_only takes no gradient
+        ((pk.grad - pp.grad).abs().max() / pp.grad.abs().max().clamp_min(1e-30)).item()
+        for pk, pp in zip(model_k.parameters(), model_p.parameters()))
+    p_err = max_diff(model_k, model_p)
     log(f"{label} fp32 kernel vs plain: loss |d| {d_loss:.3e} (tolerance 1e-4 * |loss|), gradients max|d|/max|ref| "
         f"{g_err:.3e} (tolerance 1e-3), params max|d| {p_err:.3e} (tolerance 2·lr = {2 * lr:.3e})")
     if not math.isfinite(float(m_k["loss"])) or d_loss > 1e-4 * abs(float(m_p["loss"])):
@@ -1249,6 +1276,7 @@ def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=No
         fail(f"{label}: the kernel path's update disagrees with the plain path's")
     log(f"{label} fp32 step peak memory above the states and the batch: {peak_k:.2f} GiB, plain path {peak_p:.2f} GiB")
     m_k["peak_gib"], m_p["peak_gib"] = peak_k, peak_p
+    m_k["grad_rel_err"], m_k["param_err"] = g_err, p_err
     return state_k, state_p, m_k, m_p, counted, lr
 
 
@@ -1289,26 +1317,41 @@ def bf16_steps(label: str, cfg, state, batch, spe: int, family=None, steps: int 
 
 TRAIN_LAUNCHES = dict(K1=4, K2=4, K3=2, K3b=2, K3p=4 * 24 + 2 * 48, K1b=2, K2b=2)  # a flagship step
 TEACHER_LAUNCHES = dict(K1=2, K2=2, K3=2, K3b=2, K3p=2 * 24 + 2 * 48, K1b=2, K2b=2)  # a teacher-stage step
+TEACHER_FWD_LAUNCHES = dict(K1=2, K2=2, K3p=2 * 24)  # the teacher's forward: two TransLayers on K1, K2, K3p
 
 
-def flagship_step_pair(label: str, cfg, model_k, model_p, batch, spe: int):
-    """:func:`fp32_step_pair` of the flagship step with its launches
-    (TRAIN_LAUNCHES), and the mining's, the teacher EMA's and global_q's
-    checks: the mining took the same instances, the teacher within
-    (1 − mm)·2·lr, global_q within 1e-6. Returns the two states, their
-    metrics and the launches."""
+def variant_launches(ablate) -> dict:
+    """A flagship step's launches in each ``ablate`` variant, from
+    TRAIN_LAUNCHES: ``no_teacher`` drops the teacher's forward; ``fwd_only``
+    runs the teacher's and the student's forwards under no_grad, both on
+    the kernels' inference path (``NystromMSA`` takes ``flash_nystrom_infer``
+    without a gradient: K1, K2, K3p; no K3 call, no backward); the others
+    launch what the full step launches."""
+    if ablate == "no_teacher":
+        return {k: v - TEACHER_FWD_LAUNCHES.get(k, 0) for k, v in TRAIN_LAUNCHES.items()}
+    if ablate == "fwd_only":
+        return {k: 2 * v for k, v in TEACHER_FWD_LAUNCHES.items()}
+    return dict(TRAIN_LAUNCHES)
+
+
+def flagship_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, ablate=None):
+    """:func:`fp32_step_pair` of the flagship step (its ``ablate`` variant)
+    with its launches (:func:`variant_launches`), and the mining's, the
+    teacher EMA's and global_q's checks: the mining took the same
+    instances, the teacher within (1 − mm)·2·lr, global_q within 1e-6.
+    Returns the two states, their metrics and the launches."""
     state_k, state_p, m_k, m_p, counted, lr = fp32_step_pair(label, cfg, model_k, model_p, batch, spe,
-                                                             **TRAIN_LAUNCHES)
+                                                             ablate=ablate, **variant_launches(ablate))
     for key in ("keep_num", "patch_num"):
         if float(m_k[key]) != float(m_p[key]):
             fail(f"{label}: {key} differs between the paths: the mining took other instances")
-    t_err = max((tk - tp).abs().max().item()
-                for tk, tp in zip(state_k.teacher.parameters(), state_p.teacher.parameters()))
+    t_err = max_diff(state_k.teacher, state_p.teacher)
     q_err = (model_k.merge.global_q_mm - model_p.merge.global_q_mm).abs().max().item()
     log(f"{label} fp32 kernel vs plain: teacher max|d| {t_err:.3e} (tolerance {2 * lr * (1 - cfg.mm) + 1e-7:.3e}), "
         f"global_q max|d| {q_err:.3e} (tolerance 1e-6)")
     if t_err > 2 * lr * (1 - cfg.mm) + 1e-7 or q_err > 1e-6:
         fail(f"{label}: the kernel path's teacher EMA or global_q disagrees with the plain path's")
+    m_k["teacher_err"], m_k["global_q_err"] = t_err, q_err
     return state_k, state_p, m_k, m_p, counted
 
 
@@ -1943,6 +1986,126 @@ def phase_stress(gen) -> dict:
     return {"launches": [counted_eval, counted, bf16_counted], "stress": {"flagship": flagship, "K3": rows}}
 
 
+# ---- phase 13: the ablate= variants, the in-step breakdown and the HBM ceiling ------
+
+ABLATE = (None, "no_teacher", "fwd_only", "no_opt_ema", "no_ema")
+PEAK_BYTES_SLACK = 1.05  # a streaming probe above this share of the data sheet's rate is a wrong reading
+PROFILER_SLACK = 1.05  # a step's device-busy ms may exceed the host ms of the same steps by this factor
+
+
+def unchanged(model, w0) -> bool:
+    return all(torch.equal(p, q) for p, q in zip(model.parameters(), w0))
+
+
+def phase_ablate_variants(gen) -> tuple:
+    """Phase 13a: the flagship step and its four ``ablate`` variants in fp32
+    on phase 5's ragged batch, each from copies of the same models, the
+    kernel path against the plain path at phase 5's tolerances with its
+    launches (:func:`flagship_step_pair`), and each variant's own
+    invariants."""
+    cfg, model_k, model_p = flagship_models(13, compute_dtype="float32")
+    batch = train_batch(gen, cfg)
+    spe = 8
+    w0 = [p.detach().clone() for p in model_k.parameters()]
+    q0 = model_k.merge.global_q_mm.clone()
+    counted, rows, full = [], {}, None
+    for ablate in ABLATE:
+        label = f"13a {ablate or 'full'}"
+        state_k, state_p, m_k, m_p, c = flagship_step_pair(label, cfg, copy.deepcopy(model_k),
+                                                           copy.deepcopy(model_p), batch, spe, ablate)
+        counted.append(c)
+        sk, lr, opt = state_k.model, float(state_k.optimizer.lr_schedule(0)), state_k.optimizer
+        rows[ablate or "full"] = {k: float(m_k[k]) for k in ("loss", "grad_rel_err", "param_err", "teacher_err",
+                                                              "global_q_err")}
+        if ablate in ("fwd_only", "no_opt_ema"):
+            if not (unchanged(sk, w0) and unchanged(state_k.teacher, w0)) or opt.opt.state or opt.count:
+                fail(f"{label}: the parameters, the teacher or the Adam moments moved")
+        if ablate == "fwd_only" and torch.equal(sk.merge.global_q_mm, q0):
+            fail(f"{label}: global_q did not move")
+        if ablate == "no_opt_ema":
+            gk, gp = float(m_k["gnorm"]), float(m_p["gnorm"])
+            rows["no_opt_ema"].update(gnorm=gk, gnorm_plain=gp)
+            log(f"{label}: gnorm {gk:.6g}, plain {gp:.6g} (1e-3 relative)")
+            if any(p.grad is None for p in sk.parameters()) or not math.isfinite(gk) or abs(gk - gp) > 1e-3 * gp:
+                fail(f"{label}: a parameter has no gradient, or gnorm is not finite or disagrees")
+        if ablate is None:
+            full = [p.detach().clone() for p in sk.parameters()]
+        if ablate == "no_ema":
+            e = max((p - q).abs().max().item() for p, q in zip(sk.parameters(), full))
+            rows["no_ema"]["param_err_vs_full"] = e
+            log(f"{label}: params against the full step's {e:.3e} (2·lr), the teacher unchanged: "
+                f"{unchanged(state_k.teacher, w0)}")
+            if e > 2 * lr or not unchanged(state_k.teacher, w0):
+                fail(f"{label}: the update differs from the full step's, or the teacher moved")
+        del state_k, state_p
+    return counted, rows
+
+
+def phase_ablate(gen) -> dict:
+    """Phase 13: (a) :func:`phase_ablate_variants`; (b) the tools at full
+    width in bf16: ``roofline.measure_hbm_ceiling`` (1 GiB) and
+    ``step_breakdown.run`` on ``tools/bench.py``'s flagship (kernels on),
+    with its launches (each variant's, :func:`steps_taken` steps each). It
+    fails if a probe reads 0 or above 1.05 × the data sheet, a variant's
+    device-busy ms exceeds the host ms of the same steps by more than 5%, or
+    a timing is not finite. The component differences are printed, not
+    gated: on a host-bound step they are noisy."""
+    from mhim_mil_torch.tools import roofline, step_breakdown
+    from mhim_mil_torch.tools.bench import flagship_config
+
+    t0 = time.perf_counter()
+    counted, rows = phase_ablate_variants(gen)
+    log(f"phase 13a: {time.perf_counter() - t0:.1f} s")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda")
+    hbm = roofline.measure_hbm_ceiling(dev)
+    spec = hbm["spec_gb_s"]
+    for name, rate in hbm["gb_s"].items():
+        log(f"13b HBM {name}: {rate:.1f} GB/s over {hbm['nbytes'] / 2 ** 30:.0f} GiB, {rate / spec:.3f} of the data "
+            f"sheet's {spec:.0f} GB/s ({smi})")
+        if not math.isfinite(rate) or rate <= 0 or rate > PEAK_BYTES_SLACK * spec:
+            fail(f"the {name} probe read {rate} GB/s")
+    cfg = flagship_config().replace(use_flash_attn=True)
+    reset_launches()
+    res = step_breakdown.run(cfg, dev, 10240, hbm=hbm)
+    torch.cuda.synchronize()
+    n = step_breakdown.steps_taken()
+    want = {}
+    for ablate in ABLATE:
+        for kid, k in variant_launches(ablate).items():
+            want[kid] = want.get(kid, 0) + n * k
+    counted.append(expect_launches("the breakdown's steps", **want))
+    comps, med = res["components_ms"], res["variant_ms"]
+    busy, host = res["variant_device_busy_ms"], res["variant_profiled_host_ms"]
+    log(f"13b breakdown, {cfg.compute_dtype}, 4 x 10240, warm {res['protocol']['warm']}, windows of "
+        f"{res['protocol']['window']} x {res['protocol']['rounds']}: components (host clock) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in comps.items())
+        + f" ms; sum {res['sum_check_ms']:.3f} against the full step's {res['full_step_ms']:.3f} ms ({smi})")
+    log("13b components on the device-busy ms (profiler): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["device_components_ms"].items()) + " ms")
+    for k in med:
+        ranges = res["range_device_ms"].get(k)
+        log(f"13b {k}: {med[k]:.3f} ms a step (windows {', '.join(f'{x:.3f}' for x in res['variant_windows_ms'][k])}); "
+            f"profiled {host[k]:.3f} ms host, device busy {busy[k]:.3f} ms ({busy[k] / host[k]:.1%})"
+            + ("" if ranges is None else "; device ms by range " + ", ".join(f"{r} {v:.3f}" for r, v in ranges.items())))
+    for k, row in res["bytes_model"].items():
+        if not k.startswith("_"):
+            meas = "n/a" if row["measured_ms"] is None else f"{row['measured_ms']:.3f}"
+            log(f"13b bytes floor {k}: {row['floor_mb']:.1f} MB, {row['floor_ms_at_measured_hbm']:.4f} ms at the "
+                f"measured {hbm['ceiling_gb_s']:.0f} GB/s, {row['floor_ms_at_spec']:.4f} ms at {spec:.0f}; the "
+                f"host-clock component {meas} ms")
+    timings = (list(comps.values()) + list(res["device_components_ms"].values()) + list(med.values()) + [x for w in res["variant_windows_ms"].values() for x in w]
+               + list(busy.values()) + list(host.values())
+               + [v for r in res["range_device_ms"].values() for v in r.values()])
+    if not all(v is not None and math.isfinite(v) for v in timings):
+        fail(f"13b: a timing is not finite: {res}")
+    for k in med:
+        if busy[k] > PROFILER_SLACK * host[k] or (k != "null" and busy[k] <= 0):
+            fail(f"13b {k}: device busy {busy[k]} ms against {host[k]} ms on the host clock")
+    return {"launches": counted, "ablate": {"variants": rows, "hbm": hbm, "breakdown": res, "card": smi}}
+
+
 DRIVER_ARGS = ["-c", "config/mhim_c16.yaml", "--datasets", "synth", "--input_dim", "1024", "--synth_bag_size",
                "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24", "--cv_fold", "2",
                "--num_epoch", "2", "--max_epoch", "2", "--num_bootstrap", "50"]
@@ -2133,7 +2296,7 @@ def main():
     for label, phase in (("4 serving", phase_serving), ("5 train", phase_train), ("5b teacher", phase_teacher),
                          ("6 attn", phase_attn), ("7 2dmamba", phase_mamba), ("9 zoo", phase_zoo),
                          ("10 zoo II", phase_zoo2), ("11a mambamil", phase_mambamil), ("11b streamed", phase_streamed),
-                         ("11c heatmaps", phase_heatmaps), ("12 stress", phase_stress),
+                         ("11c heatmaps", phase_heatmaps), ("12 stress", phase_stress), ("13 ablate", phase_ablate),
                          ("8 driver", lambda g: phase_driver())):
         t0 = time.perf_counter()
         res = phase(gen)

@@ -86,13 +86,25 @@ def grad_norm_metrics(cfg, model: nn.Module) -> Dict[str, Tensor]:
     return {f"grad_norm/{k}": torch.linalg.vector_norm(torch.stack(v)) for k, v in groups.items()}
 
 
+ABLATIONS = (None, "no_teacher", "fwd_only", "no_opt_ema", "no_ema")
+
+
+def global_norm(model: nn.Module) -> Tensor:
+    """The L2 norm of all of ``model``'s gradients together, in fp32
+    (``optax.global_norm``); a parameter without a gradient counts zero."""
+    norms = [torch.linalg.vector_norm(p.grad.float()) for p in model.parameters() if p.grad is not None]
+    if not norms:
+        return torch.zeros((), device=next(model.parameters()).device)
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
 def make_mhim_train_step(
     cfg, steps_per_epoch: int, device: Optional[Union[str, torch.device]] = None,
+    ablate: Optional[str] = None,
 ) -> Callable[..., Dict[str, Tensor]]:
-    """The MHIM train step (``mhim.py:349-489`` without ``ablate``) for
-    ``cfg.model`` ``mhim`` or ``mhim_pure``, run on ``device`` (CUDA unless
-    ``"cpu"`` is asked for). ``step(state, batch, draws=None)`` runs, in
-    order:
+    """The MHIM train step (``mhim.py:349-489``) for ``cfg.model`` ``mhim``
+    or ``mhim_pure``, run on ``device`` (CUDA unless ``"cpu"`` is asked
+    for). ``step(state, batch, draws=None)`` runs, in order:
 
     - the teacher's ``forward_teacher`` in training mode, under no_grad;
     - the scheduled high-mining ratio ``mrh`` (cosine, with ``mrh_sche``);
@@ -108,10 +120,31 @@ def make_mhim_train_step(
     runs its ``pure`` pass and there is no teacher forward and no EMA: the
     teacher stays the copy made at init, and ``aux_loss`` is 0.
 
+    ``ablate`` builds a diagnostic variant of the step with one part taken
+    out (``mhim.py:351-471``), which ``tools/step_breakdown.py`` times
+    against the whole step:
+
+    - ``"no_teacher"``: no teacher forward. The mining reads a fixed uniform
+      attention of ``mask``'s shape in fp32, zero at masked instances as the
+      teacher's score is, drawn once per shape from a generator seeded 0 on
+      the step's device (``draws["teacher_attn"]`` replaces it), and the
+      consistency loss a zero teacher feature ``[B, inner_dim]`` (None when
+      ``aux_alpha`` is 0). Mining, merge and both losses still run;
+    - ``"fwd_only"``: teacher, student and losses under no_grad; no
+      backward, no optimizer micro-step, no EMA. ``state.step`` advances
+      and the Merge's ``global_q_mm`` still moves;
+    - ``"no_opt_ema"``: the backward runs, then no optimizer micro-step (its
+      accumulation counter stays) and no EMA; the metrics add ``gnorm``,
+      the global norm of the gradients;
+    - ``"no_ema"``: the update runs and the teacher EMA does not.
+
+    For ``mhim_pure``, ``no_teacher`` and ``no_ema`` change nothing.
+
     The stages run under ``record_function`` ranges (``mhim.teacher``,
     ``mhim.student``, ``mhim.backward``, ``mhim.update``) that a profiler
     reads. It updates ``state`` (a ``TrainState``) in place and returns the
-    metrics of ``mhim.py:428-437`` with ``loss`` and ``mm``, as 0-d tensors.
+    metrics of ``mhim.py:428-437`` with ``loss`` and ``mm`` (``fwd_only``:
+    without ``mm``; ``no_opt_ema``: ``gnorm`` for ``mm``), as 0-d tensors.
     ``batch`` holds ``feats``, ``mask``, ``target`` and optionally
     ``bag_valid`` on the device. Random numbers come from ``state.gen``,
     except the student's mining and merge draws where ``draws`` gives them
@@ -120,12 +153,21 @@ def make_mhim_train_step(
     device = resolve_device(device)
     if cfg.model not in ("mhim", "mhim_pure"):
         raise NotImplementedError(f"model={cfg.model!r}: only the mhim and mhim_pure train steps are ported")
+    if ablate not in ABLATIONS:
+        raise ValueError(f"ablate={ablate!r}: not one of {ABLATIONS}")
     is_pure = cfg.model == "mhim_pure"
     criterion = build_criterion(cfg)
     dtype = compute_dtype(cfg)
     total_steps = max(cfg.num_epoch * steps_per_epoch, 1)
     mrh_sche = cosine_schedule(cfg.mask_ratio_h, 0.0, total_steps) if cfg.mrh_sche else None
     mm_sche = cosine_schedule(cfg.mm, 1.0, total_steps) if cfg.mm_sche else None
+    fixed_attn: Dict[tuple, Tensor] = {}  # no_teacher's draw, by mask shape
+
+    def uniform_attention(mask: Tensor) -> Tensor:
+        if mask.shape not in fixed_attn:
+            gen0 = torch.Generator(device=mask.device).manual_seed(0)
+            fixed_attn[mask.shape] = torch.rand(mask.shape, generator=gen0, device=mask.device)
+        return fixed_attn[mask.shape]
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    draws: Optional[Dict[str, object]] = None) -> Dict[str, Tensor]:
@@ -136,14 +178,21 @@ def make_mhim_train_step(
         feats, mask = batch_c["feats"], batch["mask"].bool()
 
         if not is_pure:
-            # The reference's EMA teacher mines with its dropouts on
-            # (model_ema.train(), base_engine.py:37-38).
-            with record_function("mhim.teacher"):
-                cls_tea, attn = apply_cast(teacher, cast_compute(cfg, teacher), "forward_teacher",
-                                           feats, mask, training=True, gen=gen)
-            cls_tea = None if cfg.aux_alpha == 0.0 else cls_tea
+            if ablate == "no_teacher":
+                attn = (draws or {}).get("teacher_attn")
+                attn = uniform_attention(mask) if attn is None else attn.to(mask.device, torch.float32)
+                attn = torch.where(mask, attn, 0.0)
+                cls_tea = (None if cfg.aux_alpha == 0.0
+                           else torch.zeros((mask.shape[0], cfg.inner_dim), dtype=torch.float32, device=mask.device))
+            else:
+                # The reference's EMA teacher mines with its dropouts on
+                # (model_ema.train(), base_engine.py:37-38).
+                with record_function("mhim.teacher"):
+                    cls_tea, attn = apply_cast(teacher, cast_compute(cfg, teacher), "forward_teacher",
+                                               feats, mask, training=True, gen=gen)
+                cls_tea = None if cfg.aux_alpha == 0.0 else cls_tea
             mrh = mrh_sche(state.step) if mrh_sche is not None else None
-        with record_function("mhim.student"):
+        with record_function("mhim.student"), torch.set_grad_enabled(ablate != "fwd_only"):
             params = cast_compute(cfg, student)
             if is_pure:
                 out = apply_cast(student, params, "pure", feats, mask, training=True, gen=gen)
@@ -152,27 +201,32 @@ def make_mhim_train_step(
                                  training=True, gen=gen, draws=draws)
             main = criterion(out["logits"], batch)
             loss = cfg.main_alpha * main + cfg.aux_alpha * out["aux_loss"]
-        with record_function("mhim.backward"):
-            state.optimizer.zero_grad()
-            loss.backward()
-        grad_norms = grad_norm_metrics(cfg, student)
-        with record_function("mhim.update"):
-            state.optimizer.step()
-            mm = mm_sche(state.step) if mm_sche is not None else cfg.mm
-            if not is_pure:
-                ema_update(teacher, student, mm)
-        state.step += 1
-        return {
-            "loss": loss.detach(),
-            "mm": torch.as_tensor(mm, dtype=torch.float32),
+        loss_d = loss.detach()
+        metrics = {
             "main_loss": main.detach(),
             "aux_loss": out["aux_loss"].detach(),
             "patch_num": out["patch_num"].float().mean(),
             "keep_num": out["keep_num"].float().mean(),
             # the padded fraction of the bucket (mhim.py:433-436)
             "pad_ratio": 1.0 - mask.float().mean(),
-            **grad_norms,
         }
+        if ablate == "fwd_only":
+            state.step += 1
+            return {"loss": loss_d, **metrics}
+        with record_function("mhim.backward"):
+            state.optimizer.zero_grad()
+            loss.backward()
+        if ablate == "no_opt_ema":
+            state.step += 1
+            return {"loss": loss_d, "gnorm": global_norm(student), **metrics}
+        grad_norms = grad_norm_metrics(cfg, student)
+        with record_function("mhim.update"):
+            state.optimizer.step()
+            mm = mm_sche(state.step) if mm_sche is not None else cfg.mm
+            if not is_pure and ablate != "no_ema":
+                ema_update(teacher, student, mm)
+        state.step += 1
+        return {"loss": loss_d, "mm": torch.as_tensor(mm, dtype=torch.float32), **metrics, **grad_norms}
 
     return train_step
 

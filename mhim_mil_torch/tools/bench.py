@@ -32,15 +32,24 @@ fp32 on the device. It prints:
    device's time only where the host keeps ahead of the card), the
    per-call floor of the link (``x + 1`` on a 4 × 4), and eval slides/s at
    batch 4;
-4. the step's FLOPs, counted by ``FlopCounterMode`` on the plain path of
-   the same model and weights (the counter does not see the kernels'
-   ``ctypes`` launches), the achieved TFLOP/s and ``mfu`` against the
-   H100's dense bf16 peak of 989 TFLOP/s, beside the card's name and power
-   limit.
+4. the measured roofline (``roofline``, ``tools/roofline.py``): the
+   step's FLOPs, counted by ``FlopCounterMode`` on the plain path of the
+   same model and weights (the counter does not see the kernels' ``ctypes``
+   launches), the achieved TFLOP/s and ``mfu`` against the H100's dense
+   bf16 peak of 989 TFLOP/s; the card's streaming rates in GB/s
+   (``hbm_gb_s``: an in-place multiply, ``x.sum()`` and a copy over 1 GiB)
+   beside the data sheet's 3,350 (the probes' buffer is 16 MiB on the
+   CPU), the bytes the measured ceiling moves in a step
+   (``physical_bytes_ceiling_per_step``) and the step's bytes floor; beside
+   the card's name and power limit;
+5. the in-step decomposition (``decomposition``, ``tools/step_breakdown.py``):
+   the full step, a null step and the four ``ablate`` variants in
+   interleaved windows (``--warmup`` steps each, then 3 rounds of
+   ``--steps``), the host-clock components, each variant's device-busy ms
+   and each ``record_function`` range's device ms (profiler), and
+   ``bytes_model`` at the measured rate. ``--breakdown off`` leaves it out.
 
-Left out, against ``bench.py``: the measured HBM ceiling and the in-step
-decomposition (``tools/roofline.py``, ``tools/step_breakdown.py``) come with
-their own port; the ``steps_per_call=15`` row: the port's
+Left out, against ``bench.py``: the ``steps_per_call=15`` row: the port's
 ``steps_per_call`` runs single steps (``engine/driver.py``), so its rate is
 the dense rate; and ``vs_baseline``, whose A100 denominator is a
 derivation, not a measurement.
@@ -50,7 +59,8 @@ The line before the last is the whole detail as JSON (also written to
 is one JSON object: ``metric``, ``value`` (the dense rate), ``unit``, the
 ragged rate, the eval p50, ``mfu`` and the device. The tool's own flags are
 ``--device`` (``cuda``, the default, or ``cpu``), ``--bag_size``,
-``--warmup``, ``--steps``, ``--reps`` and ``--detail``; every other flag is
+``--warmup``, ``--steps``, ``--reps``, ``--detail`` and ``--breakdown
+on|off``; every other flag is
 the config's and overrides the flagship's (``--input_dim 16 --inner_dim 32``
 for a rehearsal on the CPU; the epoch simulation's lengths and buckets scale
 with ``--bag_size``).
@@ -68,7 +78,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from . import timing
+from . import roofline, step_breakdown, timing
 
 BAG_SIZE = 10240  # the 10k-instance bucket
 WARMUP_STEPS = 30
@@ -92,15 +102,20 @@ def flagship_config(argv: Sequence[str] = ()):
     return timing.config_from(FLAGSHIP, argv)
 
 
-def make_state_and_step(cfg, device: torch.device):
-    """The model (random weights, seed 0), its MHIM train state and the train step."""
-    from ..engine.steps import make_mhim_train_step
+def make_state(cfg, device: torch.device):
+    """The model (random weights, seed 0) and its MHIM train state (generator seed 0)."""
     from ..engine.train_state import create_mhim_state
     from ..models import build_model
 
     model, _ = build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
-    state = create_mhim_state(cfg, model, STEPS_PER_EPOCH, seed=0, device=device)
-    return model, state, make_mhim_train_step(cfg, STEPS_PER_EPOCH, device=device)
+    return model, create_mhim_state(cfg, model, STEPS_PER_EPOCH, seed=0, device=device)
+
+
+def make_state_and_step(cfg, device: torch.device):
+    """:func:`make_state` and the train step."""
+    from ..engine.steps import make_mhim_train_step
+
+    return (*make_state(cfg, device), make_mhim_train_step(cfg, STEPS_PER_EPOCH, device=device))
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -243,16 +258,6 @@ def step_flops(cfg, model, batch, device) -> int:
     return timing.plain_flops(lambda: step(state, batch))
 
 
-def roofline(flops: int, step_ms: float, dev: Dict) -> Dict:
-    """Achieved TFLOP/s and ``mfu`` against the dense bf16 peak (a card only)."""
-    on_card = dev["platform"] == "gpu"
-    tflops = flops / (step_ms / 1e3) / 1e12
-    return {"step_ms": step_ms, "step_flops": flops, "flops_counted_on": "plain path (FlopCounterMode)",
-            "achieved_tflops": tflops if on_card else None,
-            "mfu": tflops / timing.PEAK_BF16_TFLOPS if on_card else None,
-            "peak_tflops": timing.PEAK_BF16_TFLOPS, "card": dev["nvidia_smi"]}
-
-
 def main(argv: Optional[List[str]] = None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
@@ -261,6 +266,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--steps", type=int, default=WINDOW_STEPS, help="steps a window")
     ap.add_argument("--reps", type=int, default=LATENCY_REPS, help="eval calls timed")
     ap.add_argument("--detail", default=DETAIL)
+    ap.add_argument("--breakdown", default="on", choices=("on", "off"), help="the in-step decomposition")
     args, rest = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
     device, dev = timing.open_device(args.device)
     from ..utils.kernel_gate import resolve_kernel_gate
@@ -280,6 +286,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     sim = epoch_sim(state, step, device, b, d, n)
     lat = eval_latency(cfg, model, dense, device, args.reps, args.warmup)
     flops = step_flops(cfg, model, dense, device)
+    hbm = roofline.measure_hbm_ceiling(device)
+    decomposition = None
+    if args.breakdown == "on":
+        decomposition = step_breakdown.run(cfg, device, n, warm=args.warmup, window=args.steps, hbm=hbm)
+    n_params = sum(p.numel() for p in model.parameters())
+    floors = step_breakdown.bytes_model(cfg, n_params, (b, n, d), {}, hbm["ceiling_gb_s"] * 1e9)
     detail = {
         "dense_bags_per_sec": dense_bps,
         "ragged_bags_per_sec": ragged_bps,
@@ -299,7 +311,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         "compute_dtype": cfg.compute_dtype,
         "kernel_gate": {"outcome": gate["outcome"], "seconds": gate["seconds"],
                         "use_flash_attn": cfg.use_flash_attn},
-        "roofline": roofline(flops, b / dense_bps * 1e3, dev),
+        "roofline": roofline.step_roofline(b / dense_bps * 1e3, flops, floors["_total"]["floor_bytes"], hbm, dev),
+        "decomposition": decomposition,
         "seconds": time.perf_counter() - t0,
         "device": dev,
     }

@@ -30,6 +30,7 @@ import torch
 from ..utils.platform import resolve_device
 
 PEAK_BF16_TFLOPS = 989.0  # NVIDIA H100 SXM data sheet, dense bf16 on the tensor cores
+PEAK_HBM_BYTES_S = 3.35e12  # NVIDIA H100 SXM data sheet, HBM3
 
 
 def nvidia_smi() -> str:

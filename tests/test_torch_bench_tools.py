@@ -126,6 +126,15 @@ def test_bench_rehearsal(one_thread, capsys, tmp_path):
     assert sorted(sim["per_bucket_bags_per_sec"]) == sorted(sim["first_step_s_per_bucket"])
     assert set(map(int, sim["per_bucket_bags_per_sec"])) <= set(sim["buckets"])
     assert detail["roofline"]["step_flops"] > 0 and detail["infer_p90_ms"] >= detail["infer_p50_ms"] > 0
+    roof = detail["roofline"]
+    assert set(roof["hbm_gb_s"]) == {"mul_inplace", "sum", "copy"} and roof["hbm_spec_gb_s"] == 3350.0
+    assert roof["hbm_probe_bytes"] == 16 << 20 and roof["physical_bytes_ceiling_per_step"] > 0
+    dec = detail["decomposition"]
+    assert dec["protocol"] == {"warm": 2, "window": 2, "rounds": 3, "profile_steps": 3}
+    assert set(dec["components_ms"]) == {"dispatch_floor", "teacher_fwd", "student_fwd", "backward", "optimizer",
+                                         "ema_walk"}
+    assert set(dec["variant_device_busy_ms"]) == {"full", "null", "no_teacher", "fwd_only", "no_opt_ema", "no_ema"}
+    assert dec["bytes_model"]["_geometry"]["N"] == 64 and dec["hbm_gb_s"] == roof["hbm_gb_s"]
 
 
 def test_stress_rehearsal(one_thread, capsys):

@@ -156,7 +156,8 @@ def test_port_imports_no_jax():
         "import pkgutil, importlib, sys, mhim_mil_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(mhim_mil_torch.__path__, 'mhim_mil_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mhim_mil_tpu'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mhim_mil_tpu',\n"
+        "                                                            'pandas', 'h5py'))\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 15, mods\n"
         "assert {'mhim_mil_torch.ops.scan', 'mhim_mil_torch.ops.scan2d', 'mhim_mil_torch.models.mamba'} <= set(mods)\n"
@@ -173,6 +174,9 @@ def test_port_imports_no_jax():
         "assert {'mhim_mil_torch.utils.heatmap', 'mhim_mil_torch.tools.export_attention'} <= set(mods)\n"
         "assert {'mhim_mil_torch.tools.bench', 'mhim_mil_torch.tools.stress_30k', 'mhim_mil_torch.tools.latency',\n"
         "        'mhim_mil_torch.tools.timing'} <= set(mods)\n"
+        "assert {'mhim_mil_torch.tools.roofline', 'mhim_mil_torch.tools.step_breakdown',\n"
+        "        'mhim_mil_torch.tools.make_splits', 'mhim_mil_torch.tools.convert_features',\n"
+        "        'mhim_mil_torch.preprocess.extract'} <= set(mods)\n"
         "print(len(mods))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -396,15 +396,19 @@ def _port_draws(model, draws):
     return {"mask": [_t(next(it)) if s else None for s in on], "merge": _t(next(it))}
 
 
-def _check_state(state, jstate, jmetrics, metrics, rtol, atol):
+def _check_state(state, jstate, jmetrics, metrics, rtol, atol, student=True):
+    """The metrics, the student (its parameters only where ``student``; its
+    buffers always) and the teacher against JAX's state and metrics."""
     for k, want in jmetrics.items():
         _close(metrics[k], want, rtol=RTOL, atol=ATOL, msg=k)
     buffers = jstate.model_state.get("buffers")
     want = state_dict_from_flax(jstate.params, buffers)
     got = state.model.state_dict()
     assert set(got) == set(want)
+    params = {n for n, _ in state.model.named_parameters()}
     for k in want:
-        _close(got[k], want[k], rtol, atol, msg=f"student {k}")
+        if student or k not in params:
+            _close(got[k], want[k], rtol, atol, msg=f"student {k}")
     want_t = state_dict_from_flax(jstate.teacher_params, buffers)
     for k, t in state.teacher.state_dict().items():
         if k != "merge.global_q_mm":  # the teacher's copy of the buffer is never read
