@@ -12,7 +12,8 @@ its eval step and its scorer; then the zoo (abmil, gabmil, transmil, dsmil
 and MHIM-dsmil), zoo II (clam_sb, clam_mb, dtfd, ibmil, rrtmil), mambamil,
 the streamed Nystrom path and the attention-heatmap export; then the
 flagship and K3 at the 16,384 and 32,768 buckets; then the train step's
-diagnostic variants and the in-step breakdown and HBM tools.
+diagnostic variants and the in-step breakdown and HBM tools; then the
+serving export bundle.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -117,11 +118,23 @@ Phases, each of which fails the run:
    ``tools/step_breakdown.py`` on ``tools/bench.py``'s bf16 flagship: the
    host-clock components, each variant's device-busy ms (at most 1.05 × the
    host ms of the same steps), the device ms of each stage and the bytes
-   floor at the measured rate.
+   floor at the measured rate;
+14. the serving export bundle: each kernel's ``torch.ops.mhim_mil_torch``
+   op refuses an operand on the CPU; the flagship exported for ``cuda`` at
+   buckets 1,024, 4,096 and 10,240, abmil (K4) and 2dmamba (K5) at 10,240,
+   each in fp32 and bf16 (each program's export seconds and MB); a fresh
+   process loads every bundle with ``mhim_mil_torch.utils.serving`` alone
+   (neither ``jax`` nor ``mhim_mil_torch.models`` imported; each program's
+   load seconds) and scores 4 × 10,240 ragged, 1 × 3,000, 1 × 900 and a
+   batch of 3 (the flagship) or 4 × 10,240 and 1 × 6,000; each request's
+   logits against the live ``Scorer``'s on the same model (fp32 within
+   1e-4, bf16 within 1e-2, × max(1, max|ref|)) and its launches equal to
+   the Scorer's and nonzero (K1 2, K2 2, K3p 48; K4 1; K5 1); the bf16
+   flagship's 1 × 10,240 p50 through the bundle and the Scorer, in turns.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-13 each reset the launch counts before their main-path
+columns). Phases 4-14 each reset the launch counts before their main-path
 runs and read them after; the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
@@ -250,16 +263,19 @@ def check_rel(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> f
 # ---- phase 1: device ---------------------------------------------------------
 
 
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an H100")
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
         fail(f"compute capability {cap}, the kernels are built for sm_90a")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2056,8 +2072,7 @@ def phase_ablate(gen) -> dict:
     t0 = time.perf_counter()
     counted, rows = phase_ablate_variants(gen)
     log(f"phase 13a: {time.perf_counter() - t0:.1f} s")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = card()
     dev = torch.device("cuda")
     hbm = roofline.measure_hbm_ceiling(dev)
     spec = hbm["spec_gb_s"]
@@ -2104,6 +2119,241 @@ def phase_ablate(gen) -> dict:
         if busy[k] > PROFILER_SLACK * host[k] or (k != "null" and busy[k] <= 0):
             fail(f"13b {k}: device busy {busy[k]} ms against {host[k]} ms on the host clock")
     return {"launches": counted, "ablate": {"variants": rows, "hbm": hbm, "breakdown": res, "card": smi}}
+
+
+# ---- phase 14: the serving export bundle ------------------------------------------
+
+BUNDLE_BUCKETS = (1024, 4096, 10240)
+BUNDLE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}  # × max(1, max|ref|): bundle against the live Scorer
+BUNDLE_REPEATS = 20  # bf16 calls of 1 × 10,240 through each of the two, in turns
+# a fresh process scores every bundle of the plan with the loader alone, and
+# reports each program's load seconds and each request's launches
+BUNDLE_LOADER = r"""
+import json, sys, time
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from mhim_mil_torch.utils.serving import load_bundle
+from mhim_mil_torch.ops import abmil_pool, nystrom_pinv, scan2d
+from mhim_mil_torch.ops import flash_nystrom as fn
+
+def counts():
+    return {"K1": fn.pass_a.launches, "K2": fn.pass_b.launches, "K3p": nystrom_pinv.pinv_product.launches,
+            "K4": abmil_pool.fused_abmil_pool.launches, "K5": scan2d.selective_scan_2d_fused.launches}
+
+plan, res = json.load(open(sys.argv[1])), {}
+for b in plan:
+    bundle = load_bundle(b["path"])
+    load_s = {}
+    for n in bundle.buckets:
+        t0 = time.perf_counter()
+        bundle.program(n)
+        load_s[n] = time.perf_counter() - t0
+    rows = []
+    for r in b["requests"]:
+        mask = None if r["mask"] is None else np.load(r["mask"])
+        before = counts()
+        logits = bundle.score(np.load(r["feats"]), mask)["logits"]
+        torch.cuda.synchronize()
+        after = counts()
+        np.save(r["out"], logits)
+        rows.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+    res[b["label"]] = {"load_s": load_s, "launches": rows}
+res["imported"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "mhim_mil_tpu")
+                         or m.startswith("mhim_mil_torch.models"))
+json.dump(res, open(sys.argv[2], "w"))
+"""
+
+
+def bundle_mixed_devices():
+    """Each kernel's op refuses a CUDA call with one operand on the CPU:
+    the dispatcher picks the CUDA kernel, which raises, and no plain
+    version runs."""
+    import mhim_mil_torch.utils.serving  # noqa: F401 (registers the ops)
+
+    c, h = torch.ones(1, 1, 16, 16, device="cuda"), torch.ones(1, 1, 16, 16)
+    m = torch.ones(1, 16, dtype=torch.bool, device="cuda")
+    ops = torch.ops.mhim_mil_torch
+    calls = {
+        "pass_a": lambda: ops.pass_a(c, h, c, m),
+        "pass_b": lambda: ops.pass_b(c, h, m, c, m, c, c, c[..., 0], c[..., 0]),
+        "newton_schulz": lambda: ops.newton_schulz(c[0], h[0], 1, False),
+        "abmil_pool": lambda: ops.abmil_pool(c[0], h[0, 0], m),
+        "scan2d": lambda: ops.scan2d(c, c, h[0, 0], c, c, c[0, 0, 0]),
+    }
+    for name, call in calls.items():
+        before = launches()
+        try:
+            call()
+        except (ValueError, RuntimeError) as e:
+            if launches() != before:
+                fail(f"14: {name} launched on mixed devices")
+            log(f"14: {name} with one operand on the CPU raises {type(e).__name__}: {str(e)[:90]}")
+            continue
+        fail(f"14: {name} ran with one operand on the CPU")
+
+
+def export_bundle(label: str, cfg, model, family: str, out: str, buckets) -> dict:
+    """``export_serving_bundle`` for ``cuda``, with each program's export
+    seconds (``torch.export.export``'s own, timed by a shim) and MB."""
+    from mhim_mil_torch.utils.serving import export_serving_bundle, program_name
+
+    seconds, real = [], torch.export.export
+
+    def timed_export(*a, **k):
+        t0 = time.perf_counter()
+        prog = real(*a, **k)
+        seconds.append(time.perf_counter() - t0)
+        return prog
+
+    torch.export.export = timed_export
+    try:
+        t0 = time.perf_counter()
+        manifest = export_serving_bundle(cfg, model, family, out, buckets=buckets)
+        total = time.perf_counter() - t0
+    finally:
+        torch.export.export = real
+    rows = {}
+    for n, s in zip(buckets, seconds):
+        mb = os.path.getsize(os.path.join(out, program_name(n, "cuda"))) / 2 ** 20
+        rows[n] = {"export_s": s, "mb": mb}
+        log(f"14 {label}: bucket {n} exported in {s:.2f} s (torch.export.export, host clock), {mb:.2f} MB")
+    log(f"14 {label}: bundle of {len(buckets)} programs written in {total:.2f} s, manifest "
+        f"{ {k: manifest[k] for k in ('family', 'buckets', 'platforms', 'compute_dtype', 'torch_version')} }")
+    return rows
+
+
+def bundle_requests(gen, tmp: str, case: str, input_dim: int, names) -> list:
+    """The requests of phase 14's ``case`` on the host, each saved for the
+    loader: ``(name, feats, mask or None, paths)``."""
+    import numpy as np
+
+    feats, mask = flagship_batch(gen, input_dim)
+    made = {
+        "4 x 10240 ragged": (feats, mask),
+        "1 x 6000": (torch.randn(6000, input_dim, device="cuda", generator=gen), None),
+        "1 x 3000": (torch.randn(3000, input_dim, device="cuda", generator=gen), None),
+        "1 x 900": (torch.randn(900, input_dim, device="cuda", generator=gen), None),
+        "3 x 4000 ragged": (torch.randn(3, 4000, input_dim, device="cuda", generator=gen),
+                            torch.arange(4000, device="cuda")[None] < torch.tensor([[4000], [2500], [1200]],
+                                                                                    device="cuda")),
+    }
+    out = []
+    for i, name in enumerate(names):
+        f, mk = (None if t is None else t.cpu().numpy() for t in made[name])
+        paths = {"feats": os.path.join(tmp, f"{case}_req{i}_feats.npy"),
+                 "mask": None if mk is None else os.path.join(tmp, f"{case}_req{i}_mask.npy")}
+        np.save(paths["feats"], f)
+        if mk is not None:
+            np.save(paths["mask"], mk)
+        out.append((name, f, mk, paths))
+    return out
+
+
+def phase_bundle(gen) -> dict:
+    """Phase 14: the serving export bundle. (a) The flagship
+    (``config/mhim_c16.yaml``, selfattn, random weights from a seed) exported
+    for ``cuda`` at buckets 1,024, 4,096 and 10,240 in fp32 and in the
+    config's bf16; (b) abmil (``feat_cls.yaml``, K4) and 2dmamba
+    (``feat_surv.yaml`` + ``surv_blca``, K5 on the raster grid) at bucket
+    10,240, in both. A fresh process loads every bundle with
+    ``mhim_mil_torch.utils.serving`` alone (neither ``jax`` nor
+    ``mhim_mil_torch.models`` imported) and scores the requests; each
+    request's logits against the live ``Scorer``'s on the same model (fp32
+    within 1e-4, bf16 within 1e-2, × max(1, max|ref|)) and its launches
+    equal to the Scorer's and nonzero. (c) The bf16 flagship's 1 × 10,240
+    p50 through the bundle and through the Scorer, in turns. Every op also
+    refuses mixed devices."""
+    import numpy as np
+
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.models import build_model
+    from mhim_mil_torch.utils.serving import Scorer, load_bundle
+
+    bundle_mixed_devices()
+    smi = card()
+    cases = [  # label, cfg, buckets, requests, launches a request
+        ("flagship", load_config(["-c", "config/mhim_c16.yaml"], input_dim=1024), BUNDLE_BUCKETS,
+         ("4 x 10240 ragged", "1 x 3000", "1 x 900", "3 x 4000 ragged"), dict(K1=2, K2=2, K3p=2 * 24)),
+        ("abmil", load_config(["-c", ZOO], model="abmil", input_dim=1024), (10240,),
+         ("4 x 10240 ragged", "1 x 6000"), dict(K4=1)),
+        ("2dmamba", load_config(["-c", "config/feat_surv.yaml"], model="2dmamba", datasets="surv_blca",
+                                input_dim=1024), (10240,), ("4 x 10240 ragged", "1 x 6000"), dict(K5=1)),
+    ]
+    counted, report, plan, checks = [], {"card": smi, "exports": {}, "requests": []}, [], []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bundle_") as tmp:
+        for seed, (name, cfg, buckets, names, per_request) in enumerate(cases):
+            model, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(140 + seed))
+            requests = bundle_requests(gen, tmp, name, cfg.input_dim, names)
+            for dtype in ("float32", "bfloat16"):
+                label = f"{name} {dtype}"
+                cfg_d = cfg.replace(compute_dtype=dtype)
+                path = os.path.join(tmp, label.replace(" ", "_"))
+                report["exports"][label] = export_bundle(label, cfg_d, model, family, path, buckets)
+                outs = [os.path.join(path, f"out{i}.npy") for i in range(len(requests))]
+                plan.append({"label": label, "path": path, "requests": [
+                    {**paths, "out": o} for (_, _, _, paths), o in zip(requests, outs)]})
+                checks.append((label, cfg_d, model, family, buckets, requests, outs, per_request))
+        with open(os.path.join(tmp, "plan.json"), "w") as f:
+            json.dump(plan, f)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", BUNDLE_LOADER, os.path.join(tmp, "plan.json"),
+                              os.path.join(tmp, "loaded.json")], cwd=os.path.dirname(os.path.abspath(__file__)),
+                             env=env, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"14: the loader process failed:\n{res.stderr[-4000:]}")
+        with open(os.path.join(tmp, "loaded.json")) as f:
+            loaded = json.load(f)
+        log(f"14: the loader process scored {len(plan)} bundles in {time.perf_counter() - t0:.2f} s (host clock, "
+            f"process start and loads included)")
+        if loaded["imported"]:
+            fail(f"14: the loader imported {loaded['imported']}")
+        log("14: the loader process imported neither jax nor mhim_mil_torch.models")
+        for label, cfg_d, model, family, buckets, requests, outs, per_request in checks:
+            log(f"14 {label}: program load seconds {loaded[label]['load_s']}")
+            report["exports"][label] = {n: {**r, "load_s": loaded[label]["load_s"][str(n)]}
+                                        for n, r in report["exports"][label].items()}
+            scorer = Scorer(cfg_d, model, buckets, "cuda", family)
+            tol = BUNDLE_TOL[cfg_d.compute_dtype]
+            for (name, f, mk, _), out, seen in zip(requests, outs, loaded[label]["launches"]):
+                reset_launches()
+                want = scorer.score(f, mk)["logits"]
+                torch.cuda.synchronize()
+                ref = {k: v for k, v in launches().items() if v}
+                got = np.load(out)
+                err = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+                limit = tol * max(1.0, float(np.abs(want).max()))
+                log(f"14 {label} [{name}]: bundle vs Scorer logits {got.shape} max|d| {err:.3e} (tolerance {limit:.3e}), "
+                    f"launches bundle {seen}, Scorer {ref}")
+                if not np.isfinite(got).all() or err > limit:
+                    fail(f"14 {label} [{name}]: the bundle's logits disagree with the Scorer's")
+                if seen != ref or ref != per_request:
+                    fail(f"14 {label} [{name}]: launches bundle {seen}, Scorer {ref}, want {per_request}")
+                counted += [seen, ref]
+                report["requests"].append({"bundle": label, "request": name, "max_abs_err": err, "tolerance": limit,
+                                           "launches": seen})
+        # (c) the bf16 flagship, 1 × 10,240, through the bundle and the Scorer in turns
+        label, cfg_d, model, family, buckets, requests, _, _ = checks[1]
+        bundle, scorer = load_bundle(plan[1]["path"]), Scorer(cfg_d, model, buckets, "cuda", family)
+        one = requests[0][1][:1]
+        for fn in (bundle.score, scorer.score):  # warm-up
+            fn(one)
+        reset_launches()
+        times = {"bundle": [], "scorer": []}
+        for _ in range(BUNDLE_REPEATS):
+            for key, fn in (("bundle", bundle.score), ("scorer", scorer.score)):
+                t0 = time.perf_counter()
+                fn(one)
+                times[key].append((time.perf_counter() - t0) * 1e3)
+        counted.append(expect_launches("14c", K1=2 * 2 * BUNDLE_REPEATS, K2=2 * 2 * BUNDLE_REPEATS,
+                                       K3p=2 * 48 * BUNDLE_REPEATS))
+    p50 = {k: statistics.median(v) for k, v in times.items()}
+    log(f"14c {label} 1 x 10240: p50 bundle {p50['bundle']:.3f} ms, Scorer {p50['scorer']:.3f} ms (median of "
+        f"{BUNDLE_REPEATS} each, in turns, host clock, H2D of the features and D2H of the logits included), {smi}")
+    report["p50_ms"] = p50
+    return {"launches": counted, "bundle": report}
 
 
 DRIVER_ARGS = ["-c", "config/mhim_c16.yaml", "--datasets", "synth", "--input_dim", "1024", "--synth_bag_size",
@@ -2297,7 +2547,7 @@ def main():
                          ("6 attn", phase_attn), ("7 2dmamba", phase_mamba), ("9 zoo", phase_zoo),
                          ("10 zoo II", phase_zoo2), ("11a mambamil", phase_mambamil), ("11b streamed", phase_streamed),
                          ("11c heatmaps", phase_heatmaps), ("12 stress", phase_stress), ("13 ablate", phase_ablate),
-                         ("8 driver", lambda g: phase_driver())):
+                         ("14 bundle", phase_bundle), ("8 driver", lambda g: phase_driver())):
         t0 = time.perf_counter()
         res = phase(gen)
         for seen in res["launches"]:

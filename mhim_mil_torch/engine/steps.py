@@ -6,6 +6,7 @@ generic train and eval steps (port of ``cast_compute``, ``ema_update``,
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, Optional, Union
 
 import torch
@@ -327,47 +328,75 @@ def make_train_step(
     return train_step
 
 
-def make_mhim_eval_step(cfg, model: nn.Module) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
-    """Inference through ``forward_test`` under the config's precision policy
-    (reference common_mil.py:56-63). The step takes ``{"feats", "mask"}`` on
-    the model's device and returns fp32 ``{"logits"}``.
-
-    Under bf16 the weights are cast once, when the step is made: the step
-    then serves the weights the model held at that time.
-    """
-    dtype = compute_dtype(cfg)
-    with torch.no_grad():
-        params = cast_compute(cfg, model)
-
-    @torch.inference_mode()
-    def eval_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
-        batch = _cast_batch(dtype, batch)
-        out = apply_cast(model, params, "forward_test", batch["feats"], batch["mask"])
-        return {"logits": out["logits"].float()}
-
-    return eval_step
+MHIM_FAMILIES = ("mhim", "mhim_pure")
 
 
-def make_eval_step(cfg, model: nn.Module, family: str) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
-    """Inference through the model's ``forward`` (``steps.py:166-190``) under
-    the config's precision policy, weights cast once as in
-    :func:`make_mhim_eval_step`. The step takes ``{"feats", "mask"}`` on the
-    model's device and the grid coordinates ``"pos"`` where the model takes
-    them (:func:`_forward_inputs`); it returns fp32 ``{"logits"}``, and
-    ``"sub_logits"`` (DSMIL's max-pooled instance logits) when the model
-    gives them: the caller fuses the two."""
-    dtype = compute_dtype(cfg)
-    with torch.no_grad():
-        params = cast_compute(cfg, model)
+class EvalBody(nn.Module):
+    """The family-dispatched inference body (the port of ``_infer_fn`` in
+    ``mhim_mil_tpu/utils/serving.py``) that the eval steps, the scorer and
+    the serving export run: ``forward_test`` for ``mhim`` and
+    ``mhim_pure``, the model's ``forward(training=False)`` otherwise, on
+    the batch cast to the config's compute dtype, returning fp32
+    ``{"logits"}`` and, where the model gives DSMIL's max-pooled instance
+    logits, ``"sub_logits"`` unfused. ``pos`` (the grid coordinates) goes
+    to the models that take it (:func:`_forward_inputs`).
 
-    @torch.inference_mode()
-    def eval_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
-        feats = _cast_batch(dtype, batch)["feats"]
-        extra, kw = _forward_inputs(model, family, batch)
-        out = apply_cast(model, params, "forward", feats, batch["mask"], *extra, training=False, **kw)
+    Under fp32 it runs ``model`` itself. Under bf16 it holds a copy of
+    ``model`` whose fp32 parameters are cast once, when it is made, as
+    :func:`cast_compute` casts them (its buffers copied, not cast): its own
+    parameters, so that an export traces them as the program's state; the
+    copy serves the weights the model held at that time. Either way its
+    logits are those of the functional call over :func:`cast_compute`'s
+    weights, bit for bit."""
+
+    def __init__(self, cfg, model: nn.Module, family: str):
+        super().__init__()
+        self.family, self.dtype = family, compute_dtype(cfg)
+        if self.dtype != torch.float32:
+            memo = {id(p): nn.Parameter(p.detach().to(self.dtype), requires_grad=False)
+                    for p in model.parameters() if p.dtype == torch.float32}
+            model = copy.deepcopy(model, memo)
+        self.model = model
+
+    def forward(self, feats: Tensor, mask: Tensor, pos: Optional[Tensor] = None) -> Dict[str, Tensor]:
+        feats = feats.to(self.dtype)
+        if self.family in MHIM_FAMILIES:
+            return {"logits": self.model.forward_test(feats, mask)["logits"].float()}
+        extra, kw = _forward_inputs(self.model, self.family, {} if pos is None else {"pos": pos})
+        out = self.model(feats, mask, *extra, training=False, **kw)
         res = {"logits": out["logits"].float()}
         if "inst_logits_bag" in out:
             res["sub_logits"] = out["inst_logits_bag"].float()
         return res
 
+
+def _eval_step(body: EvalBody) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
+    @torch.inference_mode()
+    def eval_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        return body(batch["feats"], batch["mask"], batch.get("pos"))
+
     return eval_step
+
+
+def make_mhim_eval_step(cfg, model: nn.Module) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
+    """Inference through ``forward_test`` under the config's precision policy
+    (reference common_mil.py:56-63): :class:`EvalBody` under
+    ``inference_mode``. The step takes ``{"feats", "mask"}`` on the model's
+    device and returns fp32 ``{"logits"}``.
+
+    Under bf16 the weights are cast once, when the step is made: the step
+    then serves the weights the model held at that time.
+    """
+    return _eval_step(EvalBody(cfg, model, "mhim"))
+
+
+def make_eval_step(cfg, model: nn.Module, family: str) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
+    """Inference through the model's ``forward`` (``steps.py:166-190``) under
+    the config's precision policy, weights cast once as in
+    :func:`make_mhim_eval_step`: :class:`EvalBody` under ``inference_mode``.
+    The step takes ``{"feats", "mask"}`` on the model's device and the grid
+    coordinates ``"pos"`` where the model takes them
+    (:func:`_forward_inputs`); it returns fp32 ``{"logits"}``, and
+    ``"sub_logits"`` (DSMIL's max-pooled instance logits) when the model
+    gives them: the caller fuses the two."""
+    return _eval_step(EvalBody(cfg, model, family))

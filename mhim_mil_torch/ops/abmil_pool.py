@@ -8,7 +8,9 @@ columns: blocks over chunks of a bag's tokens (:func:`abmil_plan`), the last
 block of a bag merging the chunks in a fixed order and writing pooled and
 attn (:func:`abmil_pool_chunked_plain` is that arithmetic in plain torch,
 for tests). On CPU tensors it runs :func:`abmil_pool_plain`;
-``fused_abmil_pool.launches`` counts its calls on the card.
+``fused_abmil_pool.launches`` counts its calls on the card. It is the
+``torch.library`` op ``torch.ops.mhim_mil_torch.abmil_pool`` (a CPU and a
+CUDA kernel and a fake), so that ``torch.export`` traces it.
 :func:`column_groups` takes any width. No gradient: the training path keeps
 the differentiable plain ops, as in the JAX package.
 """
@@ -94,15 +96,22 @@ def column_groups(call, x: Tensor, attn_logits: Tensor, mask: Tensor) -> Tuple[T
 
 
 def fused_abmil_pool(x: Tensor, attn_logits: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor]:
-    """Masked softmax-attention pooling. ``x[B, N, D]`` (fp32 or bf16, any
-    strides with a unit last stride; values at masked instances are
+    """Masked softmax-attention pooling, the op
+    ``torch.ops.mhim_mil_torch.abmil_pool``. ``x[B, N, D]`` (fp32 or bf16,
+    any strides with a unit last stride; values at masked instances are
     ignored), ``attn_logits[B, N]``, ``mask[B, N]``, any D ≥ 1
     (:func:`column_groups`: one launch for D ≤ 1,024, ⌈D/1024⌉ above).
     Returns fp32 ``(pooled[B, D], attn[B, N])``, both from the kernel."""
+    if not on_cpu(x, attn_logits, mask) and torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("fused_abmil_pool has no gradient; use the plain pool under grad")
+    return torch.ops.mhim_mil_torch.abmil_pool(x, attn_logits, mask)
+
+
+@torch.library.custom_op("mhim_mil_torch::abmil_pool", mutates_args=(), device_types=("cpu", "cuda"),
+                         schema="(Tensor x, Tensor attn_logits, Tensor mask) -> (Tensor, Tensor)")
+def _abmil_pool_op(x: Tensor, attn_logits: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor]:
     if on_cpu(x, attn_logits, mask):
         return abmil_pool_plain(x, attn_logits, mask)
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("fused_abmil_pool has no gradient; use the plain pool under grad")
     b, n, d = x.shape
     dev = x.device
     check("x", x, (b, n, d), dev, dtype=(torch.float32, torch.bfloat16))
@@ -115,6 +124,12 @@ def fused_abmil_pool(x: Tensor, attn_logits: Tensor, mask: Tensor) -> Tuple[Tens
     out = column_groups(_launch, x, logits, mask)
     fused_abmil_pool.launches += 1
     return out
+
+
+@_abmil_pool_op.register_fake
+def _(x, attn_logits, mask):
+    b, n, d = x.shape
+    return x.new_empty((b, d), dtype=torch.float32), x.new_empty((b, n), dtype=torch.float32)
 
 
 @functools.lru_cache(maxsize=None)

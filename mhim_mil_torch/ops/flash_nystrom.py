@@ -12,10 +12,14 @@ of device memory:
 - **K2** ``pass_b``: per token, ``out = softmax_m(Q·K_lᵀ) @ mid`` and the cls
   row ``cls[t] = Σ_m r'[m]·exp(q_l[m]·k_t − m3[m])``.
 
-``pass_a`` and ``pass_b`` launch the CUDA kernels of
-``csrc/flash_nystrom.cu`` on CUDA tensors and run ``pass_a_plain`` /
-``pass_b_plain`` on CPU tensors. Each keeps in ``.launches`` the number of
-times it was called on the card (K1's call launches two kernels: the
+``pass_a`` and ``pass_b`` call the ``torch.library`` ops
+``torch.ops.mhim_mil_torch.pass_a`` and ``.pass_b``, which launch the CUDA
+kernels of ``csrc/flash_nystrom.cu`` on CUDA tensors and run
+``pass_a_plain`` / ``pass_b_plain`` on CPU tensors (and raise on a mix);
+each op has a fake that gives the kernel's shapes, dtypes and strides on
+its device, so that ``torch.export`` traces the path (``utils/serving.py``).
+Each wrapper keeps in ``.launches`` the number of times it was called on
+the card (K1's call launches two kernels: the
 partials of its key splits, planned by :func:`pass_a_plan`, and their merge;
 :func:`pass_a_split_plain` is that arithmetic in plain torch, for tests).
 The kernels are built for head dims 16, 32, 64, 128 and 256; on the card
@@ -436,14 +440,51 @@ def _bwd_width(dh: int, cls: bool) -> int:
 
 
 def pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """K1: the CUDA kernels on CUDA tensors, :func:`pass_a_plain` on CPU tensors.
-    ``k`` and ``v`` may be any strided view with a unit last stride whose
-    rows start on 16 bytes; any head dim up to 256 (:func:`padded_head_dim`)."""
+    """K1 as the op ``torch.ops.mhim_mil_torch.pass_a``: the CUDA kernels on
+    CUDA tensors, :func:`pass_a_plain` on CPU tensors. ``k`` and ``v`` may
+    be any strided view with a unit last stride whose rows start on 16
+    bytes; any head dim up to 256 (:func:`padded_head_dim`)."""
+    _on_cpu(ql, k, v, mask)  # raises on a mix or another device, which the dispatcher would take to the fake
+    return torch.ops.mhim_mil_torch.pass_a(ql, k, v, mask)
+
+
+@torch.library.custom_op("mhim_mil_torch::pass_a", mutates_args=(), device_types=("cpu", "cuda"),
+                         schema="(Tensor ql, Tensor k, Tensor v, Tensor mask) -> (Tensor, Tensor, Tensor)")
+def _pass_a_op(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     if _on_cpu(ql, k, v, mask):
         return pass_a_plain(ql, k, v, mask)
     out = padded_head_dim(_launch_pass_a, (ql, k, v, mask), (0, 1, 2), (0,))
     pass_a.launches += 1
     return out
+
+
+@_pass_a_op.register_fake
+def _(ql, k, v, mask):
+    b, h, m, _ = ql.shape
+    return _head_dim_view(ql, (b, h, m)), *(ql.new_empty((b, h, m), dtype=_out_dtype(ql)) for _ in "ms")
+
+
+def _out_dtype(like: Tensor) -> torch.dtype:
+    """The dtype of a pass's outputs: fp32 from the kernels, the inputs' own
+    from the plain versions."""
+    return torch.float32 if like.device.type == "cuda" else like.dtype
+
+
+def _head_dim_view(like: Tensor, lead, heads_inner: bool = False) -> Tensor:
+    """A fake output ``[B, H, R, dh]`` (``lead = (B, H, R)``, ``dh`` that of
+    ``like``) laid out as the pass gives it: on the card fp32 storage at the
+    kernel's head dim ``dh'`` (:func:`kernel_head_dim`), ``[B, R, H, dh']``
+    where ``heads_inner`` (K2's ``out``) else ``[B, H, R, dh']``, as a view
+    cut back to ``dh``; on the CPU contiguous, as the plain version's."""
+    dh = like.shape[-1]
+    if like.device.type != "cuda":
+        return like.new_empty((*lead, dh))
+    b, h, r = lead
+    if heads_inner:
+        store = like.new_empty((b, r, h, kernel_head_dim(dh)), dtype=torch.float32).transpose(1, 2)
+    else:
+        store = like.new_empty((b, h, r, kernel_head_dim(dh)), dtype=torch.float32)
+    return store[..., :dh]
 
 
 def _launch_pass_a(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -485,16 +526,32 @@ def pass_b(
     q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor,
     mid: Tensor, ql: Tensor, rp: Tensor, m3: Tensor,
 ) -> Tuple[Tensor, Tensor]:
-    """K2: the CUDA kernel on CUDA tensors, :func:`pass_b_plain` on CPU tensors.
-    ``q`` and ``k`` may be strided views whose rows start on 16 bytes; ``out``
-    comes back as a ``[B,H,N,dh]`` view of ``[B,N,H,dh']`` storage, ``dh'``
-    the head dim the kernel ran at (:func:`padded_head_dim`), so the caller's
+    """K2 as the op ``torch.ops.mhim_mil_torch.pass_b``: the CUDA kernel on
+    CUDA tensors, :func:`pass_b_plain` on CPU tensors. ``q`` and ``k`` may be
+    strided views whose rows start on 16 bytes; on the card ``out`` comes
+    back as a ``[B,H,N,dh]`` view of ``[B,N,H,dh']`` storage, ``dh'`` the
+    head dim the kernel ran at (:func:`padded_head_dim`), so the caller's
     merge of the heads is free where the two are equal."""
+    _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3)  # raises on a mix or another device, as in pass_a
+    return torch.ops.mhim_mil_torch.pass_b(q, k, mask, kl, lm_mask, mid, ql, rp, m3)
+
+
+@torch.library.custom_op("mhim_mil_torch::pass_b", mutates_args=(), device_types=("cpu", "cuda"),
+                         schema="(Tensor q, Tensor k, Tensor mask, Tensor kl, Tensor lm_mask, Tensor mid, "
+                                "Tensor ql, Tensor rp, Tensor m3) -> (Tensor, Tensor)")
+def _pass_b_op(q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor,
+               mid: Tensor, ql: Tensor, rp: Tensor, m3: Tensor) -> Tuple[Tensor, Tensor]:
     if _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3):
         return pass_b_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3)
     out = padded_head_dim(_launch_pass_b, (q, k, mask, kl, lm_mask, mid, ql, rp, m3), (0, 1, 3, 5, 6), (0,))
     pass_b.launches += 1
     return out
+
+
+@_pass_b_op.register_fake
+def _(q, k, mask, kl, lm_mask, mid, ql, rp, m3):
+    b, h, n, _ = q.shape
+    return _head_dim_view(q, (b, h, n), heads_inner=True), q.new_empty((b, h, n), dtype=_out_dtype(q))
 
 
 def _launch_pass_b(

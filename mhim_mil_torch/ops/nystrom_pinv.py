@@ -17,8 +17,11 @@ over a matrix forms it) and by :func:`pinv_product_plain` on CPU tensors;
 ``pinv_product.launches`` counts its launches. :func:`pinv_program` runs a
 list of products in order (its tensors checked once), :func:`newton_schulz`
 and :func:`newton_schulz_backward` the iterations and their sweep as such
-lists, and :class:`NewtonSchulz` maps ``(x, z0) → z`` through them,
-saving the iterates; :func:`pseudo_inverse` is the pseudo-inverse that
+lists (the forward sweep is the ``torch.library`` op
+``torch.ops.mhim_mil_torch.newton_schulz``, so that ``torch.export``
+traces it; the reverse sweep is called directly), and
+:class:`NewtonSchulz` maps ``(x, z0) → z`` through them, saving the
+iterates; :func:`pseudo_inverse` is the pseudo-inverse that
 K3's glue runs: the
 initial scale in plain torch under autograd (its gradient flows through
 abs, the sums and the batch-wide max, near-ties and all), then
@@ -136,21 +139,46 @@ def newton_schulz(x: Tensor, z: Tensor, iters: int, keep: bool = False) -> Tuple
     one :func:`pinv_program`; returns the last iterate and, where ``keep``,
     each iteration's ``(z, xz, u, w)`` for :func:`newton_schulz_backward`
     (without it the iterations share their buffers)."""
-    saved, products = [], []
+    on_cpu(x, z)  # raises on a mix or another device, which the dispatcher would take to the fake
+    z, iterates = torch.ops.mhim_mil_torch.newton_schulz(x, z, iters, keep)
+    return z, [tuple(it) for it in iterates]
+
+
+@torch.library.custom_op("mhim_mil_torch::newton_schulz", mutates_args=(), device_types=("cpu", "cuda"),
+                         schema="(Tensor x, Tensor z0, int iters, bool keep) -> (Tensor, Tensor)")
+def _newton_schulz_op(x: Tensor, z0: Tensor, iters: int, keep: bool) -> Tuple[Tensor, Tensor]:
+    """The forward sweep as one op: K3p launches on CUDA tensors (``x`` and
+    ``z0`` contiguous, as :func:`pinv_program` checks),
+    :func:`pinv_product_plain` on CPU tensors. Returns the last iterate and
+    ``iterates[iters, 4, *x.shape]``, each iteration's ``(z, xz, u, w)``
+    where ``keep`` (the first ``z`` a copy of ``z0``, so that no output is
+    an input), else ``[0, 4, *x.shape]``."""
+    iterates = x.new_empty((iters if keep else 0, 4, *x.shape))
+    if iters == 0:
+        return z0.clone(), iterates
     xz, u, w = (torch.empty_like(x) for _ in range(3))
     zs = (torch.empty_like(x), torch.empty_like(x))
+    products = []
+    z = z0
+    if keep:
+        iterates[0, 0].copy_(z0)
     for i in range(iters):
         if keep:
-            xz, u, w = (torch.empty_like(x) for _ in range(3))
-            saved.append((z, xz, u, w))
-        z_next = torch.empty_like(x) if keep else zs[i % 2]
+            xz, u, w = iterates[i, 1], iterates[i, 2], iterates[i, 3]
+        last = i == iters - 1
+        z_next = (torch.empty_like(x) if last else iterates[i + 1, 0]) if keep else zs[i % 2]
         products += [(x, z, None, xz, 1.0, 0.0, False, False, 0.0),  # xz = x·z
                      (xz, xz, None, u, -1.0, -7.0, False, False, 0.0),  # u = xz·(7I − xz)
                      (xz, u, None, w, -1.0, -15.0, False, False, 0.0),  # w = xz·(15I − u)
                      (z, w, None, z_next, -0.25, -13.0, False, False, 0.0)]  # z' = 0.25·z·(13I − w)
         z = z_next
     pinv_program(products)
-    return z, saved
+    return z, iterates
+
+
+@_newton_schulz_op.register_fake
+def _(x, z0, iters, keep):
+    return x.new_empty(x.shape), x.new_empty((iters if keep else 0, 4, *x.shape))
 
 
 def newton_schulz_backward(x: Tensor, saved: List[tuple], g: Tensor) -> Tuple[Tensor, Tensor]:
@@ -186,16 +214,16 @@ class NewtonSchulz(torch.autograd.Function):
     def forward(ctx, x, z0, iters):
         x, z0 = x.contiguous(), z0.contiguous()
         keep = any(ctx.needs_input_grad[:2])
-        z, saved = newton_schulz(x, z0, iters, keep)
+        on_cpu(x, z0)  # raises on a mix or another device, as in newton_schulz
+        z, iterates = torch.ops.mhim_mil_torch.newton_schulz(x, z0, iters, keep)
         if keep:
-            ctx.save_for_backward(x, *(t for s in saved for t in s))
+            ctx.save_for_backward(x, iterates)
         return z
 
     @staticmethod
     def backward(ctx, g):
-        x, *flat = ctx.saved_tensors
-        saved = [tuple(flat[i:i + 4]) for i in range(0, len(flat), 4)]
-        dx, dz0 = newton_schulz_backward(x, saved, g.contiguous())
+        x, iterates = ctx.saved_tensors
+        dx, dz0 = newton_schulz_backward(x, [tuple(it) for it in iterates], g.contiguous())
         return dx, dz0, None
 
 

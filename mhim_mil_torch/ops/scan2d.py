@@ -5,7 +5,9 @@ horizontal scan of B̄x along each row, the vertical step against the row
 above and the contraction with C, in one kernel (``csrc/scan2d.cu``) that
 keeps Ā, B̄x, u and h out of device memory. It launches the kernel on CUDA
 tensors and runs :func:`scan2d_plain` on CPU tensors;
-``selective_scan_2d_fused.launches`` counts its calls on the card. The
+``selective_scan_2d_fused.launches`` counts its calls on the card. It is
+the ``torch.library`` op ``torch.ops.mhim_mil_torch.scan2d`` (a CPU and a
+CUDA kernel and a fake), so that ``torch.export`` traces it. The
 kernel is built for state sizes 2, 4, 8 and 16; :func:`state_groups` takes
 any other. No gradient: the training path keeps the differentiable plain
 scan, as in the JAX package.
@@ -150,10 +152,17 @@ def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, 
     shared memory, or in a scratch buffer allocated here where that does not
     fit (about 4,000 columns at N = 16). Any state size N ≥ 1
     (:func:`state_groups`: one launch for N ≤ 16, ⌈N/16⌉ above)."""
+    if not on_cpu(x, delta, A_log, B, C, D) and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in (x, delta, A_log, B, C, D)):
+        raise RuntimeError("selective_scan_2d_fused has no gradient; use the plain scan under grad")
+    return torch.ops.mhim_mil_torch.scan2d(x, delta, A_log, B, C, D)
+
+
+@torch.library.custom_op("mhim_mil_torch::scan2d", mutates_args=(), device_types=("cpu", "cuda"),
+                         schema="(Tensor x, Tensor delta, Tensor A_log, Tensor B, Tensor C, Tensor D) -> Tensor")
+def _scan2d_op(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Tensor) -> Tensor:
     if on_cpu(x, delta, A_log, B, C, D):
         return scan2d_plain(x, delta, A_log, B, C, D)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, delta, A_log, B, C, D)):
-        raise RuntimeError("selective_scan_2d_fused has no gradient; use the plain scan under grad")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if A_log.shape[-1] < 1:
@@ -161,6 +170,11 @@ def selective_scan_2d_fused(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, 
     y = state_groups(_launch, x.contiguous(), delta.contiguous(), A_log, B, C, D)
     selective_scan_2d_fused.launches += 1
     return y
+
+
+@_scan2d_op.register_fake
+def _(x, delta, A_log, B, C, D):
+    return x.new_empty(x.shape, dtype=torch.float32)
 
 
 def _launch(x: Tensor, delta: Tensor, A_log: Tensor, B: Tensor, C: Tensor, D: Tensor) -> Tensor:

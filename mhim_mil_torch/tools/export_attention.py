@@ -33,41 +33,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..utils.checkpoint import load_weights
+
 MHIM_FAMILIES = ("mhim", "mhim_pure")
-
-
-def _port_state(cfg, payload: Dict) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` from a JAX checkpoint's params (and the
-    Merge buffers in its ``model_state``)."""
-    from ..models.registry import load_confounders
-    from ..utils import weights
-
-    params = payload["params"]
-    if cfg.model in MHIM_FAMILIES:
-        return weights.state_dict_from_flax(params, (payload.get("model_state") or {}).get("buffers"))
-    if cfg.model == "ibmil":
-        return weights.ibmil_state_from_flax(params, load_confounders(cfg))
-    if cfg.model in ("clam_sb", "clam_mb"):
-        return weights.clam_state_from_flax(params, dropout=bool(cfg.dropout))
-    convert = {
-        "abmil": weights.abmil_state_from_flax, "gabmil": weights.abmil_state_from_flax,
-        "meanmil": weights.mean_max_state_from_flax, "maxmil": weights.mean_max_state_from_flax,
-        "transmil": weights.transmil_state_from_flax, "dsmil": weights.dsmil_state_from_flax,
-        "dtfd": weights.dtfd_state_from_flax, "rrtmil": weights.rrtmil_state_from_flax,
-        "2dmamba": weights.mamba2d_state_from_flax, "mambamil": weights.mambamil_state_from_flax,
-    }
-    return convert[cfg.model](params)
-
-
-def load_weights(cfg, model: torch.nn.Module, path: str) -> None:
-    """The student weights of a port or JAX fold checkpoint into ``model``."""
-    from ..utils.checkpoint import is_jax_checkpoint, load_checkpoint, load_jax_checkpoint
-
-    if is_jax_checkpoint(path):
-        sd = _port_state(cfg, load_jax_checkpoint(path))
-    else:
-        sd = load_checkpoint(path)["model"]
-    model.load_state_dict(sd)
 
 
 def _slides(cfg) -> List[Dict]:

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..engine.steps import MHIM_FAMILIES
 from ..engine.train_state import TrainState
 
 
@@ -157,3 +158,40 @@ def overlay_params(module: torch.nn.Module, loaded: Dict[str, torch.Tensor]) -> 
     modules/__init__.py:190-207)."""
     own = module.state_dict()
     module.load_state_dict({k: v for k, v in loaded.items() if k in own}, strict=False)
+
+
+def port_state_dict(cfg, params, model_state: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of ``cfg.model`` from a JAX checkpoint's flax
+    ``params`` (and, for MHIM, the Merge buffers in its ``model_state``)."""
+    from ..models.registry import load_confounders
+    from . import weights
+
+    if cfg.model in MHIM_FAMILIES:
+        return weights.state_dict_from_flax(params, (model_state or {}).get("buffers"))
+    if cfg.model == "ibmil":
+        return weights.ibmil_state_from_flax(params, load_confounders(cfg))
+    if cfg.model in ("clam_sb", "clam_mb"):
+        return weights.clam_state_from_flax(params, dropout=bool(cfg.dropout))
+    convert = {
+        "abmil": weights.abmil_state_from_flax, "gabmil": weights.abmil_state_from_flax,
+        "meanmil": weights.mean_max_state_from_flax, "maxmil": weights.mean_max_state_from_flax,
+        "transmil": weights.transmil_state_from_flax, "dsmil": weights.dsmil_state_from_flax,
+        "dtfd": weights.dtfd_state_from_flax, "rrtmil": weights.rrtmil_state_from_flax,
+        "2dmamba": weights.mamba2d_state_from_flax, "mambamil": weights.mambamil_state_from_flax,
+    }
+    return convert[cfg.model](params)
+
+
+def load_weights(cfg, model: torch.nn.Module, path: str, teacher: bool = False) -> None:
+    """The student weights (the EMA teacher's with ``teacher``) of a port or
+    JAX fold checkpoint into ``model``; raises when ``teacher`` is asked of
+    a checkpoint that has none."""
+    if is_jax_checkpoint(path):
+        payload = load_jax_checkpoint(path)
+        params = payload.get("teacher_params") if teacher else payload["params"]
+        sd = None if params is None else port_state_dict(cfg, params, payload.get("model_state"))
+    else:
+        sd = load_checkpoint(path)["teacher" if teacher else "model"]
+    if sd is None:
+        raise ValueError(f"{path} holds no teacher weights")
+    model.load_state_dict(sd)

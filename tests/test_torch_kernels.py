@@ -613,3 +613,37 @@ def test_kernel_check_small_passes_on_the_card(hopper):
                          cwd=repo, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     assert '"ok": true' in res.stdout.splitlines()[-1]
+
+
+def _op_operands(dev, name, dh):
+    """Card operands of each kernel's ``torch.ops.mhim_mil_torch`` op; K1's
+    and K2's at head dim ``dh`` (24 runs the kernels at 32 and cuts back)."""
+    gen = torch.Generator(device=dev).manual_seed(dh)
+    r = lambda *s: torch.randn(*s, device=dev, generator=gen)
+    b, h, n, m = 2, 2, 300, 16
+    mask = torch.arange(n, device=dev)[None] < torch.tensor([[300], [170]], device=dev)
+    if name in ("pass_a", "pass_b"):
+        q, k, v = (r(b, h, n, dh) * dh ** -0.5 for _ in range(3))
+        q_l, k_l, lm_mask, pinv = fn.landmarks(q, k, mask, m)
+        attn3v, m3, s3 = fn.pass_a_plain(q_l, k, v, mask)
+        if name == "pass_a":
+            return (q_l, k, v, mask)
+        mid, rp = fn.pass_b_operands(q, k_l, mask, lm_mask, pinv, attn3v, s3)
+        return (q, k, mask, k_l, lm_mask, mid, q_l, rp, m3)
+    if name == "newton_schulz":
+        x, z0 = npv.pinv_start(torch.softmax(r(4, 64, 64), -1))
+        return (x, z0.contiguous(), 3, True)  # K3p takes contiguous matrices, as NewtonSchulz hands them
+    if name == "abmil_pool":
+        return (r(b, n, 40), r(b, n), mask)
+    return _scan_operands(dev, 3, 2, 3, 40, 8, 16, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dh", [("pass_a", 64), ("pass_a", 24), ("pass_b", 64), ("pass_b", 24),
+                                     ("newton_schulz", 0), ("abmil_pool", 0), ("scan2d", 0)])
+def test_ops_fakes_match_the_kernels_on_the_card(hopper, name, dh):
+    """Each kernel's op on CUDA tensors under ``torch.library.opcheck``: the
+    fake's shapes, dtypes and strides are the CUDA kernel's (K2's ``out`` a
+    view of ``[B,N,H,dh']`` storage, cut back from 32 at dh 24), and the op
+    runs under AOT dispatch with a dynamic batch."""
+    torch.library.opcheck(getattr(torch.ops.mhim_mil_torch, name).default, _op_operands(hopper, name, dh))
