@@ -13,7 +13,8 @@ and MHIM-dsmil), zoo II (clam_sb, clam_mb, dtfd, ibmil, rrtmil), mambamil,
 the streamed Nystrom path and the attention-heatmap export; then the
 flagship and K3 at the 16,384 and 32,768 buckets; then the train step's
 diagnostic variants and the in-step breakdown and HBM tools; then the
-serving export bundle.
+serving export bundle; then feature extraction, from a synthetic slide to
+the flagship's score.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -130,11 +131,26 @@ Phases, each of which fails the run:
    logits against the live ``Scorer``'s on the same model (fp32 within
    1e-4, bf16 within 1e-2, × max(1, max|ref|)) and its launches equal to
    the Scorer's and nonzero (K1 2, K2 2, K3p 48; K4 1; K5 1); the bf16
-   flagship's 1 × 10,240 p50 through the bundle and the Scorer, in turns.
+   flagship's 1 × 10,240 p50 through the bundle and the Scorer, in turns;
+15. feature extraction, after phase 8: (a) the seven patch encoders at
+   their published geometries (``resnet50_trunc``, ``r18``, ``uni_v1``
+   ViT-L/16, ``gigap`` ViT-giant/16, ``conch_v1`` CLIP ViT-B/16, ``chief``
+   Swin-T, ``sd_vae``), random weights from a seed written as an
+   upstream-named ``state_dict`` and loaded through ``get_encoder`` on the
+   card and on the CPU, 8 patches each at 224 px (``uni_v1`` also at 256):
+   card against CPU within 1e-4 × max(1, max|ref|) with TF32 off, the
+   deviation with PyTorch's TF32 defaults printed beside it; (b) each
+   encoder's patches a second alone on the card, both ways, with its GFLOPs
+   a patch and peak memory; (c) the slice end to end: a synthetic 6,144 ×
+   6,144 slide, ``segment_tissue`` on its thumbnail, ``generate_patch_coords``
+   at 256/256 (at least 400 patches), ``extract_features`` with
+   ``resnet50_trunc`` on the card, ``save_feature_store`` (pt only),
+   ``FeatureBagStore`` (bit for bit), the flagship ``Scorer`` in bf16 in
+   the 10,240 bucket (K1 2, K2 2, K3p 48; finite logits within 0.1 of fp32).
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-14 each reset the launch counts before their main-path
+columns). Phases 4-15 each reset the launch counts before their main-path
 runs and read them after; the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
@@ -2532,6 +2548,252 @@ def phase_driver() -> dict:
             "seconds": secs0 + secs1 + secs + secs2 + secs3 + secs4 + secs5}
 
 
+# ---- phase 15: feature extraction --------------------------------------------------
+
+
+PARITY_PATCHES = 8
+ENCODER_TOL = 1e-4  # × max(1, max|ref|): the card against the CPU, fp32, TF32 off
+ENCODER_SEED = 150
+# name, its published geometry, the port module at it, parity sizes, timed sizes, timed batch
+ENCODER_CASES = (
+    ("resnet50_trunc", "ResNet-50 to layer3 (torchvision)", lambda E: E.ResNetTrunc((3, 4, 6), "bottleneck"),
+     (224,), (224, 256), 256),
+    ("r18", "ResNet-18 to layer3 (torchvision)", lambda E: E.ResNetTrunc((2, 2, 2), "basic"), (224,), (224,), 256),
+    ("uni_v1", "ViT-L/16, 1,024 wide, 24 blocks, LayerScale (timm)",
+     lambda E: E.ViTEncoder(1024, 24, 16, 4.0, 16, True), (224, 256), (224,), 256),
+    ("gigap", "ViT-giant/16, 1,536 wide, 40 blocks, 24 heads, mlp_ratio 4, LayerScale (timm)",
+     lambda E: E.ViTEncoder(1536, 40, 24, 4.0, 16, True), (224,), (224,), 64),
+    ("conch_v1", "CLIP ViT-B/16 visual tower, classic layout (open_clip)", lambda E: E.CLIPVisualTower(768, 12, 12, 16),
+     (224,), (224,), 256),
+    ("chief", "Swin-T, window 7, depths 2/2/6/2, heads 3/6/12/24, ConvStem (timm)", lambda E: E.SwinChief(),
+     (224,), (224,), 256),
+    ("sd_vae", "AutoencoderKL encoder, channels 128/256/512/512, 2 layers a block (diffusers)",
+     lambda E: E.SDVAEEncoder((128, 256, 512, 512), 2, 4), (224,), (224,), 32),
+)
+RASTER_SIDE = 6144  # the synthetic slide's level 0, px
+RASTER_PATCH = 256
+MIN_PATCHES = 400
+
+
+def set_tf32(convolutions: bool):
+    """TF32 for cuDNN's convolutions on or off; matrix products stay fp32
+    (PyTorch's defaults are convolutions on, products off)."""
+    torch.backends.cudnn.allow_tf32 = convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def normalized_patches(gen, norm: str, b: int, size: int) -> torch.Tensor:
+    """``b`` random uint8 RGB patches, normalised as ``extract_features``
+    normalises them, NCHW on the CPU."""
+    from mhim_mil_torch.preprocess.extract import NORM_CONSTANTS
+
+    mean, std = (torch.tensor(c) for c in NORM_CONSTANTS[norm])
+    u = torch.randint(0, 256, (b, size, size, 3), generator=gen, dtype=torch.uint8)
+    return ((u.float() / 255.0 - mean) / std).permute(0, 3, 1, 2).contiguous()
+
+
+def gflops_a_patch(module, size: int) -> float:
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter, torch.inference_mode():
+        module(torch.zeros(1, 3, size, size, device="cuda"))
+    return counter.get_total_flops() / 1e9
+
+
+def encoder_speed(name: str, module, size: int, batch: int, smi: str) -> dict:
+    """Patches a second of ``module`` alone on the card at ``size`` px,
+    batch ``batch``, fp32: the median of 5 CUDA-event blocks of one batch
+    each after 2 warm-up batches, with PyTorch's TF32 defaults and with TF32
+    off; beside them its GFLOPs a patch and its peak memory above its weights."""
+    x = torch.randn(batch, 3, size, size, device="cuda")
+    r = {"size": size, "batch": batch, "gflops_a_patch": gflops_a_patch(module, size)}
+    for label, conv_tf32 in (("defaults", True), ("tf32_off", False)):
+        set_tf32(conv_tf32)
+        with torch.inference_mode():
+            ms = time_ms(lambda: module(x), iters=5, warmup=2)
+            _, peak = peak_gib(lambda: module(x))
+        r[label] = {"ms_a_batch": ms, "patches_per_s": batch / ms * 1e3,
+                    "tflop_s": batch * r["gflops_a_patch"] / ms, "peak_gib": peak}
+    set_tf32(False)
+    log(f"15b {name} {size} px, batch {batch}: {r['gflops_a_patch']:.2f} GFLOP a patch; PyTorch's TF32 defaults "
+        f"{r['defaults']['patches_per_s']:.1f} patches/s ({r['defaults']['ms_a_batch']:.2f} ms a batch, "
+        f"{r['defaults']['tflop_s']:.1f} TFLOP/s), TF32 off {r['tf32_off']['patches_per_s']:.1f} patches/s "
+        f"({r['tf32_off']['ms_a_batch']:.2f} ms, {r['tf32_off']['tflop_s']:.1f} TFLOP/s); peak "
+        f"{r['defaults']['peak_gib']:.2f} / {r['tf32_off']['peak_gib']:.2f} GiB above the weights (CUDA events, "
+        f"median of 5 batches), {smi}")
+    return r
+
+
+def phase_encoders(smi: str) -> dict:
+    """Phase 15a and 15b: each encoder family at its published geometry,
+    random weights from a seed written as an upstream-named ``state_dict``
+    to a ``.pt`` and loaded through ``get_encoder(name, path)`` on the card
+    and on the CPU; 8 patches on both (fp32, TF32 off: within 1e-4 ×
+    max(1, max|ref|); with PyTorch's defaults: printed); then its
+    patches a second alone on the card."""
+    from mhim_mil_torch.preprocess import encoders as E
+
+    gen = torch.Generator().manual_seed(ENCODER_SEED)
+    out = {}
+    for i, (name, geometry, make, parity_sizes, speed_sizes, batch) in enumerate(ENCODER_CASES):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_encoder_") as tmp:
+            path = os.path.join(tmp, f"{name}.pt")
+            t0 = time.perf_counter()
+            source = E.random_init_(make(E), torch.Generator().manual_seed(ENCODER_SEED + i))
+            params = sum(p.numel() for p in source.parameters())
+            torch.save(source.state_dict(), path)
+            del source
+            made_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on_cpu, norm = E.get_encoder(name, path, device="cpu")
+            on_card, _ = E.get_encoder(name, path, device="cuda")
+            load_s = time.perf_counter() - t0
+        r = {"geometry": geometry, "params": params, "norm": norm, "parity": {}}
+        log(f"15a {name}: {geometry}, {params / 1e6:.2f} M parameters; random weights from seed {ENCODER_SEED + i} "
+            f"written to a .pt in {made_s:.1f} s, loaded through get_encoder on the CPU and the card in {load_s:.1f} s")
+        for size in parity_sizes:
+            x = normalized_patches(gen, norm, PARITY_PATCHES, size)
+            with torch.inference_mode():
+                ref = on_cpu(x)
+                set_tf32(False)
+                got = on_card(x.cuda()).cpu()
+                set_tf32(True)
+                got_defaults = on_card(x.cuda()).cpu()
+                set_tf32(False)
+            if got.shape != ref.shape or ref.shape[0] != PARITY_PATCHES:
+                fail(f"15a {name} {size} px: card {tuple(got.shape)}, CPU {tuple(ref.shape)}")
+            err = (got - ref).abs().max().item()
+            err_defaults = (got_defaults - ref).abs().max().item()
+            limit = ENCODER_TOL * max(1.0, ref.abs().max().item())
+            log(f"15a {name} {size} px: [{PARITY_PATCHES}, {ref.shape[1]}] card vs CPU max|d| {err:.3e} with TF32 off "
+                f"(tolerance {limit:.3e}); with PyTorch's defaults (cuDNN TF32) {err_defaults:.3e}; max|ref| "
+                f"{ref.abs().max().item():.3f}")
+            if not torch.isfinite(got).all() or err > limit:
+                fail(f"15a {name} {size} px: the card disagrees with the CPU")
+            r["parity"][size] = {"max_abs_err": err, "tolerance": limit, "max_abs_err_tf32_defaults": err_defaults}
+        del on_cpu
+        r["speed"] = {size: encoder_speed(name, on_card, size, batch, smi) for size in speed_sizes}
+        del on_card
+        torch.cuda.empty_cache()
+        out[name] = r
+    return out
+
+
+def synthetic_raster(seed: int, side: int = RASTER_SIDE, cell: int = 16):
+    """An RGB slide at level 0: tissue-like blobs (a union of ellipses drawn
+    on a ``cell``-px grid, pink with purple nuclei) on a white background,
+    with scanner-like noise; from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = side // cell
+    yy, xx = np.mgrid[:n, :n] / n
+    tissue = np.zeros((n, n), bool)
+    for _ in range(12):
+        cy, cx = rng.uniform(0.2, 0.8, 2)
+        ry, rx = rng.uniform(0.18, 0.34, 2)
+        tissue |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+    img = np.full((side, side, 3), 242, np.uint8)
+    full = np.repeat(np.repeat(tissue, cell, 0), cell, 1)
+    img[full] = (214, 142, 188)
+    img[full & (rng.random((side, side), dtype=np.float32) < 0.02)] = (118, 62, 150)
+    img -= rng.integers(0, 16, img.shape, dtype=np.uint8)
+    return img
+
+
+def phase_extract(encoders: dict) -> dict:
+    """Phase 15c, the slice end to end: a synthetic 6,144 × 6,144 RGB slide;
+    ``segment_tissue`` on its thumbnail (the CLI's: at most 2,048 px a
+    side); ``generate_patch_coords`` at 256/256; ``extract_features`` with
+    ``resnet50_trunc`` on the card; ``save_feature_store`` (pt only); the
+    port's ``FeatureBagStore``; the flagship ``Scorer`` in bf16 in the
+    10,240 bucket (K1, K2, K3p). The store equals the features in memory
+    bit for bit, the logits are finite and within 0.1 of the fp32 Scorer's."""
+    import numpy as np
+
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.data.readers import FeatureBagStore
+    from mhim_mil_torch.models import build_model
+    from mhim_mil_torch.preprocess import encoders as E
+    from mhim_mil_torch.preprocess.extract import extract_features, save_feature_store
+    from mhim_mil_torch.preprocess.segment import _connected_components, generate_patch_coords, segment_tissue
+    from mhim_mil_torch.utils.serving import Scorer
+
+    t0 = time.perf_counter()
+    raster = synthetic_raster(ENCODER_SEED)
+    make_s = time.perf_counter() - t0
+    step = max(1, max(raster.shape[:2]) // 2048)
+    thumb = raster[::step, ::step]
+    t0 = time.perf_counter()
+    mask = segment_tissue(thumb)
+    seg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _connected_components(mask)
+    cc_s = time.perf_counter() - t0
+    grid = generate_patch_coords(mask, raster.shape[:2], RASTER_PATCH, RASTER_PATCH, 0.5)
+    coords = grid["coords"]
+    log(f"15c raster {raster.shape} made in {make_s:.1f} s; segment_tissue on the {thumb.shape[:2]} thumbnail "
+        f"{seg_s:.2f} s host (tissue {mask.mean():.3f}); its Python connected components alone {cc_s:.2f} s; "
+        f"{len(coords)} patches of {RASTER_PATCH} px")
+    if len(coords) < MIN_PATCHES:
+        fail(f"15c: {len(coords)} patches, want at least {MIN_PATCHES}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_encoder_") as tmp:
+        path = os.path.join(tmp, "resnet50_trunc.pt")
+        torch.save(E.random_init_(ENCODER_CASES[0][2](E), torch.Generator().manual_seed(ENCODER_SEED)).state_dict(),
+                   path)
+        encoder, norm = E.get_encoder("resnet50_trunc", path, device="cuda")
+    extract_features(encoder, raster, coords[:RASTER_PATCH], RASTER_PATCH, 256, norm)  # warm-up: cuDNN's plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = extract_features(encoder, raster, coords, RASTER_PATCH, 256, norm)
+    sweep_s = time.perf_counter() - t0
+    alone = encoders["resnet50_trunc"]["speed"][256]["tf32_off"]["patches_per_s"]
+    rate = len(coords) / sweep_s
+    log(f"15c extract_features resnet50_trunc: {feats.shape} in {sweep_s:.3f} s, {rate:.1f} patches/s end to end "
+        f"(crop, pinned copy, normalisation and encoder; host clock, TF32 off) against {alone:.1f} for the encoder "
+        f"alone (15b, batch 256, 256 px): {rate / alone:.2f} of it")
+    if feats.shape != (len(coords), 1024) or not np.isfinite(feats).all():
+        fail(f"15c: features {feats.shape}, finite {np.isfinite(feats).all()}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        save_feature_store(tmp, "synthetic_slide", feats)
+        store = FeatureBagStore(tmp)
+        bag = store.load("synthetic_slide.pt")
+    if store.files != ["synthetic_slide.pt"] or bag.dtype != feats.dtype or not np.array_equal(bag, feats):
+        fail("15c: the store's features differ from the extracted ones")
+    log(f"15c the store (pt_files only) read back through FeatureBagStore: {bag.shape}, equal bit for bit")
+
+    cfg = load_config(["-c", "config/mhim_c16.yaml"], input_dim=1024)
+    model, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(ENCODER_SEED + 10))
+    scorer = Scorer(cfg, model, (10240,), "cuda", family)
+    ref = Scorer(cfg.replace(compute_dtype="float32"), model, (10240,), "cuda", family).score(bag)["logits"]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = scorer.score(bag)["logits"]
+    torch.cuda.synchronize()
+    score_ms = (time.perf_counter() - t0) * 1e3
+    seen = expect_launches("15c the flagship Scorer", K1=2, K2=2, K3p=2 * 24)
+    err = float(np.abs(logits - ref).max())
+    log(f"15c flagship Scorer ({cfg.compute_dtype}, bucket 10240) on the extracted bag: logits {logits.tolist()} in "
+        f"{score_ms:.2f} ms (host clock, the first call of this Scorer), launches {seen}; bf16 vs fp32 max|d| "
+        f"{err:.3e} (tolerance 0.1)")
+    if logits.shape != (cfg.n_classes,) or not np.isfinite(logits).all() or err > 0.1:
+        fail(f"15c: the flagship's logits {logits} (fp32 {ref})")
+    return {"launches": [seen], "extract": {
+        "patches": len(coords), "segment_s": seg_s, "connected_components_s": cc_s, "sweep_s": sweep_s,
+        "sweep_patches_per_s": rate, "encoder_alone_patches_per_s": alone, "score_ms": score_ms}}
+
+
+def phase_features() -> dict:
+    """Phase 15: feature extraction (15a parity, 15b speed, 15c the slice end to end)."""
+    smi = card()
+    encoders = phase_encoders(smi)
+    res = phase_extract(encoders)
+    res["encoders"] = encoders
+    return res
+
+
 def main():
     phase_device()
     phase_build()
@@ -2547,7 +2809,8 @@ def main():
                          ("6 attn", phase_attn), ("7 2dmamba", phase_mamba), ("9 zoo", phase_zoo),
                          ("10 zoo II", phase_zoo2), ("11a mambamil", phase_mambamil), ("11b streamed", phase_streamed),
                          ("11c heatmaps", phase_heatmaps), ("12 stress", phase_stress), ("13 ablate", phase_ablate),
-                         ("14 bundle", phase_bundle), ("8 driver", lambda g: phase_driver())):
+                         ("14 bundle", phase_bundle), ("8 driver", lambda g: phase_driver()),
+                         ("15 features", lambda g: phase_features())):
         t0 = time.perf_counter()
         res = phase(gen)
         for seen in res["launches"]:

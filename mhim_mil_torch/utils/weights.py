@@ -10,7 +10,9 @@ for the rest of the classification zoo
 :func:`clam_state_from_flax`, :func:`dtfd_state_from_flax`,
 :func:`ibmil_state_from_flax` and :func:`rrtmil_state_from_flax`, the
 reverses of ``import_clam``, ``import_dtfd``, ``import_ibmil`` and
-``import_rrtmil`` and beyond them where those read no such weights).
+``import_rrtmil`` and beyond them where those read no such weights; for
+the patch encoders :func:`encoder_state_dict_from_flax`, the reverse of the
+``import_*`` functions of ``mhim_mil_tpu/preprocess/encoders.py``).
 
 The port keeps the original PyTorch repo's names, so the JAX package's
 importer maps a port ``state_dict`` straight back onto the flax tree:
@@ -385,4 +387,140 @@ def rrtmil_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         _linear(sd, "pool_fn.attention.attention.0", pool["attn_a"])
         _linear(sd, "pool_fn.attention.attention.2", pool["attn_c"])
     _linear(sd, "predictor", params["predictor"])
+    return sd
+
+
+# ---- the patch encoders (preprocess/encoders.py) ------------------------------------
+
+
+def _batchnorm(sd: Dict, prefix: str, p: Mapping, stats: Mapping):
+    _layernorm(sd, prefix, p)
+    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _resnet_encoder_state(sd: Dict, params: Mapping, stats: Mapping):
+    _conv(sd, "conv1", params["conv1"])
+    _batchnorm(sd, "bn1", params["bn1"], stats["bn1"])
+    for blk in (k for k in params if k.startswith("layer")):
+        base = blk.replace("_", ".")
+        p, s = params[blk], stats[blk]
+        for ci in (1, 2, 3):
+            if f"conv{ci}" in p:
+                _conv(sd, f"{base}.conv{ci}", p[f"conv{ci}"])
+                _batchnorm(sd, f"{base}.bn{ci}", p[f"bn{ci}"], s[f"bn{ci}"])
+        if "downsample_conv" in p:
+            _conv(sd, f"{base}.downsample.0", p["downsample_conv"])
+            _batchnorm(sd, f"{base}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+
+
+def _vit_encoder_state(sd: Dict, params: Mapping):
+    _conv(sd, "patch_embed.proj", params["patch_embed"])
+    sd["cls_token"] = _t(params["cls_token"])
+    sd["pos_embed"] = _t(params["pos_embed"])
+    _layernorm(sd, "norm", params["norm"])
+    for i in range(sum(1 for k in params if k.startswith("block"))):
+        p, base = params[f"block{i}"], f"blocks.{i}"
+        _layernorm(sd, f"{base}.norm1", p["norm1"])
+        _linear(sd, f"{base}.attn.qkv", p["qkv"])
+        _linear(sd, f"{base}.attn.proj", p["attn_proj"])
+        _layernorm(sd, f"{base}.norm2", p["norm2"])
+        _linear(sd, f"{base}.mlp.fc1", p["fc1"])
+        _linear(sd, f"{base}.mlp.fc2", p["fc2"])
+        for ls in ("ls1", "ls2"):
+            if ls in p:
+                sd[f"{base}.{ls}.gamma"] = _t(p[ls])
+
+
+def _clip_encoder_state(sd: Dict, params: Mapping):
+    _conv(sd, "conv1", params["conv1"])
+    sd["class_embedding"] = _t(params["class_embedding"])
+    sd["positional_embedding"] = _t(params["positional_embedding"])
+    _layernorm(sd, "ln_pre", params["ln_pre"])
+    _layernorm(sd, "ln_post", params["ln_post"])
+    for i in range(sum(1 for k in params if k.startswith("resblock"))):
+        p, base = params[f"resblock{i}"], f"transformer.resblocks.{i}"
+        _layernorm(sd, f"{base}.ln_1", p["ln_1"])
+        sd[f"{base}.attn.in_proj_weight"] = _t(p["in_proj"]["kernel"]).t().contiguous()
+        sd[f"{base}.attn.in_proj_bias"] = _t(p["in_proj"]["bias"])
+        _linear(sd, f"{base}.attn.out_proj", p["out_proj"])
+        _layernorm(sd, f"{base}.ln_2", p["ln_2"])
+        _linear(sd, f"{base}.mlp.c_fc", p["c_fc"])
+        _linear(sd, f"{base}.mlp.c_proj", p["c_proj"])
+
+
+def _swin_encoder_state(sd: Dict, params: Mapping, stats: Mapping):
+    pe, st = params["patch_embed"], stats["patch_embed"]
+    _conv(sd, "patch_embed.proj.0", pe["conv0"])
+    _batchnorm(sd, "patch_embed.proj.1", pe["bn0"], st["bn0"])
+    _conv(sd, "patch_embed.proj.3", pe["conv1"])
+    _batchnorm(sd, "patch_embed.proj.4", pe["bn1"], st["bn1"])
+    _conv(sd, "patch_embed.proj.6", pe["conv2"])
+    _layernorm(sd, "patch_embed.norm", pe["norm"])
+    for name, p in params.items():
+        if name.startswith("stage"):
+            si, bi = name[5:].split("_block")
+            base = f"layers.{si}.blocks.{bi}"
+            _layernorm(sd, f"{base}.norm1", p["norm1"])
+            _linear(sd, f"{base}.attn.qkv", p["attn"]["qkv"])
+            _linear(sd, f"{base}.attn.proj", p["attn"]["proj"])
+            sd[f"{base}.attn.relative_position_bias_table"] = _t(p["attn"]["rel_bias_table"])
+            _layernorm(sd, f"{base}.norm2", p["norm2"])
+            _linear(sd, f"{base}.mlp.fc1", p["fc1"])
+            _linear(sd, f"{base}.mlp.fc2", p["fc2"])
+        elif name.startswith("merge"):  # old timm: the merge at the end of stage si
+            _layernorm(sd, f"layers.{name[5:]}.downsample.norm", p["norm"])
+            _linear(sd, f"layers.{name[5:]}.downsample.reduction", p["reduction"])
+    _layernorm(sd, "norm", params["norm"])
+
+
+def _vae_encoder_state(sd: Dict, params: Mapping):
+    def resnet(dst, p):
+        for part in ("norm1", "norm2"):
+            _layernorm(sd, f"{dst}.{part}", p[part])
+        for part in ("conv1", "conv2", "conv_shortcut"):
+            if part in p:
+                _conv(sd, f"{dst}.{part}", p[part])
+
+    _conv(sd, "encoder.conv_in", params["conv_in"])
+    for name, p in params.items():
+        if name.startswith("down") and "_res" in name:
+            i, j = name[4:].split("_res")
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", p)
+        elif name.startswith("down"):
+            _conv(sd, f"encoder.down_blocks.{name[4:].split('_')[0]}.downsamplers.0.conv", p)
+    for j in (0, 1):
+        resnet(f"encoder.mid_block.resnets.{j}", params[f"mid_res{j}"])
+    ab, p = "encoder.mid_block.attentions.0", params["mid_attn"]
+    _layernorm(sd, f"{ab}.group_norm", p["group_norm"])
+    for part in ("to_q", "to_k", "to_v"):
+        _linear(sd, f"{ab}.{part}", p[part])
+    _linear(sd, f"{ab}.to_out.0", p["to_out"])
+    _layernorm(sd, "encoder.conv_norm_out", params["conv_norm_out"])
+    _conv(sd, "encoder.conv_out", params["conv_out"])
+    _conv(sd, "quant_conv", params["quant_conv"])
+
+
+def encoder_state_dict_from_flax(name: str, variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's encoder ``name`` (``preprocess.encoders``)
+    from the JAX encoder's ``variables`` (``params`` and, for the ResNets and
+    CHIEF, ``batch_stats``), in the upstream names: the reverse of
+    ``import_resnet_trunc``, ``import_vit``, ``import_clip_visual`` (or, for a
+    ``conch_v1`` CoCa trunk, ``import_vit``), ``import_swin_chief`` (old
+    timm's merge layout) and ``import_sd_vae`` (modern attention names)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    if name in ("resnet50_trunc", "r18"):
+        _resnet_encoder_state(sd, params, stats)
+    elif name in ("uni_v1", "gigap") or (name == "conch_v1" and "patch_embed" in params):
+        _vit_encoder_state(sd, params)
+    elif name == "conch_v1":
+        _clip_encoder_state(sd, params)
+    elif name == "chief":
+        _swin_encoder_state(sd, params, stats)
+    elif name == "sd_vae":
+        _vae_encoder_state(sd, params)
+    else:
+        raise ValueError(f"encoder_state_dict_from_flax: unknown encoder {name!r}")
     return sd
