@@ -14,7 +14,8 @@ the streamed Nystrom path and the attention-heatmap export; then the
 flagship and K3 at the 16,384 and 32,768 buckets; then the train step's
 diagnostic variants and the in-step breakdown and HBM tools; then the
 serving export bundle; then feature extraction, from a synthetic slide to
-the flagship's score.
+the flagship's score; then the slide readers, from the slide's files to its
+attention.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -146,11 +147,31 @@ Phases, each of which fails the run:
    at 256/256 (at least 400 patches), ``extract_features`` with
    ``resnet50_trunc`` on the card, ``save_feature_store`` (pt only),
    ``FeatureBagStore`` (bit for bit), the flagship ``Scorer`` in bf16 in
-   the 10,240 bucket (K1 2, K2 2, K3p 48; finite logits within 0.1 of fp32).
+   the 10,240 bucket (K1 2, K2 2, K3p 48; finite logits within 0.1 of fp32);
+16. the slide readers, on 15c's slide and encoder: (a) the port's writer
+   writes the slide as a 3-level pyramid of 256-px tiles in deflate, raw and
+   BigTIFF raw, and a 1,024² crop in LZW; ``open_slide`` opens each
+   with the native LZW/PackBits codec built into ``build/native/`` and
+   loaded; each level's dimensions and downsample, and 64 seeded level-0
+   reads of 256² equal to the raster bit for bit, with host ms a read and
+   the thumbnail's seconds; (b) the CLI's steps on the deflate file
+   (thumbnail, segmentation, patch grid) and ``extract_features`` from the
+   file on the card, equal bit for bit to the in-memory sweep of the same
+   coordinates, then ``tools.extract_features.main`` on the file, its ``pt``
+   equal to those features; (c) ``tools.export_attention`` with the
+   flagship on that store, kernel path against plain path
+   (``compare_attention`` 1e-4; K1 2, K2 2, K3p 48), the grid the scores'
+   percentile raster. Where PIL is there: a 2,048² crop as ``.svs``,
+   ``.ndpi``, ``.mrxs``, ``.vms``, Philips TIFF, ``.scn`` and ``.bif``
+   through ``open_slide``, every level at least 30 dB PSNR against the
+   raster's box pyramid. Where h5py, matplotlib and PIL are all there: the
+   overlays of ``--image_dir`` at level 1 against
+   ``render_heatmap_pyramidal`` and the ROI CSV. A line names the parts
+   that ran and the package each part left out lacks.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-15 each reset the launch counts before their main-path
+columns). Phases 4-16 each reset the launch counts before their main-path
 runs and read them after; the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
@@ -2701,6 +2722,25 @@ def synthetic_raster(seed: int, side: int = RASTER_SIDE, cell: int = 16):
     return img
 
 
+_RASTER = []  # 15c's synthetic slide, made once a process: phase 16 reads it back from its files
+
+
+def slide_raster():
+    if not _RASTER:
+        _RASTER.append(synthetic_raster(ENCODER_SEED))
+    return _RASTER[0]
+
+
+def write_sweep_weights(tmp: str) -> str:
+    """15c's resnet50_trunc, random weights from ``ENCODER_SEED``, as a
+    ``state_dict`` in upstream names at ``tmp/resnet50_trunc.pt``."""
+    from mhim_mil_torch.preprocess import encoders as E
+
+    path = os.path.join(tmp, "resnet50_trunc.pt")
+    torch.save(E.random_init_(ENCODER_CASES[0][2](E), torch.Generator().manual_seed(ENCODER_SEED)).state_dict(), path)
+    return path
+
+
 def phase_extract(encoders: dict) -> dict:
     """Phase 15c, the slice end to end: a synthetic 6,144 × 6,144 RGB slide;
     ``segment_tissue`` on its thumbnail (the CLI's: at most 2,048 px a
@@ -2720,7 +2760,7 @@ def phase_extract(encoders: dict) -> dict:
     from mhim_mil_torch.utils.serving import Scorer
 
     t0 = time.perf_counter()
-    raster = synthetic_raster(ENCODER_SEED)
+    raster = slide_raster()
     make_s = time.perf_counter() - t0
     step = max(1, max(raster.shape[:2]) // 2048)
     thumb = raster[::step, ::step]
@@ -2739,10 +2779,7 @@ def phase_extract(encoders: dict) -> dict:
         fail(f"15c: {len(coords)} patches, want at least {MIN_PATCHES}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_encoder_") as tmp:
-        path = os.path.join(tmp, "resnet50_trunc.pt")
-        torch.save(E.random_init_(ENCODER_CASES[0][2](E), torch.Generator().manual_seed(ENCODER_SEED)).state_dict(),
-                   path)
-        encoder, norm = E.get_encoder("resnet50_trunc", path, device="cuda")
+        encoder, norm = E.get_encoder("resnet50_trunc", write_sweep_weights(tmp), device="cuda")
     extract_features(encoder, raster, coords[:RASTER_PATCH], RASTER_PATCH, 256, norm)  # warm-up: cuDNN's plans
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2794,6 +2831,379 @@ def phase_features() -> dict:
     return res
 
 
+# ---- phase 16: slides from the file ------------------------------------------------
+
+SLIDE_LEVELS = 3
+SLIDE_TILE = 256
+LZW_SIDE = 1024  # the LZW file's crop: the writer's encoder is Python
+SLIDE_READS = 64  # seeded level-0 reads a file
+JPEG_SIDE = 2048  # the JPEG-coded formats' crop
+JPEG_PSNR_DB = 30.0  # each JPEG-coded level against the raster at the writer's quality
+OPTIONAL_PACKAGES = ("h5py", "matplotlib", "PIL")
+
+
+def read_locations(side: int, seed: int):
+    """``SLIDE_READS`` level-0 locations of 256² reads: corners and edges
+    (partly outside the slide), off-tile offsets, the rest seeded."""
+    import numpy as np
+
+    fixed = [(0, 0), (side - 256, side - 256), (side - 100, 37), (13, side - 1), (side - 1, side - 1),
+             (SLIDE_TILE - 1, SLIDE_TILE + 1), (side // 2 + 77, side // 3 + 129)]
+    rng = np.random.default_rng(seed)
+    return np.concatenate([np.asarray(fixed), rng.integers(0, side, (SLIDE_READS - len(fixed), 2))]).astype(np.int64)
+
+
+def box_levels(img, levels: int) -> list:
+    """The writers' pyramid: each level the 2 × 2 box mean of the one
+    above, truncated to uint8."""
+    out = [img]
+    for _ in range(1, levels):
+        prev = out[-1]
+        h, w = prev.shape[0] // 2 * 2, prev.shape[1] // 2 * 2
+        out.append(prev[:h, :w].reshape(h // 2, 2, w // 2, 2, 3).mean((1, 3)).astype("uint8"))
+    return out
+
+
+def psnr_db(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return math.inf if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def phase_slide_readers(raster, tmp: str) -> dict:
+    """Phase 16a: the port's writer writes the raster as a 3-level pyramid of
+    256-px tiles in deflate and raw, once as a BigTIFF (raw), and a
+    1,024² crop in LZW; ``open_slide`` opens each (``PyramidalTiff``, the
+    native codec built and used): every level's dimensions and downsample,
+    and 64 seeded level-0 reads of 256² (edges, off-tile offsets) equal to
+    the raster bit for bit; host ms a read on a freshly opened file (the
+    file's pages warm in the host's cache) and ``get_thumbnail(2048)``'s
+    seconds."""
+    import numpy as np
+
+    from mhim_mil_torch import native
+    from mhim_mil_torch.preprocess.extract import crop_patches
+    from mhim_mil_torch.preprocess.tiff import PyramidalTiff, open_slide, write_pyramidal_tiff
+
+    if not native.have_native():
+        fail("16a: the native LZW/PackBits codec did not build (cc, gcc) or load")
+    lib = native.library_path()
+    if lib.parent.name != "native" or lib.parent.parent.name != "build" or not lib.exists():
+        fail(f"16a: the codec library is at {lib}, not under build/native/")
+    log(f"16a native codec: {lib.relative_to(lib.parents[2])} built and loaded (have_native() true)")
+    files = (("deflate", raster, dict(compression="deflate")), ("raw", raster, dict(compression="raw")),
+             ("bigtiff raw", raster, dict(compression="raw", bigtiff=True)),
+             ("lzw", raster[:LZW_SIDE, :LZW_SIDE], dict(compression="lzw")))
+    out = {"native": str(lib.name), "files": {}}
+    for label, img, kw in files:
+        path = os.path.join(tmp, label.replace(" ", "_") + ".tif")
+        t0 = time.perf_counter()
+        write_pyramidal_tiff(path, img, levels=SLIDE_LEVELS, tile=SLIDE_TILE, **kw)
+        write_s = time.perf_counter() - t0
+        side = img.shape[0]
+        slide = open_slide(path)
+        if type(slide) is not PyramidalTiff:
+            fail(f"16a {label}: open_slide gave {type(slide).__name__}")
+        want_dims = [(side >> i, side >> i) for i in range(SLIDE_LEVELS)]
+        if slide.level_dimensions != want_dims or list(slide.level_downsamples) != [2.0 ** i for i in range(SLIDE_LEVELS)]:
+            fail(f"16a {label}: levels {slide.level_dimensions} {slide.level_downsamples}, want {want_dims}")
+        locs = read_locations(side, ENCODER_SEED + len(out["files"]))
+        want = crop_patches(img, locs, 256)
+        t0 = time.perf_counter()
+        got = [slide.read_region((int(x), int(y)), 0, (256, 256)) for x, y in locs]
+        read_ms = (time.perf_counter() - t0) * 1e3 / len(locs)
+        bad = [tuple(loc) for loc, g, w in zip(locs.tolist(), got, want) if not np.array_equal(g, w)]
+        if bad:
+            fail(f"16a {label}: level-0 reads differ from the raster at {bad[:5]} ({len(bad)} of {len(locs)})")
+        for level in range(1, SLIDE_LEVELS):
+            r = slide.read_region((0, 0), level, (256, 256))
+            if r.shape != (256, 256, 3) or not r.any():
+                fail(f"16a {label}: level {level} read {r.shape}, any {r.any()}")
+        slide.close()
+        slide = open_slide(path)
+        t0 = time.perf_counter()
+        thumb = slide.get_thumbnail(2048)
+        thumb_s = time.perf_counter() - t0
+        slide.close()
+        mb = os.path.getsize(path) / 2 ** 20
+        log(f"16a {label}: {side}² in {SLIDE_LEVELS} levels of {SLIDE_TILE}-px tiles, {mb:.1f} MB written in "
+            f"{write_s:.2f} s; {len(locs)} level-0 reads of 256² equal to the raster bit for bit, {read_ms:.3f} host ms "
+            f"a read (a freshly opened file, its pages warm in the host's cache); get_thumbnail(2048) "
+            f"{thumb.shape[:2]} in {thumb_s:.3f} s")
+        out["files"][label] = {"side": side, "mb": mb, "write_s": write_s, "read_ms": read_ms, "thumbnail_s": thumb_s,
+                               "path": path}
+    return out
+
+
+def phase_slide_sweep(raster, tmp: str, path: str, encoders) -> dict:
+    """Phase 16b: the CLI's steps on the deflate file: ``get_thumbnail(2048)``,
+    ``segment_tissue``, ``generate_patch_coords`` at 256/256, then
+    ``extract_features`` with ``slide_patch_reader`` on the card (TF32 off)
+    against the in-memory sweep of the same coordinates (``crop_patches`` of
+    the raster, the same batch): equal bit for bit; then
+    ``tools.extract_features.main`` on a directory holding the file: its
+    ``pt`` equals those features (its ``h5`` needs h5py)."""
+    import importlib.util
+
+    import numpy as np
+
+    from mhim_mil_torch.preprocess import encoders as E
+    from mhim_mil_torch.preprocess.extract import extract_features, slide_patch_reader
+    from mhim_mil_torch.preprocess.segment import generate_patch_coords, segment_tissue
+    from mhim_mil_torch.preprocess.tiff import open_slide
+    from mhim_mil_torch.tools import extract_features as cli
+
+    set_tf32(False)
+    weights = write_sweep_weights(tmp)
+    encoder, norm = E.get_encoder("resnet50_trunc", weights, device="cuda")
+    slide = open_slide(path)
+    t0 = time.perf_counter()
+    thumb = slide.get_thumbnail(2048)
+    thumb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mask = segment_tissue(thumb)
+    seg_s = time.perf_counter() - t0
+    w0, h0 = slide.dimensions
+    coords = generate_patch_coords(mask, (h0, w0), RASTER_PATCH, RASTER_PATCH, 0.5)["coords"]
+    if len(coords) < MIN_PATCHES:
+        fail(f"16b: {len(coords)} patches, want at least {MIN_PATCHES}")
+    extract_features(encoder, raster, coords[:RASTER_PATCH], RASTER_PATCH, 256, norm)  # warm-up: cuDNN's plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    from_file = extract_features(encoder, slide_patch_reader(slide, RASTER_PATCH), coords, RASTER_PATCH, 256, norm)
+    file_s = time.perf_counter() - t0
+    slide.close()
+    t0 = time.perf_counter()
+    in_memory = extract_features(encoder, raster, coords, RASTER_PATCH, 256, norm)
+    memory_s = time.perf_counter() - t0
+    if from_file.shape != (len(coords), 1024) or not np.array_equal(from_file, in_memory):
+        fail(f"16b: the sweep from the file {from_file.shape} differs from the in-memory sweep {in_memory.shape}")
+    alone = encoders["resnet50_trunc"]["speed"][256]["tf32_off"]["patches_per_s"] if encoders else None
+    rate, rate_memory = len(coords) / file_s, len(coords) / memory_s
+    log(f"16b thumbnail {thumb.shape[:2]} in {thumb_s:.3f} s, segment_tissue {seg_s:.2f} s host (tissue "
+        f"{mask.mean():.3f}), {len(coords)} patches of {RASTER_PATCH} px; the sweep from the file {file_s:.3f} s "
+        f"({rate:.1f} patches/s end to end: tile decode, crop, pinned copy, normalisation, encoder; host clock, TF32 "
+        f"off) against {rate_memory:.1f} in memory ({memory_s:.3f} s) and {alone if alone is None else f'{alone:.1f}'} "
+        f"for the encoder alone (15b): {rate / rate_memory:.2f} of the in-memory sweep"
+        + ("" if alone is None else f", {rate / alone:.2f} of the encoder alone") + "; features equal bit for bit")
+
+    src, store = os.path.join(tmp, "slides"), os.path.join(tmp, "store")
+    os.makedirs(src)
+    os.symlink(path, os.path.join(src, "synthetic_slide.tif"))
+    argv = ["--source", src, "--save_dir", store, "--encoder", "resnet50_trunc", "--ckpt_path", weights,
+            "--patch_size", str(RASTER_PATCH), "--step_size", str(RASTER_PATCH), "--batch_size", "256",
+            "--device", "cuda"]
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    t0 = time.perf_counter()
+    try:
+        cli.main(argv)
+    except ImportError as e:
+        if have_h5py or "h5py" not in str(e):
+            raise
+        log(f"16b the CLI wrote pt_files and raised at h5_files, as it does without h5py: {e}")
+    cli_s = time.perf_counter() - t0
+    pt = torch.load(os.path.join(store, "pt_files", "synthetic_slide.pt"), weights_only=True).numpy()
+    if not np.array_equal(pt, from_file):
+        fail(f"16b: the CLI's pt {pt.shape} differs from the sweep's features {from_file.shape}")
+    if have_h5py:
+        import h5py
+
+        with h5py.File(os.path.join(store, "h5_files", "synthetic_slide.h5")) as f:
+            if not np.array_equal(f["coords"][:], coords):
+                fail("16b: the CLI's h5 coordinates differ from the sweep's")
+    log(f"16b tools.extract_features.main on the card: {cli_s:.2f} s (host clock: encoder load, thumbnail, "
+        f"segmentation, sweep, store); its pt equals the sweep's features bit for bit"
+        + ("; its h5 coordinates equal the grid" if have_h5py else ""))
+    return {"patches": len(coords), "thumbnail_s": thumb_s, "segment_s": seg_s, "file_s": file_s,
+            "memory_s": memory_s, "file_patches_per_s": rate, "memory_patches_per_s": rate_memory,
+            "encoder_alone_patches_per_s": alone, "cli_s": cli_s, "store": store, "h5": have_h5py}
+
+
+SLIDE_EXPORT = ["-c", "config/mhim_c16.yaml", "--model", "mhim", "--input_dim", "1024"]
+
+
+def phase_slide_attention(store: str) -> dict:
+    """Phase 16c: ``tools.export_attention`` with the flagship (random weights
+    from the config's seed) on the store the CLI wrote, on the kernel path
+    and on the plain path (``--use_flash_attn false``): the kernel path's
+    launches (11c's, K1 2, K2 2, K3p 48 a slide), the scores within
+    ``compare_attention`` of the plain path's at 1e-4, the ``_attn.npy`` grid
+    the percentile raster of the scores."""
+    import numpy as np
+
+    from mhim_mil_torch.data.readers import FeatureBagStore
+    from mhim_mil_torch.tools.export_attention import main as export
+    from mhim_mil_torch.utils.heatmap import attention_to_grid
+
+    per_slide = EXPORT_RUNS[0][2]  # mhim selfattn
+    runs, seen, secs = {}, None, {}
+    n = FeatureBagStore(store).load("synthetic_slide.pt").shape[0]
+    for path, flash in (("kernels", "true"), ("plain", "false")):
+        out = os.path.join(os.path.dirname(store), f"attn-{path}")
+        reset_launches()
+        t0 = time.perf_counter()
+        runs[path] = export(["--out", out, "--dataset_root", store, "--use_flash_attn", flash, *SLIDE_EXPORT])
+        torch.cuda.synchronize()
+        secs[path] = time.perf_counter() - t0
+        counted = expect_launches(f"16c export on the {path} path", **(per_slide if path == "kernels" else {}))
+        if path == "kernels":
+            seen = counted
+        sc = runs[path]["synthetic_slide"]
+        grid = np.load(os.path.join(out, "synthetic_slide_attn.npy"))
+        if sc.shape != (n,) or not np.array_equal(grid, attention_to_grid(sc, FeatureBagStore(store).coords(
+                "synthetic_slide.pt")), equal_nan=True):
+            fail(f"16c {path} path: scores {sc.shape} for {n} patches, or the grid is not their percentile raster")
+    compare_attention("16c export", [("scores", torch.from_numpy(runs["kernels"]["synthetic_slide"]),
+                                      torch.from_numpy(runs["plain"]["synthetic_slide"]))], 1e-4)
+    log(f"16c export_attention on the slide's bag ({n} tokens): kernel path {secs['kernels']:.2f} s, plain path "
+        f"{secs['plain']:.2f} s (host clock, model built and files written); kernel path launches {seen}")
+    return {"launches": [seen], "tokens": n, "kernels_s": secs["kernels"], "plain_s": secs["plain"]}
+
+
+def phase_jpeg_slides(raster, tmp: str) -> dict:
+    """Phase 16, the JPEG-coded formats (needs PIL): a 2,048² crop of the
+    raster written by the port's writers as Aperio ``.svs``, ``.ndpi``,
+    ``.mrxs``, ``.vms``, Philips TIFF, ``.scn`` and ``.bif``, opened through
+    ``open_slide`` (the reader each routes to), every level read whole and
+    held against the raster's box pyramid at the writer's quality: PSNR at
+    least 30 dB on the overlap."""
+    from mhim_mil_torch.preprocess import mirax, ndpi, tiff, vendor_tiff, vms
+
+    y0, x0 = (raster.shape[0] - JPEG_SIDE) // 2, (raster.shape[1] - JPEG_SIDE) // 2
+    crop = raster[y0:y0 + JPEG_SIDE, x0:x0 + JPEG_SIDE].copy()
+    pyramid = box_levels(crop, 4)
+    formats = (
+        ("svs", "slide.svs", "PyramidalTiff", lambda p: tiff.write_aperio_svs(p, crop, levels=3, tile=256)),
+        ("ndpi", "slide.ndpi", "NdpiSlide", lambda p: ndpi.write_ndpi(p, crop, levels=3)),
+        ("mrxs", "slide.mrxs", "MiraxSlide", lambda p: mirax.write_mirax(p, crop, levels=3, tile=256, overlap=32)),
+        ("vms", "slide.vms", "VmsSlide", lambda p: vms.write_vms(p, crop, cols=2, rows=2)),
+        ("philips", "philips.tiff", "PhilipsTiff", lambda p: vendor_tiff.write_philips_tiff(p, crop, levels=3,
+                                                                                            tile=256)),
+        ("scn", "slide.scn", "LeicaScn", lambda p: vendor_tiff.write_leica_scn(p, crop, levels=3, tile=256)),
+        ("bif", "slide.bif", "VentanaBif", lambda p: vendor_tiff.write_ventana_bif(p, crop, levels=3, tile=256)),
+    )
+    out = {}
+    for label, name, reader, write in formats:
+        d = os.path.join(tmp, f"jpeg-{label}")
+        os.makedirs(d)
+        path = os.path.join(d, name)
+        t0 = time.perf_counter()
+        write(path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        slide = tiff.open_slide(path)
+        if type(slide).__name__ != reader:
+            fail(f"16 jpeg {label}: open_slide gave {type(slide).__name__}, want {reader}")
+        levels = []
+        for level in range(slide.level_count):
+            w, h = slide.level_dimensions[level]
+            got = slide.read_region((0, 0), level, (w, h))
+            ds = slide.level_downsamples[level]
+            k = int(round(math.log2(ds)))
+            if 2 ** k != ds or k >= len(pyramid):
+                fail(f"16 jpeg {label}: level {level} downsample {ds}")
+            ref = pyramid[k]
+            hh, ww = min(h, ref.shape[0]), min(w, ref.shape[1])
+            db = psnr_db(got[:hh, :ww], ref[:hh, :ww])
+            levels.append({"dims": (w, h), "downsample": ds, "psnr_db": db})
+            if not db >= JPEG_PSNR_DB:
+                fail(f"16 jpeg {label}: level {level} {w}x{h} PSNR {db:.2f} dB against the raster, want "
+                     f">= {JPEG_PSNR_DB}")
+        assoc = sorted(slide.associated_images)
+        slide.close()
+        read_s = time.perf_counter() - t0
+        log(f"16 jpeg {label}: {reader}, {len(levels)} levels "
+            + ", ".join(f"{lv['dims'][0]}x{lv['dims'][1]} {lv['psnr_db']:.2f} dB" for lv in levels)
+            + f"; associated {assoc}; written in {write_s:.2f} s, opened and every level read in {read_s:.2f} s")
+        out[label] = {"reader": reader, "levels": levels, "associated": assoc, "write_s": write_s, "read_s": read_s}
+    return out
+
+
+def phase_overlays(store: str, slide_path: str) -> dict:
+    """Phase 16, the overlays (needs h5py, matplotlib and PIL):
+    ``export_attention --image_dir`` with ``--vis_level 1 --sample_rois
+    topk`` on the store and the deflate file: the overlay has level 1's
+    size and equals ``render_heatmap_pyramidal`` of the returned scores; the
+    ROI CSV has ``roi_k`` rows."""
+    import numpy as np
+    from PIL import Image
+
+    from mhim_mil_torch.data.readers import FeatureBagStore
+    from mhim_mil_torch.preprocess.tiff import open_slide
+    from mhim_mil_torch.tools.export_attention import main as export
+    from mhim_mil_torch.utils.heatmap import render_heatmap_pyramidal
+
+    images = os.path.join(os.path.dirname(store), "images")
+    os.makedirs(images)
+    os.symlink(slide_path, os.path.join(images, "synthetic_slide.tif"))
+    out = os.path.join(os.path.dirname(store), "overlays")
+    t0 = time.perf_counter()
+    got = export(["--out", out, "--dataset_root", store, "--image_dir", images, "--patch_size", str(RASTER_PATCH),
+                  "--vis_level", "1", "--sample_rois", "topk", "--roi_k", "5", *SLIDE_EXPORT])["synthetic_slide"]
+    secs = time.perf_counter() - t0
+    overlay = np.asarray(Image.open(os.path.join(out, "synthetic_slide_overlay.png")))
+    slide = open_slide(slide_path)
+    want = render_heatmap_pyramidal(slide, FeatureBagStore(store).pixel_coords("synthetic_slide.pt"), got,
+                                    patch_size=RASTER_PATCH, vis_level=1)
+    dims = slide.level_dimensions[1]
+    slide.close()
+    if overlay.shape != (dims[1], dims[0], 3) or not np.array_equal(overlay, want):
+        fail(f"16 overlays: the overlay {overlay.shape} is not render_heatmap_pyramidal's at level 1 {dims}")
+    with open(os.path.join(out, "synthetic_slide_rois.csv")) as f:
+        rows = f.read().splitlines()
+    if rows[0] != "x,y,score" or len(rows) != 1 + 5:
+        fail(f"16 overlays: the ROI CSV has {len(rows) - 1} rows, want 5")
+    log(f"16 overlays: --image_dir at level 1 {overlay.shape[:2]} in {secs:.2f} s, equal to render_heatmap_pyramidal; "
+        f"{len(rows) - 1} ROIs")
+    return {"overlay": overlay.shape, "seconds": secs}
+
+
+def phase_slides(encoders=None) -> dict:
+    """Phase 16: the slide readers behind the extraction CLI and the
+    attention export, on 15c's synthetic slide and its resnet50_trunc: 16a
+    the readers, 16b the sweep from the file and the CLI, 16c the flagship's
+    attention on the bag; then each part that needs a package the card's
+    machine may lack, where it has it: the JPEG-coded formats (PIL) and the
+    overlays (h5py, matplotlib, PIL)."""
+    import importlib.util
+
+    missing = {p: importlib.util.find_spec(p) is None for p in OPTIONAL_PACKAGES}
+    raster = slide_raster()
+    res = {"launches": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slides_") as tmp:
+        t0 = time.perf_counter()
+        res["readers"] = phase_slide_readers(raster, tmp)
+        res["readers_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["sweep"] = phase_slide_sweep(raster, tmp, res["readers"]["files"]["deflate"]["path"], encoders)
+        res["sweep_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        attention = phase_slide_attention(res["sweep"]["store"])
+        res["attention_s"] = time.perf_counter() - t0
+        res["launches"] += attention.pop("launches")
+        res["attention"] = attention
+        ran, skipped = ["16a readers", "16b sweep and CLI", "16c attention"], []
+        if not res["sweep"]["h5"]:
+            skipped.append("the CLI's h5_files (h5py)")
+        t0 = time.perf_counter()
+        if missing["PIL"]:
+            skipped.append("JPEG-coded formats (PIL)")
+        else:
+            res["jpeg"] = phase_jpeg_slides(raster, tmp)
+            ran.append("JPEG-coded formats")
+        res["jpeg_s"] = time.perf_counter() - t0
+        lacks = [p for p in OPTIONAL_PACKAGES if missing[p]]
+        if lacks:
+            skipped.append(f"overlays ({', '.join(lacks)})")
+        else:
+            res["overlays"] = phase_overlays(res["sweep"]["store"], res["readers"]["files"]["deflate"]["path"])
+            ran.append("overlays")
+    res["parts"] = {"ran": ran, "skipped": skipped}
+    log(f"16 parts ran: {', '.join(ran)}; not run, for a missing package: {', '.join(skipped) or 'none'}")
+    return res
+
+
 def main():
     phase_device()
     phase_build()
@@ -2805,14 +3215,16 @@ def main():
     log(f"phase 3 (the kernels against their plain versions): {time.perf_counter() - t0:.1f} s")
     counted = {kid: 0 for kid in KERNELS}
     stress = None
+    done = {}
     for label, phase in (("4 serving", phase_serving), ("5 train", phase_train), ("5b teacher", phase_teacher),
                          ("6 attn", phase_attn), ("7 2dmamba", phase_mamba), ("9 zoo", phase_zoo),
                          ("10 zoo II", phase_zoo2), ("11a mambamil", phase_mambamil), ("11b streamed", phase_streamed),
                          ("11c heatmaps", phase_heatmaps), ("12 stress", phase_stress), ("13 ablate", phase_ablate),
                          ("14 bundle", phase_bundle), ("8 driver", lambda g: phase_driver()),
-                         ("15 features", lambda g: phase_features())):
+                         ("15 features", lambda g: phase_features()),
+                         ("16 slides", lambda g: phase_slides(done["15 features"]["encoders"]))):
         t0 = time.perf_counter()
-        res = phase(gen)
+        res = done[label] = phase(gen)
         for seen in res["launches"]:
             for kid, n in seen.items():
                 counted[kid] += n

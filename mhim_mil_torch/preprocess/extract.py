@@ -39,7 +39,7 @@ def crop_patches(image: np.ndarray, coords: np.ndarray, patch_size: int) -> np.n
 
 
 def slide_patch_reader(slide, patch_size: int) -> Callable:
-    """Patch source over an open slide (:mod:`.slide`): region reads at
+    """Patch source over an open slide (:mod:`.tiff`): region reads at
     level 0 — the pyramidal equivalent of ``crop_patches`` (reference
     Whole_Slide_Bag_FP reads the same way via openslide,
     CLAM/dataset_modules/dataset_h5.py:79-84)."""

@@ -5,9 +5,11 @@ flags and output.
 
 The framework equivalent of the reference's two offline CLIs
 (`CLAM/create_patches_fp.py:48-286` seg+patch and
-`CLAM/extract_features_fp.py:83-177` encoder sweep), for plain raster images
-(PNG/JPEG/BMP readable by PIL); pyramidal and vendor slides raise
-(``preprocess/slide.py``).
+`CLAM/extract_features_fp.py:83-177` encoder sweep), for every source
+``preprocess/tiff.open_slide`` reads: pyramidal TIFF and BigTIFF, Aperio
+``.svs``, Hamamatsu ``.ndpi`` and ``.vms``, MIRAX ``.mrxs``, Philips TIFF,
+Leica ``.scn``, Ventana ``.bif`` and plain rasters (PNG/JPEG/BMP through
+PIL).
 
 Usage:
   python -m mhim_mil_torch.tools.extract_features --source DIR_OF_IMAGES \\
@@ -39,7 +41,7 @@ import numpy as np
 from ..preprocess.encoders import get_encoder
 from ..preprocess.extract import extract_features, save_feature_store, slide_patch_reader
 from ..preprocess.segment import generate_patch_coords, segment_tissue
-from ..preprocess.slide import open_slide
+from ..preprocess.tiff import open_slide
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".tif", ".tiff", ".svs", ".ndpi",
             ".mrxs", ".vms", ".scn", ".bif", ".bmp")
@@ -95,8 +97,8 @@ def write_stitch(out_dir, sid, img, coords, patch_size, max_side=1024,
                  full_hw=None):
     """Downscaled overview with the kept patch grid drawn (reference
     StitchCoords/DrawMap, CLAM/wsi_core/wsi_utils.py:163-207). ``full_hw``
-    gives the level-0 size when ``img`` is already a thumbnail so the
-    level-0 coords land correctly."""
+    gives the level-0 size when ``img`` is already a thumbnail (pyramidal
+    slides) so the level-0 coords land correctly."""
     from PIL import Image
 
     if full_hw is None:
@@ -118,6 +120,10 @@ def write_stitch(out_dir, sid, img, coords, patch_size, max_side=1024,
 
 def process_slide(path, encoder, norm, args, params=None):
     p = params or {k: getattr(args, k) for k in PARAM_COLS}
+    # Pyramidal and vendor slides open through the native readers (tile-level
+    # random access, level 0 never materialised); flat rasters fall back to a
+    # single-level wrapper (preprocess/tiff.py open_slide; the reference calls
+    # openslide.open_slide the same way, WholeSlideImage.py:32).
     slide = open_slide(path)
     try:
         return _process_open_slide(slide, path, encoder, norm, args, p)
@@ -127,8 +133,8 @@ def process_slide(path, encoder, norm, args, params=None):
 
 def _process_open_slide(slide, path, encoder, norm, args, p):
     w0, h0 = slide.dimensions
-    # Segment on a bounded thumbnail (reference segments at seg_level,
-    # WholeSlideImage.py:91-183).
+    # Segment on a low pyramid level / bounded thumbnail (reference segments
+    # at seg_level, WholeSlideImage.py:91-183).
     thumb = slide.get_thumbnail(2048)
     mask = segment_tissue(thumb, sthresh=p["sthresh"])
     grid = generate_patch_coords(
@@ -163,7 +169,7 @@ def _process_open_slide(slide, path, encoder, norm, args, p):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--source", required=True, help="directory of raster images")
+    p.add_argument("--source", required=True, help="directory of slides or raster images")
     p.add_argument("--save_dir", required=True)
     p.add_argument("--encoder", default="resnet50_trunc")
     p.add_argument("--ckpt_path", default=None, help="torch state_dict for the encoder")

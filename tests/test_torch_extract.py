@@ -1,10 +1,11 @@
 """The port's extraction layer against the JAX package's on the CPU:
 ``crop_patches`` and ``extract_features`` (``mhim_mil_torch/preprocess/extract.py``),
 the tissue segmentation and patch grid (``preprocess/segment.py``, bit for
-bit), the raster slide (``preprocess/slide.py``) and the CLI
+bit), the raster slide and ``open_slide``'s routing of each slide extension
+(``preprocess/tiff.py``) and the CLI
 ``python -m mhim_mil_torch.tools.extract_features`` against
-``tools/extract_features.py`` on a directory of PNGs, features within
-1e-4."""
+``tools/extract_features.py`` on a directory of PNGs, and of PNGs with an
+Aperio ``.svs``, features within 1e-4."""
 
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from mhim_mil_torch.data.readers import FeatureBagStore
 from mhim_mil_torch.preprocess import encoders as P
 from mhim_mil_torch.preprocess import extract as PX
 from mhim_mil_torch.preprocess import segment as PS
-from mhim_mil_torch.preprocess import slide as PSL
+from mhim_mil_torch.preprocess import tiff as PT
 from mhim_mil_torch.tools import extract_features as port_cli
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -90,7 +91,7 @@ def test_extract_features_short_batch_matches_jax(source, tmp_path):
     if source == "slide":
         path = str(tmp_path / "s.png")
         Image.fromarray(img).save(path)
-        src_p, src_j = PX.slide_patch_reader(PSL.open_slide(path), 32), JX.slide_patch_reader(JT.open_slide(path), 32)
+        src_p, src_j = PX.slide_patch_reader(PT.open_slide(path), 32), JX.slide_patch_reader(JT.open_slide(path), 32)
     else:
         src_p = src_j = img
     got = PX.extract_features(port, src_p, coords, patch_size=32, batch_size=3, norm="imagenet")
@@ -133,7 +134,7 @@ def test_raster_slide_matches_jax(tmp_path):
     img = _tissue_image(90, 200, 3)
     path = str(tmp_path / "r.png")
     Image.fromarray(img).save(path)
-    got, want = PSL.open_slide(path), JT.open_slide(path)
+    got, want = PT.open_slide(path), JT.open_slide(path)
     assert got.dimensions == want.dimensions == (200, 90)
     assert got.level_dimensions == want.level_dimensions and got.level_count == want.level_count
     for loc in ((0, 0), (190, 80), (300, 10)):
@@ -142,13 +143,72 @@ def test_raster_slide_matches_jax(tmp_path):
         np.testing.assert_array_equal(got.get_thumbnail(size), want.get_thumbnail(size))
 
 
+def _write_slide(path, ext):
+    """A small slide in the format of ``ext``, written by the JAX package's
+    writer; ``.vmu`` and ``.isyntax`` have none (both packages name them
+    and refuse them)."""
+    from mhim_mil_tpu.preprocess import mirax, ndpi, vendor_tiff, vms
+
+    img = _tissue_image(192, 256, 5)
+    low = ext.lower()
+    if low == ".svs":
+        JT.write_aperio_svs(path, img, levels=2, tile=64)
+    elif low == ".ndpi":
+        ndpi.write_ndpi(path, img, levels=2)
+    elif low == ".tif":
+        JT.write_pyramidal_tiff(path, img, levels=2, tile=64, compression="deflate")
+    elif low == ".tiff":  # Philips content inside a .tiff: routed by content
+        vendor_tiff.write_philips_tiff(path, img, levels=2, tile=64)
+    elif low == ".mrxs":
+        mirax.write_mirax(path, img, levels=2, tile=64, overlap=16)
+    elif low == ".vms":
+        vms.write_vms(path, img, cols=2, rows=1)
+    elif low == ".scn":
+        vendor_tiff.write_leica_scn(path, img, levels=2, tile=64)
+    elif low == ".bif":
+        vendor_tiff.write_ventana_bif(path, img, levels=2, tile=64)
+    else:
+        open(path, "wb").write(b"\x00" * 64)
+
+
+def _open_like_jax(path):
+    """Both packages' ``open_slide`` on ``path``: the same reader class and
+    level-0 reads, or the same error class and message. Returns the class
+    name of what JAX's returned or raised."""
+    try:
+        want = JT.open_slide(path)
+    except Exception as e:  # noqa: BLE001 - the error is what is compared
+        with pytest.raises(Exception) as got:
+            PT.open_slide(path)
+        assert (type(got.value).__name__, str(got.value)) == (type(e).__name__, str(e))
+        return type(e).__name__
+    got = PT.open_slide(path)
+    try:
+        assert type(got).__name__ == type(want).__name__
+        assert got.level_dimensions == want.level_dimensions and got.properties == want.properties
+        np.testing.assert_array_equal(got.read_region((40, 30), 0, (64, 48)), want.read_region((40, 30), 0, (64, 48)))
+        return type(want).__name__
+    finally:
+        got.close()
+        want.close()
+
+
 @pytest.mark.parametrize("ext", [".svs", ".ndpi", ".tif", ".tiff", ".mrxs", ".vms", ".scn", ".bif", ".vmu",
                                  ".isyntax", ".SVS"])
 def test_pyramidal_and_vendor_paths_raise(ext, tmp_path):
-    path = tmp_path / f"slide{ext}"
-    path.write_bytes(b"II*\x00")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        PSL.open_slide(str(path))
+    """The port's ``open_slide`` routes each extension as JAX's does: a file
+    of that format opens with the same reader, the two vendor formats
+    neither reads raise the same named error, and the four bytes of a bare
+    TIFF header raise the same error in both or fall back alike."""
+    readers = {".svs": "PyramidalTiff", ".ndpi": "NdpiSlide", ".tif": "PyramidalTiff", ".tiff": "PhilipsTiff",
+               ".mrxs": "MiraxSlide", ".vms": "VmsSlide", ".scn": "LeicaScn", ".bif": "VentanaBif",
+               ".vmu": "UnsupportedVendorFormatError", ".isyntax": "UnsupportedVendorFormatError"}
+    path = str(tmp_path / f"slide{ext}")
+    _write_slide(path, ext)
+    assert _open_like_jax(path) == readers[ext.lower()]
+    bare = tmp_path / f"bare{ext}"
+    bare.write_bytes(b"II*\x00")
+    _open_like_jax(str(bare))
 
 
 def _make_pngs(root):
@@ -218,9 +278,27 @@ def test_cli_matches_jax(tmp_path):
 
 
 def test_cli_refuses_a_pyramidal_slide(tmp_path):
+    """PNGs and an Aperio ``.svs`` written by JAX's writer through both
+    CLIs: the same slides and coordinates, features within 1e-4."""
     src = tmp_path / "imgs"
     _make_pngs(str(src))
-    (src / "slide_9.svs").write_bytes(b"II*\x00")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        port_cli.main(["--source", str(src), "--save_dir", str(tmp_path / "out"), "--encoder", "r18",
-                       "--patch_size", "32", "--step_size", "32", "--device", "cpu"])
+    JT.write_aperio_svs(str(src / "slide_9.svs"), _tissue_image(192, 256, 20), levels=2, tile=64)
+    ckpt = tmp_path / "r18.pt"
+    torch.save(_r18(5).state_dict(), ckpt)
+    common = ["--source", str(src), "--encoder", "r18", "--ckpt_path", str(ckpt), "--patch_size", "32",
+              "--step_size", "32", "--batch_size", "8"]
+    out_j, out_p = tmp_path / "jax", tmp_path / "port"
+    lines_j = _run_cli(_jax_cli().main, common + ["--save_dir", str(out_j)])
+    lines_p = _run_cli(port_cli.main, common + ["--save_dir", str(out_p), "--device", "cpu"])
+    assert lines_p == [line.replace(str(out_j), str(out_p)) for line in lines_j]
+    ids = sorted(os.listdir(out_p / "pt_files"))
+    assert ids == sorted(os.listdir(out_j / "pt_files")) and "slide_9.pt" in ids and len(ids) == 5
+    for fname in ids:
+        sid = fname[:-3]
+        with h5py.File(out_p / "h5_files" / f"{sid}.h5") as fp, h5py.File(out_j / "h5_files" / f"{sid}.h5") as fj:
+            np.testing.assert_array_equal(fp["coords"][:], fj["coords"][:])
+            for k in fj["coords"].attrs:
+                np.testing.assert_array_equal(fp["coords"].attrs[k], fj["coords"].attrs[k])
+            np.testing.assert_allclose(fp["features"][:], fj["features"][:], **FEATURE_TOL)
+    with h5py.File(out_p / "h5_files" / "slide_9.h5") as f:
+        assert list(f["coords"].attrs["level_dim"]) == [256, 192] and len(f["coords"]) > 0

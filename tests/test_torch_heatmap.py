@@ -8,7 +8,9 @@ equal, floats within 1e-12. Then ``python -m mhim_mil_torch.tools.export_attenti
 against ``tools/export_attention.py`` on a small CLAM-layout store, from the
 same JAX checkpoint (abmil, and MHIM-selfattn with its Merge buffer) and
 from the port's checkpoint of those weights: the same files, grids within
-1e-6 and raw scores within 1e-5 (fp32 attention of different frameworks).
+1e-6 and raw scores within 1e-5 (fp32 attention of different frameworks);
+then both tools with ``--image_dir`` on a pyramidal TIFF and a PNG: the same
+overlays and ROI CSVs.
 """
 
 import importlib.util
@@ -29,6 +31,7 @@ from mhim_mil_tpu.models import build_model as j_build_model
 from mhim_mil_tpu.utils import heatmap as jheat
 from mhim_mil_tpu.utils.checkpoint import save_checkpoint as j_save_checkpoint
 from mhim_mil_torch.config import load_config
+from mhim_mil_torch.data.readers import FeatureBagStore
 from mhim_mil_torch.models import build_model
 from mhim_mil_torch.tools import export_attention
 from mhim_mil_torch.utils import heatmap
@@ -216,8 +219,7 @@ def test_export_cli_writes_the_jax_tools_grids(tmp_path, monkeypatch, store, mod
 def test_export_cli_without_a_csv_or_weights(tmp_path, store):
     """Random weights from the seed, every ``.pt`` of the store: mambamil's
     raw attention over each bag sums to 1 and is the CSV's score column, and
-    the grid is its percentile raster at the CSV's positions; ``--image_dir`` raises, naming the
-    slide readers."""
+    the grid is its percentile raster at the CSV's positions."""
     root, _ = store
     out = str(tmp_path / "attn")
     scores = export_attention.main(["--out", out, "--device", "cpu", "--dataset_root", root,
@@ -229,5 +231,85 @@ def test_export_cli_without_a_csv_or_weights(tmp_path, store):
         np.testing.assert_array_equal(grid, heatmap.attention_to_grid(s, csv[["x", "y"]].to_numpy()))
         np.testing.assert_allclose(csv["score"].to_numpy(), s, rtol=1e-6, atol=0)
         np.testing.assert_allclose(s.sum(), 1.0, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="slide readers"):
-        export_attention.main(["--out", out, "--device", "cpu", "--dataset_root", root, "--image_dir", root])
+
+
+OVERLAY_PATCH = 64
+
+
+@pytest.fixture(scope="module")
+def slide_store(tmp_path_factory):
+    """Two slides with level-0 pixel coordinates on a 64-px grid: ``t0``, a
+    two-level pyramidal TIFF (raw tiles), and ``p0``, a PNG; their
+    features, labels and images."""
+    import h5py
+    from PIL import Image
+
+    from mhim_mil_tpu.preprocess.tiff import write_pyramidal_tiff
+
+    root = tmp_path_factory.mktemp("slide_store")
+    for d in ("pt_files", "h5_files", "images"):
+        (root / d).mkdir()
+    rng = np.random.default_rng(9)
+    for sid, (h, w) in (("t0", (320, 448)), ("p0", (256, 320))):
+        img = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+        if sid == "t0":
+            write_pyramidal_tiff(str(root / "images" / "t0.tiff"), img, levels=2, tile=64, compression="raw")
+        else:
+            Image.fromarray(img).save(root / "images" / "p0.png")
+        xs, ys = np.meshgrid(np.arange(0, w - 32, 48), np.arange(0, h - 32, 48))  # overlapping patches
+        coords = np.stack([xs.ravel(), ys.ravel()], -1).astype(np.int64)
+        torch.save(torch.tensor(rng.normal(size=(len(coords), IN_DIM)).astype(np.float32)),
+                   root / "pt_files" / f"{sid}.pt")
+        with h5py.File(root / "h5_files" / f"{sid}.h5", "w") as f:
+            d = f.create_dataset("coords", data=coords)
+            d.attrs["patch_size"] = 48
+            d.attrs["downsample"] = [1, 1]
+    csv = root / "labels.csv"
+    pd.DataFrame({"ID": ["t0", "p0"], "Label": [0, 1]}).to_csv(csv, index=False)
+    return str(root), str(csv)
+
+
+@pytest.mark.parametrize("vis_level", [1, -1], ids=["level1", "thumbnail"])
+def test_export_cli_image_dir_overlays_match_jax(tmp_path, monkeypatch, slide_store, vis_level):
+    """Both tools with ``--image_dir`` over a pyramidal TIFF and a PNG, at
+    ``--vis_level 1`` (the banded renderer on the TIFF's level 1; the PNG has
+    no level 1 and takes the thumbnail path) and ``-1`` (the thumbnail path
+    for both), with ``--sample_rois topk``: the same files; the overlays
+    equal pixel for pixel, except that a pixel may differ where a patch
+    covering it has another percentile in the two exports (their scores
+    differ by fp32 rounding, which can swap near ties); the ROI CSVs the same
+    patches with scores within 1e-5."""
+    from PIL import Image
+
+    root, csv = slide_store
+    ckpt = str(tmp_path / "fold_0_model_best.ckpt")
+    _jax_checkpoint(ckpt, "abmil")
+    args = ["--model", "abmil", "--csv_path", csv, "--dataset_root", root, "--input_dim", str(IN_DIM),
+            "--inner_dim", str(DIM), "--image_dir", os.path.join(root, "images"), "--patch_size",
+            str(OVERLAY_PATCH), "--vis_level", str(vis_level), "--sample_rois", "topk", "--roi_k", "4"]
+    got_dir, want_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    _run_jax_tool(monkeypatch, ["--ckpt", ckpt, "--out", want_dir, *args])
+    scores = export_attention.main(["--ckpt", ckpt, "--out", got_dir, "--device", "cpu", *args])
+    files = sorted(os.listdir(want_dir))
+    assert sorted(os.listdir(got_dir)) == files
+    assert files == sorted(f"{sid}_{k}" for sid in ("t0", "p0") for k in ("attn.npy", "attn.csv", "overlay.png",
+                                                                           "rois.csv"))
+    store = FeatureBagStore(root)
+    # the TIFF's thumbnail is its level 1 too: both paths render at half scale
+    shapes = {"t0": (160, 224, 3), "p0": (256, 320, 3)}
+    for sid, shape in shapes.items():
+        got = np.asarray(Image.open(os.path.join(got_dir, f"{sid}_overlay.png")))
+        want = np.asarray(Image.open(os.path.join(want_dir, f"{sid}_overlay.png")))
+        assert got.shape == want.shape == shape
+        jax_scores = pd.read_csv(os.path.join(want_dir, f"{sid}_attn.csv"))["score"].to_numpy()
+        changed = heatmap.to_percentiles(scores[sid]) != heatmap.to_percentiles(jax_scores)
+        scale = 2 if sid == "t0" else 1
+        allowed = np.zeros(shape[:2], bool)
+        for x, y in store.pixel_coords(f"{sid}.pt")[changed] // scale:
+            allowed[y:y + OVERLAY_PATCH // scale, x:x + OVERLAY_PATCH // scale] = True
+        differs = (got != want).any(-1)
+        assert not (differs & ~allowed).any(), f"{sid}: pixels differ outside the patches whose percentile differs"
+        g_rois, w_rois = (pd.read_csv(os.path.join(d, f"{sid}_rois.csv")) for d in (got_dir, want_dir))
+        assert len(g_rois) == len(w_rois) == 4
+        np.testing.assert_array_equal(g_rois[["x", "y"]].to_numpy(), w_rois[["x", "y"]].to_numpy())
+        np.testing.assert_allclose(g_rois["score"].to_numpy(), w_rois["score"].to_numpy(), rtol=0, atol=1e-5)

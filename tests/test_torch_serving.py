@@ -157,7 +157,7 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(mhim_mil_torch.__path__, 'mhim_mil_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mhim_mil_tpu',\n"
-        "                                                            'pandas', 'h5py', 'PIL'))\n"
+        "                                                            'pandas', 'h5py', 'PIL', 'matplotlib'))\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 15, mods\n"
         "assert {'mhim_mil_torch.ops.scan', 'mhim_mil_torch.ops.scan2d', 'mhim_mil_torch.models.mamba'} <= set(mods)\n"
@@ -178,7 +178,11 @@ def test_port_imports_no_jax():
         "        'mhim_mil_torch.tools.make_splits', 'mhim_mil_torch.tools.convert_features',\n"
         "        'mhim_mil_torch.preprocess.extract'} <= set(mods)\n"
         "assert {'mhim_mil_torch.preprocess.encoders', 'mhim_mil_torch.preprocess.segment',\n"
-        "        'mhim_mil_torch.preprocess.slide', 'mhim_mil_torch.tools.extract_features'} <= set(mods)\n"
+        "        'mhim_mil_torch.tools.extract_features'} <= set(mods)\n"
+        "assert {'mhim_mil_torch.preprocess.tiff', 'mhim_mil_torch.preprocess.ndpi', 'mhim_mil_torch.preprocess.vms',\n"
+        "        'mhim_mil_torch.preprocess.mirax', 'mhim_mil_torch.preprocess.vendor_tiff',\n"
+        "        'mhim_mil_torch.native'} <= set(mods)\n"
+        "assert 'mhim_mil_torch.preprocess.slide' not in mods\n"
         "print(len(mods))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
