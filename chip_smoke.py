@@ -15,7 +15,7 @@ flagship and K3 at the 16,384 and 32,768 buckets; then the train step's
 diagnostic variants and the in-step breakdown and HBM tools; then the
 serving export bundle; then feature extraction, from a synthetic slide to
 the flagship's score; then the slide readers, from the slide's files to its
-attention.
+attention; then data parallelism over bags.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -167,12 +167,26 @@ Phases, each of which fails the run:
    raster's box pyramid. Where h5py, matplotlib and PIL are all there: the
    overlays of ``--image_dir`` at level 1 against
    ``render_heatmap_pyramidal`` and the ROI CSV. A line names the parts
-   that ran and the package each part left out lacks.
+   that ran and the package each part left out lacks;
+17. data parallelism over bags (``mhim_mil_torch/parallel``): (a) phase
+   8's abmil run with ``--mesh_dp 4 --mesh_sp 2`` (and the kernels named
+   on, as phase 8's gate turned them on) in this one process trains and
+   equals phase 8's run bit for bit; (b) an NCCL world of one
+   process: one fp32 flagship step (4 × 10,240, dropout on) under
+   ``make_mesh(dp=1)`` equals the step without a mesh bit for bit (loss,
+   metrics, every parameter, gradient and teacher tensor, global_q_mm) with
+   the same launches; (c) two processes of this script sharing the card in
+   a gloo world, 2 of the 4 bags each: the fp32 step against (b)'s
+   (loss rtol 2e-5, keep_num and patch_num equal, gradients within 1e-4
+   of max|g|, student, teacher and global_q_mm within 2·lr), the flagship's
+   ``forward_test`` logits gathered within 1e-4·max|ref|, 3 bf16 steps
+   with finite losses, each rank's launches and step ms (two processes on
+   one card: not a scaling figure) and the gradient all-reduce's bytes.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-16 each reset the launch counts before their main-path
-runs and read them after; the kernels' launches are the sums of those
+columns). Phases 4-17 each reset the launch counts before their main-path
+runs and read them after (17c's ranks in their own processes); the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
 The line before the last lists the kernels as JSON; the last line is the
@@ -2566,7 +2580,7 @@ def phase_driver() -> dict:
         runs = (res0, res1, res, res2, res3, res4, res5)
         probes = {"K6": sum(r["kernel_gate"]["probe_launches"] for r in runs)}
     return {"launches": [seen0, seen1, seen, seen2, seen3, seen4, seen5, probes],
-            "seconds": secs0 + secs1 + secs + secs2 + secs3 + secs4 + secs5}
+            "seconds": secs0 + secs1 + secs + secs2 + secs3 + secs4 + secs5, "abmil": res0}
 
 
 # ---- phase 15: feature extraction --------------------------------------------------
@@ -3204,6 +3218,259 @@ def phase_slides(encoders=None) -> dict:
     return res
 
 
+# ---- phase 17: data parallelism over bags ------------------------------------------------
+
+DP_WORLD = 2  # processes of 17c, sharing the one card
+DP_BF16_STEPS = 3
+DP_FWD_LAUNCHES = dict(K1=2, K2=2, K3p=2 * 24)  # the flagship's forward_test: two TransLayers
+DP_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_flagship(seed: int):
+    """The fp32 flagship on the kernel path with its batch's inputs: the
+    config, the model, its initial weights on the host and the 4 × 10,240
+    batch (dropout on, as the preset sets it)."""
+    cfg, model, model_p = flagship_models(seed, compute_dtype="float32")
+    del model_p
+    return cfg, model, {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def dp_state(cfg, model, spe: int):
+    from mhim_mil_torch.engine.train_state import create_mhim_state
+
+    return create_mhim_state(cfg, model, spe, seed=0, device="cuda")
+
+
+def dp_abmil_flags(ref: dict) -> dict:
+    """17a, fault 13: phase 8's one-fold abmil run with ``--mesh_dp 4
+    --mesh_sp 2`` in this one process equals the run without them (phase
+    8's ``ref``, or a run made here) bit for bit in every row. The kernels
+    are named on, as phase 8's gate turned them on, so that the gate's
+    subprocesses do not run twice."""
+    args = ABMIL_ARGS + ["--use_flash_attn", "true", "--output_path", ""]
+    res, seen, secs = drive("abmil --mesh_dp 4 --mesh_sp 2", args + ["--mesh_dp", "4", "--mesh_sp", "2"])
+    if ref is None:
+        ref, _, _ = drive("abmil", args)
+    elif ref["kernel_gate"]["outcome"] != "enabled":
+        fail(f"17a: phase 8's gate gave {ref['kernel_gate']}")
+    rows = 0
+    for f_ref, f in zip(ref["folds"], res["folds"]):
+        pairs = [("test", f_ref["test"], f["test"])]
+        pairs += [(f"epoch {a['epoch']} val", a["val"], b["val"]) for a, b in zip(f_ref["history"], f["history"])]
+        pairs += [(f"epoch {a['epoch']} train_loss", a["train_loss"], b["train_loss"])
+                  for a, b in zip(f_ref["history"], f["history"])]
+        for name, a, b in pairs:
+            rows += 1
+            if a != b:
+                fail(f"17a fold {f['fold']} {name}: with the mesh flags {b}, without {a}")
+    if len(res["folds"]) != len(ref["folds"]) or not rows:
+        fail("17a: the runs have other folds")
+    log(f"17a fault 13: one process with --mesh_dp 4 --mesh_sp 2 trained; {rows} rows (test, each epoch's val and "
+        f"train_loss) equal to the run without the flags bit for bit; launches {seen}; {secs:.2f} s")
+    return {"launches": seen, "rows": rows, "seconds": secs}
+
+
+def dp_world_of_one(gen, spe: int) -> dict:
+    """17b: one fp32 flagship step in an NCCL world of one process under
+    ``make_mesh(dp=1)`` against the same step without a mesh, from the same
+    weights and generator seed: loss, metrics, every parameter and
+    gradient, the teacher and global_q_mm bit for bit, with the same
+    launches. Returns the no-mesh step's results, the reference of 17c."""
+    import torch.distributed as dist
+
+    from mhim_mil_torch.parallel import make_mesh, replicate_tree
+
+    cfg, model_a, init = dp_flagship(17)
+    model_b = copy.deepcopy(model_a)
+    batch = train_batch(gen, cfg)
+    with torch.no_grad():
+        ref_logits = model_b.forward_test(batch["feats"], batch["mask"])["logits"].float()
+    state_a, state_b = dp_state(cfg, model_a, spe), dp_state(cfg, model_b, spe)
+    step = train_step_for(cfg, spe)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        reset_launches()
+        with make_mesh(dp=1) as mesh:
+            replicate_tree(mesh, state_a)
+            m_a = step(state_a, batch)
+        torch.cuda.synchronize()
+        seen_a = expect_launches("17b the step under make_mesh(dp=1)", **TRAIN_LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    reset_launches()
+    m_b = step(state_b, batch)
+    torch.cuda.synchronize()
+    expect_launches("17b the step without a mesh", **TRAIN_LAUNCHES)
+    diffs = [k for k in m_b if float(m_a[k]) != float(m_b[k])]
+    for name, a, b in (("student", model_a, model_b), ("teacher", state_a.teacher, state_b.teacher)):
+        sa, sb = a.state_dict(), b.state_dict()
+        diffs += [f"{name} {k}" for k in sb if not torch.equal(sa[k], sb[k])]
+    diffs += [f"gradient {n}" for (n, p), q in zip(model_a.named_parameters(), model_b.parameters())
+              if not torch.equal(p.grad, q.grad)]
+    log(f"17b NCCL world of one: the fp32 flagship step under make_mesh(dp=1) against the step without a mesh: "
+        f"loss {float(m_a['loss']):.9g} and {float(m_b['loss']):.9g}; {len(m_b)} metrics, "
+        f"{len(model_b.state_dict())} student and {len(state_b.teacher.state_dict())} teacher tensors (global_q_mm "
+        f"among them) and {sum(1 for _ in model_b.parameters())} gradients compared; {len(diffs)} differ; "
+        f"launches {seen_a} each")
+    if diffs:
+        fail(f"17b: the dp=1 mesh step differs from the step without a mesh: {diffs[:8]}")
+    ref = {"cfg": cfg, "init": init, "batch": {k: v.cpu() for k, v in batch.items()}, "metrics": m_b,
+           "model": model_b, "teacher": state_b.teacher, "logits": ref_logits,
+           "lr": float(state_b.optimizer.lr_schedule(0))}
+    return {"launches": seen_a, "ref": ref}
+
+
+def dp_worker(rank: int, tmp: str, port: int):
+    """One rank of 17c, in a process of its own: a gloo world of DP_WORLD
+    processes on the one card; the flagship's forward_test and one fp32 step
+    on this rank's bags, then DP_BF16_STEPS bf16 steps; writes its results
+    to ``tmp/rank<rank>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from mhim_mil_torch.models import build_model
+    from mhim_mil_torch.parallel import make_mesh, replicate_tree
+    from mhim_mil_torch.parallel.mesh import gather_rows
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets them in the parent
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    cfg, spe = inputs["cfg"], inputs["spe"]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=DP_WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    model, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(inputs["init"])
+    state = dp_state(cfg, model, spe)
+    mesh = make_mesh(DP_WORLD)
+    rows = mesh.rows(inputs["batch"]["feats"].shape[0])
+    batch = {k: v[rows].to("cuda") for k, v in inputs["batch"].items()}
+    replicate_tree(mesh, state)
+    out = {"rank": rank, "bags": rows.stop - rows.start}
+    with mesh:
+        reset_launches()
+        with torch.no_grad():
+            logits = gather_rows(model.forward_test(batch["feats"], batch["mask"])["logits"].float())
+        torch.cuda.synchronize()
+        out["fwd_launches"] = expect_launches(f"17c rank {rank} forward_test", **DP_FWD_LAUNCHES)
+        step = train_step_for(cfg, spe)
+        reset_launches()
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        out["fp32_ms"] = (time.perf_counter() - t0) * 1e3
+        out["fp32_launches"] = expect_launches(f"17c rank {rank} fp32 step", **TRAIN_LAUNCHES)
+        out["metrics"] = {k: float(v) for k, v in m.items()}
+        if rank == 0:
+            out["logits"] = logits.cpu()
+            out["student"] = {k: v.cpu() for k, v in model.state_dict().items()}
+            out["teacher"] = {k: v.cpu() for k, v in state.teacher.state_dict().items()}
+            out["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        step16 = train_step_for(cfg.replace(compute_dtype="bfloat16"), spe)
+        reset_launches()
+        out["bf16_ms"], out["bf16_losses"] = [], []
+        for _ in range(DP_BF16_STEPS):
+            t0 = time.perf_counter()
+            m16 = step16(state, batch)
+            torch.cuda.synchronize()
+            out["bf16_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["bf16_losses"].append(float(m16["loss"]))
+        out["bf16_launches"] = expect_launches(f"17c rank {rank} bf16 steps",
+                                               **{k: v * DP_BF16_STEPS for k, v in TRAIN_LAUNCHES.items()})
+    out["grad_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def dp_two_processes(ref: dict, spe: int) -> dict:
+    """17c: DP_WORLD processes of this script share the card in a gloo
+    world (NCCL takes one rank a device), each with 2 of 17b's 4 bags: the
+    fp32 step against 17b's one-process step (loss rtol 2e-5, keep_num and
+    patch_num equal, gradients after the all-reduce within 1e-4 of
+    max|g|, student, teacher and global_q_mm within 2·lr), forward_test's
+    gathered logits within 1e-4·max|ref|, DP_BF16_STEPS bf16 steps with
+    finite losses; each rank's launches, the gradient all-reduce's bytes
+    and each rank's step ms."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        torch.save({"cfg": ref["cfg"], "spe": spe, "init": ref["init"], "batch": ref["batch"]},
+                   os.path.join(tmp, "inputs.pt"))
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), tmp, str(port)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(DP_WORLD)]
+        outs = []
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=DP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                fail(f"17c rank {r} did not finish in {DP_TIMEOUT_S} s")
+            if p.returncode != 0:
+                for q in procs:
+                    q.kill()
+                fail(f"17c rank {r} exited {p.returncode}:\n{text[-3000:]}")
+            outs.append(torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False))
+    r0, lr, m_ref = outs[0], ref["lr"], ref["metrics"]
+    d_loss = abs(r0["metrics"]["loss"] - float(m_ref["loss"]))
+    g_err = max(((r0["grads"][n] - p.grad.cpu()).abs().max() / p.grad.abs().max().clamp_min(1e-30).cpu()).item()
+                for n, p in ref["model"].named_parameters())
+    s_ref = {k: v.cpu() for k, v in ref["model"].state_dict().items()}
+    p_err = max((r0["student"][k] - v).abs().max().item() for k, v in s_ref.items() if k != "merge.global_q_mm")
+    q_err = (r0["student"]["merge.global_q_mm"] - s_ref["merge.global_q_mm"]).abs().max().item()
+    t_ref = {k: v.cpu() for k, v in ref["teacher"].state_dict().items()}
+    t_err = max((r0["teacher"][k] - v).abs().max().item() for k, v in t_ref.items() if k != "merge.global_q_mm")
+    l_ref = ref["logits"].cpu()
+    l_err = (r0["logits"] - l_ref).abs().max().item()
+    l_tol = 1e-4 * l_ref.abs().max().item()
+    same = {k: r0["metrics"][k] == float(m_ref[k]) for k in ("keep_num", "patch_num")}
+    log(f"17c {DP_WORLD} processes sharing the one card (gloo), {r0['bags']} of the 4 bags each, against 17b's "
+        f"one-process step: loss {r0['metrics']['loss']:.9g} against {float(m_ref['loss']):.9g}, |d| {d_loss:.3e} "
+        f"(tolerance 2e-5 * |loss|); keep_num and patch_num equal {same}; gradients after the all-reduce "
+        f"max|d|/max|ref| {g_err:.3e} (tolerance 1e-4); student max|d| {p_err:.3e}, teacher {t_err:.3e}, global_q_mm "
+        f"{q_err:.3e} (tolerance 2·lr = {2 * lr:.3e}); forward_test logits max|d| {l_err:.3e} (tolerance 1e-4 * "
+        f"max|ref| = {l_tol:.3e})")
+    if not math.isfinite(d_loss) or d_loss > 2e-5 * abs(float(m_ref["loss"])) or not all(same.values()):
+        fail("17c: the dp step's loss or mining disagrees with the one-process step")
+    if g_err > 1e-4 or max(p_err, t_err, q_err) > 2 * lr or not l_err <= l_tol:
+        fail("17c: the dp step's gradients, update or forward_test disagree with the one-process step")
+    for o in outs:
+        if not all(math.isfinite(x) for x in o["bf16_losses"]):
+            fail(f"17c rank {o['rank']}: a bf16 loss is not finite: {o['bf16_losses']}")
+        log(f"17c rank {o['rank']} (one of {DP_WORLD} processes sharing one card; not a scaling figure): fp32 step "
+            f"{o['fp32_ms']:.2f} ms, bf16 steps {', '.join(f'{x:.2f}' for x in o['bf16_ms'])} ms (host clock, "
+            f"synchronised), bf16 losses {', '.join(f'{x:.4f}' for x in o['bf16_losses'])}; launches: forward_test "
+            f"{o['fwd_launches']}, fp32 step {o['fp32_launches']}, bf16 steps {o['bf16_launches']}; gradient "
+            f"all-reduce {o['grad_bytes']} bytes a step")
+    seen = [{k: o[key][k] for k in KERNELS} for o in outs for key in ("fwd_launches", "fp32_launches", "bf16_launches")]
+    return {"launches": seen, "grad_bytes": r0["grad_bytes"], "loss_err": d_loss, "grad_rel_err": g_err,
+            "param_err": p_err, "teacher_err": t_err, "global_q_err": q_err, "logits_err": l_err,
+            "ranks": [{k: o[k] for k in ("rank", "fp32_ms", "bf16_ms", "bf16_losses")} for o in outs]}
+
+
+def phase_dp(gen, abmil_ref=None) -> dict:
+    """Phase 17: data parallelism over bags (``mhim_mil_torch/parallel``):
+    17a the mesh flags in one process (fault 13), 17b an NCCL world of one,
+    17c two gloo processes sharing the card."""
+    spe = 8
+    t0 = time.perf_counter()
+    a = dp_abmil_flags(abmil_ref)
+    b = dp_world_of_one(gen, spe)
+    c = dp_two_processes(b.pop("ref"), spe)
+    secs = time.perf_counter() - t0
+    log(f"17 dp: {secs:.1f} s")
+    return {"launches": [a["launches"], b["launches"], *c["launches"]], "a": a, "c": c, "seconds": secs}
+
+
 def main():
     phase_device()
     phase_build()
@@ -3222,7 +3489,8 @@ def main():
                          ("11c heatmaps", phase_heatmaps), ("12 stress", phase_stress), ("13 ablate", phase_ablate),
                          ("14 bundle", phase_bundle), ("8 driver", lambda g: phase_driver()),
                          ("15 features", lambda g: phase_features()),
-                         ("16 slides", lambda g: phase_slides(done["15 features"]["encoders"]))):
+                         ("16 slides", lambda g: phase_slides(done["15 features"]["encoders"])),
+                         ("17 dp", lambda g: phase_dp(g, done["8 driver"]["abmil"]))):
         t0 = time.perf_counter()
         res = done[label] = phase(gen)
         for seen in res["launches"]:
@@ -3284,4 +3552,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 17c, started by phase 17
+        dp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+    else:
+        main()

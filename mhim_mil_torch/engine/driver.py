@@ -19,11 +19,17 @@ Where PyTorch differs from the JAX package:
   epoch; train batches go to the card two deep from pinned memory, and the
   eval splits are staged there once per fold, in fp32;
 - ``steps_per_call > 1`` runs that many single steps, which is what JAX's
-  scanned multi-step computes; ``mesh_dp`` / ``mesh_sp`` raise.
+  scanned multi-step computes;
+- the mesh is a world of processes (``torchrun``), not a device mesh of one
+  process: ``--mesh_dp`` splits every batch's bags over the first
+  ``mesh_dp`` ranks (``parallel/mesh.py``); every rank walks the same
+  batches and keeps its rows, the evaluation gathers the logits, and rank 0
+  alone prints, logs and writes. ``mesh_sp > 1`` raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -37,6 +43,7 @@ import torch
 from ..data.bucketing import batch_bags, count_batches
 from ..data.synthetic import make_synthetic_dataset, make_synthetic_survival_dataset
 from ..models import build_model
+from ..parallel.mesh import SP_NOT_PORTED, Mesh, gather_rows, make_mesh, replicate_tree, shard_batch
 from ..utils.checkpoint import (is_jax_checkpoint, load_checkpoint, load_jax_checkpoint, overlay_params,
                                 restore_state, save_checkpoint, snapshot)
 from ..utils.early_stopping import EarlyStopping
@@ -44,7 +51,8 @@ from ..utils.platform import resolve_device
 from ..utils.weights import state_dict_from_flax
 from . import metrics as M
 from .losses import nll_surv_loss, surv_risk
-from .steps import make_eval_step, make_mhim_eval_step, make_mhim_train_step, make_train_step
+from .steps import (check_dp, make_eval_step, make_mhim_eval_step, make_mhim_train_step,
+                    make_train_step)
 from .train_state import create_mhim_state, create_train_state
 
 Device = Optional[Union[str, torch.device]]
@@ -186,29 +194,31 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, 
     return out
 
 
-def _prefetch_to_device(batch_iter, device: torch.device, depth: int = 2):
+def _prefetch_to_device(batch_iter, device: torch.device, depth: int = 2, mesh: Optional[Mesh] = None):
     """Double-buffered host-to-device prefetch (``driver.py:475-491``): the
-    copy of batch k+1 is queued before step k runs."""
+    copy of batch k+1 is queued before step k runs. Under ``mesh`` only this
+    rank's bags of each batch are copied."""
     q = deque()
     for b in batch_iter:
-        q.append(_to_device(b, device))
+        q.append(_to_device(b if mesh is None else shard_batch(mesh, b), device))
         if len(q) >= depth:
             yield q.popleft()
     while q:
         yield q.popleft()
 
 
-def device_eval_batches(cfg, slides, device: Device = None):
+def device_eval_batches(cfg, slides, device: Device = None, mesh: Optional[Mesh] = None):
     """Stage a deterministic eval split on the card once
     (``driver.py:216-238``), features in fp32. Returns
     ``[(device_batch, host_labels)]``; ``eval_bucket`` pins every eval bag to
-    one padded length."""
+    one padded length. Under ``mesh`` the card gets this rank's bags of each
+    batch and the labels stay those of the whole batch."""
     device = resolve_device(device)
     buckets = (cfg.eval_bucket,) if cfg.eval_bucket else None
     out = []
     for b in _iter_batches(cfg, slides, shuffle=False, seed=0, bucket_sizes=buckets):
         labels = {k: v for k, v in b.items() if k not in ("feats", "pos", "mask")}
-        out.append((_to_device(b, device), labels))
+        out.append((_to_device(b if mesh is None else shard_batch(mesh, b), device), labels))
     return out
 
 
@@ -229,10 +239,12 @@ def evaluate(cfg, model: torch.nn.Module, family: str, slides, fold: int, bootst
     output of :func:`device_eval_batches`. The eval step is made here, from
     the weights the model holds now; the logits come to the host once, and
     DSMIL's ``sub_logits`` are fused there, ``0.5·logits + 0.5·sub_logits``
-    (``driver.py:255-256``; reference common_mil.py:66-67)."""
+    (``driver.py:255-256``; reference common_mil.py:66-67). Under an active
+    mesh, ``slides`` holds this rank's bags and the logits of every rank are
+    gathered first: each rank computes the same row."""
     staged = slides if slides and isinstance(slides[0], tuple) else device_eval_batches(cfg, slides, device)
     step = _eval_step(cfg, model, family)
-    outs = [step(jb) for jb, _ in staged]
+    outs = [{k: gather_rows(v) for k, v in step(jb).items()} for jb, _ in staged]
     logits = torch.cat([o["logits"] for o in outs]).cpu().numpy()
     if "sub_logits" in outs[0]:
         logits = 0.5 * logits + 0.5 * torch.cat([o["sub_logits"] for o in outs]).cpu().numpy()
@@ -372,178 +384,258 @@ def _public(row: Dict) -> Dict:
     return {k: v for k, v in row.items() if not k.startswith("_")}
 
 
+def _quiet(*args, **kwargs) -> None:
+    pass
+
+
 def one_fold(cfg, fold: int, train_slides, test_slides, val_slides, logger=None,
-             device: Device = None) -> Dict:
+             device: Device = None, mesh: Optional[Mesh] = None) -> Dict:
     """Train and test one fold (``driver.py:494-760``; reference one_fold
     main.py:189-428). The result carries ``timing``: the fold's wall
     seconds, its train steps and their seconds, and the seconds spent in
-    evaluation."""
+    evaluation. Under ``mesh`` (``driver.py:505-519``) the state is
+    broadcast from rank 0, each rank trains and evaluates on its bags of
+    every batch inside ``with mesh:``, and rank 0 alone prints and writes
+    checkpoints."""
     device = resolve_device(device)
     t_fold = time.perf_counter()
     timing = {"train_steps": 0, "train_seconds": 0.0, "eval_seconds": 0.0}
     # per-fold reseed when the folds are otherwise identical repeats (reference main.py:205)
     fold_seed = cfg.seed + 100 * fold if (cfg.random_seed or cfg.random_fold) else cfg.seed
     _, family, state, train_step = _build_fold(cfg, train_slides, fold_seed, fold, device)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else _quiet
+    logger = logger if lead else None
+    if mesh is not None:
+        replicate_tree(mesh, state)
+    with mesh if mesh is not None else contextlib.nullcontext():
+        same_split = test_slides is val_slides
+        val_slides = device_eval_batches(cfg, val_slides, device, mesh)
+        test_slides = val_slides if same_split else device_eval_batches(cfg, test_slides, device, mesh)
 
-    same_split = test_slides is val_slides
-    val_slides = device_eval_batches(cfg, val_slides, device)
-    test_slides = val_slides if same_split else device_eval_batches(cfg, test_slides, device)
+        def run_eval(model, slides, bootstrap):
+            t0 = time.perf_counter()
+            row = evaluate(cfg, model, family, slides, fold, bootstrap)
+            timing["eval_seconds"] += time.perf_counter() - t0
+            return row
 
-    def run_eval(model, slides, bootstrap):
-        t0 = time.perf_counter()
-        row = evaluate(cfg, model, family, slides, fold, bootstrap)
-        timing["eval_seconds"] += time.perf_counter() - t0
-        return row
+        boot = cfg.bootstrap_mode in ("test", "test_val")
+        if cfg.script_mode == "test":  # reference --script_mode test: reload the bests and test them
+            root = cfg.model_path or cfg.output_path
+            path, ema_path = root, None
+            if root and os.path.isdir(root):
+                path = os.path.join(root, f"fold_{fold}_model_best.ckpt")
+                ema_path = os.path.join(root, f"fold_{fold}_ema_model_best.ckpt")
+            if path and os.path.exists(path):
+                restore_state(state, load_checkpoint(path))
+                say(f"[fold {fold}] loaded {path}")
+            out = {"fold": fold, "best_epoch": -1, "best_val": float("nan"),
+                   "test": _public(run_eval(state.model, test_slides, boot)), "history": []}
+            if ema_path and os.path.exists(ema_path) and state.teacher is not None:
+                restore_state(state, load_checkpoint(ema_path))
+                out["test_ema"] = _public(run_eval(state.teacher, test_slides, boot))
+            out["timing"] = {**timing, "seconds": time.perf_counter() - t_fold}
+            return out
 
-    boot = cfg.bootstrap_mode in ("test", "test_val")
-    if cfg.script_mode == "test":  # reference --script_mode test: reload the bests and test them
-        root = cfg.model_path or cfg.output_path
-        path, ema_path = root, None
-        if root and os.path.isdir(root):
-            path = os.path.join(root, f"fold_{fold}_model_best.ckpt")
-            ema_path = os.path.join(root, f"fold_{fold}_ema_model_best.ckpt")
-        if path and os.path.exists(path):
-            restore_state(state, load_checkpoint(path))
-            print(f"[fold {fold}] loaded {path}")
-        out = {"fold": fold, "best_epoch": -1, "best_val": float("nan"),
-               "test": _public(run_eval(state.model, test_slides, boot)), "history": []}
-        if ema_path and os.path.exists(ema_path) and state.teacher is not None:
-            restore_state(state, load_checkpoint(ema_path))
-            out["test_ema"] = _public(run_eval(state.teacher, test_slides, boot))
+        stopper = EarlyStopping(patience=cfg.patient, stop_epoch=cfg.max_epoch)
+        # Dual best tracking (reference main.py:348-369), each a snapshot of the
+        # weights when found: the step updates the live state in place.
+        best = {"metric": -np.inf, "weights": snapshot(state), "epoch": -1}
+        best_ema = {"metric": -np.inf, "weights": None, "epoch": -1}
+        history = []
+
+        epoch_start = cfg.epoch_start
+        ckp_path = os.path.join(cfg.output_path, f"ckp_fold{fold}.ckpt") if cfg.output_path else None
+        if cfg.auto_resume and ckp_path and os.path.exists(ckp_path):
+            payload = load_checkpoint(ckp_path)
+            restore_state(state, payload)
+            meta = payload["metadata"]
+            epoch_start = meta.get("epoch", -1) + 1
+            stopper.load_state_dict(meta.get("early_stop", {}))
+            say(f"[fold {fold}] resumed at epoch {epoch_start}")
+
+        interrupted = False
+        for epoch in range(epoch_start, cfg.num_epoch):
+            # --profile: a torch.profiler trace of the first trained epoch under output_path/profile
+            prof = None
+            if cfg.profile and epoch == epoch_start and cfg.output_path and lead:
+                prof = _start_profile(os.path.join(cfg.output_path, "profile"), device)
+            t0 = time.time()
+            n_steps = 0
+            sums: Dict[str, torch.Tensor] = {}
+            if cfg.script_mode != "no_train":  # no_train keeps the epochs and validation, without updates
+                t_train = time.perf_counter()
+                try:
+                    batch_it = _iter_batches(cfg, train_slides, shuffle=True, seed=fold_seed + epoch,
+                                             patch_shuffle=cfg.patch_shuffle)
+                    for batch in _prefetch_to_device(batch_it, device, mesh=mesh):
+                        for k, v in train_step(state, batch).items():
+                            sums[k] = v if k not in sums else sums[k] + v
+                        n_steps += 1
+                except KeyboardInterrupt:
+                    # Ctrl-C falls through to the final test on the best-so-far
+                    # weights (reference main.py:381-382).
+                    say(f"[fold {fold}] interrupted — running final test")
+                    interrupted = True
+                meters = _read_meters(sums, n_steps)
+                timing["train_steps"] += n_steps
+                timing["train_seconds"] += time.perf_counter() - t_train
+            else:
+                meters = {}
+            train_loss = meters.get("loss", 0.0)
+            if prof is not None:
+                prof.stop()
+            if interrupted:
+                break
+
+            if cfg.script_mode == "only_train":  # reference main.py:270-271
+                history.append({"epoch": epoch, "train_loss": train_loss})
+                if logger is not None:
+                    logger.log({f"fold{fold}/train_loss": train_loss}, step=epoch)
+                say(f"[fold {fold}] epoch {epoch}: train_loss={train_loss:.4f} "
+                    f"({time.time() - t0:.1f}s, {n_steps} steps)")
+                continue
+
+            row = run_eval(state.model, val_slides, False)
+            rows = {"val": row}
+            if cfg.always_test:
+                rows["test_track"] = run_eval(state.model, test_slides, False)
+            if state.teacher is not None:  # MHIM or generic EMA (reference main.py:273-277)
+                rows["val_ema"] = run_eval(state.teacher, val_slides, False)
+            snap = None
+            if row["_key_metric"] > best["metric"]:
+                snap = snapshot(state)
+                best = {"metric": row["_key_metric"], "weights": snap, "epoch": epoch}
+            if "val_ema" in rows and rows["val_ema"]["_key_metric"] > best_ema["metric"]:
+                best_ema = {"metric": rows["val_ema"]["_key_metric"], "weights": snap or snapshot(state),
+                            "epoch": epoch}
+            history.append({
+                "epoch": epoch,
+                "train_loss": train_loss,
+                **{k: v for k, v in meters.items() if k != "loss"},
+                "val": _public(row),
+                "time": time.time() - t0,
+            })
+            if logger is not None:
+                logger.log(
+                    {f"fold{fold}/train_loss": train_loss,
+                     **{f"fold{fold}/train_{k}": v for k, v in meters.items() if k != "loss"},
+                     **{f"fold{fold}/val_{k}": v for k, v in row.items()
+                        if isinstance(v, (int, float)) and not k.startswith("_")}},
+                    step=epoch,
+                )
+            if cfg.log_iter and (epoch % max(1, cfg.log_iter // 10) == 0 or epoch < 3):
+                say(f"[fold {fold}] epoch {epoch}: train_loss={train_loss:.4f} "
+                    f"val={row['_key_metric']:.4f} ({time.time() - t0:.1f}s, {n_steps} steps)")
+            # the reference stops on the negative task metric of the student val
+            # row; loss-based stopping is opt-in (--early_stop_on loss)
+            monitor = row["_val_loss"] if cfg.early_stop_on == "loss" else -row["_key_metric"]
+            stop = cfg.early_stopping and stopper(epoch, monitor)
+            if cfg.auto_resume and ckp_path and lead:
+                save_checkpoint(ckp_path, state, metadata={"epoch": epoch, "early_stop": stopper.state_dict()})
+            if stop:
+                say(f"[fold {fold}] early stop at epoch {epoch}")
+                break
+
+        # final test: the student best through the student, the EMA best through
+        # the teacher (reference main.py:384-413), loaded into the live modules
+        state.model.load_state_dict(best["weights"]["model"])
+        test_row = run_eval(state.model, test_slides, boot)
+        test_row_ema = None
+        if best_ema["weights"] is not None:
+            state.teacher.load_state_dict(best_ema["weights"]["teacher"])
+            test_row_ema = run_eval(state.teacher, test_slides, boot)
+        if cfg.output_path and lead:
+            os.makedirs(cfg.output_path, exist_ok=True)
+            save_checkpoint(os.path.join(cfg.output_path, f"fold_{fold}_model_best.ckpt"), state,
+                            metadata={"epoch": best["epoch"], "fold": fold, "val_metric": best["metric"]},
+                            weights=best["weights"])
+            if best_ema["weights"] is not None:
+                save_checkpoint(os.path.join(cfg.output_path, f"fold_{fold}_ema_model_best.ckpt"), state,
+                                metadata={"epoch": best_ema["epoch"], "fold": fold,
+                                          "val_metric": best_ema["metric"], "teacher": True},
+                                weights=best_ema["weights"])
+            if cfg.save_result:  # per-slide test predictions (reference --save_result)
+                np.savez(os.path.join(cfg.output_path, f"fold_{fold}_test_predictions.npz"),
+                         logits=test_row["_logits"], targets=test_row["_targets"])
+        if cfg.auto_resume and ckp_path and lead and os.path.exists(ckp_path):
+            os.remove(ckp_path)
+        out = {"fold": fold, "best_epoch": best["epoch"], "best_val": best["metric"],
+               "test": _public(test_row), "history": history}
+        if test_row_ema is not None:
+            out["best_epoch_ema"] = best_ema["epoch"]
+            out["best_val_ema"] = best_ema["metric"]
+            out["test_ema"] = _public(test_row_ema)
         out["timing"] = {**timing, "seconds": time.perf_counter() - t_fold}
         return out
 
-    stopper = EarlyStopping(patience=cfg.patient, stop_epoch=cfg.max_epoch)
-    # Dual best tracking (reference main.py:348-369), each a snapshot of the
-    # weights when found: the step updates the live state in place.
-    best = {"metric": -np.inf, "weights": snapshot(state), "epoch": -1}
-    best_ema = {"metric": -np.inf, "weights": None, "epoch": -1}
-    history = []
 
-    epoch_start = cfg.epoch_start
-    ckp_path = os.path.join(cfg.output_path, f"ckp_fold{fold}.ckpt") if cfg.output_path else None
-    if cfg.auto_resume and ckp_path and os.path.exists(ckp_path):
-        payload = load_checkpoint(ckp_path)
-        restore_state(state, payload)
-        meta = payload["metadata"]
-        epoch_start = meta.get("epoch", -1) + 1
-        stopper.load_state_dict(meta.get("early_stop", {}))
-        print(f"[fold {fold}] resumed at epoch {epoch_start}")
+def resolve_mesh(cfg) -> Optional[Mesh]:
+    """The mesh of a run (``driver.py:462-472`` ``_maybe_mesh``). In a world
+    of one process there is none, whatever the flags, and training runs as
+    without them. In a larger world (``torchrun``) the mesh is an explicit
+    opt-in: no ``--mesh_dp`` / ``--mesh_sp`` raises ``ValueError``,
+    ``mesh_sp > 1`` and a model whose step is not routed through the mesh
+    raise ``NotImplementedError``, and ``mesh_dp`` must divide the batch.
+    Every rank calls it: it makes the mesh's process group."""
+    import torch.distributed as dist
 
-    interrupted = False
-    for epoch in range(epoch_start, cfg.num_epoch):
-        # --profile: a torch.profiler trace of the first trained epoch under output_path/profile
-        prof = None
-        if cfg.profile and epoch == epoch_start and cfg.output_path:
-            prof = _start_profile(os.path.join(cfg.output_path, "profile"), device)
-        t0 = time.time()
-        n_steps = 0
-        sums: Dict[str, torch.Tensor] = {}
-        if cfg.script_mode != "no_train":  # no_train keeps the epochs and validation, without updates
-            t_train = time.perf_counter()
-            try:
-                batch_it = _iter_batches(cfg, train_slides, shuffle=True, seed=fold_seed + epoch,
-                                         patch_shuffle=cfg.patch_shuffle)
-                for batch in _prefetch_to_device(batch_it, device):
-                    for k, v in train_step(state, batch).items():
-                        sums[k] = v if k not in sums else sums[k] + v
-                    n_steps += 1
-            except KeyboardInterrupt:
-                # Ctrl-C falls through to the final test on the best-so-far
-                # weights (reference main.py:381-382).
-                print(f"[fold {fold}] interrupted — running final test")
-                interrupted = True
-            meters = _read_meters(sums, n_steps)
-            timing["train_steps"] += n_steps
-            timing["train_seconds"] += time.perf_counter() - t_train
-        else:
-            meters = {}
-        train_loss = meters.get("loss", 0.0)
-        if prof is not None:
-            prof.stop()
-        if interrupted:
-            break
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world == 1:
+        return None
+    if cfg.mesh_dp == -1 and cfg.mesh_sp == 1:
+        raise ValueError(f"a world of {world} processes without --mesh_dp or --mesh_sp: pass --mesh_dp to "
+                         f"train data-parallel (each rank would otherwise train the whole batch)")
+    if cfg.mesh_sp > 1:
+        raise NotImplementedError(SP_NOT_PORTED)
+    mesh = make_mesh(cfg.mesh_dp, 1)
+    check_dp(cfg, mesh.dp)
+    if cfg.batch_size % mesh.dp:
+        raise ValueError(f"--batch_size {cfg.batch_size} does not split over --mesh_dp {mesh.dp}")
+    return mesh
 
-        if cfg.script_mode == "only_train":  # reference main.py:270-271
-            history.append({"epoch": epoch, "train_loss": train_loss})
-            if logger is not None:
-                logger.log({f"fold{fold}/train_loss": train_loss}, step=epoch)
-            print(f"[fold {fold}] epoch {epoch}: train_loss={train_loss:.4f} "
-                  f"({time.time() - t0:.1f}s, {n_steps} steps)")
-            continue
 
-        row = run_eval(state.model, val_slides, False)
-        rows = {"val": row}
-        if cfg.always_test:
-            rows["test_track"] = run_eval(state.model, test_slides, False)
-        if state.teacher is not None:  # MHIM or generic EMA (reference main.py:273-277)
-            rows["val_ema"] = run_eval(state.teacher, val_slides, False)
-        snap = None
-        if row["_key_metric"] > best["metric"]:
-            snap = snapshot(state)
-            best = {"metric": row["_key_metric"], "weights": snap, "epoch": epoch}
-        if "val_ema" in rows and rows["val_ema"]["_key_metric"] > best_ema["metric"]:
-            best_ema = {"metric": rows["val_ema"]["_key_metric"], "weights": snap or snapshot(state),
-                        "epoch": epoch}
-        history.append({
-            "epoch": epoch,
-            "train_loss": train_loss,
-            **{k: v for k, v in meters.items() if k != "loss"},
-            "val": _public(row),
-            "time": time.time() - t0,
-        })
-        if logger is not None:
-            logger.log(
-                {f"fold{fold}/train_loss": train_loss,
-                 **{f"fold{fold}/train_{k}": v for k, v in meters.items() if k != "loss"},
-                 **{f"fold{fold}/val_{k}": v for k, v in row.items()
-                    if isinstance(v, (int, float)) and not k.startswith("_")}},
-                step=epoch,
-            )
-        if cfg.log_iter and (epoch % max(1, cfg.log_iter // 10) == 0 or epoch < 3):
-            print(f"[fold {fold}] epoch {epoch}: train_loss={train_loss:.4f} "
-                  f"val={row['_key_metric']:.4f} ({time.time() - t0:.1f}s, {n_steps} steps)")
-        # the reference stops on the negative task metric of the student val
-        # row; loss-based stopping is opt-in (--early_stop_on loss)
-        monitor = row["_val_loss"] if cfg.early_stop_on == "loss" else -row["_key_metric"]
-        stop = cfg.early_stopping and stopper(epoch, monitor)
-        if cfg.auto_resume and ckp_path:
-            save_checkpoint(ckp_path, state, metadata={"epoch": epoch, "early_stop": stopper.state_dict()})
-        if stop:
-            print(f"[fold {fold}] early stop at epoch {epoch}")
-            break
+def _gate_on_rank0(cfg, device, mesh: Optional[Mesh]):
+    """The kernel gate, run by rank 0 alone; its outcome (or its error)
+    is broadcast, so that every rank takes the same path."""
+    import torch.distributed as dist
 
-    # final test: the student best through the student, the EMA best through
-    # the teacher (reference main.py:384-413), loaded into the live modules
-    state.model.load_state_dict(best["weights"]["model"])
-    test_row = run_eval(state.model, test_slides, boot)
-    test_row_ema = None
-    if best_ema["weights"] is not None:
-        state.teacher.load_state_dict(best_ema["weights"]["teacher"])
-        test_row_ema = run_eval(state.teacher, test_slides, boot)
-    if cfg.output_path:
-        os.makedirs(cfg.output_path, exist_ok=True)
-        save_checkpoint(os.path.join(cfg.output_path, f"fold_{fold}_model_best.ckpt"), state,
-                        metadata={"epoch": best["epoch"], "fold": fold, "val_metric": best["metric"]},
-                        weights=best["weights"])
-        if best_ema["weights"] is not None:
-            save_checkpoint(os.path.join(cfg.output_path, f"fold_{fold}_ema_model_best.ckpt"), state,
-                            metadata={"epoch": best_ema["epoch"], "fold": fold,
-                                      "val_metric": best_ema["metric"], "teacher": True},
-                            weights=best_ema["weights"])
-        if cfg.save_result:  # per-slide test predictions (reference --save_result)
-            np.savez(os.path.join(cfg.output_path, f"fold_{fold}_test_predictions.npz"),
-                     logits=test_row["_logits"], targets=test_row["_targets"])
-    if cfg.auto_resume and ckp_path and os.path.exists(ckp_path):
-        os.remove(ckp_path)
-    out = {"fold": fold, "best_epoch": best["epoch"], "best_val": best["metric"],
-           "test": _public(test_row), "history": history}
-    if test_row_ema is not None:
-        out["best_epoch_ema"] = best_ema["epoch"]
-        out["best_val_ema"] = best_ema["metric"]
-        out["test_ema"] = _public(test_row_ema)
-    out["timing"] = {**timing, "seconds": time.perf_counter() - t_fold}
-    return out
+    from ..utils.kernel_gate import resolve_kernel_gate
+
+    if mesh is None:
+        return resolve_kernel_gate(cfg, device)
+    box = [None]
+    if mesh.rank == 0:
+        try:
+            out = resolve_kernel_gate(cfg, device)
+            box[0] = (out[0].use_flash_attn, out[1], None)
+        except Exception as e:  # every rank raises it below
+            box[0] = (None, None, e)
+    dist.broadcast_object_list(box, src=0)
+    enabled, gate, err = box[0]
+    if err is not None:
+        raise err
+    return cfg.replace(use_flash_attn=enabled), gate
+
+
+def _results_group():
+    """A gloo group of the whole world without a short timeout, made by
+    every rank before the run: the ranks past the mesh wait on it for rank
+    0's results for as long as the run takes."""
+    import datetime
+
+    import torch.distributed as dist
+
+    return dist.new_group(backend="gloo", timeout=datetime.timedelta(days=7))
+
+
+def _share_results(group, results: Optional[Dict]) -> Dict:
+    """Rank 0's results on every rank of ``group``."""
+    import torch.distributed as dist
+
+    box = [results]
+    dist.broadcast_object_list(box, src=0, group=group)
+    return box[0]
 
 
 def run_experiment(cfg, device: Device = None) -> Dict:
@@ -551,17 +643,24 @@ def run_experiment(cfg, device: Device = None) -> Dict:
     main.py:20-187) on ``device`` (CUDA unless ``"cpu"`` is asked for),
     behind the kernel gate. Returns the per-fold results, the cross-fold
     mean ± std of the test metrics (``summary``, and ``summary_ema`` for the
-    EMA bests) and the gate's result (``kernel_gate``)."""
-    from ..utils.kernel_gate import resolve_kernel_gate
+    EMA bests) and the gate's result (``kernel_gate``).
+
+    In a world of processes (:func:`resolve_mesh`) every rank returns rank
+    0's results: the ranks of the mesh compute the same ones, and the ranks
+    past it take no batch and receive them."""
     from ..utils.logging import RunLogger, git_provenance
 
     device = resolve_device(device)
-    if cfg.mesh_dp != -1 or cfg.mesh_sp > 1:
-        raise NotImplementedError("mesh_dp / mesh_sp: multi-device training is not ported yet")
-    cfg, gate = resolve_kernel_gate(cfg, device)
-    logger = RunLogger(cfg.output_path, project=cfg.project, title=cfg.title, use_wandb=cfg.wandb,
-                       config=dataclasses.asdict(cfg))
-    prov = git_provenance(auto_commit=cfg.auto_commit)
+    mesh = resolve_mesh(cfg)
+    results_group = _results_group() if mesh is not None and mesh.dp * mesh.sp < mesh.world else None
+    cfg, gate = _gate_on_rank0(cfg, device, mesh)
+    if mesh is not None and mesh.idle:
+        return _share_results(results_group, None)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else _quiet
+    logger = RunLogger(cfg.output_path if lead else None, project=cfg.project, title=cfg.title,
+                       use_wandb=cfg.wandb and lead, config=dataclasses.asdict(cfg))
+    prov = git_provenance(auto_commit=cfg.auto_commit) if lead else {}
     if prov:
         logger.log({f"provenance/{k}": v for k, v in prov.items()})
     logger.log({f"kernel_gate/{k}": v for k, v in gate.items()})
@@ -570,9 +669,9 @@ def run_experiment(cfg, device: Device = None) -> Dict:
     for k, (tr, te, va) in enumerate(folds):
         if k < cfg.fold_start:
             continue
-        print(f"[fold {k}] train={len(tr)} test={len(te)} val={len(va)} "
-              f"model={cfg.model} baseline={cfg.baseline}")
-        results.append(one_fold(cfg, k, tr, te, va, logger=logger, device=device))
+        say(f"[fold {k}] train={len(tr)} test={len(te)} val={len(va)} "
+            f"model={cfg.model} baseline={cfg.baseline}")
+        results.append(one_fold(cfg, k, tr, te, va, logger=logger, device=device, mesh=mesh))
 
     def _aggregate(row_key):
         agg: Dict[str, Dict[str, float]] = {}
@@ -591,13 +690,13 @@ def run_experiment(cfg, device: Device = None) -> Dict:
     summary_ema = _aggregate("test_ema")
     if summary_ema:
         out["summary_ema"] = summary_ema
-    print("==== cross-val summary ====")
+    say("==== cross-val summary ====")
     for key, v in summary.items():
-        print(f"  {key}: {v['mean']:.4f} ± {v['std']:.4f}")
+        say(f"  {key}: {v['mean']:.4f} ± {v['std']:.4f}")
     for key, v in summary_ema.items():
-        print(f"  ema_{key}: {v['mean']:.4f} ± {v['std']:.4f}")
+        say(f"  ema_{key}: {v['mean']:.4f} ± {v['std']:.4f}")
     logger.log({f"summary/{k}": v["mean"] for k, v in summary.items()})
     if summary_ema:
         logger.log({f"summary/ema_{k}": v["mean"] for k, v in summary_ema.items()})
     logger.close()
-    return out
+    return out if results_group is None else _share_results(results_group, out)

@@ -12,10 +12,18 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import active as active_mesh, batch_sum
+
 Tensor = torch.Tensor
 
 
 def _wmean(per_example: Tensor, weights: Optional[Tensor]) -> Tensor:
+    """The weighted mean over the bags. Under an active mesh, this rank's
+    weighted sum over the weight sum of the whole batch (``batch_sum``):
+    the ranks' terms add up to the one-process mean."""
+    if active_mesh() is not None:
+        w = torch.ones_like(per_example) if weights is None else weights.float()
+        return (per_example * w).sum() / batch_sum(w.sum()).clamp_min(1.0)
     if weights is None:
         return per_example.mean()
     w = weights.float()

@@ -14,6 +14,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.profiler import record_function
 
+from ..parallel.mesh import active as active_mesh, all_reduce_grads, batch_sum, local_rows, rand_rows
 from ..utils.platform import resolve_device
 from ..utils.schedules import cosine_schedule
 from .losses import build_criterion, cross_entropy
@@ -99,6 +100,46 @@ def global_norm(model: nn.Module) -> Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+# the models whose steps run under a dp mesh, each held against JAX's mesh step
+DP_MODELS = ("abmil", "gabmil", "meanmil", "maxmil", "transmil")  # the generic step
+DP_BASELINES = ("selfattn", "attn")  # mhim and mhim_pure
+
+
+def dp_supported(cfg) -> bool:
+    """Whether ``cfg``'s train step runs under a mesh of more than one rank:
+    every reduction over the bags of its step goes through the mesh's
+    collectives. ``mhim`` and ``mhim_pure`` with the ``selfattn`` or
+    ``attn`` baseline, and the generic step of ``DP_MODELS``; the others
+    are ROADMAP Queue 1 item 6c."""
+    if cfg.model in ("mhim", "mhim_pure"):
+        return cfg.baseline in DP_BASELINES
+    return cfg.model in DP_MODELS
+
+
+def check_dp(cfg, dp: int) -> None:
+    """Raise unless ``cfg``'s train step may run under a mesh of ``dp`` ranks."""
+    if dp > 1 and not dp_supported(cfg):
+        name = cfg.model + (f" --baseline {cfg.baseline}" if cfg.model.startswith("mhim") else "")
+        raise NotImplementedError(
+            f"--model {name} under a dp mesh: its step's reductions over the bags are not routed through "
+            f"the mesh yet (ROADMAP Queue 1 item 6c); dp runs mhim and mhim_pure with {DP_BASELINES} and "
+            f"{DP_MODELS}")
+
+
+def global_metrics(sums: Dict[str, Tensor], means: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """Under an active mesh, the batch's metrics from this rank's: the
+    ``sums`` (the loss terms, each rank's part of the global loss) summed
+    and the ``means`` (over equal numbers of bags on each rank) averaged
+    over the ranks, in one all-reduce. Without a mesh, the two as given."""
+    mesh = active_mesh()
+    if mesh is None:
+        return {**sums, **means}
+    keys = list(sums) + list(means)
+    vals = batch_sum(torch.stack([v.detach().float() for v in (*sums.values(), *means.values())]))
+    out = dict(zip(keys, vals.unbind()))
+    return {**{k: out[k] for k in sums}, **{k: out[k] / mesh.dp for k in means}}
+
+
 def make_mhim_train_step(
     cfg, steps_per_epoch: int, device: Optional[Union[str, torch.device]] = None,
     ablate: Optional[str] = None,
@@ -150,6 +191,11 @@ def make_mhim_train_step(
     ``bag_valid`` on the device. Random numbers come from ``state.gen``,
     except the student's mining and merge draws where ``draws`` gives them
     (see ``MHIM.forward``).
+
+    Under an active mesh (``parallel/mesh.py``, :func:`dp_supported`
+    configs) ``batch`` holds this rank's bags and ``draws`` the whole
+    batch's: the gradients are summed over the ranks before the optimizer,
+    and the metrics are the whole batch's.
     """
     device = resolve_device(device)
     if cfg.model not in ("mhim", "mhim_pure"):
@@ -167,13 +213,16 @@ def make_mhim_train_step(
     def uniform_attention(mask: Tensor) -> Tensor:
         if mask.shape not in fixed_attn:
             gen0 = torch.Generator(device=mask.device).manual_seed(0)
-            fixed_attn[mask.shape] = torch.rand(mask.shape, generator=gen0, device=mask.device)
+            fixed_attn[mask.shape] = rand_rows(mask.shape, gen0, mask.device)
         return fixed_attn[mask.shape]
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    draws: Optional[Dict[str, object]] = None) -> Dict[str, Tensor]:
         if batch["feats"].device.type != device.type:
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
+        mesh = active_mesh()
+        if mesh is not None:
+            check_dp(cfg, mesh.dp)
         student, teacher, gen = state.model, state.teacher, state.gen
         batch_c = _cast_batch(dtype, batch)
         feats, mask = batch_c["feats"], batch["mask"].bool()
@@ -181,7 +230,7 @@ def make_mhim_train_step(
         if not is_pure:
             if ablate == "no_teacher":
                 attn = (draws or {}).get("teacher_attn")
-                attn = uniform_attention(mask) if attn is None else attn.to(mask.device, torch.float32)
+                attn = uniform_attention(mask) if attn is None else local_rows(attn.to(mask.device, torch.float32))
                 attn = torch.where(mask, attn, 0.0)
                 cls_tea = (None if cfg.aux_alpha == 0.0
                            else torch.zeros((mask.shape[0], cfg.inner_dim), dtype=torch.float32, device=mask.device))
@@ -202,21 +251,20 @@ def make_mhim_train_step(
                                  training=True, gen=gen, draws=draws)
             main = criterion(out["logits"], batch)
             loss = cfg.main_alpha * main + cfg.aux_alpha * out["aux_loss"]
-        loss_d = loss.detach()
-        metrics = {
-            "main_loss": main.detach(),
-            "aux_loss": out["aux_loss"].detach(),
-            "patch_num": out["patch_num"].float().mean(),
-            "keep_num": out["keep_num"].float().mean(),
-            # the padded fraction of the bucket (mhim.py:433-436)
-            "pad_ratio": 1.0 - mask.float().mean(),
-        }
+        metrics = global_metrics(
+            {"loss": loss.detach(), "main_loss": main.detach(), "aux_loss": out["aux_loss"].detach()},
+            {"patch_num": out["patch_num"].float().mean(), "keep_num": out["keep_num"].float().mean(),
+             "valid": mask.float().mean()})
+        # the padded fraction of the bucket (mhim.py:433-436)
+        metrics["pad_ratio"] = 1.0 - metrics.pop("valid")
+        loss_d = metrics.pop("loss")
         if ablate == "fwd_only":
             state.step += 1
             return {"loss": loss_d, **metrics}
         with record_function("mhim.backward"):
             state.optimizer.zero_grad()
             loss.backward()
+            all_reduce_grads(student)
         if ablate == "no_opt_ema":
             state.step += 1
             return {"loss": loss_d, "gnorm": global_norm(student), **metrics}
@@ -283,7 +331,8 @@ def make_train_step(
     no gradient), TransMIL's layers through K3, 2dmamba on the plain 2D
     scan (K5 has no gradient). It updates ``state`` in place and returns
     ``loss``, ``main_loss``, ``aux_loss``, ``pad_ratio`` and, under
-    ``wandb_watch``, the ``grad_norm/<module>`` meters, as 0-d tensors."""
+    ``wandb_watch``, the ``grad_norm/<module>`` meters, as 0-d tensors.
+    Under an active mesh, as in :func:`make_mhim_train_step`."""
     device = resolve_device(device)
     if family not in TRAIN_FAMILIES:
         raise NotImplementedError(f"family={family!r}: the generic train step is ported for {TRAIN_FAMILIES}")
@@ -293,6 +342,9 @@ def make_train_step(
     def train_step(state: TrainState, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         if batch["feats"].device.type != device.type:
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
+        mesh = active_mesh()
+        if mesh is not None:
+            check_dp(cfg, mesh.dp)
         model = state.model
         feats = _cast_batch(dtype, batch)["feats"]
         extra, kw = _forward_inputs(model, family, batch)
@@ -311,19 +363,17 @@ def make_train_step(
         with record_function("train.backward"):
             state.optimizer.zero_grad()
             loss.backward()
+            all_reduce_grads(model)
         grad_norms = grad_norm_metrics(cfg, model)
         with record_function("train.update"):
             state.optimizer.step()
             if state.teacher is not None:
                 ema_update(state.teacher, model, cfg.model_ema_decay)
         state.step += 1
-        return {
-            "loss": loss.detach(),
-            "main_loss": main.detach(),
-            "aux_loss": aux.detach(),
-            "pad_ratio": 1.0 - batch["mask"].float().mean(),
-            **grad_norms,
-        }
+        metrics = global_metrics({"loss": loss.detach(), "main_loss": main.detach(), "aux_loss": aux.detach()},
+                                 {"valid": batch["mask"].float().mean()})
+        metrics["pad_ratio"] = 1.0 - metrics.pop("valid")
+        return {**metrics, **grad_norms}
 
     return train_step
 

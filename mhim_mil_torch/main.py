@@ -6,6 +6,15 @@ merges presets in order, then flags override) on the port's
 taken off the arguments before the config is read. ``--debug`` turns on
 ``torch.autograd.set_detect_anomaly``, as in the reference. The results go
 to ``<output_path>/<title>_results.json``.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the default process group is
+initialised from the environment, NCCL on ``cuda:<LOCAL_RANK>`` or gloo
+with ``--device cpu``, unless one already is; ``--mesh_dp`` then splits
+each batch's bags over the ranks (``engine/driver.py`` ``resolve_mesh``)::
+
+    python -m torch.distributed.run --nproc_per_node 2 -m mhim_mil_torch.main --device cpu --mesh_dp 2 ...
+
+Rank 0 alone writes the results.
 """
 
 from __future__ import annotations
@@ -34,8 +43,33 @@ def _take_device(argv: List[str]) -> Tuple[str, List[str]]:
     return device, rest
 
 
+PG_TIMEOUT_S = 300  # a rank that dies ends the run's collectives within this long
+
+
+def _init_world(device: str) -> Tuple[str, bool]:
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1), the default process group
+    from the environment, unless one is already initialised; returns the
+    rank's device and whether this call made the group."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return device, False
+    timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
+    if torch.device(device).type == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", timeout=timeout)
+    else:
+        dist.init_process_group("gloo", timeout=timeout)
+    return device, True
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     import torch
+    import torch.distributed as dist
 
     from mhim_mil_torch.config import load_config
     from mhim_mil_torch.engine.driver import run_experiment
@@ -44,8 +78,14 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     cfg = load_config(argv)
     if cfg.debug:  # reference engines/base_engine.py:122-123
         torch.autograd.set_detect_anomaly(True)
-    results = run_experiment(cfg, device=device)
-    if cfg.output_path:
+    device, made = _init_world(device)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    try:
+        results = run_experiment(cfg, device=device)
+    finally:
+        if made:
+            dist.destroy_process_group()
+    if cfg.output_path and rank == 0:
         os.makedirs(cfg.output_path, exist_ok=True)
         path = os.path.join(cfg.output_path, f"{cfg.title}_results.json")
         with open(path, "w") as f:

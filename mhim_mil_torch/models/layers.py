@@ -15,6 +15,7 @@ from torch import nn
 
 from ..ops.abmil_pool import fused_abmil_pool
 from ..ops.masked import masked_softmax
+from ..parallel.mesh import rand_rows
 
 
 def dense(in_features: int, out_features: int, use_bias: bool = True) -> nn.Linear:
@@ -53,7 +54,9 @@ class Dropout(nn.Module):
     """Dropout as flax applies it: keep each entry with probability ``1 - p``
     and scale the kept ones by ``1/(1-p)``. The keep-mask comes from the
     ``torch.Generator`` the caller passes (the train step owns it), never from
-    torch's global generator; it is drawn only when ``training``."""
+    torch's global generator; it is drawn only when ``training``. Under an
+    active mesh it is drawn at the global batch's shape and this rank keeps
+    its rows (``rand_rows``), as a one-process run draws it."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -66,7 +69,7 @@ class Dropout(nn.Module):
         if gen is None:
             raise ValueError("dropout in training mode needs a torch.Generator")
         keep = 1.0 - self.p
-        kept = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        kept = rand_rows(x.shape, gen, x.device) < keep
         return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.masked import masked_softmax, random_subset_mask
+from ..parallel.mesh import active as active_mesh, batch_sum
 from .layers import Dropout, dense
 
 
@@ -72,14 +73,19 @@ class Merge(nn.Module):
         """Compress the ``kv_mask`` tokens of x into k tokens; in training,
         move ``global_q_mm`` toward the batch mean of the result over the real
         bags (a bag with no kv token counts for nothing; an all-fake batch
-        leaves it as it was)."""
+        leaves it as it was). Under an active mesh the mean is over the bags
+        of every rank, so ``global_q_mm`` stays the same on each."""
         g_q = self.global_q_mm
         q = g_q.to(x.dtype).expand(x.shape[0], self.k, self.dim)
         z = self.attn(self.norm(x), self.norm(q), kv_mask, training, gen)
         if training and self.g_q_mm != 1.0:
             w = kv_mask.any(dim=-1).float()
             wsum = w.sum()
-            new = (z[:, :self.k].detach().float() * w[:, None, None]).sum(0, keepdim=True) / wsum.clamp_min(1.0)
+            zsum = (z[:, :self.k].detach().float() * w[:, None, None]).sum(0, keepdim=True)
+            if active_mesh() is not None:  # the sums over every rank's bags, in one all-reduce
+                both = batch_sum(torch.cat([wsum.reshape(1), zsum.reshape(-1)]))
+                wsum, zsum = both[0], both[1:].view_as(zsum)
+            new = zsum / wsum.clamp_min(1.0)
             alpha = (1.0 - self.g_q_mm) * wsum.clamp_max(1.0)
             # Rebound, not updated in place: the old value is still in the graph.
             self.global_q_mm = (1.0 - alpha) * g_q + alpha * new

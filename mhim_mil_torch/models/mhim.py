@@ -22,6 +22,7 @@ from torch import nn
 from ..engine.losses import soft_target_ce
 from ..ops.masked import compact
 from ..ops.masking import MaskSchedule, layered_mask
+from ..parallel.mesh import active as active_mesh, local_rows, rand_rows
 from .baselines import DAttentionBaseline, SAttentionBaseline
 from .dsmil import DSMILHead
 from .layers import FeatureEmbed, dense
@@ -38,9 +39,11 @@ def _cam_score(features: torch.Tensor, weight: torch.Tensor, mask: torch.Tensor)
 
 
 def _uniform(shape, gen: Optional[torch.Generator], device) -> torch.Tensor:
+    """A uniform draw of ``shape`` from ``gen``; under an active mesh, this
+    rank's rows of the global batch's draw."""
     if gen is None:
         raise ValueError("the training pass needs a torch.Generator or injected draws")
-    return torch.rand(shape, generator=gen, device=device)
+    return rand_rows(shape, gen, device)
 
 
 class MHIM(nn.Module):
@@ -135,10 +138,15 @@ class MHIM(nn.Module):
         ``draws`` may hold the uniform draws ``"mask"`` (three ``[B,N]``
         tensors or None, for the random, low and high stages) and
         ``"merge"`` (``[B, v_static]``); a draw that is not given comes from
-        ``gen``."""
+        ``gen``. Under an active mesh the given draws are the global batch's,
+        of which this rank takes its rows."""
         mask = mask.bool()
         b, n, _ = feats.shape
         draws = draws or {}
+        if active_mesh() is not None:
+            draws = {"mask": None if draws.get("mask") is None
+                     else [None if u is None else local_rows(u) for u in draws["mask"]],
+                     "merge": None if draws.get("merge") is None else local_rows(draws["merge"])}
 
         if attn is not None:
             u = draws.get("mask")

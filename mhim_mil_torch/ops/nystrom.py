@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import active as active_mesh, batch_max
 from .masked import NEG_INF, masked_softmax, stats_dtype
 
 
@@ -23,12 +24,18 @@ def pinv_start(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x`` in fp32 (fp64 for fp64 input) and the Newton–Schulz start
     ``z0 = xᵀ / (max(row sums) · max(col sums))`` of its |x|. The scale is a
     max over ALL leading axes (batch and heads), as in the reference: the
-    bags of one batch are coupled through it."""
+    bags of one batch are coupled through it. Under an active mesh the two
+    maxes are taken over the whole batch of every rank (``batch_max``), so
+    that a rank's bags start from the scale of the one-process batch."""
     x = x.to(stats_dtype(x.dtype))
     abs_x = x.abs()
     col = abs_x.sum(dim=-1)
     row = abs_x.sum(dim=-2)
-    denom = (col.max() * row.max()).clamp_min(1e-12)
+    if active_mesh() is None:
+        denom = (col.max() * row.max()).clamp_min(1e-12)
+    else:
+        both = batch_max(torch.stack([col.max(), row.max()]))
+        denom = (both[0] * both[1]).clamp_min(1e-12)
     return x, x.transpose(-1, -2) / denom
 
 

@@ -182,6 +182,7 @@ def test_port_imports_no_jax():
         "assert {'mhim_mil_torch.preprocess.tiff', 'mhim_mil_torch.preprocess.ndpi', 'mhim_mil_torch.preprocess.vms',\n"
         "        'mhim_mil_torch.preprocess.mirax', 'mhim_mil_torch.preprocess.vendor_tiff',\n"
         "        'mhim_mil_torch.native'} <= set(mods)\n"
+        "assert {'mhim_mil_torch.parallel', 'mhim_mil_torch.parallel.mesh'} <= set(mods)\n"
         "assert 'mhim_mil_torch.preprocess.slide' not in mods\n"
         "print(len(mods))\n"
     )
