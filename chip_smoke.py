@@ -15,7 +15,8 @@ flagship and K3 at the 16,384 and 32,768 buckets; then the train step's
 diagnostic variants and the in-step breakdown and HBM tools; then the
 serving export bundle; then feature extraction, from a synthetic slide to
 the flagship's score; then the slide readers, from the slide's files to its
-attention; then data parallelism over bags.
+attention; then data parallelism over bags; then sequence parallelism over
+instances.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -88,8 +89,9 @@ Phases, each of which fails the run:
    (``config/feat_cls.yaml`` + ``--model mambamil``: width 128, one layer,
    16 states, ``sr_rate`` 10) as simple, srmamba and bimamba on the same
    batch: the fp32 eval step on the card against the CPU, bf16 against
-   fp32, bf16 train steps with busy time and peak memory (bimamba's below
-   14 full scan lattices), no kernel launched; (b) the streamed Nystrom
+   fp32, three checked bf16 train steps each, and for bimamba twelve timed
+   ones with busy time and peak memory (below 14 full scan lattices), no
+   kernel launched; (b) the streamed Nystrom
    path at B 4, H 8, N 10,241 against the kernel path, with the peak
    memory of the three paths, and the teacher-stage step on
    ``use_flash_attn=False`` (streamed) against the materialising path;
@@ -181,12 +183,22 @@ Phases, each of which fails the run:
    of max|g|, student, teacher and global_q_mm within 2·lr), the flagship's
    ``forward_test`` logits gathered within 1e-4·max|ref|, 3 bf16 steps
    with finite losses, each rank's launches and step ms (two processes on
-   one card: not a scaling figure) and the gradient all-reduce's bytes.
+   one card: not a scaling figure) and the gradient all-reduce's bytes;
+18. sequence parallelism over instances: two processes of this script
+   sharing the card in a gloo world, ``make_mesh(dp=1, sp=2)``, each
+   holding one block of every bag's instances: (a) the fp32 flagship step
+   on 17b's 4 × 10,240 × 1024 batch against 17b's one-process kernel step
+   at 17c's tolerances and ``forward_test``'s logits, every K1, K2, K1b
+   and K2b call seeing at most ⌈10,241/2⌉ tokens and each rank launching
+   what one process launches (K3p 192), each rank's step ms and the sp
+   collectives' bytes a step; (b) MHIM-attn's ``forward_test`` and abmil's
+   eval step and attention, K4 on each rank's block and the blocks merged
+   by their log-sum-exp, within 1e-4·max|ref| of one process.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-17 each reset the launch counts before their main-path
-runs and read them after (17c's ranks in their own processes); the kernels' launches are the sums of those
+columns). Phases 4-18 each reset the launch counts before their main-path
+runs and read them after (17c's and 18's ranks in their own processes); the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
 The line before the last lists the kernels as JSON; the last line is the
@@ -1159,16 +1171,17 @@ def compare_models(label: str, pairs, tol: float):
             fail(f"{label} fp32 {name} disagrees")
 
 
-def compare_attention(label: str, pairs, tol: float):
+def compare_attention(label: str, pairs, tol: float, what: str = "kernel vs plain"):
     """Hold attention weights, whose values are near 1/N and far below 1, at
     ``tol``·max|ref|, their own scale; and fail unless that limit is below
     max|ref − mean(ref)|, what a constant attention of the right mean
-    would miss by, so that the check tells the reference from such a one."""
+    would miss by, so that the check tells the reference from such a one.
+    ``what`` names the two sides in the log."""
     for name, got, want in pairs:
         err = (got - want).abs().max().item()
         limit = tol * want.abs().max().item()
         spread = (want - want.mean()).abs().max().item()
-        log(f"{label} fp32 {name} {tuple(got.shape)}: kernel vs plain max|d| {err:.3e} (tolerance {tol} * max|ref| "
+        log(f"{label} fp32 {name} {tuple(got.shape)}: {what} max|d| {err:.3e} (tolerance {tol} * max|ref| "
             f"= {limit:.3e}; a constant of the mean would miss by {spread:.3e})")
         if not torch.isfinite(got).all() or err > limit:
             fail(f"{label} fp32 {name} disagrees")
@@ -1804,6 +1817,7 @@ def phase_zoo2(gen) -> dict:
 
 
 MAMBAMIL = (("simple", "SimpleMamba"), ("srmamba", "SRMamba"), ("bimamba", "BiMamba"))
+MAMBAMIL_TIMED = "bimamba"  # the variant whose evaluation and train steps are timed (and its memory held)
 LATTICE_BYTES = 4 * 10240 * 256 * 16 * F32  # one fp32 [Bs, L, ED, N] lattice of the 1D scan at full width
 
 
@@ -1814,10 +1828,11 @@ def phase_mambamil(gen) -> dict:
     srmamba and bimamba: the fp32 eval step on the card against the same
     model on the CPU for bags 3 and 4 (8,000 and 6,000 valid: the CPU
     reference at full size doubled the script's time), within
-    1e-4·max(1, max|ref|); bf16 eval against fp32 (0.1)
-    and its host ms; 2 + TRAIN_STEPS bf16 train steps (finite, every
-    parameter moved) with host ms, the device's busy ms (profiler) and
-    peak memory; none of K1-K6 launched (the 1D scan is plain torch, as
+    1e-4·max(1, max|ref|); bf16 eval against fp32 (0.1); bf16 train steps
+    (finite losses, every parameter moved): 2 + 1 for simple and srmamba,
+    and for bimamba alone (MAMBAMIL_TIMED) 2 + TRAIN_STEPS with host ms,
+    its eval's host ms, the device's busy ms (profiler) and peak memory;
+    none of K1-K6 launched (the 1D scan is plain torch, as
     JAX runs it in XLA). bimamba's step must peak below 14 full lattices
     (one a doubling step of the scan: what a scan that kept its lattice
     for the backward would hold)."""
@@ -1849,6 +1864,13 @@ def phase_mambamil(gen) -> dict:
         log(f"mambamil {variant} eval bf16 vs fp32 logits {tuple(logits16.shape)}: max|d| {err:.3e} (tolerance 0.1)")
         if not torch.isfinite(logits16).all() or err > 0.1:
             fail(f"mambamil {variant}: bf16 eval logits drift from the fp32 logits")
+        state = create_train_state(cfg, model, spe, seed=0, device="cuda")
+        if variant != MAMBAMIL_TIMED:  # the depth cut: the others' bf16 steps checked, not timed
+            counted.append(bf16_steps(f"mambamil {variant}", cfg, state, batch, spe, family=family,
+                                      steps=1)["counted"])
+            del state, model
+            torch.cuda.empty_cache()
+            continue
         times = []
         for _ in range(SERVING_REPEATS):
             t0 = time.perf_counter()
@@ -1856,7 +1878,6 @@ def phase_mambamil(gen) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         eval_ms = statistics.median(times)
         eval_busy = device_ms(lambda: step16(batch), iters=5)
-        state = create_train_state(cfg, model, spe, seed=0, device="cuda")
         r = bf16_steps(f"mambamil {variant}", cfg, state, batch, spe, family=family)
         counted.append(r["counted"])
         busy = device_ms(lambda: r["step"](state, batch), iters=5)
@@ -1907,7 +1928,8 @@ def phase_streamed(gen) -> dict:
             _, m_peak = peak_gib(lambda: nystrom_attention(q, k, v, mask, m, return_attn=True))
         compare_models(f"streamed [{label}] vs the kernel path", (
             ("out", s_out, k_out.transpose(1, 2).reshape(b, n, h * dh)),), 1e-3)
-        compare_attention(f"streamed [{label}] vs the kernel path", (("cls attn", s_attn, k_attn),), 1e-4)
+        compare_attention(f"streamed [{label}] vs the kernel path", (("cls attn", s_attn, k_attn),), 1e-4,
+                          what="streamed vs kernels")
         row[label] = {"lengths": lengths.tolist(), "peak_gib": {"streamed": s_peak, "kernels": k_peak,
                                                                 "materialising": m_peak}}
         log(f"streamed [{label}] B={b} H={h} N={n} dh={dh} m={m} valid={lengths.tolist()}: peak memory above the "
@@ -3369,6 +3391,7 @@ def dp_worker(rank: int, tmp: str, port: int):
         out["fp32_ms"] = (time.perf_counter() - t0) * 1e3
         out["fp32_launches"] = expect_launches(f"17c rank {rank} fp32 step", **TRAIN_LAUNCHES)
         out["metrics"] = {k: float(v) for k, v in m.items()}
+        out["grad_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
         if rank == 0:
             out["logits"] = logits.cpu()
             out["student"] = {k: v.cpu() for k, v in model.state_dict().items()}
@@ -3465,14 +3488,251 @@ def phase_dp(gen, abmil_ref=None) -> dict:
     t0 = time.perf_counter()
     a = dp_abmil_flags(abmil_ref)
     b = dp_world_of_one(gen, spe)
-    c = dp_two_processes(b.pop("ref"), spe)
+    ref = b.pop("ref")
+    c = dp_two_processes(ref, spe)
     secs = time.perf_counter() - t0
     log(f"17 dp: {secs:.1f} s")
-    return {"launches": [a["launches"], b["launches"], *c["launches"]], "a": a, "c": c, "seconds": secs}
+    return {"launches": [a["launches"], b["launches"], *c["launches"]], "a": a, "c": c, "seconds": secs,
+            "ref": ref}
+
+
+# ---- phase 18: sequence parallelism over instances ---------------------------------------
+
+SP_WORLD = 2  # processes of 18, sharing the one card: dp 1 x sp 2
+SP_TIMEOUT_S = 400
+SP_MAX_TOKENS = -(-10241 // SP_WORLD)  # the most tokens a rank's K1, K2, K1b or K2b launch may see
+SP_SEEN = ("K1", "K2", "K1b", "K2b")
+SP_ATTN_LAUNCHES = dict(K4=1)  # MHIM-attn forward_test, abmil's eval step, abmil's attention: one K4 a rank each
+
+
+def sp_token_probe(counts: dict):
+    """Wrap the wrappers of K1, K2, K1b and K2b so that each call records
+    the tokens of its operands in ``counts[kid]``; returns the undo."""
+    from mhim_mil_torch.ops import flash_nystrom as fn
+
+    saved = {}
+    for kid, name, arg, dim in (("K1", "pass_a", 1, 2), ("K2", "pass_b", 0, 2), ("K1b", "pass_a_backward", 1, 2),
+                                ("K2b", "pass_b_backward", 0, 2)):
+        orig = saved[name] = getattr(fn, name)
+
+        def probe(*a, _orig=orig, _kid=kid, _arg=arg, _dim=dim, **k):
+            counts.setdefault(_kid, []).append(int(a[_arg].shape[_dim]))
+            return _orig(*a, **k)
+
+        probe.launches = orig.launches
+        setattr(fn, name, probe)
+
+    def undo():
+        for name, orig in saved.items():
+            orig.launches = getattr(fn, name).launches
+            setattr(fn, name, orig)
+
+    return undo
+
+
+def sp_worker(rank: int, tmp: str, port: int):
+    """One rank of phase 18, in a process of its own: a gloo world of
+    SP_WORLD processes on the one card, ``make_mesh(dp=1, sp=2)``, each
+    rank holding its block of every bag's instances (``shard_batch``). 18a:
+    the flagship's ``forward_test`` and one fp32 step, with the tokens each
+    K1, K2, K1b and K2b call saw, the step's ms and the sp collectives'
+    bytes; 18b: MHIM-attn's ``forward_test`` and abmil's eval step and
+    attention, K4 on the rank's block; writes ``tmp/rank<rank>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from mhim_mil_torch.engine.steps import make_eval_step
+    from mhim_mil_torch.models import build_model
+    from mhim_mil_torch.parallel import make_mesh, replicate_tree, shard_batch
+    from mhim_mil_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    cfg, spe = inputs["cfg"], inputs["spe"]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=SP_WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=SP_TIMEOUT_S))
+    mesh = make_mesh(dp=1, sp=SP_WORLD)
+    batch = {k: v.to("cuda") for k, v in shard_batch(mesh, inputs["batch"]).items()}
+    out = {"rank": rank, "tokens": int(batch["feats"].shape[1])}
+
+    def built(c, weights):
+        model, family = build_model(c, device="cuda", generator=torch.Generator().manual_seed(0))
+        model.load_state_dict(weights)
+        return model, family
+
+    model, _ = built(cfg, inputs["init"])
+    state = dp_state(cfg, model, spe)
+    replicate_tree(mesh, state)
+    with mesh:
+        reset_launches()
+        with torch.no_grad():
+            logits = pmesh.gather_rows(model.forward_test(batch["feats"], batch["mask"])["logits"].float())
+        torch.cuda.synchronize()
+        out["fwd_launches"] = expect_launches(f"18a rank {rank} forward_test", **DP_FWD_LAUNCHES)
+        step = train_step_for(cfg, spe)
+        seen: dict = {}
+        undo = sp_token_probe(seen)
+        reset_launches()
+        pmesh.SP_BYTES[0] = 0
+        try:
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            out["fp32_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            undo()
+        out["sp_bytes"] = pmesh.SP_BYTES[0]
+        out["fp32_launches"] = expect_launches(f"18a rank {rank} fp32 step", **TRAIN_LAUNCHES)
+        out["seen"] = {k: max(v) for k, v in seen.items()}
+        out["metrics"] = {k: float(v) for k, v in m.items()}
+        out["grad_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+        if rank == 0:
+            out["logits"] = logits.cpu()
+            out["student"] = {k: v.cpu() for k, v in model.state_dict().items()}
+            out["teacher"] = {k: v.cpu() for k, v in state.teacher.state_dict().items()}
+            out["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        del state, model, step
+        torch.cuda.empty_cache()
+        b_out = {}
+        for name in ("attn", "abmil"):
+            c = inputs[name]["cfg"]
+            model, family = built(c, inputs[name]["weights"])
+            reset_launches()
+            with torch.no_grad():
+                if name == "attn":
+                    b_out["attn_logits"] = pmesh.gather_rows(model.forward_test(batch["feats"], batch["mask"])["logits"])
+                else:
+                    b_out["abmil_logits"] = pmesh.gather_rows(make_eval_step(c, model, family)(batch)["logits"])
+                    a = model(batch["feats"], batch["mask"], return_attn=True)["attn"]
+                    b_out["abmil_attn"] = pmesh.gather_rows(pmesh.sp_gather(
+                        a.float(), pmesh.seq_layout(a.shape[1], a.device), 1))
+            torch.cuda.synchronize()
+            want = SP_ATTN_LAUNCHES if name == "attn" else {k: 2 * v for k, v in SP_ATTN_LAUNCHES.items()}
+            out[f"{name}_launches"] = expect_launches(f"18b rank {rank} {name}", **want)
+        if rank == 0:
+            out.update({k: v.cpu() for k, v in b_out.items()})
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def sp_processes(tmp: str) -> list:
+    """Start SP_WORLD processes of this script as the ranks of phase 18 and
+    return each rank's results."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sp-rank", str(r), tmp, str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(SP_WORLD)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=SP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"18 rank {r} did not finish in {SP_TIMEOUT_S} s")
+            if p.returncode != 0:
+                fail(f"18 rank {r} exited {p.returncode}:\n{text[-3000:]}")
+            outs.append(torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return outs
+
+
+def phase_sp(gen, ref: dict, smi: str) -> dict:
+    """Phase 18: sequence parallelism over instances: SP_WORLD processes of
+    this script share the card in a gloo world, ``make_mesh(dp=1, sp=2)``,
+    each holding one block of 5,120 of each bag's 10,240 instances (the cls
+    token makes rank 0's 5,121). (a) The fp32 flagship step at 4 × 10,240 ×
+    1024 against 17b's one-process kernel step at 17c's tolerances (loss
+    rtol 2e-5, keep_num and patch_num equal, gradients after the all-reduce
+    within 1e-4 of max|g|, student, teacher and global_q_mm within 2·lr),
+    ``forward_test``'s logits within 1e-4·max|ref|; every K1, K2, K1b and K2b
+    call of the step saw at most ⌈10,241/2⌉ tokens, each rank launched what
+    one process launches (K3p's 192 among them); each rank's step ms and sp
+    collectives' bytes. (b) MHIM-attn's ``forward_test`` and abmil's eval
+    step, K4 on each rank's block and the blocks merged by their
+    log-sum-exp: logits within 1e-4·max|ref| of one process's, abmil's
+    attention by ``compare_attention`` at 1e-4."""
+    from mhim_mil_torch.engine.steps import make_eval_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    batch = {k: v.to("cuda") for k, v in ref["batch"].items()}
+    refs, inputs = {}, {"cfg": ref["cfg"], "spe": 8, "init": ref["init"], "batch": ref["batch"]}
+    for name, seed in (("attn", 41), ("abmil", 42)):
+        if name == "attn":
+            cfg, model, _ = flagship_models(seed, baseline="attn", compute_dtype="float32")
+        else:
+            cfg, family, model, _ = preset_models(ZOO, seed, model="abmil", compute_dtype="float32")
+        inputs[name] = {"cfg": cfg, "weights": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+        with torch.no_grad():
+            if name == "attn":
+                refs["attn_logits"] = model.forward_test(batch["feats"], batch["mask"])["logits"].cpu()
+            else:
+                refs["abmil_logits"] = make_eval_step(cfg, model, family)(batch)["logits"].cpu()
+                refs["abmil_attn"] = model(batch["feats"], batch["mask"], return_attn=True)["attn"].float().cpu()
+        del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        outs = sp_processes(tmp)
+    r0, lr, m_ref = outs[0], ref["lr"], ref["metrics"]
+    d_loss = abs(r0["metrics"]["loss"] - float(m_ref["loss"]))
+    g_err = max(((r0["grads"][n] - p.grad.cpu()).abs().max() / p.grad.abs().max().clamp_min(1e-30).cpu()).item()
+                for n, p in ref["model"].named_parameters())
+    s_ref = {k: v.cpu() for k, v in ref["model"].state_dict().items()}
+    p_err = max((r0["student"][k] - v).abs().max().item() for k, v in s_ref.items() if k != "merge.global_q_mm")
+    q_err = (r0["student"]["merge.global_q_mm"] - s_ref["merge.global_q_mm"]).abs().max().item()
+    t_ref = {k: v.cpu() for k, v in ref["teacher"].state_dict().items()}
+    t_err = max((r0["teacher"][k] - v).abs().max().item() for k, v in t_ref.items() if k != "merge.global_q_mm")
+    l_ref = ref["logits"].cpu()
+    l_err = (r0["logits"] - l_ref).abs().max().item()
+    l_tol = 1e-4 * l_ref.abs().max().item()
+    same = {k: r0["metrics"][k] == float(m_ref[k]) for k in ("keep_num", "patch_num")}
+    log(f"18a {SP_WORLD} processes sharing the one card (gloo), dp 1 x sp 2, instance blocks of "
+        f"{[o['tokens'] for o in outs]} of 10,240, against 17b's one-process step: loss {r0['metrics']['loss']:.9g} "
+        f"against {float(m_ref['loss']):.9g}, |d| {d_loss:.3e} (tolerance 2e-5 * |loss|); keep_num and patch_num "
+        f"equal {same}; gradients after the all-reduce max|d|/max|ref| {g_err:.3e} (tolerance 1e-4); student max|d| "
+        f"{p_err:.3e}, teacher {t_err:.3e}, global_q_mm {q_err:.3e} (tolerance 2·lr = {2 * lr:.3e}); forward_test "
+        f"logits max|d| {l_err:.3e} (tolerance 1e-4 * max|ref| = {l_tol:.3e})")
+    if not math.isfinite(d_loss) or d_loss > 2e-5 * abs(float(m_ref["loss"])) or not all(same.values()):
+        fail("18a: the sp step's loss or mining disagrees with the one-process step")
+    if g_err > 1e-4 or max(p_err, t_err, q_err) > 2 * lr or not l_err <= l_tol:
+        fail("18a: the sp step's gradients, update or forward_test disagree with the one-process step")
+    for o in outs:
+        if set(o["seen"]) != set(SP_SEEN) or max(o["seen"].values()) > SP_MAX_TOKENS:
+            fail(f"18a rank {o['rank']}: the flash-Nystrom calls saw {o['seen']} tokens, want at most {SP_MAX_TOKENS} "
+                 f"for each of {SP_SEEN}")
+        log(f"18a rank {o['rank']} on {smi} (one of {SP_WORLD} processes sharing one card; not a scaling figure): fp32 "
+            f"step {o['fp32_ms']:.2f} ms (host clock, synchronised); sp collectives {o['sp_bytes']} bytes a step, "
+            f"gradient all-reduce {o['grad_bytes']} bytes; most tokens a call {o['seen']} (at most {SP_MAX_TOKENS}); "
+            f"launches: forward_test {o['fwd_launches']}, fp32 step {o['fp32_launches']}, 18b MHIM-attn "
+            f"{o['attn_launches']}, abmil {o['abmil_launches']}")
+    errs = {}
+    for name in ("attn_logits", "abmil_logits"):
+        want = refs[name]
+        errs[name] = (r0[name].float() - want).abs().max().item()
+        tol = 1e-4 * want.abs().max().item()
+        log(f"18b {name.replace('_', ' ')} under sp 2 (K4 on each rank's block, merged by the blocks' log-sum-exp) "
+            f"against one process: max|d| {errs[name]:.3e} (tolerance 1e-4 * max|ref| = {tol:.3e})")
+        if not torch.isfinite(r0[name]).all() or errs[name] > tol:
+            fail(f"18b: the sp {name} disagree with one process's")
+    compare_attention("18b abmil attention under sp 2", [("attn", r0["abmil_attn"], refs["abmil_attn"])], 1e-4,
+                      what="sp vs one process")
+    secs = time.perf_counter() - t0
+    log(f"18 sp: {secs:.1f} s")
+    seen = [{k: o[key][k] for k in KERNELS} for o in outs
+            for key in ("fwd_launches", "fp32_launches", "attn_launches", "abmil_launches")]
+    return {"launches": seen, "seconds": secs, "loss_err": d_loss, "grad_rel_err": g_err, "param_err": p_err,
+            "teacher_err": t_err, "global_q_err": q_err, "logits_err": l_err, "errs": errs,
+            "ranks": [{k: o[k] for k in ("rank", "tokens", "fp32_ms", "sp_bytes", "seen")} for o in outs]}
 
 
 def main():
-    phase_device()
+    smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -3490,7 +3750,8 @@ def main():
                          ("14 bundle", phase_bundle), ("8 driver", lambda g: phase_driver()),
                          ("15 features", lambda g: phase_features()),
                          ("16 slides", lambda g: phase_slides(done["15 features"]["encoders"])),
-                         ("17 dp", lambda g: phase_dp(g, done["8 driver"]["abmil"]))):
+                         ("17 dp", lambda g: phase_dp(g, done["8 driver"]["abmil"])),
+                         ("18 sp", lambda g: phase_sp(g, done["17 dp"].pop("ref"), smi))):
         t0 = time.perf_counter()
         res = done[label] = phase(gen)
         for seen in res["launches"]:
@@ -3554,5 +3815,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 17c, started by phase 17
         dp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+    elif sys.argv[1:2] == ["--sp-rank"]:  # one rank of phase 18, started by phase 18
+        sp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     else:
         main()

@@ -21,10 +21,12 @@ Where PyTorch differs from the JAX package:
 - ``steps_per_call > 1`` runs that many single steps, which is what JAX's
   scanned multi-step computes;
 - the mesh is a world of processes (``torchrun``), not a device mesh of one
-  process: ``--mesh_dp`` splits every batch's bags over the first
-  ``mesh_dp`` ranks (``parallel/mesh.py``); every rank walks the same
-  batches and keeps its rows, the evaluation gathers the logits, and rank 0
-  alone prints, logs and writes. ``mesh_sp > 1`` raises.
+  process: ``--mesh_dp`` splits every batch's bags over ``mesh_dp`` rows
+  of ranks and ``--mesh_sp`` each bag's instances over the ``mesh_sp``
+  ranks of a row (``parallel/mesh.py``); every rank walks the same batches
+  and keeps its part, as JAX's ``shard_batch(..., shard_instances=True)``
+  lays it out (train and eval batches alike), the evaluation gathers the
+  logits, and rank 0 alone prints, logs and writes.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 from ..data.bucketing import batch_bags, count_batches
 from ..data.synthetic import make_synthetic_dataset, make_synthetic_survival_dataset
 from ..models import build_model
-from ..parallel.mesh import SP_NOT_PORTED, Mesh, gather_rows, make_mesh, replicate_tree, shard_batch
+from ..parallel.mesh import Mesh, gather_rows, make_mesh, replicate_tree, shard_batch
 from ..utils.checkpoint import (is_jax_checkpoint, load_checkpoint, load_jax_checkpoint, overlay_params,
                                 restore_state, save_checkpoint, snapshot)
 from ..utils.early_stopping import EarlyStopping
@@ -51,8 +53,7 @@ from ..utils.platform import resolve_device
 from ..utils.weights import state_dict_from_flax
 from . import metrics as M
 from .losses import nll_surv_loss, surv_risk
-from .steps import (check_dp, make_eval_step, make_mhim_eval_step, make_mhim_train_step,
-                    make_train_step)
+from .steps import check_mesh, make_eval_step, make_mhim_eval_step, make_mhim_train_step, make_train_step
 from .train_state import create_mhim_state, create_train_state
 
 Device = Optional[Union[str, torch.device]]
@@ -574,10 +575,12 @@ def resolve_mesh(cfg) -> Optional[Mesh]:
     """The mesh of a run (``driver.py:462-472`` ``_maybe_mesh``). In a world
     of one process there is none, whatever the flags, and training runs as
     without them. In a larger world (``torchrun``) the mesh is an explicit
-    opt-in: no ``--mesh_dp`` / ``--mesh_sp`` raises ``ValueError``,
-    ``mesh_sp > 1`` and a model whose step is not routed through the mesh
-    raise ``NotImplementedError``, and ``mesh_dp`` must divide the batch.
-    Every rank calls it: it makes the mesh's process group."""
+    opt-in: no ``--mesh_dp`` / ``--mesh_sp`` raises ``ValueError``, a
+    model whose step is not routed through the mesh's dp or sp collectives
+    raises ``NotImplementedError`` (:func:`~.steps.check_mesh`), ``dp·sp``
+    must fit the world (the ranks past it idle, as JAX keeps
+    ``devices[:dp*sp]``) and ``mesh_dp`` must divide the batch. Every rank
+    calls it: it makes the mesh's process groups."""
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
@@ -586,10 +589,8 @@ def resolve_mesh(cfg) -> Optional[Mesh]:
     if cfg.mesh_dp == -1 and cfg.mesh_sp == 1:
         raise ValueError(f"a world of {world} processes without --mesh_dp or --mesh_sp: pass --mesh_dp to "
                          f"train data-parallel (each rank would otherwise train the whole batch)")
-    if cfg.mesh_sp > 1:
-        raise NotImplementedError(SP_NOT_PORTED)
-    mesh = make_mesh(cfg.mesh_dp, 1)
-    check_dp(cfg, mesh.dp)
+    mesh = make_mesh(cfg.mesh_dp, cfg.mesh_sp)
+    check_mesh(cfg, mesh)
     if cfg.batch_size % mesh.dp:
         raise ValueError(f"--batch_size {cfg.batch_size} does not split over --mesh_dp {mesh.dp}")
     return mesh

@@ -12,7 +12,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import active as active_mesh, batch_sum
+from ..parallel.mesh import active as active_mesh, batch_sum, owner_weight
 
 Tensor = torch.Tensor
 
@@ -20,9 +20,12 @@ Tensor = torch.Tensor
 def _wmean(per_example: Tensor, weights: Optional[Tensor]) -> Tensor:
     """The weighted mean over the bags. Under an active mesh, this rank's
     weighted sum over the weight sum of the whole batch (``batch_sum``):
-    the ranks' terms add up to the one-process mean."""
+    the ranks' terms add up to the one-process mean. Under sp each bag
+    counts on one rank of its row (``owner_weight``: the others hold the
+    same bag-level values and weigh them 0)."""
     if active_mesh() is not None:
         w = torch.ones_like(per_example) if weights is None else weights.float()
+        w = w * owner_weight()
         return (per_example * w).sum() / batch_sum(w.sum()).clamp_min(1.0)
     if weights is None:
         return per_example.mean()

@@ -14,7 +14,8 @@ from torch import nn
 from torch.func import functional_call
 from torch.profiler import record_function
 
-from ..parallel.mesh import active as active_mesh, all_reduce_grads, batch_sum, local_rows, rand_rows
+from ..parallel.mesh import (active as active_mesh, active_sp, all_reduce_grads, batch_sum, local_rows, rand_rows,
+                             seq_layout, sp_sum)
 from ..utils.platform import resolve_device
 from ..utils.schedules import cosine_schedule
 from .losses import build_criterion, cross_entropy
@@ -116,28 +117,74 @@ def dp_supported(cfg) -> bool:
     return cfg.model in DP_MODELS
 
 
+def _model_name(cfg) -> str:
+    return cfg.model + (f" --baseline {cfg.baseline}" if cfg.model.startswith("mhim") else "")
+
+
 def check_dp(cfg, dp: int) -> None:
     """Raise unless ``cfg``'s train step may run under a mesh of ``dp`` ranks."""
     if dp > 1 and not dp_supported(cfg):
-        name = cfg.model + (f" --baseline {cfg.baseline}" if cfg.model.startswith("mhim") else "")
         raise NotImplementedError(
-            f"--model {name} under a dp mesh: its step's reductions over the bags are not routed through "
-            f"the mesh yet (ROADMAP Queue 1 item 6c); dp runs mhim and mhim_pure with {DP_BASELINES} and "
-            f"{DP_MODELS}")
+            f"--model {_model_name(cfg)} under a dp mesh: its step's reductions over the bags are not routed "
+            f"through the mesh yet (ROADMAP Queue 1 item 6c); dp runs mhim and mhim_pure with {DP_BASELINES} "
+            f"and {DP_MODELS}")
+
+
+# the models whose steps and evaluation run under an sp mesh, each held against JAX's single-device step
+SP_MODELS = ("abmil",)  # the generic step
+SP_BASELINES = ("selfattn", "attn")  # mhim and mhim_pure
+SP_POS = ("ppeg", "sincos", "none", None)  # the selfattn baseline's positional modules
+
+
+def sp_supported(cfg) -> bool:
+    """Whether ``cfg``'s model runs under a mesh that splits the instances
+    (``sp > 1``): every place where it couples instances goes through the
+    mesh's sp collectives. ``mhim`` and ``mhim_pure`` with the ``attn``
+    baseline or the ``selfattn`` one (positional module ppeg, sincos or
+    none), and ``abmil`` through the generic step; the others are ROADMAP
+    Queue 1 item 6d."""
+    if cfg.model in ("mhim", "mhim_pure"):
+        return cfg.baseline in SP_BASELINES and (cfg.baseline != "selfattn" or (cfg.pos or "ppeg") in SP_POS)
+    return cfg.model in SP_MODELS
+
+
+def check_sp(cfg, sp: int) -> None:
+    """Raise unless ``cfg``'s model may run under a mesh of ``sp`` ranks a row."""
+    if sp > 1 and not sp_supported(cfg):
+        raise NotImplementedError(
+            f"--model {_model_name(cfg)} under --mesh_sp {sp}: its couplings over the instances are not "
+            f"routed through the mesh's sp collectives yet (ROADMAP Queue 1 item 6d); sp runs mhim and "
+            f"mhim_pure with {SP_BASELINES} and {SP_MODELS}")
+
+
+def check_mesh(cfg, mesh) -> None:
+    """Raise unless ``cfg``'s model may run under ``mesh`` (dp, then sp)."""
+    check_dp(cfg, mesh.dp)
+    check_sp(cfg, mesh.sp)
+
+
+def valid_fraction(mask: Tensor) -> Tensor:
+    """The valid share of the batch's instance slots (the whole bags' under
+    sp, on every rank of the row)."""
+    if active_sp() is None:
+        return mask.float().mean()
+    both = sp_sum(torch.stack([mask.sum(), torch.as_tensor(mask.numel(), device=mask.device)]).float())
+    return both[0] / both[1]
 
 
 def global_metrics(sums: Dict[str, Tensor], means: Dict[str, Tensor]) -> Dict[str, Tensor]:
     """Under an active mesh, the batch's metrics from this rank's: the
     ``sums`` (the loss terms, each rank's part of the global loss) summed
-    and the ``means`` (over equal numbers of bags on each rank) averaged
-    over the ranks, in one all-reduce. Without a mesh, the two as given."""
+    and the ``means`` (over equal numbers of bags on each dp rank, the same
+    on every rank of an sp row) averaged over the ranks, in one all-reduce.
+    Without a mesh, the two as given."""
     mesh = active_mesh()
     if mesh is None:
         return {**sums, **means}
     keys = list(sums) + list(means)
     vals = batch_sum(torch.stack([v.detach().float() for v in (*sums.values(), *means.values())]))
     out = dict(zip(keys, vals.unbind()))
-    return {**{k: out[k] for k in sums}, **{k: out[k] / mesh.dp for k in means}}
+    return {**{k: out[k] for k in sums}, **{k: out[k] / (mesh.dp * mesh.sp) for k in means}}
 
 
 def make_mhim_train_step(
@@ -208,13 +255,14 @@ def make_mhim_train_step(
     total_steps = max(cfg.num_epoch * steps_per_epoch, 1)
     mrh_sche = cosine_schedule(cfg.mask_ratio_h, 0.0, total_steps) if cfg.mrh_sche else None
     mm_sche = cosine_schedule(cfg.mm, 1.0, total_steps) if cfg.mm_sche else None
-    fixed_attn: Dict[tuple, Tensor] = {}  # no_teacher's draw, by mask shape
+    fixed_attn: Dict[tuple, Tensor] = {}  # no_teacher's draw, by mask shape and instance layout
 
-    def uniform_attention(mask: Tensor) -> Tensor:
-        if mask.shape not in fixed_attn:
+    def uniform_attention(mask: Tensor, seq) -> Tensor:
+        key = (mask.shape, seq)
+        if key not in fixed_attn:
             gen0 = torch.Generator(device=mask.device).manual_seed(0)
-            fixed_attn[mask.shape] = rand_rows(mask.shape, gen0, mask.device)
-        return fixed_attn[mask.shape]
+            fixed_attn[key] = rand_rows(mask.shape, gen0, mask.device, seq)
+        return fixed_attn[key]
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    draws: Optional[Dict[str, object]] = None) -> Dict[str, Tensor]:
@@ -222,7 +270,7 @@ def make_mhim_train_step(
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
         mesh = active_mesh()
         if mesh is not None:
-            check_dp(cfg, mesh.dp)
+            check_mesh(cfg, mesh)
         student, teacher, gen = state.model, state.teacher, state.gen
         batch_c = _cast_batch(dtype, batch)
         feats, mask = batch_c["feats"], batch["mask"].bool()
@@ -230,7 +278,12 @@ def make_mhim_train_step(
         if not is_pure:
             if ablate == "no_teacher":
                 attn = (draws or {}).get("teacher_attn")
-                attn = uniform_attention(mask) if attn is None else local_rows(attn.to(mask.device, torch.float32))
+                seq = seq_layout(mask.shape[1], mask.device)
+                if attn is None:
+                    attn = uniform_attention(mask, seq)
+                else:
+                    attn = local_rows(attn.to(mask.device, torch.float32))
+                    attn = attn if seq is None else attn[:, seq.cols]
                 attn = torch.where(mask, attn, 0.0)
                 cls_tea = (None if cfg.aux_alpha == 0.0
                            else torch.zeros((mask.shape[0], cfg.inner_dim), dtype=torch.float32, device=mask.device))
@@ -254,7 +307,7 @@ def make_mhim_train_step(
         metrics = global_metrics(
             {"loss": loss.detach(), "main_loss": main.detach(), "aux_loss": out["aux_loss"].detach()},
             {"patch_num": out["patch_num"].float().mean(), "keep_num": out["keep_num"].float().mean(),
-             "valid": mask.float().mean()})
+             "valid": valid_fraction(mask)})
         # the padded fraction of the bucket (mhim.py:433-436)
         metrics["pad_ratio"] = 1.0 - metrics.pop("valid")
         loss_d = metrics.pop("loss")
@@ -344,7 +397,7 @@ def make_train_step(
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
         mesh = active_mesh()
         if mesh is not None:
-            check_dp(cfg, mesh.dp)
+            check_mesh(cfg, mesh)
         model = state.model
         feats = _cast_batch(dtype, batch)["feats"]
         extra, kw = _forward_inputs(model, family, batch)
@@ -371,7 +424,7 @@ def make_train_step(
                 ema_update(state.teacher, model, cfg.model_ema_decay)
         state.step += 1
         metrics = global_metrics({"loss": loss.detach(), "main_loss": main.detach(), "aux_loss": aux.detach()},
-                                 {"valid": batch["mask"].float().mean()})
+                                 {"valid": valid_fraction(batch["mask"])})
         metrics["pad_ratio"] = 1.0 - metrics.pop("valid")
         return {**metrics, **grad_norms}
 
@@ -420,9 +473,15 @@ class EvalBody(nn.Module):
         return res
 
 
-def _eval_step(body: EvalBody) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
+def _eval_step(cfg, body: EvalBody) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
+    """The eval step of ``body``: under an active mesh the batch holds this
+    rank's part (which must be one the model can take: :func:`check_sp`),
+    and the logits are its bags'."""
     @torch.inference_mode()
     def eval_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        mesh = active_mesh()
+        if mesh is not None:
+            check_sp(cfg, mesh.sp)
         return body(batch["feats"], batch["mask"], batch.get("pos"))
 
     return eval_step
@@ -437,7 +496,7 @@ def make_mhim_eval_step(cfg, model: nn.Module) -> Callable[[Dict[str, Tensor]], 
     Under bf16 the weights are cast once, when the step is made: the step
     then serves the weights the model held at that time.
     """
-    return _eval_step(EvalBody(cfg, model, "mhim"))
+    return _eval_step(cfg, EvalBody(cfg, model, "mhim"))
 
 
 def make_eval_step(cfg, model: nn.Module, family: str) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
@@ -449,4 +508,4 @@ def make_eval_step(cfg, model: nn.Module, family: str) -> Callable[[Dict[str, Te
     (:func:`_forward_inputs`); it returns fp32 ``{"logits"}``, and
     ``"sub_logits"`` (DSMIL's max-pooled instance logits) when the model
     gives them: the caller fuses the two."""
-    return _eval_step(EvalBody(cfg, model, family))
+    return _eval_step(cfg, EvalBody(cfg, model, family))

@@ -8,11 +8,15 @@ taken off the arguments before the config is read. ``--debug`` turns on
 to ``<output_path>/<title>_results.json``.
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1) the default process group is
-initialised from the environment, NCCL on ``cuda:<LOCAL_RANK>`` or gloo
-with ``--device cpu``, unless one already is; ``--mesh_dp`` then splits
-each batch's bags over the ranks (``engine/driver.py`` ``resolve_mesh``)::
+initialised from the environment, unless one already is: on the card each
+rank takes ``cuda:<LOCAL_RANK mod device count>``, with NCCL when the
+node's ranks have a card each and gloo when they share cards (NCCL takes
+one rank a device); gloo with ``--device cpu``. ``--mesh_dp`` then splits
+each batch's bags over the ranks and ``--mesh_sp`` each bag's instances
+(``engine/driver.py`` ``resolve_mesh``)::
 
     python -m torch.distributed.run --nproc_per_node 2 -m mhim_mil_torch.main --device cpu --mesh_dp 2 ...
+    python -m torch.distributed.run --nproc_per_node 4 -m mhim_mil_torch.main --device cpu --mesh_dp 2 --mesh_sp 2 ...
 
 Rank 0 alone writes the results.
 """
@@ -59,9 +63,11 @@ def _init_world(device: str) -> Tuple[str, bool]:
         return device, False
     timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
     if torch.device(device).type == "cuda":
-        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        cards = torch.cuda.device_count()
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0')) % cards}"
         torch.cuda.set_device(device)
-        dist.init_process_group("nccl", timeout=timeout)
+        shared = int(os.environ.get("LOCAL_WORLD_SIZE", "1")) > cards
+        dist.init_process_group("gloo" if shared else "nccl", timeout=timeout)
     else:
         dist.init_process_group("gloo", timeout=timeout)
     return device, True

@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import seq_layout
 from .layers import (FeatureEmbed, add_gated_attention, add_tanh_attention, dense, gated_attention,
                      tanh_attention)
 from .positional import SINCOS
@@ -29,7 +30,10 @@ class ABMIL(nn.Module):
     ``pos="sincos"`` adds the 2D sin-cos embedding of ``coords`` (the
     row-major grid without them) after the embed. The pool runs through K4
     where JAX's runs its kernel: eval, with ``use_flash``; training pools on
-    the differentiable plain path.
+    the differentiable plain path. Under a mesh that splits the instances
+    (``parallel/mesh.py``, ``sp > 1``) ``feats``, ``mask`` and ``coords`` are
+    this rank's block: the pool's softmax and sum run over the sp row, the
+    logits are the whole bag's on every rank and ``attn`` is this block's.
     """
 
     def __init__(self, input_dim: int = 1024, n_classes: int = 2, inner_dim: int = 512,
@@ -58,16 +62,17 @@ class ABMIL(nn.Module):
                 coords: Optional[torch.Tensor] = None):
         """``{"logits", "bag_feat"[, "attn" [B,N]]}``."""
         mask = mask.bool()
+        seq = seq_layout(feats.shape[1], feats.device)
         x = feats
         if self.mil_norm == "ln" and self.embed_norm_pos == 0:
             x = self.norm(x)
-        x = self.feature(x, training, gen)
+        x = self.feature(x, training, gen, seq)
         if self.pos == "sincos":
-            x = self.pos_embedding(x, mask, coords)
+            x = self.pos_embedding(x, mask, coords, seq)
         if self.mil_norm == "ln" and self.embed_norm_pos == 1:
             x = self.norm(x)
         pool = gated_attention if self.gated else tanh_attention
-        pooled, attn = pool(self, x, mask, training, gen)
+        pooled, attn = pool(self, x, mask, training, gen, False, seq)
         pooled = pooled[:, 0]
         if self.mil_norm == "ln":
             pooled = self.norm1(pooled)

@@ -4,7 +4,10 @@
 Reference: modules/mhim_modules/baseline.py:8-110 (DAttention) and
 :222-288 (SAttention). Each takes embedded ``(x[B,N,D], mask[B,N])`` and
 returns a dict with the bag feature ``cls_feat`` and, on request, the mining
-attention and the pseudo-score ingredients.
+attention and the pseudo-score ingredients. Given ``seq``, the layout of
+instances sharded over the active sp row, ``x`` and ``mask`` are this
+rank's block, ``cls_feat`` is the whole bag's on every rank and the
+attention and pseudo-score ingredients are this block's.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import Seq, sp_first
 from .layers import TanhAttentionPool
 from .positional import make_pos
 from .transformer import TransLayer
@@ -31,8 +35,8 @@ class DAttentionBaseline(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
                 training: bool = False, gen: Optional[torch.Generator] = None,
-                no_norm: bool = False):
-        pooled, attn = self.attention(x, mask, training, gen, no_norm)
+                no_norm: bool = False, seq: Optional[Seq] = None):
+        pooled, attn = self.attention(x, mask, training, gen, no_norm, seq)
         out = {"cls_feat": pooled[:, 0]}
         if return_attn:
             out["attn"] = attn[:, 0]  # [B,N], softmaxed (raw with no_norm)
@@ -64,29 +68,37 @@ class SAttentionBaseline(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
                 training: bool = False, gen: Optional[torch.Generator] = None,
-                no_norm: bool = False):
+                no_norm: bool = False, seq: Optional[Seq] = None):
         """``training`` turns the attention dropouts on, with masks from
-        ``gen``; ``no_norm`` makes the returned attention unsoftmaxed."""
+        ``gen``; ``no_norm`` makes the returned attention unsoftmaxed.
+        Given ``seq``, the cls token goes in front of sp rank 0's block."""
         b = x.shape[0]
         mask = mask.bool()
-        x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
-        full_mask = torch.cat([mask.new_ones((b, 1)), mask], dim=1)
+        c = 1 if seq is None or seq.index == 0 else 0  # this rank holds the cls token
+        if c:
+            x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
+            full_mask = torch.cat([mask.new_ones((b, 1)), mask], dim=1)
+        else:
+            full_mask = mask
+        kw = {} if seq is None else {"seq": seq.prepend(1)}
+        pos_kw = {} if seq is None else {"seq": seq}
 
         attns, scored1 = [], None
         if return_attn:
-            x, a, _, scored1 = self.layer1(x, full_mask, True, training, gen, no_norm)
-            attns.append(a[:, :, 1:])  # drop the cls column
+            x, a, _, scored1 = self.layer1(x, full_mask, True, training, gen, no_norm, **kw)
+            attns.append(a[:, :, c:])  # drop the cls column
         else:
-            x = self.layer1(x, full_mask, False, training, gen)
+            x = self.layer1(x, full_mask, False, training, gen, **kw)
         if self.pos_embedding is not None:
-            x = torch.cat([x[:, :1], self.pos_embedding(x[:, 1:], mask)], dim=1)
+            x = torch.cat([x[:, :c], self.pos_embedding(x[:, c:], mask, **pos_kw)], dim=1)
         if return_attn and 1 in self.attn_layers:
-            x, a, *_ = self.layer2(x, full_mask, True, training, gen, no_norm)
-            attns.append(a[:, :, 1:])
+            x, a, *_ = self.layer2(x, full_mask, True, training, gen, no_norm, **kw)
+            attns.append(a[:, :, c:])
         else:
-            x = self.layer2(x, full_mask, False, training, gen)
+            x = self.layer2(x, full_mask, False, training, gen, **kw)
 
-        out = {"cls_feat": self.norm(x[:, 0])}  # LayerNorm is per token
+        cls = x[:, 0] if seq is None else sp_first(x[:, 0], kw["seq"])
+        out = {"cls_feat": self.norm(cls)}  # LayerNorm is per token
         if return_attn:
             out["attns"] = attns  # list of [B,H,N]
             out["attn"] = attns[0]

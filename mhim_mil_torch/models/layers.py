@@ -13,9 +13,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.abmil_pool import fused_abmil_pool
+from ..ops.abmil_pool import fused_abmil_pool, merge_blocks
 from ..ops.masked import masked_softmax
-from ..parallel.mesh import rand_rows
+from ..parallel.mesh import Seq, rand_rows, sp_sum
 
 
 def dense(in_features: int, out_features: int, use_bias: bool = True) -> nn.Linear:
@@ -56,20 +56,22 @@ class Dropout(nn.Module):
     ``torch.Generator`` the caller passes (the train step owns it), never from
     torch's global generator; it is drawn only when ``training``. Under an
     active mesh it is drawn at the global batch's shape and this rank keeps
-    its rows (``rand_rows``), as a one-process run draws it."""
+    its rows (``rand_rows``), as a one-process run draws it; given the
+    layout ``seq`` of a sharded instance axis ``dim``, it keeps its block of
+    that axis too."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = float(p)
 
     def forward(self, x: torch.Tensor, training: bool = False,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                gen: Optional[torch.Generator] = None, seq: Optional[Seq] = None, dim: int = 1) -> torch.Tensor:
         if not training or self.p == 0.0:
             return x
         if gen is None:
             raise ValueError("dropout in training mode needs a torch.Generator")
         keep = 1.0 - self.p
-        kept = rand_rows(x.shape, gen, x.device) < keep
+        kept = rand_rows(x.shape, gen, x.device, seq, dim) < keep
         return torch.where(kept, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -82,20 +84,27 @@ class FeatureEmbed(nn.Sequential):
         super().__init__(dense(input_dim, inner_dim, use_bias), get_act(act), Dropout(dropout))
 
     def forward(self, x: torch.Tensor, training: bool = False,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self[2](self[1](self[0](x)), training, gen)
+                gen: Optional[torch.Generator] = None, seq: Optional[Seq] = None) -> torch.Tensor:
+        return self[2](self[1](self[0](x)), training, gen, seq)
 
 
-def _pool(pool: nn.Module, x, logits, mask, training, no_norm):
+def _pool(pool: nn.Module, x, logits, mask, training, no_norm, seq: Optional[Seq] = None):
     """The end of both attention pools: ``logits[B,N,K]`` to ``(pooled[B,K,D],
     attn[B,K,N])``. K4 on no-grad paths (not training, one branch, use_flash);
-    the differentiable masked softmax and weighted sum otherwise."""
+    the differentiable masked softmax and weighted sum otherwise. Given the
+    layout ``seq`` of instances sharded over the active sp row, the softmax
+    and the sum are the row's (K4's blocks merged by :func:`merge_blocks`);
+    ``pooled`` is on every rank, ``attn`` this rank's block."""
     logits = logits.transpose(-1, -2)  # [B,K,N]
     if pool.use_flash and not training and not no_norm and pool.n_branches == 1:
         pooled, attn = fused_abmil_pool(x, logits[:, 0], mask)
+        if seq is not None:
+            pooled, attn = merge_blocks(pooled, attn, logits[:, 0], mask)
         return pooled[:, None].to(x.dtype), attn[:, None, :].to(x.dtype)
-    attn = masked_softmax(logits, mask[:, None, :])
+    attn = masked_softmax(logits, mask[:, None, :], sharded=seq is not None)
     pooled = torch.einsum("bkn,bnd->bkd", attn, x)
+    if seq is not None:
+        pooled = sp_sum(pooled)
     return pooled, (logits if no_norm else attn)
 
 
@@ -112,10 +121,11 @@ def add_tanh_attention(mod: nn.Module, dim: int, attn_dim: int, n_branches: int,
 
 
 def tanh_attention(mod: nn.Module, x, mask, training: bool = False,
-                   gen: Optional[torch.Generator] = None, no_norm: bool = False):
-    """Pool ``x`` with the layers of :func:`add_tanh_attention` on ``mod``."""
-    a = mod.drop(mod.attention[1](mod.attention[0](x)), training, gen)
-    return _pool(mod, x, mod.attention[2](a), mask.bool(), training, no_norm)
+                   gen: Optional[torch.Generator] = None, no_norm: bool = False, seq: Optional[Seq] = None):
+    """Pool ``x`` with the layers of :func:`add_tanh_attention` on ``mod``
+    (``seq``: see :func:`_pool`)."""
+    a = mod.drop(mod.attention[1](mod.attention[0](x)), training, gen, seq)
+    return _pool(mod, x, mod.attention[2](a), mask.bool(), training, no_norm, seq)
 
 
 def add_gated_attention(mod: nn.Module, dim: int, attn_dim: int, n_branches: int, act: str,
@@ -130,12 +140,13 @@ def add_gated_attention(mod: nn.Module, dim: int, attn_dim: int, n_branches: int
 
 
 def gated_attention(mod: nn.Module, x, mask, training: bool = False,
-                    gen: Optional[torch.Generator] = None, no_norm: bool = False):
+                    gen: Optional[torch.Generator] = None, no_norm: bool = False, seq: Optional[Seq] = None):
     """Pool ``x`` with the layers of :func:`add_gated_attention` on ``mod``;
-    the two branches draw their dropout masks apart, as flax's do."""
-    a = mod.drop(mod.attention_a(x), training, gen)
-    g = mod.drop(mod.attention_b(x), training, gen)
-    return _pool(mod, x, mod.attention_c(a * g), mask.bool(), training, no_norm)
+    the two branches draw their dropout masks apart, as flax's do
+    (``seq``: see :func:`_pool`)."""
+    a = mod.drop(mod.attention_a(x), training, gen, seq)
+    g = mod.drop(mod.attention_b(x), training, gen, seq)
+    return _pool(mod, x, mod.attention_c(a * g), mask.bool(), training, no_norm, seq)
 
 
 class TanhAttentionPool(nn.Module):

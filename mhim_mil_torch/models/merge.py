@@ -4,7 +4,9 @@
 Reference: modules/mhim_modules/merge.py:14-203. The keep/masked split is a
 boolean partition of the visible instances whose uniform draw is an
 argument; ``global_q_mm`` is a registered buffer, EMA-updated by the
-training forward over the real bags of the batch.
+training forward over the real bags of the batch. Given ``seq``, the layout
+of instances sharded over the active sp row, the instances are this rank's
+block; the merged tokens are the whole bag's, on every rank.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.masked import masked_softmax, random_subset_mask
-from ..parallel.mesh import active as active_mesh, batch_sum
+from ..parallel.mesh import Seq, active as active_mesh, batch_sum, owner_weight, sp_gather, sp_max, sp_sum
 from .layers import Dropout, dense
 
 
@@ -35,7 +37,8 @@ class MCA(nn.Module):
         self.attn_drop, self.out_drop = Dropout(dropout), Dropout(dropout)
 
     def forward(self, x: torch.Tensor, q_in: torch.Tensor, kv_mask: torch.Tensor,
-                training: bool = False, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                training: bool = False, gen: Optional[torch.Generator] = None,
+                seq: Optional[Seq] = None) -> torch.Tensor:
         b, n, _ = x.shape
         m = q_in.shape[1]
         h, dh = self.heads, self.dim_head
@@ -43,8 +46,10 @@ class MCA(nn.Module):
         q = self.to_q(q_in)
         k, v, q = (t.reshape(b, t.shape[1], h, dh).transpose(1, 2) for t in (k, v, q))
         dots = (q @ k.transpose(-1, -2)) * dh ** -0.5  # [B,H,M,N]
-        attn = self.attn_drop(masked_softmax(dots, kv_mask[:, None, None, :]), training, gen)
-        out = (attn @ v).transpose(1, 2).reshape(b, m, h * dh)
+        attn = masked_softmax(dots, kv_mask[:, None, None, :], sharded=seq is not None)
+        attn = self.attn_drop(attn, training, gen, seq, -1)
+        out = attn @ v if seq is None else sp_sum(attn @ v)  # [B,H,M,dh]
+        out = out.transpose(1, 2).reshape(b, m, h * dh)
         return self.out_drop(self.to_out(out), training, gen)
 
 
@@ -69,17 +74,20 @@ class Merge(nn.Module):
         self.global_q_mm.uniform_(-val, val, generator=generator)
 
     def _merge(self, x: torch.Tensor, kv_mask: torch.Tensor, training: bool,
-               gen: Optional[torch.Generator]) -> torch.Tensor:
+               gen: Optional[torch.Generator], seq: Optional[Seq] = None) -> torch.Tensor:
         """Compress the ``kv_mask`` tokens of x into k tokens; in training,
         move ``global_q_mm`` toward the batch mean of the result over the real
         bags (a bag with no kv token counts for nothing; an all-fake batch
         leaves it as it was). Under an active mesh the mean is over the bags
-        of every rank, so ``global_q_mm`` stays the same on each."""
+        of every rank, so ``global_q_mm`` stays the same on each; under sp
+        each bag counts on one rank of its row (``owner_weight``)."""
         g_q = self.global_q_mm
         q = g_q.to(x.dtype).expand(x.shape[0], self.k, self.dim)
-        z = self.attn(self.norm(x), self.norm(q), kv_mask, training, gen)
+        z = self.attn(self.norm(x), self.norm(q), kv_mask, training, gen, seq)
         if training and self.g_q_mm != 1.0:
             w = kv_mask.any(dim=-1).float()
+            if seq is not None:
+                w = sp_max(w) * owner_weight()
             wsum = w.sum()
             zsum = (z[:, :self.k].detach().float() * w[:, None, None]).sum(0, keepdim=True)
             if active_mesh() is not None:  # the sums over every rank's bags, in one all-reduce
@@ -92,14 +100,20 @@ class Merge(nn.Module):
         return z
 
     def forward(self, x: torch.Tensor, visible: torch.Tensor, training: bool = False,
-                gen: Optional[torch.Generator] = None, u: Optional[torch.Tensor] = None):
+                gen: Optional[torch.Generator] = None, u: Optional[torch.Tensor] = None,
+                seq: Optional[Seq] = None):
         """Training: ``(keep_sel[B,N], merged[B,k,D])``, keep_sel a uniform
         subset of ``floor(n_visible·merge_ratio)`` visible instances chosen by
-        the draw ``u[B,N]``. Inference: ``(visible, merged)`` over the whole bag."""
+        the draw ``u[B,N]``. Inference: ``(visible, merged)`` over the whole bag.
+        Given ``seq``, ``u`` is the whole bag's draw, the subset is chosen on
+        the gathered ``visible`` and ``keep_sel`` is this rank's block."""
         visible = visible.bool()
         if not training:
-            return visible, self._merge(x, visible, False, gen)
-        n_vis = visible.sum(dim=-1)
+            return visible, self._merge(x, visible, False, gen, seq)
+        pool = sp_gather(visible, seq)
+        n_vis = pool.sum(dim=-1)
         k_keep = (n_vis.float() * self.merge_ratio).int()  # float32, truncated, as in JAX
-        keep_sel = random_subset_mask(u, visible, k_keep)
-        return keep_sel, self._merge(x, visible & ~keep_sel, True, gen)
+        keep_sel = random_subset_mask(u, pool, k_keep)
+        if seq is not None:
+            keep_sel = keep_sel[:, seq.cols]
+        return keep_sel, self._merge(x, visible & ~keep_sel, True, gen, seq)

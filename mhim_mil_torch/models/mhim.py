@@ -10,6 +10,15 @@ the removal set is a boolean mask, and the kept tokens are compacted into
 static slices. Every random draw of the student pass (the three mining
 stages, the merge split) is an argument or comes from the caller's
 generator, as do the dropout masks.
+
+Under a mesh that splits the instances (``parallel/mesh.py``, ``sp > 1``)
+each entry point reads the layout of its rank's block from the data
+(``seq_layout``). The mining runs on the gathered ``[B, N]`` scores and
+masks, the same on every rank, which keeps its own columns; the compactions
+move the kept instances to their blocks (``compact_sharded``); the Merge's
+tokens go at the end of the sequence, on the last rank, and the encoder's
+cls token at the front, on rank 0. ``patch_num`` and ``keep_num`` are the
+whole bags' counts.
 """
 
 from __future__ import annotations
@@ -20,9 +29,10 @@ import torch
 from torch import nn
 
 from ..engine.losses import soft_target_ce
-from ..ops.masked import compact
+from ..ops.masked import compact, compact_sharded
 from ..ops.masking import MaskSchedule, layered_mask
-from ..parallel.mesh import active as active_mesh, local_rows, rand_rows
+from ..parallel.mesh import (Seq, active as active_mesh, local_rows, rand_rows, seq_layout, sp_gather, sp_join,
+                             sp_sum)
 from .baselines import DAttentionBaseline, SAttentionBaseline
 from .dsmil import DSMILHead
 from .layers import FeatureEmbed, dense
@@ -86,6 +96,15 @@ class MHIM(nn.Module):
 
     # ---- teacher ------------------------------------------------------------
 
+    def _seq(self, feats: torch.Tensor) -> Optional[Seq]:
+        return seq_layout(feats.shape[1], feats.device)
+
+    @staticmethod
+    def _sp(seq: Optional[Seq]) -> Dict[str, Seq]:
+        """The keyword that hands a layout on (none without one, so that the
+        dsmil head, which sp does not run, keeps its signature)."""
+        return {} if seq is None else {"seq": seq}
+
     @torch.no_grad()
     def forward_teacher(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
                         gen: Optional[torch.Generator] = None):
@@ -96,7 +115,9 @@ class MHIM(nn.Module):
         ``training=True``: the reference's EMA teacher mines with its
         dropouts on, and their masks come from ``gen``."""
         mask = mask.bool()
-        out = self.online_encoder(self.feature(feats, training, gen), mask, True, training, gen)
+        seq = self._seq(feats)
+        out = self.online_encoder(self.feature(feats, training, gen, seq), mask, True, training, gen,
+                                  **self._sp(seq))
         if self.baseline == "dsmil":
             return out["bag_feat"], out["attn"]
         if not self.attn2score:
@@ -142,6 +163,9 @@ class MHIM(nn.Module):
         of which this rank takes its rows."""
         mask = mask.bool()
         b, n, _ = feats.shape
+        seq = self._seq(feats)
+        if seq is not None:
+            n = seq.total
         draws = draws or {}
         if active_mesh() is not None:
             draws = {"mask": None if draws.get("mask") is None
@@ -152,40 +176,54 @@ class MHIM(nn.Module):
             u = draws.get("mask")
             if u is None:
                 on = self.sched.stages(mask_ratio_h_now is not None)
-                u = [_uniform(mask.shape, gen, mask.device) if s else None for s in on]
-            visible = mask & ~layered_mask(u, attn, mask, self.sched, mask_ratio_h_now)
+                u = [_uniform((b, n), gen, mask.device) if s else None for s in on]
+            removed = layered_mask(u, sp_gather(attn, seq, -1), sp_gather(mask, seq), self.sched, mask_ratio_h_now)
+            visible = mask & (~removed if seq is None else ~removed[:, seq.cols])
             v_static = self.static_survivors(n)
         else:
             visible, v_static = mask, n
 
-        if v_static < n:
+        seq_v = seq
+        if v_static < n and seq is not None:
+            feats_v, vis, seq_v = compact_sharded(feats, visible, v_static, seq)
+        elif v_static < n:
             feats_v, vis, _ = compact(feats, visible, out_len=v_static)
         else:
             feats_v, vis = feats, visible
-        x = self.feature(feats_v, training, gen)
+        x = self.feature(feats_v, training, gen, seq_v)
 
+        seq_x = seq_v
         if self.merge_enable:
             u_merge = draws.get("merge")
             if training and u_merge is None:
-                u_merge = _uniform(vis.shape, gen, vis.device)
-            keep_sel, merged = self.merge(x, vis, training, gen, u_merge)
+                u_merge = _uniform((b, v_static), gen, vis.device)
+            keep_sel, merged = self.merge(x, vis, training, gen, u_merge, **self._sp(seq_v))
             ones = vis.new_ones((b, self.merge_k))
-            if training:
-                x_c, new_valid, _ = compact(x, keep_sel, out_len=self.merge_len(v_static))
-                x, valid = torch.cat([x_c, merged], dim=1), torch.cat([new_valid, ones], dim=1)
+            if training and seq_v is not None:
+                x, valid, seq_x = compact_sharded(x, keep_sel, self.merge_len(v_static), seq_v)
+            elif training:
+                x, valid, _ = compact(x, keep_sel, out_len=self.merge_len(v_static))
             else:
                 # Eval-mode Merge keeps every visible token (merge.py:178-203).
-                x, valid = torch.cat([x, merged], dim=1), torch.cat([vis, ones], dim=1)
+                valid = vis
+            if seq_x is None or seq_x.index == len(seq_x.counts) - 1:  # the merged tokens go last
+                x, valid = torch.cat([x, merged], dim=1), torch.cat([valid, ones], dim=1)
+            else:
+                x = sp_join(x, merged)
+            seq_x = None if seq_x is None else seq_x.append(self.merge_k)
         else:
             valid = vis
 
-        logits, cls_feat = self._predict(self.online_encoder(x, valid, False, training, gen))
+        logits, cls_feat = self._predict(self.online_encoder(x, valid, False, training, gen, **self._sp(seq_x)))
+        patch_num, keep_num = mask.sum(dim=-1), valid.sum(dim=-1)
+        if seq is not None:
+            patch_num, keep_num = sp_sum(torch.stack([patch_num, keep_num])).unbind()
         aux_loss = logits.new_zeros((), dtype=torch.float32)
         if teacher_cls_feat is not None:
             # Fake zero-padded bags (mask all False) contribute nothing. The
             # dsmil feature [B,C,D] pays the loss of each class, weighted by
             # its bag (JAX's weights broadcast against the class axis).
-            weights = mask.any(dim=-1)
+            weights = patch_num > 0
             if cls_feat.dim() == 3:
                 weights = weights[:, None]
             aux_loss = soft_target_ce(cls_feat, teacher_cls_feat.detach(), self.temp_t, self.temp_s,
@@ -193,8 +231,8 @@ class MHIM(nn.Module):
         return {
             "logits": logits,
             "aux_loss": aux_loss,
-            "patch_num": mask.sum(dim=-1),
-            "keep_num": valid.sum(dim=-1),
+            "patch_num": patch_num,
+            "keep_num": keep_num,
         }
 
     def pure(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
@@ -206,9 +244,10 @@ class MHIM(nn.Module):
         ``keep_num`` are both the bag's size. With the selfattn baseline and
         ``use_flash`` a training pass runs K3 at the bag's full length."""
         mask = mask.bool()
-        logits, _ = self._predict(self.online_encoder(self.feature(feats, training, gen), mask, False,
-                                                      training, gen))
-        n = mask.sum(dim=-1)
+        seq = self._seq(feats)
+        logits, _ = self._predict(self.online_encoder(self.feature(feats, training, gen, seq), mask, False,
+                                                      training, gen, **self._sp(seq)))
+        n = mask.sum(dim=-1) if seq is None else sp_sum(mask.sum(dim=-1))
         return {"logits": logits, "aux_loss": logits.new_zeros((), dtype=torch.float32),
                 "patch_num": n, "keep_num": n}
 
@@ -227,13 +266,16 @@ class MHIM(nn.Module):
                      return_attn: bool = False, no_norm: bool = False):
         """Inference pass (reference mhim.py:229-272): ``{"logits"[, "attn"]}``;
         ``no_norm`` returns the unsoftmaxed attention."""
-        x = self.feature(feats)
+        seq = self._seq(feats)
+        x = self.feature(feats, seq=seq)
         mask = mask.bool()
         if self.merge_enable and self.merge_test:
-            _, merged = self.merge(x, mask)
-            x = torch.cat([x, merged], dim=1)
-            mask = torch.cat([mask, mask.new_ones((x.shape[0], self.merge_k))], dim=1)
-        out = self.online_encoder(x, mask, return_attn, no_norm=no_norm)
+            _, merged = self.merge(x, mask, **self._sp(seq))
+            if seq is None or seq.index == len(seq.counts) - 1:
+                x = torch.cat([x, merged], dim=1)
+                mask = torch.cat([mask, mask.new_ones((x.shape[0], self.merge_k))], dim=1)
+            seq = None if seq is None else seq.append(self.merge_k)
+        out = self.online_encoder(x, mask, return_attn, no_norm=no_norm, **self._sp(seq))
         res = {"logits": self._predict(out)[0]}
         if return_attn:
             res["attn"] = out["attn"]

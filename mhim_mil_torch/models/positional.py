@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import Seq, sp_halo
+
 
 def _square_grid(x: torch.Tensor, mask: torch.Tensor):
     """``x[B,N,C]`` laid row-major on the ``[B,C,hw,hw]`` square grid
@@ -23,6 +25,32 @@ def _square_grid(x: torch.Tensor, mask: torch.Tensor):
     hw = int(math.ceil(math.sqrt(n)))
     grid = F.pad(x * mask[..., None].to(x.dtype), (0, 0, 0, hw * hw - n))
     return grid.view(b, hw, hw, c).permute(0, 3, 1, 2)
+
+
+def _grid_conv_sharded(x: torch.Tensor, mask: torch.Tensor, seq: Seq, k: int, conv) -> torch.Tensor:
+    """``_from_grid(conv(_square_grid(x, mask)))`` for a bag sharded over
+    the active sp row: ``x[B,n,C]`` is this rank's block (layout ``seq``)
+    of the ``hw × hw`` grid of the whole bag (``hw = ceil(sqrt(N))``). The
+    block's rows of the grid, with the ``k // 2`` rows above and below read
+    from the neighbouring blocks (:func:`~..parallel.mesh.sp_halo`; block
+    edges need not fall on rows), go through ``conv``, which pads only the
+    columns. Masked tokens keep ``x``."""
+    b, n, c = x.shape
+    hw, p = int(math.ceil(math.sqrt(seq.total))), k // 2
+
+    def window(off: int, cnt: int):
+        """Tokens before and after a block that its rows and their halo rows take."""
+        r0, r1 = off // hw, (off + cnt - 1) // hw
+        return off - (r0 - p) * hw, (r1 + p + 1) * hw - off - cnt
+
+    wins = [window(off, cnt) for off, cnt in zip(seq.offsets(), seq.counts)]
+    left, right = max(w[0] for w in wins), max(w[1] for w in wins)
+    lo, ro = window(seq.offset, n)
+    win = sp_halo(x * mask[..., None].to(x.dtype), seq, left, right)[:, left - lo:left + n + ro]
+    grid = win.reshape(b, (lo + n + ro) // hw, hw, c).permute(0, 3, 1, 2)
+    out = conv(grid).permute(0, 2, 3, 1).reshape(b, -1, c)  # from the block's first row
+    start = lo - p * hw
+    return torch.where(mask[..., None], out[:, start:start + n], x)
 
 
 def _from_grid(out: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -40,7 +68,8 @@ class PPEG(nn.Module):
     The three branches and the identity are linear in the same input, so they
     are folded into one k×k depthwise kernel (the smaller kernels centred by
     zero padding, the identity a centre delta) and run as one convolution.
-    Masked tokens keep their input.
+    Masked tokens keep their input. Given ``seq``, ``x`` is this rank's
+    block of a bag sharded over the active sp row, on the whole bag's grid.
     """
 
     def __init__(self, dim: int = 512, k: int = 7, use_bias: bool = True):
@@ -66,9 +95,12 @@ class PPEG(nn.Module):
             bias = self.proj.bias + self.proj1.bias + self.proj2.bias
         return kern + delta, bias
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        grid = _square_grid(x, mask)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, seq: Optional[Seq] = None) -> torch.Tensor:
         kern, bias = self.folded()
+        if seq is not None:
+            return _grid_conv_sharded(x, mask, seq, self.k, lambda g: F.conv2d(
+                g, kern, bias, padding=(0, self.k // 2), groups=x.shape[-1]))
+        grid = _square_grid(x, mask)
         out = F.conv2d(grid, kern, bias, padding=self.k // 2, groups=x.shape[-1])
         return _from_grid(out, x, mask)
 
@@ -82,7 +114,9 @@ class PEG(nn.Module):
         super().__init__()
         self.proj = nn.Conv2d(dim, dim, k, padding=k // 2, groups=dim, bias=use_bias)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, seq: Optional[Seq] = None) -> torch.Tensor:
+        if seq is not None:
+            raise NotImplementedError("PEG under sequence parallelism (ROADMAP Queue 1 item 6d)")
         grid = _square_grid(x, mask)
         return _from_grid(grid + self.proj(grid), x, mask)
 
@@ -108,11 +142,15 @@ class SINCOS(nn.Module):
         super().__init__()
         self.dim = dim
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, coords: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, coords: Optional[torch.Tensor] = None,
+                seq: Optional[Seq] = None) -> torch.Tensor:
+        """``seq``: ``x`` (and ``coords``) are this rank's block of a bag
+        sharded over the active sp row; the grid is the whole bag's."""
         if coords is None:
             n = x.shape[1]
-            hw = int(math.ceil(math.sqrt(n)))
-            idx = torch.arange(n, device=x.device)
+            lo, total = (0, n) if seq is None else (seq.offset, seq.total)
+            hw = int(math.ceil(math.sqrt(total)))
+            idx = torch.arange(lo, lo + n, device=x.device)
             coords = torch.stack([idx % hw, idx // hw], dim=-1)[None].expand(x.shape[0], n, 2)
         emb = sincos_2d(coords, self.dim).to(x.dtype)
         return torch.where(mask[..., None], x + emb, x)

@@ -10,10 +10,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_nystrom import flash_nystrom, flash_nystrom_infer
 from ..ops.nystrom import nystrom_attention, nystrom_attention_streamed
+from ..parallel.mesh import Seq, sp_halo
 from .layers import Dropout, FeatureEmbed, dense
 from .positional import make_pos
 
@@ -21,14 +23,21 @@ from .positional import make_pos
 class _DepthwiseResConv(nn.Conv2d):
     """The Nystrom value residual: a per-head 33-tap convolution along the
     sequence, shared across the head's channels (reference
-    ``Conv2d(heads, heads, (33, 1), groups=heads)``, weight ``[H,1,33,1]``)."""
+    ``Conv2d(heads, heads, (33, 1), groups=heads)``, weight ``[H,1,33,1]``).
+    Given ``seq``, ``v`` is this rank's block of a sequence sharded over the
+    active sp row, and the 16 tokens on each side come from the
+    neighbouring blocks (:func:`~..parallel.mesh.sp_halo`)."""
 
     def __init__(self, heads: int, kernel_size: int = 33):
         super().__init__(heads, heads, (kernel_size, 1), padding=(kernel_size // 2, 0),
                          groups=heads, bias=False)
 
-    def forward(self, v: torch.Tensor) -> torch.Tensor:  # [B,N,H,dh] -> [B,N,H·dh]
+    def forward(self, v: torch.Tensor, seq: Optional[Seq] = None) -> torch.Tensor:  # [B,N,H,dh] -> [B,N,H·dh]
         b, n, h, dh = v.shape
+        if seq is not None:
+            p = self.padding[0]
+            out = F.conv2d(sp_halo(v, seq, p, p).transpose(1, 2), self.weight, None, groups=self.groups)
+            return out.transpose(1, 2).reshape(b, n, h * dh)
         out = super().forward(v.transpose(1, 2))  # [B,H,N,dh]
         return out.transpose(1, 2).reshape(b, n, h * dh)
 
@@ -64,7 +73,13 @@ class NystromMSA(nn.Module):
     The ``parity`` layer and a ``no_norm`` call always take the
     materialising op, as JAX's layer does: the kernels and the streamed op
     compute neither mode, so the mode asked for selects the plain op; it is
-    not a fallback from a kernel. ``to_out`` is a one-layer ``Sequential`` so that its weights
+    not a fallback from a kernel.
+
+    Given ``seq``, the layer runs on this rank's block of a sequence
+    sharded over the active sp row: the path is chosen by the whole
+    sequence's length, each op takes the layout (``parity`` raises), the
+    value residual reads its halo from the neighbouring blocks, and the
+    outputs are this block's. The cls token is the sequence's first. ``to_out`` is a one-layer ``Sequential`` so that its weights
     keep the reference's name ``to_out.0``; the dropout after it (p=0.1, as
     in the JAX package) applies to the attention output only, never to the
     scored values.
@@ -94,7 +109,8 @@ class NystromMSA(nn.Module):
         return "kernels" if self.use_flash else "materialising"
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
-                training: bool = False, gen: Optional[torch.Generator] = None, no_norm: bool = False):
+                training: bool = False, gen: Optional[torch.Generator] = None, no_norm: bool = False,
+                seq: Optional[Seq] = None):
         b, n, _ = x.shape
         h, dh = self.heads, self.dim_head
         inner = h * dh
@@ -104,31 +120,34 @@ class NystromMSA(nn.Module):
         qkv = self.to_qkv(x).view(b, n, 3, h, dh)
         q = qkv[:, :, 0] * dh ** -0.5  # [B,N,H,dh]
         k, v = qkv[:, :, 1], qkv[:, :, 2]  # strided views, no copy
-        path = self.path(n, qkv.is_cuda, no_norm)
+        path = self.path(n if seq is None else seq.total, qkv.is_cuda, no_norm)
         if path == "streamed":
             out, attn = nystrom_attention_streamed(q, k, v, mask, self.num_landmarks, self.pinv_iterations,
-                                                   return_attn=return_attn, pre_masked=True)
+                                                   return_attn=return_attn, pre_masked=True, seq=seq)
         else:
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # [B,H,N,dh] views
             if path == "materialising":
                 out, attn = nystrom_attention(
                     qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations,
-                    return_attn=return_attn, no_norm=no_norm, parity=self.parity,
+                    return_attn=return_attn, no_norm=no_norm, parity=self.parity, seq=seq,
                 )
             elif torch.is_grad_enabled() and qkv.requires_grad:
-                out, attn = flash_nystrom(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations)
+                out, attn = flash_nystrom(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations, seq=seq)
             else:
-                out, attn = flash_nystrom_infer(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations)
+                out, attn = flash_nystrom_infer(qh, kh, vh, mask, self.num_landmarks, self.pinv_iterations,
+                                                seq=seq)
             out = out.transpose(1, 2).reshape(b, n, inner)
-        out = out.to(x.dtype) + self.res_conv(v)
-        out = torch.where(mask[..., None], self.drop(self.to_out(out), training, gen), 0)
+        out = out.to(x.dtype) + self.res_conv(v, seq)
+        out = torch.where(mask[..., None], self.drop(self.to_out(out), training, gen, seq), 0)
         if not return_attn:
             return out
         # Pseudo-score ingredients: the cls-attention-weighted values of the
-        # instance tokens (index 1:) through this layer's to_out, bias included.
-        v_inst = v[:, 1:]  # [B,N-1,H,dh]
-        a_inst = attn[:, :, 1:].transpose(1, 2)[..., None].to(v.dtype)  # [B,N-1,H,1]
-        scored = self.to_out((v_inst * a_inst).reshape(b, n - 1, inner))
+        # instance tokens (all but the cls token, the first) through this
+        # layer's to_out, bias included.
+        skip = 1 if seq is None or seq.first else 0
+        v_inst = v[:, skip:]  # [B,N-1,H,dh]
+        a_inst = attn[:, :, skip:].transpose(1, 2)[..., None].to(v.dtype)  # [B,N-1,H,1]
+        scored = self.to_out((v_inst * a_inst).reshape(b, n - skip, inner))
         return out, attn, v_inst, scored
 
 
@@ -143,12 +162,13 @@ class TransLayer(nn.Module):
         self.attn = NystromMSA(dim, heads, dim // heads, dim // 2, use_flash=use_flash, parity=parity)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, need_attn: bool = False,
-                training: bool = False, gen: Optional[torch.Generator] = None, no_norm: bool = False):
+                training: bool = False, gen: Optional[torch.Generator] = None, no_norm: bool = False,
+                seq: Optional[Seq] = None):
         normed = self.norm(x)
         if need_attn:
-            z, attn, v, scored = self.attn(normed, mask, True, training, gen, no_norm)
+            z, attn, v, scored = self.attn(normed, mask, True, training, gen, no_norm, seq)
             return x + z, attn, v, scored
-        return x + self.attn(normed, mask, False, training, gen)
+        return x + self.attn(normed, mask, False, training, gen, seq=seq)
 
 
 class TransMIL(nn.Module):

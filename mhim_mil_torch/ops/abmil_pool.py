@@ -13,6 +13,10 @@ for tests). On CPU tensors it runs :func:`abmil_pool_plain`;
 CUDA kernel and a fake), so that ``torch.export`` traces it.
 :func:`column_groups` takes any width. No gradient: the training path keeps
 the differentiable plain ops, as in the JAX package.
+
+Under sequence parallelism each rank runs K4 on its block of a bag's
+instances and :func:`merge_blocks` merges the blocks' ``(pooled, attn)``
+over the sp row by each block's log-sum-exp of its logits.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 
 from ..kernels import load_library
 from ..kernels.launch import H100_SMS, check, on_cpu, raise_on, rows_aligned, sm_count, tickets
-from .masked import NEG_INF, masked_softmax
+from ..parallel.mesh import sp_max, sp_sum
+from .masked import NEG_INF, masked_logsumexp, masked_softmax
 
 Tensor = torch.Tensor
 COLUMNS = 1024  # widest x a launch is given (the kernel takes a 16-byte piece of a row a thread)
@@ -42,6 +47,20 @@ def abmil_pool_plain(x: Tensor, attn_logits: Tensor, mask: Tensor) -> Tuple[Tens
     attn = masked_softmax(attn_logits.float(), mask)
     x = torch.where(mask[..., None], x.float(), 0.0)
     return torch.einsum("bn,bnd->bd", attn, x), attn
+
+
+def merge_blocks(pooled: Tensor, attn: Tensor, attn_logits: Tensor, mask: Tensor) -> Tuple[Tensor, Tensor]:
+    """K4's results on each rank's block of the instances merged over the
+    active sp row: with ``lse`` each block's log-sum-exp of its valid
+    logits and ``w = exp(lse − max lse) / Σ exp(lse − max lse)`` over the
+    row, ``pooled = Σ w·pooled`` (on every rank) and this block's ``attn·w``.
+    A block without a valid instance weighs 0."""
+    lse = masked_logsumexp(attn_logits.float(), mask.bool())
+    w = torch.exp(lse - sp_max(lse))
+    w = torch.where(mask.any(dim=1), w, 0.0)
+    both = sp_sum(torch.cat([pooled * w[:, None], w[:, None]], dim=1))
+    w = w / both[:, -1].clamp_min(1e-30)
+    return both[:, :-1] / both[:, -1:].clamp_min(1e-30), attn * w[:, None]
 
 
 def abmil_plan(b: int, n: int, sms: int = H100_SMS) -> int:

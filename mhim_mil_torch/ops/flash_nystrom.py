@@ -57,6 +57,20 @@ change when ``m3`` and ``s3`` shift together, so its cotangent cancels
 against the one that reaches it through ``s3``). The JAX package's backward
 recomputes the plain attention in XLA instead. Its counts are
 ``flash_nystrom.forward_calls`` and ``flash_nystrom.backward_calls``.
+
+**Under sequence parallelism** (``seq``, a layout of ``parallel/mesh.py``)
+each rank holds a contiguous block of the tokens, and every kernel launch
+covers that block only. :func:`landmarks` gives every rank of the sp row
+the same ``q_l``, ``k_l``, ``lm_mask`` and pseudo-inverse (the landmark
+sums are summed over the row; K3p runs alike on each rank). K1 runs on the
+rank's keys and :class:`PassA` merges the blocks' ``(attn3v, m3, s3)``
+as :func:`pass_a_split_plain` merges key splits (:func:`merge_pass_a`);
+``rp`` takes token 0's query from the rank that holds it; K2 runs on the
+rank's tokens. Backward: K1b runs on the rank's keys with the merged
+statistics and the row's summed ``d_attn3v`` and ``d_s3``; K2b's ``d_kl``,
+``d_mid``, ``d_ql`` and ``d_rp`` are the rank's partial sums. Tensors that
+every rank holds carry partial cotangents, summed over the row where they
+meet sharded tokens (the convention of ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -74,6 +88,7 @@ from ..kernels.launch import H100_SMS, on_cpu as _on_cpu, raise_on as _raise_on,
 from ..kernels.launch import tickets as _tickets
 from .masked import NEG_INF, masked_softmax
 from ..kernels.launch import rows_aligned as _rows_aligned
+from ..parallel.mesh import Seq, sp_first, sp_max, sp_sum
 from .nystrom import _landmark_mean
 from .nystrom_pinv import pseudo_inverse
 
@@ -732,12 +747,20 @@ pass_a_backward.launches = 0
 
 class PassA(torch.autograd.Function):
     """K1 with K1b as its backward: ``(attn3v, m3, s3)`` of
-    :func:`pass_a`, ``m3`` without a gradient (see the module's note)."""
+    :func:`pass_a`, ``m3`` without a gradient (see the module's note).
+    Given the layout ``seq`` of a sharded sequence, K1 runs on this rank's
+    keys and the blocks are merged over the sp row (:func:`merge_pass_a`);
+    backward, the cotangents of ``attn3v`` and ``s3`` (each rank's partial)
+    are summed over the row first, so that K1b's ``d_ql`` is this rank's
+    partial sum and ``d_k``, ``d_v`` its keys' own."""
 
     @staticmethod
-    def forward(ctx, ql, k, v, mask):
+    def forward(ctx, ql, k, v, mask, seq=None):
         attn3v, m3, s3 = pass_a(ql, k, v, mask)
+        if seq is not None:
+            attn3v, m3, s3 = merge_pass_a(attn3v, m3, s3)
         ctx.save_for_backward(ql, k, v, mask, attn3v, m3, s3)
+        ctx.sharded = seq is not None
         ctx.mark_non_differentiable(m3)
         ctx.set_materialize_grads(False)
         return attn3v, m3, s3
@@ -747,7 +770,12 @@ class PassA(torch.autograd.Function):
         # attn3v always has a cotangent: it reaches out through mid
         flash_nystrom.backward_calls += 1
         ql, k, v, mask, attn3v, m3, s3 = ctx.saved_tensors
-        return (*pass_a_backward(ql, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3), None)
+        if ctx.sharded and d_s3 is None:
+            d_attn3v = sp_sum(d_attn3v)
+        elif ctx.sharded:
+            both = sp_sum(torch.cat([d_attn3v, d_s3[..., None]], dim=-1))
+            d_attn3v, d_s3 = both[..., :-1].contiguous(), both[..., -1].contiguous()
+        return (*pass_a_backward(ql, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3), None, None)
 
 
 class PassB(torch.autograd.Function):
@@ -771,18 +799,33 @@ class PassB(torch.autograd.Function):
         return d_q, d_k, None, d_kl, None, d_mid, d_ql, d_rp, None
 
 
+def merge_pass_a(attn3v: Tensor, m3: Tensor, s3: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """K1's results of each rank's block of keys merged over the active sp
+    row, as :func:`pass_a_split_plain` merges key splits: ``M = max m3``,
+    ``S = Σ s3·exp(m3 − M)``, ``attn3v = Σ attn3v·s3·exp(m3 − M) / S``, in
+    one all-reduce of the weighted sums. A block without a valid key
+    (``s3 = 0``) adds nothing."""
+    big = sp_max(m3)
+    w = s3 * torch.exp(m3 - big)
+    both = sp_sum(torch.cat([attn3v * w[..., None], w[..., None]], dim=-1))
+    s = both[..., -1].contiguous()
+    return both[..., :-1] / s.clamp_min(1e-30)[..., None], big, s
+
+
 def _nystrom_passes(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_landmarks: int,
-                    pinv_iters: int) -> Tuple[Tensor, Tensor]:
+                    pinv_iters: int, seq: Optional[Seq] = None) -> Tuple[Tensor, Tensor]:
     """The composition of K1, the glue and K2 on fp32 q, k, v and a bool
-    mask, differentiable through :class:`PassA` and :class:`PassB`."""
-    q_l, k_l, lm_mask, pinv = landmarks(q, k, mask, num_landmarks, pinv_iters)
-    attn3v, m3, s3 = PassA.apply(q_l, k, v, mask)
-    mid, rp = pass_b_operands(q, k_l, mask, lm_mask, pinv, attn3v, s3)
+    mask, differentiable through :class:`PassA` and :class:`PassB`; given
+    ``seq``, over this rank's block of a sharded sequence."""
+    q_l, k_l, lm_mask, pinv = landmarks(q, k, mask, num_landmarks, pinv_iters, seq)
+    attn3v, m3, s3 = PassA.apply(q_l, k, v, mask, seq)
+    mid, rp = pass_b_operands(q, k_l, mask, lm_mask, pinv, attn3v, s3, seq)
     return PassB.apply(q, k, mask, k_l, lm_mask, mid, q_l, rp, m3)
 
 
 def flash_nystrom_infer(
     q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6,
+    seq: Optional[Seq] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Masked Nystrom attention forward without gradients, through K1 and K2.
 
@@ -794,17 +837,21 @@ def flash_nystrom_infer(
 
     The kernels' outputs carry no graph, so on CUDA this raises when grad
     mode is on and q, k or v require grad: use :func:`flash_nystrom` there.
+    Given ``seq``, the tensors hold this rank's block of a sequence
+    sharded over the active sp row, and so do the outputs (see the
+    module's docstring).
     """
     if (torch.is_grad_enabled() and q.device.type == "cuda"
             and any(t.requires_grad for t in (q, k, v))):
         raise RuntimeError("flash_nystrom_infer has no gradient; call flash_nystrom under grad")
     with torch.no_grad():
         return _nystrom_passes(*(t.float() for t in (q, k, v)), mask.bool().contiguous(), num_landmarks,
-                               pinv_iters)
+                               pinv_iters, seq)
 
 
 def flash_nystrom(
     q: Tensor, k: Tensor, v: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6,
+    seq: Optional[Seq] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Differentiable masked Nystrom attention (K3): the composition of
     :func:`flash_nystrom_infer` under autograd, so its gradients for q, k and
@@ -813,34 +860,40 @@ def flash_nystrom(
     gets no cotangent, and K2b then leaves the cls term out. Same arguments
     and fp32 outputs as :func:`flash_nystrom_infer`. ``forward_calls`` and
     ``backward_calls`` count the calls of each (the latter in
-    :class:`PassA`'s backward, which every backward of K3 reaches)."""
+    :class:`PassA`'s backward, which every backward of K3 reaches).
+    ``seq`` as in :func:`flash_nystrom_infer`."""
     flash_nystrom.forward_calls += 1
     return _nystrom_passes(*(t.float() for t in (q, k, v)), mask.bool().contiguous(), num_landmarks,
-                           pinv_iters)
+                           pinv_iters, seq)
 
 
 flash_nystrom.forward_calls = 0
 flash_nystrom.backward_calls = 0
 
 
-def landmarks(q: Tensor, k: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6):
+def landmarks(q: Tensor, k: Tensor, mask: Tensor, num_landmarks: int, pinv_iters: int = 6,
+              seq: Optional[Seq] = None):
     """Glue before K1: the landmark means ``q_l, k_l[B,H,m,dh]`` of the valid
     tokens (zero rows at empty groups, as the kernels expect), ``lm_mask[B,m]``
     and the pseudo-inverse of ``attn2 = softmax(Q_l·K_lᵀ)``, ``[B,H,m,m]``
-    (K3p's :func:`~.nystrom_pinv.pseudo_inverse` on the card)."""
+    (K3p's :func:`~.nystrom_pinv.pseudo_inverse` on the card). Given
+    ``seq``, those of the whole sharded sequence, on every rank."""
     mvalid = mask[:, None, :, None]
-    q_l, lm_mask = _landmark_mean(torch.where(mvalid, q, 0.0), mask, num_landmarks)
-    k_l, _ = _landmark_mean(torch.where(mvalid, k, 0.0), mask, num_landmarks)
+    q_l, lm_mask = _landmark_mean(torch.where(mvalid, q, 0.0), mask, num_landmarks, seq=seq)
+    k_l, _ = _landmark_mean(torch.where(mvalid, k, 0.0), mask, num_landmarks, seq=seq)
     attn2 = masked_softmax(q_l @ k_l.transpose(-1, -2), lm_mask[:, None, None, :])
     return q_l, k_l, lm_mask, pseudo_inverse(attn2, pinv_iters)
 
 
 def pass_b_operands(q: Tensor, k_l: Tensor, mask: Tensor, lm_mask: Tensor,
-                    pinv: Tensor, attn3v: Tensor, s3: Tensor) -> Tuple[Tensor, Tensor]:
+                    pinv: Tensor, attn3v: Tensor, s3: Tensor, seq: Optional[Seq] = None) -> Tuple[Tensor, Tensor]:
     """Glue between K1 and K2: ``mid = pinv @ attn3v`` and the cls-row weights
-    ``r' = (attn1[token 0] @ pinv) / s3``, with the pass-A denominator folded in."""
+    ``r' = (attn1[token 0] @ pinv) / s3``, with the pass-A denominator folded
+    in; given ``seq``, token 0 from the rank that holds it."""
     mid = (pinv @ attn3v).contiguous()
     q0 = torch.where(mask[:, None, :1, None], q[:, :, :1], 0.0)
+    if seq is not None:
+        q0 = sp_first(q0, seq)
     attn1_0 = masked_softmax(q0 @ k_l.transpose(-1, -2), lm_mask[:, None, None, :])
     r = (attn1_0 @ pinv)[:, :, 0]  # [B,H,m]
     return mid, (r / s3.clamp_min(1e-30)).contiguous()

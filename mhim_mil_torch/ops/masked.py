@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import Seq, sp_gather, sp_max, sp_scatter, sp_sum
+
 # A large-but-finite negative fill: softmax of a fully masked row stays NaN-free.
 NEG_INF = -1e30
 
@@ -22,20 +24,27 @@ def stats_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1, sharded: bool = False) -> torch.Tensor:
     """Softmax over ``dim`` restricted to positions where ``mask`` is True.
 
     Fully masked rows return zeros. ``mask`` broadcasts against ``logits``.
     Statistics run in fp32 (:func:`stats_dtype`); the result comes back in the
     input dtype, with the exponentials rounded to it before the fp32
-    denominator sum, as in the JAX package.
+    denominator sum, as in the JAX package. ``sharded``: ``dim`` is an
+    instance axis split over the active sp row, whose max and denominator
+    are the row's (:func:`sp_max`, :func:`sp_sum`); the result is this
+    rank's block.
     """
     out_dtype = logits.dtype
     acc = stats_dtype(out_dtype)
     x = torch.where(mask, logits.to(acc), NEG_INF)
     mx = x.amax(dim=dim, keepdim=True).detach()
+    if sharded:
+        mx = sp_max(mx)
     unnorm = (torch.exp(x - mx) * mask).to(out_dtype)
     denom = unnorm.sum(dim=dim, keepdim=True, dtype=acc)
+    if sharded:
+        denom = sp_sum(denom)
     return (unnorm / denom.clamp_min(1e-30)).to(out_dtype)
 
 
@@ -112,3 +121,26 @@ def compact(x: torch.Tensor, keep: torch.Tensor, out_len: Optional[int] = None) 
     n_keep = keep.sum(dim=-1, keepdim=True)
     new_valid = torch.arange(perm.shape[-1], device=x.device)[None, :] < n_keep
     return x_sorted, new_valid, perm
+
+
+def compact_sharded(x: torch.Tensor, keep: torch.Tensor, out_len: Optional[int], seq: Seq
+                    ) -> Tuple[torch.Tensor, torch.Tensor, Seq]:
+    """:func:`compact` of a sequence sharded over the active sp row, ``x``
+    and ``keep`` this rank's block (layout ``seq``). Each kept instance
+    takes its global position, an exclusive prefix over the row's counts
+    (from the gathered ``keep``), and goes to the rank whose block of the
+    ``out_len`` compacted tokens (``Seq.split``)
+    holds it. Returns ``(x_sorted, new_valid, out_seq)``: this rank's block
+    of the compacted sequence, zero past each bag's kept count, its
+    validity, and its layout."""
+    keep = keep.bool()
+    full = sp_gather(keep, seq)
+    n = seq.total if out_len is None else min(out_len, seq.total)
+    out = Seq.split(n, len(seq.counts), seq.index)
+    if min(out.counts) < 1:
+        raise ValueError(f"compacting to {n} tokens leaves an sp rank empty: {out.counts}")
+    pos = (torch.cumsum(full.int(), dim=-1) - 1)[:, seq.cols]
+    x_sorted = sp_scatter(x, pos, keep & (pos < n), n, out)
+    n_keep = full.sum(dim=-1, keepdim=True)
+    new_valid = torch.arange(out.offset, out.offset + out.local, device=x.device)[None, :] < n_keep
+    return x_sorted, new_valid, out

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..parallel.mesh import active as active_mesh, batch_max
+from ..parallel.mesh import Seq, active as active_mesh, batch_max, sp_first, sp_max, sp_sum
 from .masked import NEG_INF, masked_softmax, stats_dtype
 
 
@@ -55,8 +55,34 @@ def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
     return newton_schulz_plain(*pinv_start(x), iters)
 
 
+def _landmark_block(t: torch.Tensor, mask: torch.Tensor, m: int, seq: Seq, dim: int):
+    """A block's part of the landmark means along ``dim`` of ``t``: the
+    groups of :func:`_landmark_mean` over the global length ``seq.total``,
+    token ``i`` of the block (global ``seq.offset + i``) in group
+    ``(offset + i + pad) // l``. The block's group sums (in fp32, by one
+    reshape of the block padded to whole groups) and counts are summed over
+    the sp row (:func:`sp_sum`). Returns ``(sums`` with ``m`` along ``dim``,
+    ``counts[B, m])``."""
+    n_tot, n = seq.total, seq.local
+    l = -(-n_tot // m)
+    start = seq.offset + m * l - n_tot
+    g0, shift = divmod(start, l)
+    g = -(-(shift + n) // l)
+    f32 = stats_dtype(t.dtype)
+
+    def groups(x: torch.Tensor, d: int) -> torch.Tensor:
+        shape = list(x.shape)
+        x = torch.cat([x.new_zeros(shape[:d] + [shift] + shape[d + 1:]), x,
+                       x.new_zeros(shape[:d] + [g * l - shift - n] + shape[d + 1:])], dim=d)
+        x = x.reshape(shape[:d] + [g, l] + shape[d + 1:]).sum(dim=d + 1, dtype=f32)
+        return torch.cat([x.new_zeros(shape[:d] + [g0] + shape[d + 1:]), x,
+                          x.new_zeros(shape[:d] + [m - g0 - g] + shape[d + 1:])], dim=d)
+
+    return sp_sum(groups(t, dim)), sp_sum(groups(mask.to(f32), 1))
+
+
 def _landmark_mean(
-    t: torch.Tensor, mask: torch.Tensor, m: int, parity: bool = False
+    t: torch.Tensor, mask: torch.Tensor, m: int, parity: bool = False, seq: Optional[Seq] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked segment means of ``t[B,H,N,d]`` (zero at masked tokens) into
     ``m`` landmark groups: token i joins group ``(i + pad) // l`` with
@@ -67,8 +93,15 @@ def _landmark_mean(
     reference's unmasked full-bag path (JAX ``_landmark_mean(parity=True)``)
     on ``t`` already front-padded to ``m·l`` tokens (:func:`nystrom_attention`
     pads it): every group divided by ``l`` and every landmark valid.
+
+    Given ``seq``, ``t`` and ``mask`` hold this rank's block of a sharded
+    sequence and the means are those of the whole one, on every rank of the
+    sp row (:func:`_landmark_block`; no ``parity``).
     """
     b, h, n, d = t.shape
+    if seq is not None:
+        grp, cnt = _landmark_block(t, mask, m, seq, 2)
+        return (grp / cnt.clamp_min(1.0)[:, None, :, None]).to(t.dtype), cnt > 0
     l = -(-n // m)
     f32 = stats_dtype(t.dtype)
     if parity:
@@ -105,6 +138,7 @@ def nystrom_attention(
     return_attn: bool = False,
     no_norm: bool = False,
     parity: bool = False,
+    seq: Optional[Seq] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Masked Nystrom attention.
 
@@ -120,6 +154,11 @@ def nystrom_attention(
         multiple of ``num_landmarks`` tokens, the padding then counted as
         valid keys (its zeros enter attn3's softmax), landmark means over
         the whole group; right only for unpadded bags.
+      seq: the layout of a sequence sharded over the active sp row: q, k,
+        v and mask hold this rank's block; the landmarks and ``attn3``'s
+        softmax and ``attn3 @ v`` are the whole sequence's, the cls row
+        comes from the rank that holds token 0, and the outputs are this
+        block's. Not with ``parity``.
 
     The big ``[B,H,N,m]`` tensors take q's dtype; softmax statistics and the
     pseudo-inverse run in fp32 (all of it in fp64 for fp64 input).
@@ -130,6 +169,8 @@ def nystrom_attention(
     mask = mask.bool()
     m = num_landmarks
     front_pad = 0
+    if parity and seq is not None:
+        raise NotImplementedError("the parity path under sequence parallelism (ROADMAP Queue 1 item 6d)")
     if parity:
         n0 = q.shape[2]
         front_pad = m * -(-n0 // m) - n0
@@ -138,8 +179,8 @@ def nystrom_attention(
             mask = mask.new_ones((q.shape[0], q.shape[2]))
     mvalid = mask[:, None, :, None]
     q, k, v = (torch.where(mvalid, t, 0) for t in (q, k, v))
-    q_l, lm_mask = _landmark_mean(q, mask, m, parity)
-    k_l, _ = _landmark_mean(k, mask, m, parity)
+    q_l, lm_mask = _landmark_mean(q, mask, m, parity, seq)
+    k_l, _ = _landmark_mean(k, mask, m, parity, seq)
 
     sim1 = q @ k_l.transpose(-1, -2)  # [B,H,N,m]
     sim2 = q_l @ k_l.transpose(-1, -2)  # [B,H,m,m]
@@ -148,11 +189,12 @@ def nystrom_attention(
     lm_b = lm_mask[:, None, None, :]
     attn1 = masked_softmax(sim1, lm_b)
     attn2 = masked_softmax(sim2, lm_b)
-    attn3 = masked_softmax(sim3, mask[:, None, None, :])
+    attn3 = masked_softmax(sim3, mask[:, None, None, :], sharded=seq is not None)
     pinv = moore_penrose_pinv(attn2, pinv_iters).to(q.dtype)
 
     # attn1 @ (pinv @ (attn3 @ v)): the small factors first
-    out = torch.where(mvalid, attn1 @ (pinv @ (attn3 @ v)), 0)[:, :, front_pad:]
+    attn3v = attn3 @ v if seq is None else sp_sum(attn3 @ v)
+    out = torch.where(mvalid, attn1 @ (pinv @ attn3v), 0)[:, :, front_pad:]
     if not return_attn:
         return out, None
     if no_norm:
@@ -160,17 +202,23 @@ def nystrom_attention(
     else:
         a1, a2, a3 = attn1, pinv, attn3
     f32 = stats_dtype(q.dtype)
-    cls_row = a1[:, :, front_pad:front_pad + 1].to(f32) @ a2.to(f32)  # [B,H,1,m]
+    a1_0 = a1[:, :, front_pad:front_pad + 1] if seq is None else sp_first(a1[:, :, :1], seq)
+    cls_row = a1_0.to(f32) @ a2.to(f32)  # [B,H,1,m]
     cls_attn = (cls_row @ a3.to(f32))[:, :, 0, front_pad:]  # [B,H,N]
     return out, cls_attn
 
 
-def _landmark_mean_seq(t: torch.Tensor, mask: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _landmark_mean_seq(t: torch.Tensor, mask: torch.Tensor, m: int,
+                       seq: Optional[Seq] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`_landmark_mean` of sequence-major ``t[B,N,H,d]`` (zero at
     masked tokens; ``nystrom.py:211-223``): the same groups, token i in
     group ``(i + pad) // l``. Returns ``(means[B,H,m,d]`` in t's dtype,
-    summed in fp32, ``lm_mask[B,m])``."""
+    summed in fp32, ``lm_mask[B,m])``; given ``seq``, those of the whole
+    sharded sequence (:func:`_landmark_block`)."""
     b, n, h, d = t.shape
+    if seq is not None:
+        grp, cnt = _landmark_block(t, mask, m, seq, 1)
+        return (grp.transpose(1, 2) / cnt.clamp_min(1.0)[:, None, :, None]).to(t.dtype), cnt > 0
     l = -(-n // m)
     f32 = stats_dtype(t.dtype)
     empty, short = divmod(m * l - n, l)
@@ -207,6 +255,7 @@ def nystrom_attention_streamed(
     chunk: int = 1024,
     compute_dtype: Optional[torch.dtype] = None,
     pre_masked: bool = False,
+    seq: Optional[Seq] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Masked Nystrom attention streamed over windows of the bag
     (``nystrom.py:226-401``): the function of :func:`nystrom_attention`
@@ -222,6 +271,12 @@ def nystrom_attention_streamed(
       compute_dtype: the dtype q, k, v are cast to (default q's); ``attn1``
         is cast to it before ``@ z``.
       pre_masked: q, k and v are already zero at masked tokens.
+      seq: the layout of a sequence sharded over the active sp row: q, k,
+        v and mask hold this rank's block. The landmarks are the whole
+        sequence's, the windows this block's, phase 1's row maxes, sums
+        and ``attn3@V`` are merged over the row before ``z``, and the cls
+        row comes from the rank that holds token 0. ``out`` and
+        ``cls_attn`` are this block's.
 
     Phase 1 runs the online softmax of ``attn3 = softmax_N(Q_l·Kᵀ)`` for
     each landmark row, accumulating ``attn3@V`` in fp32; keys that a clamped
@@ -241,13 +296,13 @@ def nystrom_attention_streamed(
     else:
         mvalid = mask[:, :, None, None]
         q, k, v = (torch.where(mvalid, t, 0).to(cd) for t in (q, k, v))
-    q_l, lm_mask = _landmark_mean_seq(q, mask, m)  # [B,H,m,dh], [B,m]
-    k_l, _ = _landmark_mean_seq(k, mask, m)
+    q_l, lm_mask = _landmark_mean_seq(q, mask, m, seq)  # [B,H,m,dh], [B,m]
+    k_l, _ = _landmark_mean_seq(k, mask, m, seq)
     lm_b = lm_mask[:, None, None, :]
     pinv = moore_penrose_pinv(masked_softmax(q_l @ k_l.transpose(-1, -2), lm_b), pinv_iters)  # fp32
 
     chunk = min(chunk, n)
-    windows = [(min(i * chunk, n - chunk), i * chunk) for i in range(-(-n // chunk))]  # (start, first fresh key)
+    windows = [(min(i * chunk, n - chunk), i * chunk) for i in range(-(-n // chunk))] if n else []  # (start, fresh)
     pos = torch.arange(chunk, device=q.device)
 
     def sim3(off: int, fresh: int):
@@ -269,10 +324,15 @@ def nystrom_attention_streamed(
         acc = acc * scale[..., None] + _f32("bhmn,bnhd->bhmd", p.to(cd), v[:, off:off + chunk])
         run_sum = run_sum * scale + p.sum(dim=-1)
         run_max = new_max
+    if seq is not None:  # the blocks' online softmaxes merged over the sp row
+        new_max = sp_max(run_max)
+        scale = torch.exp(run_max - new_max)
+        acc, run_sum, run_max = sp_sum(acc * scale[..., None]), sp_sum(run_sum * scale), new_max
     run_sum = run_sum.clamp_min(1e-30)
     z = (pinv @ (acc / run_sum[..., None])).to(cd)  # [B,H,m,dh]
     if return_attn:  # the cls row of attn1 (token 0) @ pinv: [B,H,1,m]
-        r = (masked_softmax(_f32("bnhd,bhmd->bhnm", q[:, :1], k_l), lm_b) @ pinv).to(cd)
+        q0 = q[:, :1] if seq is None else sp_first(q[:, :1], seq)
+        r = (masked_softmax(_f32("bnhd,bhmd->bhnm", q0, k_l), lm_b) @ pinv).to(cd)
 
     # phase 2: out = softmax_m(Q·K_lᵀ) @ z and the cls row, window by window
     outs, cls = [], []
@@ -284,4 +344,6 @@ def nystrom_attention_streamed(
             s, m_c = sim3(off, off)
             attn3 = torch.exp(s - run_max[..., None]) * (m_c * (1.0 / run_sum)[..., None])
             cls.append(_f32("bhom,bhmn->bhon", r, attn3.to(cd))[:, :, 0, fresh - off:])
+    if not outs:  # an empty block
+        return q.new_zeros((b, 0, h * dh)), (q.new_zeros((b, h, 0), dtype=torch.float32) if return_attn else None)
     return torch.cat(outs, dim=1), (torch.cat(cls, dim=-1) if return_attn else None)

@@ -1,4 +1,4 @@
-"""Multi-process data parallelism of the port (counterpart of mhim_mil_tpu/parallel)."""
+"""Multi-process data and sequence parallelism of the port (counterpart of mhim_mil_tpu/parallel)."""
 
 from .mesh import batch_pspecs, make_mesh, replicate_tree, shard_batch
 

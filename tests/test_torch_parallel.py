@@ -221,7 +221,7 @@ def world(tmp_path_factory):
         w={k: v.numpy() for k, v in ew.items()})
     base = ["--datasets", "synth", "--input_dim", "32", "--inner_dim", "32", "--batch_size", "4", "--num_epoch",
             "1", "--cv_fold", "2", "--synth_n_slides", "8", "--synth_bag_size", "64", "--bucket_sizes", "64"]
-    for name, argv in (("raise_sp", ["--model", "abmil", "--mesh_dp", "2", "--mesh_sp", "2"]),
+    for name, argv in (("raise_sp", ["--model", "transmil", "--mesh_dp", "2", "--mesh_sp", "2"]),
                        ("raise_no_flags", ["--model", "abmil"]),
                        ("raise_6c", ["--model", "clam_sb", "--mesh_dp", "2"]),
                        ("raise_6c_mhim", ["--model", "mhim", "--baseline", "dsmil", "--mesh_dp", "4"])):
@@ -279,22 +279,24 @@ def test_batch_pspecs_match_jax(shard_instances):
 
 
 def test_shard_batch_rows_match_jax_shards():
-    """Each rank's rows are the shard JAX places on that rank's device, and
-    a batch that dp does not divide raises, naming both numbers."""
+    """Each rank's rows are the shard JAX places on that rank's device; on
+    a dp 2 × sp 2 mesh each rank's rows and instance block are the shard
+    JAX's ``shard_batch(..., shard_instances=True)`` places on the device
+    at the rank's place of the mesh; and a batch that dp does not divide
+    raises, naming both numbers."""
     batch = _mhim_batch()
-    jmesh = j_make_mesh(dp=4, sp=1)
-    with jmesh:
-        sharded = j_shard_batch(jmesh, batch, shard_instances=False)
-    devices = list(np.asarray(jmesh.devices)[:, 0])
-    for rank in range(4):
-        mine = shard_batch(make_mesh(dp=4, world=4, rank=rank), batch, shard_instances=False)
-        for k, v in sharded.items():
-            shard = next(s for s in v.addressable_shards if s.device == devices[rank])
-            np.testing.assert_array_equal(mine[k], np.asarray(shard.data), err_msg=f"rank {rank} {k}")
+    for dp, sp, inst in ((4, 1, False), (2, 2, True)):
+        jmesh = j_make_mesh(dp=dp, sp=sp)
+        with jmesh:
+            sharded = j_shard_batch(jmesh, batch, shard_instances=inst)
+        devices = list(np.asarray(jmesh.devices).ravel())
+        for rank in range(4):
+            mine = shard_batch(make_mesh(dp=dp, sp=sp, world=4, rank=rank), batch, shard_instances=inst)
+            for k, v in sharded.items():
+                shard = next(s for s in v.addressable_shards if s.device == devices[rank])
+                np.testing.assert_array_equal(mine[k], np.asarray(shard.data), err_msg=f"{dp}x{sp} rank {rank} {k}")
     with pytest.raises(ValueError, match=r"\b6\b.*dp=4"):
         shard_batch(make_mesh(dp=4, world=4), {"feats": np.zeros((6, 3))})
-    with pytest.raises(NotImplementedError, match="6b"):
-        shard_batch(make_mesh(dp=2, sp=2, world=4), batch)
 
 
 def test_no_collective_without_an_active_mesh():
@@ -600,12 +602,13 @@ def test_abmil_dp_eval_matches_jax_mesh_eval(world):
 
 
 def test_dp_world_raises_before_any_step(world):
-    """In a world of 4: ``--mesh_sp 2`` names item 6b, no mesh flag is a
-    ValueError, and a model whose step is not routed through the mesh
-    (clam_sb, MHIM-dsmil) names item 6c."""
+    """In a world of 4: ``--mesh_sp 2`` with a model whose couplings over
+    the instances are not routed through the mesh (transmil) names item 6d,
+    no mesh flag is a ValueError, and a model whose step is not routed
+    through the mesh (clam_sb, MHIM-dsmil) names item 6c."""
     _, results = world
     assert str(results["raise_sp"]["type"]) == "NotImplementedError"
-    assert "6b" in str(results["raise_sp"]["message"])
+    assert "6d" in str(results["raise_sp"]["message"])
     assert str(results["raise_no_flags"]["type"]) == "ValueError"
     assert "--mesh_dp" in str(results["raise_no_flags"]["message"])
     for case in ("raise_6c", "raise_6c_mhim"):

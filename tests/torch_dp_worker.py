@@ -1,12 +1,15 @@
-"""One rank of a data-parallel world of the port, for tests/test_torch_parallel.py.
+"""One rank of a data- or sequence-parallel world of the port, for
+tests/test_torch_parallel.py and tests/test_torch_sp.py.
 
     python -m torch.distributed.run --nproc_per_node W tests/torch_dp_worker.py IN.npz OUT.npz
 
 Joins a gloo world from torchrun's environment and runs the cases that
 ``IN.npz`` lists (its ``spec``, a JSON list) in order, each on a mesh of
-its own ``dp`` ranks (every rank makes each mesh; the ranks past it sit
-the case out). A case's arrays are ``IN.npz``'s ``<case>/<name>``; rank 0
-writes its results to ``OUT.npz`` as ``<case>/<name>``. Kinds:
+its own ``dp`` × ``sp`` ranks (``sp`` 1 unless the spec says; every rank
+makes each mesh; the ranks past it sit the case out). The batches are laid
+out by ``shard_batch`` (rows over dp, instances over sp). A case's arrays
+are ``IN.npz``'s ``<case>/<name>``; rank 0 writes its results to
+``OUT.npz`` as ``<case>/<name>``. Kinds:
 
 - ``mhim_step`` / ``generic_step``: one train step of the port's model on
   the given weights (``w/<key>``) and global batch (``batch/<key>``), the
@@ -18,7 +21,18 @@ writes its results to ``OUT.npz`` as ``<case>/<name>``. Kinds:
 - ``forward_test``: the MHIM logits of the global batch, gathered;
 - ``eval``: ``evaluate``'s row over ``make_synthetic_dataset``'s slides;
 - ``raises``: ``mhim_mil_torch.main.main(argv)``; the error's type and
-  message.
+  message;
+- ``ops``: one op of the sequence-parallel path (``op``: ``landmark``,
+  ``streamed``, ``kernels``, ``materialising``, ``resconv``, ``ppeg``) on this rank's block of
+  the global inputs (``in/<name>``), its outputs and the gradients of
+  ``Σ output·cotangent`` for its inputs gathered over the sp row
+  (``out/<name>``, ``grad/<name>``), and its parameters' gradients summed
+  over the row (``pgrad/<name>``).
+
+``control`` also takes ``k1_unmerged`` (K1's blocks not merged over the
+sp row) and ``loss_every_rank`` (each bag's whole loss paid on every sp
+rank: every rank weighs its bags 1 and the weight sum counts each bag
+once).
 
 Imports torch and the port only.
 """
@@ -33,6 +47,7 @@ import torch.distributed as dist
 
 from mhim_mil_torch.config import load_config
 from mhim_mil_torch.engine import losses
+from mhim_mil_torch.ops import flash_nystrom
 from mhim_mil_torch.engine.steps import make_mhim_train_step, make_train_step
 from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
 from mhim_mil_torch.models import build_model, layers
@@ -118,7 +133,69 @@ def _raises(spec, out):
         out["type"], out["message"] = np.asarray(""), np.asarray("")
 
 
-CONTROLS = {"pinv": (nystrom, "batch_max"), "wmean": (losses, "batch_sum")}
+def _ops(spec, data, mesh, out):
+    from mhim_mil_torch.models.positional import PPEG
+    from mhim_mil_torch.models.transformer import _DepthwiseResConv
+    from mhim_mil_torch.ops.nystrom import _landmark_mean, nystrom_attention, nystrom_attention_streamed
+    from mhim_mil_torch.parallel.mesh import Seq, sp_gather, sp_sum
+
+    d = {k: torch.from_numpy(v) for k, v in _group(data, spec["name"], "in").items()}
+    op, m = spec["op"], spec.get("m", 0)
+    n = d["mask"].shape[1]
+    seq = Seq.split(n, mesh.sp, mesh.sp_index)
+    tok = 2 if op in ("landmark", "kernels", "materialising") else 1  # the token axis of the op's inputs
+    mask = d["mask"][:, seq.cols].contiguous()
+
+    def mine(name, dim=tok):
+        return d[name].narrow(dim, seq.offset, seq.local).clone().requires_grad_(d[name].is_floating_point())
+
+    owner = float(mesh.sp_index == 0)  # a replicated output's loss, counted once
+    module = None
+    with mesh:
+        if op == "landmark":
+            leaves = {"t": mine("t")}
+            means, lm_mask = _landmark_mean(leaves["t"], mask, m, seq=seq)
+            outs, loss = {"means": (means, None), "lm_mask": (lm_mask, None)}, (means * d["cot"]).sum() * owner
+        elif op in ("streamed", "kernels", "materialising"):
+            leaves = {k: mine(k) for k in ("q", "k", "v")}
+            if op == "streamed":
+                o, a = nystrom_attention_streamed(*leaves.values(), mask, m, return_attn=True, chunk=spec["chunk"],
+                                                  seq=seq)
+            elif op == "kernels":
+                o, a = flash_nystrom.flash_nystrom(*leaves.values(), mask, m, seq=seq)
+            else:
+                o, a = nystrom_attention(*leaves.values(), mask, m, return_attn=True, seq=seq)
+            outs = {"out": (o, tok), "attn": (a, 2)}
+            loss = (o * mine("cot_out")).sum() + (a * mine("cot_attn", 2)).sum()
+        else:
+            if op == "resconv":
+                module = _DepthwiseResConv(d["v"].shape[2])
+                leaves = {"v": mine("v")}
+            else:
+                module = PPEG(d["x"].shape[-1])
+                leaves = {"x": mine("x")}
+            module.load_state_dict({k[2:]: v for k, v in d.items() if k.startswith("w.")})
+            o = module(*leaves.values(), seq) if op == "resconv" else module(leaves["x"], mask, seq)
+            outs, loss = {"out": (o, 1)}, (o * mine("cot")).sum()
+        loss.backward()
+        with torch.no_grad():
+            for k, (t, dim) in outs.items():
+                out[f"out/{k}"] = (t if dim is None else sp_gather(t, seq, dim)).numpy()
+            for k, t in leaves.items():
+                out[f"grad/{k}"] = sp_gather(t.grad, seq, tok).numpy()
+            for k, p in (module.named_parameters() if module is not None else ()):
+                out[f"pgrad/{k}"] = sp_sum(p.grad).numpy()
+
+
+def _row_once(x):
+    from mhim_mil_torch.parallel.mesh import active, batch_sum
+
+    return batch_sum(x) / active().sp
+
+
+CONTROLS = {"pinv": [(nystrom, "batch_max", lambda x: x)], "wmean": [(losses, "batch_sum", lambda x: x)],
+            "k1_unmerged": [(flash_nystrom, "merge_pass_a", lambda a, m, s: (a, m, s))],
+            "loss_every_rank": [(losses, "owner_weight", lambda: 1.0), (losses, "batch_sum", _row_once)]}
 
 
 def main():
@@ -132,7 +209,7 @@ def main():
             out = {}
             _raises(spec, out)
         else:
-            mesh = make_mesh(spec["dp"], 1)
+            mesh = make_mesh(spec["dp"], spec.get("sp", 1))
             if mesh.idle:
                 continue
             out = {}
@@ -140,13 +217,13 @@ def main():
             if not spec.get("dropout", True):
                 patched.append((layers.Dropout, "forward", lambda self, x, *a, **k: x))
             if spec.get("control"):
-                patched.append((*CONTROLS[spec["control"]], lambda x: x))
+                patched += CONTROLS[spec["control"]]
             saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
             for obj, name, fn in patched:
                 setattr(obj, name, fn)
             try:
                 {"mhim_step": _step, "generic_step": _step, "forward_test": _forward_test,
-                 "eval": _eval}[spec["kind"]](spec, data, mesh, out)
+                 "eval": _eval, "ops": _ops}[spec["kind"]](spec, data, mesh, out)
             finally:
                 for obj, name, fn in saved:
                     setattr(obj, name, fn)
