@@ -16,7 +16,7 @@ diagnostic variants and the in-step breakdown and HBM tools; then the
 serving export bundle; then feature extraction, from a synthetic slide to
 the flagship's score; then the slide readers, from the slide's files to its
 attention; then data parallelism over bags; then sequence parallelism over
-instances.
+instances; then data parallelism over bags for the rest of the zoo.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -193,12 +193,25 @@ Phases, each of which fails the run:
    what one process launches (K3p 192), each rank's step ms and the sp
    collectives' bytes a step; (b) MHIM-attn's ``forward_test`` and abmil's
    eval step and attention, K4 on each rank's block and the blocks merged
-   by their log-sum-exp, within 1e-4·max|ref| of one process.
+   by their log-sum-exp, within 1e-4·max|ref| of one process;
+19. data parallelism over bags for the rest of the zoo: two processes of
+   this script sharing the card in a gloo world, ``make_mesh(dp=2)``, 2 of
+   the 4 bags each: one fp32 train step at full width (dropout on) of
+   clam_sb, clam_mb, dsmil, dtfd, ibmil (its bank overwritten on rank 1
+   before the state is broadcast), rrtmil, mambamil's three variants,
+   MHIM-dsmil and its teacher stage, against the one-process step on the
+   ragged 4 × 10,240 batch at 17c's tolerances; 2dmamba (``surv_blca``) on
+   2 bags of 20,000 instances, one a rank: its train step on their raster
+   grid (the plain scan's autograd on the 275 × 381 grid would hold about
+   67 GB a bag), then its eval step with ``pos`` on the BLCA grid through
+   K5 on each rank's bag, the gathered logits within 1e-4·max|ref| of one
+   process's K5 path and each rank's K5 output within 1e-4·max(1,
+   max|ref|) of the plain scan; each rank's step ms.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, and K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-18 each reset the launch counts before their main-path
-runs and read them after (17c's and 18's ranks in their own processes); the kernels' launches are the sums of those
+columns). Phases 4-19 each reset the launch counts before their main-path
+runs and read them after (17c's, 18's and 19's ranks in their own processes); the kernels' launches are the sums of those
 readings, plus the K6 launches of the gate's probe.
 
 The line before the last lists the kernels as JSON; the last line is the
@@ -3256,6 +3269,32 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def rank_processes(flag: str, world: int, timeout: float, phase: str, tmp: str) -> list:
+    """Start ``world`` processes of this script as the ranks of ``phase``
+    (``python3 chip_smoke.py <flag> <rank> <tmp> <port>``) and return each
+    rank's results, ``tmp/rank<rank>.pt``; fails, and kills the ranks left,
+    when one exits nonzero or outlasts ``timeout`` seconds."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r), tmp, str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                fail(f"{phase} rank {r} did not finish in {timeout} s")
+            if p.returncode != 0:
+                fail(f"{phase} rank {r} exited {p.returncode}:\n{text[-3000:]}")
+            outs.append(torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return outs
+
+
 def dp_flagship(seed: int):
     """The fp32 flagship on the kernel path with its batch's inputs: the
     config, the model, its initial weights on the host and the 4 × 10,240
@@ -3426,23 +3465,7 @@ def dp_two_processes(ref: dict, spe: int) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
         torch.save({"cfg": ref["cfg"], "spe": spe, "init": ref["init"], "batch": ref["batch"]},
                    os.path.join(tmp, "inputs.pt"))
-        port = free_port()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), tmp, str(port)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(DP_WORLD)]
-        outs = []
-        for r, p in enumerate(procs):
-            try:
-                text, _ = p.communicate(timeout=DP_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                fail(f"17c rank {r} did not finish in {DP_TIMEOUT_S} s")
-            if p.returncode != 0:
-                for q in procs:
-                    q.kill()
-                fail(f"17c rank {r} exited {p.returncode}:\n{text[-3000:]}")
-            outs.append(torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False))
+        outs = rank_processes("--dp-rank", DP_WORLD, DP_TIMEOUT_S, "17c", tmp)
     r0, lr, m_ref = outs[0], ref["lr"], ref["metrics"]
     d_loss = abs(r0["metrics"]["loss"] - float(m_ref["loss"]))
     g_err = max(((r0["grads"][n] - p.grad.cpu()).abs().max() / p.grad.abs().max().clamp_min(1e-30).cpu()).item()
@@ -3617,30 +3640,6 @@ def sp_worker(rank: int, tmp: str, port: int):
     dist.destroy_process_group()
 
 
-def sp_processes(tmp: str) -> list:
-    """Start SP_WORLD processes of this script as the ranks of phase 18 and
-    return each rank's results."""
-    port = free_port()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sp-rank", str(r), tmp, str(port)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(SP_WORLD)]
-    outs = []
-    try:
-        for r, p in enumerate(procs):
-            try:
-                text, _ = p.communicate(timeout=SP_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                fail(f"18 rank {r} did not finish in {SP_TIMEOUT_S} s")
-            if p.returncode != 0:
-                fail(f"18 rank {r} exited {p.returncode}:\n{text[-3000:]}")
-            outs.append(torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    return outs
-
-
 def phase_sp(gen, ref: dict, smi: str) -> dict:
     """Phase 18: sequence parallelism over instances: SP_WORLD processes of
     this script share the card in a gloo world, ``make_mesh(dp=1, sp=2)``,
@@ -3678,7 +3677,7 @@ def phase_sp(gen, ref: dict, smi: str) -> dict:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
         torch.save(inputs, os.path.join(tmp, "inputs.pt"))
-        outs = sp_processes(tmp)
+        outs = rank_processes("--sp-rank", SP_WORLD, SP_TIMEOUT_S, "18", tmp)
     r0, lr, m_ref = outs[0], ref["lr"], ref["metrics"]
     d_loss = abs(r0["metrics"]["loss"] - float(m_ref["loss"]))
     g_err = max(((r0["grads"][n] - p.grad.cpu()).abs().max() / p.grad.abs().max().clamp_min(1e-30).cpu()).item()
@@ -3731,6 +3730,284 @@ def phase_sp(gen, ref: dict, smi: str) -> dict:
             "ranks": [{k: o[k] for k in ("rank", "tokens", "fp32_ms", "sp_bytes", "seen")} for o in outs]}
 
 
+# ---- phase 19: data parallelism over bags for the rest of the zoo ------------------------------
+
+ZOO_DP_WORLD = 2  # processes of 19, sharing the one card
+ZOO_DP_TIMEOUT_S = 400
+ZOO_DP_SPE = 8
+MHIM_C16 = "config/mhim_c16.yaml"
+SURV = "config/feat_surv.yaml"
+# name: (preset, config overrides); one fp32 train step each, at the preset's width on input_dim 1024
+ZOO_DP = {
+    "clam_sb": (ZOO, dict(model="clam_sb", aux_alpha=0.5)),
+    "clam_mb": (ZOO, dict(model="clam_mb", aux_alpha=0.5)),
+    "dsmil": (ZOO, dict(model="dsmil", aux_alpha=0.5)),
+    "dtfd": (ZOO, dict(model="dtfd", aux_alpha=0.5)),
+    "ibmil": (ZOO, dict(model="ibmil")),
+    "rrtmil": (ZOO, dict(model="rrtmil", rrt_n_layers=2, rrt_n_heads=8, region_num=8, epeg_k=15, crmsa_k=3)),
+    **{f"mambamil_{v}": (ZOO, dict(model="mambamil", mambamil_type=t)) for v, t in MAMBAMIL},
+    "mhim_dsmil": (MHIM_C16, dict(baseline="dsmil")),
+    "mhim_pure_dsmil": (MHIM_C16, dict(model="mhim_pure", baseline="dsmil")),
+    "2dmamba": (SURV, dict(model="2dmamba", datasets="surv_blca")),
+}
+ZOO_DP_AUX = ("clam_sb", "clam_mb", "dsmil", "dtfd", "mhim_dsmil")  # each pays an aux loss over the bags
+ZOO_DP_BAG = 20000  # 2dmamba's bags, one a rank
+ZOO_DP_SLOTS = 20480
+
+
+def zoo_dp_state(cfg, init: dict):
+    """A fresh model of ``cfg`` on the card with the weights ``init`` and its
+    train state (seed 0, as every side of phase 19 makes it); the family."""
+    from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
+    from mhim_mil_torch.models import build_model
+
+    model, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(init)
+    create = create_mhim_state if family in ("mhim", "mhim_pure") else create_train_state
+    return model, family, create(cfg, model, ZOO_DP_SPE, seed=0, device="cuda")
+
+
+def zoo_dp_step(label: str, cfg, family: str, state, batch) -> tuple:
+    """One fp32 train step of ``state`` on ``batch``, synchronised: its
+    metrics, host ms and launches (none: no family of phase 19 trains
+    through a kernel)."""
+    step = train_step_for(cfg, ZOO_DP_SPE, None if family in ("mhim", "mhim_pure") else family)
+    reset_launches()
+    t0 = time.perf_counter()
+    m = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {k: float(v) for k, v in m.items()}, ms, expect_launches(label)
+
+
+def zoo_dp_k5_probe(records: list):
+    """Wrap 2dmamba's K5 wrapper so that each call records its operands and
+    output in ``records``; returns the undo."""
+    from mhim_mil_torch.models import mamba
+
+    orig = mamba.selective_scan_2d_fused
+
+    def probe(*args):
+        y = orig(*args)
+        records.append((args, y))
+        return y
+
+    mamba.selective_scan_2d_fused = probe
+    return lambda: setattr(mamba, "selective_scan_2d_fused", orig)
+
+
+def zoo_dp_worker(rank: int, tmp: str, port: int):
+    """One rank of phase 19, in a process of its own: a gloo world of
+    ZOO_DP_WORLD processes on the one card, ``make_mesh(dp=2)``. For each
+    family its fp32 train step on this rank's bags (``shard_batch``) from
+    the parent's initial weights, IBMIL's bank overwritten on rank 1 before
+    the state is broadcast from rank 0; then 2dmamba's eval step on this
+    rank's bag with ``pos`` on the BLCA grid through K5, the logits
+    gathered, K5's output held against the plain scan on the same operands.
+    Writes ``tmp/rank<rank>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from mhim_mil_torch.engine.steps import make_eval_step
+    from mhim_mil_torch.ops import scan2d
+    from mhim_mil_torch.parallel import make_mesh, replicate_tree, shard_batch
+    from mhim_mil_torch.parallel.mesh import gather_rows
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=ZOO_DP_WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=ZOO_DP_TIMEOUT_S))
+    mesh = make_mesh(ZOO_DP_WORLD)
+    out = {"rank": rank, "steps": {}}
+    for name, case in inputs["cases"].items():
+        cfg = case["cfg"]
+        model, family, state = zoo_dp_state(cfg, case["init"])
+        if rank and name == "ibmil":
+            model.confounder_feat.fill_(float(rank))  # replicate_tree must restore rank 0's bank
+        batch = {k: v.to("cuda") for k, v in shard_batch(mesh, inputs["batches"][case["batch"]]).items()}
+        replicate_tree(mesh, state)
+        with mesh:
+            m, ms, seen = zoo_dp_step(f"19 rank {rank} {name} fp32 step", cfg, family, state, batch)
+        res = {"metrics": m, "ms": ms, "launches": seen, "bags": int(batch["feats"].shape[0])}
+        if rank == 0:
+            res["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            res["student"] = {k: v.cpu() for k, v in model.state_dict().items()}
+            if state.teacher is not None:
+                res["teacher"] = {k: v.cpu() for k, v in state.teacher.state_dict().items()}
+        out["steps"][name] = res
+        del model, state, batch
+        torch.cuda.empty_cache()
+    case = inputs["cases"]["2dmamba"]
+    model, family, _ = zoo_dp_state(case["cfg"], case["init"])
+    batch = {k: v.to("cuda") for k, v in shard_batch(mesh, inputs["batches"]["2dmamba_eval"]).items()}
+    records: list = []
+    undo = zoo_dp_k5_probe(records)
+    try:
+        with mesh:
+            reset_launches()
+            logits = gather_rows(make_eval_step(case["cfg"], model, family)(batch)["logits"])
+            torch.cuda.synchronize()
+            out["eval_launches"] = expect_launches(f"19 rank {rank} 2dmamba eval step", K5=1)
+    finally:
+        undo()
+    (args, y), = records
+    with torch.inference_mode():  # the operands are the eval step's inference tensors
+        want = scan2d.scan2d_plain(*args)
+    out["k5_err"], out["k5_scale"] = (y - want).abs().max().item(), max(1.0, want.abs().max().item())
+    out["k5_shape"] = tuple(y.shape)
+    if not torch.isfinite(y).all() or out["k5_err"] > 1e-4 * out["k5_scale"]:
+        fail(f"19 rank {rank}: K5's output misses the plain scan by {out['k5_err']:.3e} (tolerance 1e-4 * "
+             f"max(1, max|ref|) = {1e-4 * out['k5_scale']:.3e})")
+    if rank == 0:
+        out["logits"] = logits.cpu()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def zoo_dp_batches(gen, grid) -> dict:
+    """Phase 19's host batches: the ragged 4 × 10,240 × 1024 batch of the
+    zoo (10,240, 10,240, 8,000 and 6,000 valid) with random labels, and
+    2dmamba's 2 bags of 20,000 instances in 20,480 slots with survival
+    labels, on the raster grid for the train step and (``2dmamba_eval``)
+    at distinct random cells of the ``grid`` (275 × 381 on BLCA) for the
+    eval step."""
+    feats, mask = flagship_batch(gen, 1024)
+    zoo = {"feats": feats, "mask": mask, "bag_valid": torch.ones(4, dtype=torch.bool, device="cuda"),
+           "target": torch.tensor([0, 1, 0, 1], device="cuda")}
+    h, w = grid
+    cells = torch.stack([torch.randperm(h * w, device="cuda", generator=gen)[:ZOO_DP_BAG] for _ in range(2)])
+    pos = torch.zeros(2, ZOO_DP_SLOTS, 2, dtype=torch.long, device="cuda")
+    pos[:, :ZOO_DP_BAG, 0], pos[:, :ZOO_DP_BAG, 1] = cells % w, cells // w
+    surv = {"feats": torch.randn(2, ZOO_DP_SLOTS, 1024, device="cuda", generator=gen),
+            "mask": (torch.arange(ZOO_DP_SLOTS, device="cuda") < ZOO_DP_BAG)[None].expand(2, -1).contiguous(),
+            "bag_valid": torch.ones(2, dtype=torch.bool, device="cuda"),
+            "target": torch.tensor([1, 3], device="cuda"), "censorship": torch.tensor([0, 1], device="cuda"),
+            "event": torch.tensor([1.5, 4.0], device="cuda")}
+    out = {"zoo": zoo, "2dmamba": surv, "2dmamba_eval": {k: surv[k] for k in ("feats", "mask")} | {"pos": pos}}
+    return {name: {k: v.cpu() for k, v in b.items()} for name, b in out.items()}
+
+
+def zoo_dp_grad_err(got: dict, model) -> float:
+    """The largest gradient error of the dp step, each tensor's max|d| over
+    its own max|ref|, or over the model's where the tensor's whole gradient
+    is within 1e-4 of that of zero (the attention-logit biases: a softmax
+    is blind to a shift, their gradient is 0 in exact arithmetic)."""
+    top = max(p.grad.abs().max().item() for p in model.parameters())
+    err = 0.0
+    for n, p in model.named_parameters():
+        scale = p.grad.abs().max().item()
+        scale = scale if scale > 1e-4 * top else top
+        err = max(err, (got[n] - p.grad.cpu()).abs().max().item() / scale)
+    return err
+
+
+def phase_zoo_dp(gen, smi: str) -> dict:
+    """Phase 19: data parallelism over bags for the rest of the zoo:
+    ZOO_DP_WORLD processes of this script share the card in a gloo world,
+    ``make_mesh(dp=2)``, each holding 2 of the 4 bags (2dmamba: 1 of 2).
+    Each family of ``ZOO_DP`` (CLAM SB and MB, DSMIL, DTFD, IBMIL with a
+    bank of 8 prototypes, RRT-MIL, mambamil's three variants, MHIM and its
+    teacher stage with the dsmil baseline, 2dmamba) runs one fp32 train
+    step at full width, dropout on, against the one-process step on the
+    same batch in this process, at 17c's tolerances (loss rtol 2e-5,
+    gradients within 1e-4 of max|g|, student, teacher and global_q_mm
+    within 2·lr). 2dmamba trains on 2 bags of 20,000 instances on their
+    raster grid (142 × 141) and evaluates them with ``pos`` on the 275 ×
+    381 BLCA grid through K5, one bag a rank: the gathered logits within
+    1e-4·max|ref| of one process's K5 path, each rank's K5 output within
+    1e-4·max(1, max|ref|) of the plain scan on the same operands (phase 7's
+    tolerance), one K5 launch a rank. Each
+    rank's step ms beside the card's name and power limit."""
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.engine.steps import make_eval_step
+    from mhim_mil_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    surv = load_config(["-c", SURV], **ZOO_DP["2dmamba"][1])
+    batches = zoo_dp_batches(gen, (surv.mamba_2d_max_h, surv.mamba_2d_max_w))
+    refs, cases = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_dp_") as tmp:
+        bank = os.path.join(tmp, "bank.npy")
+        ibmil_bank(gen, bank, 60)
+        for seed, (name, (preset, kw)) in enumerate(ZOO_DP.items(), start=60):
+            extra = {"confounder_path": bank} if name == "ibmil" else {}
+            cfg = load_config(["-c", preset], input_dim=1024, compute_dtype="float32", **kw, **extra)
+            model, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+            init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            del model
+            model, family, state = zoo_dp_state(cfg, init)
+            key = "2dmamba" if name == "2dmamba" else "zoo"
+            batch = {k: v.to("cuda") for k, v in batches[key].items()}
+            m, ms, _ = zoo_dp_step(f"19 {name} one-process fp32 step", cfg, family, state, batch)
+            refs[name] = {"metrics": m, "ms": ms, "lr": float(state.optimizer.lr_schedule(0)), "model": model,
+                          "student": {k: v.cpu() for k, v in model.state_dict().items()},
+                          "teacher": None if state.teacher is None else
+                          {k: v.cpu() for k, v in state.teacher.state_dict().items()}}
+            model.cpu()  # the reference's weights and gradients stay, on the host
+            cases[name] = {"cfg": cfg, "init": init, "batch": key}
+            log(f"19 {name}: {cfg.model}{'-' + cfg.baseline if cfg.model.startswith('mhim') else ''} ({preset}) "
+                f"{sum(p.numel() for p in model.parameters())} params, one-process fp32 step {ms:.2f} ms, loss "
+                f"{m['loss']:.6g}, aux {m['aux_loss']:.6g}")
+            del state, batch
+            torch.cuda.empty_cache()
+        mcfg = cases["2dmamba"]["cfg"]
+        model, family, _ = zoo_dp_state(mcfg, cases["2dmamba"]["init"])
+        reset_launches()
+        ref_logits = make_eval_step(mcfg, model, family)({k: v.to("cuda") for k, v in
+                                                          batches["2dmamba_eval"].items()})["logits"].cpu()
+        torch.cuda.synchronize()
+        expect_launches("19 2dmamba one-process eval step", K5=1)
+        del model
+        torch.cuda.empty_cache()
+        torch.save({"cases": cases, "batches": batches}, os.path.join(tmp, "inputs.pt"))
+        outs = rank_processes("--zoo-dp-rank", ZOO_DP_WORLD, ZOO_DP_TIMEOUT_S, "19", tmp)
+    r0 = outs[0]
+    readings = {}
+    for name, ref in refs.items():
+        got, m_ref, lr = r0["steps"][name], ref["metrics"], ref["lr"]
+        d_loss = abs(got["metrics"]["loss"] - m_ref["loss"])
+        g_err = zoo_dp_grad_err(got["grads"], ref["model"])
+        p_err = max((got["student"][k] - v).abs().max().item() for k, v in ref["student"].items())
+        t_err = 0.0 if ref["teacher"] is None else max((got["teacher"][k] - v).abs().max().item()
+                                                       for k, v in ref["teacher"].items() if k != "merge.global_q_mm")
+        log(f"19 {name} under dp 2 ({got['bags']} of {2 * got['bags']} bags a rank) against one process: loss "
+            f"{got['metrics']['loss']:.9g} against {m_ref['loss']:.9g}, |d| {d_loss:.3e} (tolerance 2e-5 * |loss|); "
+            f"aux_loss {got['metrics']['aux_loss']:.6g} against {m_ref['aux_loss']:.6g}; gradients after the "
+            f"all-reduce max|d|/max|ref| {g_err:.3e} (tolerance 1e-4); student (buffers among them) max|d| "
+            f"{p_err:.3e}, teacher {t_err:.3e} (tolerance 2·lr = {2 * lr:.3e})")
+        if not math.isfinite(d_loss) or d_loss > 2e-5 * abs(m_ref["loss"]):
+            fail(f"19 {name}: the dp step's loss disagrees with the one-process step")
+        if g_err > 1e-4 or max(p_err, t_err) > 2 * lr:
+            fail(f"19 {name}: the dp step's gradients or update disagree with the one-process step")
+        if name in ZOO_DP_AUX and not got["metrics"]["aux_loss"] > 0:
+            fail(f"19 {name}: no aux loss was paid")
+        readings[name] = {"loss_err": d_loss, "grad_rel_err": g_err, "param_err": p_err, "teacher_err": t_err,
+                          "one_process_ms": ref["ms"], "rank_ms": [o["steps"][name]["ms"] for o in outs]}
+    l_err = (r0["logits"] - ref_logits).abs().max().item()
+    k5_errs, k5_tols = [o["k5_err"] for o in outs], [1e-4 * o["k5_scale"] for o in outs]
+    l_tol = 1e-4 * ref_logits.abs().max().item()
+    log(f"19 2dmamba eval under dp 2 (one bag of {ZOO_DP_BAG} a rank, pos on the {mcfg.mamba_2d_max_h} x "
+        f"{mcfg.mamba_2d_max_w} grid, K5 on each rank's bag) against one process's K5 path: logits max|d| "
+        f"{l_err:.3e} (tolerance 1e-4 * max|ref| = "
+        f"{l_tol:.3e}); each rank's K5 output {[o['k5_shape'] for o in outs]} against the plain scan on the same "
+        f"operands: max|d| {', '.join(f'{e:.3e}' for e in k5_errs)} (tolerance 1e-4 * max(1, max|ref|) = "
+        f"{', '.join(f'{t:.3e}' for t in k5_tols)})")
+    if not torch.isfinite(r0["logits"]).all() or not l_err <= l_tol:
+        fail("19 2dmamba: the dp eval's logits disagree with one process's")
+    for o in outs:
+        steps = ", ".join(f"{n} {s['ms']:.2f}" for n, s in o["steps"].items())
+        log(f"19 rank {o['rank']} on {smi} (one of {ZOO_DP_WORLD} processes sharing one card; not a scaling figure): "
+            f"fp32 step ms (host clock, synchronised): {steps}; 2dmamba eval launches {o['eval_launches']}")
+    secs = time.perf_counter() - t0
+    log(f"19 zoo dp: {secs:.1f} s")
+    seen = [o["eval_launches"] for o in outs] + [s["launches"] for o in outs for s in o["steps"].values()]
+    return {"launches": seen, "seconds": secs, "readings": readings, "logits_err": l_err,
+            "k5_err": k5_errs}
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -3751,7 +4028,8 @@ def main():
                          ("15 features", lambda g: phase_features()),
                          ("16 slides", lambda g: phase_slides(done["15 features"]["encoders"])),
                          ("17 dp", lambda g: phase_dp(g, done["8 driver"]["abmil"])),
-                         ("18 sp", lambda g: phase_sp(g, done["17 dp"].pop("ref"), smi))):
+                         ("18 sp", lambda g: phase_sp(g, done["17 dp"].pop("ref"), smi)),
+                         ("19 zoo dp", lambda g: phase_zoo_dp(g, smi))):
         t0 = time.perf_counter()
         res = done[label] = phase(gen)
         for seen in res["launches"]:
@@ -3817,5 +4095,7 @@ if __name__ == "__main__":
         dp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     elif sys.argv[1:2] == ["--sp-rank"]:  # one rank of phase 18, started by phase 18
         sp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+    elif sys.argv[1:2] == ["--zoo-dp-rank"]:  # one rank of phase 19, started by phase 19
+        zoo_dp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     else:
         main()

@@ -101,33 +101,8 @@ def global_norm(model: nn.Module) -> Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-# the models whose steps run under a dp mesh, each held against JAX's mesh step
-DP_MODELS = ("abmil", "gabmil", "meanmil", "maxmil", "transmil")  # the generic step
-DP_BASELINES = ("selfattn", "attn")  # mhim and mhim_pure
-
-
-def dp_supported(cfg) -> bool:
-    """Whether ``cfg``'s train step runs under a mesh of more than one rank:
-    every reduction over the bags of its step goes through the mesh's
-    collectives. ``mhim`` and ``mhim_pure`` with the ``selfattn`` or
-    ``attn`` baseline, and the generic step of ``DP_MODELS``; the others
-    are ROADMAP Queue 1 item 6c."""
-    if cfg.model in ("mhim", "mhim_pure"):
-        return cfg.baseline in DP_BASELINES
-    return cfg.model in DP_MODELS
-
-
 def _model_name(cfg) -> str:
     return cfg.model + (f" --baseline {cfg.baseline}" if cfg.model.startswith("mhim") else "")
-
-
-def check_dp(cfg, dp: int) -> None:
-    """Raise unless ``cfg``'s train step may run under a mesh of ``dp`` ranks."""
-    if dp > 1 and not dp_supported(cfg):
-        raise NotImplementedError(
-            f"--model {_model_name(cfg)} under a dp mesh: its step's reductions over the bags are not routed "
-            f"through the mesh yet (ROADMAP Queue 1 item 6c); dp runs mhim and mhim_pure with {DP_BASELINES} "
-            f"and {DP_MODELS}")
 
 
 # the models whose steps and evaluation run under an sp mesh, each held against JAX's single-device step
@@ -155,12 +130,6 @@ def check_sp(cfg, sp: int) -> None:
             f"--model {_model_name(cfg)} under --mesh_sp {sp}: its couplings over the instances are not "
             f"routed through the mesh's sp collectives yet (ROADMAP Queue 1 item 6d); sp runs mhim and "
             f"mhim_pure with {SP_BASELINES} and {SP_MODELS}")
-
-
-def check_mesh(cfg, mesh) -> None:
-    """Raise unless ``cfg``'s model may run under ``mesh`` (dp, then sp)."""
-    check_dp(cfg, mesh.dp)
-    check_sp(cfg, mesh.sp)
 
 
 def valid_fraction(mask: Tensor) -> Tensor:
@@ -239,10 +208,14 @@ def make_mhim_train_step(
     except the student's mining and merge draws where ``draws`` gives them
     (see ``MHIM.forward``).
 
-    Under an active mesh (``parallel/mesh.py``, :func:`dp_supported`
-    configs) ``batch`` holds this rank's bags and ``draws`` the whole
-    batch's: the gradients are summed over the ranks before the optimizer,
-    and the metrics are the whole batch's.
+    Under an active mesh (``parallel/mesh.py``; every baseline under dp,
+    :func:`sp_supported` configs under sp) ``batch`` holds this rank's bags
+    and ``draws`` the whole batch's: the gradients are summed over the
+    ranks before the optimizer, and the metrics are the whole batch's. The
+    step's couplings over the bags are the criterion's and the consistency
+    loss's weight sums (``_wmean``; MHIM-dsmil's ``[B, 1]`` bag weight
+    against its ``[B, C]`` per-class losses counts each bag once), the
+    Merge's ``global_q`` sums and the draws.
     """
     device = resolve_device(device)
     if cfg.model not in ("mhim", "mhim_pure"):
@@ -270,7 +243,7 @@ def make_mhim_train_step(
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
         mesh = active_mesh()
         if mesh is not None:
-            check_mesh(cfg, mesh)
+            check_sp(cfg, mesh.sp)
         student, teacher, gen = state.model, state.teacher, state.gen
         batch_c = _cast_batch(dtype, batch)
         feats, mask = batch_c["feats"], batch["mask"].bool()
@@ -385,7 +358,14 @@ def make_train_step(
     scan (K5 has no gradient). It updates ``state`` in place and returns
     ``loss``, ``main_loss``, ``aux_loss``, ``pad_ratio`` and, under
     ``wandb_watch``, the ``grad_norm/<module>`` meters, as 0-d tensors.
-    Under an active mesh, as in :func:`make_mhim_train_step`."""
+    Under an active mesh, as in :func:`make_mhim_train_step`: every model
+    runs under dp. The couplings over the bags are the criterion's weight
+    sum, and with it those of DSMIL's instance loss, DTFD's pseudo-bag loss
+    (each rank's filled pseudo-bags of its real bags) and 2dmamba's
+    survival loss (``_wmean``); CLAM's instance loss divides by the whole
+    batch's count of bags with a valid instance (``models/clam.py``); every
+    dropout mask is the global draw's rows; IBMIL's confounder bank is a
+    buffer, broadcast from rank 0 with the weights (``replicate_tree``)."""
     device = resolve_device(device)
     if family not in TRAIN_FAMILIES:
         raise NotImplementedError(f"family={family!r}: the generic train step is ported for {TRAIN_FAMILIES}")
@@ -397,7 +377,7 @@ def make_train_step(
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
         mesh = active_mesh()
         if mesh is not None:
-            check_mesh(cfg, mesh)
+            check_sp(cfg, mesh.sp)
         model = state.model
         feats = _cast_batch(dtype, batch)["feats"]
         extra, kw = _forward_inputs(model, family, batch)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import NEG_INF, masked_softmax
+from ..parallel.mesh import batch_sum
 from .layers import Dropout, dense, get_act
 
 
@@ -118,7 +119,10 @@ class CLAM(nn.Module):
         """The clustering-constrained instance loss (``clam.py:96-146``): per
         class, the top-k attended valid instances should classify as in-class
         and the bottom-k as out; with ``subtyping`` the other classes' top-k
-        as out. A mean over the bags that hold a valid instance."""
+        as out. A mean over the bags that hold a valid instance: under an
+        active mesh this rank's sum over the whole batch's count of such
+        bags (``batch_sum``), so that the ranks' terms add up to the
+        one-process mean, as ``engine/losses._wmean`` weighs the criterion."""
         b = h.shape[0]
         c, k = self.n_classes, self.k_sample
         a = attn_logits if attn_logits.shape[-1] == c else attn_logits.repeat_interleave(c, dim=-1)
@@ -146,7 +150,7 @@ class CLAM(nn.Module):
         if self.subtyping:
             total = total / c
         valid_bag = mask.any(dim=-1).float()
-        return (total * valid_bag).sum() / valid_bag.sum().clamp_min(1.0)
+        return (total * valid_bag).sum() / batch_sum(valid_bag.sum()).clamp_min(1.0)
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor, label: Optional[torch.Tensor] = None,
                 training: bool = False, gen: Optional[torch.Generator] = None, return_attn: bool = False):

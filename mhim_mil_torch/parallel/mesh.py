@@ -13,16 +13,21 @@ themselves:
 
 - the pseudo-inverse's initial scale, a max over the whole batch
   (``ops/nystrom.py`` ``pinv_start``): :func:`batch_max`;
-- the weight sums of the losses (``engine/losses.py`` ``_wmean``) and of
-  the Merge's ``global_q_mm`` EMA (``models/merge.py``): :func:`batch_sum`,
-  each bag counted on the sp rank that holds its first token
-  (:func:`owner_weight`);
+- the weight sums of the losses (``engine/losses.py`` ``_wmean``: the
+  criterion, DSMIL's instance loss, DTFD's pseudo-bag loss, the survival
+  loss, MHIM's consistency loss with MHIM-dsmil's per-class terms), of
+  the Merge's ``global_q_mm`` EMA (``models/merge.py``) and CLAM's count
+  of the bags its instance loss averages over (``models/clam.py``):
+  :func:`batch_sum`, each bag counted on the sp rank that holds its first
+  token (:func:`owner_weight`);
 - every random draw of the step (dropout, mining, the merge split): each
   rank draws the global shape and keeps its rows and, along a sharded
   instance axis, its columns (:func:`rand_rows`), so that a mesh run draws
   what a one-process run draws;
 - the gradients, summed over the dp·sp ranks before the optimizer
-  (:func:`all_reduce_grads`);
+  (:func:`all_reduce_grads`); the weights, buffers (IBMIL's confounder
+  bank, Merge's ``global_q``) and optimizer state, broadcast from rank 0
+  before the first step (:func:`replicate_tree`);
 - the evaluation's logits (:func:`gather_rows`, over a dp column);
 - along the instance axis, over an sp row: sums and maxes
   (:func:`sp_sum`, :func:`sp_max`; the landmark means, the softmaxes over

@@ -1,5 +1,6 @@
 """One rank of a data- or sequence-parallel world of the port, for
-tests/test_torch_parallel.py and tests/test_torch_sp.py.
+tests/test_torch_parallel.py, tests/test_torch_parallel_zoo.py and
+tests/test_torch_sp.py.
 
     python -m torch.distributed.run --nproc_per_node W tests/torch_dp_worker.py IN.npz OUT.npz
 
@@ -17,9 +18,15 @@ are ``IN.npz``'s ``<case>/<name>``; rank 0 writes its results to
   metrics (``m/<key>``), the student (``s/<key>``), the teacher
   (``t/<key>``) and Adam's first moments (``g/<key>``) after it.
   ``dropout`` false patches the port's dropout to the identity. ``control`` keeps one coupling per rank: ``pinv`` the
-  pseudo-inverse's initial scale, ``wmean`` the losses' weight sum;
+  pseudo-inverse's initial scale, ``wmean`` the losses' weight sum,
+  ``clam_count`` the count of bags CLAM's instance loss averages over.
+  ``attrs`` sets attributes of the model after it is built (CLAM's
+  ``subtyping``); ``scramble`` names state tensors that the ranks past 0
+  overwrite before ``replicate_tree``, which must restore rank 0's;
 - ``forward_test``: the MHIM logits of the global batch, gathered;
-- ``eval``: ``evaluate``'s row over ``make_synthetic_dataset``'s slides;
+- ``eval``: ``evaluate``'s row over ``make_synthetic_dataset``'s slides
+  (``make_synthetic_survival_dataset``'s with ``survival``): its AUC and
+  accuracy or its c-index, and the logits (DSMIL's fused);
 - ``raises``: ``mhim_mil_torch.main.main(argv)``; the error's type and
   message;
 - ``ops``: one op of the sequence-parallel path (``op``: ``landmark``,
@@ -50,7 +57,7 @@ from mhim_mil_torch.engine import losses
 from mhim_mil_torch.ops import flash_nystrom
 from mhim_mil_torch.engine.steps import make_mhim_train_step, make_train_step
 from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
-from mhim_mil_torch.models import build_model, layers
+from mhim_mil_torch.models import build_model, clam, layers
 from mhim_mil_torch.ops import nystrom
 from mhim_mil_torch.parallel import make_mesh, replicate_tree, shard_batch
 from mhim_mil_torch.parallel.mesh import gather_rows
@@ -65,11 +72,16 @@ def _model(spec, data):
     cfg = load_config([], **spec["cfg"])
     model, family = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in _group(data, spec["name"], "w").items()})
+    for k, v in spec.get("attrs", {}).items():
+        setattr(model, k, v)
     return cfg, model, family
 
 
 def _step(spec, data, mesh, out):
     cfg, model, family = _model(spec, data)
+    if mesh.rank:
+        for k in spec.get("scramble", ()):
+            model.state_dict()[k].fill_(float(mesh.rank))
     batch = shard_batch(mesh, _group(data, spec["name"], "batch"))
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
     spe = spec["spe"]
@@ -111,14 +123,16 @@ def _forward_test(spec, data, mesh, out):
 
 
 def _eval(spec, data, mesh, out):
-    from mhim_mil_torch.data.synthetic import make_synthetic_dataset
+    from mhim_mil_torch.data.synthetic import make_synthetic_dataset, make_synthetic_survival_dataset
     from mhim_mil_torch.engine.driver import device_eval_batches, evaluate
 
     cfg, model, family = _model(spec, data)
-    slides = make_synthetic_dataset(**spec["slides"])
+    slides = (make_synthetic_survival_dataset if spec.get("survival") else make_synthetic_dataset)(**spec["slides"])
     with mesh:
         row = evaluate(cfg, model, family, device_eval_batches(cfg, slides, "cpu", mesh), 0, False)
-    out["auc"], out["acc"] = np.asarray(row["auc"]), np.asarray(row["acc"])
+    for k in ("auc", "acc", "cindex"):
+        if k in row:
+            out[k] = np.asarray(row[k])
     out["logits"] = np.asarray(row["_logits"])
 
 
@@ -195,7 +209,8 @@ def _row_once(x):
 
 CONTROLS = {"pinv": [(nystrom, "batch_max", lambda x: x)], "wmean": [(losses, "batch_sum", lambda x: x)],
             "k1_unmerged": [(flash_nystrom, "merge_pass_a", lambda a, m, s: (a, m, s))],
-            "loss_every_rank": [(losses, "owner_weight", lambda: 1.0), (losses, "batch_sum", _row_once)]}
+            "loss_every_rank": [(losses, "owner_weight", lambda: 1.0), (losses, "batch_sum", _row_once)],
+            "clam_count": [(clam, "batch_sum", lambda x: x)]}
 
 
 def main():
