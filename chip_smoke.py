@@ -16,7 +16,8 @@ diagnostic variants and the in-step breakdown and HBM tools; then the
 serving export bundle; then feature extraction, from a synthetic slide to
 the flagship's score; then the slide readers, from the slide's files to its
 attention; then data parallelism over bags; then sequence parallelism over
-instances; then data parallelism over bags for the rest of the zoo.
+instances; then data parallelism over bags for the rest of the zoo; then
+sequence parallelism for the scan families.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -206,13 +207,28 @@ Phases, each of which fails the run:
    67 GB a bag), then its eval step with ``pos`` on the BLCA grid through
    K5 on each rank's bag, the gathered logits within 1e-4·max|ref| of one
    process's K5 path and each rank's K5 output within 1e-4·max(1,
-   max|ref|) of the plain scan; each rank's step ms.
+   max|ref|) of the plain scan; each rank's step ms;
+20. sequence parallelism for the scan families: two processes of this
+   script sharing the card in a gloo world, ``make_mesh(dp=1, sp=2)``: (a)
+   2dmamba's eval step on phase 19's two BLCA bags, each rank a band of
+   whole grid rows (138 and 137) through K5, the state entering the second
+   band carried from the first (one K5 launch on rank 0, two on rank 1),
+   the gathered logits within 1e-4·max|ref| of phase 19's one-process K5
+   path, each K5 call within 1e-4·max(1, max|ref|) of the plain scan from
+   the same state, and the bands scanned without the carry outside that
+   tolerance; (b) 2dmamba's fp32 train step on the raster grid and (c)
+   mambamil's three variants' on the ragged zoo batch, against phase 19's
+   one-process steps at 17c's tolerances, with each rank's step ms and
+   peak memory beside one process's.
 
-Phase 3 also holds K6, the gate's probe, against its plain version, and K5
+Phase 3 also holds K6, the gate's probe, against its plain version, K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
-columns). Phases 4-19 each reset the launch counts before their main-path
-runs and read them after (17c's, 18's and 19's ranks in their own processes); the kernels' launches are the sums of those
-readings, plus the K6 launches of the gate's probe.
+columns), and K5 from a carried state (``scan2d_carry``: y and h_last
+against the plain scan from the same random h0 on a BLCA band of 138
+rows, and on rows of 1,500 and 4,200 columns). Phases 4-20 each reset the
+launch counts before their main-path runs and read them after (17c's,
+18's, 19's and 20's ranks in their own processes); the kernels' launches
+are the sums of those readings, plus the K6 launches of the gate's probe.
 
 The line before the last lists the kernels as JSON; the last line is the
 run's JSON verdict. Any failure exits nonzero before it.
@@ -1017,17 +1033,19 @@ def phase_k1b(gen) -> dict:
     return {"K1b": r}
 
 
-def k5_bounds(x, a_log):
+def k5_bounds(x, a_log, carry: bool = False):
     """K5's least time: x and Δ read and y written (fp32) once per
-    (cell, channel), B and C once per cell; the exponentials ā, one per
-    (cell, channel, state), on the special-function units; 8 FLOPs per
-    (cell, channel, state) on the fp32 pipes (Δ·a, b̄x, the two recurrences'
-    FMAs, the contraction with C). Returns the bound, what sets it and the
-    three times."""
+    (cell, channel), B and C once per cell (with ``carry``, h0 read and
+    h_last written once per (column, channel, state) too); the exponentials
+    ā, one per (cell, channel, state), on the special-function units; 8
+    FLOPs per (cell, channel, state) on the fp32 pipes (Δ·a, b̄x, the two
+    recurrences' FMAs, the contraction with C). Returns the bound, what
+    sets it and the three times."""
     bs, h, w, ed = x.shape
     n = a_log.shape[-1]
     cells = bs * h * w
     nbytes = 2 * cells * ed * x.element_size() + cells * ed * F32 + 2 * cells * n * x.element_size()
+    nbytes += 2 * bs * w * ed * n * F32 if carry else 0
     lanes = cells * ed * n
     t = {"bytes": nbytes / PEAK_BYTES * 1e3, "exp": lanes / PEAK_EXP * 1e3,
          "fma": 8 * lanes / PEAK_FP32_FLOPS * 1e3}
@@ -1108,6 +1126,34 @@ def phase_k5(gen) -> dict:
         log(f"K5 [wide {w}] Bs=1 H=64 W={w} ED=256 N=16 fp32: max|d| {err:.3e} (rtol 1e-4, atol 1e-5); "
             f"kernel {fmt_ms(r_w, '')}, bound {bound_ms:.4f} ms ({bound_by})")
         del ops, got
+        torch.cuda.empty_cache()
+    # K5 with a carried state (the scan2d_carry op, phase 20's path): from a
+    # random h0, writing the last row's state, y and h_last against the
+    # plain scan from the same h0; a BLCA band of 138 rows on the cluster
+    # kernel, and rows of 1,500 and 4,200 columns on the wide kernel (the h
+    # of its third chunk on in shared memory, then in the global scratch).
+    # Their operands come from a generator of their own, so that the later
+    # phases draw what they drew before these rows were added
+    r["carry"] = {}
+    carry_gen = torch.Generator(device="cuda").manual_seed(24)
+    for label, h, w in (("BLCA band", 138, 381), ("wide 1,500", 64, 1500), ("wide 4,200", 64, 4200)):
+        ops = operands(1, h, w, torch.float32, carry_gen)
+        h0 = torch.randn(1, w, 256, 16, device="cuda", generator=carry_gen)
+        y, last = scan2d.scan2d_carry(*ops, h0)
+        torch.cuda.synchronize()
+        want_y, want_last = scan2d.scan2d_carry_plain(*ops, h0)
+        err = max(check_close(f"K5 carry [{label}] y", y, want_y, 1e-4, 1e-5),
+                  check_close(f"K5 carry [{label}] h_last", last, want_last, 1e-4, 1e-5))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r_c = {}
+        timed(r_c, lambda: scan2d.scan2d_carry(*ops, h0), None)
+        bound_ms, bound_by, _ = k5_bounds(ops[0], ops[2], carry=True)
+        r["carry"][label] = {"ms": r_c["ms"], "device_ms": r_c["device_ms"], "bound_ms": bound_ms,
+                             "bound_by": bound_by, "max_abs_err": err}
+        log(f"K5 carry [{label}] Bs=1 H={h} W={w} ED=256 N=16 fp32, h0 and h_last [1, {w}, 256, 16]: y and h_last "
+            f"max|d| {err:.3e} (rtol 1e-4, atol 1e-5); kernel {fmt_ms(r_c, '')}, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        del ops, h0, y, last, want_y, want_last
         torch.cuda.empty_cache()
     return {"K5": r}
 
@@ -3941,8 +3987,12 @@ def phase_zoo_dp(gen, smi: str) -> dict:
             model, family, state = zoo_dp_state(cfg, init)
             key = "2dmamba" if name == "2dmamba" else "zoo"
             batch = {k: v.to("cuda") for k, v in batches[key].items()}
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             m, ms, _ = zoo_dp_step(f"19 {name} one-process fp32 step", cfg, family, state, batch)
+            peak = torch.cuda.max_memory_allocated()
             refs[name] = {"metrics": m, "ms": ms, "lr": float(state.optimizer.lr_schedule(0)), "model": model,
+                          "peak_gib": peak / 2**30, "step_gib": (peak - held) / 2**30,
                           "student": {k: v.cpu() for k, v in model.state_dict().items()},
                           "teacher": None if state.teacher is None else
                           {k: v.cpu() for k, v in state.teacher.state_dict().items()}}
@@ -3967,25 +4017,12 @@ def phase_zoo_dp(gen, smi: str) -> dict:
     r0 = outs[0]
     readings = {}
     for name, ref in refs.items():
-        got, m_ref, lr = r0["steps"][name], ref["metrics"], ref["lr"]
-        d_loss = abs(got["metrics"]["loss"] - m_ref["loss"])
-        g_err = zoo_dp_grad_err(got["grads"], ref["model"])
-        p_err = max((got["student"][k] - v).abs().max().item() for k, v in ref["student"].items())
-        t_err = 0.0 if ref["teacher"] is None else max((got["teacher"][k] - v).abs().max().item()
-                                                       for k, v in ref["teacher"].items() if k != "merge.global_q_mm")
-        log(f"19 {name} under dp 2 ({got['bags']} of {2 * got['bags']} bags a rank) against one process: loss "
-            f"{got['metrics']['loss']:.9g} against {m_ref['loss']:.9g}, |d| {d_loss:.3e} (tolerance 2e-5 * |loss|); "
-            f"aux_loss {got['metrics']['aux_loss']:.6g} against {m_ref['aux_loss']:.6g}; gradients after the "
-            f"all-reduce max|d|/max|ref| {g_err:.3e} (tolerance 1e-4); student (buffers among them) max|d| "
-            f"{p_err:.3e}, teacher {t_err:.3e} (tolerance 2·lr = {2 * lr:.3e})")
-        if not math.isfinite(d_loss) or d_loss > 2e-5 * abs(m_ref["loss"]):
-            fail(f"19 {name}: the dp step's loss disagrees with the one-process step")
-        if g_err > 1e-4 or max(p_err, t_err) > 2 * lr:
-            fail(f"19 {name}: the dp step's gradients or update disagree with the one-process step")
+        got = r0["steps"][name]
+        readings[name] = zoo_step_check("19", f"{name} under dp 2 ({got['bags']} of {2 * got['bags']} bags a rank)",
+                                        ref, got)
+        readings[name]["rank_ms"] = [o["steps"][name]["ms"] for o in outs]
         if name in ZOO_DP_AUX and not got["metrics"]["aux_loss"] > 0:
             fail(f"19 {name}: no aux loss was paid")
-        readings[name] = {"loss_err": d_loss, "grad_rel_err": g_err, "param_err": p_err, "teacher_err": t_err,
-                          "one_process_ms": ref["ms"], "rank_ms": [o["steps"][name]["ms"] for o in outs]}
     l_err = (r0["logits"] - ref_logits).abs().max().item()
     k5_errs, k5_tols = [o["k5_err"] for o in outs], [1e-4 * o["k5_scale"] for o in outs]
     l_tol = 1e-4 * ref_logits.abs().max().item()
@@ -4004,8 +4041,212 @@ def phase_zoo_dp(gen, smi: str) -> dict:
     secs = time.perf_counter() - t0
     log(f"19 zoo dp: {secs:.1f} s")
     seen = [o["eval_launches"] for o in outs] + [s["launches"] for o in outs for s in o["steps"].values()]
+    sp_ref = {"refs": {name: refs[name] for name in SCAN_SP}, "cases": {name: cases[name] for name in SCAN_SP},
+              "batches": {k: batches[k] for k in ("zoo", "2dmamba", "2dmamba_eval")}, "logits": ref_logits}
     return {"launches": seen, "seconds": secs, "readings": readings, "logits_err": l_err,
-            "k5_err": k5_errs}
+            "k5_err": k5_errs, "sp_ref": sp_ref}
+
+
+def zoo_step_check(phase: str, label: str, ref: dict, got: dict) -> dict:
+    """A rank 0's step (``got``: metrics, gradients after the all-reduce,
+    student, teacher) against the one-process step ``ref`` at 17c's
+    tolerances (loss rtol 2e-5, gradients within 1e-4 of max|g|, student
+    and teacher within 2·lr); logs and returns the errors."""
+    m_ref, lr = ref["metrics"], ref["lr"]
+    d_loss = abs(got["metrics"]["loss"] - m_ref["loss"])
+    g_err = zoo_dp_grad_err(got["grads"], ref["model"])
+    p_err = max((got["student"][k] - v).abs().max().item() for k, v in ref["student"].items())
+    t_err = 0.0 if ref["teacher"] is None else max((got["teacher"][k] - v).abs().max().item()
+                                                   for k, v in ref["teacher"].items() if k != "merge.global_q_mm")
+    log(f"{phase} {label} against one process: loss {got['metrics']['loss']:.9g} against {m_ref['loss']:.9g}, |d| "
+        f"{d_loss:.3e} (tolerance 2e-5 * |loss|); aux_loss {got['metrics']['aux_loss']:.6g} against "
+        f"{m_ref['aux_loss']:.6g}; gradients after the all-reduce max|d|/max|ref| {g_err:.3e} (tolerance 1e-4); "
+        f"student (buffers among them) max|d| {p_err:.3e}, teacher {t_err:.3e} (tolerance 2·lr = {2 * lr:.3e})")
+    if not math.isfinite(d_loss) or d_loss > 2e-5 * abs(m_ref["loss"]):
+        fail(f"{phase} {label}: the step's loss disagrees with the one-process step")
+    if g_err > 1e-4 or max(p_err, t_err) > 2 * lr:
+        fail(f"{phase} {label}: the step's gradients or update disagree with the one-process step")
+    return {"loss_err": d_loss, "grad_rel_err": g_err, "param_err": p_err, "teacher_err": t_err,
+            "one_process_ms": ref["ms"]}
+
+
+# ---- phase 20: sequence parallelism for the scan families ----------------------------------------
+
+SCAN_SP_WORLD = 2  # processes of 20, sharing the one card: dp 1 x sp 2
+SCAN_SP_TIMEOUT_S = 400
+SCAN_SP = ("2dmamba", *(f"mambamil_{v}" for v, _ in MAMBAMIL))  # phase 19's cases, held to its one-process steps
+
+
+def scan_sp_k5_probe(records: list):
+    """Wrap K5's carried-state wrapper (``ops/scan2d.scan2d_carry``) so that
+    each call records its operands (``h0`` among them) and outputs in
+    ``records``; returns the undo."""
+    from mhim_mil_torch.ops import scan2d
+
+    orig = scan2d.scan2d_carry
+
+    def probe(*args):
+        y, last = orig(*args)
+        records.append((args, y, last))
+        return y, last
+
+    scan2d.scan2d_carry = probe
+    return lambda: setattr(scan2d, "scan2d_carry", orig)
+
+
+def scan_sp_worker(rank: int, tmp: str, port: int):
+    """One rank of phase 20, in a process of its own: a gloo world of
+    SCAN_SP_WORLD processes on the one card, ``make_mesh(dp=1, sp=2)``,
+    each rank holding its block of every bag's instances. 20a: 2dmamba's
+    eval step on phase 19's two BLCA bags with ``pos``, this rank's band of
+    grid rows through K5 (a second launch from the carried state on the
+    band below the first), each K5 call's y and h_last held against the
+    plain scan from the same state, then the same step with no state
+    carried (the control); 20b and 20c: the fp32 train step of 2dmamba on
+    the bags' raster grid and of mambamil's three variants on the ragged
+    zoo batch, with the step's ms and peak memory. Writes
+    ``tmp/rank<rank>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from mhim_mil_torch.engine.steps import make_eval_step
+    from mhim_mil_torch.ops import scan2d
+    from mhim_mil_torch.parallel import make_mesh, replicate_tree, shard_batch
+    from mhim_mil_torch.parallel.mesh import gather_rows
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=SCAN_SP_WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=SCAN_SP_TIMEOUT_S))
+    mesh = make_mesh(dp=1, sp=SCAN_SP_WORLD)
+    out = {"rank": rank, "steps": {}}
+    case = inputs["cases"]["2dmamba"]
+    model, family, _ = zoo_dp_state(case["cfg"], case["init"])
+    batch = {k: v.to("cuda") for k, v in shard_batch(mesh, inputs["batches"]["2dmamba_eval"]).items()}
+    step = make_eval_step(case["cfg"], model, family)
+    records: list = []
+    undo = scan_sp_k5_probe(records)
+    try:
+        with mesh:
+            reset_launches()
+            t0 = time.perf_counter()
+            logits = gather_rows(step(batch)["logits"])
+            torch.cuda.synchronize()
+            out["eval_ms"] = (time.perf_counter() - t0) * 1e3
+            out["eval_launches"] = expect_launches(f"20a rank {rank} 2dmamba eval step", K5=1 if rank == 0 else 2)
+    finally:
+        undo()
+    out["k5"] = []
+    for args, y, last in records:
+        with torch.inference_mode():  # the operands are the eval step's inference tensors
+            want_y, want_last = scan2d.scan2d_carry_plain(*args)
+        err = max((y - want_y).abs().max().item(), (last - want_last).abs().max().item())
+        scale = max(1.0, want_y.abs().max().item(), want_last.abs().max().item())
+        out["k5"].append({"err": err, "scale": scale, "shape": tuple(y.shape),
+                          "carried": len(args) > 6 and args[6] is not None})
+        if not (torch.isfinite(y).all() and torch.isfinite(last).all()) or err > 1e-4 * scale:
+            fail(f"20a rank {rank}: K5's output misses the plain scan from the same state by {err:.3e} (tolerance "
+                 f"1e-4 * max(1, max|ref|) = {1e-4 * scale:.3e})")
+    del records
+    orig = scan2d.sp_carry
+    scan2d.sp_carry = lambda decay, state, seq: torch.zeros_like(state)  # the control: every band from zero
+    try:
+        with mesh:
+            control = gather_rows(step(batch)["logits"])
+    finally:
+        scan2d.sp_carry = orig
+    if rank == 0:
+        out["logits"], out["control"] = logits.cpu(), control.cpu()
+    del model, step, batch
+    torch.cuda.empty_cache()
+    for name in SCAN_SP:
+        case = inputs["cases"][name]
+        cfg = case["cfg"]
+        model, family, state = zoo_dp_state(cfg, case["init"])
+        batch = {k: v.to("cuda") for k, v in shard_batch(mesh, inputs["batches"][case["batch"]]).items()}
+        replicate_tree(mesh, state)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with mesh:
+            m, ms, seen = zoo_dp_step(f"20 rank {rank} {name} fp32 step", cfg, family, state, batch)
+        peak = torch.cuda.max_memory_allocated()
+        res = {"metrics": m, "ms": ms, "launches": seen, "tokens": int(batch["feats"].shape[1]),
+               "peak_gib": peak / 2**30, "step_gib": (peak - held) / 2**30}
+        if rank == 0:
+            res["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            res["student"] = {k: v.cpu() for k, v in model.state_dict().items()}
+            res["teacher"] = None
+        out["steps"][name] = res
+        del model, state, batch
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_scan_sp(sp_ref: dict, smi: str) -> dict:
+    """Phase 20: sequence parallelism for the scan families: SCAN_SP_WORLD
+    processes of this script share the card in a gloo world,
+    ``make_mesh(dp=1, sp=2)``, each holding one block of every bag's
+    instances. (a) 2dmamba's eval step on phase 19's two 20,000-instance
+    bags with ``pos`` on the 275 × 381 BLCA grid, each rank a band of whole
+    rows (138 and 137) through K5, the state entering the second band
+    carried from the first (one K5 launch on rank 0, two on rank 1): the
+    gathered logits within 1e-4·max|ref| of phase 19's one-process K5 path,
+    each K5 call's y and h_last within 1e-4·max(1, max|ref|) of the plain
+    scan from the same state, and the control without the carry outside
+    the logits' tolerance; (b) 2dmamba's fp32 train step on the two bags'
+    raster grid, the plain scan carried across the bands under autograd,
+    each rank's peak memory beside one process's; (c) the fp32 train step
+    of mambamil's simple, srmamba and bimamba variants on the ragged 4 ×
+    10,240 batch. (b) and (c) against phase 19's one-process steps at
+    17c's tolerances; each rank's step ms beside the card's name and power
+    limit."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_sp_") as tmp:
+        torch.save({"cases": sp_ref["cases"], "batches": sp_ref["batches"]}, os.path.join(tmp, "inputs.pt"))
+        outs = rank_processes("--scan-sp-rank", SCAN_SP_WORLD, SCAN_SP_TIMEOUT_S, "20", tmp)
+    r0, ref_logits = outs[0], sp_ref["logits"]
+    l_tol = 1e-4 * ref_logits.abs().max().item()
+    l_err = (r0["logits"] - ref_logits).abs().max().item()
+    c_err = (r0["control"] - ref_logits).abs().max().item()
+    k5 = [(o["rank"], k) for o in outs for k in o["k5"]]
+    mcfg = sp_ref["cases"]["2dmamba"]["cfg"]
+    log(f"20a 2dmamba eval under dp 1 x sp 2 (both bags' bands of the {mcfg.mamba_2d_max_h} x {mcfg.mamba_2d_max_w} "
+        f"grid a rank, K5 on each) against phase 19's one-process K5 path: logits max|d| {l_err:.3e} (tolerance "
+        f"1e-4 * max|ref| = {l_tol:.3e}); "
+        f"without the carry (control) {c_err:.3e}, which must miss; K5 calls (rank, y shape, from a carried state, "
+        f"y and h_last max|d| against the plain scan from the same state, tolerance 1e-4 * max(1, max|ref|)): "
+        + "; ".join(f"{r}, {k['shape']}, {k['carried']}, {k['err']:.3e} ({1e-4 * k['scale']:.3e})" for r, k in k5))
+    if not torch.isfinite(r0["logits"]).all() or not l_err <= l_tol:
+        fail("20a: the sp eval's logits disagree with one process's")
+    if not c_err > l_tol:
+        fail("20a: the control without the carry agrees with one process: the check cannot see the carry")
+    readings = {}
+    for name in SCAN_SP:
+        ref, got = sp_ref["refs"][name], r0["steps"][name]
+        readings[name] = zoo_step_check("20", f"{name} under dp 1 x sp 2 ({got['tokens']} instance slots a rank)",
+                                        ref, got)
+        readings[name].update(rank_ms=[o["steps"][name]["ms"] for o in outs],
+                              rank_peak_gib=[o["steps"][name]["peak_gib"] for o in outs],
+                              rank_step_gib=[o["steps"][name]["step_gib"] for o in outs],
+                              one_process_peak_gib=ref["peak_gib"], one_process_step_gib=ref["step_gib"])
+    for o in outs:
+        steps = ", ".join(f"{n} {s['ms']:.2f} ms, peak {s['peak_gib']:.2f} GiB ({s['step_gib']:.2f} above what the "
+                          f"rank held)" for n, s in o["steps"].items())
+        log(f"20 rank {o['rank']} on {smi} (one of {SCAN_SP_WORLD} processes sharing one card; not a scaling figure): "
+            f"eval {o['eval_ms']:.2f} ms, launches {o['eval_launches']}; fp32 steps (host clock, synchronised): "
+            f"{steps}")
+    log("20 one process (phase 19): " + ", ".join(
+        f"{n} {sp_ref['refs'][n]['ms']:.2f} ms, peak {sp_ref['refs'][n]['peak_gib']:.2f} GiB "
+        f"({sp_ref['refs'][n]['step_gib']:.2f} above what it held)" for n in SCAN_SP))
+    secs = time.perf_counter() - t0
+    log(f"20 scan sp: {secs:.1f} s")
+    seen = [o["eval_launches"] for o in outs] + [s["launches"] for o in outs for s in o["steps"].values()]
+    return {"launches": seen, "seconds": secs, "readings": readings, "logits_err": l_err, "control_err": c_err,
+            "k5": k5}
 
 
 def main():
@@ -4029,7 +4270,8 @@ def main():
                          ("16 slides", lambda g: phase_slides(done["15 features"]["encoders"])),
                          ("17 dp", lambda g: phase_dp(g, done["8 driver"]["abmil"])),
                          ("18 sp", lambda g: phase_sp(g, done["17 dp"].pop("ref"), smi)),
-                         ("19 zoo dp", lambda g: phase_zoo_dp(g, smi))):
+                         ("19 zoo dp", lambda g: phase_zoo_dp(g, smi)),
+                         ("20 scan sp", lambda g: phase_scan_sp(done["19 zoo dp"].pop("sp_ref"), smi))):
         t0 = time.perf_counter()
         res = done[label] = phase(gen)
         for seen in res["launches"]:
@@ -4060,7 +4302,8 @@ def main():
         "K1b": ("flash_nystrom_pass_a_bwd (k1b_kernel: landmark and key blocks in one grid), K3's backward of "
                 "K1's pass", "mhim_mil_torch/csrc/flash_nystrom_k1b.cu", "mhim_mil_tpu/ops/pallas_nystrom.py:280"),
         "K4": ("abmil_pool", "mhim_mil_torch/csrc/abmil_pool.cu", "mhim_mil_tpu/ops/pallas_abmil.py:42"),
-        "K5": ("scan2d (scan2d_cluster_kernel; scan2d_wide_kernel above 1,152 columns)",
+        "K5": ("scan2d and scan2d_carry (scan2d_cluster_kernel; scan2d_wide_kernel above 1,152 columns; from a "
+               "carried state h0, writing h_last, on the sp bands)",
                "mhim_mil_torch/csrc/scan2d.cu", "mhim_mil_tpu/ops/pallas_scan2d.py:56"),
         "K6": ("probe", "mhim_mil_torch/csrc/probe.cu", "mhim_mil_tpu/utils/pallas_gate.py:37"),
     }
@@ -4078,7 +4321,7 @@ def main():
         }
         for key in ("bound_parts_ms", "batch1", "dh128", "dh256", "dh192", "no_attn", "cls", "s3", "library", "bf16",
                     "serving", "serving_bf16", "backward", "product", "vjp_max_abs_err", "cuda_records_in_5_calls",
-                    "empty_launch_device_ms", "long", "long_ragged", "k3_long", "stress"):
+                    "empty_launch_device_ms", "long", "long_ragged", "k3_long", "stress", "carry"):
             if key in r:
                 row[key] = r[key]
         if kid == "K3":
@@ -4097,5 +4340,7 @@ if __name__ == "__main__":
         sp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     elif sys.argv[1:2] == ["--zoo-dp-rank"]:  # one rank of phase 19, started by phase 19
         zoo_dp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+    elif sys.argv[1:2] == ["--scan-sp-rank"]:  # one rank of phase 20, started by phase 20
+        scan_sp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     else:
         main()

@@ -9,7 +9,17 @@
 //   h[r, c] = ā·h[r−1, c] + u[r, c]        (vertical, across rows)
 //   y[r, c, e] = Σ_n h·C[n] + D[e]·x
 // x, Δ are [Bs, H, W, ED] and B, C [Bs, H, W, N] (fp32, or bf16 converted in
-// registers); y is fp32. Ā, B̄x, u and h never touch device memory.
+// registers); y is fp32. Ā, B̄x, u and h never touch device memory, except
+// at the two ends of the row loop: the C entry scan2d_carry takes an fp32
+// h0[Bs, W, ED, N], the vertical state entering the first row (h[−1, c] in
+// the recurrence above; null: zero), and writes the last row's h into
+// h_last[Bs, W, ED, N] (null: not written). Since the vertical step is
+// elementwise per column, a band of rows depends on the rows above it only
+// through that one row of state: a grid whose rows are split into bands
+// over several processes is scanned band by band, each from the state the
+// bands above hand it (mhim_mil_torch/ops/scan2d.py `scan2d_carry`). Each
+// thread reads and writes its own columns' N states once, 6.2 MB each way
+// at the BLCA grid's width beside x, Δ and y's 107 MB.
 //
 // Bound at the BLCA grid (Bs 1, H 275, W 381, ED 256, N 16, fp32): x, Δ and
 // y move 107 MB each and B, C 6.7 MB each, 335 MB or 0.10 ms at 3.35 TB/s;
@@ -139,8 +149,9 @@ __global__ void __launch_bounds__(G == 4 ? 192 : 128, G == 4 ? 2 : 3)  // block_
 scan2d_cluster_kernel(const T* __restrict__ x, const T* __restrict__ delta,
                       const T* __restrict__ Bm, int64_t b_cs, const T* __restrict__ Cm,
                       int64_t c_cs, const float* __restrict__ A_log,
-                      const float* __restrict__ Dv, float* __restrict__ y, int H, int W, int ED,
-                      int S, int P) {
+                      const float* __restrict__ Dv, float* __restrict__ y,
+                      const float* __restrict__ h0, float* __restrict__ h_last, int H, int W,
+                      int ED, int S, int P) {
   using V = typename Vec<N>::type;
   constexpr int R = RUN, NS = stage_stride(N), NG = N * G, RS = (N + 1) * G;
   constexpr int VW = Vec<N>::width, NV = N / VW;
@@ -197,11 +208,14 @@ scan2d_cluster_kernel(const T* __restrict__ x, const T* __restrict__ delta,
     }
   };
 
-  float h[R][N];
+  float h[R][N];  // from h0 where given: h0 and h_last are [Bs, W, ED, N]
 #pragma unroll
-  for (int k = 0; k < R; ++k)
+  for (int k = 0; k < R; ++k) {
+    const int c = c_run + k;
+    const float* h0k = h0 && ch && c < W ? h0 + (((int64_t)bag * W + c) * ED + e) * N : nullptr;
 #pragma unroll
-    for (int n = 0; n < N; ++n) h[k][n] = 0.f;
+    for (int n = 0; n < N; ++n) h[k][n] = h0k ? h0k[n] : 0.f;
+  }
 
   load_row(0);
   stage_row(0);
@@ -345,6 +359,17 @@ scan2d_cluster_kernel(const T* __restrict__ x, const T* __restrict__ delta,
     }
     __syncthreads();  // the run prefixes and the carry are read; the next row may write them
   }
+  if (h_last) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int c = c_run + k;
+      if (ch && c < W) {
+        float* hl = h_last + (((int64_t)bag * W + c) * ED + e) * N;
+#pragma unroll
+        for (int n = 0; n < N; ++n) hl[n] = h[k][n];
+      }
+    }
+  }
   // no block leaves while another may still read its tot
   if (S > 1) cg::this_cluster().sync();
 }
@@ -359,7 +384,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
 scan2d_wide_kernel(const T* __restrict__ x, const T* __restrict__ delta,
                    const T* __restrict__ Bm, int64_t b_cs, const T* __restrict__ Cm, int64_t c_cs,
                    const float* __restrict__ A_log, const float* __restrict__ Dv,
-                   float* __restrict__ y, int H, int W, int ED, float* __restrict__ hx_global) {
+                   float* __restrict__ y, const float* __restrict__ h0, float* __restrict__ h_last,
+                   int H, int W, int ED, float* __restrict__ hx_global) {
   extern __shared__ float hx_shared[];
   __shared__ float tot_a[2][MAX_WARPS][N], tot_b[2][MAX_WARPS][N];
   __shared__ float carry[2][N];
@@ -369,16 +395,25 @@ scan2d_wide_kernel(const T* __restrict__ x, const T* __restrict__ delta,
   const int nk = (W + nt - 1) / nt;
   const int64_t nx = (int64_t)(nk - MAX_CHUNKS) * N * nt;
   float* hx = hx_global ? hx_global + ((int64_t)bag * ED + e) * nx : hx_shared;
-  for (int64_t i = tid; i < nx; i += nt) hx[i] = 0.f;  // this thread's own entries
+  auto state_at = [&](auto* hs, int c) {  // column c's N states of h0 or h_last
+    return hs + (((int64_t)bag * W + c) * ED + e) * N;
+  };
+  for (int64_t i = tid; i < nx; i += nt) {  // this thread's own entries, from h0 where given
+    const int64_t m = i / nt;
+    const int c = (MAX_CHUNKS + (int)(m / N)) * nt + tid;
+    hx[i] = h0 && c < W ? state_at(h0, c)[m % N] : 0.f;
+  }
   if (tid < N) a_neg[tid] = -expf(A_log[(int64_t)e * N + tid]);
   __syncthreads();
   const float d_skip = Dv[e];
 
   float hr[MAX_CHUNKS][N];
 #pragma unroll
-  for (int k = 0; k < MAX_CHUNKS; ++k)
+  for (int k = 0; k < MAX_CHUNKS; ++k) {
+    const int c = k * nt + tid;
 #pragma unroll
-    for (int n = 0; n < N; ++n) hr[k][n] = 0.f;
+    for (int n = 0; n < N; ++n) hr[k][n] = h0 && c < W ? state_at(h0, c)[n] : 0.f;
+  }
 
   int buf = 0;
   for (int r = 0; r < H; ++r) {
@@ -449,6 +484,16 @@ scan2d_wide_kernel(const T* __restrict__ x, const T* __restrict__ delta,
       buf ^= 1;
     }
   }
+  if (h_last) {
+    for (int k = 0; k < nk; ++k) {
+      const int c = k * nt + tid;
+      if (c >= W) continue;
+      float* hl = state_at(h_last, c);
+      const float* hk = hx + (int64_t)(k - MAX_CHUNKS) * N * nt + tid;
+#pragma unroll
+      for (int n = 0; n < N; ++n) hl[n] = k == 0 ? hr[0][n] : k == 1 ? hr[1][n] : hk[n * nt];
+    }
+  }
 }
 
 // Bytes of dynamic shared memory a block of the wide kernel can take on the
@@ -472,15 +517,15 @@ int64_t wide_floats(int W, int N) {
 
 template <typename T, int N>
 int launch_wide(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
-                int64_t c_cs, const float* A_log, const float* Dv, float* y, float* scratch, int Bs,
-                int H, int W, int ED, cudaStream_t st) {
+                int64_t c_cs, const float* A_log, const float* Dv, float* y, const float* h0,
+                float* h_last, float* scratch, int Bs, int H, int W, int ED, cudaStream_t st) {
   const size_t smem = scratch ? 0 : (size_t)wide_floats(W, N) * sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
       scan2d_wide_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   scan2d_wide_kernel<T, N><<<dim3(ED, Bs), MAX_THREADS, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(delta), static_cast<const T*>(Bm), b_cs,
-      static_cast<const T*>(Cm), c_cs, A_log, Dv, y, H, W, ED, scratch);
+      static_cast<const T*>(Cm), c_cs, A_log, Dv, y, h0, h_last, H, W, ED, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -512,8 +557,8 @@ bool valid_layout(int S, int P, int W) {
 
 template <typename T, int N, int G>
 int launch_cluster(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
-                   int64_t c_cs, const float* A_log, const float* Dv, float* y, int Bs, int H, int W,
-                   int ED, int S, int P, cudaStream_t st) {
+                   int64_t c_cs, const float* A_log, const float* Dv, float* y, const float* h0,
+                   float* h_last, int Bs, int H, int W, int ED, int S, int P, cudaStream_t st) {
   if (!valid_layout<G>(S, P, W)) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
@@ -523,7 +568,8 @@ int launch_cluster(const void* x, const void* delta, const void* Bm, int64_t b_c
   cfg.stream = st;
   err = cudaLaunchKernelEx(&cfg, scan2d_cluster_kernel<T, N, G>, static_cast<const T*>(x),
                            static_cast<const T*>(delta), static_cast<const T*>(Bm), b_cs,
-                           static_cast<const T*>(Cm), c_cs, A_log, Dv, y, H, W, ED, S, P);
+                           static_cast<const T*>(Cm), c_cs, A_log, Dv, y, h0, h_last, H, W, ED, S,
+                           P);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -547,14 +593,16 @@ int with_group(int G, F&& f) {
 
 template <typename T, int N>
 int by_group(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
-             int64_t c_cs, const float* A_log, const float* Dv, float* y, float* scratch, int Bs,
-             int H, int W, int ED, int G, int S, int P, cudaStream_t st) {
+             int64_t c_cs, const float* A_log, const float* Dv, float* y, const float* h0,
+             float* h_last, float* scratch, int Bs, int H, int W, int ED, int G, int S, int P,
+             cudaStream_t st) {
   if (S == 0)
-    return launch_wide<T, N>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, st);
+    return launch_wide<T, N>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, h0, h_last, scratch, Bs, H,
+                             W, ED, st);
   int err = (int)cudaErrorInvalidValue;
   with_group<T>(G, [&](auto g) {
-    err = launch_cluster<T, N, decltype(g)::value>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, Bs,
-                                                   H, W, ED, S, P, st);
+    err = launch_cluster<T, N, decltype(g)::value>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, h0,
+                                                   h_last, Bs, H, W, ED, S, P, st);
     return 0;
   });
   return err;
@@ -562,15 +610,21 @@ int by_group(const void* x, const void* delta, const void* Bm, int64_t b_cs, con
 
 template <typename T>
 int by_state(const void* x, const void* delta, const void* Bm, int64_t b_cs, const void* Cm,
-             int64_t c_cs, const float* A_log, const float* Dv, float* y, float* scratch, int Bs,
-             int H, int W, int ED, int N, int G, int S, int P, cudaStream_t st) {
+             int64_t c_cs, const float* A_log, const float* Dv, float* y, const float* h0,
+             float* h_last, float* scratch, int Bs, int H, int W, int ED, int N, int G, int S,
+             int P, cudaStream_t st) {
+#define MHIM_SCAN2D_STATE(n)                                                                      \
+  case n:                                                                                         \
+    return by_group<T, n>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, h0, h_last, scratch, Bs, H, \
+                          W, ED, G, S, P, st);
   switch (N) {
-    case 2: return by_group<T, 2>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, G, S, P, st);
-    case 4: return by_group<T, 4>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, G, S, P, st);
-    case 8: return by_group<T, 8>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, G, S, P, st);
-    case 16: return by_group<T, 16>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, G, S, P, st);
+    MHIM_SCAN2D_STATE(2)
+    MHIM_SCAN2D_STATE(4)
+    MHIM_SCAN2D_STATE(8)
+    MHIM_SCAN2D_STATE(16)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef MHIM_SCAN2D_STATE
 }
 
 }  // namespace
@@ -601,7 +655,8 @@ extern "C" int scan2d_scratch(int W, int N) {
 // each (S·P·3 ≥ W, no empty block; G 8 or 4, or 16 for bf16; G·P a
 // multiple of 32, at most 128, or 192 at G 4); S = 0 runs the wide kernel,
 // with scratch null or Bs · ED · scan2d_scratch(W, N) fp32 on the card for
-// the h of its chunks. An invalid plan returns cudaErrorInvalidValue.
+// the h of its chunks. An invalid plan returns cudaErrorInvalidValue. The
+// scan starts from zero and keeps no state.
 extern "C" int scan2d(const void* x, const void* delta, const void* Bm, int64_t b_cs,
                       const void* Cm, int64_t c_cs, int bf16, const float* A_log,
                       const float* Dv, float* y, float* scratch, int Bs, int H, int W, int ED,
@@ -609,8 +664,26 @@ extern "C" int scan2d(const void* x, const void* delta, const void* Bm, int64_t 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (W < 1 || H < 1) return (int)cudaErrorInvalidValue;
   if (bf16)
-    return by_state<__nv_bfloat16>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W,
-                                   ED, N, G, S, P, st);
-  return by_state<float>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, scratch, Bs, H, W, ED, N, G,
-                         S, P, st);
+    return by_state<__nv_bfloat16>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, nullptr, nullptr,
+                                   scratch, Bs, H, W, ED, N, G, S, P, st);
+  return by_state<float>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, nullptr, nullptr, scratch, Bs,
+                         H, W, ED, N, G, S, P, st);
+}
+
+// scan2d with a carried state: h0[Bs, W, ED, N] fp32 contiguous, the
+// vertical state entering the first row (null: zero), and h_last, the same
+// shape, which takes the last row's state (null: not written). h0 and
+// h_last must not overlap.
+extern "C" int scan2d_carry(const void* x, const void* delta, const void* Bm, int64_t b_cs,
+                            const void* Cm, int64_t c_cs, int bf16, const float* A_log,
+                            const float* Dv, float* y, const float* h0, float* h_last,
+                            float* scratch, int Bs, int H, int W, int ED, int N, int G, int S,
+                            int P, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    return by_state<__nv_bfloat16>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, h0, h_last, scratch,
+                                   Bs, H, W, ED, N, G, S, P, st);
+  return by_state<float>(x, delta, Bm, b_cs, Cm, c_cs, A_log, Dv, y, h0, h_last, scratch, Bs, H, W,
+                         ED, N, G, S, P, st);
 }

@@ -106,7 +106,7 @@ def _model_name(cfg) -> str:
 
 
 # the models whose steps and evaluation run under an sp mesh, each held against JAX's single-device step
-SP_MODELS = ("abmil",)  # the generic step
+SP_MODELS = ("abmil", "2dmamba", "mambamil")  # the generic step
 SP_BASELINES = ("selfattn", "attn")  # mhim and mhim_pure
 SP_POS = ("ppeg", "sincos", "none", None)  # the selfattn baseline's positional modules
 
@@ -116,8 +116,8 @@ def sp_supported(cfg) -> bool:
     (``sp > 1``): every place where it couples instances goes through the
     mesh's sp collectives. ``mhim`` and ``mhim_pure`` with the ``attn``
     baseline or the ``selfattn`` one (positional module ppeg, sincos or
-    none), and ``abmil`` through the generic step; the others are ROADMAP
-    Queue 1 item 6d."""
+    none), and ``abmil``, ``2dmamba`` and ``mambamil`` (each variant)
+    through the generic step; the others are ROADMAP Queue 1 item 6d-ii."""
     if cfg.model in ("mhim", "mhim_pure"):
         return cfg.baseline in SP_BASELINES and (cfg.baseline != "selfattn" or (cfg.pos or "ppeg") in SP_POS)
     return cfg.model in SP_MODELS
@@ -128,7 +128,7 @@ def check_sp(cfg, sp: int) -> None:
     if sp > 1 and not sp_supported(cfg):
         raise NotImplementedError(
             f"--model {_model_name(cfg)} under --mesh_sp {sp}: its couplings over the instances are not "
-            f"routed through the mesh's sp collectives yet (ROADMAP Queue 1 item 6d); sp runs mhim and "
+            f"routed through the mesh's sp collectives yet (ROADMAP Queue 1 item 6d-ii); sp runs mhim and "
             f"mhim_pure with {SP_BASELINES} and {SP_MODELS}")
 
 
@@ -313,7 +313,8 @@ def _forward_inputs(model: nn.Module, family: str, batch: Dict[str, Tensor]):
     """The positional and keyword inputs of a generic model's forward beyond
     ``(feats, mask)`` (``steps.py:66-73``): the grid coordinates ``pos`` for
     ``mamba2d``, or as ``coords`` for a ``pos="sincos"`` model, when the
-    batch holds them."""
+    batch holds them. Under an sp mesh ``pos`` is this rank's block of the
+    instances' coordinates, sharded with them (``shard_batch``)."""
     if "pos" not in batch:
         return (), {}
     if family == "mamba2d":

@@ -133,6 +133,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
             I32, I32, I32,  # the plan: G, S, P (S = 0: the wide kernel)
             P,  # stream
         ],
+        "scan2d_carry": [
+            P, P,  # x, delta
+            P, I64, P, I64,  # B, C and their cell strides
+            I32,  # x, delta, B and C are bf16
+            P, P,  # A_log, D
+            P,  # y
+            P, P,  # h0 (or null: zero) and h_last (or null), [Bs, W, ED, N] fp32
+            P,  # scratch for the h of wide rows, or null
+            I32, I32, I32, I32, I32,  # Bs, H, W, ED, N
+            I32, I32, I32,  # the plan: G, S, P (S = 0: the wide kernel)
+            P,  # stream
+        ],
     },
     "probe": {
         "probe": [P, P, I64, P],  # x, o, n, stream

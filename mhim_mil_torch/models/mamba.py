@@ -22,6 +22,33 @@ added in the compute type; JAX promotes it to fp32. The 1D block follows
 JAX's promotion: its fp32 scan output makes the gate, ``out_proj``, the
 residual and everything after the first layer fp32, as flax's layers
 promote an fp32 input against bf16 weights.
+
+Under a mesh that splits the instances (``parallel/mesh.py``, ``sp > 1``)
+``feats``, ``mask`` and ``coords`` are this rank's block, and both models
+compute what one process computes on the whole bag:
+
+- ``mambamil``: the blocks stay in rank order. The causal convolution reads
+  the 3 tokens before the block (``sp_halo``); the scan takes the state the
+  blocks before it hand on (``ops/scan.selective_scan_1d_sharded``, the
+  parallel form of ``sp_carry``). bimamba's flipped branch is the reverse
+  scan of the locally flipped block (``Seq.reversed``: the carry runs from
+  the last rank to the first, the halo reads the 3 tokens after the
+  block); srmamba's branch moves the tokens to their blocks of the
+  stride-permuted sequence and back (``sp_scatter``).
+- ``2dmamba``: rank k holds a band of whole grid rows
+  (``instance_blocks(H, sp)``). Each instance goes to the band that holds
+  its cell (:func:`rasterize_band`; a cell that two valid instances clip to
+  takes the one of the larger index in the bag, on any rank). The
+  convolution reads the 3 cells before the band in raster order, and the 2D
+  scan carries each column's state across the bands (``sp_carry``; K5
+  twice on the bands below the first on no-grad paths, the plain scan under
+  grad). Without ``coords`` the row-major grid is the whole bag's
+  (⌈√N⌉ columns of the global length, the instances at their global
+  index).
+
+Either way the attention pool's softmax and sum run over the sp row, the
+logits are the whole bag's on every rank, and ``attn`` is this block's
+(``mambamil``) or the whole grid's, gathered (``2dmamba``).
 """
 
 from __future__ import annotations
@@ -34,8 +61,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import masked_softmax
-from ..ops.scan import selective_scan_1d, selective_scan_2d
-from ..ops.scan2d import selective_scan_2d_fused
+from ..ops.scan import (selective_scan_1d, selective_scan_1d_sharded, selective_scan_2d,
+                        selective_scan_2d_sharded)
+from ..ops.scan2d import selective_scan_2d_fused, selective_scan_2d_fused_sharded
+from ..parallel.mesh import Seq, seq_layout, sp_gather, sp_halo, sp_max, sp_scatter, sp_sum
 from .layers import Dropout, dense, promoted_layer_norm, promoted_linear
 
 Tensor = torch.Tensor
@@ -66,10 +95,17 @@ class CausalConv1d(nn.Conv1d):
     def __init__(self, channels: int, kernel_size: int):
         super().__init__(channels, channels, kernel_size, groups=channels)
 
-    def forward(self, x: Tensor) -> Tensor:
-        """In the wider of the input's and the weights' dtypes, as flax's ``Conv``."""
+    def forward(self, x: Tensor, seq: Optional[Seq] = None) -> Tensor:
+        """In the wider of the input's and the weights' dtypes, as flax's
+        ``Conv``. ``seq``: ``x`` is this rank's block of a sequence sharded
+        over the active sp row, laid out so; the k−1 tokens before it come
+        from the blocks before (``sp_halo``, zeros before the first)."""
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
-        x = F.pad(x.transpose(1, 2).to(dtype), (self.kernel_size[0] - 1, 0))
+        k = self.kernel_size[0]
+        if seq is None:
+            x = F.pad(x.transpose(1, 2).to(dtype), (k - 1, 0))
+        else:
+            x = sp_halo(x.to(dtype), seq, k - 1, 0).transpose(1, 2)
         return F.conv1d(x, self.weight.to(dtype), self.bias.to(dtype), groups=self.groups).transpose(1, 2)
 
     @torch.no_grad()
@@ -138,13 +174,14 @@ class MambaBlock(nn.Module):
             a_log.copy_(torch.log(torch.arange(1, self.d_state + 1, dtype=torch.float32)).expand_as(a_log))
             d.fill_(1.0)
 
-    def _ssm_inputs(self, xin: Tensor, sfx: str = ""):
+    def _ssm_inputs(self, xin: Tensor, sfx: str = "", seq: Optional[Seq] = None):
         """The conv → SiLU → x_proj → RMSNorms → softplus(dt_proj) chain of
         one branch: ``(x, Δ, A, B, C, D)`` for the scan, each layer in the
-        wider of its input's and its weights' dtypes."""
+        wider of its input's and its weights' dtypes. ``seq``: the layout of
+        the sharded sequence (of cells, in raster order, for a grid band)."""
         shape = xin.shape
-        seq = getattr(self, f"conv1d{sfx}")(xin.reshape(shape[0], -1, self.ed))
-        xin = F.silu(seq.reshape(*shape[:-1], self.ed))
+        conv = getattr(self, f"conv1d{sfx}")(xin.reshape(shape[0], -1, self.ed), seq)
+        xin = F.silu(conv.reshape(*shape[:-1], self.ed))
         dbc = promoted_linear(getattr(self, f"x_proj{sfx}"), xin)
         dt, b_ssm, c_ssm = dbc.split([self.dt_rank, self.d_state, self.d_state], dim=-1)
         dt = getattr(self, f"dt_layernorm{sfx}")(dt)
@@ -153,38 +190,54 @@ class MambaBlock(nn.Module):
         delta = F.softplus(promoted_linear(getattr(self, f"dt_proj{sfx}"), dt))
         return xin, delta, getattr(self, f"A{sfx}_log"), b_ssm, c_ssm, getattr(self, f"D{sfx}")
 
-    def _branch_1d(self, xin_raw: Tensor, mask: Optional[Tensor]) -> Tensor:
-        """The second branch (``mamba.py:116-168``) on its permuted sequence;
-        masked rows are zeroed before its conv, since the flip or the
-        permutation puts padding upstream of valid tokens."""
+    def _scan_1d(self, sfx: str, xin_raw: Tensor, mask: Optional[Tensor], seq: Optional[Seq]) -> Tensor:
+        """One branch's inputs and its masked 1D scan, sharded under ``seq``."""
+        xin, delta, a_log, b_ssm, c_ssm, d = self._ssm_inputs(xin_raw, sfx, seq)
+        if seq is None:
+            return selective_scan_1d(xin, delta, -torch.exp(a_log), b_ssm, c_ssm, d, mask=mask)
+        return selective_scan_1d_sharded(xin, delta, -torch.exp(a_log), b_ssm, c_ssm, d, mask, seq)
+
+    def _branch_1d(self, xin_raw: Tensor, mask: Optional[Tensor], seq: Optional[Seq] = None) -> Tensor:
+        """The second branch (``mamba.py:116-168``) on its permuted sequence
+        (``seq``: this rank's block of it, laid out so); masked rows are
+        zeroed before its conv, since the flip or the permutation puts
+        padding upstream of valid tokens."""
         if mask is not None:
             xin_raw = torch.where(mask[..., None], xin_raw, 0)
-        xin, delta, a_log, b_ssm, c_ssm, d = self._ssm_inputs(xin_raw, "_b")
-        return selective_scan_1d(xin, delta, -torch.exp(a_log), b_ssm, c_ssm, d, mask=mask)
+        return self._scan_1d("_b", xin_raw, mask, seq)
 
-    def forward(self, x: Tensor, mask: Optional[Tensor] = None, training: bool = False) -> Tensor:
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None, training: bool = False,
+                seq: Optional[Seq] = None) -> Tensor:
         """``x[B, H, W, d_model]`` (2D; ``mask`` unused: the grid scans its pad
         cells, as in the reference) or ``x[B, L, d_model]`` with ``mask[B, L]``
-        (1D) → the same shape."""
+        (1D) → the same shape. ``seq``: under an sp mesh, the layout of the
+        grid's rows over the row's ranks (2D; ``x`` this rank's band) or of
+        the sharded sequence (1D; ``x`` this rank's block)."""
         if x.dim() == 4:
+            cells = None if seq is None else Seq(tuple(r * x.shape[2] for r in seq.counts), seq.index)
             xin, z = self.in_proj(x).chunk(2, dim=-1)
-            xin, delta, a_log, b_ssm, c_ssm, d = self._ssm_inputs(xin)
+            xin, delta, a_log, b_ssm, c_ssm, d = self._ssm_inputs(xin, "", cells)
             if self.use_flash and not training:
-                y = selective_scan_2d_fused(xin, delta, a_log, b_ssm, c_ssm, d)
-            else:
+                y = (selective_scan_2d_fused(xin, delta, a_log, b_ssm, c_ssm, d) if seq is None else
+                     selective_scan_2d_fused_sharded(xin, delta, a_log, b_ssm, c_ssm, d, seq))
+            elif seq is None:
                 y = selective_scan_2d(xin, delta, -torch.exp(a_log), b_ssm, c_ssm, d)
+            else:
+                y = selective_scan_2d_sharded(xin, delta, -torch.exp(a_log), b_ssm, c_ssm, d, seq)
             return self.out_proj(y.to(xin.dtype) * F.silu(z))
         if mask is not None:
             mask = mask.bool()
         xin_raw, z = promoted_linear(self.in_proj, x).chunk(2, dim=-1)
-        xin, delta, a_log, b_ssm, c_ssm, d = self._ssm_inputs(xin_raw)
-        y = selective_scan_1d(xin, delta, -torch.exp(a_log), b_ssm, c_ssm, d, mask=mask)
+        y = self._scan_1d("", xin_raw, mask, seq)
         if self.variant == "bimamba":
             mb = None if mask is None else mask.flip(1)
-            y = y + self._branch_1d(xin_raw.flip(1), mb).flip(1)
-        elif self.variant == "srmamba":
+            y = y + self._branch_1d(xin_raw.flip(1), mb, None if seq is None else seq.reversed()).flip(1)
+        elif self.variant == "srmamba" and seq is None:
             xb, mb = sr_permute(xin_raw, mask, self.sr_rate)
             y = y + sr_unpermute(self._branch_1d(xb, mb), self.sr_rate, x.shape[1])
+        elif self.variant == "srmamba":
+            xb, mb, pseq = sr_permute_sharded(xin_raw, mask, self.sr_rate, seq)
+            y = y + sr_unpermute_sharded(self._branch_1d(xb, mb, pseq), self.sr_rate, seq, pseq)
         return promoted_linear(self.out_proj, y * F.silu(z))
 
 
@@ -197,8 +250,9 @@ class ResidualMamba(nn.Module):
         self.norm = RMSNorm(d_model)
         self.mixer = MambaBlock(d_model, d_state, use_flash, variant, sr_rate)
 
-    def forward(self, x: Tensor, training: bool = False, mask: Optional[Tensor] = None) -> Tensor:
-        return self.mixer(self.norm(x), mask, training) + x
+    def forward(self, x: Tensor, training: bool = False, mask: Optional[Tensor] = None,
+                seq: Optional[Seq] = None) -> Tensor:
+        return self.mixer(self.norm(x), mask, training, seq) + x
 
 
 def sr_permute(x: Tensor, mask: Optional[Tensor], rate: int):
@@ -225,6 +279,32 @@ def sr_unpermute(y: Tensor, rate: int, length: int) -> Tensor:
     return y.reshape(b, rate, k, c).transpose(1, 2).reshape(b, lp, c)[:, :length]
 
 
+def sr_permute_sharded(x: Tensor, mask: Optional[Tensor], rate: int, seq: Seq):
+    """:func:`sr_permute` of a sequence sharded over the active sp row,
+    ``x[B, n, C]`` and ``mask`` this rank's block (layout ``seq``): each
+    token moves to its place in the permuted sequence of ⌈L/rate⌉·rate
+    tokens (``sp_scatter``), laid out by ``Seq.split``. Returns this rank's
+    block of it, its mask (the padded slots masked) and its layout."""
+    b, n, _ = x.shape
+    k = -(-seq.total // rate)
+    pseq = Seq.split(k * rate, len(seq.counts), seq.index)
+    t = torch.arange(seq.offset, seq.offset + n, device=x.device).expand(b, n)
+    xp = sp_scatter(x, (t % rate) * k + t // rate, torch.ones_like(t, dtype=torch.bool), k * rate, pseq)
+    full = torch.ones((b, seq.total), dtype=torch.bool, device=x.device) if mask is None else sp_gather(mask, seq)
+    mp = F.pad(full, (0, k * rate - seq.total)).reshape(b, k, rate).transpose(1, 2).reshape(b, k * rate)
+    return xp, mp[:, pseq.cols], pseq
+
+
+def sr_unpermute_sharded(y: Tensor, rate: int, seq: Seq, pseq: Seq) -> Tensor:
+    """The inverse of :func:`sr_permute_sharded`: this rank's block (layout
+    ``pseq``) of the permuted sequence back to its block of the original
+    one (layout ``seq``), the padded slots dropped."""
+    k = pseq.total // rate
+    p = torch.arange(pseq.offset, pseq.offset + pseq.local, device=y.device).expand(y.shape[0], -1)
+    t = (p % k) * rate + p // k
+    return sp_scatter(y, t, t < seq.total, seq.total, seq)
+
+
 def rasterize_grid(feats: Tensor, coords: Tensor, mask: Tensor, h: int, w: int, pad_token: Tensor):
     """Scatter a bag ``feats[B, N, C]`` onto a ``[B, h, w, C]`` grid filled
     with ``pad_token`` (``mamba.py:40-57``). ``coords[..., 0]`` is the
@@ -243,9 +323,39 @@ def rasterize_grid(feats: Tensor, coords: Tensor, mask: Tensor, h: int, w: int, 
     return grid[:, : h * w].reshape(b, h, w, c), gmask[:, : h * w].reshape(b, h, w)
 
 
-def rowmajor_coords(n: int, w: int, device=None) -> Tensor:
-    """``(column, row)`` of the first ``n`` cells of a row-major grid ``w`` wide."""
-    idx = torch.arange(n, device=device)
+def rasterize_band(feats: Tensor, coords: Tensor, mask: Tensor, h: int, w: int, pad_token: Tensor, seq: Seq):
+    """:func:`rasterize_grid` of a bag sharded over the active sp row:
+    ``feats``, ``coords`` and ``mask`` are this rank's block of instances
+    (layout ``seq``), and this rank gets its band of whole grid rows
+    (``Seq.split(h, sp)``, at least one row a rank). Each valid instance
+    moves to the band that holds its cell (``sp_scatter``). A cell that
+    several valid instances clip to takes the one with the largest index in
+    the bag (their max over the row, ``sp_max``), wherever it lies, so the
+    move never sums two instances; one process leaves either. Returns
+    ``(band[B, rows, w, C], band_mask[B, rows, w], rows)``, ``rows`` the
+    layout of the grid's rows over the sp row."""
+    b, n, c = feats.shape
+    if h < len(seq.counts):
+        raise ValueError(f"a grid of {h} rows over sp={len(seq.counts)} ranks: every rank needs a row")
+    rows = Seq.split(h, len(seq.counts), seq.index)
+    cells = Seq(tuple(r * w for r in rows.counts), seq.index)
+    coords = coords.long()
+    col = coords[..., 0].clamp(0, w - 1)
+    row = coords[..., 1].clamp(0, h - 1)
+    idx = torch.where(mask, row * w + col, h * w)
+    gid = torch.arange(seq.offset, seq.offset + n, device=feats.device).expand(b, n)
+    winner = torch.full((b, h * w + 1), -1, dtype=torch.int64, device=feats.device)
+    winner = sp_max(winner.scatter_reduce_(1, idx, torch.where(mask, gid, -1), "amax"))
+    keep = mask & (winner.gather(1, idx) == gid)
+    band = sp_scatter(feats, idx, keep, h * w, cells)
+    bmask = winner[:, cells.cols] >= 0
+    grid = torch.where(bmask[..., None], band, pad_token.to(band.dtype))
+    return grid.reshape(b, rows.local, w, c), bmask.reshape(b, rows.local, w), rows
+
+
+def rowmajor_coords(n: int, w: int, device=None, start: int = 0) -> Tensor:
+    """``(column, row)`` of the ``n`` cells from ``start`` of a row-major grid ``w`` wide."""
+    idx = torch.arange(start, start + n, device=device)
     return torch.stack([idx % w, idx // w], dim=-1)
 
 
@@ -284,26 +394,35 @@ class MambaMIL2D(nn.Module):
                 return_attn: bool = False, gen: Optional[torch.Generator] = None):
         b, nseq, _ = feats.shape
         mask = mask.bool()
-        x = self.drop(F.gelu(self._fc1(feats), approximate="tanh"), training, gen)
+        seq = seq_layout(nseq, feats.device)
+        x = self.drop(F.gelu(self._fc1(feats), approximate="tanh"), training, gen, seq)
         if self.pos_embs is not None and coords is not None:
-            x = x + self.pos_drop(self.pos_embs(coords.to(x.dtype)), training, gen)
+            x = x + self.pos_drop(self.pos_embs(coords.to(x.dtype)), training, gen, seq)
         if coords is None:
-            w = math.ceil(math.sqrt(nseq))
-            h = math.ceil(nseq / w)
-            coords = rowmajor_coords(nseq, w, feats.device).expand(b, nseq, 2)
+            n = nseq if seq is None else seq.total
+            w = math.ceil(math.sqrt(n))
+            h = math.ceil(n / w)
+            coords = rowmajor_coords(nseq, w, feats.device, 0 if seq is None else seq.offset).expand(b, nseq, 2)
         else:
             h, w = self.max_h, self.max_w
         pad = self.pad_token if self.pad_token is not None else x.new_zeros(self.dim)
-        grid, gmask = rasterize_grid(x, coords, mask, h, w, pad)
+        if seq is None:
+            (grid, gmask), rows = rasterize_grid(x, coords, mask, h, w, pad), None
+        else:
+            grid, gmask, rows = rasterize_band(x, coords, mask, h, w, pad, seq)
         for layer in self.layers:
-            grid = layer(grid, training)
-        hseq = self.norm(grid.reshape(b, h * w, self.dim))
-        mseq = gmask.reshape(b, h * w)
-        attn = masked_softmax(self.attention(hseq)[..., 0], mseq)
+            grid = layer(grid, training, seq=rows)
+        cells = grid.shape[1] * w
+        hseq = self.norm(grid.reshape(b, cells, self.dim))
+        mseq = gmask.reshape(b, cells)
+        attn = masked_softmax(self.attention(hseq)[..., 0], mseq, sharded=rows is not None)
         bag = torch.einsum("bl,bld->bd", attn, torch.where(mseq[..., None], hseq, 0))
+        if rows is not None:
+            bag = sp_sum(bag)
         out = {"logits": self.classifier(bag), "bag_feat": bag}
         if return_attn:
-            out["attn"] = attn
+            out["attn"] = attn if rows is None else sp_gather(attn, Seq(tuple(r * w for r in rows.counts),
+                                                                        rows.index))
         return out
 
 
@@ -331,13 +450,16 @@ class MambaMIL1D(nn.Module):
     def forward(self, feats: Tensor, mask: Tensor, training: bool = False, return_attn: bool = False,
                 gen: Optional[torch.Generator] = None):
         mask = mask.bool()
-        x = self.drop(F.gelu(self._fc1(feats), approximate="tanh"), training, gen)
+        seq = seq_layout(feats.shape[1], feats.device)
+        x = self.drop(F.gelu(self._fc1(feats), approximate="tanh"), training, gen, seq)
         for layer in self.layers:
-            x = layer(x, training, mask)
+            x = layer(x, training, mask, seq)
         x = promoted_layer_norm(self.norm, x)
         a = promoted_linear(self.attention[2], torch.tanh(promoted_linear(self.attention[0], x)))
-        attn = masked_softmax(a[..., 0], mask)
+        attn = masked_softmax(a[..., 0], mask, sharded=seq is not None)
         bag = torch.einsum("bl,bld->bd", attn, torch.where(mask[..., None], x, 0))
+        if seq is not None:
+            bag = sp_sum(bag)
         out = {"logits": promoted_linear(self.classifier, bag), "bag_feat": bag}
         if return_attn:
             out["attn"] = attn

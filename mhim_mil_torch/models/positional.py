@@ -116,7 +116,7 @@ class PEG(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, seq: Optional[Seq] = None) -> torch.Tensor:
         if seq is not None:
-            raise NotImplementedError("PEG under sequence parallelism (ROADMAP Queue 1 item 6d)")
+            raise NotImplementedError("PEG under sequence parallelism (ROADMAP Queue 1 item 6d-ii)")
         grid = _square_grid(x, mask)
         return _from_grid(grid + self.proj(grid), x, mask)
 

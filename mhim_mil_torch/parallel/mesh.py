@@ -33,10 +33,13 @@ themselves:
   (:func:`sp_sum`, :func:`sp_max`; the landmark means, the softmaxes over
   the instances, K1's partial statistics, the attention pools), the gather
   of a small ``[B, N]`` tensor (:func:`sp_gather`: the mining scores and
-  masks), the halo of a convolution along the sequence (:func:`sp_halo`)
-  and the move of kept instances to their compacted blocks
-  (:func:`sp_scatter`, which holds the whole compacted sequence on every
-  rank: see its note).
+  masks), the halo of a convolution along the sequence (:func:`sp_halo`),
+  the move of kept instances to their compacted blocks, of a bag's
+  instances to the bands of its 2D grid and of a sequence to SRMamba's
+  permuted layout (:func:`sp_scatter`, which holds the whole moved
+  sequence on every rank: see its note), and the state a linear
+  recurrence carries from block to block (:func:`sp_carry`: the Mamba
+  scans).
 
 The layout of a sharded instance axis is a :class:`Seq`: every sp rank's
 block length, known to every rank. A model's entry point reads it from the
@@ -120,6 +123,12 @@ class Seq:
     def append(self, k: int) -> "Seq":
         """The layout after ``k`` tokens are put at the end, on the last sp rank."""
         return Seq(self.counts[:-1] + (self.counts[-1] + k,), self.index)
+
+    def reversed(self) -> "Seq":
+        """The layout of the reversed sequence: the blocks in the opposite
+        rank order, each reversed in place (a block flipped locally is this
+        rank's block of it)."""
+        return Seq(self.counts[::-1], len(self.counts) - 1 - self.index)
 
     @staticmethod
     def split(n_global: int, sp: int, index: int) -> "Seq":
@@ -606,3 +615,25 @@ def sp_scatter(x: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor, length: i
     if mesh is None:
         raise RuntimeError("sp_scatter needs an active sp mesh")
     return _SpScatter.apply(x, pos.long(), keep.bool(), length, out, mesh.sp_group)
+
+
+def sp_carry(decay: torch.Tensor, state: torch.Tensor, seq: Seq) -> torch.Tensor:
+    """The state entering this rank's block of a linear recurrence
+    ``h ← a·h + u`` whose steps are sharded over the active sp row in the
+    order of ``seq`` (``seq.index`` is this rank's place; a reversed layout
+    runs from the last rank to the first). Each rank gives its block's
+    ``decay`` (the product of ``a`` over the block) and ``state`` (its last
+    h from zero), of one shape; one gather of the pairs, then the fold
+    ``h_k = decay_{k-1}·h_{k-1} + state_{k-1}`` from ``h_0 = 0`` in place
+    order. Differentiable. At place 0 the result is zeros that still
+    depend on the gather: a rank that uses nothing of it ties it into its
+    graph (:func:`sp_join`), so that the gather's backward runs on every
+    rank."""
+    if active_sp() is None:
+        raise RuntimeError("sp_carry needs an active sp mesh")
+    n = len(seq.counts)
+    pairs = sp_gather(torch.stack([decay, state])[None], Seq((1,) * n, seq.index), 0)
+    carry = pairs[0, 1] * 0.0
+    for j in range(seq.index):
+        carry = pairs[j, 0] * carry + pairs[j, 1]
+    return carry

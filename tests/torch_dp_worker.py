@@ -1,6 +1,6 @@
 """One rank of a data- or sequence-parallel world of the port, for
-tests/test_torch_parallel.py, tests/test_torch_parallel_zoo.py and
-tests/test_torch_sp.py.
+tests/test_torch_parallel.py, tests/test_torch_parallel_zoo.py,
+tests/test_torch_sp.py and tests/test_torch_sp_scan.py.
 
     python -m torch.distributed.run --nproc_per_node W tests/torch_dp_worker.py IN.npz OUT.npz
 
@@ -36,10 +36,24 @@ are ``IN.npz``'s ``<case>/<name>``; rank 0 writes its results to
   (``out/<name>``, ``grad/<name>``), and its parameters' gradients summed
   over the row (``pgrad/<name>``).
 
+- ``scan_ops``: one op of the scan families' sequence-parallel path
+  (``op``: ``scan2d``, the plain 2D scan and K5's op on this rank's band
+  of grid rows; ``scan1d``, the masked 1D scan on this rank's block, and
+  reversed; ``raster``, ``rasterize_band`` with ``coords``, or on the
+  row-major grid ``w`` wide when the spec says ``rowmajor``) on the global
+  inputs (``in/<name>``): its outputs gathered over the sp row
+  (``out/<name>``) and, for the scans, the gradients of
+  ``Σ output·cotangent`` for the sharded inputs gathered and for the
+  replicated ones summed over the row (``grad/<name>``);
+- ``forward``: the model's ``forward(training=False, return_attn=True)``
+  on this rank's part of the global batch: the logits, gathered over dp,
+  and ``attn`` (``2dmamba``'s, which the model gathers over the grid).
+
 ``control`` also takes ``k1_unmerged`` (K1's blocks not merged over the
-sp row) and ``loss_every_rank`` (each bag's whole loss paid on every sp
+sp row), ``loss_every_rank`` (each bag's whole loss paid on every sp
 rank: every rank weighs its bags 1 and the weight sum counts each bag
-once).
+once) and ``no_carry`` (the scans' bands and blocks started from zero:
+no state carried across ranks).
 
 Imports torch and the port only.
 """
@@ -58,7 +72,7 @@ from mhim_mil_torch.ops import flash_nystrom
 from mhim_mil_torch.engine.steps import make_mhim_train_step, make_train_step
 from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
 from mhim_mil_torch.models import build_model, clam, layers
-from mhim_mil_torch.ops import nystrom
+from mhim_mil_torch.ops import nystrom, scan, scan2d
 from mhim_mil_torch.parallel import make_mesh, replicate_tree, shard_batch
 from mhim_mil_torch.parallel.mesh import gather_rows
 
@@ -201,6 +215,78 @@ def _ops(spec, data, mesh, out):
                 out[f"pgrad/{k}"] = sp_sum(p.grad).numpy()
 
 
+def _scan_ops(spec, data, mesh, out):
+    from mhim_mil_torch.models.mamba import rasterize_band, rowmajor_coords
+    from mhim_mil_torch.ops.scan import selective_scan_1d_sharded, selective_scan_2d_sharded
+    from mhim_mil_torch.ops.scan2d import selective_scan_2d_fused_sharded
+    from mhim_mil_torch.parallel.mesh import Seq, sp_gather, sp_sum
+
+    d = {k: torch.from_numpy(v) for k, v in _group(data, spec["name"], "in").items()}
+    op = spec["op"]
+    with mesh:
+        if op == "raster":
+            n = d["feats"].shape[1]
+            seq = Seq.split(n, mesh.sp, mesh.sp_index)
+            feats, mask = d["feats"][:, seq.cols], d["mask"][:, seq.cols]
+            if spec.get("rowmajor"):
+                w = spec["w"]
+                h = -(-n // w)
+                coords = rowmajor_coords(seq.local, w, start=seq.offset).expand(feats.shape[0], -1, 2)
+            else:
+                h, w = spec["h"], spec["w"]
+                coords = d["coords"][:, seq.cols]
+            grid, gmask, rows = rasterize_band(feats, coords, mask, h, w, d["pad"], seq)
+            out["out/grid"] = sp_gather(grid, rows).numpy()
+            out["out/mask"] = sp_gather(gmask, rows).numpy()
+            return
+        length = d["x"].shape[1]
+        seq = Seq.split(length, mesh.sp, mesh.sp_index)
+
+        def mine(name, flip=False):
+            t = d[name][:, seq.cols]
+            return (t.flip(1) if flip else t).clone().requires_grad_(d[name].is_floating_point())
+
+        owned = ("x", "delta", "B", "C")
+        runs = [("", False)] if op == "scan2d" else [("", False), ("_rev", True)]
+        for sfx, flip in runs:
+            leaves = {k: mine(k, flip) for k in owned}
+            shared = {k: d[k].clone().requires_grad_() for k in ("A", "D")}
+            if op == "scan2d":
+                y = selective_scan_2d_sharded(leaves["x"], leaves["delta"], shared["A"], leaves["B"], leaves["C"],
+                                              shared["D"], seq)
+                with torch.no_grad():  # K5's op (its plain version on the CPU) from A_log = log(−A)
+                    y_k5 = selective_scan_2d_fused_sharded(*(d[k][:, seq.cols] for k in ("x", "delta")),
+                                                           torch.log(-d["A"]),
+                                                           *(d[k][:, seq.cols] for k in ("B", "C")), d["D"], seq)
+                    out["out/y_fused"] = sp_gather(y_k5, seq).numpy()
+            else:
+                lseq = seq.reversed() if flip else seq
+                mask = d["mask"][:, seq.cols]
+                y = selective_scan_1d_sharded(leaves["x"], leaves["delta"], shared["A"], leaves["B"], leaves["C"],
+                                              shared["D"], mask.flip(1) if flip else mask, lseq)
+            if flip:
+                y = y.flip(1)
+            (y * d["cot"][:, seq.cols]).sum().backward()
+            with torch.no_grad():
+                out[f"out/y{sfx}"] = sp_gather(y, seq).numpy()
+                for k, t in leaves.items():
+                    g = t.grad.flip(1) if flip else t.grad
+                    out[f"grad/{k}{sfx}"] = sp_gather(g, seq).numpy()
+                for k, t in shared.items():
+                    out[f"grad/{k}{sfx}"] = sp_sum(t.grad).numpy()
+
+
+def _forward(spec, data, mesh, out):
+    _, model, family = _model(spec, data)
+    batch = shard_batch(mesh, _group(data, spec["name"], "batch"))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    with mesh, torch.no_grad():
+        extra = (batch["pos"],) if "pos" in batch else ()
+        res = model(batch["feats"], batch["mask"], *extra, training=False, return_attn=True)
+        out["logits"] = gather_rows(res["logits"]).numpy()
+        out["attn"] = gather_rows(res["attn"]).numpy()
+
+
 def _row_once(x):
     from mhim_mil_torch.parallel.mesh import active, batch_sum
 
@@ -210,7 +296,9 @@ def _row_once(x):
 CONTROLS = {"pinv": [(nystrom, "batch_max", lambda x: x)], "wmean": [(losses, "batch_sum", lambda x: x)],
             "k1_unmerged": [(flash_nystrom, "merge_pass_a", lambda a, m, s: (a, m, s))],
             "loss_every_rank": [(losses, "owner_weight", lambda: 1.0), (losses, "batch_sum", _row_once)],
-            "clam_count": [(clam, "batch_sum", lambda x: x)]}
+            "clam_count": [(clam, "batch_sum", lambda x: x)],
+            "no_carry": [(scan, "sp_carry", lambda decay, state, seq: torch.zeros_like(state)),
+                         (scan2d, "sp_carry", lambda decay, state, seq: torch.zeros_like(state))]}
 
 
 def main():
@@ -238,7 +326,8 @@ def main():
                 setattr(obj, name, fn)
             try:
                 {"mhim_step": _step, "generic_step": _step, "forward_test": _forward_test,
-                 "eval": _eval, "ops": _ops}[spec["kind"]](spec, data, mesh, out)
+                 "eval": _eval, "ops": _ops, "scan_ops": _scan_ops,
+                 "forward": _forward}[spec["kind"]](spec, data, mesh, out)
             finally:
                 for obj, name, fn in saved:
                     setattr(obj, name, fn)
