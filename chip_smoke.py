@@ -17,7 +17,8 @@ serving export bundle; then feature extraction, from a synthetic slide to
 the flagship's score; then the slide readers, from the slide's files to its
 attention; then data parallelism over bags; then sequence parallelism over
 instances; then data parallelism over bags for the rest of the zoo; then
-sequence parallelism for the scan families.
+sequence parallelism for the scan families; then sequence parallelism for
+the pooling and selection families.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -52,9 +53,15 @@ Phases, each of which fails the run:
 4. serving: the selfattn kernel path against the plain path on the whole
    model in fp32, then the scorer's requests under the default bf16 policy;
 5. train: one flagship train step on the kernel path against the plain path
-   in fp32 from the same weights and draws, then steps under bf16; then the
-   same for the teacher stage's step (``--model mhim_pure``: K3 over the
-   whole bag, no teacher forward), whose teacher must not move;
+   in fp32 from the same weights and draws, both paths' mining held to the
+   plain teacher's scores (the kernel teacher's own within 1e-4·max|ref|
+   of them: a 1-ulp difference moves instances whose scores tie across the
+   mining's cut, ROADMAP fault 14), again with ties planted across the
+   high-mining cut (which must pass) and with the kernel path's mining on
+   the scores reflected (a control, which must fail), then steps under
+   bf16; then the same for the teacher stage's step (``--model
+   mhim_pure``: K3 over the whole bag, no teacher forward), whose teacher
+   must not move;
 6. attn: MHIM-attn ``forward_test`` on the kernel path against the plain
    path in fp32, then the scorer's requests under bf16;
 7. 2dmamba: the eval step on one 20,000-instance bag on the BLCA grid, the
@@ -219,15 +226,27 @@ Phases, each of which fails the run:
    tolerance; (b) 2dmamba's fp32 train step on the raster grid and (c)
    mambamil's three variants' on the ragged zoo batch, against phase 19's
    one-process steps at 17c's tolerances, with each rank's step ms and
-   peak memory beside one process's.
+   peak memory beside one process's;
+21. sequence parallelism for the pooling and selection families: two
+   processes of this script sharing the card in a gloo world,
+   ``make_mesh(dp=1, sp=2)``, on phase 19's ragged 4 × 10,240 batch at
+   full width (dropout on): one fp32 train step and the evaluation step of
+   transmil (PPEG), gabmil, meanmil, maxmil, ibmil, clam_sb, clam_mb,
+   dsmil, MHIM-dsmil and MHIM with PEG, against the one-process step at
+   17c's tolerances (MHIM's mining held to the one-process teacher's
+   scores, the ranks' own within 1e-4·max|ref|) and the one-process
+   evaluation's logits within 1e-4·max|ref|; transmil's and MHIM-peg's
+   K1, K2, K1b and K2b calls each see at most ⌈10,241/2⌉ tokens, gabmil's
+   K4 runs once a rank on its block, each rank launching what one process
+   launches.
 
 Phase 3 also holds K6, the gate's probe, against its plain version, K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
 columns), and K5 from a carried state (``scan2d_carry``: y and h_last
 against the plain scan from the same random h0 on a BLCA band of 138
-rows, and on rows of 1,500 and 4,200 columns). Phases 4-20 each reset the
+rows, and on rows of 1,500 and 4,200 columns). Phases 4-21 each reset the
 launch counts before their main-path runs and read them after (17c's,
-18's, 19's and 20's ranks in their own processes); the kernels' launches
+18's, 19's, 20's and 21's ranks in their own processes); the kernels' launches
 are the sums of those readings, plus the K6 launches of the gate's probe.
 
 The line before the last lists the kernels as JSON; the last line is the
@@ -236,6 +255,7 @@ run's JSON verdict. Any failure exits nonzero before it.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -1372,7 +1392,7 @@ def max_diff(a, b) -> float:
     return max((pa - pb).abs().max().item() for pa, pb in zip(a.parameters(), b.parameters()))
 
 
-def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=None, ablate=None,
+def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=None, ablate=None, states=None,
                    **launches_per_step):
     """One fp32 train step on the kernel path and one on the plain path, from
     the same weights, batch and generator seed (so the same dropout, mining
@@ -1384,12 +1404,13 @@ def fp32_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, family=No
     parameter by about lr·sign(g), so a gradient entry near zero may move
     the two paths' parameters apart by up to 2·lr. Returns the two states,
     their metrics (with the peak memory of each step, ``peak_gib``), the
-    launches and lr."""
+    launches and lr. ``states``: the two train states, made by the caller
+    (else here, seed 0)."""
     from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
 
     create = create_mhim_state if family is None else create_train_state
-    state_k = create(cfg, model_k, spe, seed=0, device="cuda")
-    state_p = create(cfg, model_p, spe, seed=0, device="cuda")
+    state_k, state_p = states or (create(cfg, model_k, spe, seed=0, device="cuda"),
+                                  create(cfg, model_p, spe, seed=0, device="cuda"))
     lr = float(state_k.optimizer.lr_schedule(0))
     reset_launches()
     m_k, peak_k = peak_gib(lambda: train_step_for(cfg, spe, family, ablate)(state_k, batch))
@@ -1473,14 +1494,108 @@ def variant_launches(ablate) -> dict:
     return dict(TRAIN_LAUNCHES)
 
 
-def flagship_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, ablate=None):
+HIGH_POOL = 2 * 0.03  # the flagship's high-mining pool: mask_ratio_h / mask_ratio_hr of each bag's valid instances
+TIE_BAND = (0.02, 0.20)  # planted ties: each bag's scores of these descending ranks (shares of its valid ones)
+
+
+def plant_ties(scores, mask):
+    """``scores`` with each bag's valid instances of descending rank
+    TIE_BAND[0]·n to TIE_BAND[1]·n set to one value, their mean: many
+    equal scores straddling the high-mining pool's cut at HIGH_POOL·n."""
+    out = scores.clone()
+    for b in range(scores.shape[0]):
+        n = int(mask[b].sum())
+        order = torch.argsort(scores[b].masked_fill(~mask[b], -math.inf), descending=True, stable=True)
+        band = order[int(TIE_BAND[0] * n):int(TIE_BAND[1] * n)]
+        out[b, band] = scores[b, band].mean()
+    return out
+
+
+def reflect(scores, mask):
+    """Each bag's valid scores reflected about the middle of their range
+    (``max + min − s``): the ranks of every score not tied reversed."""
+    hi = scores.masked_fill(~mask, -math.inf).amax(-1, keepdim=True)
+    lo = scores.masked_fill(~mask, math.inf).amin(-1, keepdim=True)
+    return torch.where(mask, hi + lo - scores, scores)
+
+
+@contextlib.contextmanager
+def held_mining(state_k, state_p, rec: dict, plant=None, control: bool = False):
+    """Hold both paths' mining to one decision (ROADMAP fault 14): while
+    it is entered, the kernel path's teacher runs its own forward and then
+    the plain path's teacher on the same inputs and the same dropout draws
+    (the generator set back in between), records both (``rec``), and hands
+    the plain path's mining scores (through ``plant`` when given) to the
+    mining; the plain path's teacher hands on the same tensor. The kernel
+    teacher's own scores are checked against the plain ones after the step
+    (:func:`flagship_step_pair`). A 1-ulp difference between K1/K2 and the
+    plain path can move instances whose scores are tied across the mining's
+    cut: a weak check, not a kernel fault. ``control`` hands the kernel
+    path's mining the scores reflected (:func:`reflect`), a decision that
+    differs on instances whose scores are not tied: the step's check must
+    then fail."""
+    teacher_k, teacher_p = state_k.teacher, state_p.teacher
+    own_k, own_p = teacher_k.forward_teacher, teacher_p.forward_teacher
+
+    def kernel(feats, mask, training=False, gen=None):
+        before = gen.get_state()
+        cls_k, attn_k = own_k(feats, mask, training=training, gen=gen)
+        after = gen.get_state()
+        gen.set_state(before)
+        cls_p, attn_p = own_p(feats, mask, training=training, gen=gen)
+        if not torch.equal(gen.get_state(), after):
+            fail("the two teachers drew other numbers from the step's generator")
+        mined = attn_p if plant is None else plant(attn_p, mask)
+        rec.update(attn_k=attn_k, attn_p=attn_p, cls_k=cls_k, cls_p=cls_p, mask=mask, mined=mined)
+        return cls_k, reflect(mined, mask) if control else mined
+
+    def plain(feats, mask, training=False, gen=None):
+        cls_p, attn_p = own_p(feats, mask, training=training, gen=gen)
+        rec["attn_p_again"] = attn_p
+        return cls_p, rec["mined"]
+
+    teacher_k.forward_teacher, teacher_p.forward_teacher = kernel, plain
+    try:
+        yield
+    finally:
+        del teacher_k.forward_teacher, teacher_p.forward_teacher
+
+
+def flagship_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, ablate=None, plant=None,
+                       control: bool = False):
     """:func:`fp32_step_pair` of the flagship step (its ``ablate`` variant)
-    with its launches (:func:`variant_launches`), and the mining's, the
-    teacher EMA's and global_q's checks: the mining took the same
-    instances, the teacher within (1 − mm)·2·lr, global_q within 1e-6.
-    Returns the two states, their metrics and the launches."""
-    state_k, state_p, m_k, m_p, counted, lr = fp32_step_pair(label, cfg, model_k, model_p, batch, spe,
-                                                             ablate=ablate, **variant_launches(ablate))
+    with its launches (:func:`variant_launches`), both paths' mining held
+    to one decision on the plain path's scores (:func:`held_mining`, with
+    ``plant`` and ``control``), and the mining's, the teacher EMA's and
+    global_q's checks: the kernel teacher's mining scores within
+    1e-4·max|ref| of the plain teacher's, its cls feature within
+    1e-4·max(1, max|ref|), keep_num and patch_num equal, the teacher within
+    (1 − mm)·2·lr, global_q within 1e-6. Returns the two states, their
+    metrics and the launches."""
+    from mhim_mil_torch.engine.train_state import create_mhim_state
+
+    rec: dict = {}
+    create = create_mhim_state
+    states = (create(cfg, model_k, spe, seed=0, device="cuda"), create(cfg, model_p, spe, seed=0, device="cuda"))
+    with held_mining(*states, rec, plant, control):
+        state_k, state_p, m_k, m_p, counted, lr = fp32_step_pair(label, cfg, model_k, model_p, batch, spe,
+                                                                 ablate=ablate, states=states,
+                                                                 **variant_launches(ablate))
+    if rec:
+        mask = rec["mask"]
+        s_err = (rec["attn_k"] - rec["attn_p"]).abs().max().item()
+        s_tol = 1e-4 * rec["attn_p"].abs().max().item()
+        c_err = (rec["cls_k"] - rec["cls_p"]).abs().max().item()
+        c_tol = 1e-4 * max(1.0, rec["cls_p"].abs().max().item())
+        again = (rec["attn_p_again"] - rec["attn_p"]).abs().max().item()
+        valid = rec["mined"][mask]
+        log(f"{label} fp32 teacher, kernel vs plain: mining scores max|d| {s_err:.3e} (tolerance 1e-4 * max|ref| = "
+            f"{s_tol:.3e}), cls max|d| {c_err:.3e} (tolerance {c_tol:.3e}); the mining of both paths read the plain "
+            f"scores{' with planted ties' if plant else ''}: {valid.numel()} valid scores, {valid.unique().numel()} "
+            f"distinct; the plain step's own scores again max|d| {again:.3e}"
+            + ("; control: the kernel path's mining read them reflected" if control else ""))
+        if not torch.isfinite(rec["attn_k"]).all() or s_err > s_tol or c_err > c_tol:
+            fail(f"{label}: the kernel path's teacher disagrees with the plain path's")
     for key in ("keep_num", "patch_num"):
         if float(m_k[key]) != float(m_p[key]):
             fail(f"{label}: {key} differs between the paths: the mining took other instances")
@@ -1496,17 +1611,32 @@ def flagship_step_pair(label: str, cfg, model_k, model_p, batch, spe: int, ablat
 
 def phase_train(gen) -> dict:
     """Phase 5: the flagship train step. One fp32 step on the kernel path
-    against the plain path (:func:`fp32_step_pair`; the mining took the same
-    instances, the teacher within (1 − mm)·2·lr, global_q within 1e-6),
-    then bf16 steps."""
+    against the plain path (:func:`flagship_step_pair`: both paths' mining
+    held to the plain teacher's scores, the kernel teacher's scores within
+    1e-4·max|ref| of them, keep_num and patch_num equal, the teacher within
+    (1 − mm)·2·lr, global_q within 1e-6); the same from the same weights
+    with ties planted in those scores across the high-mining cut
+    (:func:`plant_ties`), which must pass, and the control whose kernel
+    path mines the scores reflected, which must fail; then bf16 steps."""
     cfg, model_k, model_p = flagship_models(2, compute_dtype="float32")
     batch = train_batch(gen, cfg)
     spe = 8
+    fresh = [(copy.deepcopy(model_k), copy.deepcopy(model_p)) for _ in range(2)]
     state_k, _, _, _, counted = flagship_step_pair("train", cfg, model_k, model_p, batch, spe)
+    _, _, m_t, _, _ = flagship_step_pair("train, planted ties", cfg, *fresh[0], batch, spe, plant=plant_ties)
+    try:
+        flagship_step_pair("train, control", cfg, *fresh[1], batch, spe, control=True)
+    except SystemExit as e:
+        log(f"train, control (the kernel path's mining on reflected scores) failed, as it must: {e}")
+    else:
+        fail("train, control: the kernel path mined other instances and the step's check passed: it cannot see "
+             "the mining")
+    del fresh
     r = bf16_steps("train", cfg, state_k, batch, spe, **TRAIN_LAUNCHES)
     b = batch["feats"].shape[0]
     return {"launches": [counted, r["counted"]],
-            "train": {"ms_per_step": r["ms"], "bags_per_s": b / r["ms"] * 1e3, "peak_gib": r["peak_gib"]}}
+            "train": {"ms_per_step": r["ms"], "bags_per_s": b / r["ms"] * 1e3, "peak_gib": r["peak_gib"],
+                      "planted_ties_loss": float(m_t["loss"])}}
 
 
 def phase_teacher(gen) -> dict:
@@ -2503,8 +2633,8 @@ MAMBAMIL_ARGS = ["-c", "config/feat_cls.yaml", "--model", "mambamil", "--mambami
                  "4", "--synth_n_slides", "24", "--cv_fold", "1", "--num_epoch", "2", "--max_epoch", "2",
                  "--num_bootstrap", "50", "--use_flash_attn", "true"]
 MAMBA_ARGS = ["-c", "config/feat_surv.yaml", "--model", "2dmamba", "--datasets", "surv_synth", "--input_dim", "1024",
-              "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--cv_fold", "1",
-              "--num_epoch", "1", "--use_flash_attn", "true"]
+              "--synth_bag_size", "10240", "--bucket_sizes", "10240", "--batch_size", "4", "--synth_n_slides", "24",
+              "--cv_fold", "1", "--num_epoch", "1", "--use_flash_attn", "true"]
 
 
 def drive(label: str, argv) -> tuple:
@@ -2718,15 +2848,15 @@ def gflops_a_patch(module, size: int) -> float:
 
 def encoder_speed(name: str, module, size: int, batch: int, smi: str) -> dict:
     """Patches a second of ``module`` alone on the card at ``size`` px,
-    batch ``batch``, fp32: the median of 5 CUDA-event blocks of one batch
-    each after 2 warm-up batches, with PyTorch's TF32 defaults and with TF32
+    batch ``batch``, fp32: the median of 3 CUDA-event blocks of one batch
+    each after a warm-up batch, with PyTorch's TF32 defaults and with TF32
     off; beside them its GFLOPs a patch and its peak memory above its weights."""
     x = torch.randn(batch, 3, size, size, device="cuda")
     r = {"size": size, "batch": batch, "gflops_a_patch": gflops_a_patch(module, size)}
     for label, conv_tf32 in (("defaults", True), ("tf32_off", False)):
         set_tf32(conv_tf32)
         with torch.inference_mode():
-            ms = time_ms(lambda: module(x), iters=5, warmup=2)
+            ms = time_ms(lambda: module(x), iters=3, warmup=1)
             _, peak = peak_gib(lambda: module(x))
         r[label] = {"ms_a_batch": ms, "patches_per_s": batch / ms * 1e3,
                     "tflop_s": batch * r["gflops_a_patch"] / ms, "peak_gib": peak}
@@ -2736,7 +2866,7 @@ def encoder_speed(name: str, module, size: int, batch: int, smi: str) -> dict:
         f"{r['defaults']['tflop_s']:.1f} TFLOP/s), TF32 off {r['tf32_off']['patches_per_s']:.1f} patches/s "
         f"({r['tf32_off']['ms_a_batch']:.2f} ms, {r['tf32_off']['tflop_s']:.1f} TFLOP/s); peak "
         f"{r['defaults']['peak_gib']:.2f} / {r['tf32_off']['peak_gib']:.2f} GiB above the weights (CUDA events, "
-        f"median of 5 batches), {smi}")
+        f"median of 3 batches), {smi}")
     return r
 
 
@@ -3813,17 +3943,17 @@ def zoo_dp_state(cfg, init: dict):
     return model, family, create(cfg, model, ZOO_DP_SPE, seed=0, device="cuda")
 
 
-def zoo_dp_step(label: str, cfg, family: str, state, batch) -> tuple:
+def zoo_dp_step(label: str, cfg, family: str, state, batch, **want) -> tuple:
     """One fp32 train step of ``state`` on ``batch``, synchronised: its
-    metrics, host ms and launches (none: no family of phase 19 trains
-    through a kernel)."""
+    metrics, host ms and launches (``want``, else the run fails; none for
+    phases 19 and 20, whose families train through no kernel)."""
     step = train_step_for(cfg, ZOO_DP_SPE, None if family in ("mhim", "mhim_pure") else family)
     reset_launches()
     t0 = time.perf_counter()
     m = step(state, batch)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return {k: float(v) for k, v in m.items()}, ms, expect_launches(label)
+    return {k: float(v) for k, v in m.items()}, ms, expect_launches(label, **want)
 
 
 def zoo_dp_k5_probe(records: list):
@@ -4044,7 +4174,7 @@ def phase_zoo_dp(gen, smi: str) -> dict:
     sp_ref = {"refs": {name: refs[name] for name in SCAN_SP}, "cases": {name: cases[name] for name in SCAN_SP},
               "batches": {k: batches[k] for k in ("zoo", "2dmamba", "2dmamba_eval")}, "logits": ref_logits}
     return {"launches": seen, "seconds": secs, "readings": readings, "logits_err": l_err,
-            "k5_err": k5_errs, "sp_ref": sp_ref}
+            "k5_err": k5_errs, "sp_ref": sp_ref, "zoo_batch": batches["zoo"]}
 
 
 def zoo_step_check(phase: str, label: str, ref: dict, got: dict) -> dict:
@@ -4249,6 +4379,244 @@ def phase_scan_sp(sp_ref: dict, smi: str) -> dict:
             "k5": k5}
 
 
+# ---- phase 21: sequence parallelism for the pooling and selection families ------------------------
+
+ZOO_SP_WORLD = 2  # processes of 21, sharing the one card: dp 1 x sp 2
+ZOO_SP_TIMEOUT_S = 400
+# name: (preset, config overrides); one fp32 train step and one evaluation each, at the preset's width on
+# input_dim 1024, on phase 19's ragged 4 x 10,240 batch
+ZOO_SP = {
+    "transmil": (ZOO, dict(model="transmil")),
+    "gabmil": (ZOO, dict(model="gabmil")),
+    "meanmil": (ZOO, dict(model="meanmil")),
+    "maxmil": (ZOO, dict(model="maxmil")),
+    "ibmil": (ZOO, dict(model="ibmil")),
+    "clam_sb": (ZOO, dict(model="clam_sb", aux_alpha=0.5)),
+    "clam_mb": (ZOO, dict(model="clam_mb", aux_alpha=0.5)),
+    "dsmil": (ZOO, dict(model="dsmil", aux_alpha=0.5)),
+    "mhim_dsmil": (MHIM_C16, dict(baseline="dsmil")),
+    "mhim_peg": (MHIM_C16, dict(pos="peg")),
+}
+# the launches of a rank (as of one process) in each case's fp32 step and evaluation; none elsewhere
+ZOO_SP_LAUNCHES = {"transmil": (TEACHER_LAUNCHES, DP_FWD_LAUNCHES), "gabmil": ({}, dict(K4=1)),
+                   "mhim_peg": (TRAIN_LAUNCHES, DP_FWD_LAUNCHES)}
+ZOO_SP_AUX = ("clam_sb", "clam_mb", "dsmil", "mhim_dsmil", "mhim_peg")  # each pays an aux loss
+
+
+def zoo_sp_eval(label: str, cfg, model, family: str, batch, want: dict):
+    """The evaluation step's logits on ``batch`` (gathered under a mesh) and
+    its launches (``want``, else the run fails)."""
+    from mhim_mil_torch.engine.steps import make_eval_step, make_mhim_eval_step
+    from mhim_mil_torch.parallel.mesh import gather_rows
+
+    step = make_mhim_eval_step(cfg, model) if family in ("mhim", "mhim_pure") else make_eval_step(cfg, model, family)
+    reset_launches()
+    logits = gather_rows(step(batch)["logits"])
+    torch.cuda.synchronize()
+    return logits.cpu(), expect_launches(label, **want)
+
+
+def zoo_sp_k4_probe(tokens: list):
+    """Wrap the pools' K4 wrapper so that each call records its instances in
+    ``tokens``; returns the undo."""
+    from mhim_mil_torch.models import layers
+
+    orig = layers.fused_abmil_pool
+
+    def probe(x, *a, **k):
+        tokens.append(int(x.shape[1]))
+        return orig(x, *a, **k)
+
+    layers.fused_abmil_pool = probe
+    return lambda: setattr(layers, "fused_abmil_pool", orig)
+
+
+def zoo_sp_hold(state, scores, rows: slice, errs: list):
+    """MHIM's mining held to one decision (ROADMAP fault 14): the teacher
+    runs its own forward, its mining scores are held against this rank's
+    block ``rows`` of the one-process teacher's ``scores`` (max|d| into
+    ``errs``), and the mining reads those; returns the undo."""
+    teacher = state.teacher
+    own = teacher.forward_teacher
+
+    def held(feats, mask, training=False, gen=None):
+        cls, attn = own(feats, mask, training=training, gen=gen)
+        ref = scores[:, rows].to(attn.device)
+        errs.append((attn - ref).abs().max().item())
+        return cls, ref
+
+    teacher.forward_teacher = held
+    return lambda: delattr(teacher, "forward_teacher")
+
+
+def zoo_sp_record(state, out: list):
+    """Record the mining scores of the teacher's forward in ``out``; returns the undo."""
+    teacher = state.teacher
+    own = teacher.forward_teacher
+
+    def recorded(*a, **k):
+        cls, attn = own(*a, **k)
+        out.append(attn.detach().cpu())
+        return cls, attn
+
+    teacher.forward_teacher = recorded
+    return lambda: delattr(teacher, "forward_teacher")
+
+
+def zoo_sp_worker(rank: int, tmp: str, port: int):
+    """One rank of phase 21, in a process of its own: a gloo world of
+    ZOO_SP_WORLD processes on the one card, ``make_mesh(dp=1, sp=2)``, each
+    rank holding its block of every bag's instances. For each family its
+    fp32 train step from the parent's initial weights (MHIM's mining held
+    to the one-process teacher's scores) and its evaluation step, with the
+    tokens each K1, K2, K1b, K2b and K4 call saw and the launches. Writes
+    ``tmp/rank<rank>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from mhim_mil_torch.parallel import make_mesh, replicate_tree, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=ZOO_SP_WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=ZOO_SP_TIMEOUT_S))
+    mesh = make_mesh(dp=1, sp=ZOO_SP_WORLD)
+    batch = {k: v.to("cuda") for k, v in shard_batch(mesh, inputs["batch"]).items()}
+    rows = mesh.instances(inputs["batch"]["mask"].shape[1])
+    out = {"rank": rank, "tokens": int(batch["feats"].shape[1]), "steps": {}}
+    for name, case in inputs["cases"].items():
+        cfg = case["cfg"]
+        want_step, want_eval = ZOO_SP_LAUNCHES.get(name, ({}, {}))
+        model, family, state = zoo_dp_state(cfg, case["init"])
+        replicate_tree(mesh, state)
+        seen: dict = {}
+        k4: list = []
+        errs: list = []
+        undo = [sp_token_probe(seen), zoo_sp_k4_probe(k4)]
+        if case["scores"] is not None:
+            undo.append(zoo_sp_hold(state, case["scores"], rows, errs))
+        try:
+            with mesh:
+                m, ms, c_step = zoo_dp_step(f"21 rank {rank} {name} fp32 step", cfg, family, state, batch, **want_step)
+                model_e, _, _ = zoo_dp_state(cfg, case["init"])
+                logits, c_eval = zoo_sp_eval(f"21 rank {rank} {name} eval", cfg, model_e, family, batch, want_eval)
+        finally:
+            for u in reversed(undo):
+                u()
+        res = {"metrics": m, "ms": ms, "launches": c_step, "eval_launches": c_eval,
+               "seen": {k: max(v) for k, v in seen.items()}, "k4_tokens": k4, "score_err": max(errs, default=None)}
+        if rank == 0:
+            res["grads"] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            res["student"] = {k: v.cpu() for k, v in model.state_dict().items()}
+            res["teacher"] = (None if state.teacher is None or family not in ("mhim", "mhim_pure")
+                              else {k: v.cpu() for k, v in state.teacher.state_dict().items()})
+            res["logits"] = logits
+        out["steps"][name] = res
+        del model, model_e, state
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_zoo_sp(zoo_batch: dict, gen, smi: str) -> dict:
+    """Phase 21: sequence parallelism for the pooling and selection
+    families: ZOO_SP_WORLD processes of this script share the card in a
+    gloo world, ``make_mesh(dp=1, sp=2)``, each holding one block of 5,120
+    of each bag's 10,240 instances of phase 19's ragged batch. For each
+    family of ``ZOO_SP`` (transmil with PPEG, gabmil, meanmil, maxmil,
+    ibmil with a bank of 8 prototypes, clam_sb, clam_mb, dsmil, MHIM with
+    the dsmil baseline and with the selfattn one and PEG) at full width,
+    fp32, dropout on: one train step against the one-process step in this
+    process at 17c's tolerances (loss rtol 2e-5, gradients within 1e-4 of
+    max|g|, student, teacher and global_q_mm within 2·lr; MHIM's mining
+    held to the one-process teacher's scores, the ranks' own within
+    1e-4·max|ref| of them), and the evaluation step's logits within
+    1e-4·max|ref|; transmil's and MHIM-peg's K1, K2, K1b and K2b calls each
+    see at most ⌈10,241/2⌉ tokens, gabmil's K4 runs once a rank on its
+    block; each rank launches what one process launches. Each rank's step
+    ms beside the card's name and power limit."""
+    from mhim_mil_torch.config import load_config
+    from mhim_mil_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    batch = {k: v.to("cuda") for k, v in zoo_batch.items()}
+    refs, cases = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_sp_") as tmp:
+        bank = os.path.join(tmp, "bank.npy")
+        ibmil_bank(gen, bank, 70)
+        for seed, (name, (preset, kw)) in enumerate(ZOO_SP.items(), start=70):
+            extra = {"confounder_path": bank} if name == "ibmil" else {}
+            cfg = load_config(["-c", preset], input_dim=1024, compute_dtype="float32", **kw, **extra)
+            model, _ = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+            init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            del model
+            want_step, want_eval = ZOO_SP_LAUNCHES.get(name, ({}, {}))
+            model, family, state = zoo_dp_state(cfg, init)
+            scores: list = []
+            undo = zoo_sp_record(state, scores) if family in ("mhim", "mhim_pure") else (lambda: None)
+            try:
+                m, ms, _ = zoo_dp_step(f"21 {name} one-process fp32 step", cfg, family, state, batch, **want_step)
+            finally:
+                undo()
+            model_e, _, _ = zoo_dp_state(cfg, init)
+            logits, _ = zoo_sp_eval(f"21 {name} one-process eval", cfg, model_e, family, batch, want_eval)
+            refs[name] = {"metrics": m, "ms": ms, "lr": float(state.optimizer.lr_schedule(0)), "model": model,
+                          "logits": logits, "scores": scores[0] if scores else None,
+                          "student": {k: v.cpu() for k, v in model.state_dict().items()},
+                          "teacher": None if family not in ("mhim", "mhim_pure") else
+                          {k: v.cpu() for k, v in state.teacher.state_dict().items()}}
+            model.cpu()  # the reference's weights and gradients stay, on the host
+            cases[name] = {"cfg": cfg, "init": init, "scores": refs[name]["scores"]}
+            log(f"21 {name}: {cfg.model}{'-' + cfg.baseline if cfg.model.startswith('mhim') else ''} ({preset}) "
+                f"{sum(p.numel() for p in model.parameters())} params, one-process fp32 step {ms:.2f} ms, loss "
+                f"{m['loss']:.6g}, aux {m['aux_loss']:.6g}")
+            del state, model_e
+            torch.cuda.empty_cache()
+        torch.save({"cases": cases, "batch": zoo_batch}, os.path.join(tmp, "inputs.pt"))
+        outs = rank_processes("--zoo-sp-rank", ZOO_SP_WORLD, ZOO_SP_TIMEOUT_S, "21", tmp)
+    r0 = outs[0]
+    readings = {}
+    for name, ref in refs.items():
+        got = r0["steps"][name]
+        readings[name] = zoo_step_check("21", f"{name} under dp 1 x sp 2 ({r0['tokens']} instance slots a rank)",
+                                        ref, got)
+        l_err = (got["logits"] - ref["logits"]).abs().max().item()
+        l_tol = 1e-4 * ref["logits"].abs().max().item()
+        seen = {k: max(o["steps"][name]["seen"].get(k, 0) for o in outs) for k in SP_SEEN}
+        k4 = [o["steps"][name]["k4_tokens"] for o in outs]
+        s_errs = [o["steps"][name]["score_err"] for o in outs]
+        log(f"21 {name} eval under dp 1 x sp 2 against one process: logits max|d| {l_err:.3e} (tolerance 1e-4 * "
+            f"max|ref| = {l_tol:.3e}); most tokens a call {seen} (at most {SP_MAX_TOKENS}); K4 calls' tokens a rank "
+            f"{k4}" + ("" if ref["scores"] is None else
+                       f"; the ranks' teacher mining scores against one process's max|d| {s_errs} (tolerance 1e-4 * "
+                       f"max|ref| = {1e-4 * ref['scores'].abs().max().item():.3e})"))
+        if not torch.isfinite(got["logits"]).all() or not l_err <= l_tol:
+            fail(f"21 {name}: the sp eval's logits disagree with one process's")
+        if max(seen.values()) > SP_MAX_TOKENS:
+            fail(f"21 {name}: a K1, K2, K1b or K2b call saw more than {SP_MAX_TOKENS} tokens")
+        if name in ZOO_SP_LAUNCHES and max(seen.values()) == 0 and name != "gabmil":
+            fail(f"21 {name}: no Nystrom kernel saw a token")
+        if name == "gabmil" and k4 != [[o["tokens"]] for o in outs]:
+            fail(f"21 gabmil: K4 did not run once a rank on the rank's block: {k4}")
+        if ref["scores"] is not None and not max(s_errs) <= 1e-4 * ref["scores"].abs().max().item():
+            fail(f"21 {name}: the ranks' teacher scores disagree with one process's")
+        if name in ZOO_SP_AUX and not got["metrics"]["aux_loss"] > 0:
+            fail(f"21 {name}: no aux loss was paid")
+        readings[name].update(logits_err=l_err, seen=seen, rank_ms=[o["steps"][name]["ms"] for o in outs])
+    for o in outs:
+        steps = ", ".join(f"{n} {s['ms']:.2f}" for n, s in o["steps"].items())
+        log(f"21 rank {o['rank']} on {smi} (one of {ZOO_SP_WORLD} processes sharing one card; not a scaling figure): "
+            f"fp32 step ms (host clock, synchronised): {steps}")
+    log("21 one process: fp32 step ms " + ", ".join(f"{n} {r['ms']:.2f}" for n, r in refs.items()))
+    secs = time.perf_counter() - t0
+    log(f"21 zoo sp: {secs:.1f} s")
+    seen = [c for o in outs for s in o["steps"].values() for c in (s["launches"], s["eval_launches"])]
+    return {"launches": seen, "seconds": secs, "readings": readings}
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -4271,7 +4639,8 @@ def main():
                          ("17 dp", lambda g: phase_dp(g, done["8 driver"]["abmil"])),
                          ("18 sp", lambda g: phase_sp(g, done["17 dp"].pop("ref"), smi)),
                          ("19 zoo dp", lambda g: phase_zoo_dp(g, smi)),
-                         ("20 scan sp", lambda g: phase_scan_sp(done["19 zoo dp"].pop("sp_ref"), smi))):
+                         ("20 scan sp", lambda g: phase_scan_sp(done["19 zoo dp"].pop("sp_ref"), smi)),
+                         ("21 zoo sp", lambda g: phase_zoo_sp(done["19 zoo dp"].pop("zoo_batch"), g, smi))):
         t0 = time.perf_counter()
         res = done[label] = phase(gen)
         for seen in res["launches"]:
@@ -4342,5 +4711,7 @@ if __name__ == "__main__":
         zoo_dp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     elif sys.argv[1:2] == ["--scan-sp-rank"]:  # one rank of phase 20, started by phase 20
         scan_sp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+    elif sys.argv[1:2] == ["--zoo-sp-rank"]:  # one rank of phase 21, started by phase 21
+        zoo_sp_worker(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
     else:
         main()

@@ -577,8 +577,9 @@ def resolve_mesh(cfg) -> Optional[Mesh]:
     without them. In a larger world (``torchrun``) the mesh is an explicit
     opt-in: no ``--mesh_dp`` / ``--mesh_sp`` raises ``ValueError``, every
     model runs under dp, a model whose couplings over the instances are not
-    routed through the mesh's sp collectives raises ``NotImplementedError``
-    under ``--mesh_sp`` (:func:`~.steps.check_sp`), ``dp·sp``
+    routed through the mesh's sp collectives (dtfd, rrtmil: ROADMAP item
+    6d-iii) raises ``NotImplementedError`` under ``--mesh_sp``
+    (:func:`~.steps.check_sp`), ``dp·sp``
     must fit the world (the ranks past it idle, as JAX keeps
     ``devices[:dp*sp]``) and ``mesh_dp`` must divide the batch. Every rank
     calls it: it makes the mesh's process groups."""

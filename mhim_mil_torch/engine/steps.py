@@ -106,18 +106,20 @@ def _model_name(cfg) -> str:
 
 
 # the models whose steps and evaluation run under an sp mesh, each held against JAX's single-device step
-SP_MODELS = ("abmil", "2dmamba", "mambamil")  # the generic step
-SP_BASELINES = ("selfattn", "attn")  # mhim and mhim_pure
-SP_POS = ("ppeg", "sincos", "none", None)  # the selfattn baseline's positional modules
+SP_MODELS = ("abmil", "gabmil", "meanmil", "maxmil", "transmil", "ibmil", "clam_sb", "clam_mb", "dsmil", "2dmamba",
+             "mambamil")  # the generic step
+SP_BASELINES = ("selfattn", "attn", "dsmil")  # mhim and mhim_pure
+SP_POS = ("ppeg", "sincos", "peg", "none", None)  # the selfattn baseline's positional modules
 
 
 def sp_supported(cfg) -> bool:
     """Whether ``cfg``'s model runs under a mesh that splits the instances
     (``sp > 1``): every place where it couples instances goes through the
-    mesh's sp collectives. ``mhim`` and ``mhim_pure`` with the ``attn``
-    baseline or the ``selfattn`` one (positional module ppeg, sincos or
-    none), and ``abmil``, ``2dmamba`` and ``mambamil`` (each variant)
-    through the generic step; the others are ROADMAP Queue 1 item 6d-ii."""
+    mesh's sp collectives. ``mhim`` and ``mhim_pure`` with the ``attn``,
+    ``dsmil`` or ``selfattn`` baseline (every positional module), and the
+    models of :data:`SP_MODELS` through the generic step; ``dtfd``,
+    ``rrtmil`` and the ``parity`` Nystrom path (which raises in
+    ``ops/nystrom.py``) are ROADMAP Queue 1 item 6d-iii."""
     if cfg.model in ("mhim", "mhim_pure"):
         return cfg.baseline in SP_BASELINES and (cfg.baseline != "selfattn" or (cfg.pos or "ppeg") in SP_POS)
     return cfg.model in SP_MODELS
@@ -128,7 +130,7 @@ def check_sp(cfg, sp: int) -> None:
     if sp > 1 and not sp_supported(cfg):
         raise NotImplementedError(
             f"--model {_model_name(cfg)} under --mesh_sp {sp}: its couplings over the instances are not "
-            f"routed through the mesh's sp collectives yet (ROADMAP Queue 1 item 6d-ii); sp runs mhim and "
+            f"routed through the mesh's sp collectives yet (ROADMAP Queue 1 item 6d-iii); sp runs mhim and "
             f"mhim_pure with {SP_BASELINES} and {SP_MODELS}")
 
 
@@ -366,7 +368,9 @@ def make_train_step(
     survival loss (``_wmean``); CLAM's instance loss divides by the whole
     batch's count of bags with a valid instance (``models/clam.py``); every
     dropout mask is the global draw's rows; IBMIL's confounder bank is a
-    buffer, broadcast from rank 0 with the weights (``replicate_tree``)."""
+    buffer, broadcast from rank 0 with the weights (``replicate_tree``).
+    Under sp (:data:`SP_MODELS`) each model routes its couplings over the
+    instances through the sp collectives itself (its module's docstring)."""
     device = resolve_device(device)
     if family not in TRAIN_FAMILIES:
         raise NotImplementedError(f"family={family!r}: the generic train step is ported for {TRAIN_FAMILIES}")

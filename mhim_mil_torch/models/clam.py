@@ -13,6 +13,14 @@ class (MB); ``instance_classifiers.{c}`` are the per-class
 The instance loss mines the top-k and bottom-k attended valid instances
 per class. Among equal scores it takes the lower index first, as
 ``lax.top_k`` does: a stable descending sort, on the CPU and on the card.
+
+Under a mesh that splits the instances (``parallel/mesh.py``, ``sp > 1``)
+``feats`` and ``mask`` are this rank's block: the attention pool's softmax
+and sum run over the sp row (the logits are the whole bag's on every rank,
+``attn`` this block's); the instance loss picks its instances from the
+gathered ``[B, N, C]`` attention logits, fetches their features from the
+ranks that hold them (``sp_pick``) and counts each bag on sp rank 0 only
+(``owner_weight``).
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import NEG_INF, masked_softmax
-from ..parallel.mesh import batch_sum
+from ..parallel.mesh import Seq, batch_sum, owner_weight, seq_layout, sp_gather, sp_pick, sp_sum
 from .layers import Dropout, dense, get_act
 
 
@@ -62,12 +70,13 @@ class AttnNetGated(nn.Module):
         self.attention_b = nn.Sequential(dense(dim, attn_dim, use_bias), nn.Sigmoid(), *_dropout(dropout))
         self.attention_c = dense(attn_dim, n_branches, use_bias)
 
-    def forward(self, x: torch.Tensor, training: bool = False, gen: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, training: bool = False, gen: Optional[torch.Generator] = None,
+                seq: Optional[Seq] = None):
         a = self.attention_a[1](self.attention_a[0](x))
         b = self.attention_b[1](self.attention_b[0](x))
         if len(self.attention_a) > 2:
-            a = self.attention_a[2](a, training, gen)
-            b = self.attention_b[2](b, training, gen)
+            a = self.attention_a[2](a, training, gen, seq)
+            b = self.attention_b[2](b, training, gen, seq)
         return self.attention_c(a * b)
 
 
@@ -81,10 +90,11 @@ class AttnNet(nn.Module):
         self.module = nn.Sequential(dense(dim, attn_dim, use_bias), nn.Tanh(), *_dropout(dropout),
                                     dense(attn_dim, n_branches, use_bias))
 
-    def forward(self, x: torch.Tensor, training: bool = False, gen: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, training: bool = False, gen: Optional[torch.Generator] = None,
+                seq: Optional[Seq] = None):
         a = self.module[1](self.module[0](x))
         if len(self.module) > 3:
-            a = self.module[2](a, training, gen)
+            a = self.module[2](a, training, gen, seq)
         return self.module[-1](a)
 
 
@@ -115,26 +125,30 @@ class CLAM(nn.Module):
         self.instance_classifiers = nn.ModuleList(dense(inner_dim, 2) for _ in range(n_classes))
 
     def inst_loss(self, attn_logits: torch.Tensor, h: torch.Tensor, mask: torch.Tensor,
-                  label: torch.Tensor) -> torch.Tensor:
+                  label: torch.Tensor, seq: Optional[Seq] = None) -> torch.Tensor:
         """The clustering-constrained instance loss (``clam.py:96-146``): per
         class, the top-k attended valid instances should classify as in-class
         and the bottom-k as out; with ``subtyping`` the other classes' top-k
         as out. A mean over the bags that hold a valid instance: under an
         active mesh this rank's sum over the whole batch's count of such
         bags (``batch_sum``), so that the ranks' terms add up to the
-        one-process mean, as ``engine/losses._wmean`` weighs the criterion."""
+        one-process mean, as ``engine/losses._wmean`` weighs the criterion.
+        Given ``seq`` (``h`` and ``mask`` this rank's block), the picks run
+        on the whole bag's gathered logits and the rank counts each bag's
+        term only on sp rank 0."""
         b = h.shape[0]
         c, k = self.n_classes, self.k_sample
         a = attn_logits if attn_logits.shape[-1] == c else attn_logits.repeat_interleave(c, dim=-1)
-        a = torch.where(mask[..., None], a, NEG_INF)  # [B,N,C]
+        a, mask = sp_gather(a.detach(), seq), sp_gather(mask, seq)  # the whole bag's [B,N,C], [B,N]
+        a = torch.where(mask[..., None], a, NEG_INF)
         top_p = top_k_indices(a.transpose(1, 2), k)  # [B,C,k]
         top_n = top_k_indices(torch.where(mask[..., None], -a, NEG_INF).transpose(1, 2), k)
-        rows = torch.arange(b, device=h.device)[:, None, None]
         w = torch.stack([lin.weight for lin in self.instance_classifiers])  # [C,2,D]
         bias = torch.stack([lin.bias for lin in self.instance_classifiers])  # [C,2]
 
         def logit(idx):
-            return torch.einsum("bckd,ced->bcke", h[rows, idx], w) + bias[None, :, None]
+            picked = sp_pick(h, idx.reshape(b, c * k), seq).view(b, c, k, -1)
+            return torch.einsum("bckd,ced->bcke", picked, w) + bias[None, :, None]
 
         lp, ln = logit(top_p), logit(top_n)
         ones = torch.ones(lp.shape[:-1], dtype=torch.long, device=h.device)
@@ -149,21 +163,24 @@ class CLAM(nn.Module):
         total = per_class.sum(-1)
         if self.subtyping:
             total = total / c
-        valid_bag = mask.any(dim=-1).float()
+        valid_bag = mask.any(dim=-1).float() * owner_weight()
         return (total * valid_bag).sum() / batch_sum(valid_bag.sum()).clamp_min(1.0)
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor, label: Optional[torch.Tensor] = None,
                 training: bool = False, gen: Optional[torch.Generator] = None, return_attn: bool = False):
         """``{"logits", "bag_feat"[, "aux_loss"][, "attn" [B,N]]}``."""
         mask = mask.bool()
+        seq = seq_layout(feats.shape[1], feats.device)
         x = self.in_norm(feats) if self.mil_norm == "ln" else feats
         net = self.attention_net
         x = net[1](net[0](x))
         if len(net) > 3:
-            x = net[2](x, training, gen)
-        attn_logits = net[-1](x, training, gen)  # [B,N,K]
-        a = masked_softmax(attn_logits.transpose(-1, -2), mask[:, None, :])  # [B,K,N]
+            x = net[2](x, training, gen, seq)
+        attn_logits = net[-1](x, training, gen, seq)  # [B,N,K]
+        a = masked_softmax(attn_logits.transpose(-1, -2), mask[:, None, :], sharded=seq is not None)  # [B,K,N]
         m = torch.einsum("bkn,bnd->bkd", a, torch.where(mask[..., None], x, 0))
+        if seq is not None:
+            m = sp_sum(m)
         if self.multi_branch:
             wc = torch.cat([lin.weight for lin in self.classifiers])  # [C,D]
             bc = torch.cat([lin.bias for lin in self.classifiers])
@@ -172,7 +189,7 @@ class CLAM(nn.Module):
             logits = self.classifiers(m).amax(dim=1)
         out = {"logits": logits, "bag_feat": m.reshape(feats.shape[0], -1)}
         if label is not None and training:
-            out["aux_loss"] = self.inst_loss(attn_logits, x, mask, label)
+            out["aux_loss"] = self.inst_loss(attn_logits, x, mask, label, seq)
         if return_attn:
             out["attn"] = a[:, 0]
         return out

@@ -5,6 +5,15 @@ MHIM's ``dsmil`` baseline.
 Reference: modules/dsmil.py:59-172 and modules/mhim_modules/baseline.py:112-194.
 The critical-instance argmax and the softmax over the instances count the
 valid instances only.
+
+Under a mesh that splits the instances (``parallel/mesh.py``, ``sp > 1``)
+the features and mask are this rank's block (layout ``seq``): each class's
+critical instance is the whole bag's first argmax (``sp_argmax``), its
+features come from the rank that holds it (``sp_pick``), the softmax over
+the instances and the bag sum run over the sp row, and the max-pooled
+instance logits are the row's max with its ties split over the row
+(``masked_max(sharded=True)``). The logits and the ``[B,C,D]`` bag feature
+are the whole bag's on every rank; ``attn`` is this block's.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import NEG_INF, masked_max, masked_softmax
+from ..parallel.mesh import Seq, seq_layout, sp_argmax, sp_pick, sp_sum
 from .layers import FeatureEmbed, dense
 
 
@@ -46,21 +56,26 @@ class BClassifier(nn.Module):
         if self.fcc.bias is not None:
             self.fcc.bias.zero_()
 
-    def forward(self, feats: torch.Tensor, classes: torch.Tensor, mask: torch.Tensor, no_norm: bool = False):
+    def forward(self, feats: torch.Tensor, classes: torch.Tensor, mask: torch.Tensor, no_norm: bool = False,
+                seq: Optional[Seq] = None):
         """``(logits[B,C], attention[B,N,C], bag[B,C,D])``: the attention
         softmaxed over the instances, or before the softmax with
-        ``no_norm`` (the bag feature always takes the softmaxed one)."""
+        ``no_norm`` (the bag feature always takes the softmaxed one).
+        ``seq``: the layout of the instances sharded over the active sp
+        row (see the module's docstring)."""
         b = feats.shape[0]
         mask = mask.bool()
         v = self.v(feats)
         q = self.q(feats)  # [B,N,128]
         # the critical instance of each class: the first of the valid
         # instances with the largest score, as jnp.argmax breaks ties
-        crit = torch.where(mask[..., None], classes, NEG_INF).argmax(dim=1)  # [B,C]
-        m_feats = torch.gather(feats, 1, crit[..., None].expand(-1, -1, feats.shape[-1]))  # [B,C,D]
+        crit = sp_argmax(torch.where(mask[..., None], classes, NEG_INF), seq, 1)  # [B,C]
+        m_feats = sp_pick(feats, crit, seq)  # [B,C,D]
         a = torch.einsum("bnq,bcq->bnc", q, self.q(m_feats)) / math.sqrt(128.0)
-        a_soft = masked_softmax(a, mask[..., None], dim=1)
+        a_soft = masked_softmax(a, mask[..., None], dim=1, sharded=seq is not None)
         bag = torch.einsum("bnc,bnd->bcd", a_soft, torch.where(mask[..., None], v, 0))
+        if seq is not None:
+            bag = sp_sum(bag)
         logits = F.linear(bag.reshape(b, -1), self.fcc.weight.reshape(self.n_classes, -1), self.fcc.bias)
         return logits, (a if no_norm else a_soft), bag
 
@@ -80,11 +95,13 @@ class DSMILHead(nn.Module):
         self.b_classifier = BClassifier(dim, n_classes)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, return_attn: bool = False,
-                training: bool = False, gen: Optional[torch.Generator] = None, no_norm: bool = False):
+                training: bool = False, gen: Optional[torch.Generator] = None, no_norm: bool = False,
+                seq: Optional[Seq] = None):
         mask = mask.bool()
         classes = self.i_classifier(x)  # [B,N,C]
-        bag_logits, a, bag_feat = self.b_classifier(x, classes, mask, no_norm)
-        out = {"bag_logits": bag_logits, "inst_logits": masked_max(classes, mask[..., None], dim=1),
+        bag_logits, a, bag_feat = self.b_classifier(x, classes, mask, no_norm, seq)
+        out = {"bag_logits": bag_logits,
+               "inst_logits": masked_max(classes, mask[..., None], dim=1, sharded=seq is not None),
                "bag_feat": bag_feat}
         if return_attn:
             src = classes if self.cls_attn else a
@@ -116,11 +133,13 @@ class DSMIL(nn.Module):
     def forward(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
                 gen: Optional[torch.Generator] = None, return_attn: bool = False):
         mask = mask.bool()
+        seq = seq_layout(feats.shape[1], feats.device)
         x = self.in_norm(feats) if self.mil_norm == "ln" else feats
-        x = self.feature(x, training, gen)
+        x = self.feature(x, training, gen, seq)
         classes = self.i_classifier(x)
-        bag_logits, _, bag_feat = self.b_classifier(x, classes, mask)
-        out = {"logits": bag_logits, "inst_logits_bag": masked_max(classes, mask[..., None], dim=1),
+        bag_logits, _, bag_feat = self.b_classifier(x, classes, mask, seq=seq)
+        out = {"logits": bag_logits,
+               "inst_logits_bag": masked_max(classes, mask[..., None], dim=1, sharded=seq is not None),
                "bag_feat": bag_feat.reshape(feats.shape[0], -1)}
         if return_attn:
             attn = torch.where(mask[..., None], classes, NEG_INF).amax(dim=-1)

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.masked import masked_softmax
+from ..parallel.mesh import seq_layout, sp_sum
 from .layers import FeatureEmbed, dense, promoted_linear
 
 
@@ -47,11 +48,19 @@ class IBMIL(nn.Module):
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
                 gen: Optional[torch.Generator] = None, return_attn: bool = False):
-        """``{"logits", "bag_feat"[, "attn" [B,N]]}``."""
+        """``{"logits", "bag_feat"[, "attn" [B,N]]}``. Under a mesh that
+        splits the instances (``parallel/mesh.py``, ``sp > 1``) ``feats`` and
+        ``mask`` are this rank's block: the attention's softmax and the
+        weighted sum run over the sp row, the bag feature and logits are the
+        whole bag's on every rank and ``attn`` is this block's; the
+        confounder attention is bag-level."""
         mask = mask.bool()
-        x = self.embedding.embed(feats, training, gen)
-        attn = masked_softmax(self.attention(x)[..., 0], mask)
+        seq = seq_layout(feats.shape[1], feats.device)
+        x = self.embedding.embed(feats, training, gen, seq)
+        attn = masked_softmax(self.attention(x)[..., 0], mask, sharded=seq is not None)
         bag = torch.einsum("bn,bnd->bd", attn, torch.where(mask[..., None], x, 0))
+        if seq is not None:
+            bag = sp_sum(bag)
         if hasattr(self, "confounder_feat"):
             conf = self.confounder_feat.float()
             q = self.W_q(bag)  # [B,J]

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.masked import masked_max, masked_mean
+from ..parallel.mesh import seq_layout
 from .layers import FeatureEmbed, dense
 
 
@@ -28,8 +29,13 @@ class _InstanceMIL(nn.Module):
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
                 gen: Optional[torch.Generator] = None, return_attn: bool = False):
-        inst_logits = self.classifier(self.feature(feats, training, gen))  # [B,N,C]
-        return {"logits": self.reduce(inst_logits, mask.bool()[..., None], dim=-2)}
+        """``{"logits"}``. Under a mesh that splits the instances
+        (``parallel/mesh.py``, ``sp > 1``) ``feats`` and ``mask`` are this
+        rank's block and the pooling runs over the sp row: the logits are
+        the whole bag's on every rank."""
+        seq = seq_layout(feats.shape[1], feats.device)
+        inst_logits = self.classifier(self.feature(feats, training, gen, seq))  # [B,N,C]
+        return {"logits": self.reduce(inst_logits, mask.bool()[..., None], dim=-2, sharded=seq is not None)}
 
 
 class MeanMIL(_InstanceMIL):
@@ -39,6 +45,7 @@ class MeanMIL(_InstanceMIL):
 
 
 class MaxMIL(_InstanceMIL):
-    """The max of the valid instances' logits (``mean_max.py:30-42``)."""
+    """The max of the valid instances' logits (``mean_max.py:30-42``); the
+    gradient split evenly among tied maxima, over the whole bag under sp."""
 
     reduce = staticmethod(masked_max)

@@ -101,8 +101,7 @@ class MHIM(nn.Module):
 
     @staticmethod
     def _sp(seq: Optional[Seq]) -> Dict[str, Seq]:
-        """The keyword that hands a layout on (none without one, so that the
-        dsmil head, which sp does not run, keeps its signature)."""
+        """The keyword that hands a layout on (none without one)."""
         return {} if seq is None else {"seq": seq}
 
     @torch.no_grad()

@@ -108,15 +108,24 @@ class PPEG(nn.Module):
 class PEG(nn.Module):
     """One depthwise k×k convolution on the square token grid plus identity
     (``positional.py:103-123``; reference modules/rrt.py:602-624). Masked
-    tokens keep their input."""
+    tokens keep their input. Given ``seq``, ``x`` is this rank's block of a
+    bag sharded over the active sp row, on the whole bag's grid, as in
+    :class:`PPEG`."""
 
     def __init__(self, dim: int = 512, k: int = 7, use_bias: bool = True):
         super().__init__()
+        self.k = k
         self.proj = nn.Conv2d(dim, dim, k, padding=k // 2, groups=dim, bias=use_bias)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, seq: Optional[Seq] = None) -> torch.Tensor:
         if seq is not None:
-            raise NotImplementedError("PEG under sequence parallelism (ROADMAP Queue 1 item 6d-ii)")
+            p = self.k // 2
+
+            def conv(g):  # the rows' convolution plus the identity of their centre rows
+                out = F.conv2d(g, self.proj.weight, self.proj.bias, padding=(0, p), groups=x.shape[-1])
+                return g.narrow(2, p, out.shape[2]) + out
+
+            return _grid_conv_sharded(x, mask, seq, self.k, conv)
         grid = _square_grid(x, mask)
         return _from_grid(grid + self.proj(grid), x, mask)
 

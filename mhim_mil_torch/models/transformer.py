@@ -15,7 +15,7 @@ from torch import nn
 
 from ..ops.flash_nystrom import flash_nystrom, flash_nystrom_infer
 from ..ops.nystrom import nystrom_attention, nystrom_attention_streamed
-from ..parallel.mesh import Seq, sp_halo
+from ..parallel.mesh import Seq, seq_layout, sp_first, sp_halo
 from .layers import Dropout, FeatureEmbed, dense
 from .positional import make_pos
 
@@ -208,30 +208,46 @@ class TransMIL(nn.Module):
     def forward(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
                 gen: Optional[torch.Generator] = None, return_attn: bool = False,
                 coords: Optional[torch.Tensor] = None):
-        """``{"logits", "bag_feat"[, "attn", "attns"]}``."""
+        """``{"logits", "bag_feat"[, "attn", "attns"]}``. Under a mesh that
+        splits the instances (``parallel/mesh.py``, ``sp > 1``) ``feats``,
+        ``mask`` and ``coords`` are this rank's block, as in
+        ``SAttentionBaseline``: the cls token goes in front of sp rank 0's
+        block, both TransLayers and the positional module run on the block
+        in the whole sequence's layout, the cls row comes from rank 0
+        (``sp_first``), the logits are the whole bag's on every rank and
+        the returned attention is this block's (the cls column dropped on
+        rank 0 only)."""
         b = feats.shape[0]
         mask = mask.bool()
+        seq = seq_layout(feats.shape[1], feats.device)
         x = self.in_norm(feats) if self.mil_norm == "ln" else feats
-        x = self.feature(x, training, gen)
-        x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
-        full_mask = torch.cat([mask.new_ones((b, 1)), mask], dim=1)
+        x = self.feature(x, training, gen, seq)
+        c = 1 if seq is None or seq.index == 0 else 0  # this rank holds the cls token
+        if c:
+            x = torch.cat([self.cls_token.expand(b, 1, -1), x], dim=1)
+            full_mask = torch.cat([mask.new_ones((b, 1)), mask], dim=1)
+        else:
+            full_mask = mask
+        kw = {} if seq is None else {"seq": seq.prepend(1)}
 
         attns = []
         if return_attn:
-            x, a, *_ = self.layer1(x, full_mask, True, training, gen)
-            attns.append(a[:, :, 1:])  # drop the cls column
+            x, a, *_ = self.layer1(x, full_mask, True, training, gen, **kw)
+            attns.append(a[:, :, c:])  # drop the cls column
         else:
-            x = self.layer1(x, full_mask, False, training, gen)
+            x = self.layer1(x, full_mask, False, training, gen, **kw)
         if self.pos_layer is not None:
             extra = (coords,) if self.pos == "sincos" else ()
-            x = torch.cat([x[:, :1], self.pos_layer(x[:, 1:], mask, *extra)], dim=1)
+            pos_kw = {} if seq is None else {"seq": seq}
+            x = torch.cat([x[:, :c], self.pos_layer(x[:, c:], mask, *extra, **pos_kw)], dim=1)
         if return_attn:
-            x, a, *_ = self.layer2(x, full_mask, True, training, gen)
-            attns.append(a[:, :, 1:])
+            x, a, *_ = self.layer2(x, full_mask, True, training, gen, **kw)
+            attns.append(a[:, :, c:])
         else:
-            x = self.layer2(x, full_mask, False, training, gen)
+            x = self.layer2(x, full_mask, False, training, gen, **kw)
 
-        x = self.norm(x[:, 0])  # LayerNorm is per token
+        cls = x[:, 0] if seq is None else sp_first(x[:, 0], kw["seq"])
+        x = self.norm(cls)  # LayerNorm is per token
         out = {"logits": self.classifier(x), "bag_feat": x}
         if return_attn:
             out["attn"] = attns[-1]

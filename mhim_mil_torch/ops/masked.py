@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..parallel.mesh import Seq, sp_gather, sp_max, sp_scatter, sp_sum
+from ..parallel.mesh import Seq, sp_amax, sp_gather, sp_max, sp_scatter, sp_sum
 
 # A large-but-finite negative fill: softmax of a fully masked row stays NaN-free.
 NEG_INF = -1e30
@@ -57,18 +57,26 @@ def masked_logsumexp(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) ->
     return m.squeeze(dim) + torch.log(s.clamp_min(1e-30))
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = -2) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int = -2, sharded: bool = False) -> torch.Tensor:
     """Mean of ``x`` over ``dim`` counting only the masked-in positions
     (``masked.py:67-76``); ``mask`` broadcasts to ``x`` (``mask[..., None]``
-    against ``x[B, N, D]``). A fully masked row gives 0."""
+    against ``x[B, N, D]``). A fully masked row gives 0. ``sharded``: ``dim``
+    is an instance axis split over the active sp row, whose sums and counts
+    are the row's (:func:`sp_sum`)."""
     mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
-    return (x * mask).sum(dim=dim) / mask.sum(dim=dim).clamp_min(1.0)
+    total, count = (x * mask).sum(dim=dim), mask.sum(dim=dim)
+    if sharded:
+        total, count = sp_sum(total), sp_sum(count)
+    return total / count.clamp_min(1.0)
 
 
-def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int = -2) -> torch.Tensor:
+def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int = -2, sharded: bool = False) -> torch.Tensor:
     """Max of ``x`` over ``dim`` of the masked-in positions (``masked.py:79-81``);
-    a fully masked row gives ``NEG_INF``."""
-    return torch.where(torch.broadcast_to(mask, x.shape), x, NEG_INF).amax(dim=dim)
+    a fully masked row gives ``NEG_INF``. ``sharded``: ``dim`` is an instance
+    axis split over the active sp row, whose max is the row's, its gradient
+    split among the row's ties (:func:`sp_amax`)."""
+    x = torch.where(torch.broadcast_to(mask, x.shape), x, NEG_INF)
+    return sp_amax(x, dim) if sharded else x.amax(dim=dim)
 
 
 def topk_mask(scores: torch.Tensor, valid: torch.Tensor, k, largest: bool = True) -> torch.Tensor:

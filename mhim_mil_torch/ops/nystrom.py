@@ -170,7 +170,7 @@ def nystrom_attention(
     m = num_landmarks
     front_pad = 0
     if parity and seq is not None:
-        raise NotImplementedError("the parity path under sequence parallelism (ROADMAP Queue 1 item 6d-ii)")
+        raise NotImplementedError("the parity path under sequence parallelism (ROADMAP Queue 1 item 6d-iii)")
     if parity:
         n0 = q.shape[2]
         front_pad = m * -(-n0 // m) - n0

@@ -31,9 +31,14 @@ themselves:
 - the evaluation's logits (:func:`gather_rows`, over a dp column);
 - along the instance axis, over an sp row: sums and maxes
   (:func:`sp_sum`, :func:`sp_max`; the landmark means, the softmaxes over
-  the instances, K1's partial statistics, the attention pools), the gather
-  of a small ``[B, N]`` tensor (:func:`sp_gather`: the mining scores and
-  masks), the halo of a convolution along the sequence (:func:`sp_halo`),
+  the instances, K1's partial statistics, the attention pools, the masked
+  means), the differentiable max of maxmil's and DSMIL's instance logits
+  (:func:`sp_amax`, ties split over the row), the first argmax (DSMIL's
+  critical instances, :func:`sp_argmax`) and the pick of chosen rows from
+  their owners (:func:`sp_pick`: those instances and CLAM's top-k), the
+  gather of a small ``[B, N]`` tensor (:func:`sp_gather`: the mining
+  scores and masks, CLAM's attention logits), the halo of a convolution
+  along the sequence (:func:`sp_halo`: the value residual, PPEG, PEG),
   the move of kept instances to their compacted blocks, of a bag's
   instances to the bands of its 2D grid and of a sequence to SRMamba's
   permuted layout (:func:`sp_scatter`, which holds the whole moved
@@ -468,6 +473,91 @@ def sp_max(x: torch.Tensor) -> torch.Tensor:
     if mesh is None:
         return x.detach()
     return _reduced(x, mesh.sp_group, dist.ReduceOp.MAX)
+
+
+def _row_ties(count: torch.Tensor, group) -> torch.Tensor:
+    """The row's count of the entries tied at a max, from each rank's."""
+    return _reduced(count, group)
+
+
+class _SpAmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        top = _reduced(x.amax(dim, keepdim=True), group, dist.ReduceOp.MAX)
+        hit = x.detach() == top
+        ctx.save_for_backward(hit, _row_ties(hit.sum(dim, keepdim=True), group))
+        ctx.dim, ctx.group = dim, group
+        return top.squeeze(dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        hit, count = ctx.saved_tensors
+        g = _reduced(g, ctx.group).unsqueeze(ctx.dim)
+        return torch.where(hit, g / count.to(g.dtype), torch.zeros((), dtype=g.dtype, device=g.device)), None, None
+
+
+def sp_amax(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The max of ``x`` over its instance axis ``dim``, sharded over the
+    active sp row (``x.amax(dim)`` without one), differentiable: the row's
+    summed cotangent is split evenly among the entries tied at the max over
+    the whole row (each rank divides by the row's count of ties), as JAX's
+    ``reduce_max`` and one ``amax`` split it."""
+    mesh = active_sp()
+    if mesh is None:
+        return x.amax(dim)
+    return _SpAmax.apply(x, dim % x.dim(), mesh.sp_group)
+
+
+def sp_argmax(x: torch.Tensor, seq: Optional[Seq], dim: int = 1) -> torch.Tensor:
+    """The global index of the largest entry of ``x`` along its instance
+    axis ``dim``, sharded over the active sp row in the layout ``seq``; among
+    equal entries the lowest global index, as ``jnp.argmax`` and
+    ``torch.argmax`` break ties. The same on every rank (``x.argmax(dim)``
+    without an sp mesh). Two all-reduces of the result's size."""
+    mesh = active_sp()
+    if mesh is None or seq is None:
+        return x.argmax(dim)
+    dim = dim % x.dim()
+    x = x.detach()
+    top = _reduced(x.amax(dim, keepdim=True), mesh.sp_group, dist.ReduceOp.MAX)
+    shape = [1] * x.dim()
+    shape[dim] = seq.local
+    pos = torch.arange(seq.offset, seq.offset + seq.local, device=x.device).view(shape)
+    first = torch.where(x == top, pos, seq.total).amin(dim)
+    return _reduced(first, mesh.sp_group, dist.ReduceOp.MIN)
+
+
+class _SpPick(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx, seq, group):
+        local = idx - seq.offset
+        own = ((local >= 0) & (local < seq.local))[..., None]
+        at = local.clamp(0, seq.local - 1)[..., None].expand(-1, -1, x.shape[-1])
+        ctx.save_for_backward(at, own)
+        ctx.n, ctx.group = x.shape[1], group
+        rows = torch.gather(x, 1, at)
+        return _reduced(torch.where(own, rows, torch.zeros((), dtype=x.dtype, device=x.device)), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        at, own = ctx.saved_tensors
+        g = torch.where(own, _reduced(g, ctx.group), torch.zeros((), dtype=g.dtype, device=g.device))
+        dx = g.new_zeros((g.shape[0], ctx.n, g.shape[-1])).scatter_add_(1, at, g)
+        return dx, None, None, None
+
+
+def sp_pick(x: torch.Tensor, idx: torch.Tensor, seq: Optional[Seq]) -> torch.Tensor:
+    """The rows ``idx[B, K]`` (global instance indices, the same on every
+    rank) of ``x[B, n, D]``, this rank's block of a sequence sharded over the
+    active sp row in the layout ``seq``: ``[B, K, D]`` on every rank. Each
+    rank fills the rows it owns, and one all-reduce combines them.
+    Differentiable: the backward sums the row's partial cotangents and sends
+    each picked row's to its owner, as :func:`sp_sum`'s does. Without an sp
+    mesh, ``torch.gather``."""
+    mesh = active_sp()
+    if mesh is None or seq is None:
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    return _SpPick.apply(x, idx.long(), seq, mesh.sp_group)
 
 
 def sp_first(x: torch.Tensor, seq: Seq) -> torch.Tensor:

@@ -53,10 +53,11 @@ TINY = dict(datasets="synth", input_dim=16, inner_dim=32, n_heads=2, synth_n_sli
             num_bootstrap=5, output_path="", compute_dtype="float32")
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True)
 def one_torch_thread():
-    """One intra-op thread for torch: beside the other test workers its
-    thread pool spins against theirs, and a tiny run takes 10–100× longer."""
+    """One intra-op thread for torch, for every case of the file: beside the
+    other test workers its thread pool spins against theirs, and a tiny run
+    takes 10–100× longer."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

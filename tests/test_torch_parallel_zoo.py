@@ -286,16 +286,18 @@ def _jax_mesh_step(monkeypatch, init, batch):
     return jcfg, s2, {k: float(v) for k, v in m.items()}
 
 
-def _check_generic_against_jax(name, cfg, res, s2, jmetrics, lr):
-    """The dp step's loss (rtol 1e-5), gradients (Adam's first moments,
-    GRAD_TOL of the tensor's max|g|, or of the model's where the tensor's
-    whole gradient is within that of zero) and parameters
-    (``_check_params``) against JAX's mesh step."""
+def _check_generic_against_jax(name, cfg, res, s2, jmetrics, lr, to_port=None):
+    """The dp (or sp) step's loss (rtol 1e-5), gradients (Adam's first
+    moments, GRAD_TOL of the tensor's max|g|, or of the model's where the
+    tensor's whole gradient is within that of zero) and parameters
+    (``_check_params``) against JAX's step; ``to_port`` maps JAX's params
+    to the port's names (this file's ``_to_port`` by default)."""
+    to_port = to_port or _to_port
     _close(res["m/loss"], jmetrics["loss"], rtol=1e-5, atol=0, msg=f"{name} loss")
     _close(res["m/aux_loss"], jmetrics["aux_loss"], rtol=1e-5, atol=1e-7, msg=f"{name} aux_loss")
     moments = [x for x in jax.tree.leaves(s2.opt_state, is_leaf=lambda x: hasattr(x, "mu")) if hasattr(x, "mu")]
-    mu = {k: v.numpy() for k, v in _to_port(name, cfg, _np_params(moments[0].mu)).items()}
-    want = _to_port(name, cfg, _np_params(s2.params))
+    mu = {k: v.numpy() for k, v in to_port(name, cfg, _np_params(moments[0].mu)).items()}
+    want = to_port(name, cfg, _np_params(s2.params))
     got_g = _group(res, "g")
     assert set(got_g) == {k for k in want if k != "confounder_feat"}, name
     top = max(np.abs(mu[k]).max() for k in got_g)

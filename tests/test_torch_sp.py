@@ -298,8 +298,7 @@ def world(tmp_path_factory):
     base = ["--device", "cpu", "--datasets", "synth", "--input_dim", "32", "--inner_dim", "32", "--batch_size", "4",
             "--num_epoch", "1", "--cv_fold", "2", "--synth_n_slides", "8", "--synth_bag_size", "64",
             "--bucket_sizes", "64", "--mesh_dp", "2", "--mesh_sp", "2"]
-    for name, argv in (("raise_gabmil", ["--model", "gabmil"]),
-                       ("raise_mhim_peg", ["--model", "mhim", "--baseline", "selfattn", "--pos", "peg"])):
+    for name, argv in (("raise_dtfd", ["--model", "dtfd"]), ("raise_rrtmil", ["--model", "rrtmil"])):
         add({"name": name, "kind": "raises", "argv": [*base, *argv]})
     arrays["spec"] = np.asarray(json.dumps(specs))
     np.savez(tmp / "in.npz", **arrays)
@@ -641,13 +640,16 @@ def test_abmil_sp_eval_matches_jax(world):
 
 def test_sp_raises_outside_its_models(world):
     """Under ``--mesh_dp 2 --mesh_sp 2`` a model that runs under dp but whose
-    couplings over the instances are not routed through the mesh (gabmil,
-    the flagship with the PEG positional module) raises NotImplementedError
-    naming ROADMAP item 6d."""
+    couplings over the instances are not routed through the mesh (dtfd,
+    rrtmil) raises NotImplementedError naming ROADMAP item 6d-iii, and so
+    does a ``parity`` layer's ``nystrom_attention`` on a block."""
     _, results = world
-    for case in ("raise_gabmil", "raise_mhim_peg"):
+    for case in ("raise_dtfd", "raise_rrtmil"):
         assert str(results[case]["type"]) == "NotImplementedError", case
-        assert "6d" in str(results[case]["message"]), case
+        assert "6d-iii" in str(results[case]["message"]), case
+    q = torch.zeros(1, 1, 8, 4)
+    with pytest.raises(NotImplementedError, match="6d-iii"):
+        nystrom_attention(q, q, q, torch.ones(1, 8, dtype=torch.bool), 4, parity=True, seq=pmesh.Seq((4, 4), 1))
 
 
 # ---- the driver through its command line ------------------------------------------------

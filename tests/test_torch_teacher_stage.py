@@ -44,6 +44,19 @@ from mhim_mil_torch.utils.checkpoint import is_jax_checkpoint, load_jax_checkpoi
 from mhim_mil_torch.utils.weights import state_dict_from_flax
 from test_torch_train import CFG, LENGTHS, SPE, _batch, _check_state, _close, _jax_steps, _port_draws, _port_flax, _t
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread for torch: beside the other test workers its
+    thread pool spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C16 = "config/mhim_c16.yaml"
 TINY = dict(datasets="synth", synth_n_slides=12, synth_bag_size=64, bucket_sizes=(64,), batch_size=4, cv_fold=1,

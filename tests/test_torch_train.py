@@ -43,6 +43,19 @@ from mhim_mil_torch.ops.nystrom import nystrom_attention
 from mhim_mil_torch.utils import schedules, weights
 from mhim_mil_torch.utils.weights import state_dict_from_flax
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread for torch: beside the other test workers its
+    thread pool spins against theirs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 RTOL, ATOL = 1e-4, 1e-5
 IN_DIM, DIM, HEADS = 16, 32, 2
 B, N, LENGTHS = 3, 96, (96, 70, 0)  # ragged, plus a fake bag

@@ -1,6 +1,7 @@
 """One rank of a data- or sequence-parallel world of the port, for
 tests/test_torch_parallel.py, tests/test_torch_parallel_zoo.py,
-tests/test_torch_sp.py and tests/test_torch_sp_scan.py.
+tests/test_torch_sp.py, tests/test_torch_sp_scan.py and
+tests/test_torch_sp_zoo.py.
 
     python -m torch.distributed.run --nproc_per_node W tests/torch_dp_worker.py IN.npz OUT.npz
 
@@ -30,7 +31,7 @@ are ``IN.npz``'s ``<case>/<name>``; rank 0 writes its results to
 - ``raises``: ``mhim_mil_torch.main.main(argv)``; the error's type and
   message;
 - ``ops``: one op of the sequence-parallel path (``op``: ``landmark``,
-  ``streamed``, ``kernels``, ``materialising``, ``resconv``, ``ppeg``) on this rank's block of
+  ``streamed``, ``kernels``, ``materialising``, ``resconv``, ``ppeg``, ``peg``) on this rank's block of
   the global inputs (``in/<name>``), its outputs and the gradients of
   ``Σ output·cotangent`` for its inputs gathered over the sp row
   (``out/<name>``, ``grad/<name>``), and its parameters' gradients summed
@@ -46,14 +47,25 @@ are ``IN.npz``'s ``<case>/<name>``; rank 0 writes its results to
   ``Σ output·cotangent`` for the sharded inputs gathered and for the
   replicated ones summed over the row (``grad/<name>``);
 - ``forward``: the model's ``forward(training=False, return_attn=True)``
-  on this rank's part of the global batch: the logits, gathered over dp,
-  and ``attn`` (``2dmamba``'s, which the model gathers over the grid).
+  (MHIM's ``forward_test``) on this rank's part of the global batch: the
+  logits and DSMIL's ``inst_logits_bag``, gathered over dp, and ``attn``
+  where the model gives it (``2dmamba``'s, which the model gathers over
+  the grid; with ``gather_attn`` the block's, gathered over the sp row);
+- ``mesh_ops``: one of the sp row's primitives (``op``: ``pick``,
+  ``argmax``, ``amax``) on this rank's block of the global inputs
+  (``in/<name>``): ``sp_pick`` of the rows ``idx``, ``sp_argmax`` and the
+  top-k of the gathered scores, ``sp_amax``; the outputs (``out/<name>``)
+  and, for the pick and the max, the gradient of ``Σ output·cot``
+  gathered over the row (``grad/x``).
 
 ``control`` also takes ``k1_unmerged`` (K1's blocks not merged over the
 sp row), ``loss_every_rank`` (each bag's whole loss paid on every sp
 rank: every rank weighs its bags 1 and the weight sum counts each bag
-once) and ``no_carry`` (the scans' bands and blocks started from zero:
-no state carried across ranks).
+once), ``no_carry`` (the scans' bands and blocks started from zero:
+no state carried across ranks), ``local_ties`` (the row max's cotangent
+split among this rank's ties only) and ``local_pick`` (DSMIL's critical
+instances and CLAM's top-k chosen on each rank's own block, their
+features read there).
 
 Imports torch and the port only.
 """
@@ -71,9 +83,10 @@ from mhim_mil_torch.engine import losses
 from mhim_mil_torch.ops import flash_nystrom
 from mhim_mil_torch.engine.steps import make_mhim_train_step, make_train_step
 from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
-from mhim_mil_torch.models import build_model, clam, layers
+from mhim_mil_torch.models import build_model, clam, dsmil, layers
 from mhim_mil_torch.ops import nystrom, scan, scan2d
 from mhim_mil_torch.parallel import make_mesh, replicate_tree, shard_batch
+from mhim_mil_torch.parallel import mesh as pmesh
 from mhim_mil_torch.parallel.mesh import gather_rows
 
 
@@ -162,7 +175,7 @@ def _raises(spec, out):
 
 
 def _ops(spec, data, mesh, out):
-    from mhim_mil_torch.models.positional import PPEG
+    from mhim_mil_torch.models.positional import PEG, PPEG
     from mhim_mil_torch.models.transformer import _DepthwiseResConv
     from mhim_mil_torch.ops.nystrom import _landmark_mean, nystrom_attention, nystrom_attention_streamed
     from mhim_mil_torch.parallel.mesh import Seq, sp_gather, sp_sum
@@ -200,7 +213,7 @@ def _ops(spec, data, mesh, out):
                 module = _DepthwiseResConv(d["v"].shape[2])
                 leaves = {"v": mine("v")}
             else:
-                module = PPEG(d["x"].shape[-1])
+                module = (PPEG if op == "ppeg" else PEG)(d["x"].shape[-1])
                 leaves = {"x": mine("x")}
             module.load_state_dict({k[2:]: v for k, v in d.items() if k.startswith("w.")})
             o = module(*leaves.values(), seq) if op == "resconv" else module(leaves["x"], mask, seq)
@@ -281,10 +294,41 @@ def _forward(spec, data, mesh, out):
     batch = shard_batch(mesh, _group(data, spec["name"], "batch"))
     batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
     with mesh, torch.no_grad():
-        extra = (batch["pos"],) if "pos" in batch else ()
-        res = model(batch["feats"], batch["mask"], *extra, training=False, return_attn=True)
-        out["logits"] = gather_rows(res["logits"]).numpy()
-        out["attn"] = gather_rows(res["attn"]).numpy()
+        if family in ("mhim", "mhim_pure"):
+            res = model.forward_test(batch["feats"], batch["mask"], return_attn=True)
+        else:
+            extra = (batch["pos"],) if "pos" in batch else ()
+            res = model(batch["feats"], batch["mask"], *extra, training=False, return_attn=True)
+        for k in ("logits", "inst_logits_bag"):
+            if k in res:
+                out[k] = gather_rows(res[k]).numpy()
+        if "attn" in res:
+            attn = res["attn"]
+            if spec.get("gather_attn"):
+                attn = pmesh.sp_gather(attn, pmesh.seq_layout(attn.shape[-1], attn.device), -1)
+            out["attn"] = gather_rows(attn).numpy()
+
+
+def _mesh_ops(spec, data, mesh, out):
+    from mhim_mil_torch.models.clam import top_k_indices
+    from mhim_mil_torch.parallel.mesh import Seq, sp_amax, sp_argmax, sp_gather, sp_pick
+
+    d = {k: torch.from_numpy(v) for k, v in _group(data, spec["name"], "in").items()}
+    seq = Seq.split(d["x"].shape[1], mesh.sp, mesh.sp_index)
+    x = d["x"][:, seq.cols].clone().requires_grad_()
+    with mesh:
+        if spec["op"] == "argmax":
+            out["out/argmax"] = sp_argmax(x.detach(), seq, 1).numpy()
+            out["out/topk"] = top_k_indices(sp_gather(x.detach(), seq, 1).transpose(1, 2), spec["k"]).numpy()
+            return
+        y = sp_pick(x, d["idx"], seq) if spec["op"] == "pick" else sp_amax(x, 1)
+        (y * d["cot"]).sum().mul(float(mesh.sp_index == 0)).backward()  # a replicated output's loss, counted once
+        out["out/y"] = y.detach().numpy()
+        out["grad/x"] = sp_gather(x.grad, seq, 1).numpy()
+
+
+def _gather_rows(x, idx):
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
 def _row_once(x):
@@ -297,6 +341,11 @@ CONTROLS = {"pinv": [(nystrom, "batch_max", lambda x: x)], "wmean": [(losses, "b
             "k1_unmerged": [(flash_nystrom, "merge_pass_a", lambda a, m, s: (a, m, s))],
             "loss_every_rank": [(losses, "owner_weight", lambda: 1.0), (losses, "batch_sum", _row_once)],
             "clam_count": [(clam, "batch_sum", lambda x: x)],
+            "local_ties": [(pmesh, "_row_ties", lambda count, group: count)],
+            "local_pick": [(dsmil, "sp_argmax", lambda x, seq, dim=1: x.argmax(dim) + seq.offset),
+                           (dsmil, "sp_pick", lambda x, idx, seq: _gather_rows(x, idx - seq.offset)),
+                           (clam, "sp_gather", lambda x, seq, dim=1: x),
+                           (clam, "sp_pick", lambda x, idx, seq: _gather_rows(x, idx))],
             "no_carry": [(scan, "sp_carry", lambda decay, state, seq: torch.zeros_like(state)),
                          (scan2d, "sp_carry", lambda decay, state, seq: torch.zeros_like(state))]}
 
@@ -326,7 +375,7 @@ def main():
                 setattr(obj, name, fn)
             try:
                 {"mhim_step": _step, "generic_step": _step, "forward_test": _forward_test,
-                 "eval": _eval, "ops": _ops, "scan_ops": _scan_ops,
+                 "eval": _eval, "ops": _ops, "scan_ops": _scan_ops, "mesh_ops": _mesh_ops,
                  "forward": _forward}[spec["kind"]](spec, data, mesh, out)
             finally:
                 for obj, name, fn in saved:
