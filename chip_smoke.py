@@ -18,7 +18,7 @@ the flagship's score; then the slide readers, from the slide's files to its
 attention; then data parallelism over bags; then sequence parallelism over
 instances; then data parallelism over bags for the rest of the zoo; then
 sequence parallelism for the scan families; then sequence parallelism for
-the pooling and selection families.
+the rest of the zoo.
 Phases, each of which fails the run:
 
 1. device: a CUDA card of capability 9.0, its name and power limit;
@@ -227,18 +227,19 @@ Phases, each of which fails the run:
    mambamil's three variants' on the ragged zoo batch, against phase 19's
    one-process steps at 17c's tolerances, with each rank's step ms and
    peak memory beside one process's;
-21. sequence parallelism for the pooling and selection families: two
-   processes of this script sharing the card in a gloo world,
-   ``make_mesh(dp=1, sp=2)``, on phase 19's ragged 4 × 10,240 batch at
-   full width (dropout on): one fp32 train step and the evaluation step of
-   transmil (PPEG), gabmil, meanmil, maxmil, ibmil, clam_sb, clam_mb,
-   dsmil, MHIM-dsmil and MHIM with PEG, against the one-process step at
-   17c's tolerances (MHIM's mining held to the one-process teacher's
-   scores, the ranks' own within 1e-4·max|ref|) and the one-process
-   evaluation's logits within 1e-4·max|ref|; transmil's and MHIM-peg's
-   K1, K2, K1b and K2b calls each see at most ⌈10,241/2⌉ tokens, gabmil's
-   K4 runs once a rank on its block, each rank launching what one process
-   launches.
+21. sequence parallelism for the rest of the zoo: two processes of this
+   script sharing the card in a gloo world, ``make_mesh(dp=1, sp=2)``, on
+   phase 19's ragged 4 × 10,240 batch at full width (dropout on): one fp32
+   train step and the evaluation step of transmil (PPEG), gabmil, meanmil,
+   maxmil, ibmil, clam_sb, clam_mb, dsmil, MHIM-dsmil, MHIM with PEG, dtfd
+   (AFS and MaxMinS), rrtmil and transmil on the ``parity`` Nystrom path,
+   against the one-process step at 17c's tolerances and a loss within
+   1e-6 (MHIM's mining held to the one-process teacher's scores, the
+   ranks' own within 1e-4·max|ref|) and the one-process evaluation's
+   logits within 1e-4·max|ref|; transmil's and MHIM-peg's K1, K2, K1b and
+   K2b calls each see at most ⌈10,241/2⌉ tokens, gabmil's K4 runs once a
+   rank on its block, each rank launching what one process launches (dtfd,
+   rrtmil and the parity path none).
 
 Phase 3 also holds K6, the gate's probe, against its plain version, K5
 on rows wider than a cluster of blocks holds (1,500, 2,100 and 4,200
@@ -3931,14 +3932,19 @@ ZOO_DP_BAG = 20000  # 2dmamba's bags, one a rank
 ZOO_DP_SLOTS = 20480
 
 
-def zoo_dp_state(cfg, init: dict):
+def zoo_dp_state(cfg, init: dict, attrs=None):
     """A fresh model of ``cfg`` on the card with the weights ``init`` and its
-    train state (seed 0, as every side of phase 19 makes it); the family."""
+    train state (seed 0, as every side of phase 19 makes it); the family.
+    ``attrs`` sets attributes after the build, a dotted name on a submodule
+    (DTFD's ``distill``, a Nystrom layer's ``parity``)."""
     from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
     from mhim_mil_torch.models import build_model
 
     model, family = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     model.load_state_dict(init)
+    for key, value in (attrs or {}).items():
+        owner, _, name = key.rpartition(".")
+        setattr(model.get_submodule(owner), name, value)
     create = create_mhim_state if family in ("mhim", "mhim_pure") else create_train_state
     return model, family, create(cfg, model, ZOO_DP_SPE, seed=0, device="cuda")
 
@@ -4379,10 +4385,11 @@ def phase_scan_sp(sp_ref: dict, smi: str) -> dict:
             "k5": k5}
 
 
-# ---- phase 21: sequence parallelism for the pooling and selection families ------------------------
+# ---- phase 21: sequence parallelism for every family the earlier sp phases do not run --------------
 
 ZOO_SP_WORLD = 2  # processes of 21, sharing the one card: dp 1 x sp 2
 ZOO_SP_TIMEOUT_S = 400
+ZOO_SP_LOSS = 1e-6  # |loss - one process's loss| at most, beside zoo_step_check's limits
 # name: (preset, config overrides); one fp32 train step and one evaluation each, at the preset's width on
 # input_dim 1024, on phase 19's ragged 4 x 10,240 batch
 ZOO_SP = {
@@ -4396,11 +4403,18 @@ ZOO_SP = {
     "dsmil": (ZOO, dict(model="dsmil", aux_alpha=0.5)),
     "mhim_dsmil": (MHIM_C16, dict(baseline="dsmil")),
     "mhim_peg": (MHIM_C16, dict(pos="peg")),
+    "dtfd": (ZOO, dict(model="dtfd", aux_alpha=0.5)),
+    "dtfd_maxmins": (ZOO, dict(model="dtfd", aux_alpha=0.5)),
+    "rrtmil": ZOO_DP["rrtmil"],
+    "transmil_parity": (ZOO, dict(model="transmil")),
 }
+# attributes set on every model of a case after it is built (zoo_dp_state)
+ZOO_SP_ATTRS = {"dtfd_maxmins": {"distill": "MaxMinS"},
+                "transmil_parity": {"layer1.attn.parity": True, "layer2.attn.parity": True}}
 # the launches of a rank (as of one process) in each case's fp32 step and evaluation; none elsewhere
 ZOO_SP_LAUNCHES = {"transmil": (TEACHER_LAUNCHES, DP_FWD_LAUNCHES), "gabmil": ({}, dict(K4=1)),
                    "mhim_peg": (TRAIN_LAUNCHES, DP_FWD_LAUNCHES)}
-ZOO_SP_AUX = ("clam_sb", "clam_mb", "dsmil", "mhim_dsmil", "mhim_peg")  # each pays an aux loss
+ZOO_SP_AUX = ("clam_sb", "clam_mb", "dsmil", "mhim_dsmil", "mhim_peg", "dtfd", "dtfd_maxmins")  # each pays an aux loss
 
 
 def zoo_sp_eval(label: str, cfg, model, family: str, batch, want: dict):
@@ -4489,7 +4503,8 @@ def zoo_sp_worker(rank: int, tmp: str, port: int):
     for name, case in inputs["cases"].items():
         cfg = case["cfg"]
         want_step, want_eval = ZOO_SP_LAUNCHES.get(name, ({}, {}))
-        model, family, state = zoo_dp_state(cfg, case["init"])
+        attrs = ZOO_SP_ATTRS.get(name)
+        model, family, state = zoo_dp_state(cfg, case["init"], attrs)
         replicate_tree(mesh, state)
         seen: dict = {}
         k4: list = []
@@ -4500,7 +4515,7 @@ def zoo_sp_worker(rank: int, tmp: str, port: int):
         try:
             with mesh:
                 m, ms, c_step = zoo_dp_step(f"21 rank {rank} {name} fp32 step", cfg, family, state, batch, **want_step)
-                model_e, _, _ = zoo_dp_state(cfg, case["init"])
+                model_e, _, _ = zoo_dp_state(cfg, case["init"], attrs)
                 logits, c_eval = zoo_sp_eval(f"21 rank {rank} {name} eval", cfg, model_e, family, batch, want_eval)
         finally:
             for u in reversed(undo):
@@ -4521,22 +4536,28 @@ def zoo_sp_worker(rank: int, tmp: str, port: int):
 
 
 def phase_zoo_sp(zoo_batch: dict, gen, smi: str) -> dict:
-    """Phase 21: sequence parallelism for the pooling and selection
-    families: ZOO_SP_WORLD processes of this script share the card in a
-    gloo world, ``make_mesh(dp=1, sp=2)``, each holding one block of 5,120
-    of each bag's 10,240 instances of phase 19's ragged batch. For each
-    family of ``ZOO_SP`` (transmil with PPEG, gabmil, meanmil, maxmil,
+    """Phase 21: sequence parallelism for every family that phases 18 and
+    20 do not run: ZOO_SP_WORLD processes of this script share the card in
+    a gloo world, ``make_mesh(dp=1, sp=2)``, each holding one block of
+    5,120 of each bag's 10,240 instances of phase 19's ragged batch. For
+    each case of ``ZOO_SP`` (transmil with PPEG, gabmil, meanmil, maxmil,
     ibmil with a bank of 8 prototypes, clam_sb, clam_mb, dsmil, MHIM with
-    the dsmil baseline and with the selfattn one and PEG) at full width,
-    fp32, dropout on: one train step against the one-process step in this
-    process at 17c's tolerances (loss rtol 2e-5, gradients within 1e-4 of
-    max|g|, student, teacher and global_q_mm within 2·lr; MHIM's mining
+    the dsmil baseline and with the selfattn one and PEG, dtfd with AFS and
+    with MaxMinS, rrtmil with 8 × 8 regions of 13 × 13 (32 a rank), and
+    transmil with both layers on the ``parity`` Nystrom path) at full
+    width, fp32, dropout on: one train step against the one-process step in
+    this process at 17c's tolerances (loss rtol 2e-5, gradients within 1e-4
+    of max|g|, student, teacher and global_q_mm within 2·lr; MHIM's mining
     held to the one-process teacher's scores, the ranks' own within
-    1e-4·max|ref| of them), and the evaluation step's logits within
-    1e-4·max|ref|; transmil's and MHIM-peg's K1, K2, K1b and K2b calls each
-    see at most ⌈10,241/2⌉ tokens, gabmil's K4 runs once a rank on its
-    block; each rank launches what one process launches. Each rank's step
-    ms beside the card's name and power limit."""
+    1e-4·max|ref| of them) and the loss within ZOO_SP_LOSS, and the
+    evaluation step's logits within 1e-4·max|ref|; transmil's and
+    MHIM-peg's K1, K2, K1b and K2b calls each see at most ⌈10,241/2⌉ tokens,
+    gabmil's K4 runs once a rank on its block; each rank launches what one
+    process launches. dtfd, rrtmil (whose pool runs without K4, as in JAX)
+    and the parity layers (the materialising op, as in JAX) launch no
+    kernel, in one process or on a rank: their steps and evaluations are
+    held to that. Each rank's step ms beside the card's name and power
+    limit."""
     from mhim_mil_torch.config import load_config
     from mhim_mil_torch.models import build_model
 
@@ -4554,14 +4575,15 @@ def phase_zoo_sp(zoo_batch: dict, gen, smi: str) -> dict:
             init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
             del model
             want_step, want_eval = ZOO_SP_LAUNCHES.get(name, ({}, {}))
-            model, family, state = zoo_dp_state(cfg, init)
+            attrs = ZOO_SP_ATTRS.get(name)
+            model, family, state = zoo_dp_state(cfg, init, attrs)
             scores: list = []
             undo = zoo_sp_record(state, scores) if family in ("mhim", "mhim_pure") else (lambda: None)
             try:
                 m, ms, _ = zoo_dp_step(f"21 {name} one-process fp32 step", cfg, family, state, batch, **want_step)
             finally:
                 undo()
-            model_e, _, _ = zoo_dp_state(cfg, init)
+            model_e, _, _ = zoo_dp_state(cfg, init, attrs)
             logits, _ = zoo_sp_eval(f"21 {name} one-process eval", cfg, model_e, family, batch, want_eval)
             refs[name] = {"metrics": m, "ms": ms, "lr": float(state.optimizer.lr_schedule(0)), "model": model,
                           "logits": logits, "scores": scores[0] if scores else None,
@@ -4583,6 +4605,9 @@ def phase_zoo_sp(zoo_batch: dict, gen, smi: str) -> dict:
         got = r0["steps"][name]
         readings[name] = zoo_step_check("21", f"{name} under dp 1 x sp 2 ({r0['tokens']} instance slots a rank)",
                                         ref, got)
+        if not readings[name]["loss_err"] <= ZOO_SP_LOSS:
+            fail(f"21 {name}: the step's loss misses one process's by {readings[name]['loss_err']:.3e} (limit "
+                 f"{ZOO_SP_LOSS})")
         l_err = (got["logits"] - ref["logits"]).abs().max().item()
         l_tol = 1e-4 * ref["logits"].abs().max().item()
         seen = {k: max(o["steps"][name]["seen"].get(k, 0) for o in outs) for k in SP_SEEN}
@@ -4606,6 +4631,8 @@ def phase_zoo_sp(zoo_batch: dict, gen, smi: str) -> dict:
         if name in ZOO_SP_AUX and not got["metrics"]["aux_loss"] > 0:
             fail(f"21 {name}: no aux loss was paid")
         readings[name].update(logits_err=l_err, seen=seen, rank_ms=[o["steps"][name]["ms"] for o in outs])
+    log("21 no kernel launched, in one process or on a rank, in the steps and evaluations of "
+        + ", ".join(n for n in ZOO_SP if n not in ZOO_SP_LAUNCHES) + " (each held to that); nor in gabmil's step")
     for o in outs:
         steps = ", ".join(f"{n} {s['ms']:.2f}" for n, s in o["steps"].items())
         log(f"21 rank {o['rank']} on {smi} (one of {ZOO_SP_WORLD} processes sharing one card; not a scaling figure): "

@@ -53,7 +53,7 @@ from ..utils.platform import resolve_device
 from ..utils.weights import state_dict_from_flax
 from . import metrics as M
 from .losses import nll_surv_loss, surv_risk
-from .steps import check_sp, make_eval_step, make_mhim_eval_step, make_mhim_train_step, make_train_step
+from .steps import make_eval_step, make_mhim_eval_step, make_mhim_train_step, make_train_step
 from .train_state import create_mhim_state, create_train_state
 
 Device = Optional[Union[str, torch.device]]
@@ -576,13 +576,10 @@ def resolve_mesh(cfg) -> Optional[Mesh]:
     of one process there is none, whatever the flags, and training runs as
     without them. In a larger world (``torchrun``) the mesh is an explicit
     opt-in: no ``--mesh_dp`` / ``--mesh_sp`` raises ``ValueError``, every
-    model runs under dp, a model whose couplings over the instances are not
-    routed through the mesh's sp collectives (dtfd, rrtmil: ROADMAP item
-    6d-iii) raises ``NotImplementedError`` under ``--mesh_sp``
-    (:func:`~.steps.check_sp`), ``dp·sp``
-    must fit the world (the ranks past it idle, as JAX keeps
-    ``devices[:dp*sp]``) and ``mesh_dp`` must divide the batch. Every rank
-    calls it: it makes the mesh's process groups."""
+    model runs under dp and sp, ``dp·sp`` must fit the world (the ranks
+    past it idle, as JAX keeps ``devices[:dp*sp]``) and ``mesh_dp`` must
+    divide the batch. Every rank calls it: it makes the mesh's process
+    groups."""
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
@@ -592,7 +589,6 @@ def resolve_mesh(cfg) -> Optional[Mesh]:
         raise ValueError(f"a world of {world} processes without --mesh_dp or --mesh_sp: pass --mesh_dp to "
                          f"train data-parallel (each rank would otherwise train the whole batch)")
     mesh = make_mesh(cfg.mesh_dp, cfg.mesh_sp)
-    check_sp(cfg, mesh.sp)
     if cfg.batch_size % mesh.dp:
         raise ValueError(f"--batch_size {cfg.batch_size} does not split over --mesh_dp {mesh.dp}")
     return mesh

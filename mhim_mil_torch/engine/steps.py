@@ -101,39 +101,6 @@ def global_norm(model: nn.Module) -> Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def _model_name(cfg) -> str:
-    return cfg.model + (f" --baseline {cfg.baseline}" if cfg.model.startswith("mhim") else "")
-
-
-# the models whose steps and evaluation run under an sp mesh, each held against JAX's single-device step
-SP_MODELS = ("abmil", "gabmil", "meanmil", "maxmil", "transmil", "ibmil", "clam_sb", "clam_mb", "dsmil", "2dmamba",
-             "mambamil")  # the generic step
-SP_BASELINES = ("selfattn", "attn", "dsmil")  # mhim and mhim_pure
-SP_POS = ("ppeg", "sincos", "peg", "none", None)  # the selfattn baseline's positional modules
-
-
-def sp_supported(cfg) -> bool:
-    """Whether ``cfg``'s model runs under a mesh that splits the instances
-    (``sp > 1``): every place where it couples instances goes through the
-    mesh's sp collectives. ``mhim`` and ``mhim_pure`` with the ``attn``,
-    ``dsmil`` or ``selfattn`` baseline (every positional module), and the
-    models of :data:`SP_MODELS` through the generic step; ``dtfd``,
-    ``rrtmil`` and the ``parity`` Nystrom path (which raises in
-    ``ops/nystrom.py``) are ROADMAP Queue 1 item 6d-iii."""
-    if cfg.model in ("mhim", "mhim_pure"):
-        return cfg.baseline in SP_BASELINES and (cfg.baseline != "selfattn" or (cfg.pos or "ppeg") in SP_POS)
-    return cfg.model in SP_MODELS
-
-
-def check_sp(cfg, sp: int) -> None:
-    """Raise unless ``cfg``'s model may run under a mesh of ``sp`` ranks a row."""
-    if sp > 1 and not sp_supported(cfg):
-        raise NotImplementedError(
-            f"--model {_model_name(cfg)} under --mesh_sp {sp}: its couplings over the instances are not "
-            f"routed through the mesh's sp collectives yet (ROADMAP Queue 1 item 6d-iii); sp runs mhim and "
-            f"mhim_pure with {SP_BASELINES} and {SP_MODELS}")
-
-
 def valid_fraction(mask: Tensor) -> Tensor:
     """The valid share of the batch's instance slots (the whole bags' under
     sp, on every rank of the row)."""
@@ -210,8 +177,8 @@ def make_mhim_train_step(
     except the student's mining and merge draws where ``draws`` gives them
     (see ``MHIM.forward``).
 
-    Under an active mesh (``parallel/mesh.py``; every baseline under dp,
-    :func:`sp_supported` configs under sp) ``batch`` holds this rank's bags
+    Under an active mesh (``parallel/mesh.py``; every baseline, under dp
+    and under sp) ``batch`` holds this rank's bags
     and ``draws`` the whole batch's: the gradients are summed over the
     ranks before the optimizer, and the metrics are the whole batch's. The
     step's couplings over the bags are the criterion's and the consistency
@@ -243,9 +210,6 @@ def make_mhim_train_step(
                    draws: Optional[Dict[str, object]] = None) -> Dict[str, Tensor]:
         if batch["feats"].device.type != device.type:
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
-        mesh = active_mesh()
-        if mesh is not None:
-            check_sp(cfg, mesh.sp)
         student, teacher, gen = state.model, state.teacher, state.gen
         batch_c = _cast_batch(dtype, batch)
         feats, mask = batch_c["feats"], batch["mask"].bool()
@@ -369,8 +333,8 @@ def make_train_step(
     batch's count of bags with a valid instance (``models/clam.py``); every
     dropout mask is the global draw's rows; IBMIL's confounder bank is a
     buffer, broadcast from rank 0 with the weights (``replicate_tree``).
-    Under sp (:data:`SP_MODELS`) each model routes its couplings over the
-    instances through the sp collectives itself (its module's docstring)."""
+    Under sp each model routes its couplings over the instances through the
+    sp collectives itself (its module's docstring)."""
     device = resolve_device(device)
     if family not in TRAIN_FAMILIES:
         raise NotImplementedError(f"family={family!r}: the generic train step is ported for {TRAIN_FAMILIES}")
@@ -380,9 +344,6 @@ def make_train_step(
     def train_step(state: TrainState, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         if batch["feats"].device.type != device.type:
             raise ValueError(f"batch on {batch['feats'].device}, step on {device}")
-        mesh = active_mesh()
-        if mesh is not None:
-            check_sp(cfg, mesh.sp)
         model = state.model
         feats = _cast_batch(dtype, batch)["feats"]
         extra, kw = _forward_inputs(model, family, batch)
@@ -460,13 +421,9 @@ class EvalBody(nn.Module):
 
 def _eval_step(cfg, body: EvalBody) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
     """The eval step of ``body``: under an active mesh the batch holds this
-    rank's part (which must be one the model can take: :func:`check_sp`),
-    and the logits are its bags'."""
+    rank's part, and the logits are its bags'."""
     @torch.inference_mode()
     def eval_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
-        mesh = active_mesh()
-        if mesh is not None:
-            check_sp(cfg, mesh.sp)
         return body(batch["feats"], batch["mask"], batch.get("pos"))
 
     return eval_step

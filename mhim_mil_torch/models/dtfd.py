@@ -12,6 +12,14 @@ JAX package, tier 1 is supervised by an explicit loss on the pseudo-bag
 predictions that the train step adds (the model returns them in
 training), and evaluation chunks the bag the same deterministic way.
 
+Under a mesh that splits the instances (``parallel/mesh.py``, ``sp > 1``)
+``feats`` and ``mask`` are this rank's block: each instance's pseudo-bag
+comes from its rank among the whole bag's valid instances, tier 1's
+softmaxes and sums run over the sp row, ``MaxS`` and ``MaxMinS`` pick the
+instance of the lowest global index among ties over the whole row and
+fetch it from its owner, and tier 2 runs on the ``[B, G(·2), D]``
+pseudo-features that every rank of the row holds.
+
 The names are the reference's: ``dimReduction.fc1``, ``attention``
 (``attention_V.0``, ``attention_U.0``, ``attention_weights``),
 ``classifier.fc``, ``UClassifier.attention`` and ``UClassifier.classifier.fc``.
@@ -26,6 +34,7 @@ import torch
 from torch import nn
 
 from ..ops.masked import NEG_INF, masked_softmax
+from ..parallel.mesh import Seq, seq_layout, sp_argmax, sp_gather, sp_pick, sp_sum
 from .layers import Dropout, dense, get_act
 
 DROPOUT = 0.25
@@ -53,8 +62,8 @@ class DimReduction(nn.Module):
         self.act = get_act(act)
         self.drop = Dropout(DROPOUT)
 
-    def forward(self, x, training: bool = False, gen: Optional[torch.Generator] = None):
-        return self.drop(self.act(self.fc1(x)), training, gen)
+    def forward(self, x, training: bool = False, gen: Optional[torch.Generator] = None, seq: Optional[Seq] = None):
+        return self.drop(self.act(self.fc1(x)), training, gen, seq)
 
 
 class Classifier1fc(nn.Module):
@@ -69,23 +78,27 @@ class Classifier1fc(nn.Module):
         return self.fc(self.drop(x, training, gen))
 
 
-def pseudo_bag_ids(mask: torch.Tensor, group: int) -> torch.Tensor:
+def pseudo_bag_ids(mask: torch.Tensor, group: int, seq: Optional[Seq] = None) -> torch.Tensor:
     """The pseudo-bag of each position ``[B, N]`` (int64): its valid rank
     split by ``np.array_split`` into ``group`` chunks, the first
     ``n_valid % group`` one longer (``dtfd.py:62-77``). Masked positions get
     an id too; the caller masks them out. An empty bag counts as one
-    instance, so that no division is by zero."""
-    n_valid = mask.sum(dim=-1, keepdim=True).clamp_min(1)
+    instance, so that no division is by zero. Given the layout ``seq`` of
+    instances sharded over the active sp row, ``mask`` is this rank's block:
+    the valid rank is the whole bag's (the block's own plus the valid
+    count of the blocks before it) and ``n_valid`` the whole bag's, from
+    the row's gathered block counts; no instance moves."""
     rank = torch.cumsum(mask.long(), dim=-1) - 1
+    n_valid = mask.sum(dim=-1, keepdim=True)
+    if seq is not None:
+        counts = sp_gather(n_valid, Seq((1,) * len(seq.counts), seq.index))  # [B, sp]
+        rank = rank + counts[:, :seq.index].sum(dim=-1, keepdim=True)
+        n_valid = counts.sum(dim=-1, keepdim=True)
+    n_valid = n_valid.clamp_min(1)
     small, rem = n_valid // group, n_valid % group
     boundary = rem * (small + 1)
     gid = torch.where(rank < boundary, rank // (small + 1), rem + (rank - boundary) // small.clamp_min(1))
     return gid.clamp(0, group - 1)
-
-
-def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[b, idx[b, g]]``: ``[B,N,D]`` by ``[B,G]`` → ``[B,G,D]``."""
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
 class DTFD(nn.Module):
@@ -110,15 +123,19 @@ class DTFD(nn.Module):
         [B,G] in training][, "attn" [B,N]]}``."""
         mask = mask.bool()
         g = self.group
-        x = self.dimReduction(feats, training, gen)
-        gid = pseudo_bag_ids(mask, g)
+        seq = seq_layout(feats.shape[1], feats.device)
+        x = self.dimReduction(feats, training, gen, seq)
+        gid = pseudo_bag_ids(mask, g, seq)
         group_mask = (gid[:, None, :] == torch.arange(g, device=x.device)[None, :, None]) & mask[:, None, :]
-        filled = group_mask.any(dim=-1)  # [B,G]
+        filled = group_mask.any(dim=-1) if seq is None else sp_sum(group_mask.sum(dim=-1)) > 0  # [B,G]
 
         # tier 1: attention within each pseudo-bag
         attn_logits = self.attention(x)  # [B,N]
-        attn = masked_softmax(attn_logits[:, None, :].expand(group_mask.shape), group_mask)  # [B,G,N]
+        attn = masked_softmax(attn_logits[:, None, :].expand(group_mask.shape), group_mask,
+                              sharded=seq is not None)  # [B,G,N]
         att_feat = torch.einsum("bgn,bnd->bgd", attn, torch.where(mask[..., None], x, 0))
+        if seq is not None:
+            att_feat = sp_sum(att_feat)
         sub_preds = self.classifier(att_feat, training, gen)  # [B,G,C]
 
         if self.distill == "AFS":
@@ -129,12 +146,13 @@ class DTFD(nn.Module):
             fc = self.classifier.fc
             base = fc(x) - fc(torch.zeros((1, 1, x.shape[-1]), dtype=x.dtype, device=x.device))
             prob_last = torch.softmax(attn[..., None] * base[:, None], dim=-1)[..., -1]  # [B,G,N]
-            # argmax and argmin take the first index among ties, as jnp's do
-            top = torch.where(group_mask, prob_last, NEG_INF).argmax(dim=-1)  # [B,G]
-            pseudo, pseudo_mask = _gather_rows(x, top), filled
+            # argmax and argmin take the first global index among ties, as
+            # jnp's do; the argmin as the argmax of the negated scores
+            top = sp_argmax(torch.where(group_mask, prob_last, NEG_INF), seq, dim=-1)  # [B,G]
+            pseudo, pseudo_mask = sp_pick(x, top, seq), filled
             if self.distill == "MaxMinS":
-                bottom = torch.where(group_mask, prob_last, -NEG_INF).argmin(dim=-1)
-                pseudo = torch.cat([pseudo, _gather_rows(x, bottom)], dim=1)  # [B,2G,D]
+                bottom = sp_argmax(-torch.where(group_mask, prob_last, -NEG_INF), seq, dim=-1)
+                pseudo = torch.cat([pseudo, sp_pick(x, bottom, seq)], dim=1)  # [B,2G,D]
                 pseudo_mask = filled.repeat(1, 2)
 
         # tier 2 (reference Attention_with_Classifier, dtfd.py:92-102)
@@ -145,5 +163,5 @@ class DTFD(nn.Module):
         if training:
             out["sub_preds"], out["sub_preds_mask"] = sub_preds, filled
         if return_attn:
-            out["attn"] = attn.sum(dim=1)  # the union of the pseudo-bags' attentions
+            out["attn"] = attn.sum(dim=1)  # the union of the pseudo-bags' attentions (this block's)
         return out

@@ -16,6 +16,17 @@ layer has 8 heads whatever ``n_heads`` says, as in the JAX package. The
 pool is the tanh (or, with ``da_gated``, gated) ABMIL pool on its plain
 path, as in the JAX package, which builds it without its kernel.
 
+Under a mesh that splits the instances (``parallel/mesh.py``, ``sp > 1``)
+``feats`` and ``mask`` are this rank's block. The encoder's entry moves
+each instance (:func:`~..parallel.mesh.sp_scatter`) to its place in the
+region-major order of the whole bag's H² grid, where each sp rank holds a
+contiguous run of whole regions (:func:`region_layout`); R-MSA with its
+EPEG convolution, the LayerNorms and the residuals then run on whole
+regions and need no halo. CR-MSA gathers only the ``[B, K, R, C]`` region
+summaries over the row, attends across all R regions on every rank and
+keeps its own regions' rows. The encoder's exit moves the tokens back to
+the input's layout, and the ABMIL pool runs on the blocks.
+
 The names are the reference's: ``feature.0``,
 ``online_encoder.layers.{i}`` (``norm``, ``attn.attn.qkv``, ``.proj``,
 ``.pe``), ``online_encoder.cr_msa`` (``norm``, ``attn.phi``,
@@ -26,13 +37,14 @@ The names are the reference's: ``feature.0``,
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import masked_softmax
+from ..parallel.mesh import Seq, instance_blocks, seq_layout, sp_gather, sp_scatter
 from .layers import (Dropout, FeatureEmbed, add_gated_attention, add_tanh_attention, dense, gated_attention,
                      tanh_attention)
 
@@ -68,13 +80,97 @@ def region_reverse(x_r: torch.Tensor, geo, n: int) -> torch.Tensor:
     return x_r.reshape(b, nr, nr, rs, rs, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h * h, c)[:, :n]
 
 
+class Regions(NamedTuple):
+    """A rank's share of the region-major H² grid of a bag sharded over an
+    sp row: ``seq`` counts the regions of each sp rank (a contiguous run of
+    whole regions, possibly none), ``size`` is P, the tokens a region."""
+
+    seq: Seq
+    size: int
+
+    @property
+    def tokens(self) -> Seq:
+        """The layout of the region-major tokens: P a region."""
+        return Seq(tuple(c * self.size for c in self.seq.counts), self.seq.index)
+
+
+def region_layout(n: int, region_num: int, sp: int, index: int) -> Regions:
+    """The regions of a bag of ``n`` instances over ``sp`` ranks: the R =
+    region_num² regions split as :func:`~..parallel.mesh.instance_blocks`
+    splits instances (``R // sp`` each, one more on the first ``R % sp``
+    ranks), so that a rank past R holds none and still takes part in every
+    collective. Built directly, not through ``seq_layout``, which refuses
+    an empty block."""
+    h, rs = _region_grid(n, region_num)
+    return Regions(Seq(instance_blocks((h // rs) ** 2, sp), index), rs * rs)
+
+
+def region_index(i: torch.Tensor, n: int, region_num: int) -> torch.Tensor:
+    """The region-major place ``r·P + p`` of row-major grid index ``i`` (the
+    order of :func:`region_partition`)."""
+    h, rs = _region_grid(n, region_num)
+    nr = h // rs
+    row, col = i // h, i % h
+    return ((row // rs) * nr + col // rs) * (rs * rs) + (row % rs) * rs + col % rs
+
+
+def row_major_index(q: torch.Tensor, n: int, region_num: int) -> torch.Tensor:
+    """The row-major grid index of region-major place ``q`` (the inverse of
+    :func:`region_index`)."""
+    h, rs = _region_grid(n, region_num)
+    nr = h // rs
+    r, p = q // (rs * rs), q % (rs * rs)
+    return ((r // nr) * rs + p // rs) * h + (r % nr) * rs + p % rs
+
+
+def to_regions(x: torch.Tensor, mask: torch.Tensor, seq: Seq, region_num: int):
+    """This rank's block ``x[B, n, C]`` (layout ``seq``) moved to the
+    region-major order of the whole bag's grid: ``(x_r[B, R_l·P, C]``, zero
+    past the bag, ``mask_r[B, R_l·P]``, the :class:`Regions`)``. The mask
+    is read from the gathered ``[B, N]`` mask, not moved."""
+    n = seq.total
+    regions = region_layout(n, region_num, len(seq.counts), seq.index)
+    out = regions.tokens
+    dev = x.device
+    pos = region_index(torch.arange(seq.offset, seq.offset + seq.local, device=dev), n, region_num)
+    keep = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+    x_r = sp_scatter(x, pos.expand(x.shape[0], -1), keep, out.total, out)
+    src = row_major_index(torch.arange(out.offset, out.offset + out.local, device=dev), n, region_num)
+    full = sp_gather(mask, seq)
+    m_r = (src < n)[None] & torch.gather(full, 1, src.clamp(max=n - 1).expand(x.shape[0], -1))
+    return x_r, m_r, regions
+
+
+def from_regions(x_r: torch.Tensor, regions: Regions, seq: Seq, region_num: int) -> torch.Tensor:
+    """The inverse of :func:`to_regions`: this rank's block of the bag's
+    tokens in the layout ``seq`` from its region-major block ``x_r``."""
+    out = regions.tokens
+    n = seq.total
+    src = row_major_index(torch.arange(out.offset, out.offset + out.local, device=x_r.device), n, region_num)
+    src = src.expand(x_r.shape[0], -1)
+    return sp_scatter(x_r, src, src < n, n, seq)
+
+
+def _region_drop(drop: nn.Module, t: torch.Tensor, training: bool, gen: Optional[torch.Generator],
+                 rows: Optional[Tuple[int, Seq]]) -> torch.Tensor:
+    """``drop`` on ``t[G, ...]``; given ``rows = (B, regions)`` (G = B times
+    this rank's regions of the sp row's layout ``regions``), the draw is the
+    one-process draw in ``[B, R, ...]`` shape, of which this rank keeps its
+    regions (the flat ``B·R`` axis is not contiguous a rank when B > 1)."""
+    if rows is None or not training:
+        return drop(t, training, gen)
+    b, seq = rows
+    shape = tuple(t.shape[1:])
+    return drop(t.reshape((b, seq.local) + shape), training, gen, seq).reshape(t.shape)
+
+
 class InnerAttention(nn.Module):
     """Full multi-head attention over ``x[G,P,C]`` with ``mask[G,P]``
     (``rrt.py:67-113``): ``qkv``, with ``epeg`` the depthwise
     ``(epeg_k, 1)`` convolution ``pe`` over the query axis of the ``[G, H,
     P, Q]`` logits (one group per head, padded as XLA's SAME) added to
     them, the masked softmax, dropout on the map, ``proj``, dropout on the
-    output, padded rows zeroed."""
+    output, padded rows zeroed. ``rows``: see :func:`_region_drop`."""
 
     def __init__(self, dim: int = 512, num_heads: int = 8, epeg: bool = True, epeg_k: int = 15,
                  qkv_bias: bool = True, dropout: float = 0.1):
@@ -87,7 +183,7 @@ class InnerAttention(nn.Module):
         self.attn_drop, self.proj_drop = Dropout(dropout), Dropout(dropout)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, training: bool = False,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                gen: Optional[torch.Generator] = None, rows: Optional[Tuple[int, Seq]] = None) -> torch.Tensor:
         g, p, c = x.shape
         h = self.num_heads
         dh = c // h
@@ -96,14 +192,16 @@ class InnerAttention(nn.Module):
         if hasattr(self, "pe"):
             lo = (self.epeg_k - 1) // 2
             attn = attn + self.pe(F.pad(attn, (0, 0, lo, self.epeg_k - 1 - lo)))
-        attn = self.attn_drop(masked_softmax(attn, mask[:, None, None, :]), training, gen)
+        attn = _region_drop(self.attn_drop, masked_softmax(attn, mask[:, None, None, :]), training, gen, rows)
         out = torch.einsum("ghpq,ghqd->ghpd", attn, v).transpose(1, 2).reshape(g, p, c)
-        out = self.proj_drop(self.proj(out), training, gen)
+        out = _region_drop(self.proj_drop, self.proj(out), training, gen, rows)
         return torch.where(mask[..., None], out, 0)
 
 
 class RegionAttention(nn.Module):
-    """R-MSA: :class:`InnerAttention` within each region of the grid (``rrt.py:116-135``)."""
+    """R-MSA: :class:`InnerAttention` within each region of the grid
+    (``rrt.py:116-135``); given ``regions``, on this rank's whole regions of
+    the region-major block ``x`` (:func:`to_regions`)."""
 
     def __init__(self, dim: int = 512, num_heads: int = 8, region_num: int = 8, epeg: bool = True,
                  epeg_k: int = 15, dropout: float = 0.1):
@@ -111,8 +209,14 @@ class RegionAttention(nn.Module):
         self.region_num = region_num
         self.attn = InnerAttention(dim, num_heads, epeg, epeg_k, dropout=dropout)
 
-    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None):
+    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None,
+                regions: Optional[Regions] = None):
         b, n, c = x.shape
+        if regions is not None:
+            r, p = regions.seq.local, regions.size
+            x_r = torch.where(mask[..., None], x, 0).reshape(b * r, p, c)
+            out = self.attn(x_r, mask.reshape(b * r, p), training, gen, (b, regions.seq))
+            return torch.where(mask[..., None], out.reshape(b, n, c), 0)
         x_r, m_r, geo = region_partition(x, mask, self.region_num)
         r = x_r.shape[1]
         out = self.attn(x_r.reshape(b * r, -1, c), m_r.reshape(b * r, -1), training, gen)
@@ -126,7 +230,10 @@ class CrossRegionAttention(nn.Module):
     softmax over the region's valid tokens), attention runs across the
     regions that hold a token, and the result goes back to the tokens by
     the softmax over K times the min-max normalised logits (±inf fills,
-    0 for an empty region)."""
+    0 for an empty region). Given ``regions``, ``x`` is this rank's
+    region-major block (:func:`to_regions`): each region's summaries are
+    made where it lies, gathered over the sp row, every rank attends across
+    all the regions and keeps its own regions' rows."""
 
     def __init__(self, dim: int = 512, num_heads: int = 8, region_num: int = 8, crmsa_k: int = 3,
                  dropout: float = 0.1):
@@ -142,10 +249,17 @@ class CrossRegionAttention(nn.Module):
         bound = 1.0 / math.sqrt(self.phi.shape[0])
         self.phi.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None):
+    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None,
+                regions: Optional[Regions] = None):
         b, n, c = x.shape
-        x_r, m_r, geo = region_partition(x, mask, self.region_num)
-        r, k = x_r.shape[1], self.crmsa_k
+        if regions is not None:
+            r, p = regions.seq.local, regions.size
+            x_r = torch.where(mask[..., None], x, 0).reshape(b, r, p, c)
+            m_r = mask.reshape(b, r, p)
+        else:
+            x_r, m_r, geo = region_partition(x, mask, self.region_num)
+            r = x_r.shape[1]
+        k = self.crmsa_k
         logits = torch.einsum("brpc,ck->brkp", x_r, self.phi)  # [B,R,K,P]
         valid = m_r[:, :, None, :]
         combine = masked_softmax(logits, valid)
@@ -157,11 +271,19 @@ class CrossRegionAttention(nn.Module):
         dispatch_mm = (logits - lmin) / (lmax - lmin + 1e-8)
 
         summaries = torch.einsum("brkp,brpc->bkrc", combine, x_r)
-        region_valid = m_r.any(dim=-1)[:, None, :].expand(b, k, r)
-        attended = self.attn(summaries.reshape(b * k, r, c), region_valid.reshape(b * k, r),
-                             training, gen).reshape(b, k, r, c)
+        region_valid = m_r.any(dim=-1)
+        if regions is not None:  # every region's summaries on every rank of the row
+            summaries = sp_gather(summaries, regions.seq, 2)
+            region_valid = sp_gather(region_valid, regions.seq, 1)
+        r_all = region_valid.shape[1]
+        region_valid = region_valid[:, None, :].expand(b, k, r_all)
+        attended = self.attn(summaries.reshape(b * k, r_all, c), region_valid.reshape(b * k, r_all),
+                             training, gen).reshape(b, k, r_all, c)
+        if regions is not None:
+            attended = attended.narrow(2, regions.seq.offset, r)
         out = torch.einsum("bkrc,brkp->brpc", attended, dispatch_mm * dispatch)
-        return torch.where(mask[..., None], region_reverse(out, geo, n), 0)
+        out = out.reshape(b, n, c) if regions is not None else region_reverse(out, geo, n)
+        return torch.where(mask[..., None], out, 0)
 
 
 class RRTLayer(nn.Module):
@@ -172,13 +294,17 @@ class RRTLayer(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.attn = attn
 
-    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None):
-        return x + self.attn(self.norm(x), mask, training, gen)
+    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None,
+                regions: Optional[Regions] = None):
+        return x + self.attn(self.norm(x), mask, training, gen, regions)
 
 
 class RRTEncoder(nn.Module):
     """``n_layers − 1`` R-MSA layers, one CR-MSA layer of ``crmsa_heads``
-    heads, then LayerNorm (``rrt.py:216-243``)."""
+    heads, then LayerNorm (``rrt.py:216-243``). Given ``seq``, ``x`` and
+    ``mask`` are this rank's block of a bag sharded over the sp row: the
+    layers run on the region-major layout (:func:`to_regions`) and the
+    result comes back in ``seq``'s."""
 
     def __init__(self, dim: int = 512, n_layers: int = 2, num_heads: int = 8, region_num: int = 8,
                  epeg_k: int = 15, crmsa_k: int = 3, crmsa_heads: int = 8, dropout: float = 0.1):
@@ -189,10 +315,16 @@ class RRTEncoder(nn.Module):
         self.cr_msa = RRTLayer(CrossRegionAttention(dim, crmsa_heads, region_num, crmsa_k, dropout), dim)
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None):
+    def forward(self, x, mask, training: bool = False, gen: Optional[torch.Generator] = None,
+                seq: Optional[Seq] = None):
+        regions = None
+        if seq is not None:
+            region_num = self.cr_msa.attn.region_num
+            x, mask, regions = to_regions(x, mask, seq, region_num)
         for layer in self.layers:
-            x = layer(x, mask, training, gen)
-        return self.norm(self.cr_msa(x, mask, training, gen))
+            x = layer(x, mask, training, gen, regions)
+        x = self.norm(self.cr_msa(x, mask, training, gen, regions))
+        return x if seq is None else from_regions(x, regions, seq, region_num)
 
 
 class RRTMIL(nn.Module):
@@ -218,12 +350,14 @@ class RRTMIL(nn.Module):
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor, training: bool = False,
                 gen: Optional[torch.Generator] = None, return_attn: bool = False):
-        """``{"logits", "bag_feat"[, "attn" [B,N]]}``."""
+        """``{"logits", "bag_feat"[, "attn" [B,N]]}``; under sp (the module's
+        docstring) ``attn`` is this block's."""
         mask = mask.bool()
-        x = self.feature(feats, training, gen)
-        x = self.online_encoder(x, mask, training, gen)
+        seq = seq_layout(feats.shape[1], feats.device)
+        x = self.feature(feats, training, gen, seq)
+        x = self.online_encoder(x, mask, training, gen, seq)
         pool = gated_attention if self.da_gated else tanh_attention
-        pooled, attn = pool(self.pool_fn.attention, x, mask, training, gen)
+        pooled, attn = pool(self.pool_fn.attention, x, mask, training, gen, seq=seq)
         out = {"logits": self.predictor(pooled[:, 0]), "bag_feat": pooled[:, 0]}
         if return_attn:
             out["attn"] = attn[:, 0]

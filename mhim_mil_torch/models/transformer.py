@@ -77,9 +77,10 @@ class NystromMSA(nn.Module):
 
     Given ``seq``, the layer runs on this rank's block of a sequence
     sharded over the active sp row: the path is chosen by the whole
-    sequence's length, each op takes the layout (``parity`` raises), the
-    value residual reads its halo from the neighbouring blocks, and the
-    outputs are this block's. The cls token is the sequence's first. ``to_out`` is a one-layer ``Sequential`` so that its weights
+    sequence's length, each op takes the layout (the ``parity`` layer's
+    front padding goes in front of sp rank 0's block), the value residual
+    reads its halo from the neighbouring blocks, and the outputs are this
+    block's. The cls token is the sequence's first. ``to_out`` is a one-layer ``Sequential`` so that its weights
     keep the reference's name ``to_out.0``; the dropout after it (p=0.1, as
     in the JAX package) applies to the attention output only, never to the
     scored values.

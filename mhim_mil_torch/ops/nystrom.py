@@ -55,14 +55,15 @@ def moore_penrose_pinv(x: torch.Tensor, iters: int = 6) -> torch.Tensor:
     return newton_schulz_plain(*pinv_start(x), iters)
 
 
-def _landmark_block(t: torch.Tensor, mask: torch.Tensor, m: int, seq: Seq, dim: int):
+def _landmark_block(t: torch.Tensor, mask: torch.Tensor, m: int, seq: Seq, dim: int, parity: bool = False):
     """A block's part of the landmark means along ``dim`` of ``t``: the
     groups of :func:`_landmark_mean` over the global length ``seq.total``,
     token ``i`` of the block (global ``seq.offset + i``) in group
     ``(offset + i + pad) // l``. The block's group sums (in fp32, by one
     reshape of the block padded to whole groups) and counts are summed over
     the sp row (:func:`sp_sum`). Returns ``(sums`` with ``m`` along ``dim``,
-    ``counts[B, m])``."""
+    ``counts[B, m])``; with ``parity`` (a sequence already front-padded to
+    ``m·l`` tokens) the sums and ``None``: every group counts ``l``."""
     n_tot, n = seq.total, seq.local
     l = -(-n_tot // m)
     start = seq.offset + m * l - n_tot
@@ -78,7 +79,7 @@ def _landmark_block(t: torch.Tensor, mask: torch.Tensor, m: int, seq: Seq, dim: 
         return torch.cat([x.new_zeros(shape[:d] + [g0] + shape[d + 1:]), x,
                           x.new_zeros(shape[:d] + [m - g0 - g] + shape[d + 1:])], dim=d)
 
-    return sp_sum(groups(t, dim)), sp_sum(groups(mask.to(f32), 1))
+    return sp_sum(groups(t, dim)), None if parity else sp_sum(groups(mask.to(f32), 1))
 
 
 def _landmark_mean(
@@ -95,12 +96,15 @@ def _landmark_mean(
     pads it): every group divided by ``l`` and every landmark valid.
 
     Given ``seq``, ``t`` and ``mask`` hold this rank's block of a sharded
-    sequence and the means are those of the whole one, on every rank of the
-    sp row (:func:`_landmark_block`; no ``parity``).
+    sequence (with ``parity``, of the front-padded one) and the means are
+    those of the whole one, on every rank of the sp row
+    (:func:`_landmark_block`).
     """
     b, h, n, d = t.shape
     if seq is not None:
-        grp, cnt = _landmark_block(t, mask, m, seq, 2)
+        grp, cnt = _landmark_block(t, mask, m, seq, 2, parity)
+        if parity:
+            return (grp / (seq.total // m)).to(t.dtype), mask.new_ones((b, m), dtype=torch.bool)
         return (grp / cnt.clamp_min(1.0)[:, None, :, None]).to(t.dtype), cnt > 0
     l = -(-n // m)
     f32 = stats_dtype(t.dtype)
@@ -158,7 +162,10 @@ def nystrom_attention(
         v and mask hold this rank's block; the landmarks and ``attn3``'s
         softmax and ``attn3 @ v`` are the whole sequence's, the cls row
         comes from the rank that holds token 0, and the outputs are this
-        block's. Not with ``parity``.
+        block's. With ``parity`` the front padding of the whole sequence
+        (``m·ceil(N/m) − N`` tokens, N = ``seq.total``) goes in front of sp
+        rank 0's block, which holds the cls row and drops the padding from
+        its outputs.
 
     The big ``[B,H,N,m]`` tensors take q's dtype; softmax statistics and the
     pseudo-inverse run in fp32 (all of it in fp64 for fp64 input).
@@ -168,14 +175,17 @@ def nystrom_attention(
     """
     mask = mask.bool()
     m = num_landmarks
-    front_pad = 0
-    if parity and seq is not None:
-        raise NotImplementedError("the parity path under sequence parallelism (ROADMAP Queue 1 item 6d-iii)")
+    front_pad = 0  # the padding in front of this block
     if parity:
-        n0 = q.shape[2]
-        front_pad = m * -(-n0 // m) - n0
+        n0 = q.shape[2] if seq is None else seq.total
+        pad = m * -(-n0 // m) - n0
+        if seq is not None:
+            front_pad, seq = (pad if seq.index == 0 else 0), seq.prepend(pad)
+        else:
+            front_pad = pad
         if front_pad:
             q, k, v = (F.pad(t, (0, 0, front_pad, 0)) for t in (q, k, v))
+        if pad:
             mask = mask.new_ones((q.shape[0], q.shape[2]))
     mvalid = mask[:, None, :, None]
     q, k, v = (torch.where(mvalid, t, 0) for t in (q, k, v))
@@ -202,7 +212,9 @@ def nystrom_attention(
     else:
         a1, a2, a3 = attn1, pinv, attn3
     f32 = stats_dtype(q.dtype)
-    a1_0 = a1[:, :, front_pad:front_pad + 1] if seq is None else sp_first(a1[:, :, :1], seq)
+    a1_0 = a1[:, :, front_pad:front_pad + 1]
+    if seq is not None:
+        a1_0 = sp_first(a1_0, seq)
     cls_row = a1_0.to(f32) @ a2.to(f32)  # [B,H,1,m]
     cls_attn = (cls_row @ a3.to(f32))[:, :, 0, front_pad:]  # [B,H,N]
     return out, cls_attn

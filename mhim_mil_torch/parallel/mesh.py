@@ -34,14 +34,16 @@ themselves:
   the instances, K1's partial statistics, the attention pools, the masked
   means), the differentiable max of maxmil's and DSMIL's instance logits
   (:func:`sp_amax`, ties split over the row), the first argmax (DSMIL's
-  critical instances, :func:`sp_argmax`) and the pick of chosen rows from
-  their owners (:func:`sp_pick`: those instances and CLAM's top-k), the
-  gather of a small ``[B, N]`` tensor (:func:`sp_gather`: the mining
-  scores and masks, CLAM's attention logits), the halo of a convolution
-  along the sequence (:func:`sp_halo`: the value residual, PPEG, PEG),
-  the move of kept instances to their compacted blocks, of a bag's
-  instances to the bands of its 2D grid and of a sequence to SRMamba's
-  permuted layout (:func:`sp_scatter`, which holds the whole moved
+  critical instances, DTFD's ``MaxS``/``MaxMinS`` picks, :func:`sp_argmax`)
+  and the pick of chosen rows from their owners (:func:`sp_pick`: those
+  instances and CLAM's top-k), the gather of a small tensor
+  (:func:`sp_gather`: the mining scores and masks, CLAM's attention
+  logits, DTFD's valid counts a block, RRT-MIL's mask and region
+  summaries), the halo of a convolution along the sequence
+  (:func:`sp_halo`: the value residual, PPEG, PEG), the move of kept
+  instances to their compacted blocks, of a bag's instances to the bands
+  of its 2D grid or to RRT-MIL's regions and back, and of a sequence to
+  SRMamba's permuted layout (:func:`sp_scatter`, which holds the whole moved
   sequence on every rank: see its note), and the state a linear
   recurrence carries from block to block (:func:`sp_carry`: the Mamba
   scans).

@@ -222,10 +222,11 @@ def world(tmp_path_factory):
         w={k: v.numpy() for k, v in ew.items()})
     base = ["--datasets", "synth", "--input_dim", "32", "--inner_dim", "32", "--batch_size", "4", "--num_epoch",
             "1", "--cv_fold", "2", "--synth_n_slides", "8", "--synth_bag_size", "64", "--bucket_sizes", "64"]
-    for name, argv in (("raise_sp", ["--model", "dtfd", "--mesh_dp", "2", "--mesh_sp", "2"]),
+    for name, argv in (("raise_batch_split", ["--model", "dtfd", "--mesh_dp", "2", "--mesh_sp", "2", "--batch_size",
+                                              "3"]),
                        ("raise_no_flags", ["--model", "abmil"]),
-                       ("raise_sp_rrtmil", ["--model", "rrtmil", "--mesh_dp", "2", "--mesh_sp", "2"]),
-                       ("raise_sp4_dtfd", ["--model", "dtfd", "--mesh_dp", "1", "--mesh_sp", "4"])):
+                       ("raise_empty_block", ["--model", "rrtmil", "--mesh_dp", "1", "--mesh_sp", "4",
+                                              "--synth_bag_size", "2", "--bucket_sizes", "2"])):
         add({"name": name, "kind": "raises", "argv": ["--device", "cpu", *base, *argv]})
     arrays["spec"] = np.asarray(json.dumps(specs))
     np.savez(tmp / "in.npz", **arrays)
@@ -603,17 +604,16 @@ def test_abmil_dp_eval_matches_jax_mesh_eval(world):
 
 
 def test_dp_world_raises_before_any_step(world):
-    """In a world of 4: ``--mesh_sp`` with a model whose couplings over
-    the instances are not routed through the mesh (dtfd and rrtmil at
-    ``--mesh_dp 2 --mesh_sp 2``, dtfd at ``--mesh_dp 1 --mesh_sp 4``; dp
-    alone runs them) names item 6d-iii, and no mesh flag is a ValueError."""
+    """In a world of 4 the driver raises ValueError, naming the cause, on
+    what no mesh can run: no mesh flag; a batch of 3 bags over
+    ``--mesh_dp 2`` (dtfd, before any step); and sp ranks that would hold
+    no instance (rrtmil's bags of 2 over ``--mesh_sp 4``: every rank raises
+    at the model's first layout, so that none waits on a collective)."""
     _, results = world
-    for case in ("raise_sp", "raise_sp_rrtmil", "raise_sp4_dtfd"):
-        assert str(results[case]["type"]) == "NotImplementedError", case
-        assert "6d-iii" in str(results[case]["message"]), case
-        assert "6c" not in str(results[case]["message"]), case
-    assert str(results["raise_no_flags"]["type"]) == "ValueError"
-    assert "--mesh_dp" in str(results["raise_no_flags"]["message"])
+    for case, words in (("raise_no_flags", "--mesh_dp"), ("raise_batch_split", "does not split over --mesh_dp 2"),
+                        ("raise_empty_block", "every sp rank must hold at least one instance")):
+        assert str(results[case]["type"]) == "ValueError", case
+        assert words in str(results[case]["message"]), case
 
 
 # ---- the driver through its command line ----------------------------------------------

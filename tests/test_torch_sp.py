@@ -297,8 +297,10 @@ def world(tmp_path_factory):
         w={k: v.numpy() for k, v in ew.items()})
     base = ["--device", "cpu", "--datasets", "synth", "--input_dim", "32", "--inner_dim", "32", "--batch_size", "4",
             "--num_epoch", "1", "--cv_fold", "2", "--synth_n_slides", "8", "--synth_bag_size", "64",
-            "--bucket_sizes", "64", "--mesh_dp", "2", "--mesh_sp", "2"]
-    for name, argv in (("raise_dtfd", ["--model", "dtfd"]), ("raise_rrtmil", ["--model", "rrtmil"])):
+            "--bucket_sizes", "64"]
+    for name, argv in (("raise_no_flags", ["--model", "dtfd"]),
+                       ("raise_batch_split", ["--model", "rrtmil", "--mesh_dp", "2", "--mesh_sp", "2", "--batch_size",
+                                              "3"])):
         add({"name": name, "kind": "raises", "argv": [*base, *argv]})
     arrays["spec"] = np.asarray(json.dumps(specs))
     np.savez(tmp / "in.npz", **arrays)
@@ -639,17 +641,17 @@ def test_abmil_sp_eval_matches_jax(world):
 
 
 def test_sp_raises_outside_its_models(world):
-    """Under ``--mesh_dp 2 --mesh_sp 2`` a model that runs under dp but whose
-    couplings over the instances are not routed through the mesh (dtfd,
-    rrtmil) raises NotImplementedError naming ROADMAP item 6d-iii, and so
-    does a ``parity`` layer's ``nystrom_attention`` on a block."""
+    """What no sp mesh runs raises ValueError, naming the cause: in the
+    world of 4, dtfd without a mesh flag and rrtmil's batch of 3 bags over
+    ``--mesh_dp 2 --mesh_sp 2``; in this process, the layout of an sp row
+    on which a rank would hold no instance (every rank reads the same
+    counts, so all raise alike)."""
     _, results = world
-    for case in ("raise_dtfd", "raise_rrtmil"):
-        assert str(results[case]["type"]) == "NotImplementedError", case
-        assert "6d-iii" in str(results[case]["message"]), case
-    q = torch.zeros(1, 1, 8, 4)
-    with pytest.raises(NotImplementedError, match="6d-iii"):
-        nystrom_attention(q, q, q, torch.ones(1, 8, dtype=torch.bool), 4, parity=True, seq=pmesh.Seq((4, 4), 1))
+    for case, words in (("raise_no_flags", "--mesh_dp"), ("raise_batch_split", "does not split over --mesh_dp 2")):
+        assert str(results[case]["type"]) == "ValueError", case
+        assert words in str(results[case]["message"]), case
+    with pmesh.Mesh(dp=1, sp=2, world=2, rank=0), pytest.raises(ValueError, match="at least one instance"):
+        pmesh.seq_layout(3, "cpu")  # no process group: the other rank's count reads 0
 
 
 # ---- the driver through its command line ------------------------------------------------

@@ -58,6 +58,7 @@ from mhim_mil_tpu.engine.steps import make_train_step as j_make_train_step
 from mhim_mil_tpu.engine.train_state import MILTrainState, create_train_state as j_create_train_state
 from mhim_mil_tpu.engine.train_state import make_optimizer as j_make_optimizer
 from mhim_mil_tpu.models import build_model as j_build_model
+from mhim_mil_tpu.models.registry import MODEL_REGISTRY
 from mhim_mil_tpu.models.mhim import MHIM as JMHIM, make_mhim_train_step as j_make_mhim_step
 from mhim_mil_tpu.models.positional import PEG as JPEG
 from mhim_mil_tpu.ops import masked as jmasked
@@ -66,6 +67,7 @@ from mhim_mil_torch.config import load_config
 from mhim_mil_torch.engine.steps import make_train_step
 from mhim_mil_torch.engine.train_state import create_train_state
 from mhim_mil_torch.models import build_model
+from mhim_mil_torch.models.registry import NOT_PORTED
 from mhim_mil_torch.utils import weights
 from mhim_mil_torch.utils.weights import state_dict_from_flax
 from test_torch_parallel import _check_against_jax, _jax_mu
@@ -99,6 +101,11 @@ MHIM_BASE = dict(model="mhim", input_dim=32, inner_dim=64, n_heads=4, batch_size
                  merge_ratio=0.25, merge_k=2, aux_alpha=0.5, attn2score=True, dropout=0.0, compute_dtype="float32")
 MHIM = {"mhim_dsmil": dict(MHIM_BASE, baseline="dsmil", n_classes=WORLD, batch_size=WORLD),
         "mhim_peg": dict(MHIM_BASE, baseline="selfattn", pos="peg")}
+# every model the registry builds, at small widths, for the evaluation at sp 2 against one process
+REGISTRY = sorted(set(MODEL_REGISTRY) - set(NOT_PORTED))
+REGISTRY_CFG = {"mhim": dict(MHIM_BASE, n_classes=2), "mhim_pure": dict(MHIM_BASE, model="mhim_pure", n_classes=2),
+                "mambamil": dict(mambamil_dim=32, mambamil_state_dim=8, mambamil_rate=4),
+                "2dmamba": dict(mambamil_dim=32, mambamil_state_dim=8), "rrtmil": dict(region_num=2, rrt_n_heads=2)}
 LENGTHS = (45, 30, 60, 64, 52, 41, 58, 0)  # 45 and 30: a last block of padding only at sp 4 and at sp 2
 ZERO_BAG = 2  # maxmil's bag whose valid instances are all zero: its logits tie across both sp ranks
 PEG_N, PEG_C = 1001, 16  # PEG's bag: hw 32, blocks 251/250/250/250 end inside grid rows
@@ -157,6 +164,14 @@ def _mhim_batch(name: str):
     batch = _batch(name, 2)
     batch["target"] = batch["target"] % 2
     return batch
+
+
+def _registry_model(name: str):
+    """The config of the registry's model ``name`` at small widths and the
+    port's model of it, from the seed 0."""
+    cfg = {**ZOO_CFG, "model": name, **REGISTRY_CFG.get(name, {})}
+    model, _ = build_model(load_config([], **cfg), device="cpu", generator=torch.Generator().manual_seed(0))
+    return cfg, model
 
 
 def _mhim_draws(port, batch):
@@ -298,6 +313,10 @@ def world(zoo_tmp, inits):
             batch=batch, draw=_mhim_draws(port, batch))
         add({"name": f"eval_{name}", "kind": "forward", "cfg": cfg, "dp": 1, "sp": WORLD, "gather_attn": True}, w=w,
             batch=batch)
+    for name in REGISTRY:
+        cfg, model = _registry_model(name)
+        add({"name": f"registry_{name}", "kind": "forward", "cfg": cfg, "dp": 1, "sp": 2},
+            w=_weights(model.state_dict()), batch=_batch(name, 2))
     arrays["spec"] = np.asarray(json.dumps(specs))
     np.savez(zoo_tmp / "in.npz", **arrays)
     _torchrun(WORLD, [WORKER, str(zoo_tmp / "in.npz"), str(zoo_tmp / "out.npz")])
@@ -548,25 +567,20 @@ def test_control_per_rank_argmax_misses_jax(world, inits):
 # ---- the gate, and the driver through its command line --------------------------------------------
 
 
-def test_sp_gate_admits_this_slice_and_names_6d_iii():
-    """``check_sp`` admits the families of this slice and raises before
-    any step for dtfd and rrtmil, naming item 6d-iii; the ``parity``
-    Nystrom path raises alike."""
-    from mhim_mil_torch.engine.steps import check_sp
-    from mhim_mil_torch.ops.nystrom import nystrom_attention
-    from mhim_mil_torch.parallel.mesh import Seq
-
-    for kw in (*[dict(model="transmil", pos=p) for p in ("ppeg", "sincos", "peg", "none")],
-               *[dict(model=m) for m in ("gabmil", "meanmil", "maxmil", "ibmil", "clam_sb", "clam_mb", "dsmil")],
-               *[dict(model=m, baseline="dsmil") for m in ("mhim", "mhim_pure")],
-               *[dict(model=m, baseline="selfattn", pos="peg") for m in ("mhim", "mhim_pure")]):
-        check_sp(load_config([], **kw), 2)
-    for model in ("dtfd", "rrtmil"):
-        with pytest.raises(NotImplementedError, match="6d-iii"):
-            check_sp(load_config([], model=model), 2)
-    q = torch.zeros(1, 1, 8, 4)
-    with pytest.raises(NotImplementedError, match="6d-iii"):
-        nystrom_attention(q, q, q, torch.ones(1, 8, dtype=torch.bool), 4, parity=True, seq=Seq((4, 4), 0))
+@pytest.mark.parametrize("name", REGISTRY)
+def test_sp_gate_admits_this_slice_and_names_6d_iii(world, name):
+    """Every model the registry builds (the JAX registry's names, none left
+    unported) runs its evaluation forward (MHIM's ``forward_test``) at dp 1
+    × sp 2 on the ragged batch, its logits within rtol 1e-4, atol
+    1e-5·max|ref| of the port's one process on the whole bags."""
+    inputs, results = world
+    _, model = _registry_model(name)
+    batch = {k: torch.from_numpy(v) for k, v in inputs[f"registry_{name}"]["batch"].items()}
+    with torch.no_grad():
+        fwd = model.forward_test if name in ("mhim", "mhim_pure") else partial(model, training=False)
+        want = fwd(batch["feats"], batch["mask"])["logits"].numpy()
+    _close(results[f"registry_{name}"]["logits"], want, rtol=1e-4, atol=1e-5 * float(np.abs(want).max()),
+           msg=f"{name} logits")
 
 
 def test_driver_sp_transmil_matches_one_process(tmp_path):

@@ -1,7 +1,7 @@
 """One rank of a data- or sequence-parallel world of the port, for
 tests/test_torch_parallel.py, tests/test_torch_parallel_zoo.py,
-tests/test_torch_sp.py, tests/test_torch_sp_scan.py and
-tests/test_torch_sp_zoo.py.
+tests/test_torch_sp.py, tests/test_torch_sp_scan.py,
+tests/test_torch_sp_zoo.py and tests/test_torch_sp_last.py.
 
     python -m torch.distributed.run --nproc_per_node W tests/torch_dp_worker.py IN.npz OUT.npz
 
@@ -22,7 +22,8 @@ are ``IN.npz``'s ``<case>/<name>``; rank 0 writes its results to
   pseudo-inverse's initial scale, ``wmean`` the losses' weight sum,
   ``clam_count`` the count of bags CLAM's instance loss averages over.
   ``attrs`` sets attributes of the model after it is built (CLAM's
-  ``subtyping``); ``scramble`` names state tensors that the ranks past 0
+  ``subtyping``, DTFD's ``distill``; a dotted name sets a submodule's,
+  such as ``layer1.attn.parity``); ``scramble`` names state tensors that the ranks past 0
   overwrite before ``replicate_tree``, which must restore rank 0's;
 - ``forward_test``: the MHIM logits of the global batch, gathered;
 - ``eval``: ``evaluate``'s row over ``make_synthetic_dataset``'s slides
@@ -31,7 +32,10 @@ are ``IN.npz``'s ``<case>/<name>``; rank 0 writes its results to
 - ``raises``: ``mhim_mil_torch.main.main(argv)``; the error's type and
   message;
 - ``ops``: one op of the sequence-parallel path (``op``: ``landmark``,
-  ``streamed``, ``kernels``, ``materialising``, ``resconv``, ``ppeg``, ``peg``) on this rank's block of
+  ``streamed``, ``kernels``, ``materialising`` (with ``parity`` if the
+  spec says), ``resconv``, ``ppeg``, ``peg``, ``sattention``: MHIM's
+  selfattn module built with ``parity``, its ``cls_feat`` and cls
+  attention) on this rank's block of
   the global inputs (``in/<name>``), its outputs and the gradients of
   ``Σ output·cotangent`` for its inputs gathered over the sp row
   (``out/<name>``, ``grad/<name>``), and its parameters' gradients summed
@@ -65,7 +69,9 @@ once), ``no_carry`` (the scans' bands and blocks started from zero:
 no state carried across ranks), ``local_ties`` (the row max's cotangent
 split among this rank's ties only) and ``local_pick`` (DSMIL's critical
 instances and CLAM's top-k chosen on each rank's own block, their
-features read there).
+features read there), ``local_ids`` (DTFD's pseudo-bags from each rank's
+own valid ranks and count) and ``local_regions`` (RRT-MIL's regions cut
+from each rank's own block).
 
 Imports torch and the port only.
 """
@@ -83,7 +89,7 @@ from mhim_mil_torch.engine import losses
 from mhim_mil_torch.ops import flash_nystrom
 from mhim_mil_torch.engine.steps import make_mhim_train_step, make_train_step
 from mhim_mil_torch.engine.train_state import create_mhim_state, create_train_state
-from mhim_mil_torch.models import build_model, clam, dsmil, layers
+from mhim_mil_torch.models import build_model, clam, dsmil, dtfd, layers, rrt
 from mhim_mil_torch.ops import nystrom, scan, scan2d
 from mhim_mil_torch.parallel import make_mesh, replicate_tree, shard_batch
 from mhim_mil_torch.parallel import mesh as pmesh
@@ -100,7 +106,8 @@ def _model(spec, data):
     model, family = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in _group(data, spec["name"], "w").items()})
     for k, v in spec.get("attrs", {}).items():
-        setattr(model, k, v)
+        owner, _, name = k.rpartition(".")
+        setattr(model.get_submodule(owner), name, v)
     return cfg, model, family
 
 
@@ -205,9 +212,19 @@ def _ops(spec, data, mesh, out):
             elif op == "kernels":
                 o, a = flash_nystrom.flash_nystrom(*leaves.values(), mask, m, seq=seq)
             else:
-                o, a = nystrom_attention(*leaves.values(), mask, m, return_attn=True, seq=seq)
+                o, a = nystrom_attention(*leaves.values(), mask, m, return_attn=True, parity=spec.get("parity", False),
+                                         seq=seq)
             outs = {"out": (o, tok), "attn": (a, 2)}
             loss = (o * mine("cot_out")).sum() + (a * mine("cot_attn", 2)).sum()
+        elif op == "sattention":
+            from mhim_mil_torch.models.baselines import SAttentionBaseline
+
+            module = SAttentionBaseline(d["x"].shape[-1], spec["heads"], use_flash=False, parity=True)
+            module.load_state_dict({k[2:]: v for k, v in d.items() if k.startswith("w.")})
+            leaves = {"x": mine("x")}
+            res = module(leaves["x"], mask, return_attn=True, seq=seq)
+            outs = {"cls_feat": (res["cls_feat"], None), "attn": (res["attn"], 2)}
+            loss = (res["cls_feat"] * d["cot"]).sum() * owner + (res["attn"] * mine("cot_attn", 2)).sum()
         else:
             if op == "resconv":
                 module = _DepthwiseResConv(d["v"].shape[2])
@@ -225,7 +242,7 @@ def _ops(spec, data, mesh, out):
             for k, t in leaves.items():
                 out[f"grad/{k}"] = sp_gather(t.grad, seq, tok).numpy()
             for k, p in (module.named_parameters() if module is not None else ()):
-                out[f"pgrad/{k}"] = sp_sum(p.grad).numpy()
+                out[f"pgrad/{k}"] = sp_sum(p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
 
 
 def _scan_ops(spec, data, mesh, out):
@@ -331,6 +348,9 @@ def _gather_rows(x, idx):
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+_DTFD_IDS, _RRT_ENCODER = dtfd.pseudo_bag_ids, rrt.RRTEncoder.forward
+
+
 def _row_once(x):
     from mhim_mil_torch.parallel.mesh import active, batch_sum
 
@@ -346,6 +366,9 @@ CONTROLS = {"pinv": [(nystrom, "batch_max", lambda x: x)], "wmean": [(losses, "b
                            (dsmil, "sp_pick", lambda x, idx, seq: _gather_rows(x, idx - seq.offset)),
                            (clam, "sp_gather", lambda x, seq, dim=1: x),
                            (clam, "sp_pick", lambda x, idx, seq: _gather_rows(x, idx))],
+            "local_ids": [(dtfd, "pseudo_bag_ids", lambda mask, group, seq=None: _DTFD_IDS(mask, group))],
+            "local_regions": [(rrt.RRTEncoder, "forward", lambda self, x, mask, training=False, gen=None, seq=None:
+                               _RRT_ENCODER(self, x, mask, training, gen))],
             "no_carry": [(scan, "sp_carry", lambda decay, state, seq: torch.zeros_like(state)),
                          (scan2d, "sp_carry", lambda decay, state, seq: torch.zeros_like(state))]}
 
