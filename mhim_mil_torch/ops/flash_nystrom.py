@@ -39,7 +39,11 @@ The backward of each pass is a kernel too:
   FlashAttention-2's backward with the m landmark rows as queries.
 
 Neither forms ``[B,H,N,m]``; :func:`pass_b_backward_plain` and
-:func:`pass_a_backward_plain` run on CPU tensors. K2b's token kernel takes
+:func:`pass_a_backward_plain` run on CPU tensors. Each wrapper calls its op
+(``torch.ops.mhim_mil_torch.pass_b_backward``, ``.pass_a_backward``), so
+that a profile records the backward kernels under a name, with the shapes
+of their inputs (``d_cls`` and ``d_s3`` present or absent). K2b's token
+kernel takes
 ``D = Σ d_out·out`` from K2's output and walks the landmarks once with an
 online softmax, and its landmark kernel splits the tokens
 (:func:`pass_b_backward_plan`); K1b runs its landmark and key blocks as one
@@ -618,22 +622,74 @@ def pass_b_backward(
     256. Without ``d_cls`` the cls term is skipped and its four gradients
     are None. ``out`` is K2's output for these operands, which the kernels
     take ``D = Σ d_out·out`` from (:class:`PassB` saves it); without it the
-    card branch runs :func:`pass_b` (K2, counted) for it first."""
-    if _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, *(() if d_cls is None else (d_cls,))):
-        return pass_b_backward_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls)
-    if out is None:
+    card branch runs :func:`pass_b` (K2, counted) for it first.
+
+    Both branches run inside the op ``torch.ops.mhim_mil_torch.pass_b_backward``,
+    which returns ``d_q``, ``d_k`` (empty without ``d_cls``) and K2b's
+    landmark rows (:func:`pass_b_backward_rows`); this wrapper cuts the
+    rows into ``d_kl``, ``d_mid``, ``d_ql`` and ``d_r'``."""
+    if out is None and not _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out,
+                                   *(() if d_cls is None else (d_cls,))):
         out = pass_b(q, k, mask, kl, lm_mask, mid, ql, rp, m3)[0]
+    d_q, d_k, rows = torch.ops.mhim_mil_torch.pass_b_backward(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out,
+                                                              d_cls, out)
+    dh = q.shape[-1]
+    if d_cls is None:
+        w = rows.shape[-1] // 2  # the head dim the kernels ran at
+        return d_q, None, rows[..., :dh], rows[..., w:w + dh], None, None, None
+    w = (rows.shape[-1] - 1) // 3
+    d_rp = rows[..., 3 * w]
+    return d_q, d_k, rows[..., :dh], rows[..., w:w + dh], rows[..., 2 * w:2 * w + dh], d_rp, -rp * d_rp
+
+
+@torch.library.custom_op("mhim_mil_torch::pass_b_backward", mutates_args=(), device_types=("cpu", "cuda"),
+                         schema="(Tensor q, Tensor k, Tensor mask, Tensor kl, Tensor lm_mask, Tensor mid, "
+                                "Tensor ql, Tensor rp, Tensor m3, Tensor d_out, Tensor? d_cls, Tensor? out) "
+                                "-> (Tensor, Tensor, Tensor)")
+def _pass_b_backward_op(q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor, mid: Tensor, ql: Tensor,
+                        rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor],
+                        out: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    """K2b as one op: ``(d_q, d_k, rows)``, ``rows`` the landmark rows
+    ``d_kl | d_mid`` and with ``d_cls`` ``| d_ql | d_r'`` at the head dim
+    the kernels ran at (with ``d_cls`` a view that leaves out the rows' 3
+    floats of padding, which K2b never writes); ``d_k`` empty without ``d_cls``.
+    On CPU tensors :func:`pass_b_backward_plain`'s results laid out so;
+    on CUDA tensors ``out`` is required."""
+    if _on_cpu(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, *(() if d_cls is None else (d_cls,))):
+        return pass_b_backward_rows(*pass_b_backward_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls))
     d_out, out = (t if _rows_aligned(t) else t.contiguous() for t in (d_out, out))
     args = (q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls, out)
-    grads = padded_head_dim(_launch_pass_b_backward, args, (0, 1, 3, 5, 6, 9, 11), (0, 1, 2, 3, 4))
+    grads = padded_head_dim(_launch_pass_b_backward, args, (0, 1, 3, 5, 6, 9, 11), (0, 1))
     pass_b_backward.launches += 1
     return grads
+
+
+def pass_b_backward_rows(d_q: Tensor, d_k: Optional[Tensor], d_kl: Tensor, d_mid: Tensor, d_ql: Optional[Tensor],
+                         d_rp: Optional[Tensor], _d_m3=None) -> Tuple[Tensor, Tensor, Tensor]:
+    """K2b's gradients (:func:`pass_b_backward_plain`'s seven) laid out as its
+    kernels write them and its op returns them: ``(d_q, d_k, rows)``, ``d_k``
+    empty without the cls term, ``rows`` ``d_kl | d_mid`` and with the cls
+    term ``| d_ql | d_r'``, a view of rows of :func:`_bwd_width` floats."""
+    if d_k is None:
+        return d_q, d_q.new_empty((0,)), torch.cat([d_kl, d_mid], dim=-1)
+    rows = torch.cat([d_kl, d_mid, d_ql, d_rp[..., None], d_rp.new_zeros((*d_rp.shape, 3))], dim=-1)
+    return d_q, d_k, rows[..., :-3]
+
+
+@_pass_b_backward_op.register_fake
+def _(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls, out):
+    b, h, n, dh = q.shape
+    cls = d_cls is not None
+    w = _bwd_width(kernel_head_dim(dh) if q.device.type == "cuda" else dh, cls)
+    rows = q.new_empty((b, h, kl.shape[2], w), dtype=_out_dtype(q))
+    d_k = _head_dim_view(q, (b, h, n)) if cls else q.new_empty((0,), dtype=_out_dtype(q))
+    return _head_dim_view(q, (b, h, n)), d_k, rows[..., :-3] if cls else rows
 
 
 def _launch_pass_b_backward(
     q: Tensor, k: Tensor, mask: Tensor, kl: Tensor, lm_mask: Tensor, mid: Tensor, ql: Tensor,
     rp: Tensor, m3: Tensor, d_out: Tensor, d_cls: Optional[Tensor], out: Tensor,
-) -> Tuple[Tensor, ...]:
+) -> Tuple[Tensor, Tensor, Tensor]:
     b, h, n, dh = q.shape
     m = kl.shape[2]
     dev = q.device
@@ -675,11 +731,7 @@ def _launch_pass_b_backward(
             b, h, n, m, dh, n_splits, per_split, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, "flash_nystrom_pass_b_bwd")
-    d_kl, d_mid = rows[..., :dh], rows[..., dh:2 * dh]
-    if not cls:
-        return d_q, None, d_kl, d_mid, None, None, None
-    d_rp = rows[..., 3 * dh]
-    return d_q, d_k, d_kl, d_mid, rows[..., 2 * dh:3 * dh], d_rp, -rp * d_rp
+    return (d_q, d_k, rows[..., :-3]) if cls else (d_q, d_q.new_empty((0,)), rows)
 
 
 pass_b_backward.launches = 0
@@ -692,14 +744,29 @@ def pass_a_backward(
     """K1b: the CUDA kernels on CUDA tensors, :func:`pass_a_backward_plain`
     (same arguments and fp32 outputs) on CPU tensors. ``k`` and ``v`` may be
     strided views whose rows start on 16 bytes; any head dim up to 256.
-    Returns ``(d_ql, d_k, d_v)``."""
-    extra = () if d_s3 is None else (d_s3,)
-    if _on_cpu(ql, k, v, mask, attn3v, m3, s3, d_attn3v, *extra):
+    Returns ``(d_ql, d_k, d_v)``, from the op
+    ``torch.ops.mhim_mil_torch.pass_a_backward``."""
+    return torch.ops.mhim_mil_torch.pass_a_backward(ql, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3)
+
+
+@torch.library.custom_op("mhim_mil_torch::pass_a_backward", mutates_args=(), device_types=("cpu", "cuda"),
+                         schema="(Tensor ql, Tensor k, Tensor v, Tensor mask, Tensor attn3v, Tensor m3, Tensor s3, "
+                                "Tensor d_attn3v, Tensor? d_s3) -> (Tensor, Tensor, Tensor)")
+def _pass_a_backward_op(ql: Tensor, k: Tensor, v: Tensor, mask: Tensor, attn3v: Tensor, m3: Tensor, s3: Tensor,
+                        d_attn3v: Tensor, d_s3: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    if _on_cpu(ql, k, v, mask, attn3v, m3, s3, d_attn3v, *(() if d_s3 is None else (d_s3,))):
         return pass_a_backward_plain(ql, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3)
     args = (ql, k, v, mask, attn3v, m3, s3, d_attn3v.contiguous(), d_s3)
     out = padded_head_dim(_launch_pass_a_backward, args, (0, 1, 2, 4, 7), (0, 1, 2))
     pass_a_backward.launches += 1
     return out
+
+
+@_pass_a_backward_op.register_fake
+def _(ql, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3):
+    b, h, m, _ = ql.shape
+    n = k.shape[2]
+    return _head_dim_view(ql, (b, h, m)), _head_dim_view(ql, (b, h, n)), _head_dim_view(ql, (b, h, n))
 
 
 def _launch_pass_a_backward(

@@ -19,7 +19,8 @@ list of products in order (its tensors checked once), :func:`newton_schulz`
 and :func:`newton_schulz_backward` the iterations and their sweep as such
 lists (the forward sweep is the ``torch.library`` op
 ``torch.ops.mhim_mil_torch.newton_schulz``, so that ``torch.export``
-traces it; the reverse sweep is called directly), and
+traces it; the reverse sweep is the op ``.newton_schulz_backward``, so
+that a profile names it and records its iterations as a shape), and
 :class:`NewtonSchulz` maps ``(x, z0) → z`` through them, saving the
 iterates; :func:`pseudo_inverse` is the pseudo-inverse that
 K3's glue runs: the
@@ -134,14 +135,14 @@ def pinv_program(products: List[tuple]) -> List[Tensor]:
     return [p[3] for p in products]
 
 
-def newton_schulz(x: Tensor, z: Tensor, iters: int, keep: bool = False) -> Tuple[Tensor, List[tuple]]:
+def newton_schulz(x: Tensor, z: Tensor, iters: int, keep: bool = False) -> Tuple[Tensor, Tensor]:
     """``iters`` Newton–Schulz iterations from ``z``, four products each, as
-    one :func:`pinv_program`; returns the last iterate and, where ``keep``,
-    each iteration's ``(z, xz, u, w)`` for :func:`newton_schulz_backward`
-    (without it the iterations share their buffers)."""
+    one :func:`pinv_program`; returns the last iterate and the op's
+    ``iterates[iters, 4, *x.shape]``, each iteration's ``(z, xz, u, w)``
+    for :func:`newton_schulz_backward` where ``keep``, else
+    ``[0, 4, *x.shape]`` (the iterations then share their buffers)."""
     on_cpu(x, z)  # raises on a mix or another device, which the dispatcher would take to the fake
-    z, iterates = torch.ops.mhim_mil_torch.newton_schulz(x, z, iters, keep)
-    return z, [tuple(it) for it in iterates]
+    return torch.ops.mhim_mil_torch.newton_schulz(x, z, iters, keep)
 
 
 @torch.library.custom_op("mhim_mil_torch::newton_schulz", mutates_args=(), device_types=("cpu", "cuda"),
@@ -181,15 +182,27 @@ def _(x, z0, iters, keep):
     return x.new_empty(x.shape), x.new_empty((iters if keep else 0, 4, *x.shape))
 
 
-def newton_schulz_backward(x: Tensor, saved: List[tuple], g: Tensor) -> Tuple[Tensor, Tensor]:
+def newton_schulz_backward(x: Tensor, iterates: Tensor, g: Tensor) -> Tuple[Tensor, Tensor]:
     """The reverse sweep of :func:`newton_schulz` under the cotangent ``g``
-    of its last iterate, eight products an iteration, as one
-    :func:`pinv_program`: returns the cotangents of ``x`` and of the first
-    iterate."""
+    of its last iterate, eight products an iteration, as the op
+    ``torch.ops.mhim_mil_torch.newton_schulz_backward``: returns the
+    cotangents of ``x`` and of the first iterate, from the
+    ``iterates[iters, 4, *x.shape]`` that :func:`newton_schulz` kept."""
+    return torch.ops.mhim_mil_torch.newton_schulz_backward(x, iterates, g)
+
+
+@torch.library.custom_op("mhim_mil_torch::newton_schulz_backward", mutates_args=(), device_types=("cpu", "cuda"),
+                         schema="(Tensor x, Tensor iterates, Tensor g) -> (Tensor, Tensor)")
+def _newton_schulz_backward_op(x: Tensor, iterates: Tensor, g: Tensor) -> Tuple[Tensor, Tensor]:
+    """The reverse sweep as one :func:`pinv_program`, its iterations in
+    reverse order (K3p launches on CUDA tensors, ``x``, ``iterates`` and
+    ``g`` contiguous); with no iteration the cotangents pass through."""
+    if iterates.shape[0] == 0:
+        return torch.zeros_like(x), g.clone()
     dw, du, dxz, dx = (torch.empty_like(x) for _ in range(4))
     dzs = (torch.empty_like(x), torch.empty_like(x))
     products = []
-    for i, (z, xz, u, w) in enumerate(reversed(saved)):
+    for i, (z, xz, u, w) in enumerate(reversed(iterates.unbind(0))):
         dz = dzs[i % 2]
         acc = 0.0 if i == 0 else 1.0  # dx is written by the first iteration of the sweep, then added to
         products += [(g, w, None, dz, -0.25, -13.0, False, True, 0.0),  # dz = 0.25·G·(13I − w)ᵀ
@@ -203,6 +216,11 @@ def newton_schulz_backward(x: Tensor, saved: List[tuple], g: Tensor) -> Tuple[Te
         g = dz
     pinv_program(products)
     return dx, g
+
+
+@_newton_schulz_backward_op.register_fake
+def _(x, iterates, g):
+    return x.new_empty(x.shape), x.new_empty(x.shape)
 
 
 class NewtonSchulz(torch.autograd.Function):
@@ -223,7 +241,7 @@ class NewtonSchulz(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, iterates = ctx.saved_tensors
-        dx, dz0 = newton_schulz_backward(x, [tuple(it) for it in iterates], g.contiguous())
+        dx, dz0 = newton_schulz_backward(x, iterates, g.contiguous())
         return dx, dz0, None
 
 

@@ -11,7 +11,10 @@ confounder bank, rrtmil) from ``config/feat_cls.yaml``, all at input_dim 1024. W
 request, the device time per request (each kernel's mean record times its
 launches a request, since the profiler now and then drops a record; a
 shortfall is printed) and its share of the wall time (the device's busy
-share), and the 20 kernels that take the
+share), each stage's device ms and host ms a request (the ranges of
+``utils/serving.py``: ``scorer.request`` around ``scorer.h2d``, the
+features onto the card; ``scorer.pad``; ``scorer.forward``, the model;
+``scorer.to_host``, the logits to numpy), and the 20 kernels that take the
 most device time. Needs a CUDA card.
 """
 
@@ -19,16 +22,16 @@ from __future__ import annotations
 
 import argparse
 import subprocess
-import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from ..config import load_config
 from ..models import build_model
+from .profile_train import profile_steps
 from .serving import Scorer
-from .time_scan2d import by_kind, kernel_id, per_call_us
+from .time_scan2d import by_kind, kernel_id
 
+STAGES = ("scorer.request", "scorer.h2d", "scorer.pad", "scorer.forward", "scorer.to_host")  # serving.py's ranges
 ZOO = ("abmil", "gabmil", "transmil", "dsmil", "clam_sb", "clam_mb", "dtfd", "ibmil", "rrtmil")
 CONFIGS = {
     "mhim": (["-c", "config/mhim_c16.yaml"], {}),
@@ -56,21 +59,20 @@ def main(argv=None):
         scorer.score(feats)
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(requests):
-            scorer.score(feats)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / requests
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    per_request, seen, want = per_call_us(kernels, requests)
+    prof = profile_steps(lambda: scorer.score(feats), requests, STAGES, torch.device("cuda"))
+    wall_ms, kernels, per_request = prof["wall_ms"], prof["kernels"], prof["per_step_us"]
     device_us = sum(per_request.values())
     print(f"{torch.cuda.get_device_name(0)}; {args.model}, batch {args.batch} x {n}, "
           f"bf16 policy: {wall_ms:.2f} ms per request (host clock, under the profiler), "
           f"device busy {device_us / 1e3:.2f} ms per request = {100 * device_us / 1e3 / wall_ms:.1f}% "
           f"of the wall time")
+    seen, want = prof["records"]
     if seen < want:
         print(f"the profiler returned {seen} of {want} kernel records; device time from each kernel's mean "
               f"record times its launches a request")
+    print(f"{'stage':20s} {'device ms/request':>18s} {'host ms/request':>16s}")
+    for stage in STAGES:
+        print(f"{stage:20s} {prof['stage_device_ms'][stage]:18.3f} {prof['stage_host_ms'][stage]:16.3f}")
     kinds = by_kind([(e.key, per_request[e.key] / 1e3, max(1, round(e.count / requests))) for e in kernels])
     print(f"by kind, device ms and launches a request: {kinds}")
     rows = sorted(kernels, key=lambda e: per_request[e.key], reverse=True)[:20]

@@ -71,7 +71,7 @@ def profile_steps(fn, steps: int, stages, device: torch.device) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     events = prof.key_averages()
     # device activity only: kernels and copies, not the ranges annotated on the device timeline
-    kernels = [e for e in events if e.device_type == cuda and e.key not in STAGES + MHIM_STAGES
+    kernels = [e for e in events if e.device_type == cuda and e.key not in STAGES + MHIM_STAGES + tuple(stages)
                and not getattr(e, "is_user_annotation", False)]
     per_step, seen, want = per_call_us(kernels, steps)
 

@@ -16,6 +16,12 @@ are not independent: the Nystrom pseudo-inverse takes its initial scale over
 the whole batch, so a bag's logits depend on the bags it is batched with (as
 in the JAX package and the reference).
 
+A request of either scorer runs inside the ``record_function`` range
+``scorer.request``, its stages inside ``scorer.h2d`` (the features onto the
+device), ``scorer.pad`` (the mask and the padding into the bucket),
+``scorer.forward`` and ``scorer.to_host`` (the logits to numpy);
+``utils/profile_serving.py`` prints each stage's time.
+
 :class:`Scorer` runs the model module in this process.
 :func:`export_serving_bundle` writes a bundle that scores without the model
 code or the checkpoint: ``torch.export`` of the inference body, weights
@@ -37,10 +43,11 @@ from __future__ import annotations
 import copy
 import json
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..engine.steps import EvalBody
 from ..ops import abmil_pool, flash_nystrom, nystrom_pinv, scan2d  # noqa: F401 (register the kernels' ops)
@@ -68,27 +75,43 @@ def pad_request(feats: ArrayLike, mask: Optional[ArrayLike], buckets: Sequence[i
     request as a batch, padded at the end into its bucket, masked; ``squeeze``
     when it was one ``[N, D]`` bag. Raises ``ValueError`` on a wrong width or
     a bag past the largest bucket."""
-    feats = torch.as_tensor(feats, dtype=torch.float32, device=device)
-    squeeze = feats.dim() == 2
-    if squeeze:
-        feats = feats[None]
-    bsz, n, d = feats.shape
-    if d != input_dim:
-        raise ValueError(f"feature dim {d} != input_dim {input_dim}")
-    if mask is None:
-        mask = torch.ones((bsz, n), dtype=torch.bool, device=device)
-    else:
-        mask = torch.as_tensor(mask, dtype=torch.bool, device=device).reshape(bsz, n)
-    pad = bucket_for(buckets, n) - n
-    if pad:
-        feats = torch.cat([feats, feats.new_zeros((bsz, pad, d))], dim=1)
-        mask = torch.cat([mask, mask.new_zeros((bsz, pad))], dim=1)
+    with record_function("scorer.h2d"):
+        feats = torch.as_tensor(feats, dtype=torch.float32, device=device)
+    with record_function("scorer.pad"):
+        squeeze = feats.dim() == 2
+        if squeeze:
+            feats = feats[None]
+        bsz, n, d = feats.shape
+        if d != input_dim:
+            raise ValueError(f"feature dim {d} != input_dim {input_dim}")
+        if mask is None:
+            mask = torch.ones((bsz, n), dtype=torch.bool, device=device)
+        else:
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=device).reshape(bsz, n)
+        pad = bucket_for(buckets, n) - n
+        if pad:
+            feats = torch.cat([feats, feats.new_zeros((bsz, pad, d))], dim=1)
+            mask = torch.cat([mask, mask.new_zeros((bsz, pad))], dim=1)
     return feats, mask, squeeze
 
 
 def _to_host(out: Dict[str, torch.Tensor], squeeze: bool) -> Dict[str, np.ndarray]:
-    res = {k: v.cpu().numpy() for k, v in out.items()}
+    with record_function("scorer.to_host"):
+        res = {k: v.cpu().numpy() for k, v in out.items()}
     return {k: v[0] for k, v in res.items()} if squeeze else res
+
+
+def _score(feats: ArrayLike, mask: Optional[ArrayLike], buckets: Sequence[int], input_dim: int,
+           device: torch.device, forward: Callable) -> Dict[str, np.ndarray]:
+    """One request: :func:`pad_request`, ``forward(feats, mask)`` under
+    inference mode, :func:`_to_host`, inside the range ``scorer.request``
+    with ``forward`` in ``scorer.forward``."""
+    with record_function("scorer.request"):
+        feats, mask, squeeze = pad_request(feats, mask, buckets, input_dim, device)
+        with torch.inference_mode():
+            with record_function("scorer.forward"):
+                out = forward(feats, mask)
+            return _to_host(out, squeeze)
 
 
 class Scorer:
@@ -112,9 +135,7 @@ class Scorer:
     def score(self, feats: ArrayLike, mask: Optional[ArrayLike] = None) -> Dict[str, np.ndarray]:
         """``{"logits": [B, C]}`` (``[C]`` for one ``[N, D]`` bag), and for
         ``dsmil`` ``"sub_logits"`` of the same shape, fp32 on the host."""
-        feats, mask, squeeze = pad_request(feats, mask, self.buckets, self.input_dim, self.device)
-        with torch.inference_mode():
-            return _to_host(self.body(feats, mask), squeeze)
+        return _score(feats, mask, self.buckets, self.input_dim, self.device, self.body)
 
 
 def program_name(bucket: int, platform: str) -> str:
@@ -201,9 +222,8 @@ class ServingBundle:
         return self._loaded[bucket]
 
     def score(self, feats: ArrayLike, mask: Optional[ArrayLike] = None) -> Dict[str, np.ndarray]:
-        feats, mask, squeeze = pad_request(feats, mask, self.buckets, self.manifest["input_dim"], self.device)
-        with torch.inference_mode():
-            return _to_host(self.program(feats.shape[1])(feats, mask), squeeze)
+        return _score(feats, mask, self.buckets, self.manifest["input_dim"], self.device,
+                      lambda f, m: self.program(f.shape[1])(f, m))
 
 
 def load_bundle(path: str, device: Device = None) -> ServingBundle:

@@ -153,7 +153,8 @@ def test_flash_nystrom_vjp_through_padded_head_dims(monkeypatch, dh):
 
     monkeypatch.setattr(fn, "_on_cpu", lambda *ts: False)
     for name, plain in (("_launch_pass_a", fn.pass_a_plain), ("_launch_pass_b", fn.pass_b_plain),
-                        ("_launch_pass_b_backward", lambda *a: fn.pass_b_backward_plain(*a[:11])),  # K2's out: unused
+                        ("_launch_pass_b_backward",  # K2's out: unused; the gradients as K2b lays them out
+                         lambda *a: fn.pass_b_backward_rows(*fn.pass_b_backward_plain(*a[:11]))),
                         ("_launch_pass_a_backward", fn.pass_a_backward_plain)):
         monkeypatch.setattr(fn, name, built_for(plain))
     g = np.random.default_rng(dh)

@@ -103,8 +103,8 @@ def stream_card_branch(monkeypatch):
         torch.testing.assert_close(out, fn.pass_b_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3)[0],
                                    rtol=0, atol=0)
         n_splits, per_split = fn.pass_b_backward_plan(b, h, n, kl.shape[2], dh=dh)
-        return fn.pass_b_backward_stream_plain(q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls, out,
-                                               fn.bwd_keys(dh), n_splits, per_split)
+        return fn.pass_b_backward_rows(*fn.pass_b_backward_stream_plain(
+            q, k, mask, kl, lm_mask, mid, ql, rp, m3, d_out, d_cls, out, fn.bwd_keys(dh), n_splits, per_split))
 
     def k1b(ql, k, v, mask, attn3v, m3, s3, d_attn3v, d_s3):
         assert ql.shape[-1] in fn.HEAD_DIMS

@@ -622,16 +622,24 @@ def _op_operands(dev, name, dh):
     r = lambda *s: torch.randn(*s, device=dev, generator=gen)
     b, h, n, m = 2, 2, 300, 16
     mask = torch.arange(n, device=dev)[None] < torch.tensor([[300], [170]], device=dev)
-    if name in ("pass_a", "pass_b"):
+    if name.startswith(("pass_a", "pass_b")):
         q, k, v = (r(b, h, n, dh) * dh ** -0.5 for _ in range(3))
         q_l, k_l, lm_mask, pinv = fn.landmarks(q, k, mask, m)
         attn3v, m3, s3 = fn.pass_a_plain(q_l, k, v, mask)
         if name == "pass_a":
             return (q_l, k, v, mask)
+        if name == "pass_a_backward":  # with s3's cotangent
+            return (q_l, k, v, mask, attn3v, m3, s3, r(b, h, m, dh), r(b, h, m))
         mid, rp = fn.pass_b_operands(q, k_l, mask, lm_mask, pinv, attn3v, s3)
-        return (q, k, mask, k_l, lm_mask, mid, q_l, rp, m3)
-    if name == "newton_schulz":
+        args = (q, k, mask, k_l, lm_mask, mid, q_l, rp, m3)
+        if name == "pass_b":
+            return args
+        out = fn.pass_b(*args)[0]
+        return (*args, r(b, h, n, dh), r(b, h, n) if name == "pass_b_backward" else None, out)
+    if name.startswith("newton_schulz"):
         x, z0 = npv.pinv_start(torch.softmax(r(4, 64, 64), -1))
+        if name == "newton_schulz_backward":
+            return (x, torch.ops.mhim_mil_torch.newton_schulz(x, z0.contiguous(), 3, True)[1], r(4, 64, 64))
         return (x, z0.contiguous(), 3, True)  # K3p takes contiguous matrices, as NewtonSchulz hands them
     if name == "abmil_pool":
         return (r(b, n, 40), r(b, n), mask)
@@ -640,10 +648,13 @@ def _op_operands(dev, name, dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,dh", [("pass_a", 64), ("pass_a", 24), ("pass_b", 64), ("pass_b", 24),
-                                     ("newton_schulz", 0), ("abmil_pool", 0), ("scan2d", 0)])
+                                     ("newton_schulz", 0), ("abmil_pool", 0), ("scan2d", 0),
+                                     ("pass_a_backward", 64), ("pass_a_backward", 24), ("pass_b_backward", 64),
+                                     ("pass_b_backward", 24), ("pass_b_backward no cls", 64),
+                                     ("pass_b_backward no cls", 24), ("newton_schulz_backward", 0)])
 def test_ops_fakes_match_the_kernels_on_the_card(hopper, name, dh):
     """Each kernel's op on CUDA tensors under ``torch.library.opcheck``: the
     fake's shapes, dtypes and strides are the CUDA kernel's (K2's ``out`` a
     view of ``[B,N,H,dh']`` storage, cut back from 32 at dh 24), and the op
     runs under AOT dispatch with a dynamic batch."""
-    torch.library.opcheck(getattr(torch.ops.mhim_mil_torch, name).default, _op_operands(hopper, name, dh))
+    torch.library.opcheck(getattr(torch.ops.mhim_mil_torch, name.split()[0]).default, _op_operands(hopper, name, dh))

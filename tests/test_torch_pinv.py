@@ -171,7 +171,7 @@ def test_the_iterations_are_products_only(monkeypatch):
     x = _inputs("random").double().requires_grad_()
     with torch.no_grad():
         z, saved = npv.newton_schulz(*pinv_start(x), 6, keep=False)
-    assert programs == [24] and saved == []
+    assert programs == [24] and saved.shape[0] == 0
     z = npv.newton_schulz_pinv(x)
     assert programs == [24, 24]
     z.backward(torch.ones_like(z))

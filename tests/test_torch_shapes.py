@@ -43,7 +43,8 @@ def nystrom_card_branch(monkeypatch):
 
     monkeypatch.setattr(fn, "_on_cpu", lambda *ts: False)
     for name, plain in (("_launch_pass_a", fn.pass_a_plain), ("_launch_pass_b", fn.pass_b_plain),
-                        ("_launch_pass_b_backward", lambda *a: fn.pass_b_backward_plain(*a[:11])),  # K2's out: unused
+                        ("_launch_pass_b_backward",  # K2's out: unused; the gradients as K2b lays them out
+                         lambda *a: fn.pass_b_backward_rows(*fn.pass_b_backward_plain(*a[:11]))),
                         ("_launch_pass_a_backward", fn.pass_a_backward_plain)):
         monkeypatch.setattr(fn, name, built_for(plain))
 
